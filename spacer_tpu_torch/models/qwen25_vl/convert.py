@@ -1,0 +1,52 @@
+"""Map a spacer_tpu (JAX) Qwen2.5-VL parameter tree into the port's params.
+
+The JAX tree stacks per-layer weights on a leading axis ("layers" of the LM,
+"blocks" of the ViT) and stores dense kernels as (in, out); the port keeps
+the (in, out) layout and unstacks those axes into lists of per-layer dicts.
+Leaves may be numpy arrays or anything `np.asarray` accepts (a JAX array
+included), so this module needs no JAX.  Every parity test builds both
+packages' weights this way, so both compute the same function.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spacer_tpu_torch.models.qwen25_vl.config import Qwen25VLConfig
+from spacer_tpu_torch.models.qwen25_vl.language import split_layers
+
+STACKED = {("model", "layers"): "num_layers", ("visual", "blocks"): "depth"}
+
+
+def _tensor(x, dtype, device):
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":   # ml_dtypes bf16 has no torch counterpart
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+    return t if dtype is None or not t.is_floating_point() else t.to(dtype)
+
+
+def _convert(tree, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+    return _tensor(tree, dtype, device)
+
+
+def params_from_jax(np_tree, cfg: Qwen25VLConfig, *, dtype=None,
+                    device="cpu"):
+    """JAX params {"model": ..., "visual": ...} -> port params (dtype: cast
+    floating leaves, None keeps each leaf's own)."""
+    out = {}
+    for top, sub in np_tree.items():
+        out[top] = {}
+        for name, val in sub.items():
+            depth_attr = STACKED.get((top, name))
+            if depth_attr is None:
+                out[top][name] = _convert(val, dtype, device)
+                continue
+            cfg_part = cfg.text if top == "model" else cfg.vision
+            n = getattr(cfg_part, depth_attr)
+            out[top][name] = [_convert(layer, dtype, device)
+                              for layer in split_layers(val, n)]
+    return out

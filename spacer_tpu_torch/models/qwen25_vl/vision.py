@@ -1,0 +1,261 @@
+"""Qwen2.5-VL vision transformer in PyTorch (counterpart of
+spacer_tpu/models/qwen25_vl/vision.py): windowed attention, 2x2 patch merger.
+
+`vision_layout` (the window permutation, padded-window gather/scatter and
+rotary positions per grid) is host numpy, copied verbatim from
+spacer_tpu/models/qwen25_vl/vision.py:41-173.  `vit_forward` converts the
+tokens once to the padded-window layout (uniform windows of wt = 64 tokens)
+and runs every block at S_pad: the windowed blocks through K3
+(ops/vit_window_attention.window_attention_hsd), the full-attention blocks
+through K4 (chunk_attention_hsd) over the compact frame-chunk order.
+head_dim 80 stays unpadded.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from spacer_tpu_torch.models.qwen25_vl.config import VisionConfig
+from spacer_tpu_torch.nn.core import dense, dense_init, rms_norm, rms_norm_init
+from spacer_tpu_torch.nn.rope import apply_vision_rope, vision_rope_cos_sin
+from spacer_tpu_torch.ops.vit_window_attention import (
+    chunk_attention_hsd,
+    validity_bias,
+    window_attention_hsd,
+)
+
+Params = Any
+
+
+class VisionLayout(NamedTuple):
+    """Host-precomputed gather/mask bookkeeping for one grid_thw batch."""
+
+    window_index: np.ndarray      # (S/mu,) merge-unit permutation to window order
+    reverse_index: np.ndarray     # (S_merged,) inverse permutation (merged tokens)
+    pos_hw: np.ndarray            # (S, 2) patch (h, w) positions, window order
+    pos_hw_native: np.ndarray     # (S, 2) positions in the native token order
+    window_segments: np.ndarray   # (S,) segment id per token, window order
+    full_segments: np.ndarray     # (S,) frame-chunk segment id, window order
+    seq_len: int
+    # padded-window fast path: each token belongs to exactly one window of at
+    # most `win_tokens` tokens; attention inside windows is dense + masked.
+    win_gather: np.ndarray        # (n_win, win_tokens) token idx (window order)
+    win_valid: np.ndarray         # (n_win, win_tokens) bool
+    win_scatter: np.ndarray       # (S,) index into flattened (n_win*win_tokens)
+    # uniform frame-chunk fast path for full-attention layers (or 0 if the
+    # chunks are ragged and the segment-mask path must be used)
+    full_chunk: int
+
+
+@functools.lru_cache(maxsize=256)
+def _vision_layout_cached(grid_thw: tuple, spatial_merge_size: int,
+                          patch_size: int, window_size: int) -> VisionLayout:
+    m = spatial_merge_size
+    mu = m * m
+    vws = window_size // m // patch_size  # window edge in merge units
+
+    window_index_parts = []
+    pos_parts = []
+    win_seg_parts = []
+    full_seg_parts = []
+    unit_base = 0      # running merge-unit offset
+    win_base = 0       # running window id
+    frame_base = 0     # running frame-chunk id
+
+    for (t, h, w) in grid_thw:
+        lh, lw = h // m, w // m
+        # --- window permutation over merge units (get_window_index parity)
+        index = np.arange(t * lh * lw).reshape(t, lh, lw)
+        pad_h = vws - lh % vws
+        pad_w = vws - lw % vws
+        nwh = (lh + pad_h) // vws
+        nww = (lw + pad_w) // vws
+        padded = np.full((t, lh + pad_h, lw + pad_w), -100, dtype=np.int64)
+        padded[:, :lh, :lw] = index
+        padded = padded.reshape(t, nwh, vws, nww, vws).transpose(0, 1, 3, 2, 4)
+        padded = padded.reshape(t, nwh * nww, vws, vws)
+        seqlens = (padded != -100).sum(axis=(2, 3)).reshape(-1)  # per window
+        flat = padded.reshape(-1)
+        index_new = flat[flat != -100]
+        window_index_parts.append(index_new + unit_base)
+
+        # --- window segment ids (token granularity, window order)
+        nonzero = seqlens[seqlens > 0]
+        win_ids = np.repeat(np.arange(len(seqlens)) + win_base, seqlens * mu)
+        win_seg_parts.append(win_ids)
+        win_base += len(seqlens)
+
+        # --- full-attention segment ids: one segment per temporal chunk.
+        # Window order only permutes within a t-chunk, so chunk membership is
+        # preserved: t-th chunk = lh*lw merge units = lh*lw*mu tokens.
+        full_ids = np.repeat(np.arange(t) + frame_base, lh * lw * mu)
+        full_seg_parts.append(full_ids)
+        frame_base += t
+
+        # --- rotary (h, w) positions per token in merge-unit order
+        hpos = np.arange(h)[:, None] * np.ones((1, w), np.int64)
+        wpos = np.ones((h, 1), np.int64) * np.arange(w)[None, :]
+
+        def to_unit_order(x):
+            x = x.reshape(h // m, m, w // m, m).transpose(0, 2, 1, 3)
+            return x.reshape(-1)
+
+        ph = np.tile(to_unit_order(hpos), t)
+        pw = np.tile(to_unit_order(wpos), t)
+        pos = np.stack([ph, pw], axis=-1)  # (t*h*w, 2) merge-unit order
+        pos_parts.append(pos)
+        unit_base += t * lh * lw
+
+    window_index = np.concatenate(window_index_parts)
+    pos = np.concatenate(pos_parts, axis=0)
+    # reorder rotary positions into window order (token granularity)
+    pos_units = pos.reshape(-1, mu, 2)[window_index]
+    pos_hw = pos_units.reshape(-1, 2)
+    window_segments = np.concatenate(win_seg_parts)
+    full_segments = np.concatenate(full_seg_parts)
+    reverse_index = np.argsort(window_index)
+    S = int(pos_hw.shape[0])
+
+    # --- padded-window gather/scatter (tokens are contiguous per window in
+    # window order, so each window is a [start, start+len) slice)
+    win_tokens = vws * vws * mu
+    # window id per token is non-decreasing; compute starts/lengths
+    _, starts, lengths = np.unique(
+        window_segments, return_index=True, return_counts=True
+    )
+    n_win = len(starts)
+    slot = np.arange(win_tokens)
+    win_gather = starts[:, None] + np.minimum(slot[None, :],
+                                              lengths[:, None] - 1)
+    win_valid = slot[None, :] < lengths[:, None]
+    # each token's (window, slot) in the flattened padded layout
+    win_scatter = np.empty(S, np.int64)
+    for w in range(n_win):
+        win_scatter[starts[w] : starts[w] + lengths[w]] = (
+            w * win_tokens + np.arange(lengths[w])
+        )
+
+    # --- uniform frame-chunk size for full-attention layers
+    _, chunk_counts = np.unique(full_segments, return_counts=True)
+    full_chunk = int(chunk_counts[0]) if len(set(chunk_counts)) == 1 else 0
+
+    return VisionLayout(
+        window_index=window_index,
+        reverse_index=reverse_index,
+        pos_hw=pos_hw,
+        pos_hw_native=pos,
+        window_segments=window_segments,
+        full_segments=full_segments,
+        seq_len=S,
+        win_gather=win_gather,
+        win_valid=win_valid,
+        win_scatter=win_scatter,
+        full_chunk=full_chunk,
+    )
+
+
+def vision_layout(grid_thw, cfg: VisionConfig) -> VisionLayout:
+    """grid_thw: iterable of (t, h, w) per image/video (patch units)."""
+    key = tuple(tuple(int(v) for v in g) for g in grid_thw)
+    return _vision_layout_cached(
+        key, cfg.spatial_merge_size, cfg.patch_size, cfg.window_size
+    )
+
+
+def init_vit_params(cfg: VisionConfig, *, generator: torch.Generator,
+                    dtype=torch.float32, device=None) -> Params:
+    """Random Qwen2.5-VL ViT params with spacer_tpu's init scales."""
+    if cfg.arch != "qwen2_5":
+        raise NotImplementedError(f"ViT arch {cfg.arch!r} is not ported")
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    merged = D * cfg.spatial_merge_unit
+    kw = dict(generator=generator, dtype=dtype, device=device)
+
+    def block():
+        return {
+            "norm1": rms_norm_init(D, dtype, device),
+            "norm2": rms_norm_init(D, dtype, device),
+            "attn": {"qkv": dense_init(D, 3 * D, True, **kw),
+                     "proj": dense_init(D, D, True, **kw)},
+            "mlp": {"gate_proj": dense_init(D, I, True, **kw),
+                    "up_proj": dense_init(D, I, True, **kw),
+                    "down_proj": dense_init(I, D, True, **kw)},
+        }
+
+    return {
+        "patch_embed": {"proj": dense_init(cfg.patch_dim, D, False, **kw)},
+        "blocks": [block() for _ in range(cfg.depth)],
+        "merger": {
+            "ln_q": rms_norm_init(D, dtype, device),
+            "mlp_0": dense_init(merged, merged, True, **kw),
+            "mlp_2": dense_init(merged, cfg.out_hidden_size, True, **kw),
+        },
+    }
+
+
+def _vit_mlp(mlp, x):
+    return dense(mlp["down_proj"],
+                 F.silu(dense(mlp["gate_proj"], x)) * dense(mlp["up_proj"], x))
+
+
+def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
+                layout: VisionLayout):
+    """pixel_values (S, patch_dim) -> merged embeddings (S / mu, out_hidden)
+    in the original (pre-window-permutation) token order."""
+    if cfg.arch != "qwen2_5":
+        raise NotImplementedError(f"ViT arch {cfg.arch!r} is not ported")
+    if layout.full_chunk == 0:
+        raise NotImplementedError(
+            "grids with unequal frame chunks (mixed grids in one call) need "
+            "segment-masked full attention, which is not ported")
+    dev = pixel_values.device
+    mu = cfg.spatial_merge_unit
+    H, Dh = cfg.num_heads, cfg.head_dim
+    h = dense(params["patch_embed"]["proj"], pixel_values)  # (S, D)
+    S = h.shape[0]
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)
+
+    h = h.reshape(S // mu, mu, -1)[idx(layout.window_index)].reshape(S, -1)
+    n_win, wt = layout.win_gather.shape
+    S_pad = n_win * wt
+    pad_gather = idx(layout.win_gather.reshape(-1))   # (S_pad,) -> window order
+    to_compact = idx(layout.win_scatter)               # (S,) -> padded index
+    h = h[pad_gather]  # pad slots replicate a token of their window
+    cos, sin = vision_rope_cos_sin(
+        idx(layout.pos_hw[layout.win_gather.reshape(-1)]), Dh, cfg.rope_theta)
+    bias = torch.from_numpy(
+        validity_bias(layout.win_valid.sum(axis=1), wt)).to(dev)
+    scale = Dh ** -0.5
+    full_set = set(cfg.fullatt_block_indexes)
+
+    for li, bp in enumerate(params["blocks"]):
+        x = rms_norm(bp["norm1"], h, 1e-6)
+        qkv = dense(bp["attn"]["qkv"], x).reshape(S_pad, 3, H, Dh)
+        q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
+        q, k, v = (t.transpose(0, 1) for t in (q, k, qkv[:, 2]))  # (H, S_pad, Dh)
+        if li in full_set:
+            # frame chunks are contiguous in the compact window order
+            q, k, v = (t[:, to_compact] for t in (q, k, v))
+            attn = chunk_attention_hsd(q, k, v, layout.full_chunk, scale)
+            attn = attn[:, pad_gather]
+        else:
+            q, k, v = (t.contiguous() for t in (q, k, v))
+            attn = window_attention_hsd(q, k, v, bias, wt, scale)
+        attn = attn.transpose(0, 1).reshape(S_pad, H * Dh)
+        h = h + dense(bp["attn"]["proj"], attn)
+        x = rms_norm(bp["norm2"], h, 1e-6)
+        h = h + _vit_mlp(bp["mlp"], x)
+    h = h[to_compact]  # back to the compact window order
+
+    m = params["merger"]
+    x = rms_norm(m["ln_q"], h, 1e-6).reshape(S // mu, mu * cfg.hidden_size)
+    x = F.gelu(dense(m["mlp_0"], x))
+    x = dense(m["mlp_2"], x)
+    return x[idx(layout.reverse_index)]

@@ -1,0 +1,40 @@
+"""Hand-written Hopper kernels of the serving path (counterpart of
+spacer_tpu/ops).  Each wrapper runs its plain PyTorch version on CPU tensors
+and launches its CUDA kernel (csrc/, built by nvcc on first use) on CUDA
+tensors, counting the launches in its `.launches` attribute.
+
+| kernel | wrapper                                      | replaces (Pallas)                |
+|--------|----------------------------------------------|----------------------------------|
+| K1     | flash_attention.flash_attention              | ops/flash_attention.py:452       |
+| K3     | vit_window_attention.window_attention_hsd    | ops/vit_window_attention.py:116  |
+| K4     | vit_window_attention.chunk_attention_hsd     | ops/vit_window_attention.py:187  |
+| K5     | flash_decode.flash_ragged_decode_attention   | ops/flash_decode.py:398          |
+"""
+
+from __future__ import annotations
+
+
+def kernel_wrappers() -> dict:
+    """{kernel id: wrapper} for the four kernels of the serving path."""
+    from spacer_tpu_torch.ops.flash_attention import flash_attention
+    from spacer_tpu_torch.ops.flash_decode import flash_ragged_decode_attention
+    from spacer_tpu_torch.ops.vit_window_attention import (
+        chunk_attention_hsd,
+        window_attention_hsd,
+    )
+
+    return {
+        "K1": flash_attention,
+        "K3": window_attention_hsd,
+        "K4": chunk_attention_hsd,
+        "K5": flash_ragged_decode_attention,
+    }
+
+
+def reset_launch_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}

@@ -1,0 +1,111 @@
+"""K3 and K4: segment attention for the Qwen2.5-VL ViT on Hopper
+(csrc/vit_window_attention.cu).
+
+- K3 `window_attention_hsd` replaces spacer_tpu/ops/vit_window_attention.py
+  ::window_attention_hsd (`_kernel`): attention inside uniform windows of
+  `wt` tokens with a ragged validity bias (the 28 windowed layers).
+- K4 `chunk_attention_hsd` replaces ::chunk_attention_hsd (`_kernel_nomask`):
+  dense attention inside each temporal frame chunk of `wt` tokens (the 4
+  full-attention layers).
+
+Layout (H, S, D) as in JAX, with the ViT's head_dim 80 unpadded.  Bound on
+the H100: flops (64 or 480 keys per query); one CTA per 64-query tile of a
+segment streams that segment's keys with an online softmax, so neither the
+TPU kernel's 8x block-diagonal matmul nor a 480x480 score tile is needed.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.  Each wrapper counts its own launches (`.launches`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spacer_tpu_torch.ops import _build
+
+MASK_VALUE = -1e30
+HEAD_DIMS = (80,)
+
+
+def validity_bias(lengths, wt: int) -> np.ndarray:
+    """(1, n_win*wt) f32 additive bias: 0 on valid slots, -1e30 on the pad
+    slots at the end of short windows."""
+    valid = np.arange(wt)[None, :] < np.asarray(lengths)[:, None]
+    return np.where(valid.reshape(1, -1), 0.0, MASK_VALUE).astype(np.float32)
+
+
+def window_attention_reference(q, k, v, bias, wt: int, scale: float):
+    """Plain version of K3 (and, with a zero bias, K4): per-segment softmax
+    attention, f32 logits, probabilities rounded to the value dtype before
+    P.V (the TPU reference's rounding points)."""
+    H, S, D = q.shape
+    n = S // wt
+    qr, kr, vr = (x.reshape(H, n, wt, D).float() for x in (q, k, v))
+    s = torch.einsum("hnid,hnjd->hnij", qr, kr) * scale
+    s = s + bias.reshape(1, n, 1, wt).float()
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    o = torch.einsum("hnij,hnjd->hnid", p, vr)
+    return o.reshape(H, S, D).to(q.dtype)
+
+
+def chunk_attention_reference(q, k, v, wt: int, scale: float):
+    """Plain version of K4."""
+    bias = torch.zeros((1, q.shape[1]), dtype=torch.float32, device=q.device)
+    return window_attention_reference(q, k, v, bias, wt, scale)
+
+
+def _check(q, k, v, wt):
+    """Hopper legality gate of K3/K4 (raises ValueError)."""
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"segment attention kernel takes bf16, got {q.dtype}")
+    if q.shape != k.shape or q.shape != v.shape:
+        raise ValueError("q, k, v must share one (H, S, D) shape")
+    H, S, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if wt <= 0 or S % wt:
+        raise ValueError(f"S={S} is not a multiple of the segment size {wt}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def window_attention_hsd(q, k, v, bias, wt: int, scale: float):
+    """K3.  q, k, v (H, S, D); bias (1, S) f32 from validity_bias()."""
+    if q.device.type == "cpu":
+        return window_attention_reference(q, k, v, bias, wt, scale)
+    _check(q, k, v, wt)
+    H, S, D = q.shape
+    if (bias.dtype != torch.float32 or bias.numel() != S
+            or bias.device != q.device):
+        raise ValueError("bias must be a (1, S) f32 tensor on q's device")
+    bias = bias.contiguous()
+    out = torch.empty_like(q)
+    p = _build.ptr
+    err = _build.kernels().spacer_window_attention_hsd(
+        p(q), p(k), p(v), p(bias), p(out), H, S, D, int(wt), float(scale),
+        _build.stream_ptr(q.device))
+    _build.check(err, "window_attention_hsd")
+    window_attention_hsd.launches += 1
+    return out
+
+
+def chunk_attention_hsd(q, k, v, wt: int, scale: float):
+    """K4.  q, k, v (H, S, D), S = n_chunks * wt, every slot valid."""
+    if q.device.type == "cpu":
+        return chunk_attention_reference(q, k, v, wt, scale)
+    _check(q, k, v, wt)
+    H, S, D = q.shape
+    out = torch.empty_like(q)
+    p = _build.ptr
+    err = _build.kernels().spacer_chunk_attention_hsd(
+        p(q), p(k), p(v), p(out), H, S, D, int(wt), float(scale),
+        _build.stream_ptr(q.device))
+    _build.check(err, "chunk_attention_hsd")
+    chunk_attention_hsd.launches += 1
+    return out
+
+
+window_attention_hsd.launches = 0
+chunk_attention_hsd.launches = 0

@@ -1,0 +1,78 @@
+"""Ragged (per-row progress) decode step for continuous batching
+(counterpart of spacer_tpu/serving/ragged.py, head-major path).
+
+Clock-ring design: every slot advances with one global step clock, so each
+active row's next KV lands at ring index `clock % Cmax` for all rows at
+once; per-row raggedness lives entirely in the additive masks.  Done or
+empty rows write unconditionally, which is safe because a ring position only
+enters a row's mask window at the step whose write lands there, and writes
+precede reads within a layer.
+
+Cache entry per layer, head-major: pk/pv (R, Hkv, Pmax, Dh) prompt prefix
+(written at admission), tk/tv (R, Hkv, Cmax, Dh) completion ring, both
+updated IN PLACE.  Attention is K5 (ops/flash_decode.py) on CUDA and its
+plain version on CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spacer_tpu_torch.models.qwen25_vl.config import TextConfig
+from spacer_tpu_torch.models.qwen25_vl.language import _mlp_block, lm_head
+from spacer_tpu_torch.nn.core import dense, embed, rms_norm
+from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
+from spacer_tpu_torch.ops.flash_decode import (
+    MASK_VALUE,
+    flash_ragged_decode_attention,
+)
+
+
+def _ragged_layer_hm(h, layer_params, cache_entry, *, cfg: TextConfig, cos,
+                     sin, ring_idx: int, bias_p, bias_t):
+    """One decoder layer over the head-major prefix + clock-ring caches.
+    h: (R, 1, D)."""
+    R = h.shape[0]
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pk, pv, tk, tv = cache_entry
+    p_attn = layer_params["self_attn"]
+
+    x = rms_norm(layer_params["input_layernorm"], h, cfg.rms_norm_eps)
+    q = dense(p_attn["q_proj"], x).reshape(R, 1, H, Dh)
+    k = dense(p_attn["k_proj"], x).reshape(R, 1, Hkv, Dh)
+    v = dense(p_attn["v_proj"], x).reshape(R, 1, Hkv, Dh)
+    q, k = apply_rope(q, k, cos, sin)
+    tk[:, :, ring_idx] = k[:, 0]   # in-place ring write, every row
+    tv[:, :, ring_idx] = v[:, 0]
+
+    group_q = H // Hkv
+    out = flash_ragged_decode_attention(
+        q.reshape(R, Hkv, group_q, Dh), pk, pv, bias_p, tk, tv, bias_t,
+        group_q=group_q, sm_scale=Dh ** -0.5)
+    h = h + dense(p_attn["o_proj"], out.reshape(R, 1, H * Dh).to(h.dtype))
+    x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
+    return h + _mlp_block(layer_params["mlp"], x, cfg)
+
+
+def ragged_decode_step(layers, params, cfg: TextConfig, cur, pos3, caches,
+                       ring_idx: int, prefix_mask, ring_mask):
+    """One clock-ring decode step -> logits (R, V); caches update in place.
+
+    cur (R,) current token per slot; pos3 (3, R, 1) its rope positions;
+    caches: L tuples (pk, pv, tk, tv); prefix_mask (R, Pmax) and ring_mask
+    (R, Cmax) bool, the ring mask including the position written now."""
+    Cmax = caches[0][2].shape[2]
+    if not 0 <= ring_idx < Cmax:
+        raise ValueError(f"ring index {ring_idx} outside [0, {Cmax})")
+    h = embed(params["embed_tokens"], cur[:, None])
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=h.device)
+    cos, sin = mrope_cos_sin(pos3, inv_freq, cfg.mrope_section)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    dead = torch.full((), MASK_VALUE, dtype=torch.float32, device=h.device)
+    bias_p = torch.where(prefix_mask, zero, dead)[:, None, :]
+    bias_t = torch.where(ring_mask, zero, dead)[:, None, :]
+    for lp, entry in zip(layers, caches):
+        h = _ragged_layer_hm(h, lp, entry, cfg=cfg, cos=cos, sin=sin,
+                             ring_idx=ring_idx, bias_p=bias_p, bias_t=bias_t)
+    h = rms_norm(params["norm"], h, cfg.rms_norm_eps)
+    return lm_head(params, cfg, h[:, 0])

@@ -1,0 +1,61 @@
+"""spacer_tpu_torch stands alone: no module of it imports jax or spacer_tpu,
+and the tiny serving slice runs on the CPU through the kernels' plain
+versions (no kernel launch is counted there)."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "spacer_tpu_torch"
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    for name in ("jax", "jaxlib", "spacer_tpu"):
+        sys.modules[name] = None          # any import of these now fails
+    import numpy as np
+    import spacer_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        spacer_tpu_torch.__path__, "spacer_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    from spacer_tpu_torch.cli.common import ModelArgs, load_model_and_processor
+    from spacer_tpu_torch.evalharness import QwenEngine
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg, params, proc = load_model_and_processor(
+        ModelArgs(random_init=True, dtype="float32"))
+    frames = np.random.default_rng(0).integers(0, 256, (4, 56, 84, 3), np.uint8)
+    msgs = [[{"role": "user", "content": [
+                {"type": "video", "video": frames, "fps": 2.0},
+                {"type": "text", "text": "what moves"}]}],
+            [{"role": "user", "content": "hello"}]]
+    reset_launch_counts()
+    texts = QwenEngine(cfg, params, proc, length_bucket=64).generate_many(
+        msgs, max_new_tokens=4, temperature=0.0, slots=2)
+    assert len(texts) == 2 and all(isinstance(t, str) for t in texts)
+    assert set(launch_counts().values()) == {0}, launch_counts()
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "spacer_tpu")
+           and sys.modules[m] is not None]
+    assert not bad, bad
+    print("imported", len(names), "modules")
+""")
+
+
+def test_port_imports_no_jax_and_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "imported" in res.stdout
+
+
+def test_no_jax_or_spacer_tpu_import_in_sources():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|spacer_tpu)(\.|\s|$)",
+                         re.M)
+    offenders = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert not offenders, offenders
