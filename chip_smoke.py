@@ -3,23 +3,42 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. device facts (CUDA device of capability 9.0 required; no CPU path);
   2. build the CUDA kernels from spacer_tpu_torch/csrc with nvcc;
-  3. each kernel (K1, K3, K4, K5) against its plain PyTorch version on the
-     card at the serving path's shapes, bf16: max abs error and median time;
+  3. each kernel against its plain PyTorch version on the card, bf16, with
+     max abs error and median time: K1, K3, K4, K5 at the serving path's
+     shapes; K1-bwd (dq, dk/dv) and K2 at the training path's shapes
+     (prompt bucket TRAIN_PROMPT_BUCKET, left padding TRAIN_PROMPT_PAD,
+     which phase 5 checks its batches against) and at a two-prompt batch;
   4. the serving slice end to end at the full Qwen2.5-VL-7B geometry
      (random bf16 weights from a seed): 2 video + 2 text requests through
      QwenEngine.generate_many, greedy; every request must emit a token, all
-     logits must be finite and every kernel must have been launched; then
-     the same requests with plain attention and the first run's tokens
-     replayed, whose logits must agree with the kernel run's.
-The line before the last is a JSON object describing the kernels; the last
-line is {"ok": true, "device": {...}}.
+     logits must be finite and every kernel of the path must have been
+     launched; then the same requests with plain attention and the first
+     run's tokens replayed, whose logits must agree with the kernel run's;
+  5. the SG-RLVR training slice at Qwen2.5-VL-7B widths with the LM cut to
+     TRAIN_LM_LAYERS layers: two optimizer steps of SGRLVRTrainer.train on a
+     16-frame video row (merged temporal rollout through K2, rewards,
+     reference logps, shared-prefix forward/backward through K1, K1-bwd,
+     K3, K4, int8-moment AdamW); every K2 call of every K2_CHECK_EVERY-th
+     rollout step held against its plain version on its live inputs;
+     finite loss/kl/grad_norm, a nonzero gradient for every trainable
+     tensor, per-group gradient cosine against a plain-attention replay of
+     the first update (which must launch no kernel), moved int8 moments,
+     and every kernel of the path launched.
+The line before the last is a JSON object describing the kernels (launches
+summed over the serving and training slices); the last line is
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -41,6 +60,34 @@ BF16_TOL = 2e-2
 # 28 bf16 decoder layers on random weights amplify the per-kernel
 # differences above; a wrong mask or index drops the cosine far lower.
 SLICE_COS_TOL = 0.99
+# K1 backward vs autograd through the plain attention, per gradient tensor:
+# ||kernel - plain|| <= GRAD_REL_TOL * ||plain||.  The kernels round p and ds
+# to bf16 before their products (as the TPU kernel does) and write bf16; each
+# rounding is 2^-9 relative with random sign, so the norm error is a few
+# 1e-3.  A wrong mask, index or scale gives O(1).
+GRAD_REL_TOL = 2e-2
+# The training slice's first update, kernels vs plain attention on the same
+# params and batch: per tensor group, cosine(kernel grads, plain grads) >=
+# this.  Both backward passes run 14 bf16 LM layers and 32 ViT blocks; a
+# wrong mask, index or dropped gradient gives a far lower cosine (or 0).
+GRAD_COS_TOL = 0.99
+# LM depth of the training slice: bf16 params, the reference copy, bf16
+# grads and int8 moments of 14 of the 28 layers (~5.0 B params) take ~43 GB
+# of the card's 80 GB, leaving room for activations; full depth would need
+# ~71 GB before any activation.
+TRAIN_LM_LAYERS = 14
+# The training slice's prompt: 1069 tokens (16-frame 360x640 video, grid
+# (8, 16, 30) -> 960 video tokens, plus the chat template and question),
+# left-padded to the trainer's 512-token bucket.  Phase 3b holds K1-bwd and
+# K2 against their plain versions at these shapes; phase 5 fails if its
+# batches have others.
+TRAIN_PROMPT_BUCKET = 1536
+TRAIN_PROMPT_PAD = 1536 - 1069
+# Training slice: completions per prompt and new tokens per completion.
+TRAIN_G, TRAIN_NEW_TOKENS = 8, 256
+# Phase 5 holds K2 against its plain version on the live inputs of every
+# layer at rollout steps 1, 1 + K2_CHECK_EVERY, ...
+K2_CHECK_EVERY = 32
 TIMED_RUNS = 25
 
 
@@ -96,21 +143,32 @@ def median_ms(fn) -> float:
     return statistics.median(times)
 
 
-def compare(name, kernel_fn, plain_fn, select=lambda x: x):
+def compare(name, kernel_fn, plain_fn, select=lambda x: x, rel_norm=False):
+    """Kernel vs plain version on the same inputs.  Elementwise
+    |out - ref| <= BF16_TOL * (1 + |ref|), or with `rel_norm` (gradients,
+    whose elements sum many bf16-rounded products and cancel)
+    ||out - ref|| <= GRAD_REL_TOL * ||ref|| per output tensor."""
     out = kernel_fn()
     ref = plain_fn()
     torch.cuda.synchronize()
     out, ref = (x if isinstance(x, tuple) else (x,) for x in (out, ref))
-    err, within = 0.0, True
+    err, worst, within = 0.0, 0.0, True
     for o, r in zip(out, ref):
         o, r = select(o).float(), select(r).float()
         diff = (o - r).abs()
         err = max(err, float(diff.max()))
-        within &= bool((diff <= BF16_TOL * (1 + r.abs())).all())
+        if rel_norm:
+            rel = float(diff.norm() / r.norm().clamp_min(1e-30))
+            worst = max(worst, rel)
+            within &= rel <= GRAD_REL_TOL
+        else:
+            within &= bool((diff <= BF16_TOL * (1 + r.abs())).all())
     finite = all(bool(torch.isfinite(o).all()) for o in out)
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
-    log(f"{name}: max_abs_err {err:.3e} (tol {BF16_TOL:.0e} * (1 + |ref|)) | "
-        f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
+    tol = (f"rel-norm {worst:.3e} (tol {GRAD_REL_TOL:.0e})" if rel_norm
+           else f"tol {BF16_TOL:.0e} * (1 + |ref|)")
+    log(f"{name}: max_abs_err {err:.3e} ({tol}) | kernel {ms:.4f} ms | "
+        f"plain {plain_ms:.4f} ms")
     if not (finite and within):
         raise RuntimeError(f"{name} disagrees with its plain version: "
                            f"err {err} finite {finite}")
@@ -197,6 +255,98 @@ def check_kernels() -> dict:
         f"K4 chunk_attention_hsd (16, {S}, 80) wt={chunk}",
         lambda: vwa.chunk_attention_hsd(qc, kc, vc, chunk, scale),
         lambda: vwa.chunk_attention_reference(qc, kc, vc, chunk, scale))
+    return results
+
+
+def check_training_kernels() -> dict:
+    """Phase 3b: K1-bwd (dq, dk/dv) and K2 against their plain versions, at
+    the training slice's shapes (prompt bucket TRAIN_PROMPT_BUCKET, padding
+    TRAIN_PROMPT_PAD: one prompt in the update, it and its temporal shuffle
+    in the rollout; these results go into the kernels line) and at a
+    two-prompt batch (P=1024, one prompt padded by 300), which the slice's
+    single row leaves out: a batch index past 0 and rows of differing
+    padding."""
+    from spacer_tpu_torch.ops import flash_attention as fa
+    from spacer_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def left_padded(P, pads):
+        mask = torch.ones((len(pads), P), dtype=torch.bool, device=dev)
+        for b, pad in enumerate(pads):
+            mask[b, :pad] = False
+        return mask
+
+    results = {}
+    H, Hkv, D = 28, 4, 128
+    G, C, gq = TRAIN_G, TRAIN_NEW_TOKENS, H // Hkv
+    path_P, path_pad = TRAIN_PROMPT_BUCKET, TRAIN_PROMPT_PAD
+    # (P, padding of the update's prompts, of the rollout's prompts, steps)
+    for P, pads, k2_pads, steps in (
+            (path_P, (path_pad,), (path_pad, path_pad), (1, 100, C - 1)),
+            (1024, (0, 300), (0, 300), (1, 100, C))):
+        # prompt pass: B prompts, Sq=Skv=P; the padded query rows get no
+        # output gradient (nothing downstream reads them)
+        B = len(pads)
+        mask = left_padded(P, pads)
+        prompt = dict(causal=True, kv_mask=mask)
+        q, k, v = randn(B, P, H, D), randn(B, P, Hkv, D), randn(B, P, Hkv, D)
+        dout = randn(B, P, H, D) * mask[:, :, None, None]
+        # completion pass: N=B*G rows, Sq=C completion tokens against
+        # Skv=P+C keys at q_offset=P; each group's prompt padding,
+        # completions ending at random lengths (later keys masked)
+        N = B * G
+        ends = torch.randint(1, C + 1, (N,), generator=gen, device=dev)
+        cmask = torch.cat([mask.repeat_interleave(G, dim=0),
+                           torch.arange(C, device=dev)[None] < ends[:, None]],
+                          dim=1)
+        completion = dict(causal=True, kv_mask=cmask, q_offset=P)
+        qc, kc, vc, doutc = randn(N, C, H, D), randn(N, P + C, Hkv, D), \
+            randn(N, P + C, Hkv, D), randn(N, C, H, D)
+        for tag, (q_, k_, v_, do_, kw) in (
+                (f"prompt B={B} S={P}", (q, k, v, dout, prompt)),
+                (f"completion N={N} Sq={C} Skv={P + C}",
+                 (qc, kc, vc, doutc, completion))):
+            out, lse = fa.flash_attention(q_, k_, v_, return_lse=True, **kw)
+            args = (q_, k_, v_, out, lse, do_)
+            grads = (*fa.flash_attention_bwd_dq(*args, **kw),
+                     *fa.flash_attention_bwd_dkv(*args, **kw))
+            if not all(bool(torch.isfinite(g).all()) for g in grads):
+                raise RuntimeError(f"K1-bwd wrote non-finite gradients ({tag})")
+            results[f"K1-bwd dq {tag}"] = compare(
+                f"K1-bwd dq [{tag}]",
+                lambda: fa.flash_attention_bwd_dq(*args, **kw),
+                lambda: fa.attention_bwd_reference(q_, k_, v_, do_, **kw)[0],
+                rel_norm=True)
+            results[f"K1-bwd dkv {tag}"] = compare(
+                f"K1-bwd dk/dv [{tag}]",
+                lambda: fa.flash_attention_bwd_dkv(*args, **kw),
+                lambda: fa.attention_bwd_reference(q_, k_, v_, do_, **kw)[1:],
+                rel_norm=True)
+
+        # K2: grouped rollout decode, len(k2_pads) prompts x G completions,
+        # prefix P, tails of C; the path's live steps run 1 .. C-1
+        Bd = len(k2_pads)
+        qd = randn(Bd, Hkv, G * gq, D)
+        pk, pv = randn(Bd, Hkv, P, D), randn(Bd, Hkv, P, D)
+        tk, tv = randn(Bd * G, Hkv, C, D), randn(Bd * G, Hkv, C, D)
+        bias_p = torch.where(left_padded(P, k2_pads), 0.0,
+                             fd.MASK_VALUE)[:, None].float().contiguous()
+        dkw = dict(group=G, group_q=gq, sm_scale=D ** -0.5)
+        for step in steps:
+            dargs = (qd, pk, pv, bias_p, tk, tv, step)
+            results[f"K2 P={P} step={step}"] = compare(
+                f"K2 flash_decode_attention P={P} pads {k2_pads} step={step}",
+                lambda: fd.flash_decode_attention(*dargs, **dkw),
+                lambda: fd.decode_attention_reference(*dargs, **dkw))
+    results["K1-bwd dq"] = results[f"K1-bwd dq prompt B=1 S={path_P}"]
+    results["K1-bwd dkv"] = results[f"K1-bwd dkv prompt B=1 S={path_P}"]
+    results["K2"] = results[f"K2 P={path_P} step={C - 1}"]
     return results
 
 
@@ -354,7 +504,7 @@ def serve_slice(cfg, device="cuda") -> dict:
         raise RuntimeError(f"{probe.nonfinite} non-finite logits tensors")
     if grid != ((8, 16, 30),):
         raise RuntimeError(f"unexpected video grid {grid}")
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in SERVE_KERNELS) < 1:
         raise RuntimeError(f"a kernel of the path was never launched: {counts}")
 
     # reference run: plain attention everywhere, the kernel run's tokens
@@ -387,9 +537,276 @@ def _leaves(tree):
         yield tree
 
 
+def synthetic_reward(completions, **kwargs):
+    """A reward that varies over the completions of a random-weight model
+    (whose accuracy and format rewards are 0 everywhere, which would make
+    every advantage and so every gradient 0): a hash of the decoded token
+    ids, mod 5."""
+    return [float(sum(map(ord, c[0]["content"])) % 5) for c in completions]
+
+
+def _grad_group(name: str) -> str:
+    """Tensor group of a param path for the gradient cosine report."""
+    parts = name.split("/")
+    if parts[:2] == ["model", "layers"]:
+        kind = parts[3]
+        return (f"lm {parts[4]}" if kind == "self_attn"
+                else "lm mlp" if kind == "mlp" else "lm norms")
+    if parts[:2] == ["visual", "blocks"]:
+        kind = parts[3]
+        return (f"vit attn {parts[4]}" if kind == "attn"
+                else "vit mlp" if kind == "mlp" else "vit norms")
+    return "/".join(parts[:2])
+
+
+def k2_checked(step: int) -> bool:
+    """Rollout steps whose K2 calls phase 5 holds against the plain version."""
+    return step % K2_CHECK_EVERY == 1
+
+
+class DecodeProbe:
+    """Times every grouped-rollout decode step (synchronised) and holds the
+    K2 calls of the k2_checked steps against decode_attention_reference on
+    the same live inputs (the plain call launches nothing, so the path's
+    launch count is unchanged)."""
+
+    def __enter__(self):
+        import spacer_tpu_torch.models.qwen25_vl.language as lang
+        import spacer_tpu_torch.ops.flash_decode as fd
+        import spacer_tpu_torch.sampler.sampler as sm
+
+        self.sm, self.lang = sm, lang
+        self.saved = (sm.lm_decode_step_split, lang.flash_decode_attention)
+        step_fn, k2 = self.saved
+        self.ms, self.k2_err, self.k2_shapes, self.k2_bad = [], [], set(), 0
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms.append((kw["tail_len"], (time.perf_counter() - t0) * 1e3))
+            return out
+
+        def checked(q, pk, pv, bias_p, tk, tv, step, **kw):
+            out = k2(q, pk, pv, bias_p, tk, tv, step, **kw)
+            if k2_checked(step):
+                ref = fd.decode_attention_reference(q, pk, pv, bias_p, tk, tv,
+                                                    step, **kw)
+                diff = (out - ref).abs()
+                self.k2_err.append(float(diff.max()))
+                self.k2_bad += not (bool(torch.isfinite(out).all()) and bool(
+                    (diff <= BF16_TOL * (1 + ref.abs())).all()))
+                self.k2_shapes.add((tuple(q.shape), pk.shape[2], tk.shape[2]))
+            return out
+
+        sm.lm_decode_step_split = timed
+        lang.flash_decode_attention = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.sm.lm_decode_step_split, self.lang.flash_decode_attention = \
+            self.saved
+
+    def decode_ms(self):
+        """Per-step times of the steps whose K2 calls were not checked."""
+        return [ms for step, ms in self.ms if not k2_checked(step)]
+
+
+def replay_first_step(step_fn, names, params, batch, kw):
+    """The first update's loss and backward, once with the kernels and once
+    with plain attention, on the same params and batch.  Every trainable
+    tensor must get a finite, nonzero gradient from the kernel run, the
+    plain run must launch no kernel, and each tensor group's gradient
+    cosine against the plain run must be >= GRAD_COS_TOL.  Returns the
+    kernel launches this check made (they are comparisons, not the path's)
+    and its seconds."""
+    from spacer_tpu_torch.ops import launch_counts
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    args = (params, batch["ref_logps"],
+            {k: v for k, v in batch.items() if k != "ref_logps"},
+            kw["grid_thw"], kw["num_generations"])
+    before = launch_counts()
+    loss_k, _, gk = step_fn.loss_and_grads(*args)
+    after = launch_counts()
+    extra = {k: n - before[k] for k, n in after.items()}
+    bad = [n for n, g in zip(names, gk)
+           if not (bool(torch.isfinite(g).all()) and bool(g.any()))]
+    if bad:
+        raise RuntimeError(f"{len(bad)} trainable tensors got a zero or "
+                           f"non-finite gradient: {bad[:8]}")
+    with PlainAttention():
+        loss_p, _, gp = step_fn.loss_and_grads(*args)
+    if launch_counts() != after:
+        raise RuntimeError("the plain-attention replay launched a kernel")
+    sums = {}
+    for n, a, b in zip(names, gk, gp):
+        a, b = a.float(), b.float()
+        s = sums.setdefault(_grad_group(n), [0.0, 0.0, 0.0])
+        s[0] += float((a * b).sum())
+        s[1] += float(a.square().sum())
+        s[2] += float(b.square().sum())
+    del gk, gp
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cos = {g: d / math.sqrt(x * y) for g, (d, x, y) in sums.items()}
+    log(f"train: {len(names)} trainable tensors, all with finite nonzero "
+        f"gradients | step-1 loss kernel {float(loss_k):.6e} plain "
+        f"{float(loss_p):.6e} | replay {seconds:.2f} s")
+    log("train: gradient cosine kernel vs plain attention per group: "
+        + ", ".join(f"{g} {c:.5f}" for g, c in sorted(cos.items())))
+    if not min(cos.values()) >= GRAD_COS_TOL:
+        raise RuntimeError(f"gradient cosine below {GRAD_COS_TOL}: {cos}")
+    return extra, seconds
+
+
+def make_trainer(cfg, device, steps: int, out_dir: str):
+    """The training slice's SGRLVRTrainer at the widths of `cfg`: random
+    bf16 weights from seed 0, one 16-frame 360x640 video row, temporal
+    shuffle merged into the rollout (2 prompts x TRAIN_G completions of up
+    to TRAIN_NEW_TOKENS tokens), beta 0.04, int8 moments, `steps` steps.
+    Returns (trainer, the params' paths in param_leaves order)."""
+    from spacer_tpu_torch.data import MockTokenizer, VLProcessor, make_conversation
+    from spacer_tpu_torch.models.qwen25_vl import init_params
+    from spacer_tpu_torch.rewards import accuracy_reward, format_reward
+    from spacer_tpu_torch.train.step import param_leaves
+    from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    names = [n for n, _ in param_leaves(params)]
+    n_params = sum(t.numel() for _, t in param_leaves(params))
+    log(f"train init: {n_params / 1e9:.2f} B params bf16, LM "
+        f"{cfg.text.num_layers} layers, in {time.perf_counter() - t0:.1f} s")
+    proc = VLProcessor(MockTokenizer(vocab_size=cfg.text.vocab_size), cfg,
+                       device=device)
+    frames = np.random.default_rng(1).integers(0, 256, (16, 360, 640, 3),
+                                               np.uint8)
+    row = {"problem": "How many chairs are in the room?",
+           "problem_type": "numerical", "solution": "<answer>3</answer>",
+           "path": frames, "data_type": "video", "data_source": "synthetic",
+           "problem_id": 0}
+    row.update(make_conversation(row))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = SGRLVRConfig(
+        num_generations=TRAIN_G, max_completion_length=TRAIN_NEW_TOKENS,
+        temperature=1.0, top_p=0.95, beta=0.04, temporal=True,
+        decode_quant=None, moment_dtype="int8", max_steps=steps,
+        num_train_epochs=steps, logging_steps=1, save_steps=10 ** 9,
+        skip_failed_steps=False, output_dir=out_dir, seed=0)
+    trainer = SGRLVRTrainer(
+        cfg, params, proc, [synthetic_reward, accuracy_reward, format_reward],
+        [row], args)
+    return trainer, names
+
+
+def train_slice(cfg, device="cuda") -> dict:
+    """Phase 5: two SG-RLVR optimizer steps through SGRLVRTrainer.train at
+    the widths of `cfg` (make_trainer): merged rollout (K1 prefill + K2
+    decode, K2 held against its plain version on live inputs), rewards,
+    group advantages, reference logps, the shared-prefix policy
+    forward/backward (K1, K1-bwd, K3, K4) and the int8-moment AdamW update.
+    The first update is replayed with plain attention (replay_first_step);
+    the replay's time is reported apart from the steps'."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    out_dir = str(pathlib.Path(__file__).resolve().parent / "build" / "smoke_train")
+    trainer, names = make_trainer(cfg, device, 2, out_dir)
+    step_fn, steps, extra, replay_s = trainer.step_fn, [], {}, []
+
+    def spy(params, ref_params, opt_state, batch, **kw):
+        if not steps:
+            e, sec = replay_first_step(step_fn, names, params, batch, kw)
+            extra.update(e)
+            replay_s.append(sec)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(params, ref_params, opt_state, batch, **kw)
+        torch.cuda.synchronize()
+        steps.append(dict({k: float(v) for k, v in out[2].items()},
+                          update_s=time.perf_counter() - t,
+                          prompt_len=batch["prompt_ids"].shape[1],
+                          prompt_pad=int((batch["prompt_mask"] == 0).sum()),
+                          lengths=batch["completion_mask"].sum(1).tolist()))
+        return out
+
+    spy.ref_logps_fn = step_fn.ref_logps_fn
+    trainer.step_fn = spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with DecodeProbe() as probe:
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: n - extra.get(k, 0) for k, n in launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    with open(pathlib.Path(out_dir) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    for i, (st, rec) in enumerate(zip(steps, records)):
+        log(f"train step {i + 1}: loss {st['loss']:.6e} kl {st['kl']:.6e} "
+            f"grad_norm {st['grad_norm']:.6e} | rollout "
+            f"{rec['time/rollout_s']:.2f} s, reward {rec['time/reward_s']:.3f} "
+            f"s, update {st['update_s']:.2f} s | prompt bucket "
+            f"{st['prompt_len']} (pad {st['prompt_pad']}), completion lengths "
+            f"{st['lengths']}")
+    replay = sum(replay_s)
+    log(f"train: wall {wall:.1f} s = {len(steps)} steps {wall - replay:.1f} s "
+        f"+ first-step replay (kernel and plain backward) {replay:.1f} s | "
+        f"rollout decode ms per step median "
+        f"{statistics.median(probe.decode_ms()):.2f} over "
+        f"{len(probe.decode_ms())} unchecked steps of the "
+        f"{cfg.text.num_layers}-layer LM | max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB | launches {counts}")
+    log(f"train: K2 vs plain on live rollout inputs: {len(probe.k2_err)} "
+        f"calls at (q shape, P, T) {sorted(probe.k2_shapes)}, max_abs_err "
+        f"{max(probe.k2_err, default=float('nan')):.3e} (tol {BF16_TOL:.0e} "
+        f"* (1 + |ref|)), {probe.k2_bad} outside")
+    if trainer.global_step != 2 or len(steps) != 2:
+        raise RuntimeError(f"expected 2 optimizer steps, got {len(steps)}")
+    for st in steps:
+        if (st["prompt_len"], st["prompt_pad"]) != (TRAIN_PROMPT_BUCKET,
+                                                    TRAIN_PROMPT_PAD):
+            raise RuntimeError(
+                f"prompt bucket {st['prompt_len']} pad {st['prompt_pad']}: "
+                f"phase 3b checked K1-bwd and K2 at {TRAIN_PROMPT_BUCKET} "
+                f"pad {TRAIN_PROMPT_PAD}")
+        if not all(math.isfinite(st[k]) for k in ("loss", "kl", "grad_norm")):
+            raise RuntimeError(f"non-finite step metrics {st}")
+    if not probe.k2_err or probe.k2_bad:
+        raise RuntimeError(f"K2 disagrees with its plain version on "
+                           f"{probe.k2_bad} of {len(probe.k2_err)} live calls")
+    opt = trainer.opt_state
+    moved = [n for n, (_, ms), (_, vs) in zip(names, opt.mu, opt.nu)
+             if bool(ms.any()) and bool(vs.any())]
+    if opt.count != 2 or len(moved) != len(names):
+        raise RuntimeError(f"int8 moments did not move for "
+                           f"{len(names) - len(moved)} tensors")
+    if min(counts[k] for k in TRAIN_KERNELS) < 1:
+        raise RuntimeError(f"a kernel of the training path was never "
+                           f"launched: {counts}")
+    return counts
+
+
+SERVE_KERNELS = ("K1", "K3", "K4", "K5")
+TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2", "K3", "K4")
+
 SOURCES = {
     "K1": ("flash_attention", "spacer_tpu_torch/csrc/flash_attention.cu",
            "spacer_tpu/ops/flash_attention.py:452"),
+    "K1-bwd dq": ("flash_attention_bwd_dq",
+                  "spacer_tpu_torch/csrc/flash_attention_bwd.cu",
+                  "spacer_tpu/ops/flash_attention.py:368"),
+    "K1-bwd dkv": ("flash_attention_bwd_dkv",
+                   "spacer_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "spacer_tpu/ops/flash_attention.py:413"),
+    "K2": ("flash_decode_attention",
+           "spacer_tpu_torch/csrc/flash_decode_grouped.cu",
+           "spacer_tpu/ops/flash_decode.py:215"),
     "K3": ("window_attention_hsd", "spacer_tpu_torch/csrc/vit_window_attention.cu",
            "spacer_tpu/ops/vit_window_attention.py:116"),
     "K4": ("chunk_attention_hsd", "spacer_tpu_torch/csrc/vit_window_attention.cu",
@@ -406,9 +823,16 @@ def main():
     smi = device_facts()
     build_kernels()
     results = check_kernels()
+    results.update(check_training_kernels())
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
-    counts = serve_slice(QWEN25_VL_7B)
+    serve_counts = serve_slice(QWEN25_VL_7B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
+        QWEN25_VL_7B.text, num_layers=TRAIN_LM_LAYERS))
+    train_counts = train_slice(train_cfg)
+    counts = {k: serve_counts[k] + train_counts[k] for k in SOURCES}
     kernels = [{"name": SOURCES[k][0], "route": "cuda", "source": SOURCES[k][1],
                 "replaces": SOURCES[k][2], "launches": counts[k], **results[k]}
                for k in SOURCES]

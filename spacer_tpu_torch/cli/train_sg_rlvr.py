@@ -1,0 +1,61 @@
+"""SG-RLVR training entry point (counterpart of
+spacer_tpu/cli/train_sg_rlvr.py, single process, one device).
+
+Example (random tiny weights; checkpoint loading is not ported yet):
+    python -m spacer_tpu_torch.cli.train_sg_rlvr --random_init true \\
+        --device cuda --dataset_name SpaceR-151k.jsonl \\
+        --cognitive_map_path annotation/cognitive_map.jsonl \\
+        --output_dir output/sg_rlvr --decode_quant none
+
+Only bf16 rollouts are ported: `--decode_quant none` (or "") is required,
+any other value raises NotImplementedError (ROADMAP queue A item 4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from spacer_tpu_torch.cli.common import ModelArgs, load_model_and_processor
+from spacer_tpu_torch.utils.config import parse_configs
+
+
+@dataclasses.dataclass
+class ScriptArgs:
+    dataset_name: str = "SpaceR-151k.jsonl"
+    cognitive_map_path: str = "annotation/cognitive_map.jsonl"
+    reward_funcs: tuple = ("accuracy", "format")
+    resume_from_checkpoint: Optional[str] = None
+    max_rows: Optional[int] = None
+
+
+def main(argv=None):
+    from spacer_tpu_torch.data import (
+        load_cognitive_maps,
+        load_jsonl_dataset,
+        make_conversation,
+    )
+    from spacer_tpu_torch.rewards import get_reward_funcs
+    from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
+
+    script, train_cfg, model_args = parse_configs(
+        (ScriptArgs, SGRLVRConfig, ModelArgs), argv)
+    if str(train_cfg.decode_quant).lower() in ("", "none"):
+        train_cfg.decode_quant = None
+    cfg, params, processor = load_model_and_processor(model_args)
+
+    rows = load_jsonl_dataset(script.dataset_name)
+    if script.max_rows:
+        rows = rows[:script.max_rows]
+    map_data = load_cognitive_maps(script.cognitive_map_path)
+    dataset = [{**r, **make_conversation(r, map_data)} for r in rows]
+
+    trainer = SGRLVRTrainer(
+        cfg, params, processor, get_reward_funcs(list(script.reward_funcs)),
+        dataset, train_cfg, map_data=map_data)
+    trainer.train(resume_from_checkpoint=script.resume_from_checkpoint)
+    trainer.save_checkpoint(train_cfg.output_dir + "/final")
+
+
+if __name__ == "__main__":
+    main()

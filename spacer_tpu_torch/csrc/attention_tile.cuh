@@ -71,19 +71,22 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ sr
   }
 }
 
+__device__ __forceinline__ void store_out(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+
 // One CTA: rows [0, n_q) of q (row stride q_rs) against keys [0, n_kv) of
 // k/v (row stride kv_rs).  Mask policy:
 //   load_queries(n_q, tid, info) / load_keys(k0, nk, tid, info): fill the
 //     per-row / per-key side data of the tile into `info` (shared memory);
 //   apply(s, qi, kj, kg, info): the scaled score of row qi and key kj of the
 //     tile (global key index kg) after masking.
-// Writes bf16 rows to out (row stride o_rs) and, if lse is not null, the
-// per-row log-sum-exp (stride 1).
-template <int D, class Mask>
+// Writes the normalised rows to out (bf16 or f32, row stride o_rs) and, if
+// lse is not null, the per-row log-sum-exp (stride 1).
+template <int D, class Mask, class OutT>
 __device__ void attend(const bf16* __restrict__ q, long q_rs, int n_q,
                        const bf16* __restrict__ k, const bf16* __restrict__ v,
                        long kv_rs, int n_kv, float scale, const Mask& mask,
-                       bf16* __restrict__ out, long o_rs, float* __restrict__ lse) {
+                       OutT* __restrict__ out, long o_rs, float* __restrict__ lse) {
   using namespace nvcuda;
   using L = TileSmem<D>;
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -185,7 +188,7 @@ __device__ void attend(const bf16* __restrict__ q, long q_rs, int n_q,
     const float l_safe = l == 0.f ? 1.f : l;
     const float inv = 1.f / l_safe;
     for (int c = lane; c < D; c += 32)
-      out[qi * o_rs + c] = __float2bfloat16(Ow[r * D + c] * inv);
+      store_out(out + qi * o_rs + c, Ow[r * D + c] * inv);
     if (lse != nullptr && lane == 0) lse[qi] = m_s[qi] + logf(l_safe);
   }
 }

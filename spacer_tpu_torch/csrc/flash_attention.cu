@@ -12,48 +12,16 @@
 // Design: one CTA per (64-row q tile, q head, batch row) walks key tiles up
 // to its causal limit (attention_tile.cuh).  The TPU kernel's 8-lane
 // broadcast segment layout was a Mosaic tiling artefact; here the validity
-// mask folds into per-key codes exactly as the TPU wrapper folds it into
-// segment ids (0 = masked key, segment + 1 otherwise).
+// mask folds into per-key codes (flash_mask.cuh).
 //
 // What bounds it on the H100: at the prefill shapes (P = 512-1024, D = 128)
 // attention is compute-bound (~P/2 flops per byte of K/V).  This first
 // version runs WMMA 16x16x16 bf16 MMAs out of shared memory with no
 // load/compute overlap, so it sits far below the tensor-core peak; wgmma,
 // TMA and a producer warp are the next steps.
-#include "attention_tile.cuh"
+#include "flash_mask.cuh"
 
 namespace spacer {
-
-struct FlashMask {
-  const uint8_t* kv_valid;  // (Skv,) of this batch row, or null
-  const int* q_seg;         // (Sq,) or null
-  const int* kv_seg;        // (Skv,) or null
-  int q0;                   // global index of the tile's first query row
-  int q_offset;
-  bool causal;
-
-  // info[0:BM] = query codes, info[BM:BM+BN] = key codes; a key is visible
-  // to a query iff the codes are equal (key code 0 = masked).
-  __device__ void load_queries(int n_q, int tid, int* info) const {
-    for (int i = tid; i < BM; i += NTHREADS)
-      info[i] = (q_seg != nullptr && i < n_q) ? q_seg[q0 + i] + 1 : 1;
-  }
-  __device__ void load_keys(int k0, int nk, int tid, int* info) const {
-    for (int i = tid; i < BN; i += NTHREADS) {
-      int code = 0;
-      if (i < nk) {
-        code = kv_seg != nullptr ? kv_seg[k0 + i] + 1 : 1;
-        if (kv_valid != nullptr && kv_valid[k0 + i] == 0) code = 0;
-      }
-      info[BM + i] = code;
-    }
-  }
-  __device__ float apply(float s, int qi, int kj, int kg, const int* info) const {
-    bool ok = info[BM + kj] == info[qi];
-    if (causal) ok = ok && (kg <= q0 + qi + q_offset);
-    return ok ? s : MASK_VALUE;
-  }
-};
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)

@@ -2,9 +2,19 @@
 spacer_tpu/models/qwen25_vl/language.py).
 
 Params are a dict whose "layers" entry is a list of per-layer dicts (a
-Python loop replaces lax.scan).  The KV cache is {"k": [...], "v": [...]},
-one (B, T, Hkv, Dh) tensor per layer, written IN PLACE at `cache_index`
-(JAX's donated dynamic_update_slice).
+Python loop replaces lax.scan).  Two ways to attend over earlier keys:
+
+- inference: the KV cache is {"k": [...], "v": [...]}, one (B, T, Hkv, Dh)
+  tensor per layer, written IN PLACE at `cache_index` (JAX's donated
+  dynamic_update_slice).  Inference-only: lm_forward refuses it when
+  autograd would record the writes.
+- training: `prefix_kv` hands each layer the (N, P, Hkv, Dh) keys/values of
+  an earlier pass, concatenated in front of the block's own (functional, as
+  JAX's padded cache + write at P), and `return_kv` returns each layer's
+  block keys/values.  Per-layer remat is torch.utils.checkpoint.
+
+The grouped rollout's decode step (`lm_decode_step_split`, head-major caches,
+attention through K2) writes its tail caches in place, under no_grad.
 """
 
 from __future__ import annotations
@@ -13,6 +23,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from spacer_tpu_torch.models.qwen25_vl.config import TextConfig
 from spacer_tpu_torch.nn.attention import dot_product_attention
@@ -25,6 +36,7 @@ from spacer_tpu_torch.nn.core import (
     rms_norm_init,
 )
 from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
+from spacer_tpu_torch.ops.flash_decode import flash_decode_attention
 
 Params = Any
 
@@ -82,9 +94,11 @@ def _mlp_block(p_mlp, x, cfg: TextConfig):
 
 
 def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
-           cache_index: int):
-    """One decoder layer. h: (B, S, D); cache_kv: (k, v) tensors of this
-    layer, updated in place, or None."""
+           cache_index: int, prefix_kv=None):
+    """One decoder layer -> (h, (k, v) of this block).  h: (B, S, D);
+    cache_kv: (k, v) cache tensors of this layer, updated in place, or None;
+    prefix_kv: (pk, pv) (B, P, Hkv, Dh) keys/values attended before the
+    block's own (causal offset P), or None."""
     B, S, _ = h.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p_attn = layer_params["self_attn"]
@@ -94,6 +108,7 @@ def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
     k = dense(p_attn["k_proj"], x).reshape(B, S, Hkv, Dh)
     v = dense(p_attn["v_proj"], x).reshape(B, S, Hkv, Dh)
     q, k = apply_rope(q, k, cos, sin)
+    block_kv = (k, v)
 
     q_offset = 0
     if cache_kv is not None:
@@ -102,12 +117,17 @@ def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
         cv[:, cache_index:cache_index + S] = v
         k, v = ck.to(q.dtype), cv.to(q.dtype)
         q_offset = cache_index
+    elif prefix_kv is not None:
+        pk, pv = prefix_kv
+        k = torch.cat([pk.to(k.dtype), k], dim=1)
+        v = torch.cat([pv.to(v.dtype), v], dim=1)
+        q_offset = pk.shape[1]
 
     attn = dot_product_attention(q, k, v, causal=True, kv_mask=kv_mask,
                                  q_offset=q_offset)
     h = h + dense(p_attn["o_proj"], attn.reshape(B, S, H * Dh))
     x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
-    return h + _mlp_block(layer_params["mlp"], x, cfg)
+    return h + _mlp_block(layer_params["mlp"], x, cfg), block_kv
 
 
 def split_layers(stacked, num_layers: int):
@@ -127,26 +147,62 @@ def lm_head(params, cfg: TextConfig, h):
     return dense(params["lm_head"], h)
 
 
+def check_remat(remat) -> bool:
+    """The port's remat modes: False, or True (full per-layer recompute).
+    JAX's selective policies raise until they are ported."""
+    if remat in (False, True, None):
+        return bool(remat)
+    if isinstance(remat, str) and (remat in ("dots", "dots_narrow")
+                                   or remat.startswith("dots_mixed:")):
+        raise NotImplementedError(
+            f"remat={remat!r} (selective checkpoint policy) is not ported; "
+            "use remat=True (ROADMAP queue A)")
+    raise ValueError(f"unknown remat mode {remat!r}")
+
+
+def _records_grad(params, x) -> bool:
+    """Whether autograd would record a forward over these params/inputs
+    (the layer weights are all-or-nothing trainable)."""
+    if not torch.is_grad_enabled():
+        return False
+    layers = params["layers"]
+    return x.requires_grad or bool(
+        layers and layers[0]["self_attn"]["q_proj"]["kernel"].requires_grad)
+
+
 def lm_forward(params: Params, cfg: TextConfig, *,
                input_ids: Optional[torch.Tensor] = None,
                input_embeds: Optional[torch.Tensor] = None,
                position_ids: Optional[torch.Tensor] = None,
                kv_mask: Optional[torch.Tensor] = None, cache=None,
-               cache_index: int = 0, last_only: bool = False):
-    """Run the causal LM -> (logits, cache).
+               cache_index: int = 0, last_only: bool = False,
+               logits: bool = True, remat=False, prefix_kv=None,
+               return_kv: bool = False):
+    """Run the causal LM -> (logits or hidden, cache or per-layer kv).
 
     With `cache`, the current block's keys/values are written in place at
     `cache_index` and attention runs over the whole cache (masked by
-    `kv_mask`, which then covers the cache length).  `last_only` computes
-    the LM head at the last position only ((B, 1, V) logits), which is all
-    a prefill for sampling reads."""
+    `kv_mask`, which then covers the cache length); inference only.  With
+    `prefix_kv` (a per-layer list of (pk, pv)), attention runs over
+    [prefix | block] (kv_mask covers both); with `return_kv` the second
+    result is the per-layer list of the block's (k, v) instead of the cache.
+    `last_only` computes the head at the last position only ((B, 1, V)
+    logits), which is all a prefill for sampling reads; `logits=False`
+    returns the final-norm hidden states.  `remat=True` recomputes each
+    layer in the backward pass (torch.utils.checkpoint)."""
+    remat = check_remat(remat)
     if input_embeds is None:
         input_embeds = embed(params["embed_tokens"], input_ids)
     B, S, _ = input_embeds.shape
     dev = input_embeds.device
     if position_ids is None:
         position_ids = torch.arange(S, device=dev)[None, None].expand(3, B, S)
+    grad = _records_grad(params, input_embeds)
     if cache is not None:
+        if grad or prefix_kv is not None:
+            raise ValueError("the in-place KV cache is an inference path: run "
+                             "it under torch.no_grad(); training passes "
+                             "prefix_kv")
         T = cache["k"][0].shape[1]
         if not 0 <= cache_index <= T - S:
             raise ValueError(f"cache_index {cache_index} + {S} tokens exceeds "
@@ -154,12 +210,89 @@ def lm_forward(params: Params, cfg: TextConfig, *,
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=dev)
     cos, sin = mrope_cos_sin(position_ids, inv_freq, cfg.mrope_section)
 
-    h = input_embeds
+    h, kvs = input_embeds, []
     for l, lp in enumerate(params["layers"]):
-        kv = None if cache is None else (cache["k"][l], cache["v"][l])
-        h = _layer(h, lp, kv, cfg=cfg, cos=cos, sin=sin, kv_mask=kv_mask,
-                   cache_index=cache_index)
+        kw = dict(cfg=cfg, cos=cos, sin=sin, kv_mask=kv_mask,
+                  cache_index=cache_index,
+                  prefix_kv=None if prefix_kv is None else prefix_kv[l])
+        if cache is not None:
+            h, kv = _layer(h, lp, (cache["k"][l], cache["v"][l]), **kw)
+        elif remat and grad:
+            h, kv = checkpoint(
+                lambda x, lp=lp, kw=kw: _layer(x, lp, None, **kw), h,
+                use_reentrant=False)
+        else:
+            h, kv = _layer(h, lp, None, **kw)
+        if return_kv:
+            kvs.append(kv)
     h = rms_norm(params["norm"], h, cfg.rms_norm_eps)
     if last_only:
         h = h[:, -1:]
-    return lm_head(params, cfg, h), cache
+    second = kvs if return_kv else cache
+    if not logits:
+        return h, second
+    return lm_head(params, cfg, h), second
+
+
+# -- grouped rollout decode (head-major caches, K2) -------------------------
+
+
+def _decode_layer_hm(h, layer_params, prefix_entry, tail_entry, *,
+                     cfg: TextConfig, cos, sin, bias_p, tail_len: int,
+                     tail_index: int, group: int):
+    """Head-major decode layer (spacer_tpu's _decode_layer_hm, bf16 caches):
+    writes this step's k/v into the tail IN PLACE at `tail_index`, then
+    attends through K2 (ops/flash_decode.flash_decode_attention: the kernel
+    on CUDA tensors, its plain version on CPU tensors).
+
+    h: (N = B*G, 1, D); prefix_entry (pk, pv): (B, Hkv, P, Dh), shared by the
+    G completions of each prompt; tail_entry (tk, tv): (N, Hkv, T, Dh);
+    bias_p: (B, 1, P) additive f32; tail_len: live tail length after the
+    write (a host int)."""
+    N = h.shape[0]
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pk, pv = prefix_entry
+    tk, tv = tail_entry
+    B, G, group_q = pk.shape[0], group, H // Hkv
+    p_attn = layer_params["self_attn"]
+
+    x = rms_norm(layer_params["input_layernorm"], h, cfg.rms_norm_eps)
+    q = dense(p_attn["q_proj"], x).reshape(N, 1, H, Dh)
+    k = dense(p_attn["k_proj"], x).reshape(N, 1, Hkv, Dh)
+    v = dense(p_attn["v_proj"], x).reshape(N, 1, Hkv, Dh)
+    q, k = apply_rope(q, k, cos, sin)
+    tk[:, :, tail_index] = k[:, 0].to(tk.dtype)   # in-place tail write
+    tv[:, :, tail_index] = v[:, 0].to(tv.dtype)
+
+    # q rows per (b, hkv): the group's G completions x group_q heads
+    q_hm = q.reshape(B, G, Hkv, group_q, Dh).permute(0, 2, 1, 3, 4).reshape(
+        B, Hkv, G * group_q, Dh).contiguous()
+    out = flash_decode_attention(q_hm, pk, pv, bias_p, tk, tv, tail_len,
+                                 group=G, group_q=group_q, sm_scale=Dh ** -0.5)
+    out = out.reshape(B, Hkv, G, group_q, Dh).permute(0, 2, 1, 3, 4).reshape(
+        N, 1, H * Dh).to(h.dtype)
+    h = h + dense(p_attn["o_proj"], out)
+    x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
+    return h + _mlp_block(layer_params["mlp"], x, cfg)
+
+
+def lm_decode_step_split(layers, params: Params, cfg: TextConfig, input_ids,
+                         position_ids, prefix_split, bias_p, tail_split,
+                         tail_index: int, group: int, tail_len: int):
+    """One shared-prefix decode step over per-layer head-major caches ->
+    logits (N, 1, V); the tails are written in place (spacer_tpu's
+    lm_decode_step_split with head_major=True).
+
+    input_ids (N, 1); position_ids (3, N, 1); prefix_split: per layer
+    (pk, pv) (B, Hkv, P, Dh); bias_p (B, 1, P) f32; tail_split: per layer
+    (tk, tv) (N, Hkv, T, Dh); tail_len = tail_index + 1."""
+    h = embed(params["embed_tokens"], input_ids)
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=h.device)
+    cos, sin = mrope_cos_sin(position_ids, inv_freq, cfg.mrope_section)
+    for l, lp in enumerate(layers):
+        h = _decode_layer_hm(h, lp, prefix_split[l], tail_split[l], cfg=cfg,
+                             cos=cos, sin=sin, bias_p=bias_p,
+                             tail_len=tail_len, tail_index=tail_index,
+                             group=group)
+    h = rms_norm(params["norm"], h, cfg.rms_norm_eps)
+    return lm_head(params, cfg, h)

@@ -28,10 +28,12 @@ def init_params(cfg: Qwen25VLConfig, *, seed: int = 0, dtype=torch.float32,
             "visual": init_vit_params(cfg.vision, **kw)}
 
 
-def encode_vision(params, cfg: Qwen25VLConfig, pixel_values, grid_thw):
+def encode_vision(params, cfg: Qwen25VLConfig, pixel_values, grid_thw,
+                  remat: bool = False):
     """pixel_values (S, patch_dim) + grid_thw list -> (S/mu, lm_hidden)."""
     layout = vision_layout(grid_thw, cfg.vision)
-    return vit_forward(params["visual"], cfg.vision, pixel_values, layout)
+    return vit_forward(params["visual"], cfg.vision, pixel_values, layout,
+                       remat=remat)
 
 
 def merge_vision_embeds(cfg: Qwen25VLConfig, input_ids, token_embeds,

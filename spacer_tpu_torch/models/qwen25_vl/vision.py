@@ -8,7 +8,10 @@ tokens once to the padded-window layout (uniform windows of wt = 64 tokens)
 and runs every block at S_pad: the windowed blocks through K3
 (ops/vit_window_attention.window_attention_hsd), the full-attention blocks
 through K4 (chunk_attention_hsd) over the compact frame-chunk order.
-head_dim 80 stays unpadded.
+head_dim 80 stays unpadded.  Both kernels are differentiable (their backward
+recomputes through the plain version), and `remat=True` recomputes each
+block in the backward pass (torch.utils.checkpoint), as JAX's
+jax.checkpoint of the block does.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from spacer_tpu_torch.models.qwen25_vl.config import VisionConfig
 from spacer_tpu_torch.nn.core import dense, dense_init, rms_norm, rms_norm_init
@@ -204,7 +208,7 @@ def _vit_mlp(mlp, x):
 
 
 def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
-                layout: VisionLayout):
+                layout: VisionLayout, remat: bool = False):
     """pixel_values (S, patch_dim) -> merged embeddings (S / mu, out_hidden)
     in the original (pre-window-permutation) token order."""
     if cfg.arch != "qwen2_5":
@@ -235,12 +239,12 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
     scale = Dh ** -0.5
     full_set = set(cfg.fullatt_block_indexes)
 
-    for li, bp in enumerate(params["blocks"]):
+    def block(h, bp, full: bool):
         x = rms_norm(bp["norm1"], h, 1e-6)
         qkv = dense(bp["attn"]["qkv"], x).reshape(S_pad, 3, H, Dh)
         q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
         q, k, v = (t.transpose(0, 1) for t in (q, k, qkv[:, 2]))  # (H, S_pad, Dh)
-        if li in full_set:
+        if full:
             # frame chunks are contiguous in the compact window order
             q, k, v = (t[:, to_compact] for t in (q, k, v))
             attn = chunk_attention_hsd(q, k, v, layout.full_chunk, scale)
@@ -251,7 +255,15 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
         attn = attn.transpose(0, 1).reshape(S_pad, H * Dh)
         h = h + dense(bp["attn"]["proj"], attn)
         x = rms_norm(bp["norm2"], h, 1e-6)
-        h = h + _vit_mlp(bp["mlp"], x)
+        return h + _vit_mlp(bp["mlp"], x)
+
+    remat = remat and torch.is_grad_enabled()
+    for li, bp in enumerate(params["blocks"]):
+        full = li in full_set
+        if remat:
+            h = checkpoint(block, h, bp, full, use_reentrant=False)
+        else:
+            h = block(h, bp, full)
     h = h[to_compact]  # back to the compact window order
 
     m = params["merger"]

@@ -1,23 +1,33 @@
-"""Hand-written Hopper kernels of the serving path (counterpart of
-spacer_tpu/ops).  Each wrapper runs its plain PyTorch version on CPU tensors
-and launches its CUDA kernel (csrc/, built by nvcc on first use) on CUDA
-tensors, counting the launches in its `.launches` attribute.
+"""Hand-written Hopper kernels (counterpart of spacer_tpu/ops).  Each wrapper
+runs its plain PyTorch version on CPU tensors and launches its CUDA kernel
+(csrc/, built by nvcc on first use) on CUDA tensors, counting the launches
+in its `.launches` attribute.
 
-| kernel | wrapper                                      | replaces (Pallas)                |
-|--------|----------------------------------------------|----------------------------------|
-| K1     | flash_attention.flash_attention              | ops/flash_attention.py:452       |
-| K3     | vit_window_attention.window_attention_hsd    | ops/vit_window_attention.py:116  |
-| K4     | vit_window_attention.chunk_attention_hsd     | ops/vit_window_attention.py:187  |
-| K5     | flash_decode.flash_ragged_decode_attention   | ops/flash_decode.py:398          |
+| kernel     | wrapper                                      | replaces (Pallas)                     |
+|------------|----------------------------------------------|---------------------------------------|
+| K1         | flash_attention.flash_attention              | ops/flash_attention.py:452            |
+| K1-bwd dq  | flash_attention.flash_attention_bwd_dq       | ops/flash_attention.py:338 (call 368) |
+| K1-bwd dkv | flash_attention.flash_attention_bwd_dkv      | ops/flash_attention.py:338 (call 413) |
+| K2         | flash_decode.flash_decode_attention          | ops/flash_decode.py:215               |
+| K3         | vit_window_attention.window_attention_hsd    | ops/vit_window_attention.py:116       |
+| K4         | vit_window_attention.chunk_attention_hsd     | ops/vit_window_attention.py:187       |
+| K5         | flash_decode.flash_ragged_decode_attention   | ops/flash_decode.py:398               |
 """
 
 from __future__ import annotations
 
 
 def kernel_wrappers() -> dict:
-    """{kernel id: wrapper} for the four kernels of the serving path."""
-    from spacer_tpu_torch.ops.flash_attention import flash_attention
-    from spacer_tpu_torch.ops.flash_decode import flash_ragged_decode_attention
+    """{kernel id: wrapper} for every ported kernel."""
+    from spacer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from spacer_tpu_torch.ops.flash_decode import (
+        flash_decode_attention,
+        flash_ragged_decode_attention,
+    )
     from spacer_tpu_torch.ops.vit_window_attention import (
         chunk_attention_hsd,
         window_attention_hsd,
@@ -25,6 +35,9 @@ def kernel_wrappers() -> dict:
 
     return {
         "K1": flash_attention,
+        "K1-bwd dq": flash_attention_bwd_dq,
+        "K1-bwd dkv": flash_attention_bwd_dkv,
+        "K2": flash_decode_attention,
         "K3": window_attention_hsd,
         "K4": chunk_attention_hsd,
         "K5": flash_ragged_decode_attention,

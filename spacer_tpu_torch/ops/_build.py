@@ -40,6 +40,15 @@ SIGNATURES = {
     "spacer_chunk_attention_hsd": [P] * 4 + [I] * 4 + [F, P],
     # q, pk, pv, bias_p, tk, tv, bias_t, out, R, Hkv, gq, P, C, D, scale, stream
     "spacer_ragged_decode_attention": [P] * 8 + [I] * 6 + [F, P],
+    # q, k, v, dout, lse, delta, dq, kv_valid, q_seg, kv_seg,
+    # B, Sq, Skv, Hq, Hkv, D, causal, q_offset, scale, stream
+    "spacer_flash_attention_bwd_dq": [P] * 10 + [I] * 8 + [F, P],
+    # q, k, v, dout, lse, delta, dk, dv, kv_valid, q_seg, kv_seg,
+    # B, Sq, Skv, Hq, Hkv, D, causal, q_offset, scale, stream
+    "spacer_flash_attention_bwd_dkv": [P] * 11 + [I] * 8 + [F, P],
+    # q, pk, pv, bias_p, tk, tv, part_o, part_lse, out,
+    # B, Hkv, G, gq, P, T, step, D, pchunk, tchunk, scale, stream
+    "spacer_grouped_decode_attention": [P] * 9 + [I] * 10 + [F, P],
 }
 
 def build_dir() -> Path:

@@ -1,17 +1,27 @@
-"""K1: flash attention forward on Hopper (csrc/flash_attention.cu).
+"""K1: flash attention on Hopper, forward (csrc/flash_attention.cu) and
+backward (csrc/flash_attention_bwd.cu).
 
 Replaces the Pallas kernel spacer_tpu/ops/flash_attention.py::flash_attention
-(`_flash_fwd_impl` / `_fwd_kernel`) on the LM prefill.  Same contract and
-layout as the plain version `nn.attention.xla_attention`: q (B, Sq, Hq, D),
-k/v (B, Skv, Hkv, D), causal with a static `q_offset`, a (B, Skv) `kv_mask`,
-optional segment ids, GQA.  The kernel also writes the (B, Hq, Sq) f32 LSE.
+(`_flash_fwd_impl` / `_fwd_kernel`, and the custom VJP `_flash_bwd` with its
+dq and dk/dv kernels) on the LM's prefill and training forwards.  Same
+contract and layout as the plain version `nn.attention.xla_attention`:
+q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), causal with a static `q_offset`, a
+(B, Skv) `kv_mask`, optional segment ids, GQA.  The forward also writes the
+(B, Hq, Sq) f32 LSE, which the backward reads.
+
+On a CUDA tensor `flash_attention` is a torch.autograd.Function: its forward
+launches the forward kernel and saves (q, k, v, out, lse); its backward
+launches `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`.  The
+backward's delta = rowsum(dout * out) stays a torch op, as the TPU wrapper
+computes it outside Pallas.  The plain versions of the two backward kernels
+are autograd through `xla_attention` (`attention_bwd_reference`).
 
 Bound on the H100: tensor-core flops at prefill lengths (~P/2 flops per
-K/V byte).  The kernel tiles 64 queries x 64 keys per step on WMMA bf16
-MMAs with f32 accumulation and an online softmax (see the .cu note).
+K/V byte).  The kernels tile 64 queries x 64 keys per step on WMMA bf16 MMAs
+with f32 accumulation (see the .cu notes).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  `flash_attention.launches` counts kernel launches.
+raises.  Each wrapper counts its kernel launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -47,10 +57,62 @@ def _check(q, k, v, kv_mask, q_segment_ids, kv_segment_ids, q_offset):
             raise ValueError("all inputs must be on q's device")
 
 
+def _mask_args(q, k, kv_mask, q_segment_ids, kv_segment_ids):
+    """(valid uint8 (B, Skv), q_seg int32 (B, Sq), kv_seg int32 (B, Skv)),
+    each contiguous or None, as the kernels read them."""
+    B, Sq, Skv = q.shape[0], q.shape[1], k.shape[1]
+    valid = (None if kv_mask is None
+             else kv_mask.reshape(B, Skv).to(torch.uint8).contiguous())
+    q_seg = (None if q_segment_ids is None
+             else q_segment_ids.reshape(B, Sq).to(torch.int32).contiguous())
+    kv_seg = (None if kv_segment_ids is None
+              else kv_segment_ids.reshape(B, Skv).to(torch.int32).contiguous())
+    return valid, q_seg, kv_seg
+
+
+def _launch_fwd(q, k, v, masks, causal, q_offset, scale):
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    p = _build.ptr
+    err = _build.kernels().spacer_flash_attention_fwd(
+        p(q), p(k), p(v), p(out), p(lse), *(p(m) for m in masks),
+        B, Sq, Skv, Hq, Hkv, D, int(bool(causal)), q_offset, float(scale),
+        _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """K1 forward kernel; backward = the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, q_seg, kv_seg, causal, q_offset, scale):
+        masks = (valid, q_seg, kv_seg)
+        out, lse = _launch_fwd(q, k, v, masks, causal, q_offset, scale)
+        ctx.save_for_backward(q, k, v, out, lse, *masks)
+        ctx.kw = dict(causal=causal, q_offset=q_offset, scale=scale)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, valid, q_seg, kv_seg = ctx.saved_tensors
+        kw = dict(ctx.kw, kv_mask=valid, q_segment_ids=q_seg,
+                  kv_segment_ids=kv_seg)
+        dout = dout.contiguous()
+        dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, **kw)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, **kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False, q_segment_ids=None,
                     kv_segment_ids=None, kv_mask=None, scale=None,
                     q_offset: int = 0, return_lse: bool = False):
-    """Returns out (B, Sq, Hq, D), or (out, lse) with `return_lse`."""
+    """Returns out (B, Sq, Hq, D), or (out, lse) with `return_lse`.
+    Differentiable in q, k and v on either device."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -59,24 +121,93 @@ def flash_attention(q, k, v, *, causal: bool = False, q_segment_ids=None,
             kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,
             q_offset=q_offset, return_lse=return_lse)
     _check(q, k, v, kv_mask, q_segment_ids, kv_segment_ids, q_offset)
-    B, Sq, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    valid = (None if kv_mask is None
-             else kv_mask.reshape(B, Skv).to(torch.uint8).contiguous())
-    q_seg = (None if q_segment_ids is None
-             else q_segment_ids.reshape(B, Sq).to(torch.int32).contiguous())
-    kv_seg = (None if kv_segment_ids is None
-              else kv_segment_ids.reshape(B, Skv).to(torch.int32).contiguous())
-    p = _build.ptr
-    err = _build.kernels().spacer_flash_attention_fwd(
-        p(q), p(k), p(v), p(out), p(lse), p(valid), p(q_seg), p(kv_seg),
-        B, Sq, Skv, Hq, Hkv, D, int(bool(causal)), q_offset, float(scale),
-        _build.stream_ptr(q.device))
-    _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    masks = _mask_args(q, k, kv_mask, q_segment_ids, kv_segment_ids)
+    out, lse = _FlashAttentionFn.apply(q, k, v, *masks, bool(causal), q_offset,
+                                       float(scale))
     return (out, lse) if return_lse else out
 
 
+def attention_bwd_reference(q, k, v, dout, *, causal: bool = False,
+                            q_segment_ids=None, kv_segment_ids=None,
+                            kv_mask=None, scale=None, q_offset: int = 0):
+    """Plain version of the backward: (dq, dk, dv) by autograd through
+    `xla_attention` (f32 logits and softmax)."""
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = xla_attention(qd, kd, vd, causal=causal,
+                            q_segment_ids=q_segment_ids,
+                            kv_segment_ids=kv_segment_ids, kv_mask=kv_mask,
+                            scale=scale, q_offset=q_offset)
+        return torch.autograd.grad(out, (qd, kd, vd), dout)
+
+
+def _bwd_args(q, k, v, out, lse, dout, kv_mask, q_segment_ids,
+              kv_segment_ids, q_offset):
+    _check(q, k, v, kv_mask, q_segment_ids, kv_segment_ids, q_offset)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bf16 tensor of q's shape")
+    B, Sq, Hq, _ = q.shape
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError("lse must be the forward's (B, Hq, Sq) f32 LSE")
+    # delta = rowsum(dout * out), (B, Hq, Sq) f32 like the LSE
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    masks = _mask_args(q, k, kv_mask, q_segment_ids, kv_segment_ids)
+    return lse.contiguous(), delta, masks
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = False,
+                           q_segment_ids=None, kv_segment_ids=None,
+                           kv_mask=None, scale=None, q_offset: int = 0):
+    """K1-bwd dq (replaces `_bwd_dq_kernel`): dq (B, Sq, Hq, D) from the
+    forward's out and lse and the output gradient dout."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_bwd_reference(
+            q, k, v, dout, causal=causal, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,
+            q_offset=q_offset)[0]
+    lse, delta, masks = _bwd_args(q, k, v, out, lse, dout, kv_mask,
+                                  q_segment_ids, kv_segment_ids, q_offset)
+    B, Sq, Hq, D = q.shape
+    dq = torch.empty_like(q)
+    p = _build.ptr
+    err = _build.kernels().spacer_flash_attention_bwd_dq(
+        p(q), p(k), p(v), p(dout), p(lse), p(delta), p(dq),
+        *(p(m) for m in masks), B, Sq, k.shape[1], Hq, k.shape[2], D,
+        int(bool(causal)), q_offset, float(scale), _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, *, causal: bool = False,
+                            q_segment_ids=None, kv_segment_ids=None,
+                            kv_mask=None, scale=None, q_offset: int = 0):
+    """K1-bwd dk/dv (replaces `_bwd_dkv_kernel` and the GQA group sum):
+    (dk, dv), each (B, Skv, Hkv, D), summed over each kv head's q heads."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_bwd_reference(
+            q, k, v, dout, causal=causal, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,
+            q_offset=q_offset)[1:]
+    lse, delta, masks = _bwd_args(q, k, v, out, lse, dout, kv_mask,
+                                  q_segment_ids, kv_segment_ids, q_offset)
+    B, Sq, Hq, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    p = _build.ptr
+    err = _build.kernels().spacer_flash_attention_bwd_dkv(
+        p(q), p(k), p(v), p(dout), p(lse), p(delta), p(dk), p(dv),
+        *(p(m) for m in masks), B, Sq, k.shape[1], Hq, k.shape[2], D,
+        int(bool(causal)), q_offset, float(scale), _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

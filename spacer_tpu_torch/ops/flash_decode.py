@@ -1,6 +1,9 @@
-"""K5: ragged clock-ring decode attention on Hopper (csrc/flash_decode.cu).
+"""Decode attention on Hopper: K5 ragged clock-ring serving decode
+(csrc/flash_decode.cu) and K2 shared-prefix grouped rollout decode
+(csrc/flash_decode_grouped.cu).  Both are inference-only: they raise if
+asked to run where autograd would need their gradient.
 
-Replaces spacer_tpu/ops/flash_decode.py::flash_ragged_decode_attention
+K5 replaces spacer_tpu/ops/flash_decode.py::flash_ragged_decode_attention
 (`_ragged_kernel`), bf16 branch, on every decode step of every layer of the
 serving path.  Head-major layout as in JAX: q (R, Hkv, group_q, Dh), prompt
 prefix pk/pv (R, Hkv, Pmax, Dh), completion ring tk/tv (R, Hkv, Cmax, Dh),
@@ -12,8 +15,18 @@ Bound on the H100: K/V bytes (one query token per row).  One CTA per
 row's K/V; R * Hkv CTAs under-fill the card at small slot counts, which a
 split-K pass will fix (see the .cu note).
 
+K2 replaces spacer_tpu/ops/flash_decode.py::flash_decode_attention
+(`_kernel`), bf16 branch, on every decode step of every layer of the grouped
+rollout sampler.  Head-major layout as in JAX: q (B, Hkv, G*group_q, Dh)
+(row g*group_q + c is q head h*group_q + c of completion row b*G + g),
+prefix pk/pv (B, Hkv, P, Dh) shared by the G completions of prompt b,
+additive f32 prefix bias (B, 1, P), per-row tails tk/tv (B*G, Hkv, T, Dh) of
+which the first `step` positions are live.  Output (B, Hkv, G*group_q, Dh)
+f32.  Bound on the H100: K/V bytes; the prefix is read once per group and
+dead tail space not at all (split-K over key chunks, see the .cu note).
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  `flash_ragged_decode_attention.launches` counts kernel launches.
+raises.  Each wrapper counts its kernel launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -70,6 +83,14 @@ def _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q):
         raise ValueError("biases must be f32")
 
 
+def _inference_only(name, *tensors):
+    """Raise if autograd would need a gradient through an inference-only
+    kernel (it has no backward; its output would silently be a constant)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is inference-only (no backward): run it "
+                           "under torch.no_grad() or on detached tensors")
+
+
 def flash_ragged_decode_attention(q, pk, pv, bias_p, tk, tv, bias_t, *,
                                   group_q: int, sm_scale: float):
     """K5.  Returns (R, Hkv, group_q, Dh) f32."""
@@ -77,6 +98,7 @@ def flash_ragged_decode_attention(q, pk, pv, bias_p, tk, tv, bias_t, *,
         return ragged_decode_attention_reference(
             q, pk, pv, bias_p, tk, tv, bias_t, group_q=group_q,
             sm_scale=sm_scale)
+    _inference_only("flash_ragged_decode_attention", q, pk, pv, tk, tv)
     _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q)
     R, Hkv, gq, Dh = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -91,3 +113,93 @@ def flash_ragged_decode_attention(q, pk, pv, bias_p, tk, tv, bias_t, *,
 
 
 flash_ragged_decode_attention.launches = 0
+
+
+# -- K2: shared-prefix grouped decode --------------------------------------
+
+# keys per split-K job of the kernel: prefix chunks and live tail chunks
+PREFIX_CHUNK = 128
+TAIL_CHUNK = 128
+
+
+def decode_attention_reference(q, pk, pv, bias_p, tk, tv, step: int, *,
+                               group: int, group_q: int, sm_scale: float):
+    """Plain version of K2 (spacer_tpu's decode_attention_reference, bf16
+    branch): one softmax over [prefix | tail] per query row, f32 logits,
+    tail positions >= step masked, probabilities rounded to the cache dtype
+    before P.V."""
+    B, Hkv, GQ, Dh = q.shape
+    G, P, T = group, pk.shape[2], tk.shape[2]
+    cdt = q.dtype
+    qf = q.float().reshape(B, Hkv, G, group_q, Dh)
+    lp = torch.einsum("bhgcd,bhpd->bhgcp", qf, pk.to(cdt).float()) * sm_scale
+    lp = lp + bias_p[:, None, None, :, :]
+    qt = qf.permute(0, 2, 1, 3, 4).reshape(B * G, Hkv, group_q, Dh)
+    lt = torch.einsum("nhcd,nhtd->nhct", qt, tk.to(cdt).float()) * sm_scale
+    live = torch.arange(T, device=q.device) < step
+    lt = torch.where(live, lt, torch.tensor(MASK_VALUE, device=q.device))
+    lp_rows = lp.permute(0, 2, 1, 3, 4).reshape(B * G, Hkv, group_q, P)
+    probs = torch.softmax(torch.cat([lp_rows, lt], dim=-1), dim=-1)
+    probs = probs.to(cdt).float()
+    probs_p = probs[..., :P].reshape(B, G, Hkv, group_q, P)
+    out_p = torch.einsum("bghcp,bhpd->bghcd", probs_p, pv.to(cdt).float())
+    out_t = torch.einsum("nhct,nhtd->nhcd", probs[..., P:], tv.to(cdt).float())
+    out = out_p.reshape(B * G, Hkv, group_q, Dh) + out_t
+    return out.reshape(B, G, Hkv, group_q, Dh).permute(0, 2, 1, 3, 4).reshape(
+        B, Hkv, GQ, Dh)
+
+
+def _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q):
+    """Hopper legality gate of K2 (raises ValueError)."""
+    B, Hkv, GQ, Dh = q.shape
+    if GQ != group * group_q or not 1 <= GQ <= 64:
+        raise ValueError(f"q rows {GQ} must be group*group_q and <= 64")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"head_dim {Dh} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("pk", pk), ("pv", pv), ("tk", tk), ("tv", tv)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bf16 (int8 caches are not "
+                             f"ported yet), got {t.dtype}")
+    if pk.shape != pv.shape or pk.shape[:2] != (B, Hkv) or pk.shape[3] != Dh:
+        raise ValueError(f"bad prefix shape {tuple(pk.shape)}")
+    if (tk.shape != tv.shape or tk.shape[:2] != (B * group, Hkv)
+            or tk.shape[3] != Dh):
+        raise ValueError(f"bad tail shape {tuple(tk.shape)}")
+    if bias_p.shape != (B, 1, pk.shape[2]) or bias_p.dtype != torch.float32:
+        raise ValueError("bias_p must be (B, 1, P) f32")
+    if not isinstance(step, int) or not 1 <= step <= tk.shape[2]:
+        raise ValueError(f"step must be a Python int in [1, T], got {step!r}")
+    for name, t in (("q", q), ("pk", pk), ("pv", pv), ("tk", tk), ("tv", tv),
+                    ("bias_p", bias_p)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on q's device")
+
+
+def flash_decode_attention(q, pk, pv, bias_p, tk, tv, step: int, *,
+                           group: int, group_q: int, sm_scale: float):
+    """K2.  Returns (B, Hkv, G*group_q, Dh) f32."""
+    if q.device.type == "cpu":
+        return decode_attention_reference(
+            q, pk, pv, bias_p, tk, tv, step, group=group, group_q=group_q,
+            sm_scale=sm_scale)
+    _inference_only("flash_decode_attention", q, pk, pv, tk, tv)
+    _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q)
+    B, Hkv, GQ, Dh = q.shape
+    P, T = pk.shape[2], tk.shape[2]
+    n_splits = -(-P // PREFIX_CHUNK) + -(-step // TAIL_CHUNK)
+    part_o = torch.empty((B, Hkv, n_splits, GQ, Dh), dtype=torch.float32,
+                         device=q.device)
+    part_lse = torch.empty((B, Hkv, n_splits, GQ), dtype=torch.float32,
+                           device=q.device)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    p = _build.ptr
+    err = _build.kernels().spacer_grouped_decode_attention(
+        p(q), p(pk), p(pv), p(bias_p), p(tk), p(tv), p(part_o), p(part_lse),
+        p(out), B, Hkv, group, group_q, P, T, step, Dh, PREFIX_CHUNK,
+        TAIL_CHUNK, float(sm_scale), _build.stream_ptr(q.device))
+    _build.check(err, "flash_decode_attention")
+    flash_decode_attention.launches += 1
+    return out
+
+
+flash_decode_attention.launches = 0

@@ -13,6 +13,11 @@ the H100: flops (64 or 480 keys per query); one CTA per 64-query tile of a
 segment streams that segment's keys with an online softmax, so neither the
 TPU kernel's 8x block-diagonal matmul nor a 480x480 score tile is needed.
 
+On a CUDA tensor each wrapper is a torch.autograd.Function whose backward
+recomputes through the plain version, exactly as the JAX VJPs
+(`_wa_hsd_bwd`, `_ca_hsd_bwd`) recompute through `_xla_reference_hsd`: the
+TPU package has no backward kernel here, so the port adds none.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  Each wrapper counts its own launches (`.launches`).
 """
@@ -71,24 +76,75 @@ def _check(q, k, v, wt):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _recompute_grads(plain_fn, q, k, v, dout):
+    """(dq, dk, dv) by autograd through the plain version."""
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_(True) for t in (q, k, v))
+        return torch.autograd.grad(plain_fn(qd, kd, vd), (qd, kd, vd), dout)
+
+
+class _WindowFn(torch.autograd.Function):
+    """K3 forward kernel; backward through window_attention_reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, wt, scale):
+        H, S, D = q.shape
+        out = torch.empty_like(q)
+        p = _build.ptr
+        err = _build.kernels().spacer_window_attention_hsd(
+            p(q), p(k), p(v), p(bias), p(out), H, S, D, int(wt), float(scale),
+            _build.stream_ptr(q.device))
+        _build.check(err, "window_attention_hsd")
+        window_attention_hsd.launches += 1
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.wt, ctx.scale = wt, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias = ctx.saved_tensors
+        grads = _recompute_grads(
+            lambda a, b, c: window_attention_reference(a, b, c, bias, ctx.wt,
+                                                       ctx.scale),
+            q, k, v, dout)
+        return (*grads, None, None, None)
+
+
+class _ChunkFn(torch.autograd.Function):
+    """K4 forward kernel; backward through chunk_attention_reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, wt, scale):
+        H, S, D = q.shape
+        out = torch.empty_like(q)
+        p = _build.ptr
+        err = _build.kernels().spacer_chunk_attention_hsd(
+            p(q), p(k), p(v), p(out), H, S, D, int(wt), float(scale),
+            _build.stream_ptr(q.device))
+        _build.check(err, "chunk_attention_hsd")
+        chunk_attention_hsd.launches += 1
+        ctx.save_for_backward(q, k, v)
+        ctx.wt, ctx.scale = wt, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _recompute_grads(
+            lambda a, b, c: chunk_attention_reference(a, b, c, ctx.wt, ctx.scale),
+            *ctx.saved_tensors, dout)
+        return (*grads, None, None)
+
+
 def window_attention_hsd(q, k, v, bias, wt: int, scale: float):
     """K3.  q, k, v (H, S, D); bias (1, S) f32 from validity_bias()."""
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, bias, wt, scale)
     _check(q, k, v, wt)
-    H, S, D = q.shape
+    S = q.shape[1]
     if (bias.dtype != torch.float32 or bias.numel() != S
             or bias.device != q.device):
         raise ValueError("bias must be a (1, S) f32 tensor on q's device")
-    bias = bias.contiguous()
-    out = torch.empty_like(q)
-    p = _build.ptr
-    err = _build.kernels().spacer_window_attention_hsd(
-        p(q), p(k), p(v), p(bias), p(out), H, S, D, int(wt), float(scale),
-        _build.stream_ptr(q.device))
-    _build.check(err, "window_attention_hsd")
-    window_attention_hsd.launches += 1
-    return out
+    return _WindowFn.apply(q, k, v, bias.contiguous(), wt, scale)
 
 
 def chunk_attention_hsd(q, k, v, wt: int, scale: float):
@@ -96,15 +152,7 @@ def chunk_attention_hsd(q, k, v, wt: int, scale: float):
     if q.device.type == "cpu":
         return chunk_attention_reference(q, k, v, wt, scale)
     _check(q, k, v, wt)
-    H, S, D = q.shape
-    out = torch.empty_like(q)
-    p = _build.ptr
-    err = _build.kernels().spacer_chunk_attention_hsd(
-        p(q), p(k), p(v), p(out), H, S, D, int(wt), float(scale),
-        _build.stream_ptr(q.device))
-    _build.check(err, "chunk_attention_hsd")
-    chunk_attention_hsd.launches += 1
-    return out
+    return _ChunkFn.apply(q, k, v, wt, scale)
 
 
 window_attention_hsd.launches = 0

@@ -1,5 +1,10 @@
-"""Sampling for serving (counterpart of spacer_tpu/sampler)."""
+"""Sampling: token sampling, the vision prologue and the grouped rollout."""
 
-from spacer_tpu_torch.sampler.sampler import filtered_logits, sample_logits
+from spacer_tpu_torch.sampler.sampler import (
+    SampleOutput,
+    Sampler,
+    filtered_logits,
+    sample_logits,
+)
 
-__all__ = ["filtered_logits", "sample_logits"]
+__all__ = ["SampleOutput", "Sampler", "filtered_logits", "sample_logits"]

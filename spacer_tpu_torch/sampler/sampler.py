@@ -1,5 +1,16 @@
-"""Token sampling and the vision prologue used by serving (counterpart of the
-serving-side parts of spacer_tpu/sampler/sampler.py).
+"""Token sampling, the vision prologue, and the grouped rollout sampler
+(counterpart of spacer_tpu/sampler/sampler.py).
+
+`Sampler.generate` is the trainer's rollout: prefill once per prompt (K1),
+then decode the G completions of every prompt with the prompt's KV SHARED
+across the group and a per-completion tail cache, through K2
+(ops/flash_decode.flash_decode_attention) on every layer of every step.
+Caches are head-major: prefix (B, Hkv, P, Dh), tails (B*G, Hkv, T, Dh).
+The JAX loop is a lax.while_loop over doubling tail buckets (a static-shape
+artefact); here the tails are allocated at max_new_tokens, the live length
+is a host int (K2 reads only live tail chunks), and the all-done early exit
+is checked on the host every few steps (the extra steps only write EOS,
+and the tokens past the JAX exit point are reset to 0 afterwards).
 
 Random draws come from a torch.Generator; they differ from jax.random's for
 the same seed, so only the distribution (`filtered_logits`) and greedy
@@ -8,14 +19,34 @@ decoding (temperature 0) are comparable across the two packages.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
 
+from spacer_tpu_torch.models.qwen25_vl.language import (
+    init_kv_cache,
+    lm_decode_step_split,
+    lm_forward,
+)
 from spacer_tpu_torch.models.qwen25_vl.model import (
     encode_vision,
     merge_vision_embeds,
 )
 from spacer_tpu_torch.nn.core import embed
+
+MASK_VALUE = -1e30
+# host check of the all-done early exit every this many decode steps
+DONE_CHECK_EVERY = 8
+
+
+@dataclasses.dataclass
+class SampleOutput:
+    sequences: np.ndarray        # (B*G, max_new) sampled token ids
+    completion_mask: np.ndarray  # (B*G, max_new) 1 up to & including first EOS
+    lengths: np.ndarray          # (B*G,) completion lengths (mask sums)
+    stats: Optional[dict] = None
 
 
 def _topp_threshold_bisect(logits, lse, top_p, iters: int = 24):
@@ -78,3 +109,168 @@ def completion_mask_from_ids(completion_ids: np.ndarray, eos_token_id: int
     eos_idx[any_eos] = is_eos.argmax(axis=1)[any_eos]
     seq = np.arange(L)[None, :]
     return (seq <= eos_idx[:, None]).astype(np.int32)
+
+
+def _prep_decode(prefix_cache):
+    """Prefill cache {"k","v": [(B, P, Hkv, Dh)] per layer} -> per-layer
+    head-major (pk, pv) (B, Hkv, P, Dh), once per generate call."""
+    return [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+            for k, v in zip(prefix_cache["k"], prefix_cache["v"])]
+
+
+def _decode_loop(params, text_cfg, prefix_split, prefix_mask, first_tokens,
+                 deltas, prompt_len: int, group: int, max_new_tokens: int,
+                 temperature: float, top_p: float, eos_token_id: int,
+                 generator) -> torch.Tensor:
+    """Shared-prefix autoregressive loop -> tokens (B*G, max_new)."""
+    N = first_tokens.shape[0]
+    dev = first_tokens.device
+    pk0 = prefix_split[0][0]
+    tshape = (N, pk0.shape[1], max_new_tokens, pk0.shape[3])
+    tails = [(torch.zeros(tshape, dtype=pk0.dtype, device=dev),
+              torch.zeros(tshape, dtype=pk0.dtype, device=dev))
+             for _ in prefix_split]
+    bias_p = torch.where(prefix_mask, 0.0, MASK_VALUE)[:, None, :].float()
+    bias_p = bias_p.contiguous()
+    tokens = torch.zeros((N, max_new_tokens), dtype=torch.long, device=dev)
+    tokens[:, 0] = first_tokens
+    done = first_tokens == eos_token_id
+    eos = torch.full_like(first_tokens, eos_token_id)
+    model = params["model"]
+    for step in range(1, max_new_tokens):
+        if step % DONE_CHECK_EVERY == 1 and bool(done.all()):
+            break
+        cur = tokens[:, step - 1:step]
+        pos = (prompt_len + deltas + step - 1).reshape(1, N, 1).expand(3, N, 1)
+        logits = lm_decode_step_split(
+            model["layers"], model, text_cfg, cur, pos, prefix_split, bias_p,
+            tails, tail_index=step - 1, group=group, tail_len=step)
+        nxt = sample_logits(logits[:, -1], generator, temperature, top_p)
+        nxt = torch.where(done, eos, nxt)
+        tokens[:, step] = nxt
+        done = done | (nxt == eos_token_id)
+    return tokens
+
+
+def _jax_exit_point(tokens: np.ndarray, eos_token_id: int) -> np.ndarray:
+    """Zero the positions the JAX loop never writes: it stops before step s
+    once every row has an EOS in tokens[:, :s]."""
+    is_eos = tokens == eos_token_id
+    if is_eos.any(axis=1).all():
+        stop = int(is_eos.argmax(axis=1).max()) + 1
+        tokens = tokens.copy()
+        tokens[:, stop:] = 0
+    return tokens
+
+
+def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
+              deltas, generator, *, num_generations: int,
+              max_new_tokens: int, temperature: float, top_p: float,
+              eos_token_id: int) -> torch.Tensor:
+    """Prefill once per prompt (B rows), then the grouped decode loop.
+    input_embeds: (B, S, D) left-padded."""
+    B, S, _ = input_embeds.shape
+    G = num_generations
+    cache = init_kv_cache(text_cfg, B, S, dtype=input_embeds.dtype,
+                          device=input_embeds.device)
+    logits, cache = lm_forward(
+        params["model"], text_cfg, input_embeds=input_embeds,
+        position_ids=position_ids, kv_mask=prompt_mask, cache=cache,
+        cache_index=0, last_only=True)
+    last = logits[:, -1].repeat_interleave(G, dim=0)        # (B*G, V)
+    deltas = deltas.reshape(-1).repeat_interleave(G)
+    first = sample_logits(last, generator, temperature, top_p)
+    return _decode_loop(params, text_cfg, _prep_decode(cache), prompt_mask,
+                        first, deltas, S, G, max_new_tokens, temperature,
+                        top_p, eos_token_id, generator)
+
+
+class Sampler:
+    """Padding/bucketing around the grouped rollout (spacer_tpu's Sampler).
+
+    Configurations the port does not run raise NotImplementedError:
+    quantized decode (`decode_quant`, ROADMAP queue A item 4), speculative
+    decode (`speculate_k > 0`) and a device mesh.  Decode is head-major
+    through K2 (the kernel on CUDA, its plain version on the CPU)."""
+
+    def __init__(self, cfg, eos_token_id: int | None = None,
+                 pad_token_id: int | None = None, length_bucket: int = 128,
+                 decode_quant: str | None = None,
+                 speculate_k: int | None = None, mesh=None):
+        from spacer_tpu_torch.models.registry import family_for_config
+
+        if decode_quant is not None:
+            raise NotImplementedError(
+                f"decode_quant={decode_quant!r}: int8 / int4 rollouts are not "
+                "ported (ROADMAP queue A item 4); use decode_quant=None")
+        if speculate_k:
+            raise NotImplementedError("speculative rollout decode is not "
+                                      "ported (ROADMAP queue A item 3)")
+        if mesh is not None:
+            raise NotImplementedError("mesh-sharded rollouts are not ported")
+        self.cfg = cfg
+        self.family = family_for_config(cfg)
+        self.eos_token_id = (eos_token_id if eos_token_id is not None
+                             else cfg.eos_token_id)
+        self.pad_token_id = (pad_token_id if pad_token_id is not None
+                             else cfg.pad_token_id)
+        self.length_bucket = length_bucket
+
+    def _bucket(self, n: int) -> int:
+        b = self.length_bucket
+        return max(b, -(-n // b) * b)
+
+    @torch.no_grad()
+    def generate(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+                 params, *, position_ids: np.ndarray, deltas: np.ndarray,
+                 pixel_values=None, grid_thw=None,
+                 vision_kwargs: dict | None = None, num_generations: int = 1,
+                 max_new_tokens: int = 1024, temperature: float = 1.0,
+                 top_p: float = 0.95, seed: int = 0) -> SampleOutput:
+        cfg = self.cfg
+        input_ids = np.asarray(input_ids)
+        if int(np.max(input_ids)) >= cfg.text.vocab_size:
+            raise ValueError(f"input_ids contain id {int(np.max(input_ids))} "
+                             f">= vocab_size {cfg.text.vocab_size}")
+        attention_mask = np.asarray(attention_mask)
+        position_ids = np.asarray(position_ids)
+        B, S = input_ids.shape
+        pad = self._bucket(S) - S
+        if pad:
+            # extend left padding; positions for pad slots are irrelevant
+            input_ids = np.concatenate(
+                [np.full((B, pad), self.pad_token_id, input_ids.dtype),
+                 input_ids], axis=1)
+            attention_mask = np.concatenate(
+                [np.zeros((B, pad), attention_mask.dtype), attention_mask], 1)
+            position_ids = np.concatenate(
+                [np.ones((3, B, pad), position_ids.dtype), position_ids], 2)
+            # delta = max_pos + 1 - seq_len; padding grows seq_len
+            deltas = np.asarray(deltas) - pad
+
+        emb = params["model"]["embed_tokens"]["embedding"]
+        dev = emb.device
+
+        def tensor(a, dtype=torch.long):
+            return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+        ids = tensor(input_ids)
+        if vision_kwargs is None and pixel_values is not None:
+            vision_kwargs = {"pixel_values": pixel_values}
+        embeds = embed(params["model"]["embed_tokens"], ids)
+        if vision_kwargs:
+            ve = self.family.encode_vision(params, cfg, vision_kwargs,
+                                           grid_thw)
+            embeds = self.family.merge_vision_embeds(cfg, ids, embeds, ve)
+        generator = torch.Generator(device=dev).manual_seed(int(seed))
+        temp = float(temperature) if temperature is not None else 0.0
+        topp = float(top_p) if top_p is not None else 1.0
+        tokens = _generate(
+            params, cfg.text, embeds, tensor(position_ids),
+            tensor(attention_mask, torch.bool), tensor(deltas), generator,
+            num_generations=num_generations, max_new_tokens=max_new_tokens,
+            temperature=temp, top_p=topp, eos_token_id=self.eos_token_id)
+        tokens = _jax_exit_point(tokens.cpu().numpy(), self.eos_token_id)
+        mask = completion_mask_from_ids(tokens, self.eos_token_id)
+        return SampleOutput(sequences=tokens, completion_mask=mask,
+                            lengths=mask.sum(axis=1))

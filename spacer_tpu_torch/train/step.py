@@ -1,0 +1,201 @@
+"""GRPO train step (counterpart of spacer_tpu/train/step.py).
+
+One step: vision encode (once per prompt) -> policy logps over the
+completion tokens (shared-prefix schema, chunked head) -> k3 KL against the
+reference logps + GRPO loss -> gradients -> AdamW update.  JAX's
+stop_gradient points are torch.no_grad / detach here; its jit is eager
+PyTorch.  Rewards and advantages arrive from the host.
+
+Params are nested dicts/lists of tensors (spacer_tpu_torch's layout).  The
+step flattens them in a fixed order (`param_leaves`), takes gradients with
+torch.autograd.grad (nothing is left in .grad), and updates the params IN
+PLACE (`p.add_(u.to(p.dtype))`, JAX's `p + u.astype(p.dtype)` without a
+second params-sized buffer).  Not ported: `step_accum` (not to port),
+`grad_chunk` / `apply_grads` (gradient accumulation, ROADMAP queue A), the
+pipeline-parallel packed path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spacer_tpu_torch.models.qwen25_vl.language import check_remat, lm_forward
+from spacer_tpu_torch.models.registry import family_for_config
+from spacer_tpu_torch.nn.core import embed
+from spacer_tpu_torch.train.grpo import chunked_per_token_logps, grpo_loss
+from spacer_tpu_torch.train.optimizer import global_norm
+
+
+def param_leaves(tree, prefix: str = ""):
+    """[(path, tensor)] of a nested dict/list params tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in param_leaves(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in param_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _head_kernel(params_model, text_cfg):
+    if text_cfg.tie_word_embeddings:
+        return params_model["embed_tokens"]["embedding"].T
+    return params_model["lm_head"]["kernel"]
+
+
+def tile_vision_embeds(ve, cfg, grid_thw, num_generations: int,
+                       grids_per_prompt=None):
+    """Broadcast per-prompt vision embeddings across each prompt's G
+    completions, preserving group-major row order [p0*G, p1*G, ...] (the
+    packed oracle's vision input; the train step encodes once per prompt)."""
+    if grids_per_prompt is None or len(grids_per_prompt) <= 1:
+        return ve.repeat(num_generations, 1)
+    mu = cfg.vision.spatial_merge_unit
+    counts = [t * h * w // mu for (t, h, w) in grid_thw]
+    parts, off, i = [], 0, 0
+    for ng in grids_per_prompt:
+        n = sum(counts[i:i + ng])
+        i += ng
+        parts.append(ve[off:off + n].repeat(num_generations, 1))
+        off += n
+    return torch.cat(parts, dim=0)
+
+
+def _completion_logps(params, cfg, input_ids, position_ids, kv_mask,
+                      prompt_len: int, vision_embeds=None, remat=False,
+                      logp_chunk: int = 256, merge_fn=None):
+    """Per-token logps of the completion part of packed (N, P+C) rows (the
+    numerics oracle of the shared-prefix path)."""
+    from spacer_tpu_torch.models.qwen25_vl.model import merge_vision_embeds
+
+    merge_fn = merge_fn or merge_vision_embeds
+    token_embeds = embed(params["model"]["embed_tokens"], input_ids)
+    if vision_embeds is not None:
+        token_embeds = merge_fn(cfg, input_ids, token_embeds, vision_embeds)
+    hidden, _ = lm_forward(params["model"], cfg.text, input_embeds=token_embeds,
+                           position_ids=position_ids, kv_mask=kv_mask,
+                           logits=False, remat=remat)
+    # position i predicts token i+1; completion tokens are ids[:, P:]
+    h = hidden[:, prompt_len - 1:-1]
+    targets = input_ids[:, prompt_len:]
+    head = _head_kernel(params["model"], cfg.text)
+    return chunked_per_token_logps(h, head, targets, chunk=logp_chunk)
+
+
+def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
+                             prompt_mask, completion_ids,
+                             completion_position_ids, completion_mask,
+                             num_generations: int, vision_embeds=None,
+                             remat=False, logp_chunk: int = 256,
+                             merge_fn=None):
+    """Shared-prefix per-token completion logps: the prompt forward runs
+    once per group (B rows) and its per-layer K/V, repeated G times, is the
+    prefix of the G completion rows' attention.  The repeat's backward sums
+    the G rows' gradients (jnp.repeat's VJP), so logps AND gradients equal
+    the packed full forward's up to summation order.
+
+    prompt_ids (B, P) left-padded; completion_ids (B*G, C) group-major;
+    completion_mask doubles as the completion part of the attention mask."""
+    from spacer_tpu_torch.models.qwen25_vl.model import merge_vision_embeds
+
+    merge_fn = merge_fn or merge_vision_embeds
+    G = num_generations
+    tc = cfg.text
+    model = params["model"]
+    prompt_embeds = embed(model["embed_tokens"], prompt_ids)
+    if vision_embeds is not None:
+        prompt_embeds = merge_fn(cfg, prompt_ids, prompt_embeds, vision_embeds)
+    prompt_mask = prompt_mask.bool()
+    hp, prompt_kv = lm_forward(
+        model, tc, input_embeds=prompt_embeds, position_ids=prompt_position_ids,
+        kv_mask=prompt_mask, logits=False, remat=remat, return_kv=True)
+    prefix_kv = [(k.repeat_interleave(G, dim=0), v.repeat_interleave(G, dim=0))
+                 for k, v in prompt_kv]
+    kv_mask = torch.cat([prompt_mask.repeat_interleave(G, dim=0),
+                         completion_mask.bool()], dim=1)
+    comp_embeds = embed(model["embed_tokens"], completion_ids)
+    hc, _ = lm_forward(model, tc, input_embeds=comp_embeds,
+                       position_ids=completion_position_ids, kv_mask=kv_mask,
+                       logits=False, remat=remat, prefix_kv=prefix_kv)
+    # position P-1 (shared across the group) predicts completion token 0;
+    # completion position i predicts token i+1
+    h = torch.cat([hp[:, -1:].repeat_interleave(G, dim=0), hc[:, :-1]], dim=1)
+    head = _head_kernel(model, tc)
+    return chunked_per_token_logps(h, head, completion_ids, chunk=logp_chunk)
+
+
+def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
+                         logp_chunk: int = 256):
+    """Returns step(params, ref_params, opt_state, batch, grid_thw,
+    num_generations) -> (params, opt_state, metrics), with `.ref_logps_fn`
+    and `.loss_and_grads` attached.
+
+    The batch is the shared-prefix schema, tensors on the params' device:
+    prompt_ids (B, P), prompt_mask, prompt_position_ids (3, B, P),
+    completion_ids (B*G, C), completion_position_ids (3, B*G, C),
+    completion_mask (B*G, C), advantages (B*G,), pixel_values.  (The packed
+    `_completion_logps` above is its numerics oracle in the tests.)"""
+    remat = check_remat(remat)
+    family = family_for_config(cfg)
+
+    def _logps(params, batch, grid_thw, num_generations):
+        vk = {k: batch[k] for k in family.vision_batch_keys if k in batch}
+        ve = None
+        if vk:
+            ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat)
+        return _completion_logps_shared(
+            params, cfg, batch["prompt_ids"], batch["prompt_position_ids"],
+            batch["prompt_mask"], batch["completion_ids"],
+            batch["completion_position_ids"], batch["completion_mask"],
+            num_generations, vision_embeds=ve, remat=remat,
+            logp_chunk=logp_chunk, merge_fn=family.merge_vision_embeds)
+
+    def ref_logps_fn(ref_params, batch, grid_thw=None, num_generations=1):
+        """Reference logps (no gradient); None at beta == 0 (no reference
+        model, TRL GRPOConfig beta=0 semantics)."""
+        if beta == 0.0:
+            return None
+        with torch.no_grad():
+            return _logps(ref_params, batch, grid_thw, num_generations)
+
+    def loss_and_grads(params, ref_logps, batch, grid_thw=None,
+                       num_generations=1):
+        """-> (loss, metrics, grads) with grads in param_leaves order (a
+        parameter the loss does not reach gets zeros, as jax.grad gives)."""
+        leaves = [t for _, t in param_leaves(params)]
+        for t in leaves:
+            t.requires_grad_(True)
+        with torch.enable_grad():
+            logps = _logps(params, batch, grid_thw, num_generations)
+            loss, metrics = grpo_loss(logps, ref_logps, batch["advantages"],
+                                      batch["completion_mask"], beta=beta)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, leaves)]
+        return loss.detach(), metrics, grads
+
+    def step(params, ref_params, opt_state, batch, grid_thw=None,
+             num_generations: int = 1):
+        if beta == 0.0:
+            ref_logps = None
+        elif "ref_logps" in batch:
+            ref_logps = batch["ref_logps"].detach()
+        else:
+            ref_logps = ref_logps_fn(ref_params, batch, grid_thw,
+                                     num_generations)
+        loss, metrics, grads = loss_and_grads(
+            params, ref_logps, {k: v for k, v in batch.items()
+                                if k != "ref_logps"},
+            grid_thw, num_generations)
+        leaves = [t for _, t in param_leaves(params)]
+        gnorm = global_norm(grads)
+        updates, opt_state = tx.update(grads, opt_state, leaves)
+        del grads
+        with torch.no_grad():
+            for p, u in zip(leaves, updates):
+                p.add_(u.to(p.dtype))
+        return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+    step.ref_logps_fn = ref_logps_fn
+    step.loss_and_grads = loss_and_grads
+    return step

@@ -1,17 +1,21 @@
 """The hand-written CUDA kernels against their plain versions on a CUDA card
-(K1, K3, K4, K5), and their legality gates.  These need the card and nvcc:
-on a host without CUDA they skip.  Run them on the card with
+(K1, K1-bwd, K2, K3, K4, K5), their legality gates, and a backward pass
+through the LM on the card.  These need the card and nvcc: on a host
+without CUDA they skip.  Run them on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 
 Tolerance: |kernel - plain| <= 2e-2 * (1 + |plain|) in bf16 (one bf16 step
 of 2^-8 relative, plus the kernel's bf16 rounding of the probabilities).
+Gradients (K1-bwd), whose elements sum many bf16-rounded products:
+||kernel - plain|| <= 2e-2 * ||plain|| per tensor.
 """
 
 import pytest
 import torch
 
 from spacer_tpu_torch.nn.attention import xla_attention
+from spacer_tpu_torch.ops import flash_attention as fa
 from spacer_tpu_torch.ops import flash_decode as fd
 from spacer_tpu_torch.ops import vit_window_attention as vwa
 from spacer_tpu_torch.ops.flash_attention import flash_attention
@@ -104,3 +108,127 @@ def test_kernels_raise_on_shapes_they_do_not_take(dev):
     with pytest.raises(ValueError):
         fd.flash_ragged_decode_attention(qd, kv, kv, b, kv, kv, b, group_q=9,
                                          sm_scale=0.1)
+
+
+def _close_norm(out, ref):
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all()
+    rel = float((out - ref).norm() / ref.norm())
+    assert rel <= TOL, rel
+
+
+@pytest.mark.parametrize("Sq,Skv,q_offset", [(256, 256, 0), (64, 320, 256)])
+def test_flash_attention_backward_kernels(dev, Sq, Skv, q_offset):
+    """dq, dk, dv of the autograd.Function (launching both K1-bwd kernels)
+    against autograd through the plain version; row 1 left-padded, whose
+    padded query rows get no output gradient."""
+    B, H, Hkv, D = 2, 8, 2, 128
+    q, k, v = _randn(dev, B, Sq, H, D), _randn(dev, B, Skv, Hkv, D), \
+        _randn(dev, B, Skv, Hkv, D)
+    dout = _randn(dev, B, Sq, H, D, seed=7)
+    mask = torch.ones((B, Skv), dtype=torch.bool, device=dev)
+    mask[1, :70] = False
+    dout[1, :max(0, 70 - q_offset)] = 0
+    kw = dict(causal=True, kv_mask=mask, q_offset=q_offset)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    grads = torch.autograd.grad(fa.flash_attention(qg, kg, vg, **kw),
+                                (qg, kg, vg), dout)
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    ref = fa.attention_bwd_reference(q, k, v, dout, **kw)
+    for g, r in zip(grads, ref):
+        _close_norm(g, r)
+
+
+def test_flash_attention_backward_segments(dev):
+    B, S, H, D = 1, 192, 4, 128
+    q, k, v = (_randn(dev, B, S, H, D, seed=i) for i in range(3))
+    dout = _randn(dev, B, S, H, D, seed=9)
+    seg = (torch.arange(S, device=dev) >= 77).int()[None]
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    args = (q, k, v, out, lse, dout)
+    ref = fa.attention_bwd_reference(q, k, v, dout, **kw)
+    _close_norm(fa.flash_attention_bwd_dq(*args, **kw), ref[0])
+    for g, r in zip(fa.flash_attention_bwd_dkv(*args, **kw), ref[1:]):
+        _close_norm(g, r)
+
+
+@pytest.mark.parametrize("step", [1, 70, 256])
+def test_grouped_decode_kernel(dev, step):
+    B, Hkv, G, gq, D, P, T = 2, 2, 4, 7, 128, 320, 256
+    q = _randn(dev, B, Hkv, G * gq, D)
+    pk, pv = _randn(dev, B, Hkv, P, D, seed=1), _randn(dev, B, Hkv, P, D, seed=2)
+    tk, tv = _randn(dev, B * G, Hkv, T, D, seed=3), _randn(dev, B * G, Hkv, T, D,
+                                                          seed=4)
+    tk[:, :, step:] = 1e4   # dead tail: reading it would swamp the softmax
+    mask = torch.ones((B, P), dtype=torch.bool, device=dev)
+    mask[0, :100] = False
+    bias = torch.where(mask, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
+    args = (q, pk, pv, bias, tk, tv, step)
+    kw = dict(group=G, group_q=gq, sm_scale=D ** -0.5)
+    before = fd.flash_decode_attention.launches
+    out = fd.flash_decode_attention(*args, **kw)
+    assert fd.flash_decode_attention.launches == before + 1
+    assert out.dtype == torch.float32
+    _close(out, fd.decode_attention_reference(*args, **kw))
+
+
+def test_inference_only_kernels_refuse_autograd(dev):
+    q = _randn(dev, 1, 1, 4, 128).requires_grad_(True)
+    kv = _randn(dev, 1, 1, 128, 128)
+    b = torch.zeros((1, 1, 128), device=dev)
+    with pytest.raises(RuntimeError):
+        fd.flash_ragged_decode_attention(q, kv, kv, b, kv, kv, b, group_q=4,
+                                         sm_scale=0.1)
+    with pytest.raises(RuntimeError):
+        fd.flash_decode_attention(q, kv, kv, b, kv, kv, 1, group=1, group_q=4,
+                                  sm_scale=0.1)
+    with torch.no_grad():
+        fd.flash_ragged_decode_attention(q, kv, kv, b, kv, kv, b, group_q=4,
+                                         sm_scale=0.1)
+
+
+def test_lm_backward_on_the_card_reaches_qkv_projections(dev):
+    """loss.backward() through the LM on CUDA tensors (K1 forward and both
+    K1-bwd kernels) gives every q/k/v/o projection a nonzero gradient that
+    agrees with the same backward through plain attention."""
+    import spacer_tpu_torch.models.qwen25_vl.language as lang
+    from spacer_tpu_torch.models.qwen25_vl import TextConfig
+
+    cfg = TextConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                     num_layers=2, num_heads=4, num_kv_heads=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lang.init_lm_params(cfg, generator=gen, dtype=torch.bfloat16,
+                                 device=dev)
+    ids = torch.randint(0, 1024, (2, 256), generator=gen, device=dev)
+    mask = torch.ones((2, 256), dtype=torch.bool, device=dev)
+    mask[1, :40] = False
+
+    def proj_grads():
+        projs = [lp["self_attn"][n]["kernel"] for lp in params["layers"]
+                 for n in ("q_proj", "k_proj", "v_proj", "o_proj")]
+        for t in projs:
+            t.grad = None
+            t.requires_grad_(True)
+        logits, _ = lang.lm_forward(params, cfg, input_ids=ids, kv_mask=mask,
+                                    remat=True)
+        (logits.float()[mask].logsumexp(-1).sum()).backward()
+        return [t.grad.clone() for t in projs]
+
+    before = fa.flash_attention_bwd_dq.launches
+    grads = proj_grads()
+    assert fa.flash_attention_bwd_dq.launches > before
+    saved = lang.dot_product_attention
+    lang.dot_product_attention = xla_attention
+    try:
+        ref = proj_grads()
+    finally:
+        lang.dot_product_attention = saved
+    for g, r in zip(grads, ref):
+        assert float(g.abs().max()) > 0
+        cos = torch.nn.functional.cosine_similarity(
+            g.float().flatten(), r.float().flatten(), dim=0)
+        assert float(cos) >= 0.99, float(cos)

@@ -1,0 +1,74 @@
+"""The grouped rollout sampler: spacer_tpu_torch Sampler.generate against
+spacer_tpu's Sampler with decode_impl="flash_ref" (head-major shared-prefix
+decode through the K2 reference), same converted float32 weights, a video
+prompt and a text prompt of different lengths (left padding), G=2.
+
+Greedy decoding must give identical token ids, completion masks and
+lengths: both sides compute f32 and differ in summation order only, far
+below the logit gaps of a random tiny model's argmax.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from spacer_tpu.models.qwen25_vl import get_rope_index, init_params, tiny_config
+from spacer_tpu.sampler import Sampler as JaxSampler
+from spacer_tpu_torch.models.qwen25_vl import params_from_jax
+from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+from spacer_tpu_torch.sampler import Sampler
+
+GRID = ((2, 8, 8),)
+
+
+def _prompts(cfg):
+    n_video = 2 * 8 * 8 // 4
+    video = ([10, 11, cfg.vision_start_token_id] + [cfg.video_token_id] * n_video
+             + [cfg.vision_end_token_id, 20, 21])
+    text = [30 + i for i in range(12)]
+    L = len(video)
+    ids = np.array([video, [cfg.pad_token_id] * (L - len(text)) + text])
+    mask = np.array([[1] * L, [0] * (L - len(text)) + [1] * len(text)])
+    pos, deltas = get_rope_index(cfg, ids, video_grid_thw=np.array(GRID),
+                                 attention_mask=mask)
+    px = np.random.default_rng(0).normal(
+        size=(2 * 8 * 8, cfg.vision.patch_dim)).astype(np.float32)
+    return ids, mask, pos, deltas, px
+
+
+@pytest.mark.parametrize("max_new", [12])
+def test_greedy_generate_matches_jax_flash_ref(max_new):
+    cfg = tiny_config()
+    params = init_params(jax.random.key(0), cfg, jnp.float32)
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    ids, mask, pos, deltas, px = _prompts(cfg)
+    kw = dict(position_ids=pos, deltas=deltas, pixel_values=px, grid_thw=GRID,
+              num_generations=2, max_new_tokens=max_new, temperature=0.0,
+              top_p=1.0, seed=0)
+    ref = JaxSampler(cfg, length_bucket=64, decode_impl="flash_ref").generate(
+        ids, mask, params, **kw)
+    reset_launch_counts()
+    out = Sampler(cfg, length_bucket=64).generate(ids, mask, tparams, **kw)
+    assert set(launch_counts().values()) == {0}   # CPU: plain versions only
+    assert out.sequences.shape == (4, max_new)
+    np.testing.assert_array_equal(out.sequences, np.asarray(ref.sequences))
+    np.testing.assert_array_equal(out.completion_mask,
+                                  np.asarray(ref.completion_mask))
+    np.testing.assert_array_equal(out.lengths, np.asarray(ref.lengths))
+
+
+def test_unported_configurations_raise():
+    cfg = tiny_config()
+    for kw in (dict(decode_quant="int8_kv"), dict(decode_quant="int4"),
+               dict(speculate_k=2), dict(mesh=object())):
+        with pytest.raises(NotImplementedError):
+            Sampler(cfg, **kw)
+    with pytest.raises(ValueError):   # an id past the vocabulary
+        Sampler(cfg).generate(np.array([[cfg.text.vocab_size]]),
+                              np.ones((1, 1)), {"model": {}},
+                              position_ids=np.zeros((3, 1, 1)),
+                              deltas=np.zeros((1, 1)))
+    torch.manual_seed(0)

@@ -1,0 +1,140 @@
+"""The SG-RLVR trainer of spacer_tpu_torch at tiny size on the CPU: two
+optimizer steps through `train()` (merged temporal rollout, rewards, group
+advantages, reference logps, shared-prefix update with int8 moments), a
+checkpoint round trip, the configurations the port does not run, and the
+copied reward functions against spacer_tpu.rewards on sample strings
+(exact equality: the same pure-Python code).
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from spacer_tpu_torch.data import MockTokenizer, VLProcessor, make_conversation
+from spacer_tpu_torch.models.qwen25_vl import init_params, tiny_config
+from spacer_tpu_torch.rewards import format_reward
+from spacer_tpu_torch.train.step import param_leaves
+from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
+
+
+def length_reward(completions, **kwargs):
+    """A reward that varies over completions of a random model (whose
+    accuracy reward is 0 everywhere): the completion's length mod 5."""
+    return [float(len(c[0]["content"]) % 5) for c in completions]
+
+
+def _rows():
+    frames = np.random.default_rng(0).integers(0, 256, (4, 56, 84, 3), np.uint8)
+    row = {"problem": "How many chairs are visible?",
+           "problem_type": "numerical", "solution": "<answer>3</answer>",
+           "path": frames, "data_type": "video", "data_source": "synthetic",
+           "problem_id": 0}
+    row.update(make_conversation(row))
+    return [row]
+
+
+def _trainer(tmp_path, **over):
+    cfg = tiny_config()
+    params = init_params(cfg, seed=0, dtype=torch.float32)
+    proc = VLProcessor(MockTokenizer(vocab_size=cfg.text.vocab_size), cfg)
+    kw = dict(num_generations=4, max_prompt_length=512,
+              max_completion_length=8, learning_rate=1e-3, max_steps=2,
+              num_train_epochs=2,
+              logging_steps=1, save_steps=100, prompt_bucket=64,
+              logp_chunk=8, decode_quant=None, moment_dtype="int8",
+              output_dir=str(tmp_path / "out"), seed=3)
+    kw.update(over)
+    return SGRLVRTrainer(cfg, params, proc, [length_reward, format_reward],
+                         _rows(), SGRLVRConfig(**kw))
+
+
+def test_two_training_steps_and_checkpoint(tmp_path):
+    trainer = _trainer(tmp_path)
+    before = [t.detach().clone() for _, t in param_leaves(trainer.params)]
+    trainer.train()
+    assert trainer.global_step == 2
+    records = [json.loads(line) for line in
+               open(os.path.join(trainer.args.output_dir, "metrics.jsonl"))]
+    assert len(records) == 2
+    for rec in records:
+        for key in ("loss", "kl", "grad_norm", "reward"):
+            assert np.isfinite(rec[key]), key
+        assert rec["grad_norm"] > 0
+        assert "rewards/length_reward" in rec and "temporal_rewards" in rec
+        assert rec["time/rollout_s"] > 0
+    after = [t for _, t in param_leaves(trainer.params)]
+    moved = [name for (name, _), a, b in zip(param_leaves(trainer.params),
+                                             before, after)
+             if not torch.equal(a, b)]
+    assert any(n.startswith("visual/") for n in moved)
+    assert any(n.startswith("model/layers/") for n in moved)
+    assert trainer.opt_state.count == 2
+    assert any(bool(q.any()) for q, _ in trainer.opt_state.mu)  # int8 moments
+
+    ckpt = trainer.save_checkpoint()
+    params = [t.clone() for _, t in param_leaves(trainer.params)]
+    mu = [q.clone() for q, _ in trainer.opt_state.mu]
+    trainer.global_step = 0
+    for _, t in param_leaves(trainer.params):
+        t.data.zero_()
+    trainer.load_checkpoint(ckpt)
+    assert trainer.global_step == 2 and trainer.opt_state.count == 2
+    for a, (_, b) in zip(params, param_leaves(trainer.params)):
+        assert torch.equal(a, b)
+    for a, (b, _) in zip(mu, trainer.opt_state.mu):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("over", [
+    dict(decode_quant="int8_kv"), dict(decode_quant="int4"),
+    dict(speculate_k=2), dict(gradient_accumulation_steps=2),
+    dict(offload_opt_state=True), dict(attn_impl="pallas"),
+    dict(decode_impl="flash"), dict(decode_impl="xla")])
+def test_unported_configurations_raise(tmp_path, over):
+    with pytest.raises(NotImplementedError):
+        _trainer(tmp_path, **over)
+
+
+def test_default_config_raises_for_quantised_rollouts(tmp_path):
+    assert SGRLVRConfig().decode_quant == "int8_kv"   # the JAX default, kept
+    cfg = tiny_config()
+    with pytest.raises(NotImplementedError):
+        SGRLVRTrainer(cfg, init_params(cfg), None, [], [], SGRLVRConfig())
+
+
+SAMPLES = [
+    "<think>two chairs by the table</think><answer>3</answer>",
+    "<think>x</think>\n<answer>3.5</answer>",
+    "<answer>B</answer>",
+    "no tags at all",
+    "<think>map</think><map>{\"chair\": [[1, 2]], \"table\": [[8, 8]]}</map>"
+    "<answer>4</answer>",
+]
+PROBLEMS = [("numerical", "<answer>3</answer>"),
+            ("multiple choice", "<answer>B</answer>"),
+            ("regression", "<answer>3.2</answer>")]
+
+
+def test_rewards_match_spacer_tpu():
+    import spacer_tpu.rewards as jr
+    import spacer_tpu_torch.rewards as tr
+
+    comps = [[{"content": s}] for s in SAMPLES]
+    assert tr.format_reward(comps) == jr.format_reward(comps)
+    for s in SAMPLES:
+        assert tr.extract_answer(s) == jr.extract_answer(s)
+        assert tr.extract_map_tag(s) == jr.extract_map_tag(s)
+    map_data = {"clip": {"cognitive_map": {"chair": [[1, 2]], "table": [[8, 8]]},
+                         "object_list": ["chair", "table"]}}
+    for (qtype, sol), maps in zip(PROBLEMS, (map_data, None, map_data)):
+        kw = dict(path=["clip.mp4"] * len(comps), map_data=maps,
+                  problem_type=[qtype])
+        assert (tr.accuracy_reward(comps, [sol] * len(comps), **kw)
+                == jr.accuracy_reward(comps, [sol] * len(comps), **kw)), qtype
+    objects = ["chair", "table"]
+    for s in SAMPLES:
+        assert (tr.extract_map_data(s, objects)
+                == jr.extract_map_data(s, objects))
