@@ -2,31 +2,43 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device facts (CUDA device of capability 9.0 required; no CPU path);
-  2. build the CUDA kernels from spacer_tpu_torch/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card, bf16, with
-     max abs error and median time: K1, K3, K4, K5 at the serving path's
-     shapes; K1-bwd (dq, dk/dv) and K2 at the training path's shapes
-     (prompt bucket TRAIN_PROMPT_BUCKET, left padding TRAIN_PROMPT_PAD,
-     which phase 5 checks its batches against) and at a two-prompt batch;
+  2. build the CUDA kernels from spacer_tpu_torch/csrc with nvcc (one nvcc
+     per source, all at once);
+  3. each kernel against its plain PyTorch version on the card, with max
+     abs error, median time, the card's least time for the same work
+     (roofline) and, where one PyTorch call computes the same function, that
+     call's time: K1, K3, K4, K5, K5-int8 at the serving path's shapes; K6
+     at every (K, N) of the 7B int4 decode with M = 4 and 16; K1-bwd
+     (dq, dk/dv), K2 and K2-int8 at the training path's shapes (prompt
+     bucket TRAIN_PROMPT_BUCKET, left padding TRAIN_PROMPT_PAD, which phase
+     5 checks its batches against) and at a two-prompt batch; the int8
+     weight-only decode products (dense_q8, no kernel of its own) against
+     the bf16 products they replace;
   4. the serving slice end to end at the full Qwen2.5-VL-7B geometry
      (random bf16 weights from a seed): 2 video + 2 text requests through
      QwenEngine.generate_many, greedy; every request must emit a token, all
      logits must be finite and every kernel of the path must have been
      launched; then the same requests with plain attention and the first
      run's tokens replayed, whose logits must agree with the kernel run's;
+  4b. the same with decode_quant="int4_kv" (K6 weight products, K5-int8
+     attention), replayed through the plain versions likewise; token
+     agreement with phase 4 is printed, not gated;
   5. the SG-RLVR training slice at Qwen2.5-VL-7B widths with the LM cut to
-     TRAIN_LM_LAYERS layers: two optimizer steps of SGRLVRTrainer.train on a
-     16-frame video row (merged temporal rollout through K2, rewards,
-     reference logps, shared-prefix forward/backward through K1, K1-bwd,
-     K3, K4, int8-moment AdamW); every K2 call of every K2_CHECK_EVERY-th
-     rollout step held against its plain version on its live inputs;
-     finite loss/kl/grad_norm, a nonzero gradient for every trainable
-     tensor, per-group gradient cosine against a plain-attention replay of
-     the first update (which must launch no kernel), moved int8 moments,
-     and every kernel of the path launched.
+     TRAIN_LM_LAYERS layers: two optimizer steps of SGRLVRTrainer.train at
+     the trainer's default decode_quant="int8_kv" on a 16-frame video row
+     (merged temporal rollout through K2-int8, rewards, reference logps,
+     shared-prefix forward/backward through K1, K1-bwd, K3, K4, int8-moment
+     AdamW); every K2-int8 call of every K2_CHECK_EVERY-th rollout step held
+     against its plain version on its live inputs; finite loss/kl/grad_norm,
+     a nonzero gradient for every trainable tensor, per-group gradient
+     cosine against a plain-attention replay of the first update (which
+     must launch no kernel), moved int8 moments, and every kernel of the
+     path launched;
+  5b. one bf16 rollout (decode_quant=None) of phase 5's first batch with
+     the trained params, its K2 calls held against the plain version live.
 The line before the last is a JSON object describing the kernels (launches
-summed over the serving and training slices); the last line is
-{"ok": true, "device": {...}}.
+summed over the paths of phases 4-5b, each counted from 0 just before it
+runs); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 """
@@ -89,6 +101,22 @@ TRAIN_G, TRAIN_NEW_TOKENS = 8, 256
 # layer at rollout steps 1, 1 + K2_CHECK_EVERY, ...
 K2_CHECK_EVERY = 32
 TIMED_RUNS = 25
+# K6 against its plain version: both sum exact bf16 x int4 products in f32,
+# in different orders, so |kernel - plain| <= K6_SUM_TOL * sum |terms| per
+# output (2^-24 per addition over K <= 18944 terms, with margin); a wrong
+# nibble, pairing or column gives errors of the order of the sum itself.
+K6_SUM_TOL = 1e-5
+# (K, N) of every int4 decode product at 7B widths: q/o, k/v, gate/up, down,
+# lm_head; M = the serving slots (4) and the rollout's B*G rows (16)
+K6_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+             (3584, 152064))
+K6_PATH_SHAPE = (4, 3584, 18944)   # the kernels line's K6 entry: gate/up
+# The card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet, at
+# its 700 W limit): HBM bytes per second and dense bf16 tensor-core
+# operations per second.  Every kernel here multiplies bf16 operands (int8
+# and int4 codes are widened to bf16 first).
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
 
 
 def log(*a):
@@ -143,11 +171,26 @@ def median_ms(fn) -> float:
     return statistics.median(times)
 
 
-def compare(name, kernel_fn, plain_fn, select=lambda x: x, rel_norm=False):
+def roofline(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes over HBM_BYTES_PER_S and its bf16 operations over BF16_OPS_PER_S,
+    and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def compare(name, kernel_fn, plain_fn, select=lambda x: x, rel_norm=False,
+            work=None, library_fn=None, allowed=None):
     """Kernel vs plain version on the same inputs.  Elementwise
     |out - ref| <= BF16_TOL * (1 + |ref|), or with `rel_norm` (gradients,
     whose elements sum many bf16-rounded products and cancel)
-    ||out - ref|| <= GRAD_REL_TOL * ||ref|| per output tensor."""
+    ||out - ref|| <= GRAD_REL_TOL * ||ref|| per output tensor, or
+    |out - ref| <= `allowed` (a tensor of the output's shape).
+    `work` = (bytes, bf16 operations) of the call, which gives its roofline
+    bound; `library_fn` one PyTorch call computing the same function, timed
+    as a yardstick (the port never calls it)."""
     out = kernel_fn()
     ref = plain_fn()
     torch.cuda.synchronize()
@@ -161,21 +204,55 @@ def compare(name, kernel_fn, plain_fn, select=lambda x: x, rel_norm=False):
             rel = float(diff.norm() / r.norm().clamp_min(1e-30))
             worst = max(worst, rel)
             within &= rel <= GRAD_REL_TOL
+        elif allowed is not None:
+            within &= bool((diff <= allowed).all())
         else:
             within &= bool((diff <= BF16_TOL * (1 + r.abs())).all())
     finite = all(bool(torch.isfinite(o).all()) for o in out)
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
+    library_ms = median_ms(library_fn) if library_fn is not None else None
+    bound = roofline(*work) if work is not None else {}
     tol = (f"rel-norm {worst:.3e} (tol {GRAD_REL_TOL:.0e})" if rel_norm
+           else "tol: summation order" if allowed is not None
            else f"tol {BF16_TOL:.0e} * (1 + |ref|)")
+    extra = "".join([
+        f" | bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
+        if bound else "",
+        f" | library {library_ms:.4f} ms" if library_ms is not None else ""])
     log(f"{name}: max_abs_err {err:.3e} ({tol}) | kernel {ms:.4f} ms | "
-        f"plain {plain_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms{extra}")
     if not (finite and within):
         raise RuntimeError(f"{name} disagrees with its plain version: "
                            f"err {err} finite {finite}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": library_ms}
 
 
-def check_kernels() -> dict:
+def causal_pairs(valid_rows) -> int:
+    """(query, key) pairs of a causal self-attention whose rows are
+    left-padded: a row with n valid positions has n (n + 1) / 2."""
+    return sum(n * (n + 1) // 2 for n in valid_rows)
+
+
+def sdpa_masked(q, k, v, mask):
+    """torch's scaled_dot_product_attention on the port's (B, S, H, D)
+    layout with a bool (B, 1, Sq, Skv) mask: the library yardstick."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+
+def int8_cache(x, gen):
+    """A bf16 cache with per-key magnitudes that differ -> (int8 codes,
+    (..., 1, T) f32 scales), as the int8_kv paths hold it."""
+    from spacer_tpu_torch.ops.quant import quantize_kv
+
+    mag = torch.rand(x.shape[:-1] + (1,), generator=gen, device=x.device)
+    q, s = quantize_kv(x.float() * (0.2 + 2.8 * mag))
+    return q, s[:, :, None].contiguous()
+
+
+def check_kernels(device="cuda") -> dict:
     """Phase 3: each kernel against its plain version at main-path shapes."""
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
     from spacer_tpu_torch.models.qwen25_vl.vision import vision_layout
@@ -184,7 +261,7 @@ def check_kernels() -> dict:
     from spacer_tpu_torch.ops import vit_window_attention as vwa
     from spacer_tpu_torch.ops.flash_attention import flash_attention
 
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
 
@@ -208,9 +285,16 @@ def check_kernels() -> dict:
         return x.reshape(B * P, -1)[valid_rows]
 
     kw = dict(causal=True, kv_mask=mask, return_lse=True)
+    n_valid = [P - p for p in pads]
+    k1_bytes = sum(n * (2 * H * D * 2 + 2 * Hkv * D * 2 + H * 4)
+                   for n in n_valid)
+    causal = torch.ones((P, P), dtype=torch.bool, device=dev).tril()
+    sdpa_mask = (causal[None] & mask[:, None, :])[:, None]
     results["K1"] = compare(
         "K1 flash_attention", lambda: flash_attention(q, k, v, **kw),
-        lambda: xla_attention(q, k, v, **kw), rows)
+        lambda: xla_attention(q, k, v, **kw), rows,
+        work=(k1_bytes, 4 * D * H * causal_pairs(n_valid)),
+        library_fn=lambda: sdpa_masked(q, k, v, sdpa_mask))
 
     # K5: decode, R=8 slots, Hkv=4, gq=7, Pmax=1024, Cmax=128
     R, gq, C = 8, 7, 128
@@ -231,11 +315,31 @@ def check_kernels() -> dict:
     out_all = fd.flash_ragged_decode_attention(*dargs, **dkw)
     if not bool(torch.isfinite(out_all).all()):
         raise RuntimeError("K5 wrote non-finite values (empty slots included)")
+    # bytes: q, the live keys' K and V, both biases, the f32 output
+    n_keys = int(pmask.sum() + rmask.sum())
+    qo_bytes = R * Hkv * gq * D * (2 + 4) + R * (P + C) * 4
+    k5_ops = 4 * D * gq * Hkv * n_keys
     results["K5"] = compare(
         "K5 flash_ragged_decode_attention",
         lambda: fd.flash_ragged_decode_attention(*dargs, **dkw),
         lambda: fd.ragged_decode_attention_reference(*dargs, **dkw),
-        lambda x: x[live])
+        lambda x: x[live],
+        work=(qo_bytes + n_keys * Hkv * D * 2 * 2, k5_ops))
+
+    # K5-int8 (decode_quant int8_kv / int4_kv): the same windows over int8
+    # codes and per-key f32 scales
+    (pk8, pks), (pv8, pvs), (tk8, tks), (tv8, tvs) = (
+        int8_cache(x, gen) for x in (pk, pv, tk, tv))
+    qargs = (qd, pk8, pv8, bias_p, tk8, tv8, bias_t, pks, pvs, tks, tvs)
+    if not bool(torch.isfinite(
+            fd.flash_ragged_decode_attention(*qargs, **dkw)).all()):
+        raise RuntimeError("K5-int8 wrote non-finite values")
+    results["K5-int8"] = compare(
+        "K5-int8 flash_ragged_decode_attention (int8 caches)",
+        lambda: fd.flash_ragged_decode_attention(*qargs, **dkw),
+        lambda: fd.ragged_decode_attention_reference(*qargs, **dkw),
+        lambda x: x[live],
+        work=(qo_bytes + n_keys * Hkv * (D + 4) * 2, k5_ops))
 
     # K3 / K4: ViT at grid (8, 16, 30): 16 heads, head_dim 80
     vcfg = QWEN25_VL_7B.vision
@@ -244,21 +348,95 @@ def check_kernels() -> dict:
     Hv, Dv = vcfg.num_heads, vcfg.head_dim
     scale = Dv ** -0.5
     qw, kw3, vw = (randn(Hv, n_win * wt, Dv) for _ in range(3))
-    bias = torch.from_numpy(vwa.validity_bias(layout.win_valid.sum(1), wt)).to(dev)
+    lengths = np.asarray(layout.win_valid.sum(1))
+    bias = torch.from_numpy(vwa.validity_bias(lengths, wt)).to(dev)
+    win_mask = (bias == 0).view(1, n_win, 1, wt)
+
+    def windows(x, n, w):
+        return x.view(Hv, n, w, Dv)
+
     results["K3"] = compare(
         f"K3 window_attention_hsd (16, {n_win * wt}, 80) wt={wt}",
         lambda: vwa.window_attention_hsd(qw, kw3, vw, bias, wt, scale),
-        lambda: vwa.window_attention_reference(qw, kw3, vw, bias, wt, scale))
+        lambda: vwa.window_attention_reference(qw, kw3, vw, bias, wt, scale),
+        work=(4 * Hv * int(lengths.sum()) * Dv * 2 + n_win * wt * 4,
+              4 * Dv * Hv * int((lengths.astype(np.int64) ** 2).sum())),
+        library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(
+            *(windows(x, n_win, wt) for x in (qw, kw3, vw)),
+            attn_mask=win_mask, scale=scale))
     S, chunk = layout.seq_len, layout.full_chunk
     qc, kc, vc = (randn(Hv, S, Dv) for _ in range(3))
     results["K4"] = compare(
         f"K4 chunk_attention_hsd (16, {S}, 80) wt={chunk}",
         lambda: vwa.chunk_attention_hsd(qc, kc, vc, chunk, scale),
-        lambda: vwa.chunk_attention_reference(qc, kc, vc, chunk, scale))
+        lambda: vwa.chunk_attention_reference(qc, kc, vc, chunk, scale),
+        work=(4 * Hv * S * Dv * 2, 4 * Dv * Hv * S * chunk),
+        library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(
+            *(windows(x, S // chunk, chunk) for x in (qc, kc, vc)),
+            scale=scale))
+    results.update(check_int4_matmul(gen))
+    dense_q8_cost(gen)
     return results
 
 
-def check_training_kernels() -> dict:
+def check_int4_matmul(gen) -> dict:
+    """Phase 3, K6: every (K, N) of the 7B int4 decode at M = 4 (serving
+    slots) and 16 (rollout rows), against its plain version within the
+    f32 summation-order bound K6_SUM_TOL * sum |terms|."""
+    from spacer_tpu_torch.ops import int4_matmul as im
+
+    dev = gen.device
+    results = {}
+    for K, N in K6_SHAPES:
+        codes = torch.randint(-7, 8, (K, N), generator=gen, device=dev,
+                              dtype=torch.int8)
+        packed = im.pack_int4(codes)
+        for M in (4, 16):
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            allowed = (K6_SUM_TOL * (x.float().abs() @ codes.float().abs())
+                       + 1e-6)
+            results[f"K6 M={M} K={K} N={N}"] = compare(
+                f"K6 int4_matmul M={M} K={K} N={N}",
+                lambda: im.int4_matmul(x, packed),
+                lambda: im.int4_matmul_reference(x, packed), allowed=allowed,
+                work=(K * N // 2 + M * K * 2 + M * N * 4, 2 * M * K * N))
+            del allowed
+        del codes, packed
+        torch.cuda.empty_cache()
+    M, K, N = K6_PATH_SHAPE
+    results["K6"] = results[f"K6 M={M} K={K} N={N}"]
+    return results
+
+
+def dense_q8_cost(gen):
+    """The int8 weight-only decode product (ops/quant.py dense_q8, which
+    widens the int8 kernel to bf16 on every call and has no kernel of its
+    own) against the bf16 product it replaces, at the rollout's M = 16 rows
+    and each (K, N) of a 7B decoder layer and the head; the per-step sums
+    are for TRAIN_LM_LAYERS layers plus the head."""
+    from spacer_tpu_torch.ops.quant import dense_q8, quantize_dense_int8
+
+    dev = gen.device
+    per_layer = {(3584, 3584): 2, (3584, 512): 2, (3584, 18944): 2,
+                 (18944, 3584): 1}
+    step_q8 = step_bf16 = 0.0
+    for (K, N), count in [*per_layer.items(), ((3584, 152064), None)]:
+        w = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((16, K), generator=gen, device=dev).to(torch.bfloat16)
+        p8 = quantize_dense_int8({"kernel": w})
+        q8 = median_ms(lambda: dense_q8(p8, x))
+        bf = median_ms(lambda: torch.matmul(x, w))
+        n = TRAIN_LM_LAYERS * count if count else 1
+        step_q8, step_bf16 = step_q8 + n * q8, step_bf16 + n * bf
+        log(f"dense_q8 M=16 K={K} N={N}: {q8:.4f} ms vs bf16 matmul "
+            f"{bf:.4f} ms ({q8 / bf:.2f}x)")
+        del w, p8
+    log(f"dense_q8 per rollout decode step ({TRAIN_LM_LAYERS} layers + head): "
+        f"{step_q8:.3f} ms vs bf16 {step_bf16:.3f} ms")
+    torch.cuda.empty_cache()
+
+
+def check_training_kernels(device="cuda") -> dict:
     """Phase 3b: K1-bwd (dq, dk/dv) and K2 against their plain versions, at
     the training slice's shapes (prompt bucket TRAIN_PROMPT_BUCKET, padding
     TRAIN_PROMPT_PAD: one prompt in the update, it and its temporal shuffle
@@ -269,7 +447,7 @@ def check_training_kernels() -> dict:
     from spacer_tpu_torch.ops import flash_attention as fa
     from spacer_tpu_torch.ops import flash_decode as fd
 
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
 
@@ -308,26 +486,60 @@ def check_training_kernels() -> dict:
         completion = dict(causal=True, kv_mask=cmask, q_offset=P)
         qc, kc, vc, doutc = randn(N, C, H, D), randn(N, P + C, Hkv, D), \
             randn(N, P + C, Hkv, D), randn(N, C, H, D)
-        for tag, (q_, k_, v_, do_, kw) in (
-                (f"prompt B={B} S={P}", (q, k, v, dout, prompt)),
+        # work of the backward: query rows (q, out, dout, dq bf16 + lse f32),
+        # the key rows the masks keep (k, v, and dk, dv for dk/dv), and the
+        # (query, key) pairs: 3 products per pair for dq, 4 for dk/dv
+        causal_p = torch.ones((P, P), dtype=torch.bool, device=dev).tril()
+        pad_c = torch.tensor(pads, device=dev).repeat_interleave(G)
+        i = torch.arange(C, device=dev)
+        comp_pairs = int((C * (P - pad_c)).sum()
+                         + torch.minimum(i[None] + 1, ends[:, None]).sum())
+        kv_rows = (P - pad_c + ends).sum().item()
+        shapes = {
+            "prompt": (sum(P - p for p in pads), sum(P - p for p in pads),
+                       causal_pairs([P - p for p in pads]),
+                       (causal_p[None] & mask[:, None, :])[:, None]),
+            "completion": (N * C, kv_rows, comp_pairs,
+                           (torch.cat([torch.ones((C, P), dtype=torch.bool,
+                                                  device=dev),
+                                       causal_p[:C, :C]], 1)[None]
+                            & cmask[:, None, :])[:, None]),
+        }
+        for tag, (q_, k_, v_, do_, kw), (q_rows, k_rows, pairs, sdpa_mask) in (
+                (f"prompt B={B} S={P}", (q, k, v, dout, prompt),
+                 shapes["prompt"]),
                 (f"completion N={N} Sq={C} Skv={P + C}",
-                 (qc, kc, vc, doutc, completion))):
+                 (qc, kc, vc, doutc, completion), shapes["completion"])):
             out, lse = fa.flash_attention(q_, k_, v_, return_lse=True, **kw)
             args = (q_, k_, v_, out, lse, do_)
             grads = (*fa.flash_attention_bwd_dq(*args, **kw),
                      *fa.flash_attention_bwd_dkv(*args, **kw))
             if not all(bool(torch.isfinite(g).all()) for g in grads):
                 raise RuntimeError(f"K1-bwd wrote non-finite gradients ({tag})")
+            # library: the backward of torch's SDPA (dq, dk and dv in one)
+            lq, lk, lv = (t.detach().requires_grad_(True) for t in (q_, k_, v_))
+            lout = sdpa_masked(lq, lk, lv, sdpa_mask)
+
+            def library(lout=lout, lq=lq, lk=lk, lv=lv, do_=do_):
+                return torch.autograd.grad(lout, (lq, lk, lv), do_,
+                                           retain_graph=True)
+
+            q_bytes = q_rows * (H * D * 2 + H * 4)     # q, out, dout, lse
             results[f"K1-bwd dq {tag}"] = compare(
                 f"K1-bwd dq [{tag}]",
                 lambda: fa.flash_attention_bwd_dq(*args, **kw),
                 lambda: fa.attention_bwd_reference(q_, k_, v_, do_, **kw)[0],
-                rel_norm=True)
+                rel_norm=True, library_fn=library,
+                work=(q_bytes + q_rows * H * D * 2 * 3
+                      + k_rows * Hkv * D * 2 * 2, 6 * D * H * pairs))
             results[f"K1-bwd dkv {tag}"] = compare(
                 f"K1-bwd dk/dv [{tag}]",
                 lambda: fa.flash_attention_bwd_dkv(*args, **kw),
                 lambda: fa.attention_bwd_reference(q_, k_, v_, do_, **kw)[1:],
-                rel_norm=True)
+                rel_norm=True, library_fn=library,
+                work=(q_bytes + q_rows * H * D * 2 * 2
+                      + k_rows * Hkv * D * 2 * 4, 8 * D * H * pairs))
+            del lout, lq, lk, lv
 
         # K2: grouped rollout decode, len(k2_pads) prompts x G completions,
         # prefix P, tails of C; the path's live steps run 1 .. C-1
@@ -338,15 +550,34 @@ def check_training_kernels() -> dict:
         bias_p = torch.where(left_padded(P, k2_pads), 0.0,
                              fd.MASK_VALUE)[:, None].float().contiguous()
         dkw = dict(group=G, group_q=gq, sm_scale=D ** -0.5)
+        # K2-int8: the same caches as int8 codes with per-key f32 scales
+        q8 = [int8_cache(x, gen) for x in (pk, pv, tk, tv)]
+        codes, scales = [c for c, _ in q8], [s_ for _, s_ in q8]
+        # work: q, the prefix keys the bias keeps, the live tail, the bias,
+        # the f32 output; per key 2 D bytes (bf16) or D + 4 (code + scale)
+        n_prefix = Hkv * sum(P - p for p in k2_pads)
         for step in steps:
+            n_tail = Bd * G * Hkv * step
+            fixed = Bd * Hkv * G * gq * D * (2 + 4) + Bd * P * 4
+            ops = 4 * D * (n_prefix * G * gq + n_tail * gq)
             dargs = (qd, pk, pv, bias_p, tk, tv, step)
             results[f"K2 P={P} step={step}"] = compare(
                 f"K2 flash_decode_attention P={P} pads {k2_pads} step={step}",
                 lambda: fd.flash_decode_attention(*dargs, **dkw),
-                lambda: fd.decode_attention_reference(*dargs, **dkw))
+                lambda: fd.decode_attention_reference(*dargs, **dkw),
+                work=(fixed + (n_prefix + n_tail) * 2 * D * 2, ops))
+            qargs = (qd, codes[0], codes[1], bias_p, codes[2], codes[3], step,
+                     *scales)
+            results[f"K2-int8 P={P} step={step}"] = compare(
+                f"K2-int8 flash_decode_attention P={P} pads {k2_pads} "
+                f"step={step}",
+                lambda: fd.flash_decode_attention(*qargs, **dkw),
+                lambda: fd.decode_attention_reference(*qargs, **dkw),
+                work=(fixed + (n_prefix + n_tail) * 2 * (D + 4), ops))
     results["K1-bwd dq"] = results[f"K1-bwd dq prompt B=1 S={path_P}"]
     results["K1-bwd dkv"] = results[f"K1-bwd dkv prompt B=1 S={path_P}"]
     results["K2"] = results[f"K2 P={path_P} step={C - 1}"]
+    results["K2-int8"] = results[f"K2-int8 P={path_P} step={C - 1}"]
     return results
 
 
@@ -417,23 +648,28 @@ class SliceProbe:
 
 
 class PlainAttention:
-    """For a reference run only: routes the slice's four attention calls to
-    the kernels' plain versions (the library itself has no such switch)."""
+    """For a reference run only: routes the slices' kernel calls (attention,
+    and K6 in the int4 weight products) to the kernels' plain versions (the
+    library itself has no such switch)."""
 
     def __enter__(self):
         import spacer_tpu_torch.models.qwen25_vl.language as lang
         import spacer_tpu_torch.models.qwen25_vl.vision as vis
+        import spacer_tpu_torch.ops.quant as quant
         import spacer_tpu_torch.serving.ragged as rag
         from spacer_tpu_torch.nn.attention import xla_attention
         from spacer_tpu_torch.ops import flash_decode as fd
         from spacer_tpu_torch.ops import vit_window_attention as vwa
+        from spacer_tpu_torch.ops.int4_matmul import int4_matmul_reference
 
         self.routes = [
             (lang, "dot_product_attention", xla_attention),
+            (lang, "flash_decode_attention", fd.decode_attention_reference),
             (vis, "window_attention_hsd", vwa.window_attention_reference),
             (vis, "chunk_attention_hsd", vwa.chunk_attention_reference),
             (rag, "flash_ragged_decode_attention",
              fd.ragged_decode_attention_reference),
+            (quant, "int4_matmul", int4_matmul_reference),
         ]
         self.saved = [getattr(m, n) for m, n, _ in self.routes]
         for m, n, plain in self.routes:
@@ -446,14 +682,32 @@ class PlainAttention:
 
 
 def serve_slice(cfg, device="cuda") -> dict:
-    """Phase 4: the serving slice (at full Qwen2.5-VL-7B geometry when
-    called from main), then the same requests again with the kernels
-    replaced by their plain versions and the first run's tokens replayed:
-    the logits of every sampled step must agree."""
+    """Phases 4 and 4b: the serving slice (at full Qwen2.5-VL-7B geometry
+    when called from main) with bf16 decode, then with decode_quant=
+    "int4_kv"; each run is followed by the same requests with the kernels
+    replaced by their plain versions and the run's tokens replayed: the
+    logits of every sampled step must agree.  Returns the launches of each
+    path, {path: {kernel id: count}}."""
+    params, proc, msgs = serving_setup(cfg, device)
+    counts, bf16 = serve_run(cfg, params, proc, msgs, None, SERVE_KERNELS)
+    counts_q, quant = serve_run(cfg, params, proc, msgs, "int4_kv",
+                                SERVE_INT4_KV_KERNELS)
+    agree = float(torch.cat([(a == b).float()
+                             for a, b in zip(bf16.tokens, quant.tokens)
+                             if a.shape == b.shape]).mean())
+    log(f"slice int4_kv vs bf16: {agree:.4f} of the sampled tokens agree "
+        f"(not gated) | decode ms per step median "
+        f"{statistics.median(quant.decode_ms):.2f} vs "
+        f"{statistics.median(bf16.decode_ms):.2f}")
+    return {"serve": counts, "serve int4_kv": counts_q}
+
+
+def serving_setup(cfg, device="cuda"):
+    """The serving slice's inputs: random bf16 params from seed 0, the
+    processor (MockTokenizer), and 2 video (16 frames 360x640) + 2 text
+    (~200 words) conversations.  -> (params, processor, messages)."""
     from spacer_tpu_torch.data.processor import MockTokenizer, VLProcessor
-    from spacer_tpu_torch.evalharness import QwenEngine
     from spacer_tpu_torch.models.qwen25_vl import init_params
-    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
@@ -478,8 +732,22 @@ def serve_slice(cfg, device="cuda") -> dict:
 
     msgs = [video("how many chairs are in the room"), text(200),
             video("which object is closest to the door"), text(190)]
-    gen_kw = dict(max_new_tokens=64, temperature=0.0, slots=4)
-    engine = QwenEngine(cfg, params, proc)
+    return params, proc, msgs
+
+
+SERVE_GEN_KW = dict(max_new_tokens=64, temperature=0.0, slots=4)
+
+
+def serve_run(cfg, params, proc, msgs, decode_quant, kernels):
+    """One serving path and its plain replay (see serve_slice)."""
+    from spacer_tpu_torch.evalharness import QwenEngine
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tag = f"slice[{decode_quant or 'bf16'}]"
+    gen_kw = SERVE_GEN_KW
+    engine = QwenEngine(cfg, params, proc, decode_quant=decode_quant)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     with SliceProbe() as probe:
@@ -491,25 +759,29 @@ def serve_slice(cfg, device="cuda") -> dict:
     peak = torch.cuda.max_memory_allocated()
     grid = engine.encode_request(msgs[0])["grid_thw"]
     tokens = sum(probe.lengths)
-    log(f"slice: {len(texts)} completions, lengths {probe.lengths}, video grid "
-        f"{grid}, wall {wall:.2f} s, {tokens / wall:.1f} generated tok/s")
-    log(f"slice: ViT encode ms {[round(x, 2) for x in probe.vit_ms]} | prefill "
+    log(f"{tag}: {len(texts)} completions, lengths {probe.lengths}, video "
+        f"grid {grid}, wall {wall:.2f} s (the batcher's weight quantization "
+        f"included), {tokens / wall:.1f} generated tok/s")
+    log(f"{tag}: ViT encode ms {[round(x, 2) for x in probe.vit_ms]} | prefill "
         f"ms per admission {[round(x, 2) for x in probe.prefill_ms]} | decode "
         f"ms per step median {statistics.median(probe.decode_ms):.2f} over "
         f"{len(probe.decode_ms)} steps")
-    log(f"slice: launches {counts} | max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"{tag}: launches {counts} | max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
     if len(probe.lengths) != len(msgs) or min(probe.lengths) < 1:
         raise RuntimeError(f"a request emitted no token: {probe.lengths}")
     if probe.nonfinite:
         raise RuntimeError(f"{probe.nonfinite} non-finite logits tensors")
     if grid != ((8, 16, 30),):
         raise RuntimeError(f"unexpected video grid {grid}")
-    if min(counts[k] for k in SERVE_KERNELS) < 1:
+    if min(counts[k] for k in kernels) < 1:
         raise RuntimeError(f"a kernel of the path was never launched: {counts}")
+    del engine
 
-    # reference run: plain attention everywhere, the kernel run's tokens
+    # reference run: plain versions everywhere, the kernel run's tokens
     with PlainAttention(), SliceProbe(replay=probe.tokens) as ref:
-        QwenEngine(cfg, params, proc).generate_many(msgs, **gen_kw)
+        QwenEngine(cfg, params, proc, decode_quant=decode_quant
+                   ).generate_many(msgs, **gen_kw)
     if launch_counts() != counts or len(ref.logits) != len(probe.logits):
         raise RuntimeError("the reference run launched a kernel or took "
                            "other steps")
@@ -517,13 +789,14 @@ def serve_slice(cfg, device="cuda") -> dict:
                        for a, b in zip(probe.logits, ref.logits)])
     agree = torch.cat([(a.argmax(-1) == b.argmax(-1)).float()
                        for a, b in zip(probe.logits, ref.logits)]).mean()
-    log(f"slice vs plain attention: logits cosine min {float(cos.min()):.5f} "
+    log(f"{tag} vs plain versions: logits cosine min {float(cos.min()):.5f} "
         f"median {float(cos.median()):.5f} over {len(cos)} sampled steps "
         f"(tol {SLICE_COS_TOL}) | greedy argmax agreement {float(agree):.4f}")
     if not float(cos.min()) >= SLICE_COS_TOL:
         raise RuntimeError("the kernel path's logits disagree with the plain "
-                           "attention path")
-    return counts
+                           "versions' path")
+    probe.logits = ref.logits = None
+    return counts, probe
 
 
 def _leaves(tree):
@@ -566,9 +839,9 @@ def k2_checked(step: int) -> bool:
 
 class DecodeProbe:
     """Times every grouped-rollout decode step (synchronised) and holds the
-    K2 calls of the k2_checked steps against decode_attention_reference on
-    the same live inputs (the plain call launches nothing, so the path's
-    launch count is unchanged)."""
+    K2 / K2-int8 calls of the k2_checked steps against
+    decode_attention_reference on the same live inputs (the plain call
+    launches nothing, so the path's launch count is unchanged)."""
 
     def __enter__(self):
         import spacer_tpu_torch.models.qwen25_vl.language as lang
@@ -588,11 +861,11 @@ class DecodeProbe:
             self.ms.append((kw["tail_len"], (time.perf_counter() - t0) * 1e3))
             return out
 
-        def checked(q, pk, pv, bias_p, tk, tv, step, **kw):
-            out = k2(q, pk, pv, bias_p, tk, tv, step, **kw)
+        def checked(q, pk, pv, bias_p, tk, tv, step, *scales, **kw):
+            out = k2(q, pk, pv, bias_p, tk, tv, step, *scales, **kw)
             if k2_checked(step):
                 ref = fd.decode_attention_reference(q, pk, pv, bias_p, tk, tv,
-                                                    step, **kw)
+                                                    step, *scales, **kw)
                 diff = (out - ref).abs()
                 self.k2_err.append(float(diff.max()))
                 self.k2_bad += not (bool(torch.isfinite(out).all()) and bool(
@@ -662,12 +935,14 @@ def replay_first_step(step_fn, names, params, batch, kw):
     return extra, seconds
 
 
-def make_trainer(cfg, device, steps: int, out_dir: str):
+def make_trainer(cfg, device, steps: int, out_dir: str, **overrides):
     """The training slice's SGRLVRTrainer at the widths of `cfg`: random
     bf16 weights from seed 0, one 16-frame 360x640 video row, temporal
     shuffle merged into the rollout (2 prompts x TRAIN_G completions of up
-    to TRAIN_NEW_TOKENS tokens), beta 0.04, int8 moments, `steps` steps.
-    Returns (trainer, the params' paths in param_leaves order)."""
+    to TRAIN_NEW_TOKENS tokens), the trainer's default int8_kv rollouts,
+    beta 0.04, int8 moments, `steps` steps; `overrides` replace
+    SGRLVRConfig fields.  Returns (trainer, the params' paths in
+    param_leaves order)."""
     from spacer_tpu_torch.data import MockTokenizer, VLProcessor, make_conversation
     from spacer_tpu_torch.models.qwen25_vl import init_params
     from spacer_tpu_torch.rewards import accuracy_reward, format_reward
@@ -693,9 +968,10 @@ def make_trainer(cfg, device, steps: int, out_dir: str):
     args = SGRLVRConfig(
         num_generations=TRAIN_G, max_completion_length=TRAIN_NEW_TOKENS,
         temperature=1.0, top_p=0.95, beta=0.04, temporal=True,
-        decode_quant=None, moment_dtype="int8", max_steps=steps,
+        moment_dtype="int8", max_steps=steps,
         num_train_epochs=steps, logging_steps=1, save_steps=10 ** 9,
         skip_failed_steps=False, output_dir=out_dir, seed=0)
+    args = dataclasses.replace(args, **overrides)
     trainer = SGRLVRTrainer(
         cfg, params, proc, [synthetic_reward, accuracy_reward, format_reward],
         [row], args)
@@ -703,13 +979,15 @@ def make_trainer(cfg, device, steps: int, out_dir: str):
 
 
 def train_slice(cfg, device="cuda") -> dict:
-    """Phase 5: two SG-RLVR optimizer steps through SGRLVRTrainer.train at
-    the widths of `cfg` (make_trainer): merged rollout (K1 prefill + K2
-    decode, K2 held against its plain version on live inputs), rewards,
-    group advantages, reference logps, the shared-prefix policy
-    forward/backward (K1, K1-bwd, K3, K4) and the int8-moment AdamW update.
-    The first update is replayed with plain attention (replay_first_step);
-    the replay's time is reported apart from the steps'."""
+    """Phases 5 and 5b: two SG-RLVR optimizer steps through
+    SGRLVRTrainer.train at the widths of `cfg` (make_trainer): merged
+    int8_kv rollout (K1 prefill + K2-int8 decode, held against its plain
+    version on live inputs), rewards, group advantages, reference logps, the
+    shared-prefix policy forward/backward (K1, K1-bwd, K3, K4) and the
+    int8-moment AdamW update.  The first update is replayed with plain
+    attention (replay_first_step); the replay's time is reported apart from
+    the steps'.  Then one bf16 rollout of the first step's batch
+    (rollout_bf16).  Returns {path: {kernel id: count}}."""
     from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
 
     out_dir = str(pathlib.Path(__file__).resolve().parent / "build" / "smoke_train")
@@ -734,6 +1012,14 @@ def train_slice(cfg, device="cuda") -> dict:
 
     spy.ref_logps_fn = step_fn.ref_logps_fn
     trainer.step_fn = spy
+    rollouts, generate = [], trainer.sampler.generate
+
+    def recorded_generate(*a, **kw):
+        if not rollouts:
+            rollouts.append((a, kw))
+        return generate(*a, **kw)
+
+    trainer.sampler.generate = recorded_generate
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -755,14 +1041,15 @@ def train_slice(cfg, device="cuda") -> dict:
             f"{st['prompt_len']} (pad {st['prompt_pad']}), completion lengths "
             f"{st['lengths']}")
     replay = sum(replay_s)
-    log(f"train: wall {wall:.1f} s = {len(steps)} steps {wall - replay:.1f} s "
+    log(f"train: decode_quant {trainer.args.decode_quant!r} | wall "
+        f"{wall:.1f} s = {len(steps)} steps {wall - replay:.1f} s "
         f"+ first-step replay (kernel and plain backward) {replay:.1f} s | "
         f"rollout decode ms per step median "
         f"{statistics.median(probe.decode_ms()):.2f} over "
         f"{len(probe.decode_ms())} unchecked steps of the "
         f"{cfg.text.num_layers}-layer LM | max_memory_allocated "
         f"{peak / 2**30:.2f} GiB | launches {counts}")
-    log(f"train: K2 vs plain on live rollout inputs: {len(probe.k2_err)} "
+    log(f"train: K2-int8 vs plain on live rollout inputs: {len(probe.k2_err)} "
         f"calls at (q shape, P, T) {sorted(probe.k2_shapes)}, max_abs_err "
         f"{max(probe.k2_err, default=float('nan')):.3e} (tol {BF16_TOL:.0e} "
         f"* (1 + |ref|)), {probe.k2_bad} outside")
@@ -778,22 +1065,67 @@ def train_slice(cfg, device="cuda") -> dict:
         if not all(math.isfinite(st[k]) for k in ("loss", "kl", "grad_norm")):
             raise RuntimeError(f"non-finite step metrics {st}")
     if not probe.k2_err or probe.k2_bad:
-        raise RuntimeError(f"K2 disagrees with its plain version on "
+        raise RuntimeError(f"K2-int8 disagrees with its plain version on "
                            f"{probe.k2_bad} of {len(probe.k2_err)} live calls")
     opt = trainer.opt_state
-    moved = [n for n, (_, ms), (_, vs) in zip(names, opt.mu, opt.nu)
+    moved = [g for g, (_, ms), (_, vs) in zip(opt.groups, opt.mu, opt.nu)
              if bool(ms.any()) and bool(vs.any())]
-    if opt.count != 2 or len(moved) != len(names):
+    if opt.count != 2 or len(moved) != len(opt.groups):
         raise RuntimeError(f"int8 moments did not move for "
-                           f"{len(names) - len(moved)} tensors")
+                           f"{len(opt.groups) - len(moved)} moment groups")
+    log(f"train: int8 moments moved for all {len(opt.groups)} moment groups "
+        f"({len(names)} tensors)")
     if min(counts[k] for k in TRAIN_KERNELS) < 1:
         raise RuntimeError(f"a kernel of the training path was never "
                            f"launched: {counts}")
+    a, kw = rollouts[0]
+    return {"train int8_kv": counts,
+            "rollout bf16": rollout_bf16(trainer, a, kw)}
+
+
+def rollout_bf16(trainer, args, kwargs) -> dict:
+    """Phase 5b: the first training step's rollout again, bf16 decode
+    (Sampler(decode_quant=None)), on the trained params: K2 held against its
+    plain version on the live inputs of the k2_checked steps.  Returns the
+    path's launches."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.sampler import Sampler
+
+    sampler = Sampler(trainer.cfg, eos_token_id=trainer.sampler.eos_token_id,
+                      pad_token_id=trainer.sampler.pad_token_id,
+                      length_bucket=trainer.sampler.length_bucket)
+    args = (*args[:2], trainer.params, *args[3:])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with DecodeProbe() as probe:
+        t0 = time.perf_counter()
+        out = sampler.generate(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"rollout bf16: {out.sequences.shape[0]} completions in {wall:.2f} s, "
+        f"decode ms per step median {statistics.median(probe.decode_ms()):.2f} "
+        f"over {len(probe.decode_ms())} unchecked steps | max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
+        f"{counts}")
+    log(f"rollout bf16: K2 vs plain on live inputs: {len(probe.k2_err)} calls, "
+        f"max_abs_err {max(probe.k2_err, default=float('nan')):.3e}, "
+        f"{probe.k2_bad} outside")
+    if not probe.k2_err or probe.k2_bad:
+        raise RuntimeError(f"K2 disagrees with its plain version on "
+                           f"{probe.k2_bad} of {len(probe.k2_err)} live calls")
+    if min(counts[k] for k in ROLLOUT_BF16_KERNELS) < 1:
+        raise RuntimeError(f"a kernel of the bf16 rollout was never launched: "
+                           f"{counts}")
     return counts
 
 
 SERVE_KERNELS = ("K1", "K3", "K4", "K5")
-TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2", "K3", "K4")
+SERVE_INT4_KV_KERNELS = ("K1", "K3", "K4", "K5-int8", "K6")
+TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
+ROLLOUT_BF16_KERNELS = ("K1", "K2", "K3", "K4")
 
 SOURCES = {
     "K1": ("flash_attention", "spacer_tpu_torch/csrc/flash_attention.cu",
@@ -807,12 +1139,20 @@ SOURCES = {
     "K2": ("flash_decode_attention",
            "spacer_tpu_torch/csrc/flash_decode_grouped.cu",
            "spacer_tpu/ops/flash_decode.py:215"),
+    "K2-int8": ("flash_decode_attention_int8",
+                "spacer_tpu_torch/csrc/flash_decode_grouped.cu",
+                "spacer_tpu/ops/flash_decode.py:215"),
     "K3": ("window_attention_hsd", "spacer_tpu_torch/csrc/vit_window_attention.cu",
            "spacer_tpu/ops/vit_window_attention.py:116"),
     "K4": ("chunk_attention_hsd", "spacer_tpu_torch/csrc/vit_window_attention.cu",
            "spacer_tpu/ops/vit_window_attention.py:187"),
     "K5": ("flash_ragged_decode_attention", "spacer_tpu_torch/csrc/flash_decode.cu",
            "spacer_tpu/ops/flash_decode.py:398"),
+    "K5-int8": ("flash_ragged_decode_attention_int8",
+                "spacer_tpu_torch/csrc/flash_decode.cu",
+                "spacer_tpu/ops/flash_decode.py:398"),
+    "K6": ("int4_matmul", "spacer_tpu_torch/csrc/int4_matmul.cu",
+           "spacer_tpu/ops/int4_matmul.py:112"),
 }
 
 
@@ -826,13 +1166,14 @@ def main():
     results.update(check_training_kernels())
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
-    serve_counts = serve_slice(QWEN25_VL_7B)
+    paths = serve_slice(QWEN25_VL_7B)
     gc.collect()
     torch.cuda.empty_cache()
     train_cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
         QWEN25_VL_7B.text, num_layers=TRAIN_LM_LAYERS))
-    train_counts = train_slice(train_cfg)
-    counts = {k: serve_counts[k] + train_counts[k] for k in SOURCES}
+    paths.update(train_slice(train_cfg))
+    counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
+    log("launches per path: " + json.dumps(paths))
     kernels = [{"name": SOURCES[k][0], "route": "cuda", "source": SOURCES[k][1],
                 "replaces": SOURCES[k][2], "launches": counts[k], **results[k]}
                for k in SOURCES]

@@ -3,8 +3,9 @@
 Builds the training slice of chip_smoke.py (chip_smoke.make_trainer:
 Qwen2.5-VL-7B widths, LM cut to chip_smoke.TRAIN_LM_LAYERS layers, random
 bf16 weights, one 16-frame video row, merged temporal rollout of 2 x 8
-completions of up to 256 tokens, int8 moments) and runs three training
-steps without the smoke's checks:
+completions of up to 256 tokens at --decode_quant, by default the
+trainer's own "int8_kv", int8 moments) and runs three training steps
+without the smoke's checks:
   steps 1-2: synchronised timers around the rollout's decode step, its
              top-p sampling, its prefill and the update (step 1 is the
              warm-up, so read step 2);
@@ -13,7 +14,7 @@ steps without the smoke's checks:
              gives the device's busy time).
 Every line goes to stdout, and to --out when given.
 
-    python3 profile_train.py [--out profile_train.txt]
+    python3 profile_train.py [--out profile_train.txt] [--decode_quant none]
 """
 
 from __future__ import annotations
@@ -31,8 +32,15 @@ import chip_smoke as cs
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    from spacer_tpu_torch.cli.common import decode_quant_arg
+    from spacer_tpu_torch.train.trainer import SGRLVRConfig
+
     ap.add_argument("--out", help="also write the report to this file")
-    out = ap.parse_args().out
+    ap.add_argument("--decode_quant", default=SGRLVRConfig().decode_quant,
+                    help="rollout decode quantization (default: the "
+                    "trainer's, %(default)s; 'none' for bf16)")
+    cli = ap.parse_args()
+    out = cli.out
     sink = open(out, "w") if out else None
 
     def log(*a):
@@ -55,7 +63,9 @@ def main():
         QWEN25_VL_7B.text, num_layers=cs.TRAIN_LM_LAYERS))
     out_dir = str(pathlib.Path(__file__).resolve().parent / "build"
                   / "profile_train")
-    trainer, _ = cs.make_trainer(cfg, "cuda", 3, out_dir)
+    trainer, _ = cs.make_trainer(cfg, "cuda", 3, out_dir,
+                                 decode_quant=decode_quant_arg(cli.decode_quant))
+    log(f"rollout decode_quant: {trainer.args.decode_quant!r}")
     row = trainer.dataset[0]
     rng = np.random.default_rng(0)
     phases = {}

@@ -7,9 +7,13 @@ chat-format {"messages": [...]} or shorthand {"prompt": "text",
 "video": "/path.mp4"?, "image": "/path.png"?}; each output row is the
 input row plus a "completion" field.
 
+Runs on the card (`--device cuda`, the default) unless given
+`--device cpu`; `--decode_quant int8_kv|int4_kv|...` quantizes the decode
+loop (ops/quant.py).
+
 Example:
     python -m spacer_tpu_torch.cli.serve --random_init true \\
-        --input_file prompts.jsonl --device cuda --slots 8
+        --input_file prompts.jsonl --slots 8 --decode_quant int4_kv
 """
 
 from __future__ import annotations
@@ -17,7 +21,11 @@ from __future__ import annotations
 import dataclasses
 import json
 
-from spacer_tpu_torch.cli.common import ModelArgs, load_model_and_processor
+from spacer_tpu_torch.cli.common import (
+    ModelArgs,
+    decode_quant_arg,
+    load_model_and_processor,
+)
 from spacer_tpu_torch.utils.config import parse_configs
 
 
@@ -54,7 +62,8 @@ def main(argv=None):
     if not serve_cfg.input_file:
         raise SystemExit("--input_file is required")
     cfg, params, processor = load_model_and_processor(model_args)
-    engine = QwenEngine(cfg, params, processor, top_p=serve_cfg.top_p)
+    engine = QwenEngine(cfg, params, processor, top_p=serve_cfg.top_p,
+                        decode_quant=decode_quant_arg(model_args.decode_quant))
 
     with open(serve_cfg.input_file) as f:
         rows = [json.loads(line) for line in f if line.strip()]

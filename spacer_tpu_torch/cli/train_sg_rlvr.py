@@ -3,12 +3,13 @@ spacer_tpu/cli/train_sg_rlvr.py, single process, one device).
 
 Example (random tiny weights; checkpoint loading is not ported yet):
     python -m spacer_tpu_torch.cli.train_sg_rlvr --random_init true \\
-        --device cuda --dataset_name SpaceR-151k.jsonl \\
+        --dataset_name SpaceR-151k.jsonl \\
         --cognitive_map_path annotation/cognitive_map.jsonl \\
-        --output_dir output/sg_rlvr --decode_quant none
+        --output_dir output/sg_rlvr
 
-Only bf16 rollouts are ported: `--decode_quant none` (or "") is required,
-any other value raises NotImplementedError (ROADMAP queue A item 4).
+Runs on the card (`--device cuda`, the default) unless given
+`--device cpu`.  Rollouts decode at `--decode_quant`, by default the
+trainer's "int8_kv"; `none` (or "") gives bf16 rollouts.
 """
 
 from __future__ import annotations
@@ -16,7 +17,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from spacer_tpu_torch.cli.common import ModelArgs, load_model_and_processor
+from spacer_tpu_torch.cli.common import (
+    ModelArgs,
+    decode_quant_arg,
+    load_model_and_processor,
+)
 from spacer_tpu_torch.utils.config import parse_configs
 
 
@@ -40,8 +45,7 @@ def main(argv=None):
 
     script, train_cfg, model_args = parse_configs(
         (ScriptArgs, SGRLVRConfig, ModelArgs), argv)
-    if str(train_cfg.decode_quant).lower() in ("", "none"):
-        train_cfg.decode_quant = None
+    train_cfg.decode_quant = decode_quant_arg(train_cfg.decode_quant)
     cfg, params, processor = load_model_and_processor(model_args)
 
     rows = load_jsonl_dataset(script.dataset_name)

@@ -13,12 +13,21 @@
 // keys are all masked ends as the mean of V over them: finite, and what the
 // plain versions compute.  Keys past the end of the run get -inf and weigh
 // exactly 0; the running max starts at -1e30, so no -inf - (-inf) arises.
+//
+// int8 K/V (K2-int8, flash_decode_grouped.cu): with KVT = int8_t the K and
+// V tiles arrive as int8 codes (half the bytes) and become bf16 in shared
+// memory (exact for |c| <= 127); the mask policy applies the per-key K scale
+// to the logit and supplies the per-key V scale, which multiplies p for the
+// P.V product only (the denominator sums the unscaled p, as the TPU kernel
+// does).  The default KVT = bf16 compiles to the code K1, K3, K4 and K2 had.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace spacer {
 
@@ -31,8 +40,10 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr float MASK_VALUE = -1e30f;
 
 // Byte offsets inside the dynamic shared memory of one CTA.  Every offset
-// is a multiple of 32 bytes, as WMMA loads and stores require.
-template <int D>
+// is a multiple of 32 bytes, as WMMA loads and stores require.  EXTRA_INFO
+// more 32-bit words of side data follow the info block (the int8 path's
+// per-key scales); the offsets do not depend on it.
+template <int D, int EXTRA_INFO = 0>
 struct TileSmem {
   static constexpr size_t q = 0;                                  // bf16 [BM][D]
   static constexpr size_t k = q + BM * D * sizeof(bf16);          // bf16 [BN][D]
@@ -42,7 +53,7 @@ struct TileSmem {
   static constexpr size_t p = s + BM * BN * sizeof(float);        // bf16 [BM][BN]
   static constexpr size_t ml = p + BM * BN * sizeof(bf16);        // f32  m[BM], l[BM]
   static constexpr size_t info = ml + 2 * BM * sizeof(float);     // 32-bit [BM + BN]
-  static constexpr size_t bytes = info + (BM + BN) * sizeof(float);
+  static constexpr size_t bytes = info + (BM + BN + EXTRA_INFO) * sizeof(float);
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -71,6 +82,25 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ sr
   }
 }
 
+// The same for 64 rows of D int8 codes, widened to bf16 (exact for
+// |c| <= 127) on the way into shared memory.
+template <int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const int8_t* __restrict__ src,
+                                          long stride, int n, int tid) {
+  constexpr int VPR = D / 16;
+  for (int i = tid; i < 64 * VPR; i += NTHREADS) {
+    const int r = i / VPR, c = (i % VPR) * 16;
+    int4 val = make_int4(0, 0, 0, 0);
+    if (r < n) val = *reinterpret_cast<const int4*>(src + r * stride + c);
+    const int8_t* codes = reinterpret_cast<const int8_t*>(&val);
+    __align__(16) bf16 wide[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) wide[j] = __int2bfloat16_rn(codes[j]);
+    *reinterpret_cast<uint4*>(dst + r * D + c) = *reinterpret_cast<const uint4*>(wide);
+    *reinterpret_cast<uint4*>(dst + r * D + c + 8) = *reinterpret_cast<const uint4*>(wide + 8);
+  }
+}
+
 __device__ __forceinline__ void store_out(bf16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 
@@ -79,12 +109,13 @@ __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 //   load_queries(n_q, tid, info) / load_keys(k0, nk, tid, info): fill the
 //     per-row / per-key side data of the tile into `info` (shared memory);
 //   apply(s, qi, kj, kg, info): the scaled score of row qi and key kj of the
-//     tile (global key index kg) after masking.
+//     tile (global key index kg) after masking;
+//   v_scale(kj, info) (int8 K/V only): the V scale of key kj of the tile.
 // Writes the normalised rows to out (bf16 or f32, row stride o_rs) and, if
 // lse is not null, the per-row log-sum-exp (stride 1).
-template <int D, class Mask, class OutT>
+template <int D, class Mask, class OutT, class KVT = bf16>
 __device__ void attend(const bf16* __restrict__ q, long q_rs, int n_q,
-                       const bf16* __restrict__ k, const bf16* __restrict__ v,
+                       const KVT* __restrict__ k, const KVT* __restrict__ v,
                        long kv_rs, int n_kv, float scale, const Mask& mask,
                        OutT* __restrict__ out, long o_rs, float* __restrict__ lse) {
   using namespace nvcuda;
@@ -151,8 +182,13 @@ __device__ void attend(const bf16* __restrict__ q, long q_rs, int n_q,
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
       const float alpha = __expf(m_old - m_new);
       const float p0 = __expf(s0 - m_new), p1 = __expf(s1 - m_new);
-      Pw[r * BN + c0] = __float2bfloat16(p0);
-      Pw[r * BN + c1] = __float2bfloat16(p1);
+      if constexpr (std::is_same<KVT, bf16>::value) {
+        Pw[r * BN + c0] = __float2bfloat16(p0);
+        Pw[r * BN + c1] = __float2bfloat16(p1);
+      } else {  // V scales multiply p for P.V only
+        Pw[r * BN + c0] = __float2bfloat16(p0 * mask.v_scale(c0, info));
+        Pw[r * BN + c1] = __float2bfloat16(p1 * mask.v_scale(c1, info));
+      }
       const float sum = warp_sum(p0 + p1);
       for (int c = lane; c < D; c += 32) Ow[r * D + c] *= alpha;
       if (lane == 0) {

@@ -23,8 +23,18 @@
 // that does not apply here.  R * Hkv CTAs (32 at 8 slots) under-fill the 132
 // SMs: splitting the key range across CTAs (split-K with a second reduction
 // pass) is the next step.
+//
+// K5-int8 (replaces the same kernel's `quant=True` branch): pk/pv/tk/tv
+// are int8 codes (half the bytes of the bound) with per-key f32 scales
+// (R, Hkv, 1, T).  Codes widen to f32 exactly as they are read; the K scale
+// multiplies the logit after sm_scale and before the bias, the V scale
+// multiplies p (before its bf16 rounding) for the P.V product only, while
+// the denominator sums the unscaled p, as the TPU kernel does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace spacer {
 
@@ -48,13 +58,20 @@ __device__ __forceinline__ float dec_warp_sum(float x) {
   return x;
 }
 
-template <int D>
+__device__ __forceinline__ float dec_load(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float dec_load(const int8_t* p) { return (float)*p; }
+
+// KVT = bf16: K5; KVT = int8_t: K5-int8 with the four scale arrays.
+template <int D, class KVT>
 __global__ void __launch_bounds__(DEC_THREADS)
-ragged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
-                     const bf16* __restrict__ pv, const float* __restrict__ bias_p,
-                     const bf16* __restrict__ tk, const bf16* __restrict__ tv,
-                     const float* __restrict__ bias_t, float* __restrict__ out,
+ragged_decode_kernel(const bf16* __restrict__ q, const KVT* __restrict__ pk,
+                     const KVT* __restrict__ pv, const float* __restrict__ bias_p,
+                     const KVT* __restrict__ tk, const KVT* __restrict__ tv,
+                     const float* __restrict__ bias_t, const float* __restrict__ pks,
+                     const float* __restrict__ pvs, const float* __restrict__ tks,
+                     const float* __restrict__ tvs, float* __restrict__ out,
                      int Hkv, int gq, int P, int C, float scale) {
+  constexpr bool kQuant = !std::is_same<KVT, bf16>::value;
   constexpr int CPT = (D + DEC_THREADS - 1) / DEC_THREADS;  // columns per thread
   __shared__ float q_s[GQ_MAX][D];
   __shared__ float s_s[GQ_MAX][DEC_CHUNK];
@@ -79,28 +96,35 @@ ragged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
 
   for (int win = 0; win < 2; ++win) {
     const int T = win ? C : P;
-    const bf16* K = (win ? tk : pk) + rh * T * D;
-    const bf16* V = (win ? tv : pv) + rh * T * D;
+    const KVT* K = (win ? tk : pk) + rh * T * D;
+    const KVT* V = (win ? tv : pv) + rh * T * D;
     const float* bias = (win ? bias_t : bias_p) + (long)r * T;
+    const float* KS = kQuant ? (win ? tks : pks) + rh * T : nullptr;
+    const float* VS = kQuant ? (win ? tvs : pvs) + rh * T : nullptr;
     for (int c0 = 0; c0 < T; c0 += DEC_CHUNK) {
       const int n = min(DEC_CHUNK, T - c0);
       for (int j = warp; j < n; j += DEC_WARPS) {
-        const bf16* kr = K + (long)(c0 + j) * D;
+        const KVT* kr = K + (long)(c0 + j) * D;
         float part[GQ_MAX];
 #pragma unroll
         for (int g = 0; g < GQ_MAX; ++g) part[g] = 0.f;
         for (int d = lane; d < D; d += 32) {
-          const float kd = __bfloat162float(kr[d]);
+          const float kd = dec_load(kr + d);
 #pragma unroll
           for (int g = 0; g < GQ_MAX; ++g)
             if (g < gq) part[g] += q_s[g][d] * kd;
         }
         const float bj = bias[c0 + j];
+        const float kj = kQuant ? KS[c0 + j] : 1.f;
 #pragma unroll
         for (int g = 0; g < GQ_MAX; ++g) {
           if (g < gq) {
             const float dot = dec_warp_sum(part[g]);
-            if (lane == 0) s_s[g][j] = dot * scale + bj;
+            if (lane == 0) {
+              float sj = dot * scale;
+              if (kQuant) sj *= kj;
+              s_s[g][j] = sj + bj;
+            }
           }
         }
       }
@@ -113,10 +137,13 @@ ragged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
         const float m_new = fmaxf(m_old, dec_warp_max(fmaxf(s0, s1)));
         const float p0 = __expf(s0 - m_new), p1 = __expf(s1 - m_new);
         const float sum = dec_warp_sum(p0 + p1);
-        // P.V reads the bf16-rounded p (the TPU kernel's p.astype(bf16));
-        // the denominator sums the f32 p
-        if (lane < n) s_s[g][lane] = __bfloat162float(__float2bfloat16(p0));
-        if (lane + 32 < n) s_s[g][lane + 32] = __bfloat162float(__float2bfloat16(p1));
+        // P.V reads the bf16-rounded p (the TPU kernel's p.astype(bf16)),
+        // times the V scale for int8 caches; the denominator sums the f32 p
+        const float w0 = kQuant && lane < n ? VS[c0 + lane] : 1.f;
+        const float w1 = kQuant && lane + 32 < n ? VS[c0 + lane + 32] : 1.f;
+        if (lane < n) s_s[g][lane] = __bfloat162float(__float2bfloat16(kQuant ? p0 * w0 : p0));
+        if (lane + 32 < n)
+          s_s[g][lane + 32] = __bfloat162float(__float2bfloat16(kQuant ? p1 * w1 : p1));
         if (lane == 0) {
           const float alpha = __expf(m_old - m_new);
           a_s[g] = alpha;
@@ -134,7 +161,7 @@ ragged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
           for (int g = 0; g < GQ_MAX; ++g)
             if (g < gq) acc[g][c] *= a_s[g];
           for (int j = 0; j < n; ++j) {
-            const float vd = __bfloat162float(V[(long)(c0 + j) * D + d]);
+            const float vd = dec_load(V + (long)(c0 + j) * D + d);
 #pragma unroll
             for (int g = 0; g < GQ_MAX; ++g)
               if (g < gq) acc[g][c] += s_s[g][j] * vd;
@@ -156,17 +183,19 @@ ragged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pk,
   }
 }
 
-template <int D>
+template <int D, class KVT>
 static cudaError_t launch_decode(const void* q, const void* pk, const void* pv,
                                  const void* bias_p, const void* tk, const void* tv,
-                                 const void* bias_t, void* out, int R, int Hkv,
-                                 int gq, int P, int C, float scale,
+                                 const void* bias_t, const void* pks, const void* pvs,
+                                 const void* tks, const void* tvs, void* out, int R,
+                                 int Hkv, int gq, int P, int C, float scale,
                                  cudaStream_t stream) {
   dim3 grid(Hkv, R);
-  ragged_decode_kernel<D><<<grid, DEC_THREADS, 0, stream>>>(
-      (const bf16*)q, (const bf16*)pk, (const bf16*)pv, (const float*)bias_p,
-      (const bf16*)tk, (const bf16*)tv, (const float*)bias_t, (float*)out, Hkv,
-      gq, P, C, scale);
+  ragged_decode_kernel<D, KVT><<<grid, DEC_THREADS, 0, stream>>>(
+      (const bf16*)q, (const KVT*)pk, (const KVT*)pv, (const float*)bias_p,
+      (const KVT*)tk, (const KVT*)tv, (const float*)bias_t, (const float*)pks,
+      (const float*)pvs, (const float*)tks, (const float*)tvs, (float*)out, Hkv, gq, P,
+      C, scale);
   return cudaGetLastError();
 }
 
@@ -178,6 +207,19 @@ extern "C" int spacer_ragged_decode_attention(
     int Hkv, int gq, int P, int C, int D, float scale, void* stream) {
   if (gq < 1 || gq > spacer::GQ_MAX) return (int)cudaErrorInvalidValue;
   if (D != 128) return (int)cudaErrorInvalidValue;  // the LM head dim
-  return spacer::launch_decode<128>(q, pk, pv, bias_p, tk, tv, bias_t, out, R, Hkv,
-                                    gq, P, C, scale, (cudaStream_t)stream);
+  return spacer::launch_decode<128, spacer::bf16>(
+      q, pk, pv, bias_p, tk, tv, bias_t, nullptr, nullptr, nullptr, nullptr, out, R, Hkv,
+      gq, P, C, scale, (cudaStream_t)stream);
+}
+
+extern "C" int spacer_ragged_decode_attention_int8(
+    const void* q, const void* pk, const void* pv, const void* bias_p,
+    const void* tk, const void* tv, const void* bias_t, const void* pks,
+    const void* pvs, const void* tks, const void* tvs, void* out, int R, int Hkv,
+    int gq, int P, int C, int D, float scale, void* stream) {
+  if (gq < 1 || gq > spacer::GQ_MAX || D != 128 || !pks || !pvs || !tks || !tvs)
+    return (int)cudaErrorInvalidValue;
+  return spacer::launch_decode<128, int8_t>(q, pk, pv, bias_p, tk, tv, bias_t, pks, pvs,
+                                            tks, tvs, out, R, Hkv, gq, P, C, scale,
+                                            (cudaStream_t)stream);
 }

@@ -17,15 +17,17 @@ from spacer_tpu_torch.serving.batcher import ContinuousBatcher
 
 class QwenEngine:
     """Batched multimodal generation through ContinuousBatcher, on the
-    device that holds `params`."""
+    device that holds `params`.  `decode_quant` (None, "int8", "int8_kv",
+    "int4", "int4_kv") is passed to every batcher."""
 
     def __init__(self, cfg, params, processor, length_bucket: int = 512,
-                 top_p: float = 1.0):
+                 top_p: float = 1.0, decode_quant: str | None = None):
         self.cfg = cfg
         self.params = params
         self.processor = processor
         self.length_bucket = length_bucket
         self.top_p = top_p
+        self.decode_quant = decode_quant
         self._calls = 0
         self._batchers: dict = {}   # geometry key -> ContinuousBatcher
 
@@ -96,5 +98,6 @@ class QwenEngine:
                 eos_token_id=self.processor.eos_token_id,
                 pad_token_id=self.processor.pad_token_id,
                 temperature=temperature, top_p=self.top_p,
-                chunk_steps=chunk_steps, seed=self._calls)
+                decode_quant=self.decode_quant, chunk_steps=chunk_steps,
+                seed=self._calls)
         return self._batchers[key]

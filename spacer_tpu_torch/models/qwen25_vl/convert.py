@@ -6,6 +6,11 @@ the (in, out) layout and unstacks those axes into lists of per-layer dicts.
 Leaves may be numpy arrays or anything `np.asarray` accepts (a JAX array
 included), so this module needs no JAX.  Every parity test builds both
 packages' weights this way, so both compute the same function.
+
+Quantization leaves of a pre-quantized tree (ops/quant.py: the int8 codes
+"kernel_q8" / "kernel_q4" and the f32 "q8_scale", "q4_row_scale",
+"q4_col_scale") keep their own dtype whatever `dtype` asks: JAX's dense_q4
+multiplies the f32 column scale, so a cast would change the function.
 """
 
 from __future__ import annotations
@@ -27,9 +32,13 @@ def _tensor(x, dtype, device):
     return t if dtype is None or not t.is_floating_point() else t.to(dtype)
 
 
+QUANT_SCALES = ("q8_scale", "q4_row_scale", "q4_col_scale")
+
+
 def _convert(tree, dtype, device):
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+        return {k: _convert(v, None if k in QUANT_SCALES else dtype, device)
+                for k, v in tree.items()}
     return _tensor(tree, dtype, device)
 
 

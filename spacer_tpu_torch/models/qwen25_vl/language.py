@@ -14,7 +14,8 @@ Python loop replaces lax.scan).  Two ways to attend over earlier keys:
   block keys/values.  Per-layer remat is torch.utils.checkpoint.
 
 The grouped rollout's decode step (`lm_decode_step_split`, head-major caches,
-attention through K2) writes its tail caches in place, under no_grad.
+attention through K2, or K2-int8 for int8 caches) writes its tail caches in
+place, under no_grad.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from spacer_tpu_torch.nn.core import (
 )
 from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
 from spacer_tpu_torch.ops.flash_decode import flash_decode_attention
+from spacer_tpu_torch.ops.quant import quantize_kv
 
 Params = Any
 
@@ -240,19 +242,23 @@ def lm_forward(params: Params, cfg: TextConfig, *,
 def _decode_layer_hm(h, layer_params, prefix_entry, tail_entry, *,
                      cfg: TextConfig, cos, sin, bias_p, tail_len: int,
                      tail_index: int, group: int):
-    """Head-major decode layer (spacer_tpu's _decode_layer_hm, bf16 caches):
-    writes this step's k/v into the tail IN PLACE at `tail_index`, then
-    attends through K2 (ops/flash_decode.flash_decode_attention: the kernel
-    on CUDA tensors, its plain version on CPU tensors).
+    """Head-major decode layer (spacer_tpu's _decode_layer_hm): writes this
+    step's k/v into the tail IN PLACE at `tail_index`, then attends through
+    K2 (ops/flash_decode.flash_decode_attention: the kernel on CUDA tensors,
+    its plain version on CPU tensors).
 
     h: (N = B*G, 1, D); prefix_entry (pk, pv): (B, Hkv, P, Dh), shared by the
     G completions of each prompt; tail_entry (tk, tv): (N, Hkv, T, Dh);
-    bias_p: (B, 1, P) additive f32; tail_len: live tail length after the
-    write (a host int)."""
+    int8 caches (decode_quant "int8_kv" / "int4_kv") are 4-tuples (codes k,
+    codes v, f32 k scales, f32 v scales) with scales (B, Hkv, P) /
+    (N, Hkv, T), and the new k/v are quantized per (row, head) and written
+    with their scales; bias_p: (B, 1, P) additive f32; tail_len: live tail
+    length after the write (a host int)."""
     N = h.shape[0]
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    pk, pv = prefix_entry
-    tk, tv = tail_entry
+    pk, pv = prefix_entry[:2]
+    tk, tv = tail_entry[:2]
+    quant = len(prefix_entry) == 4
     B, G, group_q = pk.shape[0], group, H // Hkv
     p_attn = layer_params["self_attn"]
 
@@ -261,14 +267,25 @@ def _decode_layer_hm(h, layer_params, prefix_entry, tail_entry, *,
     k = dense(p_attn["k_proj"], x).reshape(N, 1, Hkv, Dh)
     v = dense(p_attn["v_proj"], x).reshape(N, 1, Hkv, Dh)
     q, k = apply_rope(q, k, cos, sin)
-    tk[:, :, tail_index] = k[:, 0].to(tk.dtype)   # in-place tail write
-    tv[:, :, tail_index] = v[:, 0].to(tv.dtype)
+    # in-place tail write
+    if quant:
+        tks, tvs = tail_entry[2:]
+        (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
+        tk[:, :, tail_index], tks[:, :, tail_index] = kq, ks
+        tv[:, :, tail_index], tvs[:, :, tail_index] = vq, vs
+        scales = (prefix_entry[2][:, :, None], prefix_entry[3][:, :, None],
+                  tks[:, :, None], tvs[:, :, None])
+    else:
+        tk[:, :, tail_index] = k[:, 0].to(tk.dtype)
+        tv[:, :, tail_index] = v[:, 0].to(tv.dtype)
+        scales = (None,) * 4
 
     # q rows per (b, hkv): the group's G completions x group_q heads
     q_hm = q.reshape(B, G, Hkv, group_q, Dh).permute(0, 2, 1, 3, 4).reshape(
         B, Hkv, G * group_q, Dh).contiguous()
     out = flash_decode_attention(q_hm, pk, pv, bias_p, tk, tv, tail_len,
-                                 group=G, group_q=group_q, sm_scale=Dh ** -0.5)
+                                 *scales, group=G, group_q=group_q,
+                                 sm_scale=Dh ** -0.5)
     out = out.reshape(B, Hkv, G, group_q, Dh).permute(0, 2, 1, 3, 4).reshape(
         N, 1, H * Dh).to(h.dtype)
     h = h + dense(p_attn["o_proj"], out)
@@ -285,7 +302,8 @@ def lm_decode_step_split(layers, params: Params, cfg: TextConfig, input_ids,
 
     input_ids (N, 1); position_ids (3, N, 1); prefix_split: per layer
     (pk, pv) (B, Hkv, P, Dh); bias_p (B, 1, P) f32; tail_split: per layer
-    (tk, tv) (N, Hkv, T, Dh); tail_len = tail_index + 1."""
+    (tk, tv) (N, Hkv, T, Dh) (or int8 4-tuples, see _decode_layer_hm);
+    tail_len = tail_index + 1."""
     h = embed(params["embed_tokens"], input_ids)
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=h.device)
     cos, sin = mrope_cos_sin(position_ids, inv_freq, cfg.mrope_section)

@@ -29,6 +29,14 @@ def dense_init(in_dim: int, out_dim: int, use_bias: bool = True, *,
 
 
 def dense(params, x):
+    if "kernel_q8" in params:  # weight-only int8 (ops/quant.py)
+        from spacer_tpu_torch.ops.quant import dense_q8
+
+        return dense_q8(params, x)
+    if "kernel_q4" in params:  # packed int4 (ops/quant.py + K6)
+        from spacer_tpu_torch.ops.quant import dense_q4
+
+        return dense_q4(params, x)
     y = torch.matmul(x, params["kernel"])
     if "bias" in params:
         y = y + params["bias"]

@@ -9,9 +9,15 @@ in its `.launches` attribute.
 | K1-bwd dq  | flash_attention.flash_attention_bwd_dq       | ops/flash_attention.py:338 (call 368) |
 | K1-bwd dkv | flash_attention.flash_attention_bwd_dkv      | ops/flash_attention.py:338 (call 413) |
 | K2         | flash_decode.flash_decode_attention          | ops/flash_decode.py:215               |
+| K2-int8    | flash_decode.flash_decode_attention_int8     | ops/flash_decode.py:215 (quant=True)  |
 | K3         | vit_window_attention.window_attention_hsd    | ops/vit_window_attention.py:116       |
 | K4         | vit_window_attention.chunk_attention_hsd     | ops/vit_window_attention.py:187       |
 | K5         | flash_decode.flash_ragged_decode_attention   | ops/flash_decode.py:398               |
+| K5-int8    | flash_decode.flash_ragged_decode_attention_int8 | ops/flash_decode.py:398 (quant=True) |
+| K6         | int4_matmul.int4_matmul                      | ops/int4_matmul.py:112                |
+
+K2 and K5 take the int8 caches' scales and hand such calls to their int8
+wrappers, so each kernel keeps its own count.
 """
 
 from __future__ import annotations
@@ -26,8 +32,11 @@ def kernel_wrappers() -> dict:
     )
     from spacer_tpu_torch.ops.flash_decode import (
         flash_decode_attention,
+        flash_decode_attention_int8,
         flash_ragged_decode_attention,
+        flash_ragged_decode_attention_int8,
     )
+    from spacer_tpu_torch.ops.int4_matmul import int4_matmul
     from spacer_tpu_torch.ops.vit_window_attention import (
         chunk_attention_hsd,
         window_attention_hsd,
@@ -38,9 +47,12 @@ def kernel_wrappers() -> dict:
         "K1-bwd dq": flash_attention_bwd_dq,
         "K1-bwd dkv": flash_attention_bwd_dkv,
         "K2": flash_decode_attention,
+        "K2-int8": flash_decode_attention_int8,
         "K3": window_attention_hsd,
         "K4": chunk_attention_hsd,
         "K5": flash_ragged_decode_attention,
+        "K5-int8": flash_ragged_decode_attention_int8,
+        "K6": int4_matmul,
     }
 
 

@@ -49,6 +49,14 @@ SIGNATURES = {
     # q, pk, pv, bias_p, tk, tv, part_o, part_lse, out,
     # B, Hkv, G, gq, P, T, step, D, pchunk, tchunk, scale, stream
     "spacer_grouped_decode_attention": [P] * 9 + [I] * 10 + [F, P],
+    # q, pk, pv, bias_p, tk, tv, bias_t, pk_s, pv_s, tk_s, tv_s, out,
+    # R, Hkv, gq, P, C, D, scale, stream
+    "spacer_ragged_decode_attention_int8": [P] * 12 + [I] * 6 + [F, P],
+    # q, pk, pv, bias_p, tk, tv, pk_s, pv_s, tk_s, tv_s, part_o, part_lse, out,
+    # B, Hkv, G, gq, P, T, step, D, pchunk, tchunk, scale, stream
+    "spacer_grouped_decode_attention_int8": [P] * 13 + [I] * 10 + [F, P],
+    # x, packed, part, out, M, K, N, bk, splits, rows, stream
+    "spacer_int4_matmul": [P] * 4 + [I] * 6 + [P],
 }
 
 def build_dir() -> Path:
@@ -80,20 +88,47 @@ def library_path() -> Path:
     return build_dir() / f"libspacer_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise with nvcc's output on a failure."""
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it exists."""
+    """Compile csrc/*.cu into the hashed library unless it exists: one nvcc
+    per source, all started together, then one link."""
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)
+    tag = f"{lib.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = lib.parent / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(_start([_nvcc(), *compile_flags, "-c", "-o", str(obj),
+                             str(src)]))
+    try:
+        _run(procs)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        _run([_start([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                      *map(str, objs)])])
+        os.replace(tmp, lib)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib
 
 

@@ -25,8 +25,19 @@ which the first `step` positions are live.  Output (B, Hkv, G*group_q, Dh)
 f32.  Bound on the H100: K/V bytes; the prefix is read once per group and
 dead tail space not at all (split-K over key chunks, see the .cu note).
 
+K2-int8 and K5-int8 replace the same TPU kernels' `quant=True` branches
+(decode_quant "int8_kv" / "int4_kv"): the caches hold int8 codes with f32
+per-key scales (ops/quant.py::quantize_kv), pk_scale/pv_scale of the prefix
+shape with Dh -> 1 ((B, Hkv, 1, P) / (R, Hkv, 1, Pmax)) and tk_scale/tv_scale
+likewise.  K scales multiply the f32 logits, V scales the probabilities
+after the softmax and before their cast and P.V; the softmax denominator
+sums the unscaled probabilities.  `flash_decode_attention` and
+`flash_ragged_decode_attention` take the scales (None = bf16 caches) and
+hand int8 caches to `flash_decode_attention_int8` /
+`flash_ragged_decode_attention_int8`.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its kernel launches in `.launches`.
+raises.  Each kernel's wrapper counts its launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -40,43 +51,77 @@ HEAD_DIMS = (128,)
 GROUP_Q_MAX = 8
 
 
-def ragged_decode_attention_reference(q, pk, pv, bias_p, tk, tv, bias_t, *,
+def ragged_decode_attention_reference(q, pk, pv, bias_p, tk, tv, bias_t,
+                                      pk_scale=None, pv_scale=None,
+                                      tk_scale=None, tv_scale=None, *,
                                       group_q: int, sm_scale: float):
-    """Plain version: one softmax over [prefix | ring] per query head, f32
-    logits, probabilities rounded to the cache dtype before P.V."""
+    """Plain version (spacer_tpu's ragged_decode_attention_reference): one
+    softmax over [prefix | ring] per query head, f32 logits (times the K
+    scales), probabilities times the V scales, rounded to q's dtype before
+    P.V."""
     cdt = q.dtype
     qf = q.float()
     lp = torch.einsum("rhgd,rhpd->rhgp", qf, pk.to(cdt).float()) * sm_scale
     lt = torch.einsum("rhgd,rhtd->rhgt", qf, tk.to(cdt).float()) * sm_scale
+    if pk_scale is not None:
+        lp = lp * pk_scale
+        lt = lt * tk_scale
     lp = lp + bias_p[:, :, None, :]
     lt = lt + bias_t[:, :, None, :]
     P = pk.shape[2]
     probs = torch.softmax(torch.cat([lp, lt], dim=-1), dim=-1)
-    probs = probs.to(cdt).float()
-    return (torch.einsum("rhgp,rhpd->rhgd", probs[..., :P], pv.to(cdt).float())
-            + torch.einsum("rhgt,rhtd->rhgd", probs[..., P:],
+    probs_p, probs_t = probs[..., :P], probs[..., P:]
+    if pv_scale is not None:
+        probs_p = probs_p * pv_scale
+        probs_t = probs_t * tv_scale
+    return (torch.einsum("rhgp,rhpd->rhgd", probs_p.to(cdt).float(),
+                         pv.to(cdt).float())
+            + torch.einsum("rhgt,rhtd->rhgd", probs_t.to(cdt).float(),
                            tv.to(cdt).float()))
 
 
-def _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q):
-    """Hopper legality gate of K5 (raises ValueError)."""
+def _check_caches(q, pk, pv, tk, tv, scales):
+    """bf16 q; caches bf16 without scales, or int8 codes with f32 scales of
+    the caches' shape with Dh -> 1, contiguous on q's device."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"q must be bf16, got {q.dtype}")
+    quant = scales[0] is not None
+    if any((s is not None) != quant for s in scales):
+        raise ValueError("pass all four scales (int8 caches) or none (bf16)")
+    code = torch.int8 if quant else torch.bfloat16
+    for name, t in (("pk", pk), ("pv", pv), ("tk", tk), ("tv", tv)):
+        if t.dtype != code:
+            raise ValueError(f"{name} must be {code} with"
+                             f"{'' if quant else 'out'} scales, got {t.dtype}")
+    if quant:
+        for name, s, c in zip(("pk_scale", "pv_scale", "tk_scale", "tv_scale"),
+                              scales, (pk, pv, tk, tv)):
+            if (s.dtype != torch.float32
+                    or s.shape != (*c.shape[:2], 1, c.shape[2])):
+                raise ValueError(f"{name} must be f32 of shape "
+                                 f"{(*c.shape[:2], 1, c.shape[2])}")
+    for name, t in (("pk", pk), ("pv", pv), ("tk", tk), ("tv", tv),
+                    *zip(("pk_scale", "pv_scale", "tk_scale", "tv_scale"),
+                         scales)):
+        if t is not None and (t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous on q's device")
+
+
+def _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q, scales):
+    """Hopper legality gate of K5 / K5-int8 (raises ValueError)."""
     R, Hkv, gq, Dh = q.shape
     if gq != group_q or not 1 <= gq <= GROUP_Q_MAX:
         raise ValueError(f"group_q {gq} must match and be <= {GROUP_Q_MAX}")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {Dh} not in {HEAD_DIMS}")
-    for name, t in (("q", q), ("pk", pk), ("pv", pv), ("tk", tk), ("tv", tv)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bf16 (int8 caches are not "
-                             f"ported yet), got {t.dtype}")
+    _check_caches(q, pk, pv, tk, tv, scales)
     if pk.shape != pv.shape or pk.shape[:2] != (R, Hkv) or pk.shape[3] != Dh:
         raise ValueError(f"bad prefix shape {tuple(pk.shape)}")
     if tk.shape != tv.shape or tk.shape[:2] != (R, Hkv) or tk.shape[3] != Dh:
         raise ValueError(f"bad ring shape {tuple(tk.shape)}")
     if bias_p.shape != (R, 1, pk.shape[2]) or bias_t.shape != (R, 1, tk.shape[2]):
         raise ValueError("biases must be (R, 1, Pmax) and (R, 1, Cmax)")
-    for name, t in (("q", q), ("pk", pk), ("pv", pv), ("tk", tk), ("tv", tv),
-                    ("bias_p", bias_p), ("bias_t", bias_t)):
+    for name, t in (("q", q), ("bias_p", bias_p), ("bias_t", bias_t)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on q's device")
     if bias_p.dtype != torch.float32 or bias_t.dtype != torch.float32:
@@ -91,15 +136,23 @@ def _inference_only(name, *tensors):
                            "under torch.no_grad() or on detached tensors")
 
 
-def flash_ragged_decode_attention(q, pk, pv, bias_p, tk, tv, bias_t, *,
-                                  group_q: int, sm_scale: float):
-    """K5.  Returns (R, Hkv, group_q, Dh) f32."""
+def flash_ragged_decode_attention(q, pk, pv, bias_p, tk, tv, bias_t,
+                                  pk_scale=None, pv_scale=None, tk_scale=None,
+                                  tv_scale=None, *, group_q: int,
+                                  sm_scale: float):
+    """K5 (bf16 caches) or, given scales, K5-int8.  Returns
+    (R, Hkv, group_q, Dh) f32."""
+    scales = (pk_scale, pv_scale, tk_scale, tv_scale)
     if q.device.type == "cpu":
         return ragged_decode_attention_reference(
-            q, pk, pv, bias_p, tk, tv, bias_t, group_q=group_q,
+            q, pk, pv, bias_p, tk, tv, bias_t, *scales, group_q=group_q,
+            sm_scale=sm_scale)
+    if pk_scale is not None:
+        return flash_ragged_decode_attention_int8(
+            q, pk, pv, bias_p, tk, tv, bias_t, *scales, group_q=group_q,
             sm_scale=sm_scale)
     _inference_only("flash_ragged_decode_attention", q, pk, pv, tk, tv)
-    _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q)
+    _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q, scales)
     R, Hkv, gq, Dh = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     p = _build.ptr
@@ -115,6 +168,30 @@ def flash_ragged_decode_attention(q, pk, pv, bias_p, tk, tv, bias_t, *,
 flash_ragged_decode_attention.launches = 0
 
 
+def flash_ragged_decode_attention_int8(q, pk, pv, bias_p, tk, tv, bias_t,
+                                       pk_scale, pv_scale, tk_scale, tv_scale,
+                                       *, group_q: int, sm_scale: float):
+    """K5-int8 (CUDA tensors only).  Returns (R, Hkv, group_q, Dh) f32."""
+    scales = (pk_scale, pv_scale, tk_scale, tv_scale)
+    if pk_scale is None:
+        raise ValueError("K5-int8 needs the four cache scales")
+    _inference_only("flash_ragged_decode_attention_int8", q)
+    _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q, scales)
+    R, Hkv, gq, Dh = q.shape
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    p = _build.ptr
+    err = _build.kernels().spacer_ragged_decode_attention_int8(
+        p(q), p(pk), p(pv), p(bias_p), p(tk), p(tv), p(bias_t), *map(p, scales),
+        p(out), R, Hkv, gq, pk.shape[2], tk.shape[2], Dh, float(sm_scale),
+        _build.stream_ptr(q.device))
+    _build.check(err, "flash_ragged_decode_attention_int8")
+    flash_ragged_decode_attention_int8.launches += 1
+    return out
+
+
+flash_ragged_decode_attention_int8.launches = 0
+
+
 # -- K2: shared-prefix grouped decode --------------------------------------
 
 # keys per split-K job of the kernel: prefix chunks and live tail chunks
@@ -122,44 +199,53 @@ PREFIX_CHUNK = 128
 TAIL_CHUNK = 128
 
 
-def decode_attention_reference(q, pk, pv, bias_p, tk, tv, step: int, *,
-                               group: int, group_q: int, sm_scale: float):
-    """Plain version of K2 (spacer_tpu's decode_attention_reference, bf16
-    branch): one softmax over [prefix | tail] per query row, f32 logits,
-    tail positions >= step masked, probabilities rounded to the cache dtype
-    before P.V."""
+def decode_attention_reference(q, pk, pv, bias_p, tk, tv, step: int,
+                               pk_scale=None, pv_scale=None, tk_scale=None,
+                               tv_scale=None, *, group: int, group_q: int,
+                               sm_scale: float):
+    """Plain version of K2 / K2-int8 (spacer_tpu's
+    decode_attention_reference): one softmax over [prefix | tail] per query
+    row, f32 logits (times the K scales), tail positions >= step masked,
+    probabilities times the V scales, rounded to q's dtype before P.V."""
     B, Hkv, GQ, Dh = q.shape
     G, P, T = group, pk.shape[2], tk.shape[2]
     cdt = q.dtype
     qf = q.float().reshape(B, Hkv, G, group_q, Dh)
     lp = torch.einsum("bhgcd,bhpd->bhgcp", qf, pk.to(cdt).float()) * sm_scale
+    if pk_scale is not None:
+        lp = lp * pk_scale[:, :, None, :, :]
     lp = lp + bias_p[:, None, None, :, :]
     qt = qf.permute(0, 2, 1, 3, 4).reshape(B * G, Hkv, group_q, Dh)
     lt = torch.einsum("nhcd,nhtd->nhct", qt, tk.to(cdt).float()) * sm_scale
+    if tk_scale is not None:
+        lt = lt * tk_scale
     live = torch.arange(T, device=q.device) < step
     lt = torch.where(live, lt, torch.tensor(MASK_VALUE, device=q.device))
     lp_rows = lp.permute(0, 2, 1, 3, 4).reshape(B * G, Hkv, group_q, P)
     probs = torch.softmax(torch.cat([lp_rows, lt], dim=-1), dim=-1)
-    probs = probs.to(cdt).float()
     probs_p = probs[..., :P].reshape(B, G, Hkv, group_q, P)
-    out_p = torch.einsum("bghcp,bhpd->bghcd", probs_p, pv.to(cdt).float())
-    out_t = torch.einsum("nhct,nhtd->nhcd", probs[..., P:], tv.to(cdt).float())
+    probs_t = probs[..., P:]
+    if pv_scale is not None:
+        probs_p = probs_p * pv_scale[:, None, :, 0, None, :]
+    if tv_scale is not None:
+        probs_t = probs_t * tv_scale
+    out_p = torch.einsum("bghcp,bhpd->bghcd", probs_p.to(cdt).float(),
+                         pv.to(cdt).float())
+    out_t = torch.einsum("nhct,nhtd->nhcd", probs_t.to(cdt).float(),
+                         tv.to(cdt).float())
     out = out_p.reshape(B * G, Hkv, group_q, Dh) + out_t
     return out.reshape(B, G, Hkv, group_q, Dh).permute(0, 2, 1, 3, 4).reshape(
         B, Hkv, GQ, Dh)
 
 
-def _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q):
-    """Hopper legality gate of K2 (raises ValueError)."""
+def _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q, scales):
+    """Hopper legality gate of K2 / K2-int8 (raises ValueError)."""
     B, Hkv, GQ, Dh = q.shape
     if GQ != group * group_q or not 1 <= GQ <= 64:
         raise ValueError(f"q rows {GQ} must be group*group_q and <= 64")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {Dh} not in {HEAD_DIMS}")
-    for name, t in (("q", q), ("pk", pk), ("pv", pv), ("tk", tk), ("tv", tv)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bf16 (int8 caches are not "
-                             f"ported yet), got {t.dtype}")
+    _check_caches(q, pk, pv, tk, tv, scales)
     if pk.shape != pv.shape or pk.shape[:2] != (B, Hkv) or pk.shape[3] != Dh:
         raise ValueError(f"bad prefix shape {tuple(pk.shape)}")
     if (tk.shape != tv.shape or tk.shape[:2] != (B * group, Hkv)
@@ -169,29 +255,39 @@ def _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q):
         raise ValueError("bias_p must be (B, 1, P) f32")
     if not isinstance(step, int) or not 1 <= step <= tk.shape[2]:
         raise ValueError(f"step must be a Python int in [1, T], got {step!r}")
-    for name, t in (("q", q), ("pk", pk), ("pv", pv), ("tk", tk), ("tv", tv),
-                    ("bias_p", bias_p)):
+    for name, t in (("q", q), ("bias_p", bias_p)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on q's device")
 
 
-def flash_decode_attention(q, pk, pv, bias_p, tk, tv, step: int, *,
-                           group: int, group_q: int, sm_scale: float):
-    """K2.  Returns (B, Hkv, G*group_q, Dh) f32."""
+def _grouped_scratch(q, P: int, step: int):
+    B, Hkv, GQ, Dh = q.shape
+    n_splits = -(-P // PREFIX_CHUNK) + -(-step // TAIL_CHUNK)
+    kw = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty((B, Hkv, n_splits, GQ, Dh), **kw),
+            torch.empty((B, Hkv, n_splits, GQ), **kw), torch.empty(q.shape, **kw))
+
+
+def flash_decode_attention(q, pk, pv, bias_p, tk, tv, step: int,
+                           pk_scale=None, pv_scale=None, tk_scale=None,
+                           tv_scale=None, *, group: int, group_q: int,
+                           sm_scale: float):
+    """K2 (bf16 caches) or, given scales, K2-int8.  Returns
+    (B, Hkv, G*group_q, Dh) f32."""
+    scales = (pk_scale, pv_scale, tk_scale, tv_scale)
     if q.device.type == "cpu":
         return decode_attention_reference(
-            q, pk, pv, bias_p, tk, tv, step, group=group, group_q=group_q,
-            sm_scale=sm_scale)
+            q, pk, pv, bias_p, tk, tv, step, *scales, group=group,
+            group_q=group_q, sm_scale=sm_scale)
+    if pk_scale is not None:
+        return flash_decode_attention_int8(
+            q, pk, pv, bias_p, tk, tv, step, *scales, group=group,
+            group_q=group_q, sm_scale=sm_scale)
     _inference_only("flash_decode_attention", q, pk, pv, tk, tv)
-    _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q)
+    _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q, scales)
     B, Hkv, GQ, Dh = q.shape
     P, T = pk.shape[2], tk.shape[2]
-    n_splits = -(-P // PREFIX_CHUNK) + -(-step // TAIL_CHUNK)
-    part_o = torch.empty((B, Hkv, n_splits, GQ, Dh), dtype=torch.float32,
-                         device=q.device)
-    part_lse = torch.empty((B, Hkv, n_splits, GQ), dtype=torch.float32,
-                           device=q.device)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    part_o, part_lse, out = _grouped_scratch(q, P, step)
     p = _build.ptr
     err = _build.kernels().spacer_grouped_decode_attention(
         p(q), p(pk), p(pv), p(bias_p), p(tk), p(tv), p(part_o), p(part_lse),
@@ -203,3 +299,28 @@ def flash_decode_attention(q, pk, pv, bias_p, tk, tv, step: int, *,
 
 
 flash_decode_attention.launches = 0
+
+
+def flash_decode_attention_int8(q, pk, pv, bias_p, tk, tv, step: int,
+                                pk_scale, pv_scale, tk_scale, tv_scale, *,
+                                group: int, group_q: int, sm_scale: float):
+    """K2-int8 (CUDA tensors only).  Returns (B, Hkv, G*group_q, Dh) f32."""
+    scales = (pk_scale, pv_scale, tk_scale, tv_scale)
+    if pk_scale is None:
+        raise ValueError("K2-int8 needs the four cache scales")
+    _inference_only("flash_decode_attention_int8", q)
+    _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q, scales)
+    B, Hkv, GQ, Dh = q.shape
+    P, T = pk.shape[2], tk.shape[2]
+    part_o, part_lse, out = _grouped_scratch(q, P, step)
+    p = _build.ptr
+    err = _build.kernels().spacer_grouped_decode_attention_int8(
+        p(q), p(pk), p(pv), p(bias_p), p(tk), p(tv), *map(p, scales),
+        p(part_o), p(part_lse), p(out), B, Hkv, group, group_q, P, T, step, Dh,
+        PREFIX_CHUNK, TAIL_CHUNK, float(sm_scale), _build.stream_ptr(q.device))
+    _build.check(err, "flash_decode_attention_int8")
+    flash_decode_attention_int8.launches += 1
+    return out
+
+
+flash_decode_attention_int8.launches = 0

@@ -6,6 +6,13 @@ then decode the G completions of every prompt with the prompt's KV SHARED
 across the group and a per-completion tail cache, through K2
 (ops/flash_decode.flash_decode_attention) on every layer of every step.
 Caches are head-major: prefix (B, Hkv, P, Dh), tails (B*G, Hkv, T, Dh).
+
+`decode_quant` quantizes the decode loop only (the prefill and the first
+token stay in the params' dtype), once per generate call because the params
+change every optimizer step: "int8" / "int4" quantize the layer weights and
+an untied lm_head (ops/quant.py; int4 through K6), "int8_kv" / "int4_kv"
+also hold the prefix and tail caches as int8 codes with per-(position,
+head) f32 scales, attended through K2-int8.
 The JAX loop is a lax.while_loop over doubling tail buckets (a static-shape
 artefact); here the tails are allocated at max_new_tokens, the live length
 is a host int (K2 reads only live tail chunks), and the all-done early exit
@@ -35,8 +42,10 @@ from spacer_tpu_torch.models.qwen25_vl.model import (
     merge_vision_embeds,
 )
 from spacer_tpu_torch.nn.core import embed
+from spacer_tpu_torch.ops.quant import quantize_decode_model, quantize_kv
 
 MASK_VALUE = -1e30
+DECODE_QUANTS = (None, "int8", "int8_kv", "int4", "int4_kv")
 # host check of the all-done early exit every this many decode steps
 DONE_CHECK_EVERY = 8
 
@@ -111,32 +120,54 @@ def completion_mask_from_ids(completion_ids: np.ndarray, eos_token_id: int
     return (seq <= eos_idx[:, None]).astype(np.int32)
 
 
-def _prep_decode(prefix_cache):
-    """Prefill cache {"k","v": [(B, P, Hkv, Dh)] per layer} -> per-layer
-    head-major (pk, pv) (B, Hkv, P, Dh), once per generate call."""
-    return [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
-            for k, v in zip(prefix_cache["k"], prefix_cache["v"])]
+def _prep_decode(model, prefix_cache, n_rows: int, max_new_tokens: int,
+                 decode_quant=None):
+    """The decode loop's state, once per generate call (spacer_tpu's
+    _prep_decode, head-major): -> (model params for decode, per-layer
+    prefix entries, per-layer tail entries).
+
+    The prefill cache {"k","v": [(B, P, Hkv, Dh)] per layer} becomes
+    head-major (B, Hkv, P, Dh) prefix entries; tails (n_rows, Hkv,
+    max_new_tokens, Dh) start at zero.  decode_quant quantizes the layer
+    weights and an untied lm_head ("int8*" / "int4*"); "*_kv" makes every
+    entry a 4-tuple of int8 codes and f32 scales (..., P) / (..., T)."""
+    model = quantize_decode_model(model, decode_quant)
+    prefix = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+              for k, v in zip(prefix_cache["k"], prefix_cache["v"])]
+    pk0 = prefix[0][0]
+    tshape = (n_rows, pk0.shape[1], max_new_tokens, pk0.shape[3])
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=pk0.device)
+
+    if decode_quant in ("int8_kv", "int4_kv"):
+        def quant_entry(k, v):
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            return kq, vq, ks, vs
+
+        prefix = [quant_entry(k, v) for k, v in prefix]
+        tails = [(zeros(tshape, torch.int8), zeros(tshape, torch.int8),
+                  zeros(tshape[:-1], torch.float32),
+                  zeros(tshape[:-1], torch.float32)) for _ in prefix]
+    else:
+        tails = [(zeros(tshape, pk0.dtype), zeros(tshape, pk0.dtype))
+                 for _ in prefix]
+    return model, prefix, tails
 
 
-def _decode_loop(params, text_cfg, prefix_split, prefix_mask, first_tokens,
-                 deltas, prompt_len: int, group: int, max_new_tokens: int,
-                 temperature: float, top_p: float, eos_token_id: int,
-                 generator) -> torch.Tensor:
+def _decode_loop(model, text_cfg, prefix_split, tails, prefix_mask,
+                 first_tokens, deltas, prompt_len: int, group: int,
+                 max_new_tokens: int, temperature: float, top_p: float,
+                 eos_token_id: int, generator) -> torch.Tensor:
     """Shared-prefix autoregressive loop -> tokens (B*G, max_new)."""
     N = first_tokens.shape[0]
     dev = first_tokens.device
-    pk0 = prefix_split[0][0]
-    tshape = (N, pk0.shape[1], max_new_tokens, pk0.shape[3])
-    tails = [(torch.zeros(tshape, dtype=pk0.dtype, device=dev),
-              torch.zeros(tshape, dtype=pk0.dtype, device=dev))
-             for _ in prefix_split]
     bias_p = torch.where(prefix_mask, 0.0, MASK_VALUE)[:, None, :].float()
     bias_p = bias_p.contiguous()
     tokens = torch.zeros((N, max_new_tokens), dtype=torch.long, device=dev)
     tokens[:, 0] = first_tokens
     done = first_tokens == eos_token_id
     eos = torch.full_like(first_tokens, eos_token_id)
-    model = params["model"]
     for step in range(1, max_new_tokens):
         if step % DONE_CHECK_EVERY == 1 and bool(done.all()):
             break
@@ -166,8 +197,9 @@ def _jax_exit_point(tokens: np.ndarray, eos_token_id: int) -> np.ndarray:
 def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
               deltas, generator, *, num_generations: int,
               max_new_tokens: int, temperature: float, top_p: float,
-              eos_token_id: int) -> torch.Tensor:
-    """Prefill once per prompt (B rows), then the grouped decode loop.
+              eos_token_id: int, decode_quant=None) -> torch.Tensor:
+    """Prefill once per prompt (B rows), then the grouped decode loop (its
+    quantized weights and caches are dropped when it returns).
     input_embeds: (B, S, D) left-padded."""
     B, S, _ = input_embeds.shape
     G = num_generations
@@ -180,18 +212,22 @@ def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
     last = logits[:, -1].repeat_interleave(G, dim=0)        # (B*G, V)
     deltas = deltas.reshape(-1).repeat_interleave(G)
     first = sample_logits(last, generator, temperature, top_p)
-    return _decode_loop(params, text_cfg, _prep_decode(cache), prompt_mask,
-                        first, deltas, S, G, max_new_tokens, temperature,
-                        top_p, eos_token_id, generator)
+    model, prefix, tails = _prep_decode(params["model"], cache, B * G,
+                                        max_new_tokens, decode_quant)
+    del cache
+    return _decode_loop(model, text_cfg, prefix, tails, prompt_mask, first,
+                        deltas, S, G, max_new_tokens, temperature, top_p,
+                        eos_token_id, generator)
 
 
 class Sampler:
     """Padding/bucketing around the grouped rollout (spacer_tpu's Sampler).
 
+    `decode_quant` is one of DECODE_QUANTS (other values raise ValueError).
     Configurations the port does not run raise NotImplementedError:
-    quantized decode (`decode_quant`, ROADMAP queue A item 4), speculative
-    decode (`speculate_k > 0`) and a device mesh.  Decode is head-major
-    through K2 (the kernel on CUDA, its plain version on the CPU)."""
+    speculative decode (`speculate_k > 0`) and a device mesh.  Decode is
+    head-major through K2 / K2-int8 (the kernels on CUDA, their plain
+    versions on the CPU)."""
 
     def __init__(self, cfg, eos_token_id: int | None = None,
                  pad_token_id: int | None = None, length_bucket: int = 128,
@@ -199,10 +235,10 @@ class Sampler:
                  speculate_k: int | None = None, mesh=None):
         from spacer_tpu_torch.models.registry import family_for_config
 
-        if decode_quant is not None:
-            raise NotImplementedError(
-                f"decode_quant={decode_quant!r}: int8 / int4 rollouts are not "
-                "ported (ROADMAP queue A item 4); use decode_quant=None")
+        if decode_quant not in DECODE_QUANTS:
+            raise ValueError(
+                f"unknown decode_quant {decode_quant!r} "
+                "(expected None, 'int8', 'int8_kv', 'int4' or 'int4_kv')")
         if speculate_k:
             raise NotImplementedError("speculative rollout decode is not "
                                       "ported (ROADMAP queue A item 3)")
@@ -215,6 +251,7 @@ class Sampler:
         self.pad_token_id = (pad_token_id if pad_token_id is not None
                              else cfg.pad_token_id)
         self.length_bucket = length_bucket
+        self.decode_quant = decode_quant
 
     def _bucket(self, n: int) -> int:
         b = self.length_bucket
@@ -269,7 +306,8 @@ class Sampler:
             params, cfg.text, embeds, tensor(position_ids),
             tensor(attention_mask, torch.bool), tensor(deltas), generator,
             num_generations=num_generations, max_new_tokens=max_new_tokens,
-            temperature=temp, top_p=topp, eos_token_id=self.eos_token_id)
+            temperature=temp, top_p=topp, eos_token_id=self.eos_token_id,
+            decode_quant=self.decode_quant)
         tokens = _jax_exit_point(tokens.cpu().numpy(), self.eos_token_id)
         mask = completion_mask_from_ids(tokens, self.eos_token_id)
         return SampleOutput(sequences=tokens, completion_mask=mask,

@@ -11,7 +11,14 @@ Decode runs in chunks of up to `chunk_steps` clock-ring steps
 (serving/ragged.py, K5 attention), leaving a chunk early once every slot is
 done.  Slots admitted at different times sit at different depths; the
 per-slot prefix caches and the shared-clock completion ring are updated in
-place.  Speculative decoding and int8 caches are not ported.
+place.
+
+`decode_quant` (None, "int8", "int8_kv", "int4", "int4_kv") quantizes the
+layer weights and an untied lm_head for the decode chunks only, once per
+batcher (ops/quant.py; int4 through K6); the admission prefill stays in the
+params' dtype.  "*_kv" holds the prefix and ring caches as int8 codes with
+(R, Hkv, T) f32 scales (attention through K5-int8); admission quantizes
+each slot's prefix.  Speculative decoding is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ import torch
 
 from spacer_tpu_torch.models.qwen25_vl.language import init_kv_cache, lm_forward
 from spacer_tpu_torch.nn.core import embed
+from spacer_tpu_torch.ops.quant import quantize_decode_model, quantize_kv
 from spacer_tpu_torch.sampler.sampler import (
+    DECODE_QUANTS,
     completion_mask_from_ids,
     prologue,
     sample_logits,
@@ -49,12 +58,19 @@ class ContinuousBatcher:
     def __init__(self, cfg, params, *, slots: int = 8, prompt_len: int = 512,
                  max_new_tokens: int = 128, eos_token_id: Optional[int] = None,
                  pad_token_id: Optional[int] = None, temperature: float = 0.0,
-                 top_p: float = 1.0, speculate_k: int = 0,
-                 chunk_steps: int = 32, seed: int = 0):
+                 top_p: float = 1.0, decode_quant: Optional[str] = None,
+                 speculate_k: int = 0, chunk_steps: int = 32, seed: int = 0):
+        if decode_quant not in DECODE_QUANTS:
+            raise ValueError(
+                f"unknown decode_quant {decode_quant!r} "
+                "(expected None, 'int8', 'int8_kv', 'int4' or 'int4_kv')")
         if speculate_k:
             raise NotImplementedError("speculative decoding is not ported")
         self.cfg = cfg
         self.params = params
+        # the decode chunks' params (quantized once per batcher); the
+        # admission prefill reads params["model"]
+        self.decode_model = quantize_decode_model(params["model"], decode_quant)
         self.R, self.Pmax, self.Cmax = slots, prompt_len, max_new_tokens
         self.eos = eos_token_id if eos_token_id is not None else cfg.eos_token_id
         self.pad = pad_token_id if pad_token_id is not None else cfg.pad_token_id
@@ -72,9 +88,17 @@ class ContinuousBatcher:
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        self.caches = [(zeros(pshape, self.dtype), zeros(pshape, self.dtype),
-                        zeros(tshape, self.dtype), zeros(tshape, self.dtype))
-                       for _ in range(tc.num_layers)]
+        if decode_quant in ("int8_kv", "int4_kv"):
+            i8, f32 = torch.int8, torch.float32
+            self.caches = [(zeros(pshape, i8), zeros(pshape, i8),
+                            zeros(tshape, i8), zeros(tshape, i8),
+                            zeros(pshape[:-1], f32), zeros(pshape[:-1], f32),
+                            zeros(tshape[:-1], f32), zeros(tshape[:-1], f32))
+                           for _ in range(tc.num_layers)]
+        else:
+            self.caches = [(zeros(pshape, self.dtype), zeros(pshape, self.dtype),
+                            zeros(tshape, self.dtype), zeros(tshape, self.dtype))
+                           for _ in range(tc.num_layers)]
         i64 = torch.int64
         self.pmask = zeros((self.R, self.Pmax), torch.bool)
         self.delta = zeros((self.R,), i64)
@@ -167,11 +191,17 @@ class ContinuousBatcher:
             self.params["model"], self.cfg.text, input_embeds=input_embeds,
             position_ids=position_ids, kv_mask=prompt_mask, cache=cache,
             cache_index=0, last_only=True)
-        # (Bu, Pmax, Hkv, Dh) prefill cache -> head-major slot rows, in place
+        # (Bu, Pmax, Hkv, Dh) prefill cache -> head-major slot rows, in
+        # place (int8 caches: codes and scales, quantized per unique row)
         for entry, ck, cv in zip(self.caches, cache["k"], cache["v"]):
+            rows = [ck.transpose(1, 2), cv.transpose(1, 2)]
+            if len(entry) == 8:
+                (kq, ks), (vq, vs) = quantize_kv(rows[0]), quantize_kv(rows[1])
+                rows = [kq, vq, None, None, ks, vs]
             for slot, u in zip(slots, src):
-                entry[0][slot].copy_(ck[u].transpose(0, 1))
-                entry[1][slot].copy_(cv[u].transpose(0, 1))
+                for dst, rows_j in zip(entry, rows):
+                    if rows_j is not None:
+                        dst[slot].copy_(rows_j[u])
 
         src_t = torch.as_tensor(src, device=self.device)
         slot_t = torch.as_tensor(slots, device=self.device)
@@ -214,7 +244,7 @@ class ContinuousBatcher:
         R, Pmax, Cmax = self.R, self.Pmax, self.Cmax
         ring_iota = torch.arange(Cmax, device=self.device)
         rows = torch.arange(R, device=self.device)
-        layers = self.params["model"]["layers"]
+        model = self.decode_model
         for _ in range(self.chunk_steps):
             if bool(self.done.all()):
                 break
@@ -227,7 +257,7 @@ class ContinuousBatcher:
                                   Cmax)
             ring_mask = rel < self.t[:, None]
             logits = ragged_decode_step(
-                layers, self.params["model"], self.cfg.text, self.cur, pos3,
+                model["layers"], model, self.cfg.text, self.cur, pos3,
                 self.caches, self.clock % Cmax, self.pmask, ring_mask)
             nxt = sample_logits(logits, self.generator, self.temperature,
                                 self.top_p)

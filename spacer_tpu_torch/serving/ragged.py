@@ -10,8 +10,10 @@ precede reads within a layer.
 
 Cache entry per layer, head-major: pk/pv (R, Hkv, Pmax, Dh) prompt prefix
 (written at admission), tk/tv (R, Hkv, Cmax, Dh) completion ring, both
-updated IN PLACE.  Attention is K5 (ops/flash_decode.py) on CUDA and its
-plain version on CPU.
+updated IN PLACE; with int8 caches (decode_quant "int8_kv" / "int4_kv") an
+8-tuple (pk, pv, tk, tv, pk_s, pv_s, tk_s, tv_s) of int8 codes and
+(R, Hkv, T) f32 scales.  Attention is K5 / K5-int8 (ops/flash_decode.py) on
+CUDA and their plain version on CPU.
 """
 
 from __future__ import annotations
@@ -26,15 +28,17 @@ from spacer_tpu_torch.ops.flash_decode import (
     MASK_VALUE,
     flash_ragged_decode_attention,
 )
+from spacer_tpu_torch.ops.quant import quantize_kv
 
 
 def _ragged_layer_hm(h, layer_params, cache_entry, *, cfg: TextConfig, cos,
                      sin, ring_idx: int, bias_p, bias_t):
     """One decoder layer over the head-major prefix + clock-ring caches.
-    h: (R, 1, D)."""
+    h: (R, 1, D).  With int8 caches the new k/v are quantized per (row,
+    head) and written with their scales."""
     R = h.shape[0]
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    pk, pv, tk, tv = cache_entry
+    pk, pv, tk, tv = cache_entry[:4]
     p_attn = layer_params["self_attn"]
 
     x = rms_norm(layer_params["input_layernorm"], h, cfg.rms_norm_eps)
@@ -42,13 +46,22 @@ def _ragged_layer_hm(h, layer_params, cache_entry, *, cfg: TextConfig, cos,
     k = dense(p_attn["k_proj"], x).reshape(R, 1, Hkv, Dh)
     v = dense(p_attn["v_proj"], x).reshape(R, 1, Hkv, Dh)
     q, k = apply_rope(q, k, cos, sin)
-    tk[:, :, ring_idx] = k[:, 0]   # in-place ring write, every row
-    tv[:, :, ring_idx] = v[:, 0]
+    # in-place ring write, every row
+    if len(cache_entry) == 8:
+        pk_s, pv_s, tk_s, tv_s = cache_entry[4:]
+        (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
+        tk[:, :, ring_idx], tk_s[:, :, ring_idx] = kq, ks
+        tv[:, :, ring_idx], tv_s[:, :, ring_idx] = vq, vs
+        scales = tuple(s[:, :, None] for s in (pk_s, pv_s, tk_s, tv_s))
+    else:
+        tk[:, :, ring_idx] = k[:, 0]
+        tv[:, :, ring_idx] = v[:, 0]
+        scales = (None,) * 4
 
     group_q = H // Hkv
     out = flash_ragged_decode_attention(
         q.reshape(R, Hkv, group_q, Dh), pk, pv, bias_p, tk, tv, bias_t,
-        group_q=group_q, sm_scale=Dh ** -0.5)
+        *scales, group_q=group_q, sm_scale=Dh ** -0.5)
     h = h + dense(p_attn["o_proj"], out.reshape(R, 1, H * Dh).to(h.dtype))
     x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
     return h + _mlp_block(layer_params["mlp"], x, cfg)
@@ -59,7 +72,7 @@ def ragged_decode_step(layers, params, cfg: TextConfig, cur, pos3, caches,
     """One clock-ring decode step -> logits (R, V); caches update in place.
 
     cur (R,) current token per slot; pos3 (3, R, 1) its rope positions;
-    caches: L tuples (pk, pv, tk, tv); prefix_mask (R, Pmax) and ring_mask
+    caches: L tuples (pk, pv, tk, tv) or int8 8-tuples; prefix_mask (R, Pmax) and ring_mask
     (R, Cmax) bool, the ring mask including the position written now."""
     Cmax = caches[0][2].shape[2]
     if not 0 <= ring_idx < Cmax:

@@ -2,15 +2,30 @@
 spacer_tpu/train/optimizer.py, which chains optax transformations).
 
 Reference hyperparameters (run_SpaceR_SG_RLVR.sh and HF Trainer defaults):
-lr 1e-6, cosine decay to 0 with linear warmup, weight decay 0.01 on
-parameters of more than one dimension, max_grad_norm 5, betas (0.9, 0.999),
-eps 1e-8.
+lr 1e-6, cosine decay to 0 with linear warmup, weight decay 0.01 under the
+JAX package's mask, max_grad_norm 5, betas (0.9, 0.999), eps 1e-8.
 
 `make_optimizer(...)` returns an object with optax's two calls, over flat
 lists of tensors (the params flattened in a fixed order):
-    state = tx.init(params)
+    state = tx.init(params, names)
     updates, state = tx.update(grads, state, params)
 and the step applies `p + u.to(p.dtype)` (here in place, under no_grad).
+
+`names` are the params' paths (train/step.py `param_leaves`), in the same
+order.  The JAX package stacks the per-layer params of the LM ("layers")
+and the ViT ("blocks") on a leading (L, ...) axis, and two things follow
+from that layout, which the port reproduces from the paths:
+- the decay mask is `ndim > 1` on the STACKED leaf, so every per-layer
+  tensor is decayed whatever its own rank (norm scales and biases too);
+  other 1-D tensors (the final norm) are not;
+- int8 moments cut the flattened stacked leaf into 2048-element blocks, so
+  a per-layer tensor whose size is not a multiple of 2048 shares blocks
+  with its neighbours.  Such tensors keep ONE moment state per stacked group
+  (the same path across layers, concatenated in layer order, as JAX's
+  row-major (L, ...) flattening); the update gathers a slab of the virtual
+  concatenation at a time, so the group is never copied whole.  Tensors
+  whose size is a multiple of 2048 have blocks that already coincide with
+  JAX's and keep their own state.
 
 Moment storage (`moment_dtype`), each as in the JAX package:
   "float32"  - both moments f32 (torch.optim.AdamW's behaviour).
@@ -63,12 +78,49 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
-def _to_blocks(x):
-    flat = x.reshape(-1).float()
-    pad = (-flat.numel()) % BLOCK
-    if pad:
-        flat = torch.nn.functional.pad(flat, (0, pad))
-    return flat.reshape(-1, BLOCK)
+def _stacked_key(name: str):
+    """'model/layers/3/mlp/up_proj/bias' -> 'model/layers/*/mlp/up_proj/bias'
+    for a per-layer tensor of the JAX package's stacked trees, else None."""
+    parts = name.split("/")
+    for i in range(len(parts) - 1):
+        if parts[i] in ("layers", "blocks") and parts[i + 1].isdigit():
+            return "/".join(parts[:i + 1] + ["*"] + parts[i + 2:])
+    return None
+
+
+def moment_layout(params, names):
+    """-> (groups, decay): lists of leaf indices that share one moment state,
+    and per leaf whether it is weight-decayed (see the module docstring)."""
+    groups, by_key, decay = [], {}, []
+    for i, (name, p) in enumerate(zip(names, params)):
+        key = _stacked_key(name)
+        decay.append(key is not None or p.dim() > 1)
+        if key is not None and p.numel() % BLOCK:
+            if key not in by_key:
+                by_key[key] = len(groups)
+                groups.append([])
+            groups[by_key[key]].append(i)
+        else:
+            groups.append([i])
+    return groups, decay
+
+
+def _gather(flats, start: int, end: int):
+    """Elements [start, end) of the concatenation of equal-sized flat
+    tensors, as one f32 tensor."""
+    n = flats[0].numel()
+    pieces = [flats[l][max(start - l * n, 0):min(end - l * n, n)].float()
+              for l in range(start // n, -(-end // n))]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def _scatter(outs, start: int, values):
+    """Write `values` at [start, start + len) of the concatenation of the
+    equal-sized flat tensors `outs`."""
+    n, end = outs[0].numel(), start + values.numel()
+    for l in range(start // n, -(-end // n)):
+        a, b = max(start, l * n), min(end, (l + 1) * n)
+        outs[l][a - l * n:b - l * n] = values[a - start:b - start]
 
 
 def _quantize_mu(m, generator, sr: bool):
@@ -97,13 +149,15 @@ def _dequant_nu(payload, scale):
 
 class OptState(NamedTuple):
     count: int              # updates applied so far
-    mu: list                # per param: tensor, or (payload, scale) for int8
+    mu: list                # per param: tensor; int8: (payload, scale) per group
     nu: list
+    groups: list            # moment groups: lists of param indices
+    decay: list             # per param: weight-decayed or not
 
 
 class AdamW:
     """clip_by_global_norm -> scale_by_adam (moments per `moment_dtype`) ->
-    add_decayed_weights(mask = ndim > 1) -> scale_by_learning_rate."""
+    add_decayed_weights(JAX's stacked-leaf mask) -> scale_by_learning_rate."""
 
     def __init__(self, schedule, *, b1=0.9, b2=0.999, eps=1e-8,
                  weight_decay=0.01, max_grad_norm=5.0, moment_dtype="float32",
@@ -120,23 +174,25 @@ class AdamW:
         self.sr = sr_impl != "off"
         self.seed = seed
 
-    def init(self, params) -> OptState:
+    def init(self, params, names) -> OptState:
+        groups, decay = moment_layout(params, names)
         mu, nu = [], []
-        for p in params:
-            if self.moment_dtype == "int8":
-                nb = -(-p.numel() // BLOCK)
-                z = dict(device=p.device)
+        if self.moment_dtype == "int8":
+            for idx in groups:
+                nb = -(-sum(params[i].numel() for i in idx) // BLOCK)
+                z = dict(device=params[idx[0]].device)
                 mu.append((torch.zeros((nb, BLOCK), dtype=torch.int8, **z),
                            torch.zeros((nb, 1), dtype=torch.float32, **z)))
                 nu.append((torch.zeros((nb, BLOCK), dtype=torch.uint8, **z),
                            torch.zeros((nb, 1), dtype=torch.float32, **z)))
-            else:
+        else:
+            for p in params:
                 mdt = (torch.float32 if self.moment_dtype == "float32"
                        else torch.bfloat16)
                 vdt = torch.float32 if self.moment_dtype == "float32" else p.dtype
                 mu.append(torch.zeros(p.shape, dtype=mdt, device=p.device))
                 nu.append(torch.zeros(p.shape, dtype=vdt, device=p.device))
-        return OptState(0, mu, nu)
+        return OptState(0, mu, nu, groups, decay)
 
     @torch.no_grad()
     def update(self, grads, state: OptState, params):
@@ -146,52 +202,77 @@ class AdamW:
         bc2 = 1.0 - self.b2 ** count
         gnorm = global_norm(grads)
         lr = self.schedule(state.count)
-        generator = None
-        if self.moment_dtype == "int8" and self.sr:
-            generator = torch.Generator(device=grads[0].device).manual_seed(
-                self.seed * 1_000_003 + count)
-        updates, mu, nu = [], [], []
-        for g, p, m, v in zip(grads, params, state.mu, state.nu):
+        def clip(g):
             # optax clips with t / g_norm * max_norm in the grad dtype
-            g = torch.where(gnorm < self.max_grad_norm, g,
-                            (g / gnorm.to(g.dtype)) * self.max_grad_norm)
-            if self.moment_dtype == "int8":
-                d, m, v = self._adam_int8(g, m, v, bc1, bc2, generator)
-            elif self.moment_dtype == "float32":
-                m = self.b1 * m + (1.0 - self.b1) * g.float()
-                v = self.b2 * v + (1.0 - self.b2) * g.float().square()
-                d = ((m / bc1) / (torch.sqrt(v / bc2) + self.eps)).to(g.dtype)
-            else:
-                m32 = self.b1 * m.float() + (1.0 - self.b1) * g.float()
-                v = (self.b2 * v + (1.0 - self.b2) * g.to(v.dtype).square())
-                d = ((m32 / bc1) / (torch.sqrt(v.float() / bc2) + self.eps)
-                     ).to(g.dtype)
-                m = m32.to(torch.bfloat16)
-            if p.dim() > 1:
-                d = d + self.weight_decay * p.to(d.dtype)
-            updates.append((-lr) * d)
-            mu.append(m)
-            nu.append(v)
-        return updates, OptState(count, mu, nu)
+            return torch.where(gnorm < self.max_grad_norm, g,
+                               (g / gnorm.to(g.dtype)) * self.max_grad_norm)
 
-    def _adam_int8(self, g, m_q, v_q, bc1, bc2, generator):
-        """Dequant -> adam -> requant, a slab of blocks at a time."""
-        gb = _to_blocks(g)
-        d_out = torch.empty_like(gb)
+        def finish(i, d):
+            # one tensor's direction -> its update (decay, learning rate);
+            # done per tensor, so no second params-sized list is held
+            if state.decay[i]:
+                d = d + self.weight_decay * params[i].to(d.dtype)
+            updates[i] = (-lr) * d
+
+        updates, mu, nu = [None] * len(grads), [], []
+        if self.moment_dtype == "int8":
+            generator = None
+            if self.sr:
+                generator = torch.Generator(
+                    device=grads[0].device).manual_seed(
+                        self.seed * 1_000_003 + count)
+            for idx, m, v in zip(state.groups, state.mu, state.nu):
+                ds, m, v = self._adam_int8([clip(grads[i]) for i in idx], m,
+                                           v, bc1, bc2, generator)
+                for i, d in zip(idx, ds):
+                    finish(i, d)
+                mu.append(m)
+                nu.append(v)
+        else:
+            for i, (g, m, v) in enumerate(zip(grads, state.mu, state.nu)):
+                g = clip(g)
+                if self.moment_dtype == "float32":
+                    m = self.b1 * m + (1.0 - self.b1) * g.float()
+                    v = self.b2 * v + (1.0 - self.b2) * g.float().square()
+                    d = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+                else:
+                    m32 = self.b1 * m.float() + (1.0 - self.b1) * g.float()
+                    v = (self.b2 * v + (1.0 - self.b2) * g.to(v.dtype).square())
+                    d = (m32 / bc1) / (torch.sqrt(v.float() / bc2) + self.eps)
+                    m = m32.to(torch.bfloat16)
+                finish(i, d.to(g.dtype))
+                mu.append(m)
+                nu.append(v)
+        return updates, OptState(count, mu, nu, state.groups, state.decay)
+
+    def _adam_int8(self, gs, m_q, v_q, bc1, bc2, generator):
+        """Dequant -> adam -> requant over the virtual concatenation of one
+        moment group's flattened grads, a slab of blocks at a time."""
+        flats = [g.reshape(-1) for g in gs]
+        total = sum(f.numel() for f in flats)
+        d_outs = [torch.empty(f.numel(), dtype=torch.float32, device=f.device)
+                  for f in flats]
         mq, ms = torch.empty_like(m_q[0]), torch.empty_like(m_q[1])
         vq, vs = torch.empty_like(v_q[0]), torch.empty_like(v_q[1])
-        for s0 in range(0, gb.shape[0], SLAB_BLOCKS):
+        for s0 in range(0, m_q[0].shape[0], SLAB_BLOCKS):
             sl = slice(s0, s0 + SLAB_BLOCKS)
-            gs = gb[sl]
+            start = s0 * BLOCK
+            end = min(start + SLAB_BLOCKS * BLOCK, total)
+            g = _gather(flats, start, end)
+            pad = (-g.numel()) % BLOCK
+            if pad:
+                g = torch.nn.functional.pad(g, (0, pad))
+            g = g.reshape(-1, BLOCK)
             m = m_q[0][sl].float() * m_q[1][sl]
             v = _dequant_nu(v_q[0][sl], v_q[1][sl])
-            m = self.b1 * m + (1.0 - self.b1) * gs
-            v = self.b2 * v + (1.0 - self.b2) * gs * gs
-            d_out[sl] = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            m = self.b1 * m + (1.0 - self.b1) * g
+            v = self.b2 * v + (1.0 - self.b2) * g * g
+            d = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            _scatter(d_outs, start, d.reshape(-1)[:end - start])
             mq[sl], ms[sl] = _quantize_mu(m, generator, self.sr)
             vq[sl], vs[sl] = _quantize_nu(v)
-        d = d_out.reshape(-1)[:g.numel()].reshape(g.shape).to(g.dtype)
-        return d, (mq, ms), (vq, vs)
+        ds = [d.reshape(g.shape).to(g.dtype) for d, g in zip(d_outs, gs)]
+        return ds, (mq, ms), (vq, vs)
 
 
 def make_optimizer(learning_rate: float = 1e-6, total_steps: int = 10000,

@@ -9,10 +9,10 @@ loop around it.  As in the JAX trainer:
   main prompts (`merge_temporal_rollout`), keeping the first G/2 shuffled
   completions per video.
 
-Configurations the port does not run raise NotImplementedError at
-construction: quantized rollouts (`decode_quant`, whose JAX default
-"int8_kv" is kept as the field's default: pass decode_quant=None for the
-bf16-exact rollouts the port runs; ROADMAP queue A item 4), speculative
+Rollouts decode at `decode_quant` (the JAX default "int8_kv": int8 weights
+and int8 KV caches for the decode loop only; logps and updates stay in the
+params' dtype; None gives bf16-exact rollouts).  Configurations the port
+does not run raise NotImplementedError at construction: speculative
 rollouts, gradient accumulation, optimizer-state offload, a device mesh,
 and any `attn_impl` / `decode_impl` but None.
 """
@@ -81,7 +81,8 @@ class SGRLVRConfig:
     # None is accepted
     attn_impl: Optional[str] = None
     warmup_steps: int = 0
-    # rollout decode quantization: only None (bf16) is ported
+    # rollout decode quantization (sampler/sampler.py DECODE_QUANTS); the
+    # JAX default, int8 weights + int8 KV caches in the decode loop
     decode_quant: Optional[str] = "int8_kv"
     decode_impl: Optional[str] = None
     push_to_hub: bool = False
@@ -90,11 +91,6 @@ class SGRLVRConfig:
 
 
 def _unported(args: SGRLVRConfig, mesh):
-    if args.decode_quant:
-        raise NotImplementedError(
-            f"decode_quant={args.decode_quant!r}: quantized rollouts are not "
-            "ported (ROADMAP queue A item 4); pass decode_quant=None for "
-            "bf16-exact rollouts")
     if args.speculate_k:
         raise NotImplementedError("speculative rollouts (speculate_k > 0) are "
                                   "not ported (ROADMAP queue A item 3)")
@@ -143,11 +139,20 @@ class SGRLVRTrainer:
             warmup_steps=args.warmup_steps, weight_decay=args.weight_decay,
             max_grad_norm=args.max_grad_norm, moment_dtype=args.moment_dtype,
             seed=args.seed)
-        self.opt_state = self.tx.init([t for _, t in param_leaves(params)])
+        leaves = param_leaves(params)
+        self.opt_state = self.tx.init([t for _, t in leaves],
+                                      [n for n, _ in leaves])
         self.sampler = Sampler(
             cfg, eos_token_id=processor.eos_token_id,
             pad_token_id=processor.pad_token_id,
-            length_bucket=args.prompt_bucket)
+            length_bucket=args.prompt_bucket, decode_quant=args.decode_quant)
+        if args.decode_quant:
+            # the JAX trainer's one-line notice: the rollout SAMPLING
+            # distribution is quantized; logps and updates are not
+            print(f"[spacer] rollout decode quantized: "
+                  f"decode_quant={args.decode_quant!r} "
+                  f"(sampling-distribution change; set decode_quant=None "
+                  f"for bf16-exact rollouts)", flush=True)
         self.step_fn = make_grpo_train_step(
             cfg, self.tx, beta=args.beta, remat=args.remat,
             logp_chunk=args.logp_chunk)

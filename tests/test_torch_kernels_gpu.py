@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain versions on a CUDA card
-(K1, K1-bwd, K2, K3, K4, K5), their legality gates, and a backward pass
-through the LM on the card.  These need the card and nvcc: on a host
+(K1, K1-bwd, K2, K2-int8, K3, K4, K5, K5-int8, K6), their legality gates,
+and a backward pass through the LM on the card.  These need the card and nvcc: on a host
 without CUDA they skip.  Run them on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
@@ -8,7 +8,9 @@ without CUDA they skip.  Run them on the card with
 Tolerance: |kernel - plain| <= 2e-2 * (1 + |plain|) in bf16 (one bf16 step
 of 2^-8 relative, plus the kernel's bf16 rounding of the probabilities).
 Gradients (K1-bwd), whose elements sum many bf16-rounded products:
-||kernel - plain|| <= 2e-2 * ||plain|| per tensor.
+||kernel - plain|| <= 2e-2 * ||plain|| per tensor.  K6 (f32 output of
+exact bf16 x int4 products): |kernel - plain| <= 1e-5 * sum |terms|, the f32
+summation-order bound.
 """
 
 import pytest
@@ -17,7 +19,9 @@ import torch
 from spacer_tpu_torch.nn.attention import xla_attention
 from spacer_tpu_torch.ops import flash_attention as fa
 from spacer_tpu_torch.ops import flash_decode as fd
+from spacer_tpu_torch.ops import int4_matmul as im
 from spacer_tpu_torch.ops import vit_window_attention as vwa
+from spacer_tpu_torch.ops.quant import quantize_kv
 from spacer_tpu_torch.ops.flash_attention import flash_attention
 
 pytestmark = pytest.mark.gpu
@@ -174,6 +178,81 @@ def test_grouped_decode_kernel(dev, step):
     assert fd.flash_decode_attention.launches == before + 1
     assert out.dtype == torch.float32
     _close(out, fd.decode_attention_reference(*args, **kw))
+
+
+def _int8(x):
+    """bf16 cache with per-key magnitudes that differ -> codes, (.., 1, T)
+    f32 scales."""
+    g = torch.Generator(device=x.device).manual_seed(x.shape[-2])
+    x = x.float() * torch.rand(x.shape[:-1] + (1,), generator=g,
+                               device=x.device).mul(2.8).add(0.2)
+    q, s = quantize_kv(x)
+    return q, s[:, :, None].contiguous()
+
+
+@pytest.mark.parametrize("step", [1, 70, 256])
+def test_grouped_decode_int8_kernel(dev, step):
+    B, Hkv, G, gq, D, P, T = 2, 2, 4, 7, 128, 320, 256
+    q = _randn(dev, B, Hkv, G * gq, D)
+    (pk, pks), (pv, pvs) = (_int8(_randn(dev, B, Hkv, P, D, seed=i))
+                            for i in (1, 2))
+    (tk, tks), (tv, tvs) = (_int8(_randn(dev, B * G, Hkv, T, D, seed=i))
+                            for i in (3, 4))
+    tk[:, :, step:], tks[..., step:] = 127, 1e3   # dead tail: never read
+    mask = torch.ones((B, P), dtype=torch.bool, device=dev)
+    mask[0, :100] = False
+    bias = torch.where(mask, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
+    args = (q, pk, pv, bias, tk, tv, step, pks, pvs, tks, tvs)
+    kw = dict(group=G, group_q=gq, sm_scale=D ** -0.5)
+    before = (fd.flash_decode_attention.launches,
+              fd.flash_decode_attention_int8.launches)
+    out = fd.flash_decode_attention(*args, **kw)
+    assert (fd.flash_decode_attention.launches,
+            fd.flash_decode_attention_int8.launches) == (before[0], before[1] + 1)
+    _close(out, fd.decode_attention_reference(*args, **kw))
+
+
+def test_ragged_decode_int8_kernel(dev):
+    R, Hkv, gq, D, P, C = 4, 2, 7, 128, 192, 64
+    q = _randn(dev, R, Hkv, gq, D)
+    (pk, pks), (pv, pvs) = (_int8(_randn(dev, R, Hkv, P, D, seed=i))
+                            for i in (1, 2))
+    (tk, tks), (tv, tvs) = (_int8(_randn(dev, R, Hkv, C, D, seed=i))
+                            for i in (3, 4))
+    pm = torch.arange(P, device=dev)[None] >= torch.tensor(
+        [0, 50, 191, P], device=dev)[:, None]
+    rm = torch.zeros((R, C), dtype=torch.bool, device=dev)
+    rm[0, 60:], rm[0, :3], rm[1, 5] = True, True, True
+    bias_p = torch.where(pm, 0.0, -1e30)[:, None].float().contiguous()
+    bias_t = torch.where(rm, 0.0, -1e30)[:, None].float().contiguous()
+    args = (q, pk, pv, bias_p, tk, tv, bias_t, pks, pvs, tks, tvs)
+    kw = dict(group_q=gq, sm_scale=D ** -0.5)
+    before = fd.flash_ragged_decode_attention_int8.launches
+    out = fd.flash_ragged_decode_attention(*args, **kw)
+    assert fd.flash_ragged_decode_attention_int8.launches == before + 1
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    _close(out[:3], fd.ragged_decode_attention_reference(*args, **kw)[:3])
+    with pytest.raises(ValueError):   # int8 codes without scales
+        fd.flash_ragged_decode_attention(*args[:7], **kw)
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 512), (16, 3584, 1024),
+                                   (5, 1024, 3584), (33, 512, 260)])
+def test_int4_matmul_kernel(dev, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    codes = torch.randint(-7, 8, (K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+    packed = im.pack_int4(codes)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    before = im.int4_matmul.launches
+    out = im.int4_matmul(x, packed)
+    assert im.int4_matmul.launches == before + 1
+    ref = im.int4_matmul_reference(x, packed)
+    bound = 1e-5 * (x.float().abs() @ codes.float().abs()) + 1e-6
+    assert out.shape == (M, N) and out.dtype == torch.float32
+    assert bool(((out - ref).abs() <= bound).all()), float((out - ref).abs().max())
+    with pytest.raises(ValueError):   # N % 4 != 0
+        im.int4_matmul(x, packed[:, :N - 2].contiguous())
 
 
 def test_inference_only_kernels_refuse_autograd(dev):

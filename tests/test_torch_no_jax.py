@@ -1,8 +1,8 @@
 """spacer_tpu_torch stands alone: no module of it (nor the scripts that
-drive it on the card, chip_smoke.py and profile_train.py) imports jax or
-spacer_tpu, and the tiny serving slice and one tiny SG-RLVR training step
-run on the CPU through the kernels' plain versions (no kernel launch is
-counted there)."""
+drive it on the card, chip_smoke.py, profile_train.py and profile_serve.py)
+imports jax or spacer_tpu, and the tiny serving slice and one tiny SG-RLVR
+training step run on the CPU through the kernels' plain versions (no
+kernel launch is counted there)."""
 
 import os
 import pathlib
@@ -28,7 +28,7 @@ SCRIPT = textwrap.dedent("""
     from spacer_tpu_torch.evalharness import QwenEngine
     from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
     cfg, params, proc = load_model_and_processor(
-        ModelArgs(random_init=True, dtype="float32"))
+        ModelArgs(random_init=True, dtype="float32", device="cpu"))
     frames = np.random.default_rng(0).integers(0, 256, (4, 56, 84, 3), np.uint8)
     msgs = [[{"role": "user", "content": [
                 {"type": "video", "video": frames, "fps": 2.0},
@@ -58,7 +58,7 @@ TRAIN_SCRIPT = textwrap.dedent("""
     from spacer_tpu_torch.rewards import format_reward
     from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
     cfg, params, proc = load_model_and_processor(
-        ModelArgs(random_init=True, dtype="float32"))
+        ModelArgs(random_init=True, dtype="float32", device="cpu"))
     frames = np.random.default_rng(0).integers(0, 256, (4, 56, 84, 3), np.uint8)
     row = {"problem": "how many", "problem_type": "numerical",
            "solution": "<answer>1</answer>", "path": frames,
@@ -100,7 +100,7 @@ def test_no_jax_or_spacer_tpu_import_in_sources():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|spacer_tpu)(\.|\s|$)",
                          re.M)
     sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py",
-               REPO / "profile_train.py"]
+               REPO / "profile_train.py", REPO / "profile_serve.py"]
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pattern.search(p.read_text())]
     assert not offenders, offenders

@@ -5,7 +5,10 @@ prompt and a text prompt of different lengths (left padding), G=2.
 
 Greedy decoding must give identical token ids, completion masks and
 lengths: both sides compute f32 and differ in summation order only, far
-below the logit gaps of a random tiny model's argmax.
+below the logit gaps of a random tiny model's argmax.  The same holds for
+the quantized rollouts (decode_quant "int8_kv" and "int4_kv"): the weight
+and KV codes are equal on both sides (tests/test_torch_quant.py), and the
+int4 products round x to bf16 on both.
 """
 
 import numpy as np
@@ -60,12 +63,56 @@ def test_greedy_generate_matches_jax_flash_ref(max_new):
     np.testing.assert_array_equal(out.lengths, np.asarray(ref.lengths))
 
 
+def _decode_logits(monkeypatch, sampler, *args, **kw):
+    """Run sampler.generate and return the logits of every sampled step."""
+    import spacer_tpu_torch.sampler.sampler as sm
+
+    seen, sample = [], sm.sample_logits
+
+    def record(logits, *a):
+        seen.append(logits)
+        return sample(logits, *a)
+
+    monkeypatch.setattr(sm, "sample_logits", record)
+    out = sampler.generate(*args, **kw)
+    monkeypatch.setattr(sm, "sample_logits", sample)
+    return out, torch.cat(seen)
+
+
+@pytest.mark.parametrize("quant", ["int8_kv", "int4_kv"])
+def test_greedy_generate_quantized_matches_jax_flash_ref(quant, monkeypatch):
+    cfg = tiny_config()
+    params = init_params(jax.random.key(0), cfg, jnp.float32)
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    ids, mask, pos, deltas, px = _prompts(cfg)
+    kw = dict(position_ids=pos, deltas=deltas, pixel_values=px, grid_thw=GRID,
+              num_generations=2, max_new_tokens=12, temperature=0.0,
+              top_p=1.0, seed=0)
+    ref = JaxSampler(cfg, length_bucket=64, decode_impl="flash_ref",
+                     decode_quant=quant).generate(ids, mask, params, **kw)
+    _, plain = _decode_logits(monkeypatch, Sampler(cfg, length_bucket=64),
+                              ids, mask, tparams, **kw)
+    reset_launch_counts()
+    out, logits = _decode_logits(
+        monkeypatch, Sampler(cfg, length_bucket=64, decode_quant=quant),
+        ids, mask, tparams, **kw)
+    assert set(launch_counts().values()) == {0}   # CPU: plain versions only
+    np.testing.assert_array_equal(out.sequences, np.asarray(ref.sequences))
+    np.testing.assert_array_equal(out.lengths, np.asarray(ref.lengths))
+    # the decode steps (not the prefill's first token) ran quantized
+    assert torch.equal(logits[:4], plain[:4])
+    assert float((logits[4:] - plain[4:]).abs().max()) > 1e-4
+
+
 def test_unported_configurations_raise():
     cfg = tiny_config()
-    for kw in (dict(decode_quant="int8_kv"), dict(decode_quant="int4"),
-               dict(speculate_k=2), dict(mesh=object())):
+    for kw in (dict(speculate_k=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             Sampler(cfg, **kw)
+    for quant in (None, "int8", "int8_kv", "int4", "int4_kv"):
+        assert Sampler(cfg, decode_quant=quant).decode_quant == quant
+    with pytest.raises(ValueError, match="decode_quant"):
+        Sampler(cfg, decode_quant="int2")
     with pytest.raises(ValueError):   # an id past the vocabulary
         Sampler(cfg).generate(np.array([[cfg.text.vocab_size]]),
                               np.ones((1, 1)), {"model": {}},

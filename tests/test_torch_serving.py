@@ -4,6 +4,8 @@ against spacer_tpu's on the same converted weights, and the serve CLI.
 
 Greedy decoding in float32 must give IDENTICAL token ids: both packages run
 the same math, and a masking or ring-index bug shows as a different token.
+The quantized batchers (decode_quant "int8_kv" / "int4_kv") are held against
+the JAX batcher's head-major path (decode_impl="flash_ref") the same way.
 """
 
 import copy
@@ -94,6 +96,33 @@ def test_generate_many_greedy_token_ids_match_jax(engines):
                                       np.asarray(jo.sequences)[:jo.length])
 
 
+@pytest.mark.parametrize("quant", ["int8_kv", "int4_kv"])
+def test_quantized_batcher_greedy_token_ids_match_jax(engines, quant):
+    """4 requests through 2 slots (refill), int8 caches, int8 / int4
+    weights: identical token ids to the JAX batcher."""
+    cfg, params, tparams, jproc, proc = engines
+    engine = QwenEngine(cfg, tparams, proc, length_bucket=64)
+    jreqs = [jax_encode_request(jproc, cfg, m)
+             for m in copy.deepcopy(_messages())]
+    reqs = [engine.encode_request(m) for m in copy.deepcopy(_messages())]
+    Pmax = max(r["input_ids"].shape[1] for r in reqs)
+    common = dict(slots=2, prompt_len=Pmax, max_new_tokens=12, temperature=0.0,
+                  chunk_steps=4, eos_token_id=proc.eos_token_id,
+                  pad_token_id=proc.pad_token_id, decode_quant=quant)
+    jouts = JaxBatcher(cfg, params, dtype=jnp.float32, decode_impl="flash_ref",
+                       **common).run(jreqs)
+    batcher = ContinuousBatcher(cfg, tparams, **common)
+    assert batcher.caches[0][0].dtype == torch.int8
+    assert ("kernel_q4" in batcher.decode_model["lm_head"]) == (quant == "int4_kv")
+    outs = batcher.run(reqs)
+    for o, jo in zip(outs, jouts):
+        assert o.length == jo.length
+        np.testing.assert_array_equal(o.sequences[:o.length],
+                                      np.asarray(jo.sequences)[:jo.length])
+    with pytest.raises(ValueError, match="decode_quant"):
+        ContinuousBatcher(cfg, tparams, **dict(common, decode_quant="int2"))
+
+
 def test_filtered_logits_match_jax_top_p():
     logits = np.random.default_rng(1).normal(size=(4, 512)).astype(np.float32) * 3
     ref = np.asarray(jax_filtered_logits(jnp.asarray(logits), 0.7, 0.9))
@@ -104,18 +133,41 @@ def test_filtered_logits_match_jax_top_p():
     np.testing.assert_allclose(out[kept], ref[kept], rtol=1e-6)
 
 
-def test_serve_cli_writes_one_completion_per_row(tmp_path):
+def _serve_cli(tmp_path, *extra, env_extra=None):
     inp, outp = tmp_path / "in.jsonl", tmp_path / "out.jsonl"
     rows = [{"prompt": "what is this"}, {"prompt": "and that one"},
             {"messages": [{"role": "user", "content": "hi"}]}]
     inp.write_text("".join(json.dumps(r) + "\n" for r in rows))
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **(env_extra or {}))
     res = subprocess.run(
         [sys.executable, "-m", "spacer_tpu_torch.cli.serve",
          "--random_init", "true", "--dtype", "float32",
          "--input_file", str(inp), "--output_file", str(outp),
-         "--max_new_tokens", "4", "--slots", "2"],
+         "--max_new_tokens", "4", "--slots", "2", *extra],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    return rows, outp, res
+
+
+def test_serve_cli_int4_kv_writes_completions(tmp_path):
+    rows, outp, res = _serve_cli(tmp_path, "--device", "cpu",
+                                 "--decode_quant", "int4_kv")
+    assert res.returncode == 0, res.stderr
+    out = [json.loads(line) for line in outp.read_text().splitlines()]
+    assert len(out) == len(rows)
+    assert all(isinstance(o["completion"], str) for o in out)
+
+
+def test_serve_cli_without_cuda_refuses_the_cpu(tmp_path):
+    """No --device: the card, and on a host without CUDA an error, never a
+    silent CPU run."""
+    rows, outp, res = _serve_cli(tmp_path,
+                                 env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0 and "--device cpu" in res.stderr
+    assert not outp.exists()
+
+
+def test_serve_cli_writes_one_completion_per_row(tmp_path):
+    rows, outp, res = _serve_cli(tmp_path, "--device", "cpu")
     assert res.returncode == 0, res.stderr
     out = [json.loads(line) for line in outp.read_text().splitlines()]
     assert len(out) == len(rows)

@@ -13,21 +13,13 @@ update at up to a few percent: the test runs Adam with eps 1e-6 (instead of
 
 int8 moments run with deterministic rounding (sr_impl="off" here,
 SPACER_ADAM8_SR=off on the JAX side), so the two quantised trajectories are
-comparable.  Two things still separate them.  A moment that falls on a
-rounding tie can quantise one code apart (summation order), which moves
-that element's update by up to ~1e-4: the int8 case allows 1e-3 of a
-tensor's elements (at least 2) past 5e-6, each within 2e-4.  And the
-moments are quantised in 2048-element blocks with one scale each: a JAX
-STACKED (L, ...) layer leaf shares blocks across layers where the port's
-per-layer tensor has its own, so a per-layer leaf whose size is not a
-multiple of 2048 is quantised against another block maximum and is left
-out of the int8 comparison (`_blocks_differ`).
-
-Weight decay: the port masks decay by the 1-D rule on its per-layer tensors
-(HF AdamW: no decay on norm scales and biases).  The JAX package applies
-the same `ndim > 1` rule to its STACKED (L, D) layer leaves, so it does
-decay per-layer norm scales and biases.  With decay on, those leaves are
-left out of the comparison; the int8 case runs without decay.
+comparable.  A moment that falls on a rounding tie can quantise one code
+apart (summation order), which moves that element's update by up to ~1e-4:
+the int8 case allows 1e-3 of a tensor's elements (at least 2) past 5e-6,
+each within 2e-4.  Every leaf is compared: the port's optimizer reproduces
+the JAX package's stacked (L, ...) layout from the param paths, both its
+decay mask (every per-layer tensor decayed, the final norm not) and its
+2048-element int8 moment blocks spanning layers.
 
 Shared prefix vs packed gradients: 1e-5 absolute and relative.
 """
@@ -98,20 +90,6 @@ def _flat(tp):
     return [t.detach().numpy() for _, t in tstep.param_leaves(tp)]
 
 
-def _per_layer(name):
-    return "/layers/" in name or "/blocks/" in name
-
-
-def _stacked_1d(name, t):
-    """A per-layer 1-D leaf: 2-D (stacked) in the JAX tree."""
-    return t.dim() == 1 and _per_layer(name)
-
-
-def _blocks_differ(name, t):
-    """A per-layer leaf whose int8 moment blocks span layers in JAX."""
-    return _per_layer(name) and t.numel() % 2048 != 0
-
-
 @pytest.mark.parametrize("moment_dtype,weight_decay",
                          [("float32", 0.01), ("int8", 0.0)])
 def test_two_steps_match_jax(setup, moment_dtype, weight_decay, monkeypatch):
@@ -130,7 +108,8 @@ def test_two_steps_match_jax(setup, moment_dtype, weight_decay, monkeypatch):
     tx = make_optimizer(**opt_kw, sr_impl="off")
     tparams = params_from_jax(np_params, cfg)
     tref = params_from_jax(np_params, cfg)
-    tstate = tx.init([t for _, t in tstep.param_leaves(tparams)])
+    leaves = tstep.param_leaves(tparams)
+    tstate = tx.init([t for _, t in leaves], [n for n, _ in leaves])
     step = tstep.make_grpo_train_step(cfg, tx, beta=0.04, remat=True,
                                       logp_chunk=8)
     tb = _torch_batch(batch)
@@ -152,10 +131,6 @@ def test_two_steps_match_jax(setup, moment_dtype, weight_decay, monkeypatch):
                                        rtol=1e-4, atol=1e-7, err_msg=key)
         jleaves = _flat(params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
         for (name, t), b in zip(tstep.param_leaves(tparams), jleaves):
-            if weight_decay and _stacked_1d(name, t):
-                continue
-            if moment_dtype == "int8" and _blocks_differ(name, t):
-                continue
             a = t.detach().numpy()
             diff = np.abs(a - b)
             if moment_dtype == "int8":
@@ -219,3 +194,41 @@ def test_unported_modes_raise(setup):
         tstep.make_grpo_train_step(cfg, tx, remat="dotz")
     with pytest.raises(ValueError):
         make_optimizer(moment_dtype="int4")
+
+
+def test_int8_moment_groups_equal_one_stacked_leaf(monkeypatch):
+    """Per-layer tensors whose size is not a multiple of 2048 share one int8
+    moment state per stacked group, so their update equals that of the
+    stacked (L, ...) leaf JAX holds, whatever the slab size; per-layer 1-D
+    tensors are decayed, a top-level 1-D tensor is not."""
+    from spacer_tpu_torch.train import optimizer as opt
+
+    rng = np.random.default_rng(0)
+    L, n = 3, 3000
+    stacked = torch.from_numpy(rng.normal(size=(L, n)).astype(np.float32))
+    grads = torch.from_numpy(rng.normal(size=(L, n)).astype(np.float32))
+    norm = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32))
+    names = [f"model/layers/{l}/input_layernorm/scale" for l in range(L)]
+    kw = dict(learning_rate=1e-2, total_steps=10, moment_dtype="int8",
+              weight_decay=0.1, sr_impl="off")
+
+    def run(params, grads, names, slab):
+        monkeypatch.setattr(opt, "SLAB_BLOCKS", slab)
+        tx = opt.make_optimizer(**kw)
+        state = tx.init(params, names)
+        for _ in range(2):
+            upd, state = tx.update(grads, state, params)
+        return upd, state
+
+    per_layer = list(stacked) + [norm]
+    g_layer = list(grads) + [torch.zeros(n)]
+    for slab in (1, opt.SLAB_BLOCKS):
+        upd, state = run(per_layer, g_layer, names + ["model/norm/scale"],
+                         slab)
+        assert state.groups == [[0, 1, 2], [3]]
+        assert state.decay == [True, True, True, False]
+        ref, _ = run([stacked, norm], [grads, torch.zeros(n)],
+                     ["stacked", "norm"], opt.SLAB_BLOCKS)
+        torch.testing.assert_close(torch.stack(upd[:3]), ref[0], rtol=0,
+                                   atol=0)
+        assert torch.equal(upd[3], torch.zeros(n))   # 1-D top level: no decay

@@ -1,9 +1,10 @@
 """The SG-RLVR trainer of spacer_tpu_torch at tiny size on the CPU: two
 optimizer steps through `train()` (merged temporal rollout, rewards, group
 advantages, reference logps, shared-prefix update with int8 moments), a
-checkpoint round trip, the configurations the port does not run, and the
-copied reward functions against spacer_tpu.rewards on sample strings
-(exact equality: the same pure-Python code).
+checkpoint round trip, one step at the default config (int8_kv rollouts),
+the configurations the port does not run, and the copied reward functions
+against spacer_tpu.rewards on sample strings (exact equality: the same
+pure-Python code).
 """
 
 import json
@@ -89,20 +90,33 @@ def test_two_training_steps_and_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("over", [
-    dict(decode_quant="int8_kv"), dict(decode_quant="int4"),
+    dict(decode_quant="int2"), dict(decode_quant="int4_v"),
     dict(speculate_k=2), dict(gradient_accumulation_steps=2),
     dict(offload_opt_state=True), dict(attn_impl="pallas"),
     dict(decode_impl="flash"), dict(decode_impl="xla")])
 def test_unported_configurations_raise(tmp_path, over):
-    with pytest.raises(NotImplementedError):
+    """Unknown decode_quant values raise ValueError (as in the JAX
+    sampler); the configurations the port does not run NotImplementedError."""
+    exc = ValueError if "decode_quant" in over else NotImplementedError
+    with pytest.raises(exc):
         _trainer(tmp_path, **over)
 
 
-def test_default_config_raises_for_quantised_rollouts(tmp_path):
-    assert SGRLVRConfig().decode_quant == "int8_kv"   # the JAX default, kept
+def test_default_config_raises_for_quantised_rollouts(tmp_path, capsys):
+    """The default config (the JAX default, int8_kv rollouts) no longer
+    raises: it takes an optimizer step, with the JAX trainer's notice."""
+    assert SGRLVRConfig().decode_quant == "int8_kv"
     cfg = tiny_config()
-    with pytest.raises(NotImplementedError):
-        SGRLVRTrainer(cfg, init_params(cfg), None, [], [], SGRLVRConfig())
+    proc = VLProcessor(MockTokenizer(vocab_size=cfg.text.vocab_size), cfg)
+    trainer = SGRLVRTrainer(
+        cfg, init_params(cfg, seed=0), proc, [length_reward, format_reward],
+        _rows(), SGRLVRConfig(
+            num_generations=2, max_completion_length=4, prompt_bucket=64,
+            logp_chunk=4, max_steps=1, output_dir=str(tmp_path / "out")))
+    assert trainer.sampler.decode_quant == "int8_kv"
+    assert "rollout decode quantized" in capsys.readouterr().out
+    trainer.train()
+    assert trainer.global_step == 1 and trainer.opt_state.count == 1
 
 
 SAMPLES = [
