@@ -8,12 +8,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      abs error, median time, the card's least time for the same work
      (roofline) and, where one PyTorch call computes the same function, that
      call's time: K1, K3, K4, K5, K5-int8 at the serving path's shapes; K6
-     at every (K, N) of the 7B int4 decode with M = 4 and 16; K1-bwd
+     at every (K, N) of the 7B int4 decode with M = 4 and 16; K1, K1-bwd
      (dq, dk/dv), K2 and K2-int8 at the training path's shapes (prompt
      bucket TRAIN_PROMPT_BUCKET, left padding TRAIN_PROMPT_PAD, which phase
      5 checks its batches against) and at a two-prompt batch; the int8
      weight-only decode products (dense_q8, no kernel of its own) against
-     the bf16 products they replace;
+     the bf16 products they replace.  Every kernel and library call also
+     gets a device-only time per call from torch.profiler (the sum of the
+     call's kernels, without the wrapper's host time);
   4. the serving slice end to end at the full Qwen2.5-VL-7B geometry
      (random bf16 weights from a seed): 2 video + 2 text requests through
      QwenEngine.generate_many, greedy; every request must emit a token, all
@@ -45,6 +47,7 @@ runs); the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -171,6 +174,40 @@ def median_ms(fn) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, floor_ms: float = 0.0, runs: int = 10, tries: int = 3):
+    """Device time per call of `fn`: the durations of the CUDA kernels (and
+    copies) it launches, summed over `runs` calls under torch.profiler and
+    divided by `runs`.  A reading that lost records is refused and taken
+    again, up to `tries` times: one where some kernel name was recorded a
+    number of times that is no multiple of `runs`, or whose total is under
+    `floor_ms` (the call's roofline bound, which a whole reading cannot
+    beat).  None if no try gave a whole reading."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        names, us = collections.Counter(), 0.0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                names[e.name] += 1
+                us += e.time_range.elapsed_us()
+        ms = us / runs / 1e3
+        if names and ms >= floor_ms and all(n % runs == 0
+                                            for n in names.values()):
+            return ms
+        log(f"device_ms: refused a reading of {ms:.4f} ms (floor "
+            f"{floor_ms:.4f} ms) over {runs} calls, kernels recorded "
+            f"{dict(names)}")
+    return None
+
+
 def roofline(nbytes: float, ops: float) -> dict:
     """The least time the card could take for a call: the larger of its
     bytes over HBM_BYTES_PER_S and its bf16 operations over BF16_OPS_PER_S,
@@ -190,7 +227,9 @@ def compare(name, kernel_fn, plain_fn, select=lambda x: x, rel_norm=False,
     |out - ref| <= `allowed` (a tensor of the output's shape).
     `work` = (bytes, bf16 operations) of the call, which gives its roofline
     bound; `library_fn` one PyTorch call computing the same function, timed
-    as a yardstick (the port never calls it)."""
+    as a yardstick (the port never calls it).  The kernel's and the library
+    call's device-only times (`device_ms`) are reported beside their
+    CUDA-event times, which include the host's launch time."""
     out = kernel_fn()
     ref = plain_fn()
     torch.cuda.synchronize()
@@ -212,20 +251,26 @@ def compare(name, kernel_fn, plain_fn, select=lambda x: x, rel_norm=False,
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
     library_ms = median_ms(library_fn) if library_fn is not None else None
     bound = roofline(*work) if work is not None else {}
+    floor = bound.get("bound_ms", 0.0)
+    dev = {"device_ms": device_ms(kernel_fn, floor)}
+    if library_fn is not None:
+        dev["library_device_ms"] = device_ms(library_fn, floor)
     tol = (f"rel-norm {worst:.3e} (tol {GRAD_REL_TOL:.0e})" if rel_norm
            else "tol: summation order" if allowed is not None
            else f"tol {BF16_TOL:.0e} * (1 + |ref|)")
     extra = "".join([
         f" | bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
         if bound else "",
-        f" | library {library_ms:.4f} ms" if library_ms is not None else ""])
+        f" | library {library_ms:.4f} ms" if library_ms is not None else "",
+        "".join(f" | {k} {v:.4f}" if v is not None else f" | {k} not measured"
+                for k, v in dev.items())])
     log(f"{name}: max_abs_err {err:.3e} ({tol}) | kernel {ms:.4f} ms | "
         f"plain {plain_ms:.4f} ms{extra}")
     if not (finite and within):
         raise RuntimeError(f"{name} disagrees with its plain version: "
                            f"err {err} finite {finite}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **dev}
 
 
 def causal_pairs(valid_rows) -> int:
@@ -437,13 +482,14 @@ def dense_q8_cost(gen):
 
 
 def check_training_kernels(device="cuda") -> dict:
-    """Phase 3b: K1-bwd (dq, dk/dv) and K2 against their plain versions, at
+    """Phase 3b: K1, K1-bwd (dq, dk/dv) and K2 against their plain versions, at
     the training slice's shapes (prompt bucket TRAIN_PROMPT_BUCKET, padding
     TRAIN_PROMPT_PAD: one prompt in the update, it and its temporal shuffle
     in the rollout; these results go into the kernels line) and at a
     two-prompt batch (P=1024, one prompt padded by 300), which the slice's
     single row leaves out: a batch index past 0 and rows of differing
     padding."""
+    from spacer_tpu_torch.nn.attention import xla_attention
     from spacer_tpu_torch.ops import flash_attention as fa
     from spacer_tpu_torch.ops import flash_decode as fd
 
@@ -510,6 +556,17 @@ def check_training_kernels(device="cuda") -> dict:
                  shapes["prompt"]),
                 (f"completion N={N} Sq={C} Skv={P + C}",
                  (qc, kc, vc, doutc, completion), shapes["completion"])):
+            # the forward at the training shapes (valid query rows compared)
+            live_q = (torch.arange(q_.shape[1], device=dev)[None] + kw.get(
+                "q_offset", 0)) >= torch.tensor(pads, device=dev).repeat_interleave(
+                q_.shape[0] // B)[:, None]
+            results[f"K1 {tag}"] = compare(
+                f"K1 flash_attention [{tag}]",
+                lambda: fa.flash_attention(q_, k_, v_, **kw),
+                lambda: xla_attention(q_, k_, v_, **kw), lambda x: x[live_q],
+                work=(q_rows * H * D * 2 * 2 + k_rows * Hkv * D * 2 * 2
+                      + q_rows * H * 4, 4 * D * H * pairs),
+                library_fn=lambda: sdpa_masked(q_, k_, v_, sdpa_mask))
             out, lse = fa.flash_attention(q_, k_, v_, return_lse=True, **kw)
             args = (q_, k_, v_, out, lse, do_)
             grads = (*fa.flash_attention_bwd_dq(*args, **kw),
@@ -532,13 +589,23 @@ def check_training_kernels(device="cuda") -> dict:
                 rel_norm=True, library_fn=library,
                 work=(q_bytes + q_rows * H * D * 2 * 3
                       + k_rows * Hkv * D * 2 * 2, 6 * D * H * pairs))
+            # dk/dv: its bound is the function's own work; the f32 partial
+            # sums that the split design adds (each written once and read
+            # once, over every key row) are logged beside it, not counted
+            dkv_work = (q_bytes + q_rows * H * D * 2 * 2
+                        + k_rows * Hkv * D * 2 * 4, 8 * D * H * pairs)
+            splits = (fa.dkv_split_count(q_, k_) if dev.type == "cuda"
+                      else 1)
+            partial_bytes = 2 * 2 * splits * k_.numel() * 4 if splits > 1 else 0
+            design = roofline(dkv_work[0] + partial_bytes, dkv_work[1])
+            log(f"K1-bwd dk/dv [{tag}]: splits {splits}, f32 partials "
+                f"{partial_bytes / 1e6:.1f} MB, design bound "
+                f"{design['bound_ms']:.4f} ms ({design['bound_by']})")
             results[f"K1-bwd dkv {tag}"] = compare(
                 f"K1-bwd dk/dv [{tag}]",
                 lambda: fa.flash_attention_bwd_dkv(*args, **kw),
                 lambda: fa.attention_bwd_reference(q_, k_, v_, do_, **kw)[1:],
-                rel_norm=True, library_fn=library,
-                work=(q_bytes + q_rows * H * D * 2 * 2
-                      + k_rows * Hkv * D * 2 * 4, 8 * D * H * pairs))
+                rel_norm=True, library_fn=library, work=dkv_work)
             del lout, lq, lk, lv
 
         # K2: grouped rollout decode, len(k2_pads) prompts x G completions,
@@ -1127,6 +1194,10 @@ SERVE_INT4_KV_KERNELS = ("K1", "K3", "K4", "K5-int8", "K6")
 TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
 ROLLOUT_BF16_KERNELS = ("K1", "K2", "K3", "K4")
 
+# the measured fields of each kernel in the kernels line
+LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
 SOURCES = {
     "K1": ("flash_attention", "spacer_tpu_torch/csrc/flash_attention.cu",
            "spacer_tpu/ops/flash_attention.py:452"),
@@ -1175,7 +1246,8 @@ def main():
     counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     kernels = [{"name": SOURCES[k][0], "route": "cuda", "source": SOURCES[k][1],
-                "replaces": SOURCES[k][2], "launches": counts[k], **results[k]}
+                "replaces": SOURCES[k][2], "launches": counts[k],
+                **{f: results[k][f] for f in LINE_FIELDS}}
                for k in SOURCES]
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": kernels}))

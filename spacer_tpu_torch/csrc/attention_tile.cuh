@@ -1,7 +1,10 @@
-// Shared device code of the attention kernels K1 (flash_attention.cu) and
-// K3/K4 (vit_window_attention.cu): one CTA computes a tile of up to 64 query
-// rows against a run of keys with an online softmax, on the tensor cores
-// through WMMA (bf16 operands, f32 accumulation).
+// Shared device code of the WMMA attention kernels K3/K4
+// (vit_window_attention.cu) and K2 (flash_decode_grouped.cu): one CTA
+// computes a tile of up to 64 query rows against a run of keys with an
+// online softmax, on the tensor cores through WMMA (bf16 operands, f32
+// accumulation).  K1-bwd dq (flash_attention_bwd.cu) uses its tile
+// constants and row loaders.  K1's forward and K1-bwd dk/dv do not use
+// `attend`: they run on wgmma and TMA (sm90.cuh).
 //
 // CTA = 4 warps; warp w owns query rows [16w, 16w+16) of the tile.  Per key
 // tile of 64 keys:

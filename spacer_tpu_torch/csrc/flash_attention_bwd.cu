@@ -15,25 +15,51 @@
 // is no exp(0) = 1 weight and no inf - inf, so no NaN can reach a live row
 // through 0 * NaN.  ds = p * (dp - delta) * scale, dp = dout . v.
 //
-// dq: one CTA (4 warps) per (64-row q tile, q head, batch row) walks the key
-//   tiles up to its causal limit.  Warp w owns q rows [16w, 16w+16): per
-//   key tile, S_w = Q_w K^T and dP_w = dO_w V^T on WMMA, ds in registers ->
-//   bf16 in shared memory, dQ_w += dS_w K with dQ_w kept in WMMA
-//   accumulator fragments across the whole walk.
-// dk/dv: one CTA per (64-key tile, kv head, batch row) walks the q tiles
-//   that can see its keys, for all Hq/Hkv q heads of the GQA group, so the
-//   group's sum (the TPU wrapper's reshape + sum over a (B,Hq,Skv,D)
-//   buffer) happens in the CTA's f32 accumulators.  Warp w owns key rows
-//   [16w, 16w+16): S^T_w = K_w Q^T, dP^T_w = V_w dO^T, then
-//   dV_w += P^T_w dO and dK_w += dS^T_w Q (p and ds rounded to bf16 as the
-//   TPU kernel's astype does), accumulators in shared memory as f32.
+// dq (`_bwd_dq_kernel`): one CTA (4 warps) per (64-row q tile, q head, batch
+//   row) walks the key tiles up to its causal limit.  Warp w owns q rows
+//   [16w, 16w+16): per key tile, S_w = Q_w K^T and dP_w = dO_w V^T on WMMA,
+//   ds in registers -> bf16 in shared memory, dQ_w += dS_w K with dQ_w kept
+//   in WMMA accumulator fragments across the whole walk.  What bounds it:
+//   flops (three products per tile pair), run far below the tensor-core
+//   peak on WMMA 16x16x16 without load/compute overlap.
 //
-// What bounds it on the H100: flops, about 2.5x the forward's (five
-// 64x64x128 products per tile pair instead of two).  Like the forward this
-// first version runs WMMA 16x16x16 out of shared memory with no
-// load/compute overlap, far below the tensor-core peak; wgmma, TMA and a
-// producer warp are the next steps.
+// dk/dv (`_bwd_dkv_kernel` plus the TPU wrapper's sum over each GQA group):
+//   what bounds it on the H100 is tensor-core operations, four products
+//   per (key, query) pair, 8 D flops.  Layout (sm90.cuh has the building
+//   blocks):
+//   - one CTA per (128-key tile, kv head, batch row, split): the Hq/Hkv q
+//     heads of the group are shared out over `splits` CTAs (the wrapper's
+//     rule fills the card: at the update's prompt pass, B=1, S=1536, one
+//     CTA per key tile and kv head would be 48 CTAs on 132 SMs).  Each CTA
+//     walks its heads x the q tiles that can see its keys.  The grid's
+//     slowest dimension is the key tile, ascending: under the causal rule
+//     the low key tiles have the longest walks and start first;
+//   - warpgroup 2, one warp: the producer.  It TMA-loads the K and V tiles
+//     once and streams (Q, dO) tiles of 64 rows through a ring of 2 stages
+//     (full / empty mbarriers), writing each tile's lse, delta and query
+//     codes beside them;
+//   - warpgroups 0 and 1 own 64 keys each.  Per q tile:
+//       S^T = K Q^T, dP^T = V dO^T   wgmma m64n64k16, operands in shared
+//                                    memory (K-major);
+//       p, ds in registers           p = exp(s scale - lse), exactly 0
+//                                    where the key is hidden; p and ds
+//                                    rounded to bf16 (the TPU's astype);
+//       dV += P^T dO, dK += dS^T Q   wgmma m64n128k16, P^T and dS^T as A
+//                                    fragments from the S^T / dP^T
+//                                    accumulator registers, dO and Q as
+//                                    MN-major B (transpose bit).
+//     dK and dV (64 + 64 f32 per thread) stay in registers for the walk.
+//   - Key tiles whose keys are all masked (every key code 0: left padding,
+//     the dead tail of a completion that ended early, keys past Skv) are
+//     skipped: dk = dv = 0 exactly, because p = 0 for every pair there by
+//     the rule above, which is also what the plain version computes.  The
+//     CTA writes the zeros and stops.
+//   - Reduction order: with splits = 1 the CTA writes bf16 dk/dv itself.
+//     With splits > 1 split s writes its f32 sums to slot s of a scratch
+//     buffer and a second kernel adds the slots in order 0, 1, ... before
+//     rounding to bf16: no atomics, so a run is bitwise repeatable.
 #include "flash_mask.cuh"
+#include "sm90.cuh"
 
 namespace spacer {
 
@@ -48,24 +74,6 @@ struct DqSmem {
   static constexpr size_t dp = s + BM * BN * sizeof(float);       // f32  [BM][BN]
   static constexpr size_t ds = dp + BM * BN * sizeof(float);      // bf16 [BM][BN]
   static constexpr size_t rows = ds + BM * BN * sizeof(bf16);     // f32 lse[BM], delta[BM]
-  static constexpr size_t info = rows + 2 * BM * sizeof(float);   // 32-bit [BM + BN]
-  static constexpr size_t bytes = info + (BM + BN) * sizeof(int);
-};
-
-// Dynamic shared memory of the dk/dv kernel.
-template <int D>
-struct DkvSmem {
-  static constexpr size_t k = 0;                                  // bf16 [BN][D]
-  static constexpr size_t v = k + BN * D * sizeof(bf16);          // bf16 [BN][D]
-  static constexpr size_t q = v + BN * D * sizeof(bf16);          // bf16 [BM][D]
-  static constexpr size_t d_o = q + BM * D * sizeof(bf16);        // bf16 [BM][D]
-  static constexpr size_t s = d_o + BM * D * sizeof(bf16);        // f32  [BN][BM]
-  static constexpr size_t dp = s + BN * BM * sizeof(float);       // f32  [BN][BM]
-  static constexpr size_t p = dp + BN * BM * sizeof(float);       // bf16 [BN][BM]
-  static constexpr size_t ds = p + BN * BM * sizeof(bf16);        // bf16 [BN][BM]
-  static constexpr size_t dk = ds + BN * BM * sizeof(bf16);       // f32  [BN][D]
-  static constexpr size_t dv = dk + BN * D * sizeof(float);       // f32  [BN][D]
-  static constexpr size_t rows = dv + BN * D * sizeof(float);     // f32 lse[BM], delta[BM]
   static constexpr size_t info = rows + 2 * BM * sizeof(float);   // 32-bit [BM + BN]
   static constexpr size_t bytes = info + (BM + BN) * sizeof(int);
 };
@@ -206,183 +214,303 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv,
-                     const uint8_t* __restrict__ kv_valid,
-                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-                     int Sq, int Skv, int Hq, int Hkv, int causal, int q_offset,
-                     float scale) {
-  using namespace nvcuda;
-  using L = DkvSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::d_o);
-  float* STs = reinterpret_cast<float*>(smem + L::s);
-  float* dPTs = reinterpret_cast<float*>(smem + L::dp);
-  bf16* PTs = reinterpret_cast<bf16*>(smem + L::p);
-  bf16* dSTs = reinterpret_cast<bf16*>(smem + L::ds);
-  float* dKs = reinterpret_cast<float*>(smem + L::dk);
-  float* dVs = reinterpret_cast<float*>(smem + L::dv);
-  float* lse_s = reinterpret_cast<float*>(smem + L::rows);
-  float* delta_s = lse_s + BM;
-  int* info = reinterpret_cast<int*>(smem + L::info);
-
-  const int k0 = blockIdx.x * BN, hk = blockIdx.y, b = blockIdx.z;
-  const int nk = min(BN, Skv - k0);
-  const int group = Hq / Hkv;
-  const long q_rs = (long)Hq * D, kv_rs = (long)Hkv * D;
-  const long kv_base = ((long)b * Skv + k0) * kv_rs + (long)hk * D;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  FlashMask mask{kv_valid ? kv_valid + (long)b * Skv : nullptr,
-                 q_seg ? q_seg + (long)b * Sq : nullptr,
-                 kv_seg ? kv_seg + (long)b * Skv : nullptr,
-                 0, q_offset, causal != 0};
-
-  load_rows<D>(Ks, k + kv_base, kv_rs, nk, tid);
-  load_rows<D>(Vs, v + kv_base, kv_rs, nk, tid);
-  mask.load_keys(k0, nk, tid, info);
-  for (int i = tid; i < BN * D; i += NTHREADS) {
-    dKs[i] = 0.f;
-    dVs[i] = 0.f;
-  }
-
-  // Under the causal mask, q row i sees key j iff j <= i + q_offset: the
-  // first q tile with a row that sees key k0 is (k0 - q_offset) / BM.
-  const int t_begin = causal ? max(0, k0 - q_offset) / BM : 0;
-  const int n_tiles = (Sq + BM - 1) / BM;
-  const bf16* Kw = Ks + warp * 16 * D;
-  const bf16* Vw = Vs + warp * 16 * D;
-  float* STw = STs + warp * 16 * BM;
-  float* dPTw = dPTs + warp * 16 * BM;
-  bf16* PTw = PTs + warp * 16 * BM;
-  bf16* dSTw = dSTs + warp * 16 * BM;
-  float* dKw = dKs + warp * 16 * D;
-  float* dVw = dVs + warp * 16 * D;
-
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    for (int t = t_begin; t < n_tiles; ++t) {
-      const int q0 = t * BM;
-      const int n_q = min(BM, Sq - q0);
-      const long q_base = ((long)b * Sq + q0) * q_rs + (long)h * D;
-      __syncthreads();  // the previous tile's Q, dO, stats and codes are consumed
-      load_rows<D>(Qs, q + q_base, q_rs, n_q, tid);
-      load_rows<D>(dOs, dout + q_base, q_rs, n_q, tid);
-      load_row_stats(lse_s, delta_s, lse, delta, ((long)b * Hq + h) * Sq + q0, n_q,
-                     tid);
-      mask.q0 = q0;
-      mask.load_queries(n_q, tid, info);
-      __syncthreads();
-
-      // S^T_w = K_w Q^T and dP^T_w = V_w dO^T (Q, dO row-major = col-major T)
-#pragma unroll
-      for (int n = 0; n < BM / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> s_acc, p_acc;
-        wmma::fill_fragment(s_acc, 0.f);
-        wmma::fill_fragment(p_acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bm;
-          wmma::load_matrix_sync(a, Kw + kk * 16, D);
-          wmma::load_matrix_sync(bm, Qs + n * 16 * D + kk * 16, D);
-          wmma::mma_sync(s_acc, a, bm, s_acc);
-          wmma::load_matrix_sync(a, Vw + kk * 16, D);
-          wmma::load_matrix_sync(bm, dOs + n * 16 * D + kk * 16, D);
-          wmma::mma_sync(p_acc, a, bm, p_acc);
-        }
-        wmma::store_matrix_sync(STw + n * 16, s_acc, BM, wmma::mem_row_major);
-        wmma::store_matrix_sync(dPTw + n * 16, p_acc, BM, wmma::mem_row_major);
-      }
-      __syncwarp();
-
-      for (int r = 0; r < 16; ++r) {
-        const int kj = warp * 16 + r;
-        for (int c = lane; c < BM; c += 32) {
-          float p = 0.f, ds = 0.f;
-          if (kj < nk && c < n_q && mask.visible(c, kj, k0 + kj, info)) {
-            p = __expf(STw[r * BM + c] * scale - lse_s[c]);
-            ds = p * (dPTw[r * BM + c] - delta_s[c]) * scale;
-          }
-          PTw[r * BM + c] = __float2bfloat16(p);
-          dSTw[r * BM + c] = __float2bfloat16(ds);
-        }
-      }
-      __syncwarp();
-
-      // dV_w += P^T_w dO and dK_w += dS^T_w Q, accumulated in shared memory
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> v_acc, k_acc;
-        wmma::load_matrix_sync(v_acc, dVw + n * 16, D, wmma::mem_row_major);
-        wmma::load_matrix_sync(k_acc, dKw + n * 16, D, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BM / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-          wmma::load_matrix_sync(a, PTw + kk * 16, BM);
-          wmma::load_matrix_sync(bm, dOs + kk * 16 * D + n * 16, D);
-          wmma::mma_sync(v_acc, a, bm, v_acc);
-          wmma::load_matrix_sync(a, dSTw + kk * 16, BM);
-          wmma::load_matrix_sync(bm, Qs + kk * 16 * D + n * 16, D);
-          wmma::mma_sync(k_acc, a, bm, k_acc);
-        }
-        wmma::store_matrix_sync(dVw + n * 16, v_acc, D, wmma::mem_row_major);
-        wmma::store_matrix_sync(dKw + n * 16, k_acc, D, wmma::mem_row_major);
-      }
-      __syncwarp();
-    }
-  }
-  __syncwarp();
-
-  for (int r = 0; r < 16; ++r) {
-    const int kj = warp * 16 + r;
-    if (kj >= nk) break;
-    for (int c = lane; c < D; c += 32) {
-      dk[kv_base + kj * kv_rs + c] = __float2bfloat16(dKw[r * D + c]);
-      dv[kv_base + kj * kv_rs + c] = __float2bfloat16(dVw[r * D + c]);
-    }
-  }
-}
-
-template <int D>
-static cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                              const void* dout, const void* lse, const void* delta,
-                              void* dq, void* dk, void* dv, const void* kv_valid,
-                              const void* q_seg, const void* kv_seg, int B, int Sq,
-                              int Skv, int Hq, int Hkv, int causal, int q_offset,
-                              float scale, cudaStream_t stream) {
-  if (dq != nullptr) {
-    const int smem = (int)DqSmem<D>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((Sq + BM - 1) / BM, Hq, B);
-    flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dq, (const uint8_t*)kv_valid,
-        (const int*)q_seg, (const int*)kv_seg, Sq, Skv, Hq, Hkv, causal, q_offset,
-        scale);
-  } else {
-    const int smem = (int)DkvSmem<D>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((Skv + BN - 1) / BN, Hkv, B);
-    flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
-        (const uint8_t*)kv_valid, (const int*)q_seg, (const int*)kv_seg, Sq, Skv,
-        Hq, Hkv, causal, q_offset, scale);
-  }
+static cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse, const void* delta,
+                             void* dq, const void* kv_valid, const void* q_seg,
+                             const void* kv_seg, int B, int Sq, int Skv, int Hq,
+                             int Hkv, int causal, int q_offset, float scale,
+                             cudaStream_t stream) {
+  const int smem = (int)DqSmem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + BM - 1) / BM, Hq, B);
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dq, (const uint8_t*)kv_valid,
+      (const int*)q_seg, (const int*)kv_seg, Sq, Skv, Hq, Hkv, causal, q_offset,
+      scale);
   return cudaGetLastError();
 }
 
+namespace dkv {
+
+constexpr int D = 128;
+constexpr int BK = 128;       // keys per CTA (2 consumer warpgroups of 64)
+constexpr int BQ = 64;        // query rows per step
+constexpr int STAGES = 2;
+constexpr int NTHREADS = 384;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Smem {
+  static constexpr int k = 0;                                 // bf16 [BK][D]
+  static constexpr int v = k + BK * D * 2;                    // bf16 [BK][D]
+  static constexpr int ring = v + BK * D * 2;                 // [STAGES] x (Q, dO)
+  static constexpr int tile = BQ * D * 2;                     // one Q or dO tile
+  static constexpr int stats = ring + STAGES * 2 * tile;      // [STAGES] x 3 x [BQ]
+  static constexpr int bars = stats + STAGES * 3 * BQ * 4;    // full, empty, kv
+  static constexpr int bytes = bars + (2 * STAGES + 1) * 8;
+  static constexpr int alloc = bytes + 1024;                  // base alignment
+};
+
+// Key code of key kg of batch row b (0 = masked or past the end).
+__device__ __forceinline__ int key_code(const uint8_t* kv_valid, const int* kv_seg,
+                                        int b, int kg, int Skv) {
+  if (kg >= Skv) return 0;
+  if (kv_valid != nullptr && kv_valid[(long)b * Skv + kg] == 0) return 0;
+  return kv_seg != nullptr ? kv_seg[(long)b * Skv + kg] + 1 : 1;
+}
+
+// Write two f32 values of row `row`, columns c, c + 1 of (.., Skv, Hkv, D):
+// bf16 to dk/dv, or f32 to this split's slot of the partial sums.
+__device__ __forceinline__ void store_pair(bf16* out, float* part, long off, float x,
+                                           float y) {
+  if (part != nullptr)
+    *reinterpret_cast<float2*>(part + off) = make_float2(x, y);
+  else
+    *reinterpret_cast<uint32_t*>(out + off) = sm90::pack_bf16(x, y);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv,
+                     float* __restrict__ partial, const uint8_t* __restrict__ kv_valid,
+                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+                     int B, int Sq, int Skv, int Hq, int Hkv, int causal, int q_offset,
+                     int splits, float scale) {
+  using namespace sm90;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* stats = reinterpret_cast<float*>(smem + Smem::stats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+
+  const int hk = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int b = blockIdx.y, k0 = blockIdx.z * BK;
+  const int group = Hq / Hkv, hps = (group + splits - 1) / splits;
+  const int h_begin = hk * group + split * hps;
+  const int n_heads = max(0, min(hps, group - split * hps));
+  // Under the causal rule q row i sees key j iff j <= i + q_offset: the
+  // first q tile with a row that sees key k0 is (k0 - q_offset) / BQ.
+  const int t_begin = causal ? max(0, k0 - q_offset) / BQ : 0;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int nt = max(0, n_qt - t_begin);
+  const int n_steps = n_heads * nt;
+  const long n_out = (long)B * Skv * Hkv * D;
+  float* part = partial != nullptr ? partial + (long)split * n_out : nullptr;
+  const long part_dv = (long)splits * n_out;   // dV's partials follow dK's
+
+  // A tile whose keys are all masked has dk = dv = 0 exactly (p = 0 for
+  // every pair): write the zeros and stop.
+  const int kg_own = k0 + (int)threadIdx.x;
+  const bool live = threadIdx.x < BK && key_code(kv_valid, kv_seg, b, kg_own, Skv) != 0;
+  if (!__syncthreads_or(live)) {
+    const int nk = min(BK, Skv - k0);
+    for (int i = threadIdx.x; i < nk * (D / 2); i += NTHREADS) {
+      const long off = (((long)b * Skv + k0 + i / (D / 2)) * Hkv + hk) * D + 2 * (i % (D / 2));
+      store_pair(dk, part, off, 0.f, 0.f);
+      store_pair(dv, part == nullptr ? nullptr : part + part_dv, off, 0.f, 0.f);
+    }
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);     // the producer warp's lanes (+ TMA bytes)
+      mbar_init(&empty[s], 256);   // every consumer thread
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    regs_dealloc<24>();
+    if (threadIdx.x >= 256 + 32) return;   // one producer warp
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kvbar, 2 * BK * D * 2);
+      tma_load_rows<BK>(smem + Smem::k, &tk, kvbar, hk, k0, b);
+      tma_load_rows<BK>(smem + Smem::v, &tv, kvbar, hk, k0, b);
+    }
+    RingPos pos;
+    for (int step = 0; step < n_steps; ++step) {
+      const int h = h_begin + step / nt, q0 = (t_begin + step % nt) * BQ;
+      mbar_wait(&empty[pos.stage], pos.phase ^ 1u);
+      // per q row: lse (log2 units), delta, code (-1 past the end: no key
+      // matches it)
+      float* st = stats + pos.stage * 3 * BQ;
+      const long row0 = ((long)b * Hq + h) * Sq + q0;
+      for (int j = lane; j < BQ; j += 32) {
+        const bool in = q0 + j < Sq;
+        st[j] = in ? lse[row0 + j] * LOG2E : 0.f;
+        st[BQ + j] = in ? delta[row0 + j] : 0.f;
+        reinterpret_cast<int*>(st)[2 * BQ + j] =
+            !in ? -1 : q_seg != nullptr ? q_seg[(long)b * Sq + q0 + j] + 1 : 1;
+      }
+      if (lane == 0) {
+        unsigned char* qs = smem + Smem::ring + pos.stage * 2 * Smem::tile;
+        mbar_arrive_expect_tx(&full[pos.stage], 2 * Smem::tile);
+        tma_load_rows<BQ>(qs, &tq, &full[pos.stage], h, q0, b);
+        tma_load_rows<BQ>(qs + Smem::tile, &tdo, &full[pos.stage], h, q0, b);
+      } else {
+        mbar_arrive(&full[pos.stage]);
+      }
+      pos.advance<STAGES>();
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64)
+  regs_alloc<240>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  int kg[2], kcode[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    kg[j] = k0 + 64 * wg + warp * 16 + lane / 4 + 8 * j;
+    kcode[j] = key_code(kv_valid, kv_seg, b, kg[j], Skv);
+  }
+  const float scale_log2 = scale * LOG2E;
+  float dK[64], dV[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dK[i] = dV[i] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  RingPos pos;
+  for (int step = 0; step < n_steps; ++step) {
+    const int q0 = (t_begin + step % nt) * BQ;
+    mbar_wait(&full[pos.stage], pos.phase);
+    const unsigned char* Qs = smem + Smem::ring + pos.stage * 2 * Smem::tile;
+    const unsigned char* dOs = Qs + Smem::tile;
+    const float* st = stats + pos.stage * 3 * BQ;
+    const int* qcode = reinterpret_cast<const int*>(st) + 2 * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 q rows each; both start
+    // undefined, the first step of each ignores them)
+    float sT[32], dpT[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(sT, desc_kmajor<BK>(smem + Smem::k, 64 * wg, kk),
+                         desc_kmajor<BQ>(Qs, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(dpT, desc_kmajor<BK>(smem + Smem::v, 64 * wg, kk),
+                         desc_kmajor<BQ>(dOs, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sT);
+    fence_regs(dpT);
+
+    // p = exp(s scale - lse) where the key is visible, else exactly 0;
+    // ds = p (dp - delta) scale
+#pragma unroll
+    for (int idx = 0; idx < 32; ++idx) {
+      const int j = (idx / 2) % 2;
+      const int col = (idx / 4) * 8 + (lane % 4) * 2 + idx % 2;
+      bool vis = qcode[col] == kcode[j];
+      if (causal) vis = vis && (kg[j] <= q0 + col + q_offset);
+      const float p = vis ? exp2f(sT[idx] * scale_log2 - st[col]) : 0.f;
+      sT[idx] = p;
+      dpT[idx] = p * (dpT[idx] - st[BQ + col]) * scale;
+    }
+
+    // dV += P^T dO and dK += dS^T Q (p and ds rounded to bf16)
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kb = 0; kb < BQ / 16; ++kb) {
+      frag_from_acc(pa[kb], sT, kb);
+      frag_from_acc(da[kb], dpT, kb);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < BQ / 16; ++kb)
+      wgmma_m64n128k16_rs(dV, pa[kb], desc_mnmajor<BQ>(dOs, kb), 1);
+#pragma unroll
+    for (int kb = 0; kb < BQ / 16; ++kb)
+      wgmma_m64n128k16_rs(dK, da[kb], desc_mnmajor<BQ>(Qs, kb), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dV);
+    fence_regs(dK);
+    mbar_arrive(&empty[pos.stage]);
+    pos.advance<STAGES>();
+  }
+
+  // epilogue: rows kg[j] of dk and dv (or of this split's partials)
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (kg[j] >= Skv) continue;
+    const long off = (((long)b * Skv + kg[j]) * Hkv + hk) * D + (lane % 4) * 2;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      const int i = 4 * n8 + 2 * j;
+      store_pair(dk, part, off + n8 * 8, dK[i], dK[i + 1]);
+      store_pair(dv, part == nullptr ? nullptr : part + part_dv, off + n8 * 8, dV[i],
+                 dV[i + 1]);
+    }
+  }
+}
+
+// dk / dv = the sum of the splits' f32 partials, in split order, as bf16.
+__global__ void dkv_reduce_kernel(const float* __restrict__ partial,
+                                  bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                  long n, int splits) {
+  const long i = 4 * ((long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= 2 * n) return;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  const long base = i < n ? i : splits * n + (i - n);
+  for (int s = 0; s < splits; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(partial + base + s * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  bf16* out = i < n ? dk + i : dv + (i - n);
+  reinterpret_cast<uint32_t*>(out)[0] = sm90::pack_bf16(acc.x, acc.y);
+  reinterpret_cast<uint32_t*>(out)[1] = sm90::pack_bf16(acc.z, acc.w);
+}
+
+static cudaError_t launch(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          void* dk, void* dv, void* partial, const void* kv_valid,
+                          const void* q_seg, const void* kv_seg, int B, int Sq, int Skv,
+                          int Hq, int Hkv, int causal, int q_offset, int splits,
+                          float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::encode_bshd(&tq, q, B, Sq, Hq, D, BQ);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tdo, dout, B, Sq, Hq, D, BQ);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tk, k, B, Skv, Hkv, D, BK);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tv, v, B, Skv, Hkv, D, BK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::alloc);
+  if (err != cudaSuccess) return err;
+  float* part = splits > 1 ? (float*)partial : nullptr;
+  dim3 grid(Hkv * splits, B, (Skv + BK - 1) / BK);
+  flash_bwd_dkv_kernel<<<grid, NTHREADS, Smem::alloc, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+      part, (const uint8_t*)kv_valid, (const int*)q_seg, (const int*)kv_seg, B, Sq,
+      Skv, Hq, Hkv, causal, q_offset, splits, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return err;
+  const long n = (long)B * Skv * Hkv * D;
+  const int threads = 256;
+  const long blocks = (2 * n / 4 + threads - 1) / threads;
+  dkv_reduce_kernel<<<(unsigned)blocks, threads, 0, stream>>>(part, (bf16*)dk,
+                                                               (bf16*)dv, n, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace dkv
 }  // namespace spacer
 
 extern "C" int spacer_flash_attention_bwd_dq(
@@ -391,18 +519,25 @@ extern "C" int spacer_flash_attention_bwd_dq(
     const void* kv_seg, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
     int q_offset, float scale, void* stream) {
   if (D != 128 || dq == nullptr) return (int)cudaErrorInvalidValue;
-  return spacer::launch_bwd<128>(q, k, v, dout, lse, delta, dq, nullptr, nullptr,
-                                 kv_valid, q_seg, kv_seg, B, Sq, Skv, Hq, Hkv, causal,
-                                 q_offset, scale, (cudaStream_t)stream);
+  return spacer::launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_valid, q_seg,
+                                kv_seg, B, Sq, Skv, Hq, Hkv, causal, q_offset, scale,
+                                (cudaStream_t)stream);
 }
 
+// Keys per dk/dv CTA, which the wrapper's split rule counts CTAs by.
+extern "C" int spacer_flash_attention_bwd_dkv_keys() { return spacer::dkv::BK; }
+
+// `partial`: f32 scratch of 2 * splits * B * Skv * Hkv * D values when
+// splits > 1 (the wrapper sizes it; ignored for splits == 1).
 extern "C" int spacer_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dk, void* dv, const void* kv_valid, const void* q_seg,
-    const void* kv_seg, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-    int q_offset, float scale, void* stream) {
-  if (D != 128 || dk == nullptr || dv == nullptr) return (int)cudaErrorInvalidValue;
-  return spacer::launch_bwd<128>(q, k, v, dout, lse, delta, nullptr, dk, dv,
-                                 kv_valid, q_seg, kv_seg, B, Sq, Skv, Hq, Hkv, causal,
-                                 q_offset, scale, (cudaStream_t)stream);
+    const void* delta, void* dk, void* dv, void* partial, const void* kv_valid,
+    const void* q_seg, const void* kv_seg, int B, int Sq, int Skv, int Hq, int Hkv,
+    int D, int causal, int q_offset, int splits, float scale, void* stream) {
+  if (D != spacer::dkv::D || dk == nullptr || dv == nullptr || Sq <= 0 || Skv <= 0 ||
+      splits < 1 || splits > Hq / Hkv || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return spacer::dkv::launch(q, k, v, dout, lse, delta, dk, dv, partial, kv_valid,
+                             q_seg, kv_seg, B, Sq, Skv, Hq, Hkv, causal, q_offset,
+                             splits, scale, (cudaStream_t)stream);
 }

@@ -43,9 +43,11 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, kv_valid, q_seg, kv_seg,
     # B, Sq, Skv, Hq, Hkv, D, causal, q_offset, scale, stream
     "spacer_flash_attention_bwd_dq": [P] * 10 + [I] * 8 + [F, P],
-    # q, k, v, dout, lse, delta, dk, dv, kv_valid, q_seg, kv_seg,
-    # B, Sq, Skv, Hq, Hkv, D, causal, q_offset, scale, stream
-    "spacer_flash_attention_bwd_dkv": [P] * 11 + [I] * 8 + [F, P],
+    # q, k, v, dout, lse, delta, dk, dv, partial, kv_valid, q_seg, kv_seg,
+    # B, Sq, Skv, Hq, Hkv, D, causal, q_offset, splits, scale, stream
+    "spacer_flash_attention_bwd_dkv": [P] * 12 + [I] * 9 + [F, P],
+    # () -> keys per dk/dv CTA
+    "spacer_flash_attention_bwd_dkv_keys": [],
     # q, pk, pv, bias_p, tk, tv, part_o, part_lse, out,
     # B, Hkv, G, gq, P, T, step, D, pchunk, tchunk, scale, stream
     "spacer_grouped_decode_attention": [P] * 9 + [I] * 10 + [F, P],

@@ -17,8 +17,11 @@ computes it outside Pallas.  The plain versions of the two backward kernels
 are autograd through `xla_attention` (`attention_bwd_reference`).
 
 Bound on the H100: tensor-core flops at prefill lengths (~P/2 flops per
-K/V byte).  The kernels tile 64 queries x 64 keys per step on WMMA bf16 MMAs
-with f32 accumulation (see the .cu notes).
+K/V byte).  The forward and dk/dv kernels run on wgmma with TMA-fed rings
+and their accumulators in registers (csrc/sm90.cuh); dq still runs WMMA
+16x16x16 tiles (see the .cu notes).  dk/dv splits each GQA group's q heads
+over `dkv_splits` CTAs when one CTA per (key tile, kv head) would leave the
+card idle, and sums their f32 partials in a fixed order.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  Each wrapper counts its kernel launches in `.launches`.
@@ -32,6 +35,26 @@ from spacer_tpu_torch.nn.attention import xla_attention
 from spacer_tpu_torch.ops import _build
 
 HEAD_DIMS = (128,)
+
+
+def dkv_splits(B: int, Skv: int, Hq: int, Hkv: int, sms: int,
+               keys_per_cta: int) -> int:
+    """CTAs the dk/dv kernel gives each (key tile of `keys_per_cta`, kv
+    head): enough to put about two CTAs on each of `sms` SMs, at most one
+    per q head of the group, with the heads shared out evenly."""
+    group = Hq // Hkv
+    ctas = B * Hkv * -(-Skv // keys_per_cta)
+    want = max(1, min(group, -(-2 * sms // ctas)))
+    per_split = -(-group // want)
+    return -(-group // per_split)
+
+
+def dkv_split_count(q, k) -> int:
+    """`dkv_splits` for a dk/dv call on these CUDA tensors: the card's SM
+    count and the kernel's own key tile."""
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return dkv_splits(k.shape[0], k.shape[1], q.shape[2], k.shape[2], sms,
+                      _build.kernels().spacer_flash_attention_bwd_dkv_keys())
 
 
 def _check(q, k, v, kv_mask, q_segment_ids, kv_segment_ids, q_offset):
@@ -61,8 +84,11 @@ def _mask_args(q, k, kv_mask, q_segment_ids, kv_segment_ids):
     """(valid uint8 (B, Skv), q_seg int32 (B, Sq), kv_seg int32 (B, Skv)),
     each contiguous or None, as the kernels read them."""
     B, Sq, Skv = q.shape[0], q.shape[1], k.shape[1]
-    valid = (None if kv_mask is None
-             else kv_mask.reshape(B, Skv).to(torch.uint8).contiguous())
+    valid = None
+    if kv_mask is not None:   # a bool mask is read as its bytes, no copy
+        valid = kv_mask.reshape(B, Skv)
+        valid = (valid.view(torch.uint8) if valid.dtype == torch.bool
+                 else valid.to(torch.uint8)).contiguous()
     q_seg = (None if q_segment_ids is None
              else q_segment_ids.reshape(B, Sq).to(torch.int32).contiguous())
     kv_seg = (None if kv_segment_ids is None
@@ -197,12 +223,18 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, *, causal: bool = False,
     lse, delta, masks = _bwd_args(q, k, v, out, lse, dout, kv_mask,
                                   q_segment_ids, kv_segment_ids, q_offset)
     B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    splits = dkv_split_count(q, k)
+    # f32 partial sums of dk and dv per split, summed in split order
+    partial = (torch.empty((2, splits) + tuple(k.shape), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
     p = _build.ptr
     err = _build.kernels().spacer_flash_attention_bwd_dkv(
-        p(q), p(k), p(v), p(dout), p(lse), p(delta), p(dk), p(dv),
-        *(p(m) for m in masks), B, Sq, k.shape[1], Hq, k.shape[2], D,
-        int(bool(causal)), q_offset, float(scale), _build.stream_ptr(q.device))
+        p(q), p(k), p(v), p(dout), p(lse), p(delta), p(dk), p(dv), p(partial),
+        *(p(m) for m in masks), B, Sq, Skv, Hq, Hkv, D,
+        int(bool(causal)), q_offset, splits, float(scale),
+        _build.stream_ptr(q.device))
     _build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv

@@ -50,22 +50,77 @@ def _close(out, ref):
         float((out - ref).abs().max())
 
 
-@pytest.mark.parametrize("Sq,Skv,q_offset", [(256, 256, 0), (70, 200, 130)])
-def test_flash_attention_kernel(dev, Sq, Skv, q_offset):
-    B, H, Hkv, D = 2, 8, 2, 128
+def _padded_mask(dev, B, Skv, pad, tail):
+    """Row 1 left-padded by `pad` keys; every row's last `tail` keys masked
+    (a completion that ended early)."""
+    mask = torch.ones((B, Skv), dtype=torch.bool, device=dev)
+    mask[1, :pad] = False
+    if tail:
+        mask[:, Skv - tail:] = False
+    return mask
+
+
+# (Sq, Skv, q_offset, Hq, Hkv, pad, tail): the prefill square; a q_offset
+# that is no multiple of the tile; the main path's GQA group of 7 with
+# ragged lengths and a row whose first key tiles are all padding; the
+# completion layout (q_offset a multiple of the tile, key tails masked)
+K1_CASES = [(256, 256, 0, 8, 2, 40, 0), (70, 200, 130, 8, 2, 40, 0),
+            (300, 300, 0, 28, 4, 200, 0), (128, 384, 256, 14, 2, 100, 50)]
+
+
+@pytest.mark.parametrize("Sq,Skv,q_offset,H,Hkv,pad,tail", K1_CASES)
+def test_flash_attention_kernel(dev, Sq, Skv, q_offset, H, Hkv, pad, tail):
+    B, D = 2, 128
     q, k, v = _randn(dev, B, Sq, H, D), _randn(dev, B, Skv, Hkv, D), \
         _randn(dev, B, Skv, Hkv, D)
-    mask = torch.ones((B, Skv), dtype=torch.bool, device=dev)
-    mask[1, :40] = False
+    mask = _padded_mask(dev, B, Skv, pad, tail)
     kw = dict(causal=True, kv_mask=mask, q_offset=q_offset, return_lse=True)
     before = flash_attention.launches
     out, lse = flash_attention(q, k, v, **kw)
     assert flash_attention.launches == before + 1
+    # row 1's first queries see only padding: they stay finite
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
     ref, ref_lse = xla_attention(q, k, v, **kw)
-    live = slice(max(0, 40 - q_offset), Sq)
+    live = slice(max(0, pad - q_offset), Sq)
     _close(out[0], ref[0])
+    _close(lse[0], ref_lse[0])
     _close(out[1, live], ref[1, live])
     _close(lse[1, :, live], ref_lse[1, :, live])
+
+
+def test_flash_attention_kernel_segments(dev):
+    B, S, H, Hkv, D = 2, 200, 14, 2, 128
+    q, k, v = _randn(dev, B, S, H, D), _randn(dev, B, S, Hkv, D), \
+        _randn(dev, B, S, Hkv, D)
+    pos = torch.arange(S, device=dev)
+    seg = torch.stack([(pos >= 77).int(), (pos >= 150).int() + (pos >= 190).int()])
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg,
+              return_lse=True)
+    out, lse = flash_attention(q, k, v, **kw)
+    ref, ref_lse = xla_attention(q, k, v, **kw)
+    _close(out, ref)
+    _close(lse, ref_lse)
+
+
+def test_flash_attention_fully_masked_rows(dev):
+    """Query rows that see no key (row 1's left padding).  The kernel skips
+    the key tiles whose keys are all padding, so a row comes out exactly 0
+    where its CTA walks no other tile, and the mean of V over the keys it
+    walks otherwise.  The plain version gives the mean of V over all keys;
+    no live row reads these rows (their keys are masked downstream and
+    their output gradient is 0)."""
+    B, S, H, Hkv, D, pad = 2, 256, 14, 2, 128, 130
+    q, k, v = _randn(dev, B, S, H, D), _randn(dev, B, S, Hkv, D), \
+        _randn(dev, B, S, Hkv, D)
+    mask = _padded_mask(dev, B, S, pad, 0)
+    out, lse = flash_attention(q, k, v, causal=True, kv_mask=mask,
+                               return_lse=True)
+    assert torch.isfinite(lse).all()
+    # queries 0-127 (one q tile) walk keys 0-127: all padding, all skipped
+    assert not out[1, :128].any()
+    # queries 128, 129 walk the key tiles of keys 128-255 (two padded keys)
+    walked = v[1, 128:].float().mean(0).repeat_interleave(H // Hkv, dim=0)
+    _close(out[1, 128:pad], walked.expand(pad - 128, H, D))
 
 
 def test_window_and_chunk_kernels(dev):
@@ -121,18 +176,21 @@ def _close_norm(out, ref):
     assert rel <= TOL, rel
 
 
-@pytest.mark.parametrize("Sq,Skv,q_offset", [(256, 256, 0), (64, 320, 256)])
-def test_flash_attention_backward_kernels(dev, Sq, Skv, q_offset):
+@pytest.mark.parametrize("Sq,Skv,q_offset,H,Hkv,pad,tail", [
+    (256, 256, 0, 8, 2, 70, 0), (64, 320, 256, 8, 2, 70, 0),
+    (300, 300, 0, 28, 4, 200, 0), (256, 640, 384, 28, 4, 300, 100)])
+def test_flash_attention_backward_kernels(dev, Sq, Skv, q_offset, H, Hkv, pad,
+                                          tail):
     """dq, dk, dv of the autograd.Function (launching both K1-bwd kernels)
     against autograd through the plain version; row 1 left-padded, whose
-    padded query rows get no output gradient."""
-    B, H, Hkv, D = 2, 8, 2, 128
+    padded query rows get no output gradient, and key tails masked in the
+    completion layout (the cases of K1_CASES' kinds)."""
+    B, D = 2, 128
     q, k, v = _randn(dev, B, Sq, H, D), _randn(dev, B, Skv, Hkv, D), \
         _randn(dev, B, Skv, Hkv, D)
     dout = _randn(dev, B, Sq, H, D, seed=7)
-    mask = torch.ones((B, Skv), dtype=torch.bool, device=dev)
-    mask[1, :70] = False
-    dout[1, :max(0, 70 - q_offset)] = 0
+    mask = _padded_mask(dev, B, Skv, pad, tail)
+    dout[1, :max(0, pad - q_offset)] = 0
     kw = dict(causal=True, kv_mask=mask, q_offset=q_offset)
     before = (fa.flash_attention_bwd_dq.launches,
               fa.flash_attention_bwd_dkv.launches)
@@ -144,6 +202,33 @@ def test_flash_attention_backward_kernels(dev, Sq, Skv, q_offset):
     ref = fa.attention_bwd_reference(q, k, v, dout, **kw)
     for g, r in zip(grads, ref):
         _close_norm(g, r)
+    # keys that are masked get exactly zero dk and dv
+    for g in grads[1:]:
+        assert not g.float()[~mask].any()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+def test_flash_attention_dkv_splits_are_deterministic(dev, monkeypatch, splits):
+    """dk/dv with the GQA group over 1, 2 or 7 CTAs per key tile: right, and
+    two calls on the same inputs bitwise equal (partials summed in a fixed
+    order, no atomics)."""
+    monkeypatch.setattr(fa, "dkv_splits", lambda *a: splits)
+    B, S, H, Hkv, D, pad = 1, 700, 28, 4, 128, 267
+    q, k, v = _randn(dev, B, S, H, D), _randn(dev, B, S, Hkv, D), \
+        _randn(dev, B, S, Hkv, D)
+    mask = torch.ones((B, S), dtype=torch.bool, device=dev)
+    mask[0, :pad] = False
+    dout = _randn(dev, B, S, H, D, seed=7) * mask[:, :, None, None]
+    kw = dict(causal=True, kv_mask=mask)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    args = (q, k, v, out, lse, dout)
+    first = fa.flash_attention_bwd_dkv(*args, **kw)
+    second = fa.flash_attention_bwd_dkv(*args, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for g, r in zip(first, fa.attention_bwd_reference(q, k, v, dout, **kw)[1:]):
+        _close_norm(g, r)
+        assert not g[0, :pad].any()
 
 
 def test_flash_attention_backward_segments(dev):
