@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. each kernel against its plain PyTorch version on the card, with max
      abs error, median time, the card's least time for the same work
      (roofline) and, where one PyTorch call computes the same function, that
-     call's time: K1, K3, K4, K5, K5-int8 at the serving path's shapes; K6
+     call's time: K1, K3, K4, K5, K5-int8 at the serving path's shapes (K4
+     also at chunks of 252 tokens, no multiple of its tiles); K6
      at every (K, N) of the 7B int4 decode with M = 4 and 16; K1, K1-bwd
      (dq, dk/dv), K2 and K2-int8 at the training path's shapes (prompt
      bucket TRAIN_PROMPT_BUCKET, left padding TRAIN_PROMPT_PAD, which phase
@@ -409,16 +410,20 @@ def check_kernels(device="cuda") -> dict:
         library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(
             *(windows(x, n_win, wt) for x in (qw, kw3, vw)),
             attn_mask=win_mask, scale=scale))
-    S, chunk = layout.seq_len, layout.full_chunk
-    qc, kc, vc = (randn(Hv, S, Dv) for _ in range(3))
-    results["K4"] = compare(
-        f"K4 chunk_attention_hsd (16, {S}, 80) wt={chunk}",
-        lambda: vwa.chunk_attention_hsd(qc, kc, vc, chunk, scale),
-        lambda: vwa.chunk_attention_reference(qc, kc, vc, chunk, scale),
-        work=(4 * Hv * S * Dv * 2, 4 * Dv * Hv * S * chunk),
-        library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(
-            *(windows(x, S // chunk, chunk) for x in (qc, kc, vc)),
-            scale=scale))
+    # K4 at the ViT's chunks (the kernels line) and at 8 chunks of 252 =
+    # 18 x 14 patches (a 252x196 frame pair), no multiple of the kernel's
+    # 64-key tiles
+    for tag, S, chunk in (("K4", layout.seq_len, layout.full_chunk),
+                          ("K4 wt=252", 8 * 252, 252)):
+        qc, kc, vc = (randn(Hv, S, Dv) for _ in range(3))
+        results[tag] = compare(
+            f"K4 chunk_attention_hsd (16, {S}, 80) wt={chunk}",
+            lambda: vwa.chunk_attention_hsd(qc, kc, vc, chunk, scale),
+            lambda: vwa.chunk_attention_reference(qc, kc, vc, chunk, scale),
+            work=(4 * Hv * S * Dv * 2, 4 * Dv * Hv * S * chunk),
+            library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(
+                *(windows(x, S // chunk, chunk) for x in (qc, kc, vc)),
+                scale=scale))
     results.update(check_int4_matmul(gen))
     dense_q8_cost(gen)
     return results
@@ -569,6 +574,12 @@ def check_training_kernels(device="cuda") -> dict:
                 library_fn=lambda: sdpa_masked(q_, k_, v_, sdpa_mask))
             out, lse = fa.flash_attention(q_, k_, v_, return_lse=True, **kw)
             args = (q_, k_, v_, out, lse, do_)
+            # delta = rowsum(dout * out): torch ops that each public dq and
+            # dk/dv call below runs (the autograd backward runs them once)
+            delta_dev = device_ms(lambda: fa._delta(out, do_))
+            log(f"K1-bwd delta [{tag}]: device_ms "
+                + ("not measured" if delta_dev is None else f"{delta_dev:.4f}")
+                + " (inside each dq and dk/dv call's device_ms below)")
             grads = (*fa.flash_attention_bwd_dq(*args, **kw),
                      *fa.flash_attention_bwd_dkv(*args, **kw))
             if not all(bool(torch.isfinite(g).all()) for g in grads):
@@ -1215,7 +1226,7 @@ SOURCES = {
                 "spacer_tpu/ops/flash_decode.py:215"),
     "K3": ("window_attention_hsd", "spacer_tpu_torch/csrc/vit_window_attention.cu",
            "spacer_tpu/ops/vit_window_attention.py:116"),
-    "K4": ("chunk_attention_hsd", "spacer_tpu_torch/csrc/vit_window_attention.cu",
+    "K4": ("chunk_attention_hsd", "spacer_tpu_torch/csrc/vit_chunk_attention.cu",
            "spacer_tpu/ops/vit_window_attention.py:187"),
     "K5": ("flash_ragged_decode_attention", "spacer_tpu_torch/csrc/flash_decode.cu",
            "spacer_tpu/ops/flash_decode.py:398"),

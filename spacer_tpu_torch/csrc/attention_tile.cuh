@@ -1,10 +1,9 @@
-// Shared device code of the WMMA attention kernels K3/K4
+// Shared device code of the WMMA attention kernels K3
 // (vit_window_attention.cu) and K2 (flash_decode_grouped.cu): one CTA
 // computes a tile of up to 64 query rows against a run of keys with an
 // online softmax, on the tensor cores through WMMA (bf16 operands, f32
-// accumulation).  K1-bwd dq (flash_attention_bwd.cu) uses its tile
-// constants and row loaders.  K1's forward and K1-bwd dk/dv do not use
-// `attend`: they run on wgmma and TMA (sm90.cuh).
+// accumulation).  K1's forward, K1-bwd dq and dk/dv and K4 do not use it:
+// they run on wgmma and TMA (sm90.cuh).
 //
 // CTA = 4 warps; warp w owns query rows [16w, 16w+16) of the tile.  Per key
 // tile of 64 keys:
@@ -22,7 +21,7 @@
 // memory (exact for |c| <= 127); the mask policy applies the per-key K scale
 // to the logit and supplies the per-key V scale, which multiplies p for the
 // P.V product only (the denominator sums the unscaled p, as the TPU kernel
-// does).  The default KVT = bf16 compiles to the code K1, K3, K4 and K2 had.
+// does).  The default KVT = bf16 compiles to the code K3 and K2 had.
 #pragma once
 
 #include <cuda_bf16.h>

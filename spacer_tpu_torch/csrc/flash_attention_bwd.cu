@@ -3,30 +3,51 @@
 // Replaces spacer_tpu/ops/flash_attention.py::_flash_bwd, which makes two
 // Pallas calls: dq (`_bwd_dq_kernel`) and dk/dv (`_bwd_dkv_kernel`).  Same
 // contract as K1's forward (flash_attention.cu): q (B,Sq,Hq,D), k/v
-// (B,Skv,Hkv,D) bf16 in the JAX layout, causal with a static q_offset, a
-// (B,Skv) validity mask and optional (B,S) segment ids (flash_mask.cuh),
-// GQA.  Inputs beside q/k/v: dout (B,Sq,Hq,D) bf16, the forward's LSE
-// (B,Hq,Sq) f32 and delta = rowsum(dout * out) (B,Hq,Sq) f32.
+// (B,Skv,Hkv,D) bf16 in the JAX layout, D = 128, causal with a static
+// q_offset, a (B,Skv) validity mask and optional (B,S) segment ids folded
+// into per-key codes as the forward folds them (0 = masked key, segment + 1
+// otherwise; a key is visible to a query iff the codes are equal and the
+// causal rule holds), GQA.  Inputs beside q/k/v: dout (B,Sq,Hq,D) bf16, the
+// forward's LSE (B,Hq,Sq) f32 and delta = rowsum(dout * out) (B,Hq,Sq) f32.
 //
 // Both kernels recompute p = exp(s * scale - lse) from the forward's LSE and
 // set p = 0 wherever the forward's mask hid the key (as the TPU kernel's
 // jnp.where(mask, p, 0) does).  A fully masked query row (a left-padded
 // prompt position) therefore contributes exactly 0 to dq, dk and dv: there
 // is no exp(0) = 1 weight and no inf - inf, so no NaN can reach a live row
-// through 0 * NaN.  ds = p * (dp - delta) * scale, dp = dout . v.
+// through 0 * NaN.  ds = p * (dp - delta) * scale, dp = dout . v, rounded to
+// bf16 before its products (the TPU's astype).
 //
-// dq (`_bwd_dq_kernel`): one CTA (4 warps) per (64-row q tile, q head, batch
-//   row) walks the key tiles up to its causal limit.  Warp w owns q rows
-//   [16w, 16w+16): per key tile, S_w = Q_w K^T and dP_w = dO_w V^T on WMMA,
-//   ds in registers -> bf16 in shared memory, dQ_w += dS_w K with dQ_w kept
-//   in WMMA accumulator fragments across the whole walk.  What bounds it:
-//   flops (three products per tile pair), run far below the tensor-core
-//   peak on WMMA 16x16x16 without load/compute overlap.
+// Both run on Hopper's wgmma and TMA (sm90.cuh has the building blocks):
+// a producer warp feeds TMA rings through full / empty mbarriers, two
+// consumer warpgroups keep their accumulators in registers.  What bounds
+// them on the H100 is tensor-core operations: dq does three products per
+// (query, key) pair (6 D flops), dk/dv four (8 D flops).
+//
+// dq (`_bwd_dq_kernel`): K1 forward's structure with one more product.
+//   - one CTA per (128-row q tile, q head, batch row); the grid's slowest
+//     dimension is the q tile, reversed: the longest causal walks start
+//     first;
+//   - warpgroup 2, one warp: the producer.  It TMA-loads the Q and dO tiles
+//     once and streams K and V tiles of 64 keys through a ring of 3 stages,
+//     writing the tile's 64 key codes beside them;
+//   - warpgroups 0 and 1 own 64 q rows each; each thread reads lse (log2
+//     units) and delta of its 2 rows once.  Per key tile:
+//       S = Q K^T, dP = dO V^T   wgmma m64n64k16, operands K-major in
+//                                shared memory;
+//       p, ds in registers       p exactly 0 where the key is hidden;
+//       dQ += dS K               wgmma m64n128k16, dS as A fragments from
+//                                the dP accumulator registers, K (stored
+//                                [key][d]) as an MN-major B.
+//     dQ (64 f32 per thread) stays in registers for the whole walk, and one
+//     CTA owns all of its rows' dq: no partial sums, no atomics, a run is
+//     bitwise repeatable.
+//   - Key tiles whose keys are all masked by kv_mask (left padding, the dead
+//     tail of a completion) are skipped: p = 0 for every pair there.  A q
+//     tile whose walk keeps no key tile at all writes zeros and stops (at the
+//     update's prompt, B=1 S=1536 padded by 467, q tiles 0-2).
 //
 // dk/dv (`_bwd_dkv_kernel` plus the TPU wrapper's sum over each GQA group):
-//   what bounds it on the H100 is tensor-core operations, four products
-//   per (key, query) pair, 8 D flops.  Layout (sm90.cuh has the building
-//   blocks):
 //   - one CTA per (128-key tile, kv head, batch row, split): the Hq/Hkv q
 //     heads of the group are shared out over `splits` CTAs (the wrapper's
 //     rule fills the card: at the update's prompt pass, B=1, S=1536, one
@@ -58,180 +79,254 @@
 //     With splits > 1 split s writes its f32 sums to slot s of a scratch
 //     buffer and a second kernel adds the slots in order 0, 1, ... before
 //     rounding to bf16: no atomics, so a run is bitwise repeatable.
-#include "flash_mask.cuh"
 #include "sm90.cuh"
 
 namespace spacer {
+namespace dq {
 
-// Dynamic shared memory of the dq kernel (byte offsets, multiples of 32).
-template <int D>
-struct DqSmem {
-  static constexpr size_t q = 0;                                  // bf16 [BM][D]
-  static constexpr size_t d_o = q + BM * D * sizeof(bf16);        // bf16 [BM][D]
-  static constexpr size_t k = d_o + BM * D * sizeof(bf16);        // bf16 [BN][D]
-  static constexpr size_t v = k + BN * D * sizeof(bf16);          // bf16 [BN][D]
-  static constexpr size_t s = v + BN * D * sizeof(bf16);          // f32  [BM][BN]
-  static constexpr size_t dp = s + BM * BN * sizeof(float);       // f32  [BM][BN]
-  static constexpr size_t ds = dp + BM * BN * sizeof(float);      // bf16 [BM][BN]
-  static constexpr size_t rows = ds + BM * BN * sizeof(bf16);     // f32 lse[BM], delta[BM]
-  static constexpr size_t info = rows + 2 * BM * sizeof(float);   // 32-bit [BM + BN]
-  static constexpr size_t bytes = info + (BM + BN) * sizeof(int);
+constexpr int D = 128;
+constexpr int BM = 128;       // query rows per CTA (2 consumer warpgroups)
+constexpr int BN = 64;        // keys per tile
+constexpr int STAGES = 3;
+constexpr int NTHREADS = 384;
+constexpr int MAX_TILES = 512;   // key tiles with a liveness flag; later ones count as live
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Smem {
+  static constexpr int q = 0;                                 // bf16 [BM][D]
+  static constexpr int d_o = q + BM * D * 2;                  // bf16 [BM][D]
+  static constexpr int kv = d_o + BM * D * 2;                 // [STAGES] x (K, V)
+  static constexpr int tile = BN * D * 2;                     // one K or V tile
+  static constexpr int codes = kv + STAGES * 2 * tile;        // int [STAGES][BN]
+  static constexpr int live = codes + STAGES * BN * 4;        // int [MAX_TILES]
+  static constexpr int bars = live + MAX_TILES * 4;           // full, empty, q
+  static constexpr int bytes = bars + (2 * STAGES + 1) * 8;
+  static constexpr int alloc = bytes + 1024;                  // base alignment
 };
 
-// lse / delta of rows [q0, q0 + n_q) of one (batch, head); zero past n_q.
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
-                                               const float* __restrict__ lse,
-                                               const float* __restrict__ delta,
-                                               long base, int n_q, int tid) {
-  for (int i = tid; i < BM; i += NTHREADS) {
-    lse_s[i] = i < n_q ? lse[base + i] : 0.f;
-    delta_s[i] = i < n_q ? delta[base + i] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, const uint8_t* __restrict__ kv_valid,
                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
                     int Sq, int Skv, int Hq, int Hkv, int causal, int q_offset,
                     float scale) {
-  using namespace nvcuda;
-  using L = DqSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::d_o);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds);
-  float* lse_s = reinterpret_cast<float*>(smem + L::rows);
-  float* delta_s = lse_s + BM;
-  int* info = reinterpret_cast<int*>(smem + L::info);
+  using namespace sm90;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = smem + Smem::q;
+  unsigned char* dOs = smem + Smem::d_o;
+  int* codes = reinterpret_cast<int*>(smem + Smem::codes);
+  int* live = reinterpret_cast<int*>(smem + Smem::live);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
 
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
   const int n_q = min(BM, Sq - q0);
   const int hk = h / (Hq / Hkv);
-  const long q_rs = (long)Hq * D, kv_rs = (long)Hkv * D;
   int n_kv = Skv;
   if (causal) n_kv = max(0, min(Skv, q0 + n_q + q_offset));
-  const FlashMask mask{kv_valid ? kv_valid + (long)b * Skv : nullptr,
-                       q_seg ? q_seg + (long)b * Sq : nullptr,
-                       kv_seg ? kv_seg + (long)b * Skv : nullptr,
-                       q0, q_offset, causal != 0};
-  const long q_base = ((long)b * Sq + q0) * q_rs + (long)h * D;
-  const long kv_base = (long)b * Skv * kv_rs + (long)hk * D;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_kt = (n_kv + BN - 1) / BN;
 
-  load_rows<D>(Qs, q + q_base, q_rs, n_q, tid);
-  load_rows<D>(dOs, dout + q_base, q_rs, n_q, tid);
-  load_row_stats(lse_s, delta_s, lse, delta, ((long)b * Hq + h) * Sq + q0, n_q, tid);
-  mask.load_queries(n_q, tid, info);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  float* Sw = Ss + warp * 16 * BN;
-  float* dPw = dPs + warp * 16 * BN;
-  bf16* dSw = dSs + warp * 16 * BN;
-  const bf16* Qw = Qs + warp * 16 * D;
-  const bf16* dOw = dOs + warp * 16 * D;
-
-  for (int k0 = 0; k0 < n_kv; k0 += BN) {
-    const int nk = min(BN, n_kv - k0);
-    __syncthreads();  // the previous tile's K, V and key codes are consumed
-    load_rows<D>(Ks, k + kv_base + k0 * kv_rs, kv_rs, nk, tid);
-    load_rows<D>(Vs, v + kv_base + k0 * kv_rs, kv_rs, nk, tid);
-    mask.load_keys(k0, nk, tid, info);
+  // live[t]: bit 0 = key tile t holds a key with kv_valid != 0, bit 1 = one
+  // with kv_valid == 0.  A tile without bit 0 is skipped (p = 0 for every
+  // pair there), a CTA that keeps no tile writes zeros and stops, and a tile
+  // with bit 0 alone needs no per-key mask.
+  const bool skip_dead = kv_valid != nullptr;
+  bool any_live = !skip_dead || n_kv > MAX_TILES * BN;
+  if (skip_dead) {
+    for (int t = threadIdx.x; t < min(n_kt, MAX_TILES); t += NTHREADS) live[t] = 0;
     __syncthreads();
-
-    // S_w = Q_w K^T and dP_w = dO_w V^T (K, V row-major = K^T, V^T col-major)
-#pragma unroll
-    for (int n = 0; n < BN / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s_acc, p_acc;
-      wmma::fill_fragment(s_acc, 0.f);
-      wmma::fill_fragment(p_acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bm;
-        wmma::load_matrix_sync(a, Qw + kk * 16, D);
-        wmma::load_matrix_sync(bm, Ks + n * 16 * D + kk * 16, D);
-        wmma::mma_sync(s_acc, a, bm, s_acc);
-        wmma::load_matrix_sync(a, dOw + kk * 16, D);
-        wmma::load_matrix_sync(bm, Vs + n * 16 * D + kk * 16, D);
-        wmma::mma_sync(p_acc, a, bm, p_acc);
+    for (int kg = threadIdx.x; kg < min(n_kv, MAX_TILES * BN); kg += NTHREADS)
+      if (kv_valid[(long)b * Skv + kg] != 0) {
+        atomicOr(&live[kg / BN], 1);
+        any_live = true;
+      } else {
+        atomicOr(&live[kg / BN], 2);
       }
-      wmma::store_matrix_sync(Sw + n * 16, s_acc, BN, wmma::mem_row_major);
-      wmma::store_matrix_sync(dPw + n * 16, p_acc, BN, wmma::mem_row_major);
-    }
-    __syncwarp();
+  }
+  if (!__syncthreads_or(any_live)) {
+    for (int i = threadIdx.x; i < n_q * (D / 8); i += NTHREADS)
+      *reinterpret_cast<uint4*>(dq + (((long)b * Sq + q0 + i / (D / 8)) * Hq + h) * D +
+                                8 * (i % (D / 8))) = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  auto tile_live = [&](int i) { return !skip_dead || i >= MAX_TILES || (live[i] & 1); };
 
-    for (int r = 0; r < 16; ++r) {
-      const int qi = warp * 16 + r;
-      const float row_lse = lse_s[qi], row_delta = delta_s[qi];
-      for (int c = lane; c < BN; c += 32) {
-        float ds = 0.f;
-        if (qi < n_q && c < nk && mask.visible(qi, c, k0 + c, info)) {
-          const float p = __expf(Sw[r * BN + c] * scale - row_lse);
-          ds = p * (dPw[r * BN + c] - row_delta) * scale;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);     // the producer warp's lanes (+ TMA bytes)
+      mbar_init(&empty[s], 256);   // every consumer thread
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    regs_dealloc<24>();
+    if (threadIdx.x >= 256 + 32) return;   // one producer warp
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, 2 * BM * D * 2);
+      tma_load_rows<BM>(Qs, &tq, qbar, h, q0, b);
+      tma_load_rows<BM>(dOs, &tdo, qbar, h, q0, b);
+    }
+    RingPos pos;
+    for (int i = 0; i < n_kt; ++i) {
+      if (!tile_live(i)) continue;
+      mbar_wait(&empty[pos.stage], pos.phase ^ 1u);
+      const int k0 = i * BN;
+      for (int j = lane; j < BN; j += 32) {
+        const int kg = k0 + j;
+        int code = 0;
+        if (kg < Skv) {
+          code = kv_seg != nullptr ? kv_seg[(long)b * Skv + kg] + 1 : 1;
+          if (kv_valid != nullptr && kv_valid[(long)b * Skv + kg] == 0) code = 0;
         }
-        dSw[r * BN + c] = __float2bfloat16(ds);
+        codes[pos.stage * BN + j] = code;
       }
-    }
-    __syncwarp();
-
-    // dQ_w += dS_w K
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(a, dSw + kk * 16, BN);
-        wmma::load_matrix_sync(bm, Ks + kk * 16 * D + n * 16, D);
-        wmma::mma_sync(acc[n], a, bm, acc[n]);
+      if (lane == 0) {
+        unsigned char* st = smem + Smem::kv + pos.stage * 2 * Smem::tile;
+        mbar_arrive_expect_tx(&full[pos.stage], 2 * Smem::tile);
+        tma_load_rows<BN>(st, &tk, &full[pos.stage], hk, k0, b);
+        tma_load_rows<BN>(st + Smem::tile, &tv, &full[pos.stage], hk, k0, b);
+      } else {
+        mbar_arrive(&full[pos.stage]);
       }
+      pos.advance<STAGES>();
     }
+    return;
   }
 
-  // Write dq through a 16x16 f32 staging tile in the warp's score rows.
-  __syncwarp();
+  // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  regs_alloc<240>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int r_lo = 64 * wg + warp * 16 + lane / 4;   // rows r_lo, r_lo + 8
+  const float scale_log2 = scale * LOG2E;
+  int qcode[2];
+  // lse2 = lse in log2 units less log2(scale), so that the exp2 below gives
+  // p * scale; rows past Sq: zero Q and dO rows give ds = 0
+  float lse2[2], dlt[2];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(Sw, acc[n], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 256; i += 32) {
-      const int qi = warp * 16 + i / 16;
-      if (qi < n_q) dq[q_base + qi * q_rs + n * 16 + i % 16] = __float2bfloat16(Sw[i]);
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + r_lo + 8 * j;
+    const bool in = row < Sq;
+    qcode[j] = (q_seg != nullptr && in) ? q_seg[(long)b * Sq + row] + 1 : 1;
+    lse2[j] = in ? lse[((long)b * Hq + h) * Sq + row] * LOG2E - log2f(scale) : 0.f;
+    dlt[j] = in ? delta[((long)b * Hq + h) * Sq + row] : 0.f;
+  }
+  const int wg_first_row = q0 + 64 * wg;
+
+  float dQ[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dQ[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  RingPos pos;
+  for (int i = 0; i < n_kt; ++i) {
+    if (!tile_live(i)) continue;
+    mbar_wait(&full[pos.stage], pos.phase);
+    const unsigned char* Ks = smem + Smem::kv + pos.stage * 2 * Smem::tile;
+    const unsigned char* Vs = Ks + Smem::tile;
+    const int* kcode = codes + pos.stage * BN;
+    const int k0 = i * BN;
+
+    // S = Q K^T and dP = dO V^T (both start undefined: the first step of
+    // each ignores them)
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(s, desc_kmajor<BM>(Qs, 64 * wg, kk), desc_kmajor<BN>(Ks, 0, kk),
+                         kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(dp, desc_kmajor<BM>(dOs, 64 * wg, kk),
+                         desc_kmajor<BN>(Vs, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p = exp(s scale - lse) where the key is visible, else exactly 0;
+    // ds = p (dp - delta) scale, in dp's registers.  The per-key mask only
+    // where a tile needs it: segments, keys past Skv, a masked key in the
+    // tile, the causal diagonal
+    const bool masked = q_seg != nullptr || k0 + BN > Skv ||
+                        (skip_dead && (i >= MAX_TILES || live[i] != 1)) ||
+                        (causal && k0 + BN - 1 > wg_first_row + q_offset);
+#pragma unroll
+    for (int idx = 0; idx < 32; ++idx) {
+      const int j = (idx / 2) % 2;
+      bool vis = true;
+      if (masked) {
+        const int col = (idx / 4) * 8 + (lane % 4) * 2 + idx % 2;
+        vis = kcode[col] == qcode[j];
+        if (causal) vis = vis && (k0 + col <= q0 + r_lo + 8 * j + q_offset);
+      }
+      const float p = vis ? exp2_approx(s[idx] * scale_log2 - lse2[j]) : 0.f;
+      dp[idx] = p * (dp[idx] - dlt[j]);
     }
-    __syncwarp();
+
+    // dQ += dS K, dS rounded to bf16 in registers
+    uint32_t da[BN / 16][4];
+#pragma unroll
+    for (int kb = 0; kb < BN / 16; ++kb) frag_from_acc(da[kb], dp, kb);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < BN / 16; ++kb)
+      wgmma_m64n128k16_rs(dQ, da[kb], desc_mnmajor<BN>(Ks, kb), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dQ);
+    mbar_arrive(&empty[pos.stage]);
+    pos.advance<STAGES>();
+  }
+
+  // epilogue: rows r_lo, r_lo + 8 of dq
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + r_lo + 8 * j;
+    if (row >= Sq) continue;
+    bf16* drow = dq + (((long)b * Sq + row) * Hq + h) * D + (lane % 4) * 2;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<uint32_t*>(drow + n8 * 8) =
+          pack_bf16(dQ[4 * n8 + 2 * j], dQ[4 * n8 + 2 * j + 1]);
   }
 }
 
-template <int D>
-static cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse, const void* delta,
-                             void* dq, const void* kv_valid, const void* q_seg,
-                             const void* kv_seg, int B, int Sq, int Skv, int Hq,
-                             int Hkv, int causal, int q_offset, float scale,
-                             cudaStream_t stream) {
-  const int smem = (int)DqSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+static cudaError_t launch(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          void* dq, const void* kv_valid, const void* q_seg,
+                          const void* kv_seg, int B, int Sq, int Skv, int Hq, int Hkv,
+                          int causal, int q_offset, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::encode_bshd(&tq, q, B, Sq, Hq, D, BM);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tdo, dout, B, Sq, Hq, D, BM);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tk, k, B, Skv, Hkv, D, BN);
+  if (err == cudaSuccess) err = sm90::encode_bshd(&tv, v, B, Skv, Hkv, D, BN);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BM - 1) / BM, Hq, B);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, (const uint8_t*)kv_valid,
-      (const int*)q_seg, (const int*)kv_seg, Sq, Skv, Hq, Hkv, causal, q_offset,
-      scale);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::alloc);
+  if (err != cudaSuccess) return err;
+  dim3 grid(Hq, B, (Sq + BM - 1) / BM);
+  flash_bwd_dq_kernel<<<grid, NTHREADS, Smem::alloc, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq,
+      (const uint8_t*)kv_valid, (const int*)q_seg, (const int*)kv_seg, Sq, Skv, Hq,
+      Hkv, causal, q_offset, scale);
   return cudaGetLastError();
 }
+
+}  // namespace dq
 
 namespace dkv {
 
@@ -518,10 +613,11 @@ extern "C" int spacer_flash_attention_bwd_dq(
     const void* delta, void* dq, const void* kv_valid, const void* q_seg,
     const void* kv_seg, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
     int q_offset, float scale, void* stream) {
-  if (D != 128 || dq == nullptr) return (int)cudaErrorInvalidValue;
-  return spacer::launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_valid, q_seg,
-                                kv_seg, B, Sq, Skv, Hq, Hkv, causal, q_offset, scale,
-                                (cudaStream_t)stream);
+  if (D != spacer::dq::D || dq == nullptr || Sq <= 0 || Skv <= 0)
+    return (int)cudaErrorInvalidValue;
+  return spacer::dq::launch(q, k, v, dout, lse, delta, dq, kv_valid, q_seg, kv_seg, B,
+                            Sq, Skv, Hq, Hkv, causal, q_offset, scale,
+                            (cudaStream_t)stream);
 }
 
 // Keys per dk/dv CTA, which the wrapper's split rule counts CTAs by.

@@ -1,20 +1,26 @@
 // Hopper (sm_90a) building blocks shared by K1's forward
-// (flash_attention.cu) and K1-bwd dk/dv (flash_attention_bwd.cu):
+// (flash_attention.cu), K1-bwd dq and dk/dv (flash_attention_bwd.cu) and K4
+// (vit_chunk_attention.cu):
 //
 //   - mbarriers: init, arrive, arrive + expect-tx, wait on a phase parity;
 //   - TMA: 4-D tile loads from a CUtensorMap passed as a __grid_constant__
-//     kernel parameter, completing on an mbarrier; the host-side encoder of
-//     a (B, S, H, D) bf16 tensor as a (D, H, S, B) map with the 128-byte
-//     swizzle, fetched through cudaGetDriverEntryPoint (no -lcuda);
-//   - wgmma: shared-memory descriptors of 128-byte-swizzled bf16 tiles,
-//     fence / commit / wait, and the two bf16 -> f32 shapes the kernels use:
-//     m64n64k16 with both operands in shared memory, and m64n128k16 with A
-//     from registers and B transposed (MN-major);
+//     kernel parameter, completing on an mbarrier; host-side encoders,
+//     fetched through cudaGetDriverEntryPoint (no -lcuda), of a (B, S, H, D)
+//     bf16 tensor as a (D, H, S, B) map with the 128-byte swizzle (D = 128)
+//     and of an (H, S, 80) tensor cut into chunks of wt rows as two (80, wt,
+//     n, H) maps, columns 0-63 with the 128-byte swizzle and 64-79 with the
+//     32-byte swizzle (the ViT's head width);
+//   - wgmma: shared-memory descriptors of 128-byte- and 32-byte-swizzled
+//     bf16 tiles, fence / commit / wait, and the bf16 -> f32 shapes the
+//     kernels use: m64n64k16 with both operands in shared memory, and
+//     m64n128k16, m64n64k16 and m64n16k16 with A from registers and B
+//     transposed (MN-major);
 //   - setmaxnreg.
 //
-// Tile layout in shared memory.  With the 128-byte swizzle a TMA box is at
-// most 64 bf16 wide, so a row of D = 128 arrives as two boxes: a tile of R
-// rows is two [R][64] blocks of R * 128 bytes, column block c at c * R * 128.
+// Tile layout in shared memory, D = 128.  With the 128-byte swizzle a TMA
+// box is at most 64 bf16 wide, so a row of D = 128 arrives as two boxes: a
+// tile of R rows is two [R][64] blocks of R * 128 bytes, column block c at
+// c * R * 128.
 // Each block is a run of 1024-byte swizzle atoms (8 rows of 128 bytes, the
 // 16-byte chunk j of row r stored at chunk j ^ (r % 8)), which is the
 // canonical layout wgmma reads:
@@ -25,6 +31,22 @@
 //   SBO = 1024 (next 8 rows = next 8 of the reduction), LBO = R * 128 (the
 //   second 64-column block); the k-th 16-row step starts 2048 bytes on.
 // Every tile base is 1024-byte aligned, so the descriptors' base offset is 0.
+//
+// Tile layout in shared memory, D = 80 (K4).  80 = 64 + 16: a tile of R rows
+// is a [R][64] block with the 128-byte swizzle (R * 128 bytes, as above)
+// followed by a [R][16] block with the 32-byte swizzle (R * 32 bytes, a run
+// of 256-byte atoms: 8 rows of 32 bytes, the 16-byte chunk j of row r stored
+// at chunk j ^ ((r / 4) % 2)).  A row arrives as a 128-byte and a 32-byte
+// box.  Five 16-column blocks, all with the 32-byte swizzle, would serve
+// every product with one descriptor mode but take five 32-byte boxes per row,
+// which ran slower on the card; padding to 128 columns would cost 1.6x the
+// tensor-core work.
+//   K-major operand: k-steps 0-3 in the first block as for D = 128; k-step 4
+//   is the second block, SBO = 256 (next 8 rows), LBO unused.
+//   MN-major operand: columns 0-63 from the first block as for D = 128,
+//   columns 64-79 from the second, SBO = 256; the k-th 16-row step starts
+//   2048 and 512 bytes on.  P V is an n64 and an n16 product.
+// Block bases are multiples of 1024 and 256 bytes: the base offset is 0.
 //
 // Accumulator layout of a 64 x N wgmma (f32), thread t of the warpgroup
 // (warp w = t / 32, lane l): d[4 * n8 + 2 * j + c] holds row 16 w + l / 4 +
@@ -128,17 +150,34 @@ __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
   tma_load_4d(static_cast<char*>(dst) + R * 128, map, bar, 64, h, s0, b);
 }
 
+// Load rows [r0, r0 + R) of chunk n, head h of an (H, S, 80) tensor into
+// the two blocks of a D = 80 tile: columns 0-63 from `map64` (box (64, R, 1,
+// 1)), 64-79 from `map16` (box (16, R, 1, 1)).  Rows past the chunk's end
+// read as zeros.
+template <int R>
+__device__ __forceinline__ void tma_load_chunk_rows(void* dst, const CUtensorMap* map64,
+                                                    const CUtensorMap* map16,
+                                                    uint64_t* bar, int r0, int n,
+                                                    int h) {
+  tma_load_4d(dst, map64, bar, 0, r0, n, h);
+  tma_load_4d(static_cast<char*>(dst) + R * 128, map16, bar, 64, r0, n, h);
+}
+
 // ------------------------------------------------------------------- wgmma
 
 __device__ __forceinline__ uint64_t desc_encode(uint32_t x) {
   return static_cast<uint64_t>((x & 0x3FFFF) >> 4);
 }
 
-// Descriptor of a 128-byte-swizzled bf16 tile at `p` (see the header note).
+// The descriptor's layout field: which swizzle the tile was stored with.
+enum class Swizzle : uint64_t { B128 = 1, B32 = 3 };
+
+// Descriptor of a swizzled bf16 tile at `p` (see the header note).
 __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo_bytes,
-                                              uint32_t sbo_bytes) {
+                                              uint32_t sbo_bytes,
+                                              Swizzle swizzle = Swizzle::B128) {
   return desc_encode(smem_addr(p)) | (desc_encode(lbo_bytes) << 16) |
-         (desc_encode(sbo_bytes) << 32) | (1ull << 62);
+         (desc_encode(sbo_bytes) << 32) | (static_cast<uint64_t>(swizzle) << 62);
 }
 
 // K-major operand: rows [r0, r0 + 8 m) of a tile of R rows, k-step kk (16
@@ -155,6 +194,21 @@ __device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int r0, int kk
 template <int R>
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk) {
   return make_desc(static_cast<const char*>(tile) + kk * 2048, R * 128, 1024);
+}
+
+// The same two for a D = 80 tile (a [R][64] and a [R][16] block): k-step kk
+// of 5; and the reduction rows of step kk in the 16-column block (columns
+// 0-63 take desc_mnmajor).
+template <int R>
+__device__ __forceinline__ uint64_t desc_kmajor_d80(const void* tile, int r0, int kk) {
+  if (kk < 4) return desc_kmajor<R>(tile, r0, kk);
+  return make_desc(static_cast<const char*>(tile) + R * 128 + r0 * 32, 16, 256,
+                   Swizzle::B32);
+}
+template <int R>
+__device__ __forceinline__ uint64_t desc_mnmajor_d80_hi(const void* tile, int kk) {
+  return make_desc(static_cast<const char*>(tile) + R * 128 + kk * 512, R * 32, 256,
+                   Swizzle::B32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -223,6 +277,46 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 64 f32) += A B, A a 64 x 16 bf16 fragment in registers, B a
+// 16 x 64 MN-major tile in shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 16 f32) += A B, A a 64 x 16 bf16 fragment in registers, B a
+// 16 x 16 MN-major tile in shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// 2^x on the SFU (ex2.approx.ftz: ~2 ulp, denormals flushed, 2^-inf = 0),
+// one instruction where exp2f adds range fix-ups around it.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -252,11 +346,12 @@ __device__ __forceinline__ void regs_dealloc() {
 
 // ------------------------------------------------------------- host side
 
-// Encode a contiguous (B, S, H, D) bf16 tensor as a 4-D TMA map (D, H, S, B)
-// with a (64, 1, rows, 1) box and the 128-byte swizzle.  Rows past S (and
-// columns past D) read as zeros.
-inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B, int S,
-                               int H, int D, int rows) {
+// Encode a 4-D bf16 tensor map: dims innermost first, byte strides of dims
+// 1-3, box, swizzle.  Elements outside the dims read as zeros.  A refused
+// encode (e.g. a box row wider than the swizzle span) returns an error.
+inline cudaError_t encode_4d(CUtensorMap* map, const void* base,
+                             const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                             const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -268,18 +363,40 @@ inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B, int S,
       return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(base), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A contiguous (B, S, H, D) bf16 tensor as a 4-D TMA map (D, H, S, B) with a
+// (64, 1, rows, 1) box and the 128-byte swizzle.  Rows past S (and columns
+// past D) read as zeros.
+inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B, int S,
+                               int H, int D, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                      const_cast<void*>(base), dims, strides, box, elem,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_4d(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A contiguous (H, S, 80) bf16 tensor, S = n * wt, as a 4-D TMA map (80, wt,
+// n, H) with a (cols, rows, 1, 1) box: cols = 64 with the 128-byte swizzle
+// or 16 with the 32-byte swizzle (the two blocks of a D = 80 tile).  A box
+// that runs past the end of a chunk reads zeros there, never the next chunk.
+inline cudaError_t encode_hsd_chunks(CUtensorMap* map, const void* base, int H, int n,
+                                     int wt, int rows, int cols) {
+  const cuuint64_t dims[4] = {80, (cuuint64_t)wt, (cuuint64_t)n, (cuuint64_t)H};
+  const cuuint64_t strides[3] = {80 * 2, (cuuint64_t)wt * 80 * 2,
+                                 (cuuint64_t)n * wt * 80 * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  return encode_4d(map, base, dims, strides, box,
+                   cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 }  // namespace sm90

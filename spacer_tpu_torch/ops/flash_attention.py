@@ -11,17 +11,18 @@ q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), causal with a static `q_offset`, a
 
 On a CUDA tensor `flash_attention` is a torch.autograd.Function: its forward
 launches the forward kernel and saves (q, k, v, out, lse); its backward
-launches `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`.  The
-backward's delta = rowsum(dout * out) stays a torch op, as the TPU wrapper
-computes it outside Pallas.  The plain versions of the two backward kernels
+launches the dq and dk/dv kernels (the counts of `flash_attention_bwd_dq`
+and `flash_attention_bwd_dkv`).  The backward's delta = rowsum(dout * out)
+stays a torch op, as the TPU wrapper computes it outside Pallas, once per
+backward for both kernels.  The plain versions of the two backward kernels
 are autograd through `xla_attention` (`attention_bwd_reference`).
 
 Bound on the H100: tensor-core flops at prefill lengths (~P/2 flops per
-K/V byte).  The forward and dk/dv kernels run on wgmma with TMA-fed rings
-and their accumulators in registers (csrc/sm90.cuh); dq still runs WMMA
-16x16x16 tiles (see the .cu notes).  dk/dv splits each GQA group's q heads
-over `dkv_splits` CTAs when one CTA per (key tile, kv head) would leave the
-card idle, and sums their f32 partials in a fixed order.
+K/V byte).  All three kernels run on wgmma with TMA-fed rings and their
+accumulators in registers (csrc/sm90.cuh; see the .cu notes).  dk/dv splits
+each GQA group's q heads over `dkv_splits` CTAs when one CTA per (key tile,
+kv head) would leave the card idle, and sums their f32 partials in a fixed
+order.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  Each wrapper counts its kernel launches in `.launches`.
@@ -125,12 +126,11 @@ class _FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, valid, q_seg, kv_seg = ctx.saved_tensors
-        kw = dict(ctx.kw, kv_mask=valid, q_segment_ids=q_seg,
-                  kv_segment_ids=kv_seg)
+        q, k, v, out, lse, *masks = ctx.saved_tensors
         dout = dout.contiguous()
-        dq = flash_attention_bwd_dq(q, k, v, out, lse, dout, **kw)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, **kw)
+        delta = _delta(out, dout)
+        dq = _launch_dq(q, k, v, dout, lse, delta, masks, **ctx.kw)
+        dk, dv = _launch_dkv(q, k, v, dout, lse, delta, masks, **ctx.kw)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -167,8 +167,16 @@ def attention_bwd_reference(q, k, v, dout, *, causal: bool = False,
         return torch.autograd.grad(out, (qd, kd, vd), dout)
 
 
+def _delta(out, dout):
+    """delta = rowsum(dout * out), (B, Hq, Sq) f32 like the LSE.  The
+    product is taken in f32 in place in dout's f32 copy, reading out as bf16
+    (no f32 copy of out, no third tensor)."""
+    return dout.float().mul_(out).sum(-1).transpose(1, 2).contiguous()
+
+
 def _bwd_args(q, k, v, out, lse, dout, kv_mask, q_segment_ids,
               kv_segment_ids, q_offset):
+    """Checks of a public backward call -> (lse, delta, masks)."""
     _check(q, k, v, kv_mask, q_segment_ids, kv_segment_ids, q_offset)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
@@ -176,26 +184,11 @@ def _bwd_args(q, k, v, out, lse, dout, kv_mask, q_segment_ids,
     B, Sq, Hq, _ = q.shape
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError("lse must be the forward's (B, Hq, Sq) f32 LSE")
-    # delta = rowsum(dout * out), (B, Hq, Sq) f32 like the LSE
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     masks = _mask_args(q, k, kv_mask, q_segment_ids, kv_segment_ids)
-    return lse.contiguous(), delta, masks
+    return lse.contiguous(), _delta(out, dout), masks
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = False,
-                           q_segment_ids=None, kv_segment_ids=None,
-                           kv_mask=None, scale=None, q_offset: int = 0):
-    """K1-bwd dq (replaces `_bwd_dq_kernel`): dq (B, Sq, Hq, D) from the
-    forward's out and lse and the output gradient dout."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return attention_bwd_reference(
-            q, k, v, dout, causal=causal, q_segment_ids=q_segment_ids,
-            kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,
-            q_offset=q_offset)[0]
-    lse, delta, masks = _bwd_args(q, k, v, out, lse, dout, kv_mask,
-                                  q_segment_ids, kv_segment_ids, q_offset)
+def _launch_dq(q, k, v, dout, lse, delta, masks, *, causal, q_offset, scale):
     B, Sq, Hq, D = q.shape
     dq = torch.empty_like(q)
     p = _build.ptr
@@ -208,20 +201,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = False,
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, out, lse, dout, *, causal: bool = False,
-                            q_segment_ids=None, kv_segment_ids=None,
-                            kv_mask=None, scale=None, q_offset: int = 0):
-    """K1-bwd dk/dv (replaces `_bwd_dkv_kernel` and the GQA group sum):
-    (dk, dv), each (B, Skv, Hkv, D), summed over each kv head's q heads."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return attention_bwd_reference(
-            q, k, v, dout, causal=causal, q_segment_ids=q_segment_ids,
-            kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,
-            q_offset=q_offset)[1:]
-    lse, delta, masks = _bwd_args(q, k, v, out, lse, dout, kv_mask,
-                                  q_segment_ids, kv_segment_ids, q_offset)
+def _launch_dkv(q, k, v, dout, lse, delta, masks, *, causal, q_offset, scale):
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -238,6 +218,42 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, *, causal: bool = False,
     _build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = False,
+                           q_segment_ids=None, kv_segment_ids=None,
+                           kv_mask=None, scale=None, q_offset: int = 0):
+    """K1-bwd dq (replaces `_bwd_dq_kernel`): dq (B, Sq, Hq, D) from the
+    forward's out and lse and the output gradient dout."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_bwd_reference(
+            q, k, v, dout, causal=causal, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,
+            q_offset=q_offset)[0]
+    lse, delta, masks = _bwd_args(q, k, v, out, lse, dout, kv_mask,
+                                  q_segment_ids, kv_segment_ids, q_offset)
+    return _launch_dq(q, k, v, dout, lse, delta, masks, causal=causal,
+                      q_offset=q_offset, scale=scale)
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, *, causal: bool = False,
+                            q_segment_ids=None, kv_segment_ids=None,
+                            kv_mask=None, scale=None, q_offset: int = 0):
+    """K1-bwd dk/dv (replaces `_bwd_dkv_kernel` and the GQA group sum):
+    (dk, dv), each (B, Skv, Hkv, D), summed over each kv head's q heads."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_bwd_reference(
+            q, k, v, dout, causal=causal, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,
+            q_offset=q_offset)[1:]
+    lse, delta, masks = _bwd_args(q, k, v, out, lse, dout, kv_mask,
+                                  q_segment_ids, kv_segment_ids, q_offset)
+    return _launch_dkv(q, k, v, dout, lse, delta, masks, causal=causal,
+                       q_offset=q_offset, scale=scale)
 
 
 flash_attention.launches = 0

@@ -1,17 +1,20 @@
-"""K3 and K4: segment attention for the Qwen2.5-VL ViT on Hopper
-(csrc/vit_window_attention.cu).
+"""K3 and K4: segment attention for the Qwen2.5-VL ViT on Hopper.
 
-- K3 `window_attention_hsd` replaces spacer_tpu/ops/vit_window_attention.py
-  ::window_attention_hsd (`_kernel`): attention inside uniform windows of
-  `wt` tokens with a ragged validity bias (the 28 windowed layers).
-- K4 `chunk_attention_hsd` replaces ::chunk_attention_hsd (`_kernel_nomask`):
-  dense attention inside each temporal frame chunk of `wt` tokens (the 4
-  full-attention layers).
+- K3 `window_attention_hsd` (csrc/vit_window_attention.cu) replaces
+  spacer_tpu/ops/vit_window_attention.py::window_attention_hsd (`_kernel`):
+  attention inside uniform windows of `wt` tokens with a ragged validity
+  bias (the 28 windowed layers).  One CTA per 64-query tile of a window on
+  WMMA tiles, so the TPU kernel's 8x block-diagonal matmul is not needed.
+- K4 `chunk_attention_hsd` (csrc/vit_chunk_attention.cu) replaces
+  ::chunk_attention_hsd (`_kernel_nomask`): dense attention inside each
+  temporal frame chunk of `wt` tokens (the 4 full-attention layers).  One
+  CTA per 256-query tile of a chunk streams the chunk's keys through a TMA
+  ring into wgmma products with the online softmax and the output in
+  registers; TMA maps bounded by the chunk zero-fill the tiles that run past
+  its end.  At the ViT's shape (16, 3840, 80), wt = 480, its bound is the
+  bytes of q, k, v and out (39 MB) just above the products (9.44 GFLOP).
 
-Layout (H, S, D) as in JAX, with the ViT's head_dim 80 unpadded.  Bound on
-the H100: flops (64 or 480 keys per query); one CTA per 64-query tile of a
-segment streams that segment's keys with an online softmax, so neither the
-TPU kernel's 8x block-diagonal matmul nor a 480x480 score tile is needed.
+Layout (H, S, D) as in JAX, with the ViT's head_dim 80 unpadded.
 
 On a CUDA tensor each wrapper is a torch.autograd.Function whose backward
 recomputes through the plain version, exactly as the JAX VJPs

@@ -123,15 +123,24 @@ def test_flash_attention_fully_masked_rows(dev):
     _close(out[1, 128:pad], walked.expand(pad - 128, H, D))
 
 
-def test_window_and_chunk_kernels(dev):
+# K4 chunk sizes: a multiple of 32 but not of 64; (h/14)(w/14) patch chunks
+# that are multiples of 4 only (100, 252); the ViT's 480 at its 16 heads
+@pytest.mark.parametrize("chunk", [96, 100, 252, 480])
+def test_window_and_chunk_kernels(dev, chunk):
     H, wt, D = 4, 64, 80
     lengths = [64, 17, 40, 1, 64, 33]
     q, k, v = (_randn(dev, H, wt * len(lengths), D, seed=i) for i in range(3))
     bias = torch.from_numpy(vwa.validity_bias(lengths, wt)).to(dev)
     _close(vwa.window_attention_hsd(q, k, v, bias, wt, D ** -0.5),
            vwa.window_attention_reference(q, k, v, bias, wt, D ** -0.5))
-    _close(vwa.chunk_attention_hsd(q, k, v, 96, D ** -0.5),
-           vwa.chunk_attention_reference(q, k, v, 96, D ** -0.5))
+    # K4 over 3 chunks: a tile that reads across a chunk's end would mix in
+    # the next chunk's keys and fail the comparison
+    Hc = 16 if chunk == 480 else 4
+    q, k, v = (_randn(dev, Hc, 3 * chunk, D, seed=i) for i in range(3))
+    before = vwa.chunk_attention_hsd.launches
+    out = vwa.chunk_attention_hsd(q, k, v, chunk, D ** -0.5)
+    assert vwa.chunk_attention_hsd.launches == before + 1
+    _close(out, vwa.chunk_attention_reference(q, k, v, chunk, D ** -0.5))
 
 
 def test_ragged_decode_kernel_keeps_empty_slots_finite(dev):
@@ -205,6 +214,49 @@ def test_flash_attention_backward_kernels(dev, Sq, Skv, q_offset, H, Hkv, pad,
     # keys that are masked get exactly zero dk and dv
     for g in grads[1:]:
         assert not g.float()[~mask].any()
+
+
+@pytest.mark.parametrize("Sq,Skv,q_offset,H,Hkv,pad,tail", K1_CASES)
+def test_flash_attention_bwd_dq_kernel(dev, Sq, Skv, q_offset, H, Hkv, pad,
+                                       tail):
+    """dq alone at the K1_CASES kinds: against the plain version; exactly 0
+    on the query rows that see no key (row 1's first pad - q_offset rows),
+    whatever their output gradient; two calls bitwise equal (one CTA owns
+    all of its rows' dq: no partial sums, no atomics)."""
+    B, D = 2, 128
+    q, k, v = _randn(dev, B, Sq, H, D), _randn(dev, B, Skv, Hkv, D), \
+        _randn(dev, B, Skv, Hkv, D)
+    dout = _randn(dev, B, Sq, H, D, seed=7)
+    kw = dict(causal=True, kv_mask=_padded_mask(dev, B, Skv, pad, tail),
+              q_offset=q_offset)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    args = (q, k, v, out, lse, dout)
+    before = fa.flash_attention_bwd_dq.launches
+    first = fa.flash_attention_bwd_dq(*args, **kw)
+    second = fa.flash_attention_bwd_dq(*args, **kw)
+    assert fa.flash_attention_bwd_dq.launches == before + 2
+    assert torch.equal(first, second)
+    assert not first[1, :max(0, pad - q_offset)].any()
+    _close_norm(first, fa.attention_bwd_reference(q, k, v, dout, **kw)[0])
+
+
+def test_flash_attention_bwd_dq_kernel_segments(dev):
+    """dq with segment ids and a left-padded row: rows that see no key are
+    exactly 0, two calls bitwise equal."""
+    B, S, H, Hkv, D, pad = 2, 200, 14, 2, 128, 70
+    q, k, v = _randn(dev, B, S, H, D), _randn(dev, B, S, Hkv, D), \
+        _randn(dev, B, S, Hkv, D)
+    dout = _randn(dev, B, S, H, D, seed=7)
+    pos = torch.arange(S, device=dev)
+    seg = torch.stack([(pos >= 77).int(), (pos >= 150).int() + (pos >= 190).int()])
+    kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg,
+              kv_mask=_padded_mask(dev, B, S, pad, 0))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    args = (q, k, v, out, lse, dout)
+    first = fa.flash_attention_bwd_dq(*args, **kw)
+    assert torch.equal(first, fa.flash_attention_bwd_dq(*args, **kw))
+    assert not first[1, :pad].any()
+    _close_norm(first, fa.attention_bwd_reference(q, k, v, dout, **kw)[0])
 
 
 @pytest.mark.parametrize("splits", [1, 2, 7])

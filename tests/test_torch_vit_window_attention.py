@@ -60,8 +60,12 @@ def test_window_attention_matches_pallas():
     np.testing.assert_allclose(out, ref, **TOL)
 
 
-def test_chunk_attention_matches_pallas():
-    H, wt, D = 2, 96, 16
+# (wt, D): a small chunk; the ViT's 480-token chunk and a 252-token one
+# (18 x 14 patches, no multiple of 64) at its head width 80, the shapes the
+# card compares K4 with this plain version at
+@pytest.mark.parametrize("wt,D", [(96, 16), (480, 80), (252, 80)])
+def test_chunk_attention_matches_pallas(wt, D):
+    H = 2
     q, k, v = _qkv(1, H, 2 * wt, D)
     scale = D ** -0.5
     out = twa.chunk_attention_hsd(*(torch.from_numpy(x) for x in (q, k, v)),
