@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      abs error, median time, the card's least time for the same work
      (roofline) and, where one PyTorch call computes the same function, that
      call's time: K1, K3, K4, K5, K5-int8 at the serving path's shapes (K4
-     also at chunks of 252 tokens, no multiple of its tiles); K6
+     also at chunks of 252 tokens, no multiple of its tiles; K5 and K5-int8
+     also at the serving batcher's 4 slots and Cmax 64); K6
      at every (K, N) of the 7B int4 decode with M = 4 and 16; K1, K1-bwd
      (dq, dk/dv), K2 and K2-int8 at the training path's shapes (prompt
      bucket TRAIN_PROMPT_BUCKET, left padding TRAIN_PROMPT_PAD, which phase
@@ -22,7 +23,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      QwenEngine.generate_many, greedy; every request must emit a token, all
      logits must be finite and every kernel of the path must have been
      launched; then the same requests with plain attention and the first
-     run's tokens replayed, whose logits must agree with the kernel run's;
+     run's tokens replayed, whose logits must agree with the kernel run's
+     (rows of slots with a live key);
   4b. the same with decode_quant="int4_kv" (K6 weight products, K5-int8
      attention), replayed through the plain versions likewise; token
      agreement with phase 4 is printed, not gated;
@@ -303,7 +305,6 @@ def check_kernels(device="cuda") -> dict:
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
     from spacer_tpu_torch.models.qwen25_vl.vision import vision_layout
     from spacer_tpu_torch.nn.attention import xla_attention
-    from spacer_tpu_torch.ops import flash_decode as fd
     from spacer_tpu_torch.ops import vit_window_attention as vwa
     from spacer_tpu_torch.ops.flash_attention import flash_attention
 
@@ -342,50 +343,9 @@ def check_kernels(device="cuda") -> dict:
         work=(k1_bytes, 4 * D * H * causal_pairs(n_valid)),
         library_fn=lambda: sdpa_masked(q, k, v, sdpa_mask))
 
-    # K5: decode, R=8 slots, Hkv=4, gq=7, Pmax=1024, Cmax=128
-    R, gq, C = 8, 7, 128
-    qd = randn(R, Hkv, gq, D)
-    pk, pv = randn(R, Hkv, P, D), randn(R, Hkv, P, D)
-    tk, tv = randn(R, Hkv, C, D), randn(R, Hkv, C, D)
-    plen = torch.tensor([1024, 900, 517, 64, 1, 0, 700, 0], device=dev)
-    tlen = torch.tensor([128, 5, 77, 1, 0, 0, 64, 0], device=dev)
-    admit = torch.tensor([0, 120, 60, 9, 0, 0, 100, 0], device=dev)
-    pmask = torch.arange(P, device=dev)[None] >= (P - plen)[:, None]
-    rel = torch.remainder(torch.arange(C, device=dev)[None] - admit[:, None], C)
-    rmask = rel < tlen[:, None]
-    bias_p = torch.where(pmask, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
-    bias_t = torch.where(rmask, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
-    live = pmask.any(1) | rmask.any(1)
-    dargs = (qd, pk, pv, bias_p, tk, tv, bias_t)
-    dkw = dict(group_q=gq, sm_scale=D ** -0.5)
-    out_all = fd.flash_ragged_decode_attention(*dargs, **dkw)
-    if not bool(torch.isfinite(out_all).all()):
-        raise RuntimeError("K5 wrote non-finite values (empty slots included)")
-    # bytes: q, the live keys' K and V, both biases, the f32 output
-    n_keys = int(pmask.sum() + rmask.sum())
-    qo_bytes = R * Hkv * gq * D * (2 + 4) + R * (P + C) * 4
-    k5_ops = 4 * D * gq * Hkv * n_keys
-    results["K5"] = compare(
-        "K5 flash_ragged_decode_attention",
-        lambda: fd.flash_ragged_decode_attention(*dargs, **dkw),
-        lambda: fd.ragged_decode_attention_reference(*dargs, **dkw),
-        lambda x: x[live],
-        work=(qo_bytes + n_keys * Hkv * D * 2 * 2, k5_ops))
-
-    # K5-int8 (decode_quant int8_kv / int4_kv): the same windows over int8
-    # codes and per-key f32 scales
-    (pk8, pks), (pv8, pvs), (tk8, tks), (tv8, tvs) = (
-        int8_cache(x, gen) for x in (pk, pv, tk, tv))
-    qargs = (qd, pk8, pv8, bias_p, tk8, tv8, bias_t, pks, pvs, tks, tvs)
-    if not bool(torch.isfinite(
-            fd.flash_ragged_decode_attention(*qargs, **dkw)).all()):
-        raise RuntimeError("K5-int8 wrote non-finite values")
-    results["K5-int8"] = compare(
-        "K5-int8 flash_ragged_decode_attention (int8 caches)",
-        lambda: fd.flash_ragged_decode_attention(*qargs, **dkw),
-        lambda: fd.ragged_decode_attention_reference(*qargs, **dkw),
-        lambda x: x[live],
-        work=(qo_bytes + n_keys * Hkv * (D + 4) * 2, k5_ops))
+    # K5 / K5-int8 at RAGGED_CASES' slot layouts
+    for tag, case in RAGGED_CASES.items():
+        results.update(check_ragged_decode(randn, gen, tag, P, *case))
 
     # K3 / K4: ViT at grid (8, 16, 30): 16 heads, head_dim 80
     vcfg = QWEN25_VL_7B.vision
@@ -426,6 +386,77 @@ def check_kernels(device="cuda") -> dict:
                 scale=scale))
     results.update(check_int4_matmul(gen))
     dense_q8_cost(gen)
+    return results
+
+
+# K5 / K5-int8 slot layouts at Pmax 1024, Hkv 4, gq 7: {result tag: (Cmax,
+# prefix lengths, ring lengths, ring admit indices)}.  "": R=8 slots of
+# every kind, two empty (the kernels line); " R=4 Cmax=64": the serving
+# batcher's own geometry, two video slots mid-decode (one ring window
+# wrapping past Cmax - 1), two empty.
+RAGGED_CASES = {
+    "": (128, [1024, 900, 517, 64, 1, 0, 700, 0],
+         [128, 5, 77, 1, 0, 0, 64, 0], [0, 120, 60, 9, 0, 0, 100, 0]),
+    " R=4 Cmax=64": (64, [993, 988, 0, 0], [40, 50, 0, 0], [0, 30, 0, 0]),
+}
+
+
+def ragged_decode_case(randn, gen, P, C, plen, tlen, admit):
+    """K5's inputs on R = len(plen) slot rows: row r's prefix live in its
+    last plen[r] of P keys, its ring window the tlen[r] positions from ring
+    index admit[r] on (mod C); bf16 caches for K5, int8 codes + f32 scales
+    of the same values for K5-int8.  -> ({kernel id: args}, kwargs, live
+    rows, {kernel id: (bytes, bf16 operations)})."""
+    from spacer_tpu_torch.ops import flash_decode as fd
+
+    dev = gen.device
+    R, Hkv, gq, D = len(plen), 4, 7, 128
+    qd = randn(R, Hkv, gq, D)
+    pk, pv = randn(R, Hkv, P, D), randn(R, Hkv, P, D)
+    tk, tv = randn(R, Hkv, C, D), randn(R, Hkv, C, D)
+    plen, tlen, admit = (torch.tensor(x, device=dev) for x in (plen, tlen, admit))
+    pmask = torch.arange(P, device=dev)[None] >= (P - plen)[:, None]
+    rel = torch.remainder(torch.arange(C, device=dev)[None] - admit[:, None], C)
+    rmask = rel < tlen[:, None]
+    bias_p = torch.where(pmask, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
+    bias_t = torch.where(rmask, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
+    (pk8, pks), (pv8, pvs), (tk8, tks), (tv8, tvs) = (
+        int8_cache(x, gen) for x in (pk, pv, tk, tv))
+    # work: q, the live keys' K and V (bf16, or int8 codes + f32 scales),
+    # both biases, the f32 output
+    n_keys = int(pmask.sum() + rmask.sum())
+    qo_bytes = R * Hkv * gq * D * (2 + 4) + R * (P + C) * 4
+    ops = 4 * D * gq * Hkv * n_keys
+    args = {"K5": (qd, pk, pv, bias_p, tk, tv, bias_t),
+            "K5-int8": (qd, pk8, pv8, bias_p, tk8, tv8, bias_t, pks, pvs, tks,
+                        tvs)}
+    work = {"K5": (qo_bytes + n_keys * Hkv * D * 2 * 2, ops),
+            "K5-int8": (qo_bytes + n_keys * Hkv * (D + 4) * 2, ops)}
+    return (args, dict(group_q=gq, sm_scale=D ** -0.5),
+            pmask.any(1) | rmask.any(1), work)
+
+
+def check_ragged_decode(randn, gen, tag, P, C, plen, tlen, admit) -> dict:
+    """Phase 3, K5 and K5-int8 (results "K5" + tag, "K5-int8" + tag) on
+    ragged_decode_case's inputs.  Live rows are held against the plain
+    version; rows with no live key must come out exactly 0 (the plain
+    version's mean of V there is discarded by every caller)."""
+    from spacer_tpu_torch.ops import flash_decode as fd
+
+    cases, dkw, live, work = ragged_decode_case(randn, gen, P, C, plen, tlen,
+                                                admit)
+    results = {}
+    for kid, args in cases.items():
+        out = fd.flash_ragged_decode_attention(*args, **dkw)
+        if not bool(torch.isfinite(out).all()) or bool(out[~live].any()):
+            raise RuntimeError(f"{kid}{tag}: non-finite values, or nonzero "
+                               "rows for slots with no live key")
+        results[kid + tag] = compare(
+            f"{kid} flash_ragged_decode_attention R={len(plen)} Pmax={P} "
+            f"Cmax={C} ({int(live.sum())} live slots)",
+            lambda: fd.flash_ragged_decode_attention(*args, **dkw),
+            lambda: fd.ragged_decode_attention_reference(*args, **dkw),
+            lambda x: x[live], work=work[kid])
     return results
 
 
@@ -663,7 +694,7 @@ class SliceProbe:
     """Observes the serving slice from outside: wraps the batcher's prologue
     (ViT), prefill, decode step, sampler and harvest with synchronised
     timers and finiteness checks, and records every sampled step's logits
-    and tokens.  With `replay` (the tokens of an earlier run) the sampler
+    (of the rows with a live key) and tokens.  With `replay` (the tokens of an earlier run) the sampler
     returns those tokens instead, so a second run sees identical inputs at
     every step."""
 
@@ -673,6 +704,7 @@ class SliceProbe:
         self.bm, self.replay = bm, replay
         self.vit_ms, self.prefill_ms, self.decode_ms = [], [], []
         self.lengths, self.nonfinite = [], 0
+        self.live = None   # rows of the next sampled logits that are kept
         self.logits, self.tokens = [], []
         self._saved = (bm.prologue, bm.lm_forward, bm.ragged_decode_step,
                        bm.sample_logits, bm.ContinuousBatcher.poll_finished)
@@ -703,7 +735,8 @@ class SliceProbe:
             tokens = sample(logits, *a, **kw)
             if self.replay is not None:
                 tokens = self.replay[len(self.tokens)]
-            self.logits.append(logits.float())
+            kept = logits if self.live is None else logits[self.live]
+            self.logits.append(kept.float())
             self.tokens.append(tokens)
             return tokens
 
@@ -712,9 +745,25 @@ class SliceProbe:
             self.lengths += [o.length for _, o in done]
             return done
 
+        timed_prefill = self._timed(self.prefill_ms, lm_forward, True)
+        timed_step = self._timed(self.decode_ms, step, True)
+
+        def prefill(*a, **kw):
+            self.live = None   # the admitted rows, all sampled
+            return timed_prefill(*a, **kw)
+
+        def decode_step(layers, params, cfg, cur, pos3, caches, ring_idx,
+                        prefix_mask, ring_mask):
+            # a slot with no live key (empty) is discarded by the batcher,
+            # and K5 writes 0 for it where the plain version writes the mean
+            # of V: its logits are not compared
+            self.live = prefix_mask.any(1) | ring_mask.any(1)
+            return timed_step(layers, params, cfg, cur, pos3, caches,
+                              ring_idx, prefix_mask, ring_mask)
+
         bm.prologue = timed_prologue
-        bm.lm_forward = self._timed(self.prefill_ms, lm_forward, True)
-        bm.ragged_decode_step = self._timed(self.decode_ms, step, True)
+        bm.lm_forward = prefill
+        bm.ragged_decode_step = decode_step
         bm.sample_logits = recorded_sample
         bm.ContinuousBatcher.poll_finished = poll_finished
         return self

@@ -1,9 +1,8 @@
-// Shared device code of the WMMA attention kernels K3
-// (vit_window_attention.cu) and K2 (flash_decode_grouped.cu): one CTA
-// computes a tile of up to 64 query rows against a run of keys with an
-// online softmax, on the tensor cores through WMMA (bf16 operands, f32
-// accumulation).  K1's forward, K1-bwd dq and dk/dv and K4 do not use it:
-// they run on wgmma and TMA (sm90.cuh).
+// Device code of the WMMA attention kernel K2 (flash_decode_grouped.cu):
+// one CTA computes a tile of up to 64 query rows against a run of keys with
+// an online softmax, on the tensor cores through WMMA (bf16 operands, f32
+// accumulation).  K1's forward, K1-bwd dq and dk/dv, K3 and K4 do not use
+// it: they run on wgmma and TMA (sm90.cuh); K5 on the CUDA cores.
 //
 // CTA = 4 warps; warp w owns query rows [16w, 16w+16) of the tile.  Per key
 // tile of 64 keys:
@@ -21,7 +20,7 @@
 // memory (exact for |c| <= 127); the mask policy applies the per-key K scale
 // to the logit and supplies the per-key V scale, which multiplies p for the
 // P.V product only (the denominator sums the unscaled p, as the TPU kernel
-// does).  The default KVT = bf16 compiles to the code K3 and K2 had.
+// does).  The default KVT = bf16 is K2's bf16 path.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -103,9 +102,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, const int8_t* __restrict__ 
   }
 }
 
-__device__ __forceinline__ void store_out(bf16* p, float x) { *p = __float2bfloat16(x); }
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-
 // One CTA: rows [0, n_q) of q (row stride q_rs) against keys [0, n_kv) of
 // k/v (row stride kv_rs).  Mask policy:
 //   load_queries(n_q, tid, info) / load_keys(k0, nk, tid, info): fill the
@@ -113,13 +109,13 @@ __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 //   apply(s, qi, kj, kg, info): the scaled score of row qi and key kj of the
 //     tile (global key index kg) after masking;
 //   v_scale(kj, info) (int8 K/V only): the V scale of key kj of the tile.
-// Writes the normalised rows to out (bf16 or f32, row stride o_rs) and, if
-// lse is not null, the per-row log-sum-exp (stride 1).
-template <int D, class Mask, class OutT, class KVT = bf16>
+// Writes the normalised rows to out (f32, row stride o_rs) and the per-row
+// log-sum-exp to lse (stride 1).
+template <int D, class Mask, class KVT = bf16>
 __device__ void attend(const bf16* __restrict__ q, long q_rs, int n_q,
                        const KVT* __restrict__ k, const KVT* __restrict__ v,
                        long kv_rs, int n_kv, float scale, const Mask& mask,
-                       OutT* __restrict__ out, long o_rs, float* __restrict__ lse) {
+                       float* __restrict__ out, long o_rs, float* __restrict__ lse) {
   using namespace nvcuda;
   using L = TileSmem<D>;
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -226,8 +222,8 @@ __device__ void attend(const bf16* __restrict__ q, long q_rs, int n_q,
     const float l_safe = l == 0.f ? 1.f : l;
     const float inv = 1.f / l_safe;
     for (int c = lane; c < D; c += 32)
-      store_out(out + qi * o_rs + c, Ow[r * D + c] * inv);
-    if (lse != nullptr && lane == 0) lse[qi] = m_s[qi] + logf(l_safe);
+      out[qi * o_rs + c] = Ow[r * D + c] * inv;
+    if (lane == 0) lse[qi] = m_s[qi] + logf(l_safe);
   }
 }
 

@@ -7,219 +7,334 @@
 // (R, Hkv, Cmax, D), each window masked by an additive f32 bias
 // (R, 1, T): 0 live, -1e30 dead.  Output (R, Hkv, group_q, D) f32.
 //
-// Design: one CTA (4 warps) per (kv head, slot row) holds all group_q query
-// heads, so each K/V byte is read from device memory once for the whole GQA
-// group; decode is bound by those bytes (one token per row, ~2 flops per
-// byte).  Keys stream in chunks of 64 with an online softmax:
-//   scores: warp w takes keys w, w+4, ...; lanes split the head dim and a
-//           warp reduction finishes each of the group_q dots;
-//   softmax: warp w updates rows w, w+4, ...; p is rounded to bf16 for P.V
-//           as in the TPU kernel;
-//   P.V:    thread t owns output column t for every query head.
-// Rows whose windows are all dead (empty or finished slots) keep finite
-// values: the running max starts at -1e30 and the denominator is clamped at
-// 1e-30, as in the TPU kernel.
-// The TPU kernel batched RB rows per program to amortise grid-step overhead;
-// that does not apply here.  R * Hkv CTAs (32 at 8 slots) under-fill the 132
-// SMs: splitting the key range across CTAs (split-K with a second reduction
-// pass) is the next step.
+// What bounds it on the H100: bytes.  One query token per row, so each K/V
+// byte feeds ~2 flops; at the serving shapes the live keys are 2-8 MB, a
+// few microseconds at 3.35 TB/s.  What the card needs is enough loads in
+// flight: the first port ran one CTA per (h, r), 16-32 CTAs on 132 SMs,
+// each walking ~1100 keys serially with 2-byte loads, at 200x the bound.
+//
+// Design: split-K in two launches, as K2 (flash_decode_grouped.cu).
+//   1. One CTA (4 warps) per job: (key job j, kv head h, slot row r), each
+//      job 64 keys lying wholly inside the prefix [0, Pmax) or the ring
+//      [0, Cmax).  (Pmax / 64 + Cmax / 64) * Hkv * R CTAs: 576 at 8 slots,
+//      Pmax 1024, Cmax 128; 272 at the batcher's 4 slots and Cmax 64.
+//      - Dead jobs do no work: the job reads its 64 biases first and, if
+//        none is live (> -5e29; the ring's live window may wrap past
+//        Cmax - 1, so liveness comes from the bias only), writes lse = -inf
+//        and exits without reading K or V.  Exact wherever the row has a
+//        live key: exp(-1e30 - m) is 0 in f32.
+//      - Loads: every K and V byte of the job is requested at once, 16 bytes
+//        per thread (8 bf16 or 16 int8 codes), a row of K by 16 (8) adjacent
+//        threads, and held in registers.
+//      - Scores on the CUDA cores (at ~2 flops per byte tensor cores would
+//        wait on the same loads): each thread dots its 8 (16) columns with
+//        the group_q queries (from shared memory), a shuffle tree over the
+//        row's threads finishes the dots.  The softmax is exact over the
+//        job's 64 keys (its own max): p is rounded to bf16 for P.V as in the
+//        TPU kernel, and P.V sums each thread's keys in registers, then the
+//        warps' partial sums in shared memory.
+//      - The job writes its normalised f32 partial output and its LSE to
+//        scratch the wrapper allocates.
+//   2. decode_combine.cuh folds the jobs per (query head, r, h) in a fixed
+//      order (two calls are bitwise equal).  A row with no live key (an
+//      empty slot) writes 0, where the TPU kernel and the plain version give
+//      the mean of V over the dead keys; callers discard such rows.
 //
 // K5-int8 (replaces the same kernel's `quant=True` branch): pk/pv/tk/tv
 // are int8 codes (half the bytes of the bound) with per-key f32 scales
 // (R, Hkv, 1, T).  Codes widen to f32 exactly as they are read; the K scale
 // multiplies the logit after sm_scale and before the bias, the V scale
 // multiplies p (before its bf16 rounding) for the P.V product only, while
-// the denominator sums the unscaled p, as the TPU kernel does.
+// the denominator sums the unscaled p, as the TPU kernel does.  A dead job
+// reads no scale.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "decode_combine.cuh"
+
 namespace spacer {
+namespace k5 {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int DEC_CHUNK = 64;
+constexpr int D = 128;        // the LM head dim
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int JOB = 64;       // keys per job (two per lane in the softmax)
 constexpr int GQ_MAX = 8;
-constexpr float DEC_MASK_VALUE = -1e30f;
+constexpr float MASK_VALUE = -1e30f;
 
-__device__ __forceinline__ float dec_warp_max(float x) {
+// How the CTA's 16-byte loads cover a job of JOB rows of D values: VEC
+// values per load, TPR threads per row, RPP rows per pass, PASSES passes.
+// Thread t holds columns [VEC (t % TPR), +VEC) of rows t / TPR + RPP i.
+template <class KVT>
+struct Tiling {
+  static constexpr int VEC = 16 / sizeof(KVT);
+  static constexpr int TPR = D / VEC;
+  static constexpr int RPP = THREADS / TPR;
+  static constexpr int PASSES = JOB / RPP;
+};
+
+__device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
-__device__ __forceinline__ float dec_warp_sum(float x) {
+__device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-__device__ __forceinline__ float dec_load(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float dec_load(const int8_t* p) { return (float)*p; }
+// 16 loaded bytes -> floats: 8 bf16 (a shift each) or 16 int8 codes.
+__device__ __forceinline__ void widen(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void widen(const uint4& u, float (&f)[16]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = (float)((int32_t)(w[i / 4] << (24 - 8 * (i % 4))) >> 24);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 // KVT = bf16: K5; KVT = int8_t: K5-int8 with the four scale arrays.
-template <int D, class KVT>
-__global__ void __launch_bounds__(DEC_THREADS)
-ragged_decode_kernel(const bf16* __restrict__ q, const KVT* __restrict__ pk,
-                     const KVT* __restrict__ pv, const float* __restrict__ bias_p,
-                     const KVT* __restrict__ tk, const KVT* __restrict__ tv,
-                     const float* __restrict__ bias_t, const float* __restrict__ pks,
-                     const float* __restrict__ pvs, const float* __restrict__ tks,
-                     const float* __restrict__ tvs, float* __restrict__ out,
-                     int Hkv, int gq, int P, int C, float scale) {
+template <class KVT>
+__global__ void __launch_bounds__(THREADS)
+ragged_decode_split_kernel(const bf16* __restrict__ q, const KVT* __restrict__ pk,
+                           const KVT* __restrict__ pv, const float* __restrict__ bias_p,
+                           const KVT* __restrict__ tk, const KVT* __restrict__ tv,
+                           const float* __restrict__ bias_t, const float* __restrict__ pks,
+                           const float* __restrict__ pvs, const float* __restrict__ tks,
+                           const float* __restrict__ tvs, float* __restrict__ part_o,
+                           float* __restrict__ part_lse, int Hkv, int gq, int P, int C,
+                           int nsp, float scale) {
+  using Tl = Tiling<KVT>;
+  constexpr int VEC = Tl::VEC, TPR = Tl::TPR, RPP = Tl::RPP, PASSES = Tl::PASSES;
   constexpr bool kQuant = !std::is_same<KVT, bf16>::value;
-  constexpr int CPT = (D + DEC_THREADS - 1) / DEC_THREADS;  // columns per thread
-  __shared__ float q_s[GQ_MAX][D];
-  __shared__ float s_s[GQ_MAX][DEC_CHUNK];
-  __shared__ float m_s[GQ_MAX], l_s[GQ_MAX], a_s[GQ_MAX];
+  __shared__ __align__(16) float q_s[GQ_MAX][D];
+  __shared__ float s_s[GQ_MAX][JOB];   // scores, then the rounded p
+  __shared__ float bias_s[JOB], ks_s[JOB], vs_s[JOB];
+  __shared__ float m_s[GQ_MAX], l_s[GQ_MAX];
+  __shared__ __align__(16) float red_s[WARPS][GQ_MAX][D];
 
-  const int h = blockIdx.x, r = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int job = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
+  const int NS = nsp + (C + JOB - 1) / JOB;
+  const bool ring = job >= nsp;
+  const int T = ring ? C : P;
+  const int k0 = (ring ? job - nsp : job) * JOB;
+  const int n = min(JOB, T - k0);
   const long rh = (long)r * Hkv + h;
+  const long slot = (rh * NS + job) * gq;   // this job's rows of part_o / part_lse
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  for (int i = tid; i < gq * D; i += DEC_THREADS)
-    q_s[i / D][i % D] = __bfloat162float(q[rh * gq * D + i]);
-  if (tid < GQ_MAX) {
-    m_s[tid] = DEC_MASK_VALUE;
-    l_s[tid] = 0.f;
+  // the job's biases (keys past the window: -inf), and the vote
+  float b = -INFINITY;
+  if (tid < n) b = (ring ? bias_t : bias_p)[(long)r * T + k0 + tid];
+  if (tid < JOB) bias_s[tid] = b;
+  if (!__syncthreads_or(b > MASK_VALUE / 2)) {
+    if (tid < gq) part_lse[slot + tid] = -INFINITY;
+    return;
   }
-  float acc[GQ_MAX][CPT];
+
+  // every K and V byte of the job in flight at once, into registers
+  const long key0 = rh * T + k0;
+  const KVT* K = (ring ? tk : pk) + key0 * D;
+  const KVT* V = (ring ? tv : pv) + key0 * D;
+  const int c = tid % TPR, jj = tid / TPR;
+  uint4 kr[PASSES], vr[PASSES];
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    const int j = jj + RPP * i;
+    kr[i] = vr[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (j < n) {
+      kr[i] = __ldg(reinterpret_cast<const uint4*>(K + (long)j * D + c * VEC));
+      vr[i] = __ldg(reinterpret_cast<const uint4*>(V + (long)j * D + c * VEC));
+    }
+  }
+  for (int i = tid; i < gq * D / 8; i += THREADS) {
+    float f[8];
+    widen(__ldg(reinterpret_cast<const uint4*>(q + rh * gq * D) + i), f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) (&q_s[0][0])[8 * i + e] = f[e];
+  }
+  if (kQuant && tid < JOB) {
+    const long s0 = key0 + tid;
+    ks_s[tid] = tid < n ? (ring ? tks : pks)[s0] : 0.f;
+    vs_s[tid] = tid < n ? (ring ? tvs : pvs)[s0] : 0.f;
+  }
+  __syncthreads();
+
+  // scores: partial dots over this thread's columns, summed over the row's
+  // TPR threads; thread c of the row writes query head c's logit
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    float kf[VEC];
+    widen(kr[i], kf);
+    float part[GQ_MAX];
+#pragma unroll
+    for (int g = 0; g < GQ_MAX; ++g) {
+      part[g] = 0.f;
+      if (g < gq) {
+        const float4* qv = reinterpret_cast<const float4*>(&q_s[g][c * VEC]);
+#pragma unroll
+        for (int e = 0; e < VEC / 4; ++e) {
+          const float4 x = qv[e];
+          part[g] += x.x * kf[4 * e] + x.y * kf[4 * e + 1] + x.z * kf[4 * e + 2] +
+                     x.w * kf[4 * e + 3];
+        }
+      }
+    }
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int g = 0; g < GQ_MAX; ++g)
+        if (g < gq) part[g] += __shfl_xor_sync(0xffffffffu, part[g], o);
+    float mine = 0.f;
+#pragma unroll
+    for (int g = 0; g < GQ_MAX; ++g)
+      if (g == c) mine = part[g];
+    const int j = jj + RPP * i;
+    if (c < gq) {
+      float sj = mine * scale;
+      if (kQuant) sj *= ks_s[j];
+      s_s[c][j] = sj + bias_s[j];
+    }
+  }
+  __syncthreads();
+
+  // softmax over the job's keys, warp w taking query heads w, w + 4
+  for (int g = warp; g < gq; g += WARPS) {
+    const float s0 = s_s[g][lane], s1 = s_s[g][lane + 32];
+    const float m = warp_max(fmaxf(s0, s1));   // finite: the job has a live key
+    const float p0 = __expf(s0 - m), p1 = __expf(s1 - m);
+    const float l = warp_sum(p0 + p1);
+    s_s[g][lane] = round_bf16(kQuant ? p0 * vs_s[lane] : p0);
+    s_s[g][lane + 32] = round_bf16(kQuant ? p1 * vs_s[lane + 32] : p1);
+    if (lane == 0) {
+      m_s[g] = m;
+      l_s[g] = l;
+    }
+  }
+  __syncthreads();
+
+  // P.V over this thread's keys and columns, then over the warp's rows
+  float acc[GQ_MAX][VEC];
 #pragma unroll
   for (int g = 0; g < GQ_MAX; ++g)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[g][c] = 0.f;
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    float vf[VEC];
+    widen(vr[i], vf);
+    const int j = jj + RPP * i;
+#pragma unroll
+    for (int g = 0; g < GQ_MAX; ++g) {
+      if (g < gq) {
+        const float p = s_s[g][j];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = TPR; o < 32; o <<= 1)
+#pragma unroll
+    for (int g = 0; g < GQ_MAX; ++g)
+      if (g < gq)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+  if (lane < TPR) {
+#pragma unroll
+    for (int g = 0; g < GQ_MAX; ++g)
+      if (g < gq)
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4)
+          *reinterpret_cast<float4*>(&red_s[warp][g][c * VEC + e]) =
+              make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
+  }
   __syncthreads();
 
-  for (int win = 0; win < 2; ++win) {
-    const int T = win ? C : P;
-    const KVT* K = (win ? tk : pk) + rh * T * D;
-    const KVT* V = (win ? tv : pv) + rh * T * D;
-    const float* bias = (win ? bias_t : bias_p) + (long)r * T;
-    const float* KS = kQuant ? (win ? tks : pks) + rh * T : nullptr;
-    const float* VS = kQuant ? (win ? tvs : pvs) + rh * T : nullptr;
-    for (int c0 = 0; c0 < T; c0 += DEC_CHUNK) {
-      const int n = min(DEC_CHUNK, T - c0);
-      for (int j = warp; j < n; j += DEC_WARPS) {
-        const KVT* kr = K + (long)(c0 + j) * D;
-        float part[GQ_MAX];
+  // the job's normalised partial output and LSE, warps summed in order
+  for (int i = tid; i < gq * D; i += THREADS) {
+    const int g = i / D, d = i % D;
+    float o = red_s[0][g][d];
 #pragma unroll
-        for (int g = 0; g < GQ_MAX; ++g) part[g] = 0.f;
-        for (int d = lane; d < D; d += 32) {
-          const float kd = dec_load(kr + d);
-#pragma unroll
-          for (int g = 0; g < GQ_MAX; ++g)
-            if (g < gq) part[g] += q_s[g][d] * kd;
-        }
-        const float bj = bias[c0 + j];
-        const float kj = kQuant ? KS[c0 + j] : 1.f;
-#pragma unroll
-        for (int g = 0; g < GQ_MAX; ++g) {
-          if (g < gq) {
-            const float dot = dec_warp_sum(part[g]);
-            if (lane == 0) {
-              float sj = dot * scale;
-              if (kQuant) sj *= kj;
-              s_s[g][j] = sj + bj;
-            }
-          }
-        }
-      }
-      __syncthreads();
-
-      for (int g = warp; g < gq; g += DEC_WARPS) {
-        const float s0 = lane < n ? s_s[g][lane] : -INFINITY;
-        const float s1 = lane + 32 < n ? s_s[g][lane + 32] : -INFINITY;
-        const float m_old = m_s[g];
-        const float m_new = fmaxf(m_old, dec_warp_max(fmaxf(s0, s1)));
-        const float p0 = __expf(s0 - m_new), p1 = __expf(s1 - m_new);
-        const float sum = dec_warp_sum(p0 + p1);
-        // P.V reads the bf16-rounded p (the TPU kernel's p.astype(bf16)),
-        // times the V scale for int8 caches; the denominator sums the f32 p
-        const float w0 = kQuant && lane < n ? VS[c0 + lane] : 1.f;
-        const float w1 = kQuant && lane + 32 < n ? VS[c0 + lane + 32] : 1.f;
-        if (lane < n) s_s[g][lane] = __bfloat162float(__float2bfloat16(kQuant ? p0 * w0 : p0));
-        if (lane + 32 < n)
-          s_s[g][lane + 32] = __bfloat162float(__float2bfloat16(kQuant ? p1 * w1 : p1));
-        if (lane == 0) {
-          const float alpha = __expf(m_old - m_new);
-          a_s[g] = alpha;
-          m_s[g] = m_new;
-          l_s[g] = l_s[g] * alpha + sum;
-        }
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int d = tid + c * DEC_THREADS;
-        if (d < D) {
-#pragma unroll
-          for (int g = 0; g < GQ_MAX; ++g)
-            if (g < gq) acc[g][c] *= a_s[g];
-          for (int j = 0; j < n; ++j) {
-            const float vd = dec_load(V + (long)(c0 + j) * D + d);
-#pragma unroll
-            for (int g = 0; g < GQ_MAX; ++g)
-              if (g < gq) acc[g][c] += s_s[g][j] * vd;
-          }
-        }
-      }
-      __syncthreads();  // s_s and a_s are rewritten by the next chunk
-    }
+    for (int w = 1; w < WARPS; ++w) o += red_s[w][g][d];
+    part_o[slot * D + i] = o / l_s[g];
   }
-
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    const int d = tid + c * DEC_THREADS;
-    if (d < D) {
-#pragma unroll
-      for (int g = 0; g < GQ_MAX; ++g)
-        if (g < gq) out[(rh * gq + g) * D + d] = acc[g][c] / fmaxf(l_s[g], 1e-30f);
-    }
-  }
+  if (tid < gq) part_lse[slot + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-template <int D, class KVT>
-static cudaError_t launch_decode(const void* q, const void* pk, const void* pv,
-                                 const void* bias_p, const void* tk, const void* tv,
-                                 const void* bias_t, const void* pks, const void* pvs,
-                                 const void* tks, const void* tvs, void* out, int R,
-                                 int Hkv, int gq, int P, int C, float scale,
-                                 cudaStream_t stream) {
-  dim3 grid(Hkv, R);
-  ragged_decode_kernel<D, KVT><<<grid, DEC_THREADS, 0, stream>>>(
+// scratch: the jobs' partial outputs (R, Hkv, jobs, gq, D), then their LSEs
+// (R, Hkv, jobs, gq), f32.
+template <class KVT>
+static cudaError_t launch(const void* q, const void* pk, const void* pv, const void* bias_p,
+                          const void* tk, const void* tv, const void* bias_t,
+                          const void* pks, const void* pvs, const void* tks, const void* tvs,
+                          void* scratch, void* out, int R, int Hkv, int gq, int P, int C,
+                          float scale, cudaStream_t stream) {
+  const int nsp = (P + JOB - 1) / JOB, nst = (C + JOB - 1) / JOB;
+  float* part_o = (float*)scratch;
+  float* part_lse = part_o + (long)R * Hkv * (nsp + nst) * gq * D;
+  dim3 grid(nsp + nst, Hkv, R);
+  ragged_decode_split_kernel<KVT><<<grid, THREADS, 0, stream>>>(
       (const bf16*)q, (const KVT*)pk, (const KVT*)pv, (const float*)bias_p,
       (const KVT*)tk, (const KVT*)tv, (const float*)bias_t, (const float*)pks,
-      (const float*)pvs, (const float*)tks, (const float*)tvs, (float*)out, Hkv, gq, P,
-      C, scale);
+      (const float*)pvs, (const float*)tks, (const float*)tvs, part_o, part_lse, Hkv, gq,
+      P, C, nsp, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 cgrid(gq, R * Hkv);
+  decode_combine_kernel<<<cgrid, D, 0, stream>>>(part_o, part_lse, (float*)out, nsp + nst,
+                                                 gq, D);
   return cudaGetLastError();
 }
 
+static bool args_ok(int R, int Hkv, int gq, int P, int C, int D_) {
+  return D_ == D && gq >= 1 && gq <= GQ_MAX && R >= 1 && R <= 65535 && Hkv >= 1 &&
+         Hkv <= 65535 && P >= 1 && C >= 1;
+}
+
+}  // namespace k5
 }  // namespace spacer
 
+// Keys per job: the wrapper sizes the scratch by it.
+extern "C" int spacer_ragged_decode_job_keys() { return spacer::k5::JOB; }
+
+// scratch: R * Hkv * jobs * gq * (D + 1) floats, jobs = ceil(P / JOB) +
+// ceil(C / JOB).
 extern "C" int spacer_ragged_decode_attention(
     const void* q, const void* pk, const void* pv, const void* bias_p,
-    const void* tk, const void* tv, const void* bias_t, void* out, int R,
+    const void* tk, const void* tv, const void* bias_t, void* scratch, void* out, int R,
     int Hkv, int gq, int P, int C, int D, float scale, void* stream) {
-  if (gq < 1 || gq > spacer::GQ_MAX) return (int)cudaErrorInvalidValue;
-  if (D != 128) return (int)cudaErrorInvalidValue;  // the LM head dim
-  return spacer::launch_decode<128, spacer::bf16>(
-      q, pk, pv, bias_p, tk, tv, bias_t, nullptr, nullptr, nullptr, nullptr, out, R, Hkv,
-      gq, P, C, scale, (cudaStream_t)stream);
+  if (!spacer::k5::args_ok(R, Hkv, gq, P, C, D)) return (int)cudaErrorInvalidValue;
+  return spacer::k5::launch<spacer::k5::bf16>(
+      q, pk, pv, bias_p, tk, tv, bias_t, nullptr, nullptr, nullptr, nullptr, scratch, out,
+      R, Hkv, gq, P, C, scale, (cudaStream_t)stream);
 }
 
 extern "C" int spacer_ragged_decode_attention_int8(
     const void* q, const void* pk, const void* pv, const void* bias_p,
     const void* tk, const void* tv, const void* bias_t, const void* pks,
-    const void* pvs, const void* tks, const void* tvs, void* out, int R, int Hkv,
-    int gq, int P, int C, int D, float scale, void* stream) {
-  if (gq < 1 || gq > spacer::GQ_MAX || D != 128 || !pks || !pvs || !tks || !tvs)
+    const void* pvs, const void* tks, const void* tvs, void* scratch, void* out, int R,
+    int Hkv, int gq, int P, int C, int D, float scale, void* stream) {
+  if (!spacer::k5::args_ok(R, Hkv, gq, P, C, D) || !pks || !pvs || !tks || !tvs)
     return (int)cudaErrorInvalidValue;
-  return spacer::launch_decode<128, int8_t>(q, pk, pv, bias_p, tk, tv, bias_t, pks, pvs,
-                                            tks, tvs, out, R, Hkv, gq, P, C, scale,
-                                            (cudaStream_t)stream);
+  return spacer::k5::launch<int8_t>(q, pk, pv, bias_p, tk, tv, bias_t, pks, pvs, tks, tvs,
+                                    scratch, out, R, Hkv, gq, P, C, scale,
+                                    (cudaStream_t)stream);
 }

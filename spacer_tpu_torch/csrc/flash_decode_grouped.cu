@@ -22,8 +22,8 @@
 //        ceil(step / tchunk) live chunks get jobs, and the last one stops at
 //        `step`: dead tail space is never read (the TPU kernel's idx_tail
 //        clamp and pl.when skip).
-//   2. A combine pass per (row, b, h): out = sum_s exp(lse_s - M) o_s /
-//      sum_s exp(lse_s - M) with M = max_s lse_s.
+//   2. A combine pass per (row, b, h) (decode_combine.cuh, shared with K5):
+//      out = sum_s exp(lse_s - M) o_s / sum_s exp(lse_s - M), M = max_s lse_s.
 // The TPU kernel walked prefix then tail chunks as the sequential grid axis
 // of one program per kv head; on the H100 that would leave B * Hkv CTAs (8
 // at the rollout shapes) on 132 SMs, so the key range is split across CTAs
@@ -43,6 +43,7 @@
 // TPU kernel folds it into the probabilities (the code x scale product is
 // never formed, so V is not dequantised to bf16).
 #include "attention_tile.cuh"
+#include "decode_combine.cuh"
 
 namespace spacer {
 
@@ -143,27 +144,6 @@ grouped_decode_split_kernel(const bf16* __restrict__ q, const KVT* __restrict__ 
   }
 }
 
-// One CTA per (query row, b * Hkv + h); thread d owns output column d.
-__global__ void grouped_decode_combine_kernel(const float* __restrict__ part_o,
-                                              const float* __restrict__ part_lse,
-                                              float* __restrict__ out, int NS, int GQ,
-                                              int D) {
-  const int row = blockIdx.x;
-  const long bh = blockIdx.y;
-  float m = -INFINITY;
-  for (int s = 0; s < NS; ++s) m = fmaxf(m, part_lse[(bh * NS + s) * GQ + row]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float wsum = 0.f, acc = 0.f;
-    for (int s = 0; s < NS; ++s) {
-      const long slot = (bh * NS + s) * GQ + row;
-      const float w = __expf(part_lse[slot] - m);
-      wsum += w;
-      acc += w * part_o[slot * D + d];
-    }
-    out[(bh * GQ + row) * D + d] = acc / wsum;
-  }
-}
-
 template <int D, class KVT>
 static cudaError_t launch_grouped(const void* q, const void* pk, const void* pv,
                                   const void* bias_p, const void* tk, const void* tv,
@@ -188,7 +168,7 @@ static cudaError_t launch_grouped(const void* q, const void* pk, const void* pv,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 cgrid(G * gq, B * Hkv);
-  grouped_decode_combine_kernel<<<cgrid, D, 0, stream>>>(
+  decode_combine_kernel<<<cgrid, D, 0, stream>>>(
       (const float*)part_o, (const float*)part_lse, (float*)out, nsp + nst, G * gq, D);
   return cudaGetLastError();
 }

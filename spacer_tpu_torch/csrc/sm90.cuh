@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by K1's forward
-// (flash_attention.cu), K1-bwd dq and dk/dv (flash_attention_bwd.cu) and K4
-// (vit_chunk_attention.cu):
+// (flash_attention.cu), K1-bwd dq and dk/dv (flash_attention_bwd.cu), K3
+// (vit_window_attention.cu) and K4 (vit_chunk_attention.cu):
 //
 //   - mbarriers: init, arrive, arrive + expect-tx, wait on a phase parity;
 //   - TMA: 4-D tile loads from a CUtensorMap passed as a __grid_constant__
@@ -32,7 +32,7 @@
 //   second 64-column block); the k-th 16-row step starts 2048 bytes on.
 // Every tile base is 1024-byte aligned, so the descriptors' base offset is 0.
 //
-// Tile layout in shared memory, D = 80 (K4).  80 = 64 + 16: a tile of R rows
+// Tile layout in shared memory, D = 80 (K3, K4).  80 = 64 + 16: a tile of R rows
 // is a [R][64] block with the 128-byte swizzle (R * 128 bytes, as above)
 // followed by a [R][16] block with the 32-byte swizzle (R * 32 bytes, a run
 // of 256-byte atoms: 8 rows of 32 bytes, the 16-byte chunk j of row r stored

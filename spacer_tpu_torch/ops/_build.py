@@ -38,8 +38,10 @@ SIGNATURES = {
     "spacer_window_attention_hsd": [P] * 5 + [I] * 4 + [F, P],
     # q, k, v, out, H, S, D, wt, scale, stream
     "spacer_chunk_attention_hsd": [P] * 4 + [I] * 4 + [F, P],
-    # q, pk, pv, bias_p, tk, tv, bias_t, out, R, Hkv, gq, P, C, D, scale, stream
-    "spacer_ragged_decode_attention": [P] * 8 + [I] * 6 + [F, P],
+    # q, pk, pv, bias_p, tk, tv, bias_t, scratch, out,
+    # R, Hkv, gq, P, C, D, scale, stream
+    "spacer_ragged_decode_attention": [P] * 9 + [I] * 6 + [F, P],
+    "spacer_ragged_decode_job_keys": [],
     # q, k, v, dout, lse, delta, dq, kv_valid, q_seg, kv_seg,
     # B, Sq, Skv, Hq, Hkv, D, causal, q_offset, scale, stream
     "spacer_flash_attention_bwd_dq": [P] * 10 + [I] * 8 + [F, P],
@@ -51,9 +53,9 @@ SIGNATURES = {
     # q, pk, pv, bias_p, tk, tv, part_o, part_lse, out,
     # B, Hkv, G, gq, P, T, step, D, pchunk, tchunk, scale, stream
     "spacer_grouped_decode_attention": [P] * 9 + [I] * 10 + [F, P],
-    # q, pk, pv, bias_p, tk, tv, bias_t, pk_s, pv_s, tk_s, tv_s, out,
-    # R, Hkv, gq, P, C, D, scale, stream
-    "spacer_ragged_decode_attention_int8": [P] * 12 + [I] * 6 + [F, P],
+    # q, pk, pv, bias_p, tk, tv, bias_t, pk_s, pv_s, tk_s, tv_s, scratch,
+    # out, R, Hkv, gq, P, C, D, scale, stream
+    "spacer_ragged_decode_attention_int8": [P] * 13 + [I] * 6 + [F, P],
     # q, pk, pv, bias_p, tk, tv, pk_s, pv_s, tk_s, tv_s, part_o, part_lse, out,
     # B, Hkv, G, gq, P, T, step, D, pchunk, tchunk, scale, stream
     "spacer_grouped_decode_attention_int8": [P] * 13 + [I] * 10 + [F, P],

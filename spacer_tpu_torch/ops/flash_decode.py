@@ -10,10 +10,14 @@ prefix pk/pv (R, Hkv, Pmax, Dh), completion ring tk/tv (R, Hkv, Cmax, Dh),
 additive f32 window biases bias_p (R, 1, Pmax) / bias_t (R, 1, Cmax).
 Output (R, Hkv, group_q, Dh) f32.
 
-Bound on the H100: K/V bytes (one query token per row).  One CTA per
-(slot row, kv head) serves all group_q query heads from one read of the
-row's K/V; R * Hkv CTAs under-fill the card at small slot counts, which a
-split-K pass will fix (see the .cu note).
+Bound on the H100: K/V bytes (one query token per row).  Split-K in two
+launches (see the .cu note): one CTA per job of 64 keys of a (slot row, kv
+head), which serves all group_q query heads from one read of those keys, so
+even 4 slots fill the card; a job whose keys are all dead reads no K or V; a
+combine pass folds the jobs' partial outputs (scratch allocated here, sized
+by the kernel's job) in a fixed order.  A row with no live key (an empty slot)
+comes out 0, where the plain version gives the mean of V; callers discard
+such rows.
 
 K2 replaces spacer_tpu/ops/flash_decode.py::flash_decode_attention
 (`_kernel`), bf16 branch, on every decode step of every layer of the grouped
@@ -128,6 +132,17 @@ def _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q, scales):
         raise ValueError("biases must be f32")
 
 
+def _ragged_scratch(q, P: int, C: int):
+    """K5's f32 scratch (a partial output and an LSE per (row, head, job),
+    laid out by the kernel) and its output."""
+    R, Hkv, gq, Dh = q.shape
+    keys = _build.kernels().spacer_ragged_decode_job_keys()
+    jobs = -(-P // keys) + -(-C // keys)
+    kw = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty(R * Hkv * jobs * gq * (Dh + 1), **kw),
+            torch.empty(q.shape, **kw))
+
+
 def _inference_only(name, *tensors):
     """Raise if autograd would need a gradient through an inference-only
     kernel (it has no backward; its output would silently be a constant)."""
@@ -154,11 +169,11 @@ def flash_ragged_decode_attention(q, pk, pv, bias_p, tk, tv, bias_t,
     _inference_only("flash_ragged_decode_attention", q, pk, pv, tk, tv)
     _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q, scales)
     R, Hkv, gq, Dh = q.shape
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    scratch, out = _ragged_scratch(q, pk.shape[2], tk.shape[2])
     p = _build.ptr
     err = _build.kernels().spacer_ragged_decode_attention(
-        p(q), p(pk), p(pv), p(bias_p), p(tk), p(tv), p(bias_t), p(out),
-        R, Hkv, gq, pk.shape[2], tk.shape[2], Dh, float(sm_scale),
+        p(q), p(pk), p(pv), p(bias_p), p(tk), p(tv), p(bias_t), p(scratch),
+        p(out), R, Hkv, gq, pk.shape[2], tk.shape[2], Dh, float(sm_scale),
         _build.stream_ptr(q.device))
     _build.check(err, "flash_ragged_decode_attention")
     flash_ragged_decode_attention.launches += 1
@@ -178,12 +193,12 @@ def flash_ragged_decode_attention_int8(q, pk, pv, bias_p, tk, tv, bias_t,
     _inference_only("flash_ragged_decode_attention_int8", q)
     _check(q, pk, pv, bias_p, tk, tv, bias_t, group_q, scales)
     R, Hkv, gq, Dh = q.shape
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    scratch, out = _ragged_scratch(q, pk.shape[2], tk.shape[2])
     p = _build.ptr
     err = _build.kernels().spacer_ragged_decode_attention_int8(
         p(q), p(pk), p(pv), p(bias_p), p(tk), p(tv), p(bias_t), *map(p, scales),
-        p(out), R, Hkv, gq, pk.shape[2], tk.shape[2], Dh, float(sm_scale),
-        _build.stream_ptr(q.device))
+        p(scratch), p(out), R, Hkv, gq, pk.shape[2], tk.shape[2], Dh,
+        float(sm_scale), _build.stream_ptr(q.device))
     _build.check(err, "flash_ragged_decode_attention_int8")
     flash_ragged_decode_attention_int8.launches += 1
     return out

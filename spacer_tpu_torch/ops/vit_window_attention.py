@@ -2,9 +2,15 @@
 
 - K3 `window_attention_hsd` (csrc/vit_window_attention.cu) replaces
   spacer_tpu/ops/vit_window_attention.py::window_attention_hsd (`_kernel`):
-  attention inside uniform windows of `wt` tokens with a ragged validity
-  bias (the 28 windowed layers).  One CTA per 64-query tile of a window on
-  WMMA tiles, so the TPU kernel's 8x block-diagonal matmul is not needed.
+  attention inside uniform windows of `wt` <= 64 tokens with a ragged
+  validity bias (the 28 windowed layers, wt = 64).  A window is one 64-row
+  q tile and one key tile, so one CTA of one warpgroup per (window, head)
+  TMA-loads Q, K, V once (maps bounded by the window), takes S = Q K^T and
+  P V on wgmma with an exact softmax in registers, and several such CTAs
+  share an SM to overlap loads and products; the TPU kernel's 8x
+  block-diagonal matmul is not needed.  At the ViT's shape (16, 4096, 80)
+  its bound is the bytes of q, k, v and out (42 MB).  Larger windows raise
+  ValueError (no model config of the repo has one).
 - K4 `chunk_attention_hsd` (csrc/vit_chunk_attention.cu) replaces
   ::chunk_attention_hsd (`_kernel_nomask`): dense attention inside each
   temporal frame chunk of `wt` tokens (the 4 full-attention layers).  One
@@ -34,6 +40,7 @@ from spacer_tpu_torch.ops import _build
 
 MASK_VALUE = -1e30
 HEAD_DIMS = (80,)
+WINDOW_MAX = 64   # K3's largest window: one key tile
 
 
 def validity_bias(lengths, wt: int) -> np.ndarray:
@@ -143,6 +150,8 @@ def window_attention_hsd(q, k, v, bias, wt: int, scale: float):
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, bias, wt, scale)
     _check(q, k, v, wt)
+    if wt > WINDOW_MAX:
+        raise ValueError(f"window of {wt} tokens: K3 takes at most {WINDOW_MAX}")
     S = q.shape[1]
     if (bias.dtype != torch.float32 or bias.numel() != S
             or bias.device != q.device):

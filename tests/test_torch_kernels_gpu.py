@@ -13,6 +13,7 @@ exact bf16 x int4 products): |kernel - plain| <= 1e-5 * sum |terms|, the f32
 summation-order bound.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -141,6 +142,100 @@ def test_window_and_chunk_kernels(dev, chunk):
     out = vwa.chunk_attention_hsd(q, k, v, chunk, D ** -0.5)
     assert vwa.chunk_attention_hsd.launches == before + 1
     _close(out, vwa.chunk_attention_reference(q, k, v, chunk, D ** -0.5))
+
+
+def _vit_window_lengths():
+    """Valid tokens per window of the ViT at grid (8, 16, 30): 64 windows of
+    wt = 64."""
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.models.qwen25_vl.vision import vision_layout
+
+    layout = vision_layout([(8, 16, 30)], QWEN25_VL_7B.vision)
+    return [int(n) for n in layout.win_valid.sum(1)]
+
+
+def _lengths(n, wt, seed):
+    rng = np.random.default_rng(seed)
+    return [1, wt, *rng.integers(1, wt + 1, n - 2).tolist()]
+
+
+# (heads, wt, window lengths): the ViT's layout at its 16 heads; lengths 1
+# and 64 among random ones; window counts 6 and 63; a window of 32 tokens
+K3_CASES = {"vit": lambda: (16, 64, _vit_window_lengths()),
+            "ends": lambda: (4, 64, [1, 64, 2, 63, 64, 1, 30, 64]),
+            "six": lambda: (16, 64, [64, 17, 40, 1, 64, 33]),
+            "sixty-three": lambda: (4, 64, _lengths(63, 64, 3)),
+            "wt32": lambda: (4, 32, _lengths(10, 32, 4))}
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_window_attention_kernel(dev, case):
+    """K3 against its plain version, every row (pad rows too), one launch."""
+    H, wt, lengths = K3_CASES[case]()
+    D = 80
+    q, k, v = (_randn(dev, H, wt * len(lengths), D, seed=i) for i in range(3))
+    bias = torch.from_numpy(vwa.validity_bias(lengths, wt)).to(dev)
+    before = vwa.window_attention_hsd.launches
+    out = vwa.window_attention_hsd(q, k, v, bias, wt, D ** -0.5)
+    assert vwa.window_attention_hsd.launches == before + 1
+    _close(out, vwa.window_attention_reference(q, k, v, bias, wt, D ** -0.5))
+
+
+def test_window_attention_kernel_refuses_large_windows(dev):
+    """K3 takes windows of at most one key tile (64 tokens)."""
+    x = _randn(dev, 2, 256, 80)
+    bias = torch.zeros((1, 256), device=dev)
+    with pytest.raises(ValueError):
+        vwa.window_attention_hsd(x, x, x, bias, 128, 0.1)
+
+
+def _ragged_case(dev, P, C, quant):
+    """Six slot rows: 0 the whole prefix and a ring window that wraps past
+    index C - 1; 1 a prefix live only in its last 70 keys (dead leading
+    jobs); 2 and 5 empty (no live key); 3 a prefix alone; 4 a full ring
+    alone.  -> (args, kwargs, live rows)."""
+    R, Hkv, gq, D = 6, 2, 7, 128
+    q = _randn(dev, R, Hkv, gq, D)
+    caches = [_randn(dev, R, Hkv, T, D, seed=i)
+              for i, T in ((1, P), (2, P), (3, C), (4, C))]
+    plen = torch.tensor([P, 70, 0, P // 2 + 3, 0, 0], device=dev)
+    tlen = torch.tensor([30, 5, 0, 0, C, 0], device=dev)
+    admit = torch.tensor([C - 10, 3, 0, 0, C - 1, 0], device=dev)
+    pm = torch.arange(P, device=dev)[None] >= (P - plen)[:, None]
+    rel = torch.remainder(torch.arange(C, device=dev)[None] - admit[:, None], C)
+    rm = rel < tlen[:, None]
+    bias_p = torch.where(pm, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
+    bias_t = torch.where(rm, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
+    if quant:
+        (pk, pks), (pv, pvs), (tk, tks), (tv, tvs) = map(_int8, caches)
+        args = (q, pk, pv, bias_p, tk, tv, bias_t, pks, pvs, tks, tvs)
+    else:
+        pk, pv, tk, tv = caches
+        args = (q, pk, pv, bias_p, tk, tv, bias_t)
+    return args, dict(group_q=gq, sm_scale=D ** -0.5), pm.any(1) | rm.any(1)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("C", [64, 128])
+@pytest.mark.parametrize("P", [192, 1000, 1024])
+def test_ragged_decode_split_kernel(dev, P, C, quant):
+    """K5 / K5-int8 over 64-key jobs that end ragged (P = 1000), a wrapping
+    ring window and dead leading jobs: live rows against the plain version,
+    rows with no live key exactly 0 (the plain version gives the mean of V
+    there; callers discard them), two calls bitwise equal, two launches of
+    the right kernel."""
+    args, kw, live = _ragged_case(dev, P, C, quant)
+    wrapper = (fd.flash_ragged_decode_attention_int8 if quant
+               else fd.flash_ragged_decode_attention)
+    other = (fd.flash_ragged_decode_attention if quant
+             else fd.flash_ragged_decode_attention_int8)
+    before = (wrapper.launches, other.launches)
+    first = fd.flash_ragged_decode_attention(*args, **kw)
+    second = fd.flash_ragged_decode_attention(*args, **kw)
+    assert (wrapper.launches, other.launches) == (before[0] + 2, before[1])
+    assert first.dtype == torch.float32 and torch.equal(first, second)
+    assert not first[~live].any()
+    _close(first[live], fd.ragged_decode_attention_reference(*args, **kw)[live])
 
 
 def test_ragged_decode_kernel_keeps_empty_slots_finite(dev):
