@@ -9,11 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      (roofline) and, where one PyTorch call computes the same function, that
      call's time: K1, K3, K4, K5, K5-int8 at the serving path's shapes (K4
      also at chunks of 252 tokens, no multiple of its tiles; K5 and K5-int8
-     also at the serving batcher's 4 slots and Cmax 64); K6
-     at every (K, N) of the 7B int4 decode with M = 4 and 16; K1, K1-bwd
-     (dq, dk/dv), K2 and K2-int8 at the training path's shapes (prompt
-     bucket TRAIN_PROMPT_BUCKET, left padding TRAIN_PROMPT_PAD, which phase
-     5 checks its batches against) and at a two-prompt batch; the int8
+     also at the serving batcher's 4 slots and Cmax 64); K6 at every (K, N)
+     of the 7B int4 decode with M = 4 and 16, as the scale-free product and
+     as the fused dense_q4 (row scale, cast, bias), with torch's
+     _weight_int4pack_mm as its yardstick; K1, K1-bwd (dq, dk/dv), K2 and
+     K2-int8 at the training path's shapes (prompt bucket
+     TRAIN_PROMPT_BUCKET, left padding TRAIN_PROMPT_PAD, which phase 5 checks
+     its batches against), at a two-prompt batch and, K2 / K2-int8, at
+     K2_WIDE_G completions per prompt; the int8
      weight-only decode products (dense_q8, no kernel of its own) against
      the bf16 products they replace.  Every kernel and library call also
      gets a device-only time per call from torch.profiler (the sum of the
@@ -111,12 +114,19 @@ TIMED_RUNS = 25
 # in different orders, so |kernel - plain| <= K6_SUM_TOL * sum |terms| per
 # output (2^-24 per addition over K <= 18944 terms, with margin); a wrong
 # nibble, pairing or column gives errors of the order of the sum itself.
+# The fused dense_q4 (bf16 out) also rounds twice, at the cast and at the
+# bias add, where a different summation order can flip a rounding: one bf16
+# ulp, <= K6_BF16_ULP of the rounded value, at each.
 K6_SUM_TOL = 1e-5
+K6_BF16_ULP = 2.0 ** -7
 # (K, N) of every int4 decode product at 7B widths: q/o, k/v, gate/up, down,
 # lm_head; M = the serving slots (4) and the rollout's B*G rows (16)
 K6_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
              (3584, 152064))
 K6_PATH_SHAPE = (4, 3584, 18944)   # the kernels line's K6 entry: gate/up
+# K2 / K2-int8 also at this many completions per prompt (G * group_q = 112
+# query rows: two of the prefix jobs' 64-row tiles)
+K2_WIDE_G = 16
 # The card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet, at
 # its 700 W limit): HBM bytes per second and dense bf16 tensor-core
 # operations per second.  Every kernel here multiplies bf16 operands (int8
@@ -462,31 +472,105 @@ def check_ragged_decode(randn, gen, tag, P, C, plen, tlen, admit) -> dict:
 
 def check_int4_matmul(gen) -> dict:
     """Phase 3, K6: every (K, N) of the 7B int4 decode at M = 4 (serving
-    slots) and 16 (rollout rows), against its plain version within the
-    f32 summation-order bound K6_SUM_TOL * sum |terms|."""
+    slots) and 16 (rollout rows), against its plain version: the scale-free
+    product (int4_matmul) within the f32 summation-order bound K6_SUM_TOL *
+    sum |terms|, and dense_q4 (one launch: row scale, product, column
+    scale, cast, bias) within that bound times the column scale plus one
+    bf16 ulp at each of its two roundings.  Yardsticks: torch's
+    _weight_int4pack_mm (tinygemm; the same codes + 8 as unsigned nibbles,
+    group size 128, zero 0, scale 1 for the scale-free product and the
+    column scale for dense_q4, repacked once outside the timing) and the
+    bf16 torch.matmul on the widened weight, which the port never calls."""
     from spacer_tpu_torch.ops import int4_matmul as im
+    from spacer_tpu_torch.ops import quant
 
     dev = gen.device
     results = {}
     for K, N in K6_SHAPES:
-        codes = torch.randint(-7, 8, (K, N), generator=gen, device=dev,
-                              dtype=torch.int8)
-        packed = im.pack_int4(codes)
+        codes, params = int4_dense_case(gen, K, N)
+        packed = params["kernel_q4"]
+        row_scale, col_scale = params["q4_row_scale"], params["q4_col_scale"]
+        tinygemm = int4pack_yardstick(codes, col_scale)
+        w_bf16 = codes.to(torch.bfloat16)
         for M in (4, 16):
             x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
             allowed = (K6_SUM_TOL * (x.float().abs() @ codes.float().abs())
                        + 1e-6)
+            q_bytes = K * N // 2 + M * K * 2
+            lib = tinygemm(x, False)
             results[f"K6 M={M} K={K} N={N}"] = compare(
                 f"K6 int4_matmul M={M} K={K} N={N}",
                 lambda: im.int4_matmul(x, packed),
                 lambda: im.int4_matmul_reference(x, packed), allowed=allowed,
-                work=(K * N // 2 + M * K * 2 + M * N * 4, 2 * M * K * N))
-            del allowed
-        del codes, packed
+                work=(q_bytes + M * N * 4, 2 * M * K * N), library_fn=lib)
+            xs = (x * row_scale.to(x.dtype)).float()
+            ref = quant.dense_q4_reference(params, x)
+            allowed = (K6_SUM_TOL * (xs.abs() @ codes.float().abs()) * col_scale
+                       + K6_BF16_ULP * (((xs @ codes.float()) * col_scale).abs()
+                                        + ref.float().abs()) + 1e-6)
+            lib = tinygemm(x, True)
+            results[f"K6 dense_q4 M={M} K={K} N={N}"] = compare(
+                f"K6 dense_q4 (fused) M={M} K={K} N={N}",
+                lambda: quant.dense_q4(params, x),
+                lambda: quant.dense_q4_reference(params, x), allowed=allowed,
+                work=(q_bytes + K * 4 + N * (4 + 2 + M * 2), 2 * M * K * N),
+                library_fn=lib)
+            log(f"K6 M={M} K={K} N={N}: bf16 torch.matmul on the widened "
+                f"weight {median_ms(lambda: torch.matmul(x, w_bf16)):.4f} ms")
+            del allowed, xs, ref
+        del codes, packed, params, tinygemm, w_bf16
         torch.cuda.empty_cache()
     M, K, N = K6_PATH_SHAPE
-    results["K6"] = results[f"K6 M={M} K={K} N={N}"]
+    results["K6"] = results[f"K6 dense_q4 M={M} K={K} N={N}"]
     return results
+
+
+def int4_dense_case(gen, K, N):
+    """An int4 dense of the decode path: random codes in [-7, 7] (K, N),
+    packed, f32 row and column scales, a bf16 bias.  -> (codes, params)."""
+    from spacer_tpu_torch.ops import int4_matmul as im
+
+    dev = gen.device
+    codes = torch.randint(-7, 8, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+    return codes, {
+        "kernel_q4": im.pack_int4(codes),
+        "q4_row_scale": 0.1 + 2 * torch.rand((K,), generator=gen, device=dev),
+        "q4_col_scale": 0.01 + torch.rand((N,), generator=gen, device=dev) / 50,
+        "bias": torch.randn((N,), generator=gen, device=dev).to(torch.bfloat16)}
+
+
+def int4pack_yardstick(codes, col_scale):
+    """torch's int4 weight-only product (_weight_int4pack_mm) on the same
+    codes (K, N): repacked once here as codes + 8 in unsigned nibbles,
+    group size 128, zero 0.  -> fn(x, scaled) giving the call computing
+    x @ codes (scale 1) or x @ (codes * col_scale), bf16 out, or None (and
+    a log line with the error) if the op refuses on this card."""
+    K, N = codes.shape
+    try:
+        q = (codes.to(torch.int32) + 8).t().contiguous()          # (N, K)
+        w = torch._convert_weight_to_int4pack(
+            (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 8)
+        zeros = torch.zeros((K // 128, N), device=codes.device)
+        sz = {scaled: torch.stack([s.expand(K // 128, N), zeros], -1).to(
+                  torch.bfloat16).contiguous()
+              for scaled, s in ((False, torch.ones_like(col_scale)),
+                                (True, col_scale))}
+
+        def call(x, scaled):
+            return torch._weight_int4pack_mm(x, w, 128, sz[scaled])
+
+        x = torch.zeros((1, K), dtype=torch.bfloat16, device=codes.device)
+        x[0, 0] = 1
+        got = call(x, False)[0].float()
+        err = float((got - codes[0].float()).abs().max())
+        log(f"_weight_int4pack_mm K={K} N={N}: row 0 of the codes read back "
+            f"with max abs err {err:.3e}")
+    except (RuntimeError, TypeError) as e:
+        log(f"_weight_int4pack_mm K={K} N={N}: refused on this card: "
+            f"{str(e).splitlines()[0]}")
+        return lambda x, scaled: None
+    return lambda x, scaled: (lambda: call(x, scaled))
 
 
 def dense_q8_cost(gen):
@@ -517,6 +601,64 @@ def dense_q8_cost(gen):
     torch.cuda.empty_cache()
 
 
+def grouped_decode_case(randn, gen, P, pads, G):
+    """K2's inputs: len(pads) prompts x G completions of group_q 7, Hkv 4,
+    D 128, prefix P left-padded by `pads`, tails of TRAIN_NEW_TOKENS; bf16
+    caches for K2, int8 codes + f32 scales of the same values for K2-int8.
+    -> (fn(step) -> {kernel id: args}, kwargs, fn(step) -> {kernel id:
+    (bytes, bf16 operations)})."""
+    from spacer_tpu_torch.ops import flash_decode as fd
+
+    dev = gen.device
+    Hkv, D, gq, C = 4, 128, 7, TRAIN_NEW_TOKENS
+    Bd = len(pads)
+    qd = randn(Bd, Hkv, G * gq, D)
+    pk, pv = randn(Bd, Hkv, P, D), randn(Bd, Hkv, P, D)
+    tk, tv = randn(Bd * G, Hkv, C, D), randn(Bd * G, Hkv, C, D)
+    live = torch.ones((Bd, P), dtype=torch.bool, device=dev)
+    for b, pad in enumerate(pads):
+        live[b, :pad] = False
+    bias_p = torch.where(live, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
+    q8 = [int8_cache(x, gen) for x in (pk, pv, tk, tv)]
+    codes, scales = [c for c, _ in q8], [s_ for _, s_ in q8]
+
+    def args(step):
+        return {"K2": (qd, pk, pv, bias_p, tk, tv, step),
+                "K2-int8": (qd, codes[0], codes[1], bias_p, codes[2], codes[3],
+                            step, *scales)}
+
+    # work: q, the prefix keys the bias keeps, the live tail, the bias, the
+    # f32 output; per key 2 D bytes (bf16) or D + 4 (code + scale)
+    n_prefix = Hkv * sum(P - p for p in pads)
+
+    def work(step):
+        n_tail = Bd * G * Hkv * step
+        fixed = Bd * Hkv * G * gq * D * (2 + 4) + Bd * P * 4
+        ops = 4 * D * (n_prefix * G * gq + n_tail * gq)
+        return {"K2": (fixed + (n_prefix + n_tail) * 2 * D * 2, ops),
+                "K2-int8": (fixed + (n_prefix + n_tail) * 2 * (D + 4), ops)}
+
+    return args, dict(group=G, group_q=gq, sm_scale=D ** -0.5), work
+
+
+def check_grouped_decode(randn, gen, P, pads, G, steps, results, tag=""):
+    """Phase 3b, K2 and K2-int8 on grouped_decode_case's inputs at each live
+    step of `steps`, against the plain version (results "K2" / "K2-int8" +
+    tag + " P=.. step=..")."""
+    from spacer_tpu_torch.ops import flash_decode as fd
+
+    args, dkw, work = grouped_decode_case(randn, gen, P, pads, G)
+    for step in steps:
+        a, w = args(step), work(step)
+        for kid in ("K2", "K2-int8"):
+            results[f"{kid}{tag} P={P} step={step}"] = compare(
+                f"{kid} flash_decode_attention{tag} P={P} pads {pads} "
+                f"step={step}",
+                lambda: fd.flash_decode_attention(*a[kid], **dkw),
+                lambda: fd.decode_attention_reference(*a[kid], **dkw),
+                work=w[kid])
+
+
 def check_training_kernels(device="cuda") -> dict:
     """Phase 3b: K1, K1-bwd (dq, dk/dv) and K2 against their plain versions, at
     the training slice's shapes (prompt bucket TRAIN_PROMPT_BUCKET, padding
@@ -527,7 +669,6 @@ def check_training_kernels(device="cuda") -> dict:
     padding."""
     from spacer_tpu_torch.nn.attention import xla_attention
     from spacer_tpu_torch.ops import flash_attention as fa
-    from spacer_tpu_torch.ops import flash_decode as fd
 
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -544,7 +685,7 @@ def check_training_kernels(device="cuda") -> dict:
 
     results = {}
     H, Hkv, D = 28, 4, 128
-    G, C, gq = TRAIN_G, TRAIN_NEW_TOKENS, H // Hkv
+    G, C = TRAIN_G, TRAIN_NEW_TOKENS
     path_P, path_pad = TRAIN_PROMPT_BUCKET, TRAIN_PROMPT_PAD
     # (P, padding of the update's prompts, of the rollout's prompts, steps)
     for P, pads, k2_pads, steps in (
@@ -650,39 +791,10 @@ def check_training_kernels(device="cuda") -> dict:
                 rel_norm=True, library_fn=library, work=dkv_work)
             del lout, lq, lk, lv
 
-        # K2: grouped rollout decode, len(k2_pads) prompts x G completions,
-        # prefix P, tails of C; the path's live steps run 1 .. C-1
-        Bd = len(k2_pads)
-        qd = randn(Bd, Hkv, G * gq, D)
-        pk, pv = randn(Bd, Hkv, P, D), randn(Bd, Hkv, P, D)
-        tk, tv = randn(Bd * G, Hkv, C, D), randn(Bd * G, Hkv, C, D)
-        bias_p = torch.where(left_padded(P, k2_pads), 0.0,
-                             fd.MASK_VALUE)[:, None].float().contiguous()
-        dkw = dict(group=G, group_q=gq, sm_scale=D ** -0.5)
-        # K2-int8: the same caches as int8 codes with per-key f32 scales
-        q8 = [int8_cache(x, gen) for x in (pk, pv, tk, tv)]
-        codes, scales = [c for c, _ in q8], [s_ for _, s_ in q8]
-        # work: q, the prefix keys the bias keeps, the live tail, the bias,
-        # the f32 output; per key 2 D bytes (bf16) or D + 4 (code + scale)
-        n_prefix = Hkv * sum(P - p for p in k2_pads)
-        for step in steps:
-            n_tail = Bd * G * Hkv * step
-            fixed = Bd * Hkv * G * gq * D * (2 + 4) + Bd * P * 4
-            ops = 4 * D * (n_prefix * G * gq + n_tail * gq)
-            dargs = (qd, pk, pv, bias_p, tk, tv, step)
-            results[f"K2 P={P} step={step}"] = compare(
-                f"K2 flash_decode_attention P={P} pads {k2_pads} step={step}",
-                lambda: fd.flash_decode_attention(*dargs, **dkw),
-                lambda: fd.decode_attention_reference(*dargs, **dkw),
-                work=(fixed + (n_prefix + n_tail) * 2 * D * 2, ops))
-            qargs = (qd, codes[0], codes[1], bias_p, codes[2], codes[3], step,
-                     *scales)
-            results[f"K2-int8 P={P} step={step}"] = compare(
-                f"K2-int8 flash_decode_attention P={P} pads {k2_pads} "
-                f"step={step}",
-                lambda: fd.flash_decode_attention(*qargs, **dkw),
-                lambda: fd.decode_attention_reference(*qargs, **dkw),
-                work=(fixed + (n_prefix + n_tail) * 2 * (D + 4), ops))
+        check_grouped_decode(randn, gen, P, k2_pads, G, steps, results)
+    # K2 / K2-int8 at K2_WIDE_G completions per prompt, the path's prompts
+    check_grouped_decode(randn, gen, path_P, (path_pad, path_pad), K2_WIDE_G,
+                         (1, 100, C - 1), results, tag=f" G={K2_WIDE_G}")
     results["K1-bwd dq"] = results[f"K1-bwd dq prompt B=1 S={path_P}"]
     results["K1-bwd dkv"] = results[f"K1-bwd dkv prompt B=1 S={path_P}"]
     results["K2"] = results[f"K2 P={path_P} step={C - 1}"]
@@ -776,8 +888,8 @@ class SliceProbe:
 
 class PlainAttention:
     """For a reference run only: routes the slices' kernel calls (attention,
-    and K6 in the int4 weight products) to the kernels' plain versions (the
-    library itself has no such switch)."""
+    and K6 in the int4 weight products, dense_q4) to the kernels' plain
+    versions (the library itself has no such switch)."""
 
     def __enter__(self):
         import spacer_tpu_torch.models.qwen25_vl.language as lang
@@ -787,7 +899,6 @@ class PlainAttention:
         from spacer_tpu_torch.nn.attention import xla_attention
         from spacer_tpu_torch.ops import flash_decode as fd
         from spacer_tpu_torch.ops import vit_window_attention as vwa
-        from spacer_tpu_torch.ops.int4_matmul import int4_matmul_reference
 
         self.routes = [
             (lang, "dot_product_attention", xla_attention),
@@ -796,7 +907,7 @@ class PlainAttention:
             (vis, "chunk_attention_hsd", vwa.chunk_attention_reference),
             (rag, "flash_ragged_decode_attention",
              fd.ragged_decode_attention_reference),
-            (quant, "int4_matmul", int4_matmul_reference),
+            (quant, "dense_q4", quant.dense_q4_reference),
         ]
         self.saved = [getattr(m, n) for m, n, _ in self.routes]
         for m, n, plain in self.routes:
@@ -1282,7 +1393,7 @@ SOURCES = {
     "K5-int8": ("flash_ragged_decode_attention_int8",
                 "spacer_tpu_torch/csrc/flash_decode.cu",
                 "spacer_tpu/ops/flash_decode.py:398"),
-    "K6": ("int4_matmul", "spacer_tpu_torch/csrc/int4_matmul.cu",
+    "K6": ("int4_matmul (dense_q4)", "spacer_tpu_torch/csrc/int4_matmul.cu",
            "spacer_tpu/ops/int4_matmul.py:112"),
 }
 

@@ -8,18 +8,23 @@ QwenEngine.generate_many without the smoke's checks:
          around every ViT encode and decode step;
   then one run under torch.profiler (CPU + CUDA activities), unless
          --no_profile: wall, and the 30 ops with the most device self time
-         (the table's footer gives the device's busy time).
+         (the table's footer gives the device's busy time);
+  with --step_kernels, one more run whose 10th decode step alone runs
+         under torch.profiler: every device kernel of that step by name,
+         with its launches and device time.
 Every line goes to stdout, and to --out when given.  --repo imports
 spacer_tpu_torch from another checkout (e.g. the parent commit unpacked
 under build/), so that two trees can be timed in turn in one call.
 
     python3 profile_serve.py [--out profile_serve.txt] \\
-        [--decode_quant none int4_kv] [--runs 1] [--no_profile] [--repo DIR]
+        [--decode_quant none int4_kv] [--runs 1] [--no_profile] \
+        [--step_kernels] [--repo DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import statistics
 import sys
 import time
@@ -38,6 +43,8 @@ def main():
                     help="timed runs per decode quantization")
     ap.add_argument("--no_profile", action="store_true",
                     help="skip the profiled run")
+    ap.add_argument("--step_kernels", action="store_true",
+                    help="list the device kernels of one decode step")
     ap.add_argument("--repo", help="import spacer_tpu_torch from this checkout")
     cli = ap.parse_args()
     if cli.repo:
@@ -107,8 +114,46 @@ def main():
             log(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=30,
                                           max_name_column_width=70))
+        if cli.step_kernels:
+            bm.ragged_decode_step = one_step_kernels(step, log, name)
+            try:
+                engine.generate_many(msgs, **cs.SERVE_GEN_KW)
+            finally:
+                bm.ragged_decode_step = step
         del engine
         torch.cuda.empty_cache()
+
+
+def one_step_kernels(step, log, tag, at: int = 10):
+    """`step` (the batcher's decode step) with its `at`-th call run alone
+    under torch.profiler, logging every device kernel of that step: name,
+    launches, device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [0]
+
+    def probe(*a, **kw):
+        calls[0] += 1
+        if calls[0] != at:
+            return step(*a, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+        count, us = collections.Counter(), collections.Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                count[e.name] += 1
+                us[e.name] += e.time_range.elapsed_us()
+        log(f"[{tag}] decode step {at}: {sum(count.values())} device kernels, "
+            f"{sum(us.values()) / 1e3:.3f} ms of device time")
+        for n, c in count.most_common():
+            log(f"  {c:5d} x {us[n]:10.1f} us  {n[:100]}")
+        return out
+
+    return probe
 
 
 if __name__ == "__main__":

@@ -11,10 +11,13 @@ without the smoke's checks:
              warm-up, so read step 2);
   step 3:    under torch.profiler (CPU + CUDA activities): wall, and the
              40 ops with the most device self time (the table's footer
-             gives the device's busy time).
-Every line goes to stdout, and to --out when given.
+             gives the device's busy time); skipped with --no_profile.
+Every line goes to stdout, and to --out when given.  --repo imports
+spacer_tpu_torch from another checkout (e.g. the parent commit unpacked
+under build/), so that two trees can be timed in turn in one call.
 
-    python3 profile_train.py [--out profile_train.txt] [--decode_quant none]
+    python3 profile_train.py [--out profile_train.txt] [--decode_quant none] \
+        [--no_profile] [--repo DIR]
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import pathlib
+import sys
 import time
 
 import numpy as np
@@ -32,14 +36,22 @@ import chip_smoke as cs
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the report to this file")
+    ap.add_argument("--decode_quant", default=None,
+                    help="rollout decode quantization (default: the "
+                    "trainer's; 'none' for bf16)")
+    ap.add_argument("--no_profile", action="store_true",
+                    help="skip the profiled step")
+    ap.add_argument("--repo", help="import spacer_tpu_torch from this checkout")
+    cli = ap.parse_args()
+    if cli.repo:
+        sys.path.insert(0, cli.repo)
+    import spacer_tpu_torch
     from spacer_tpu_torch.cli.common import decode_quant_arg
     from spacer_tpu_torch.train.trainer import SGRLVRConfig
 
-    ap.add_argument("--out", help="also write the report to this file")
-    ap.add_argument("--decode_quant", default=SGRLVRConfig().decode_quant,
-                    help="rollout decode quantization (default: the "
-                    "trainer's, %(default)s; 'none' for bf16)")
-    cli = ap.parse_args()
+    if cli.decode_quant is None:
+        cli.decode_quant = SGRLVRConfig().decode_quant
     out = cli.out
     sink = open(out, "w") if out else None
 
@@ -65,6 +77,7 @@ def main():
                   / "profile_train")
     trainer, _ = cs.make_trainer(cfg, "cuda", 3, out_dir,
                                  decode_quant=decode_quant_arg(cli.decode_quant))
+    log(f"spacer_tpu_torch from {spacer_tpu_torch.__file__}")
     log(f"rollout decode_quant: {trainer.args.decode_quant!r}")
     row = trainer.dataset[0]
     rng = np.random.default_rng(0)
@@ -101,6 +114,8 @@ def main():
                                if k.startswith("time/")})
     sm.lm_decode_step_split, sm.sample_logits, sm.lm_forward, \
         trainer.step_fn = saved
+    if cli.no_profile:
+        return
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

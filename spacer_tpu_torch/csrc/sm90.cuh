@@ -1,15 +1,20 @@
 // Hopper (sm_90a) building blocks shared by K1's forward
-// (flash_attention.cu), K1-bwd dq and dk/dv (flash_attention_bwd.cu), K3
-// (vit_window_attention.cu) and K4 (vit_chunk_attention.cu):
+// (flash_attention.cu), K1-bwd dq and dk/dv (flash_attention_bwd.cu), K2
+// (flash_decode_grouped.cu), K3 (vit_window_attention.cu), K4
+// (vit_chunk_attention.cu) and K6 (int4_matmul.cu):
 //
 //   - mbarriers: init, arrive, arrive + expect-tx, wait on a phase parity;
 //   - TMA: 4-D tile loads from a CUtensorMap passed as a __grid_constant__
 //     kernel parameter, completing on an mbarrier; host-side encoders,
 //     fetched through cudaGetDriverEntryPoint (no -lcuda), of a (B, S, H, D)
-//     bf16 tensor as a (D, H, S, B) map with the 128-byte swizzle (D = 128)
-//     and of an (H, S, 80) tensor cut into chunks of wt rows as two (80, wt,
-//     n, H) maps, columns 0-63 with the 128-byte swizzle and 64-79 with the
-//     32-byte swizzle (the ViT's head width);
+//     bf16 tensor as a (D, H, S, B) map with the 128-byte swizzle (D = 128),
+//     of a (B, H, S, 128) tensor of bf16 (128-byte swizzle) or int8 codes (no
+//     swizzle) as a (128, S, H, B) map, of an (H, S, 80) tensor cut into
+//     chunks of wt rows as two (80, wt, n, H) maps, columns 0-63 with the
+//     128-byte swizzle and 64-79 with the 32-byte swizzle (the ViT's head
+//     width), and of a (rows, cols) matrix of bytes, bf16 or f32;
+//   - the proxy fence that makes threads' shared-memory stores visible to
+//     wgmma;
 //   - wgmma: shared-memory descriptors of 128-byte- and 32-byte-swizzled
 //     bf16 tiles, fence / commit / wait, and the bf16 -> f32 shapes the
 //     kernels use: m64n64k16 with both operands in shared memory, and
@@ -150,6 +155,16 @@ __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
   tma_load_4d(static_cast<char*>(dst) + R * 128, map, bar, 64, h, s0, b);
 }
 
+// Load rows [s0, s0 + R) of head h, batch row b of a (B, H, S, 128) bf16
+// map (encode_bhsd) whose box is (64, R, 1, 1): two boxes, column blocks 0
+// and 1.
+template <int R>
+__device__ __forceinline__ void tma_load_bhsd_rows(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int s0, int h, int b) {
+  tma_load_4d(dst, map, bar, 0, s0, h, b);
+  tma_load_4d(static_cast<char*>(dst) + R * 128, map, bar, 64, s0, h, b);
+}
+
 // Load rows [r0, r0 + R) of chunk n, head h of an (H, S, 80) tensor into
 // the two blocks of a D = 80 tile: columns 0-63 from `map64` (box (64, R, 1,
 // 1)), 64-79 from `map16` (box (16, R, 1, 1)).  Rows past the chunk's end
@@ -209,6 +224,12 @@ template <int R>
 __device__ __forceinline__ uint64_t desc_mnmajor_d80_hi(const void* tile, int kk) {
   return make_desc(static_cast<const char*>(tile) + R * 128 + kk * 512, R * 32, 256,
                    Swizzle::B32);
+}
+
+// Order this thread's earlier generic-proxy shared-memory stores before
+// later async-proxy reads of them (wgmma operands written by threads).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -346,12 +367,14 @@ __device__ __forceinline__ void regs_dealloc() {
 
 // ------------------------------------------------------------- host side
 
-// Encode a 4-D bf16 tensor map: dims innermost first, byte strides of dims
-// 1-3, box, swizzle.  Elements outside the dims read as zeros.  A refused
-// encode (e.g. a box row wider than the swizzle span) returns an error.
-inline cudaError_t encode_4d(CUtensorMap* map, const void* base,
-                             const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
-                             const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+// Encode a 4-D tensor map: dims innermost first, byte strides of dims 1-3,
+// box, swizzle, element type (bf16 unless given).  Elements outside the dims
+// read as zeros.  A refused encode (e.g. a box row wider than the swizzle
+// span) returns an error.
+inline cudaError_t encode_4d(
+    CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+    const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -364,7 +387,7 @@ inline cudaError_t encode_4d(CUtensorMap* map, const void* base,
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  CUresult r = encode(map, dtype, 4,
                       const_cast<void*>(base), dims, strides, box, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -397,6 +420,41 @@ inline cudaError_t encode_hsd_chunks(CUtensorMap* map, const void* base, int H, 
   const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   return encode_4d(map, base, dims, strides, box,
                    cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// A contiguous (B, H, S, 128) tensor as a 4-D TMA map (128, S, H, B) with a
+// box of `rows` rows of one (h, b): bf16 as (64, rows, 1, 1) boxes with the
+// 128-byte swizzle (two per row, as encode_bshd's), or int8 codes as one
+// (128, rows, 1, 1) box, unswizzled.  Rows past S read as zeros.
+inline cudaError_t encode_bhsd(CUtensorMap* map, const void* base, int B, int H, int S,
+                               int rows, bool int8) {
+  const cuuint64_t esz = int8 ? 1 : 2;
+  const cuuint64_t dims[4] = {128, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {128 * esz, (cuuint64_t)S * 128 * esz,
+                                 (cuuint64_t)H * S * 128 * esz};
+  const cuuint32_t box[4] = {int8 ? 128u : 64u, (cuuint32_t)rows, 1, 1};
+  return int8 ? encode_4d(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_DATA_TYPE_UINT8)
+              : encode_4d(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A contiguous (rows, cols) matrix of `dtype` (uint8, bf16 or f32) as a TMA
+// map with a (box_cols, box_rows) box and `swizzle`: with the 128-byte
+// swizzle a box row is 128 bytes, row r of a box lands at r * 128 and its
+// 16-byte chunk j at chunk j ^ (r % 8).  The row stride (cols x element
+// size) is a multiple of 16 bytes; rows and columns past the matrix read as
+// zeros.
+inline cudaError_t encode_2d(CUtensorMap* map, const void* base, long rows, long cols,
+                             int box_rows, int box_cols, CUtensorMapDataType dtype,
+                             CUtensorMapSwizzle swizzle) {
+  const cuuint64_t esz = dtype == CU_TENSOR_MAP_DATA_TYPE_UINT8      ? 1
+                         : dtype == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
+                                                                     : 4;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)cols * esz, (cuuint64_t)(rows * cols) * esz,
+                                 (cuuint64_t)(rows * cols) * esz};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
+  return encode_4d(map, base, dims, strides, box, swizzle, dtype);
 }
 
 }  // namespace sm90

@@ -14,10 +14,12 @@ in its `.launches` attribute.
 | K4         | vit_window_attention.chunk_attention_hsd     | ops/vit_window_attention.py:187       |
 | K5         | flash_decode.flash_ragged_decode_attention   | ops/flash_decode.py:398               |
 | K5-int8    | flash_decode.flash_ragged_decode_attention_int8 | ops/flash_decode.py:398 (quant=True) |
-| K6         | int4_matmul.int4_matmul                      | ops/int4_matmul.py:112                |
+| K6         | int4_matmul.int4_matmul, int4_matmul.dense_q4_fused (quant.dense_q4) | ops/int4_matmul.py:112 |
 
 K2 and K5 take the int8 caches' scales and hand such calls to their int8
-wrappers, so each kernel keeps its own count.
+wrappers, so each kernel keeps its own count.  K6's two entry points (the
+scale-free product and dense_q4 with its scales, cast and bias) launch one
+kernel and count under `int4_matmul.launches`.
 """
 
 from __future__ import annotations

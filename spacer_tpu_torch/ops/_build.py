@@ -41,7 +41,8 @@ SIGNATURES = {
     # q, pk, pv, bias_p, tk, tv, bias_t, scratch, out,
     # R, Hkv, gq, P, C, D, scale, stream
     "spacer_ragged_decode_attention": [P] * 9 + [I] * 6 + [F, P],
-    "spacer_ragged_decode_job_keys": [],
+    # () -> keys per split-K job of K5 and K2 (csrc/decode_job.cuh)
+    "spacer_decode_job_keys": [],
     # q, k, v, dout, lse, delta, dq, kv_valid, q_seg, kv_seg,
     # B, Sq, Skv, Hq, Hkv, D, causal, q_offset, scale, stream
     "spacer_flash_attention_bwd_dq": [P] * 10 + [I] * 8 + [F, P],
@@ -51,16 +52,19 @@ SIGNATURES = {
     # () -> keys per dk/dv CTA
     "spacer_flash_attention_bwd_dkv_keys": [],
     # q, pk, pv, bias_p, tk, tv, part_o, part_lse, out,
-    # B, Hkv, G, gq, P, T, step, D, pchunk, tchunk, scale, stream
-    "spacer_grouped_decode_attention": [P] * 9 + [I] * 10 + [F, P],
+    # B, Hkv, G, gq, P, T, step, D, scale, stream
+    "spacer_grouped_decode_attention": [P] * 9 + [I] * 8 + [F, P],
     # q, pk, pv, bias_p, tk, tv, bias_t, pk_s, pv_s, tk_s, tv_s, scratch,
     # out, R, Hkv, gq, P, C, D, scale, stream
     "spacer_ragged_decode_attention_int8": [P] * 13 + [I] * 6 + [F, P],
     # q, pk, pv, bias_p, tk, tv, pk_s, pv_s, tk_s, tv_s, part_o, part_lse, out,
-    # B, Hkv, G, gq, P, T, step, D, pchunk, tchunk, scale, stream
-    "spacer_grouped_decode_attention_int8": [P] * 13 + [I] * 10 + [F, P],
-    # x, packed, part, out, M, K, N, bk, splits, rows, stream
-    "spacer_int4_matmul": [P] * 4 + [I] * 6 + [P],
+    # B, Hkv, G, gq, P, T, step, D, scale, stream
+    "spacer_grouped_decode_attention_int8": [P] * 13 + [I] * 8 + [F, P],
+    # x, packed, row_scale, col_scale, bias, part, tickets, out,
+    # M, K, N, bk, splits, rows, stream
+    "spacer_int4_matmul": [P] * 8 + [I] * 6 + [P],
+    # () -> K6 CTAs an SM holds at once
+    "spacer_int4_matmul_ctas_per_sm": [],
 }
 
 def build_dir() -> Path:

@@ -13,9 +13,10 @@ Output (R, Hkv, group_q, Dh) f32.
 Bound on the H100: K/V bytes (one query token per row).  Split-K in two
 launches (see the .cu note): one CTA per job of 64 keys of a (slot row, kv
 head), which serves all group_q query heads from one read of those keys, so
-even 4 slots fill the card; a job whose keys are all dead reads no K or V; a
-combine pass folds the jobs' partial outputs (scratch allocated here, sized
-by the kernel's job) in a fixed order.  A row with no live key (an empty slot)
+even 4 slots fill the card (the job is csrc/decode_job.cuh, shared with
+K2's tail jobs); a job whose keys are all dead reads no K or V; a combine
+pass folds the jobs' partial outputs (scratch allocated here, sized by the
+kernel's job) in a fixed order.  A row with no live key (an empty slot)
 comes out 0, where the plain version gives the mean of V; callers discard
 such rows.
 
@@ -26,8 +27,11 @@ rollout sampler.  Head-major layout as in JAX: q (B, Hkv, G*group_q, Dh)
 prefix pk/pv (B, Hkv, P, Dh) shared by the G completions of prompt b,
 additive f32 prefix bias (B, 1, P), per-row tails tk/tv (B*G, Hkv, T, Dh) of
 which the first `step` positions are live.  Output (B, Hkv, G*group_q, Dh)
-f32.  Bound on the H100: K/V bytes; the prefix is read once per group and
-dead tail space not at all (split-K over key chunks, see the .cu note).
+f32, any G*group_q (group_q <= 8).  Bound on the H100: K/V bytes; the prefix
+is read once per 64 query rows (once per group at G*group_q <= 64) and dead
+tail space not at all.  Split-K over 64-key jobs in two launches (see the
+.cu note): prefix jobs on wgmma with TMA loads (a chunk whose keys are all
+padding reads nothing), tail jobs on K5's job code, then the combine pass.
 
 K2-int8 and K5-int8 replace the same TPU kernels' `quant=True` branches
 (decode_quant "int8_kv" / "int4_kv"): the caches hold int8 codes with f32
@@ -136,7 +140,7 @@ def _ragged_scratch(q, P: int, C: int):
     """K5's f32 scratch (a partial output and an LSE per (row, head, job),
     laid out by the kernel) and its output."""
     R, Hkv, gq, Dh = q.shape
-    keys = _build.kernels().spacer_ragged_decode_job_keys()
+    keys = _build.kernels().spacer_decode_job_keys()
     jobs = -(-P // keys) + -(-C // keys)
     kw = dict(dtype=torch.float32, device=q.device)
     return (torch.empty(R * Hkv * jobs * gq * (Dh + 1), **kw),
@@ -209,10 +213,6 @@ flash_ragged_decode_attention_int8.launches = 0
 
 # -- K2: shared-prefix grouped decode --------------------------------------
 
-# keys per split-K job of the kernel: prefix chunks and live tail chunks
-PREFIX_CHUNK = 128
-TAIL_CHUNK = 128
-
 
 def decode_attention_reference(q, pk, pv, bias_p, tk, tv, step: int,
                                pk_scale=None, pv_scale=None, tk_scale=None,
@@ -256,8 +256,9 @@ def decode_attention_reference(q, pk, pv, bias_p, tk, tv, step: int,
 def _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q, scales):
     """Hopper legality gate of K2 / K2-int8 (raises ValueError)."""
     B, Hkv, GQ, Dh = q.shape
-    if GQ != group * group_q or not 1 <= GQ <= 64:
-        raise ValueError(f"q rows {GQ} must be group*group_q and <= 64")
+    if GQ != group * group_q or not 1 <= group_q <= GROUP_Q_MAX:
+        raise ValueError(f"q rows {GQ} must be group*group_q, group_q <= "
+                         f"{GROUP_Q_MAX}")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {Dh} not in {HEAD_DIMS}")
     _check_caches(q, pk, pv, tk, tv, scales)
@@ -273,11 +274,17 @@ def _check_grouped(q, pk, pv, bias_p, tk, tv, step, group, group_q, scales):
     for name, t in (("q", q), ("bias_p", bias_p)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on q's device")
+    for name, t in (("q", q), ("pk", pk), ("pv", pv)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (TMA)")
 
 
 def _grouped_scratch(q, P: int, step: int):
+    """K2's f32 scratch (a partial output and an LSE per (b, h, job, row):
+    the prefix's 64-key chunks, then the live tail's) and its output."""
     B, Hkv, GQ, Dh = q.shape
-    n_splits = -(-P // PREFIX_CHUNK) + -(-step // TAIL_CHUNK)
+    keys = _build.kernels().spacer_decode_job_keys()
+    n_splits = -(-P // keys) + -(-step // keys)
     kw = dict(dtype=torch.float32, device=q.device)
     return (torch.empty((B, Hkv, n_splits, GQ, Dh), **kw),
             torch.empty((B, Hkv, n_splits, GQ), **kw), torch.empty(q.shape, **kw))
@@ -306,8 +313,8 @@ def flash_decode_attention(q, pk, pv, bias_p, tk, tv, step: int,
     p = _build.ptr
     err = _build.kernels().spacer_grouped_decode_attention(
         p(q), p(pk), p(pv), p(bias_p), p(tk), p(tv), p(part_o), p(part_lse),
-        p(out), B, Hkv, group, group_q, P, T, step, Dh, PREFIX_CHUNK,
-        TAIL_CHUNK, float(sm_scale), _build.stream_ptr(q.device))
+        p(out), B, Hkv, group, group_q, P, T, step, Dh, float(sm_scale),
+        _build.stream_ptr(q.device))
     _build.check(err, "flash_decode_attention")
     flash_decode_attention.launches += 1
     return out
@@ -332,7 +339,7 @@ def flash_decode_attention_int8(q, pk, pv, bias_p, tk, tv, step: int,
     err = _build.kernels().spacer_grouped_decode_attention_int8(
         p(q), p(pk), p(pv), p(bias_p), p(tk), p(tv), *map(p, scales),
         p(part_o), p(part_lse), p(out), B, Hkv, group, group_q, P, T, step, Dh,
-        PREFIX_CHUNK, TAIL_CHUNK, float(sm_scale), _build.stream_ptr(q.device))
+        float(sm_scale), _build.stream_ptr(q.device))
     _build.check(err, "flash_decode_attention_int8")
     flash_decode_attention_int8.launches += 1
     return out

@@ -18,7 +18,11 @@ from __future__ import annotations
 
 import torch
 
-from spacer_tpu_torch.ops.int4_matmul import int4_matmul, pack_int4
+from spacer_tpu_torch.ops.int4_matmul import (
+    dense_q4_fused,
+    int4_matmul_reference,
+    pack_int4,
+)
 
 
 def quantize_dense_int8(p):
@@ -72,15 +76,29 @@ def quantize_dense_int4(p):
 
 def dense_q4(params, x):
     """y = (x @ dequant_int4(kernel)) [+ bias] in the JAX order: the row
-    scale multiplies x in x's dtype, K6 (int4_matmul: the kernel on CUDA, its
-    plain version on the CPU) contracts in bf16 with f32 sums, then the f32
-    column scale, the cast to x's dtype, the bias.  JAX pads M to a multiple
-    of 8 for the TPU's tiles; the CUDA kernel masks M itself."""
+    scale multiplies x in x's dtype, the product contracts in bf16 with f32
+    sums, then the f32 column scale, the cast to x's dtype, the bias.  On
+    CUDA tensors all of it is one K6 launch (ops/int4_matmul.py
+    dense_q4_fused: bf16 x and bias); on the CPU its plain composition,
+    dense_q4_reference.  JAX pads M to a multiple of 8 for the TPU's tiles;
+    the CUDA kernel masks M itself."""
+    if x.device.type == "cpu":
+        return dense_q4_reference(params, x)
+    *lead, K = x.shape
+    y = dense_q4_fused(x.view(-1, K), params["kernel_q4"],
+                       params["q4_row_scale"], params["q4_col_scale"],
+                       params.get("bias"))
+    return y.view(*lead, y.shape[-1])
+
+
+def dense_q4_reference(params, x):
+    """Plain version of dense_q4: the composition above in PyTorch ops, the
+    product by K6's plain version (int4_matmul_reference)."""
     packed = params["kernel_q4"]
     *lead, K = x.shape
     N = packed.shape[-1]
     xs = (x * params["q4_row_scale"].to(x.dtype)).reshape(-1, K)
-    y = int4_matmul(xs, packed)
+    y = int4_matmul_reference(xs, packed)
     y = (y * params["q4_col_scale"].float()).to(x.dtype).reshape(*lead, N)
     if "bias" in params:
         y = y + params["bias"]

@@ -59,6 +59,26 @@ def test_grouped_decode_matches_jax_kernel_and_reference(step):
     np.testing.assert_allclose(out, ref_xla, **TOL)
 
 
+@pytest.mark.parametrize("step", [1, 65])
+def test_grouped_decode_g16_matches_jax_kernel_and_reference(step):
+    """G = 16 completions of group_q 7 (112 query rows per prompt, more than
+    one 64-row tile of the CUDA kernel's prefix jobs; the port once refused
+    G * group_q > 64 where JAX takes any): the plain version against the
+    JAX kernel in interpret mode and its reference."""
+    args, kw = _case(2, B=2, Hkv=1, G=16, gq=7, P=256, T=128)
+    tk = args[4].copy()
+    tk[:, :, step:] = 1e4   # dead tail: reading it would swamp the softmax
+    args = (*args[:4], tk, args[5])
+    out = flash_decode_attention(*(torch.from_numpy(a) for a in args), step,
+                                 **kw).numpy()
+    assert out.shape == (2, 1, 112, 128) and np.isfinite(out).all()
+    jargs = [jnp.asarray(a) for a in args]
+    ref_kernel = np.asarray(jax_kernel(*jargs, step, interpret=True, **kw))
+    ref_xla = np.asarray(jax_reference(*jargs, step, **kw))
+    np.testing.assert_allclose(out, ref_kernel, **TOL)
+    np.testing.assert_allclose(out, ref_xla, **TOL)
+
+
 def test_bf16_plain_version_matches_jax_reference():
     """bf16 caches through the port's plain version against the JAX
     reference on the same bf16-representable values held in f32 (JAX's CPU

@@ -79,6 +79,30 @@ def test_grouped_int8_matches_jax_kernel_and_reference(step):
     assert np.abs(out - oracle).max() < 0.1
 
 
+@pytest.mark.parametrize("step", [1, 65])
+def test_grouped_int8_g16_matches_jax_kernel_and_reference(step):
+    """K2-int8's plain version at G = 16, group_q 7 (112 query rows per
+    prompt: any G * group_q is legal, as in JAX) against the JAX kernel in
+    interpret mode and its reference."""
+    q, caches, bias, kw = _grouped_case(3, B=2, Hkv=1, G=16, gq=7, P=256,
+                                        T=128)
+    (pk, pks), (pv, pvs), (tk, tks), (tv, tvs) = map(_quant, caches)
+    tk[:, :, step:] = 127      # dead tail: reading it would swamp the softmax
+    tks[..., step:] = 1e3
+    out = fd.flash_decode_attention(
+        torch.from_numpy(q), pk, pv, torch.from_numpy(bias), tk, tv, step,
+        pks, pvs, tks, tvs, **kw).numpy()
+    assert out.shape == (2, 1, 112, 128) and np.isfinite(out).all()
+    j = [jnp.asarray(t.numpy()) for t in (pk, pv, tk, tv, pks, pvs, tks, tvs)]
+    jargs = (jnp.asarray(q), j[0], j[1], jnp.asarray(bias), j[2], j[3], step,
+             *j[4:])
+    ref_kernel = np.asarray(jfd.flash_decode_attention(*jargs, interpret=True,
+                                                       **kw))
+    ref_xla = np.asarray(jfd.decode_attention_reference(*jargs, **kw))
+    np.testing.assert_allclose(out, ref_kernel, **TOL)
+    np.testing.assert_allclose(out, ref_xla, **TOL)
+
+
 def test_grouped_int8_scales_are_applied_per_key():
     """Swapping the K and V scale roles, or using unit scales, changes the
     output: the parity above is not blind to where the scales go."""

@@ -10,7 +10,9 @@ of 2^-8 relative, plus the kernel's bf16 rounding of the probabilities).
 Gradients (K1-bwd), whose elements sum many bf16-rounded products:
 ||kernel - plain|| <= 2e-2 * ||plain|| per tensor.  K6 (f32 output of
 exact bf16 x int4 products): |kernel - plain| <= 1e-5 * sum |terms|, the f32
-summation-order bound.
+summation-order bound; K6 as dense_q4 (bf16 out) adds one bf16 ulp (<= 2^-7
+relative) at each of its two roundings, the cast and the bias add, which a
+different summation order can flip.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from spacer_tpu_torch.nn.attention import xla_attention
 from spacer_tpu_torch.ops import flash_attention as fa
 from spacer_tpu_torch.ops import flash_decode as fd
 from spacer_tpu_torch.ops import int4_matmul as im
+from spacer_tpu_torch.ops import quant
 from spacer_tpu_torch.ops import vit_window_attention as vwa
 from spacer_tpu_torch.ops.quant import quantize_kv
 from spacer_tpu_torch.ops.flash_attention import flash_attention
@@ -444,6 +447,56 @@ def test_grouped_decode_int8_kernel(dev, step):
     _close(out, fd.decode_attention_reference(*args, **kw))
 
 
+@pytest.mark.parametrize("quant_kv", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("G", [8, 16])
+@pytest.mark.parametrize("step", [1, 64, 65, 255])
+def test_grouped_decode_kernel_any_group(dev, quant_kv, G, step):
+    """K2 / K2-int8 at G = 8 and 16 completions of group_q 7 (56 and 112
+    query rows: one and two 64-row tiles of the prefix jobs), live tails
+    ending inside, at and just past a 64-key tail job, prompt 0 padded by
+    100 keys (its first 64-key chunk all padding: that job reads nothing),
+    against the plain version; two calls bitwise equal, one launch each.
+    int8: the V values reach ~10 (scales up to 3), and the kernel rounds
+    p * v_scale to bf16 against its 64-key job's max where the plain version
+    rounds it against the row's, two roundings of <= 2^-9 each per term; an
+    output that cancels between a few such terms can be off by up to 2^-8
+    of sum_j p_j |v_j|, which the tolerance adds to TOL * (1 + |ref|)."""
+    B, Hkv, gq, D, P, T = 2, 2, 7, 128, 320, 256
+    q = _randn(dev, B, Hkv, G * gq, D)
+    caches = [_randn(dev, B, Hkv, P, D, seed=1), _randn(dev, B, Hkv, P, D, seed=2),
+              _randn(dev, B * G, Hkv, T, D, seed=3),
+              _randn(dev, B * G, Hkv, T, D, seed=4)]
+    mask = torch.ones((B, P), dtype=torch.bool, device=dev)
+    mask[0, :100] = False
+    bias = torch.where(mask, 0.0, fd.MASK_VALUE)[:, None].float().contiguous()
+    if quant_kv:
+        (pk, pks), (pv, pvs), (tk, tks), (tv, tvs) = map(_int8, caches)
+        tk[:, :, step:], tks[..., step:] = 127, 1e3   # dead tail: never read
+        args = (q, pk, pv, bias, tk, tv, step, pks, pvs, tks, tvs)
+    else:
+        pk, pv, tk, tv = caches
+        tk[:, :, step:] = 1e4   # dead tail: reading it would swamp the softmax
+        args = (q, pk, pv, bias, tk, tv, step)
+    kw = dict(group=G, group_q=gq, sm_scale=D ** -0.5)
+    wrapper = (fd.flash_decode_attention_int8 if quant_kv
+               else fd.flash_decode_attention)
+    before = wrapper.launches
+    first = fd.flash_decode_attention(*args, **kw)
+    second = fd.flash_decode_attention(*args, **kw)
+    assert wrapper.launches == before + 2
+    assert first.shape == (B, Hkv, G * gq, D) and torch.equal(first, second)
+    ref = fd.decode_attention_reference(*args, **kw)
+    if not quant_kv:
+        _close(first, ref)
+        return
+    absv = (*args[:2], args[2].abs(), *args[3:5], args[5].abs(), *args[6:])
+    allowed = (TOL * (1 + ref.abs())
+               + 2.0 ** -8 * fd.decode_attention_reference(*absv, **kw))
+    assert torch.isfinite(first).all()
+    assert bool(((first - ref).abs() <= allowed).all()), \
+        float((first - ref).abs().max())
+
+
 def test_ragged_decode_int8_kernel(dev):
     R, Hkv, gq, D, P, C = 4, 2, 7, 128, 192, 64
     q = _randn(dev, R, Hkv, gq, D)
@@ -469,7 +522,7 @@ def test_ragged_decode_int8_kernel(dev):
 
 
 @pytest.mark.parametrize("M,K,N", [(4, 3584, 512), (16, 3584, 1024),
-                                   (5, 1024, 3584), (33, 512, 260)])
+                                   (5, 1024, 3584), (33, 512, 272)])
 def test_int4_matmul_kernel(dev, M, K, N):
     g = torch.Generator(device=dev).manual_seed(M + K + N)
     codes = torch.randint(-7, 8, (K, N), generator=g, device=dev,
@@ -483,8 +536,99 @@ def test_int4_matmul_kernel(dev, M, K, N):
     bound = 1e-5 * (x.float().abs() @ codes.float().abs()) + 1e-6
     assert out.shape == (M, N) and out.dtype == torch.float32
     assert bool(((out - ref).abs() <= bound).all()), float((out - ref).abs().max())
-    with pytest.raises(ValueError):   # N % 4 != 0
-        im.int4_matmul(x, packed[:, :N - 2].contiguous())
+    with pytest.raises(ValueError):   # N % 16 != 0 (the TMA row stride)
+        im.int4_matmul(x, packed[:, :N - 4].contiguous())
+    with pytest.raises(ValueError):   # K % 128 != 0 (a chunk would straddle)
+        im.int4_matmul(x[:, :K - 64].contiguous(), packed[:K // 2 - 32])
+
+
+# (K, N) of every int4 decode product of the 7B: q/o, k/v, gate/up, down,
+# lm_head
+K6_7B_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+                (3584, 152064)]
+
+
+def _q4_params(dev, K, N, bias, seed=0):
+    """An int4-quantized dense of rows of differing magnitude (the scales
+    matter), with a bf16 bias or none."""
+    g = torch.Generator(device=dev).manual_seed(seed + K + N)
+    w = torch.randn((K, N), generator=g, device=dev)
+    w = w * (0.1 + 2 * torch.rand((K, 1), generator=g, device=dev))
+    p = {"kernel": w}
+    if bias:
+        p["bias"] = torch.randn((N,), generator=g, device=dev).to(torch.bfloat16)
+    return quant.quantize_dense_int4(p)
+
+
+def _q4_allowed(p, x, ref):
+    """|fused - plain| bound: the f32 summation order (1e-5 * sum |terms|,
+    times the column scale) plus one bf16 ulp (<= 2^-7 relative) at the cast
+    and at the bias add."""
+    K = x.shape[-1]
+    codes = im.unpack_int4(p["kernel_q4"], K).float()
+    xs = (x * p["q4_row_scale"].to(x.dtype)).float()
+    cs = p["q4_col_scale"].float()
+    terms = (xs.abs() @ codes.abs()) * cs
+    pre = ((xs @ codes) * cs).abs()
+    return 1e-5 * terms + 2.0 ** -7 * (pre + ref.float().abs()) + 1e-6
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("M", [1, 4, 5, 16])
+@pytest.mark.parametrize("K,N", K6_7B_SHAPES)
+def test_dense_q4_fused_kernel(dev, K, N, M, bias):
+    """dense_q4 on CUDA (row scale, product, column scale, cast, bias in one
+    K6 launch) against its plain composition at every 7B int4 shape."""
+    p = _q4_params(dev, K, N, bias)
+    x = _randn(dev, M, K)
+    before = im.int4_matmul.launches
+    out = quant.dense_q4(p, x)
+    assert im.int4_matmul.launches == before + 1
+    ref = quant.dense_q4_reference(p, x)
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert torch.isfinite(out.float()).all()
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= _q4_allowed(p, x, ref)).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 18944), (16, 18944, 3584),
+                                   (4, 3584, 512)])
+def test_k6_split_k_is_deterministic(dev, M, K, N):
+    """Shapes whose plan splits K: the last CTA of each column tile sums the
+    partials in split order, so two calls are bitwise equal (dense_q4 and
+    the scale-free product), and the tickets are left for the next call."""
+    splits, _ = im.k_splits(M, K, N, im._sm_count(0), im._ctas_per_sm())
+    assert splits > 1
+    p = _q4_params(dev, K, N, True)
+    x = _randn(dev, M, K)
+    assert torch.equal(quant.dense_q4(p, x), quant.dense_q4(p, x))
+    assert torch.equal(im.int4_matmul(x, p["kernel_q4"]),
+                       im.int4_matmul(x, p["kernel_q4"]))
+    assert not im._TICKETS[x.device].any()
+
+
+def test_dense_q4_is_one_kernel_launch(dev):
+    """Each dense_q4 call on CUDA runs exactly one kernel on the device (no
+    scale, cast, bias or split-sum kernel), by the profiler's count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p = _q4_params(dev, 3584, 18944, True)
+    x = _randn(dev, 4, 3584)
+    quant.dense_q4(p, x)
+    torch.cuda.synchronize()
+    for _ in range(3):   # the profiler has been seen to lose a record
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                quant.dense_q4(p, x)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if len(kernels) == 3:
+            break
+    assert len(kernels) == 3 and len(set(kernels)) == 1, kernels
+    assert "int4_matmul_kernel" in kernels[0], kernels
 
 
 def test_inference_only_kernels_refuse_autograd(dev):

@@ -187,10 +187,39 @@ def test_params_from_jax_keeps_quantization_leaves():
 @pytest.mark.parametrize("K,N", [(3584, 3584), (3584, 512), (3584, 18944),
                                  (18944, 3584), (3584, 152064)])
 def test_k6_split_plan_covers_k_and_fills_the_card(M, K, N):
-    """The wrapper's split-K plan at the 7B decode shapes (132 SMs): the
-    splits cover every packed row, rows per split are a multiple of the 8
-    warps, and the grid holds >= 2 CTAs per SM where K allows it."""
-    splits, rows = im.k_splits(M, K, N, 132)
-    assert rows % 8 == 0 and splits * rows >= K // 2 > (splits - 1) * rows
+    """The wrapper's split-K plan at the 7B decode shapes (132 SMs, 4 CTAs
+    per SM): the splits cover every packed row and none is empty, rows per
+    split are whole 64-row chunks of the kernel's ring, and the grid holds
+    >= 2 CTAs per SM where K allows it."""
+    splits, rows = im.k_splits(M, K, N, 132, 4)
+    K2 = K // 2
+    assert rows % im.CHUNK_ROWS == 0
+    assert splits * rows >= K2 > (splits - 1) * rows
     tiles = -(-N // im.COLS_PER_CTA) * -(-M // im.M_TILE)
-    assert tiles * splits >= min(2 * 132, tiles * (K // 2 // 64))
+    assert tiles * splits >= min(2 * 132, tiles * (K2 // im.CHUNK_ROWS))
+
+
+@pytest.mark.parametrize("M", [1, 5, 16])
+def test_dense_q4_with_bias_matches_jax(M):
+    """dense_q4 with a bias on bf16 activations (the decode path's dtypes)
+    at M = 1, 5 (no multiple of JAX's 8-row padding) and 16 rows: the port
+    (its plain composition on the CPU, which the fused CUDA kernel rounds
+    alike) against JAX's dense_q4.  Both round the row-scaled x, the cast
+    and the bias add to bf16 at the same places and differ only in the f32
+    summation order, which can flip one bf16 rounding of an output: rtol
+    1e-2 (2^-8 relative per rounding, two roundings), atol 1e-2 * max."""
+    w = _w(512, 96, seed=M)
+    x = np.random.default_rng(M).normal(size=(M, 512)).astype(np.float32)
+    jp = jq.quantize_dense_int4({k: jnp.asarray(v) for k, v in _p(w).items()})
+    jp = dict(jp, bias=jp["bias"].astype(jnp.bfloat16))
+    tp = {k: torch.from_numpy(np.array(v.astype(jnp.float32)
+                                       if k == "bias" else v))
+          for k, v in jp.items()}
+    tp["bias"] = tp["bias"].to(torch.bfloat16)
+    ref = np.asarray(jq.dense_q4(jp, jnp.asarray(x).astype(jnp.bfloat16))
+                     .astype(jnp.float32))
+    got = quant.dense_q4(tp, torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and got.shape == (M, 96)
+    assert im.int4_matmul.launches == 0   # the CPU takes the plain version
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=1e-2,
+                               atol=1e-2 * np.abs(ref).max())
