@@ -16,7 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      K2-int8 at the training path's shapes (prompt bucket
      TRAIN_PROMPT_BUCKET, left padding TRAIN_PROMPT_PAD, which phase 5 checks
      its batches against), at a two-prompt batch and, K2 / K2-int8, at
-     K2_WIDE_G completions per prompt; the int8
+     K2_WIDE_G completions per prompt and at the eval's one completion per
+     prompt (EVAL_PROMPT_BUCKET, EVAL_PROMPT_PADS, which phase 7 checks its
+     prompts against); the int8
      weight-only decode products (dense_q8, no kernel of its own) against
      the bf16 products they replace.  Every kernel and library call also
      gets a device-only time per call from torch.profiler (the sum of the
@@ -43,10 +45,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      must launch no kernel), moved int8 moments, and every kernel of the
      path launched;
   5b. one bf16 rollout (decode_quant=None) of phase 5's first batch with
-     the trained params, its K2 calls held against the plain version live.
+     the trained params, its K2 calls held against the plain version live;
+  6. a checkpoint at Qwen2.5-VL-7B widths (LM cut to CKPT_LM_LAYERS layers,
+     full vocab, all 32 ViT blocks) written by export_to_safetensors in HF's
+     sharded layout and loaded back onto the card by load_params_from_hf:
+     every tensor bitwise equal; write / load GB/s and the host's peak RSS
+     growth logged;
+  7. the eval path (cli/evaluate.py's run_benchmark -> QwenEngine) at full
+     Qwen2.5-VL-7B geometry on 4 LongVideoBench rows over 2 synthetic
+     360x640 videos, 32 frames each, once serving="static" (K1, K3, K4, K2
+     at G = 1, its K2 calls held against the plain version live) and once
+     serving="continuous" (K1, K3, K4, K5); the engine's exceptions, which
+     the harness turns into empty answers, are recorded and fail the phase.
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5b, each counted from 0 just before it
-runs); the last line is {"ok": true, "device": {...}}.
+summed over the paths of phases 4-5b and 7, each counted from 0 just before
+it runs); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 """
@@ -58,6 +71,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -127,6 +141,27 @@ K6_PATH_SHAPE = (4, 3584, 18944)   # the kernels line's K6 entry: gate/up
 # K2 / K2-int8 also at this many completions per prompt (G * group_q = 112
 # query rows: two of the prefix jobs' 64-row tiles)
 K2_WIDE_G = 16
+# Phase 6: the checkpoint at Qwen2.5-VL-7B widths, the LM cut to this many
+# layers (full vocab, all 32 ViT blocks: every kind of tensor, 2.23 B
+# params, ~4.5 GB in bf16), written in HF's sharded layout with shards of at
+# most CKPT_SHARD_BYTES.
+CKPT_LM_LAYERS = 2
+CKPT_SHARD_BYTES = 2 * 2 ** 30
+# Phase 7, the eval path: LongVideoBench rows over 360x640 videos of
+# EVAL_VIDEO_SECONDS, 32 frames at fps 1.  The frame loader turns each frame
+# portrait, 251 wide and 448 high (the reference's aspect transposition),
+# so the video grid is EVAL_GRID and every prompt buckets to
+# EVAL_PROMPT_BUCKET; the first static batch's two prompts are left-padded
+# by EVAL_PROMPT_PADS.  Phase 3 holds K2 at G = 1 at these shapes; phase 7
+# fails if its prompts have others.  (Worked out on the CPU: the processor
+# is deterministic.)
+EVAL_VIDEO_SECONDS, EVAL_VIDEO_FPS = 34, 4
+EVAL_GRID = (16, 32, 18)
+EVAL_PROMPT_BUCKET = 2560
+EVAL_PROMPT_PADS = (130, 126)
+EVAL_NEW_TOKENS = 64
+LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
+               "perception_task_accuracy", "relation_task_accuracy"}
 # The card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet, at
 # its 700 W limit): HBM bytes per second and dense bf16 tensor-core
 # operations per second.  Every kernel here multiplies bf16 operands (int8
@@ -152,6 +187,13 @@ def device_facts():
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs a Hopper GPU (sm_90), got {cap}")
+    # phase 7 writes its videos with cv2 and the eval harness reads them
+    # into PIL frames
+    try:
+        import cv2
+        import PIL
+    except ImportError as e:
+        raise SystemExit(f"chip_smoke: phase 7 needs cv2 and PIL: {e}") from e
     from spacer_tpu_torch.ops import _build
 
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
@@ -159,7 +201,8 @@ def device_facts():
     smi = nvidia_smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} | "
-        f"{[l for l in nvcc.splitlines() if 'release' in l][0].strip()}")
+        f"{[l for l in nvcc.splitlines() if 'release' in l][0].strip()} | "
+        f"cv2 {cv2.__version__} | PIL {PIL.__version__}")
     return smi
 
 
@@ -601,16 +644,16 @@ def dense_q8_cost(gen):
     torch.cuda.empty_cache()
 
 
-def grouped_decode_case(randn, gen, P, pads, G):
+def grouped_decode_case(randn, gen, P, pads, G, C=TRAIN_NEW_TOKENS):
     """K2's inputs: len(pads) prompts x G completions of group_q 7, Hkv 4,
-    D 128, prefix P left-padded by `pads`, tails of TRAIN_NEW_TOKENS; bf16
+    D 128, prefix P left-padded by `pads`, tails of C tokens; bf16
     caches for K2, int8 codes + f32 scales of the same values for K2-int8.
     -> (fn(step) -> {kernel id: args}, kwargs, fn(step) -> {kernel id:
     (bytes, bf16 operations)})."""
     from spacer_tpu_torch.ops import flash_decode as fd
 
     dev = gen.device
-    Hkv, D, gq, C = 4, 128, 7, TRAIN_NEW_TOKENS
+    Hkv, D, gq = 4, 128, 7
     Bd = len(pads)
     qd = randn(Bd, Hkv, G * gq, D)
     pk, pv = randn(Bd, Hkv, P, D), randn(Bd, Hkv, P, D)
@@ -641,13 +684,14 @@ def grouped_decode_case(randn, gen, P, pads, G):
     return args, dict(group=G, group_q=gq, sm_scale=D ** -0.5), work
 
 
-def check_grouped_decode(randn, gen, P, pads, G, steps, results, tag=""):
+def check_grouped_decode(randn, gen, P, pads, G, steps, results, tag="",
+                         C=TRAIN_NEW_TOKENS):
     """Phase 3b, K2 and K2-int8 on grouped_decode_case's inputs at each live
     step of `steps`, against the plain version (results "K2" / "K2-int8" +
     tag + " P=.. step=..")."""
     from spacer_tpu_torch.ops import flash_decode as fd
 
-    args, dkw, work = grouped_decode_case(randn, gen, P, pads, G)
+    args, dkw, work = grouped_decode_case(randn, gen, P, pads, G, C)
     for step in steps:
         a, w = args(step), work(step)
         for kid in ("K2", "K2-int8"):
@@ -795,6 +839,11 @@ def check_training_kernels(device="cuda") -> dict:
     # K2 / K2-int8 at K2_WIDE_G completions per prompt, the path's prompts
     check_grouped_decode(randn, gen, path_P, (path_pad, path_pad), K2_WIDE_G,
                          (1, 100, C - 1), results, tag=f" G={K2_WIDE_G}")
+    # K2 / K2-int8 as the eval's static path runs them (phase 7): one
+    # completion per prompt, 2 prompts of differing padding at its bucket
+    check_grouped_decode(randn, gen, EVAL_PROMPT_BUCKET, EVAL_PROMPT_PADS, 1,
+                         (1, 33, EVAL_NEW_TOKENS - 1), results, tag=" G=1",
+                         C=EVAL_NEW_TOKENS)
     results["K1-bwd dq"] = results[f"K1-bwd dq prompt B=1 S={path_P}"]
     results["K1-bwd dkv"] = results[f"K1-bwd dkv prompt B=1 S={path_P}"]
     results["K2"] = results[f"K2 P={path_P} step={C - 1}"]
@@ -1076,10 +1125,11 @@ def k2_checked(step: int) -> bool:
 
 
 class DecodeProbe:
-    """Times every grouped-rollout decode step (synchronised) and holds the
+    """Times every grouped-rollout decode step (synchronised), holds the
     K2 / K2-int8 calls of the k2_checked steps against
     decode_attention_reference on the same live inputs (the plain call
-    launches nothing, so the path's launch count is unchanged)."""
+    launches nothing, so the path's launch count is unchanged), and counts
+    the sampled steps whose logits are not all finite."""
 
     def __enter__(self):
         import spacer_tpu_torch.models.qwen25_vl.language as lang
@@ -1087,9 +1137,18 @@ class DecodeProbe:
         import spacer_tpu_torch.sampler.sampler as sm
 
         self.sm, self.lang = sm, lang
-        self.saved = (sm.lm_decode_step_split, lang.flash_decode_attention)
-        step_fn, k2 = self.saved
+        self.saved = (sm.lm_decode_step_split, lang.flash_decode_attention,
+                      sm.sample_logits)
+        step_fn, k2, sample = self.saved
         self.ms, self.k2_err, self.k2_shapes, self.k2_bad = [], [], set(), 0
+        self.logit_steps, self.nonfinite = 0, 0
+
+        def finite_checked(logits, *a, **kw):
+            # every sampled step's logits: the prefill's last and each
+            # decode step's
+            self.logit_steps += 1
+            self.nonfinite += not bool(torch.isfinite(logits).all())
+            return sample(logits, *a, **kw)
 
         def timed(*a, **kw):
             torch.cuda.synchronize()
@@ -1113,11 +1172,12 @@ class DecodeProbe:
 
         sm.lm_decode_step_split = timed
         lang.flash_decode_attention = checked
+        sm.sample_logits = finite_checked
         return self
 
     def __exit__(self, *exc):
-        self.sm.lm_decode_step_split, self.lang.flash_decode_attention = \
-            self.saved
+        (self.sm.lm_decode_step_split, self.lang.flash_decode_attention,
+         self.sm.sample_logits) = self.saved
 
     def decode_ms(self):
         """Per-step times of the steps whose K2 calls were not checked."""
@@ -1360,10 +1420,332 @@ def rollout_bf16(trainer, args, kwargs) -> dict:
     return counts
 
 
+def checkpoint_phase(device="cuda"):
+    """Phase 6: random bf16 params at Qwen2.5-VL-7B widths with the LM cut
+    to CKPT_LM_LAYERS layers, written by export_to_safetensors in HF's
+    sharded layout (index + at least 2 shards) under build/, loaded back by
+    load_params_from_hf onto the card: every tensor must equal the written
+    one bitwise.  Logs write and load seconds and GB/s, and the host's
+    peak RSS growth during the load (sampled every 5 ms)."""
+    import tempfile
+    import threading
+
+    from spacer_tpu_torch.models.qwen25_vl import (
+        QWEN25_VL_7B,
+        export_to_safetensors,
+        init_params,
+        load_params_from_hf,
+    )
+    from spacer_tpu_torch.models.qwen25_vl.safetensors_io import INDEX_FILE
+
+    cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
+        QWEN25_VL_7B.text, num_layers=CKPT_LM_LAYERS))
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    leaves = list(_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < 1.25 * n_bytes:
+        raise RuntimeError(f"phase 6 writes {n_bytes / 1e9:.2f} GB under "
+                           f"{root}, which has {free / 1e9:.2f} GB free")
+    tmp = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=root)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_to_safetensors(params, cfg, tmp,
+                              max_shard_bytes=CKPT_SHARD_BYTES)
+        write_s = time.perf_counter() - t0
+        shards = sorted(f for f in os.listdir(tmp) if f.endswith(".safetensors"))
+        if len(shards) < 2 or not os.path.exists(os.path.join(tmp, INDEX_FILE)):
+            raise RuntimeError(f"expected an index and >= 2 shards: {shards}")
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def rss():
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * page
+
+        base, peak, done = rss(), [0], threading.Event()
+
+        def sample():
+            while not done.is_set():
+                peak[0] = max(peak[0], rss())
+                time.sleep(0.005)
+
+        sampler = threading.Thread(target=sample)
+        sampler.start()
+        try:
+            t0 = time.perf_counter()
+            loaded, lcfg = load_params_from_hf(tmp, device=device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            done.set()
+            sampler.join()
+        n_got, bad = len(list(_leaves(loaded))), _tree_diff(params, loaded)
+        log(f"checkpoint: {sum(t.numel() for t in leaves) / 1e9:.2f} B params "
+            f"bf16 (LM {CKPT_LM_LAYERS} layers, ViT {cfg.vision.depth} blocks, "
+            f"vocab {cfg.text.vocab_size}), {n_bytes / 1e9:.3f} GB in "
+            f"{len(shards)} shards | write {write_s:.2f} s "
+            f"({n_bytes / write_s / 1e9:.3f} GB/s) | load to the card "
+            f"{load_s:.2f} s ({n_bytes / load_s / 1e9:.3f} GB/s; the shards "
+            f"were just written, so mostly read from the page cache) | host "
+            f"peak RSS growth during the load {(peak[0] - base) / 1e9:.3f} GB "
+            f"| {n_got} tensors, {bad} differ from the written ones")
+        if (n_got != len(leaves) or bad or lcfg.text != cfg.text
+                or lcfg.vision != cfg.vision):
+            raise RuntimeError(f"the loaded checkpoint differs from the "
+                               f"written one: {bad} of {len(leaves)} tensors")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _tree_diff(a, b) -> int:
+    """Leaves of two param trees that differ in dtype, shape, device or any
+    bit of their values; a difference of structure counts as one."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return 1
+        return sum(_tree_diff(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        if not isinstance(b, list) or len(a) != len(b):
+            return 1
+        return sum(map(_tree_diff, a, b))
+    return int(not (a.dtype == b.dtype and a.shape == b.shape
+                    and a.device == b.device and torch.equal(a, b)))
+
+
+def _median(xs) -> float:
+    return statistics.median(xs) if xs else float("nan")
+
+
+def write_eval_data(root: pathlib.Path):
+    """Phase 7's LongVideoBench data: 2 synthetic mp4 videos (360x640,
+    EVAL_VIDEO_SECONDS at EVAL_VIDEO_FPS, written with cv2) and a JSON file
+    of 4 rows over them, with questions of differing lengths.
+    -> (data file, video directory)."""
+    import cv2
+
+    rng = np.random.default_rng(3)
+    for i in range(2):
+        w = cv2.VideoWriter(str(root / f"v{i}.mp4"),
+                            cv2.VideoWriter_fourcc(*"mp4v"), EVAL_VIDEO_FPS,
+                            (640, 360))
+        base = rng.integers(0, 256, (360, 640, 3), np.uint8)
+        for t in range(EVAL_VIDEO_SECONDS * EVAL_VIDEO_FPS):
+            w.write(np.roll(base, 7 * t, axis=1))
+        w.release()
+    questions = [
+        ("What happens first in the video?", ["a door opens", "a cup falls",
+                                              "nothing moves", "a light"]),
+        ("Which object is closest to the camera at the end of the clip, "
+         "after the person walks past the table?", ["chair", "lamp"]),
+        ("How many times does the scene change?", ["one", "two", "three"]),
+        ("Where is the bag?", ["left", "right", "on the table", "gone",
+                               "under the bed"]),
+    ]
+    rows = [{"id": i, "video_id": f"v{i % 2}", "question": q,
+             "candidates": c, "correct_choice": i % len(c),
+             "question_category": ("S2E", "E3E")[i % 2],
+             "topic_category": "synthetic", "duration": EVAL_VIDEO_SECONDS}
+            for i, (q, c) in enumerate(questions)]
+    data_file = root / "lvb.json"
+    data_file.write_text(json.dumps(rows))
+    return str(data_file), str(root)
+
+
+class RecordingEngine:
+    """Wraps a QwenEngine for phase 7.  run_worker turns any exception of
+    the engine into "" answers (the reference's semantics), so a kernel
+    that fails would let the eval pass: this keeps every exception that
+    generate / generate_many raise before re-raising it.  It also records
+    each processor call's video grids, padded length and valid lengths, and
+    the completion lengths of the static path."""
+
+    def __init__(self, engine):
+        self.engine, self.errors, self.prompts, self.lengths = engine, [], [], []
+        process = engine.processor.process_messages
+        generate = engine.sampler.generate
+
+        def recorded_process(*a, **kw):
+            enc = process(*a, **kw)
+            grids = enc.get("video_grid_thw")
+            self.prompts.append((
+                [tuple(int(x) for x in g) for g in np.asarray(grids)]
+                if grids is not None else [],
+                int(np.asarray(enc["input_ids"]).shape[1]),
+                np.asarray(enc["attention_mask"]).sum(1).tolist()))
+            return enc
+
+        def recorded_generate(*a, **kw):
+            out = generate(*a, **kw)
+            self.lengths += out.lengths.tolist()
+            return out
+
+        engine.processor.process_messages = recorded_process
+        engine.sampler.generate = recorded_generate
+
+    def _call(self, fn, *a, **kw):
+        try:
+            return fn(*a, **kw)
+        except Exception:
+            import traceback
+
+            self.errors.append(traceback.format_exc())
+            raise
+
+    def generate(self, *a, **kw):
+        return self._call(self.engine.generate, *a, **kw)
+
+    def generate_many(self, *a, **kw):
+        return self._call(self.engine.generate_many, *a, **kw)
+
+
+def eval_slice(cfg, device="cuda") -> dict:
+    """Phase 7: cli/evaluate.py's path (run_benchmark -> QwenEngine ->
+    processor -> ViT -> prefill -> decode) at the geometry of `cfg` (full
+    Qwen2.5-VL-7B from main), random bf16 weights from seed 0, MockTokenizer,
+    on write_eval_data's 4 LongVideoBench rows: once serving="static"
+    (Sampler.generate: K1, K3, K4, K2 at G = 1, its K2 calls of the
+    k2_checked steps held against the plain version live, every sampled
+    step's logits finite) and once serving="continuous" (the batcher: K1,
+    K3, K4, K5; logits finite).  Each run must write 4 records, raise no
+    exception in the engine, score LongVideoBench's metric keys, see only
+    EVAL_GRID and EVAL_PROMPT_BUCKET, and launch its kernels.  Returns
+    {path: {kernel id: count}}."""
+    import tempfile
+
+    from spacer_tpu_torch.data.processor import MockTokenizer, VLProcessor
+    from spacer_tpu_torch.evalharness import EvalConfig, QwenEngine, run_benchmark
+    from spacer_tpu_torch.evalharness.util import read_jsonl
+    from spacer_tpu_torch.models.qwen25_vl import init_params
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.ops.quant import quantize_decode_model
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    log(f"eval init: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B "
+        f"params bf16 in {time.perf_counter() - t0:.1f} s")
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="smoke_eval_", dir=root))
+    paths, answers = {}, {}
+    try:
+        data_file, video_dir = write_eval_data(tmp)
+        for serving, kernels in (("static", EVAL_STATIC_KERNELS),
+                                 ("continuous", EVAL_CONTINUOUS_KERNELS)):
+            proc = VLProcessor(MockTokenizer(vocab_size=cfg.text.vocab_size),
+                               cfg, device=device)
+            engine = RecordingEngine(QwenEngine(cfg, params, proc))
+            out_dir = tmp / f"out_{serving}"
+            ecfg = EvalConfig(
+                task="LongVideoBench", data_file=data_file,
+                video_dir=video_dir, output_dir=str(out_dir), num_frames=32,
+                fps=1, prompt_type="thinking",
+                max_new_tokens=EVAL_NEW_TOKENS, temperature=0.0,
+                batch_size=2, serving=serving)
+            probe = DecodeProbe() if serving == "static" else SliceProbe()
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_launch_counts()
+            with probe:
+                t0 = time.perf_counter()
+                metrics = run_benchmark(ecfg, engine)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = launch_counts()
+            docs = read_jsonl(str(out_dir / "LongVideoBench_results.jsonl"))
+            answers[serving] = {d["id"]: d["predicted_answer"] for d in docs}
+            lengths = engine.lengths if serving == "static" else probe.lengths
+            grids = {g for p in engine.prompts for g in p[0]}
+            buckets = {-(-p[1] // 512) * 512 for p in engine.prompts}
+            pads = [[EVAL_PROMPT_BUCKET - n for n in p[2]]
+                    for p in engine.prompts]
+            tag = f"eval[{serving}]"
+            log(f"{tag}: {len(docs)} records, wall {wall:.2f} s (video "
+                f"decode, preprocess, ViT, prefill, decode and scoring), "
+                f"{sum(lengths)} tokens generated, {sum(lengths) / wall:.1f} "
+                f"tok/s | lengths {lengths} | grids {sorted(grids)} | buckets "
+                f"{sorted(buckets)} | left padding {pads} | metrics "
+                f"{json.dumps(metrics, default=float)}")
+            if serving == "static":
+                log(f"{tag}: {probe.logit_steps} sampled steps, "
+                    f"{probe.nonfinite} with non-finite logits | decode ms "
+                    f"per step median {_median(probe.decode_ms()):.2f} over "
+                    f"{len(probe.decode_ms())} unchecked steps | K2 vs "
+                    f"plain on live inputs: {len(probe.k2_err)} calls at "
+                    f"(q shape, P, T) {sorted(probe.k2_shapes)}, max_abs_err "
+                    f"{max(probe.k2_err, default=float('nan')):.3e}, "
+                    f"{probe.k2_bad} outside")
+                if not probe.k2_err or probe.k2_bad:
+                    raise RuntimeError(
+                        f"K2 disagrees with its plain version on "
+                        f"{probe.k2_bad} of {len(probe.k2_err)} live calls")
+                if [tuple(p) for p in pads[:1]] != [EVAL_PROMPT_PADS]:
+                    raise RuntimeError(f"first static batch padded {pads[0]}: "
+                                       f"phase 3 checked K2 at "
+                                       f"{EVAL_PROMPT_PADS}")
+            else:
+                log(f"{tag}: ViT encode ms {[round(x, 2) for x in probe.vit_ms]}"
+                    f" | prefill ms per admission "
+                    f"{[round(x, 2) for x in probe.prefill_ms]} | decode ms "
+                    f"per step median {_median(probe.decode_ms):.2f} over "
+                    f"{len(probe.decode_ms)} steps")
+            log(f"{tag}: launches {counts}")
+            if engine.errors:
+                raise RuntimeError(f"{tag}: the engine raised "
+                                   f"{len(engine.errors)} times; first:\n"
+                                   f"{engine.errors[0]}")
+            if len(docs) != 4 or len(lengths) != 4 or min(lengths) < 1:
+                raise RuntimeError(f"{tag}: {len(docs)} records, completion "
+                                   f"lengths {lengths}")
+            if probe.nonfinite:
+                raise RuntimeError(f"{tag}: {probe.nonfinite} non-finite "
+                                   "logits tensors")
+            if not LVB_METRICS <= set(metrics):
+                raise RuntimeError(f"{tag}: metrics {sorted(metrics)}")
+            if grids != {EVAL_GRID} or buckets != {EVAL_PROMPT_BUCKET}:
+                raise RuntimeError(f"{tag}: grids {grids} buckets {buckets}, "
+                                   f"expected {EVAL_GRID} {EVAL_PROMPT_BUCKET}")
+            if min(counts[k] for k in kernels) < 1:
+                raise RuntimeError(f"{tag}: a kernel of the path was never "
+                                   f"launched: {counts}")
+            paths[f"eval {serving}"] = counts
+            probe.logits = None
+            del engine
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # with decode_quant, serving="static" quantizes the decode weights on
+    # every QwenEngine.generate call (as the JAX sampler does): its cost
+    requant = {}
+    for quant in ("int8", "int4"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qmodel = quantize_decode_model(params["model"], quant)
+        torch.cuda.synchronize()
+        requant[quant] = time.perf_counter() - t0
+        del qmodel
+    log("eval: weight quantization per static generate call with "
+        "decode_quant int8 / int4: "
+        + " / ".join(f"{v:.3f} s" for v in requant.values()))
+    same, agree = 0, []
+    for i, text in answers["static"].items():
+        a, b = text.split(), answers["continuous"][i].split()
+        same += a == b
+        agree.append(sum(x == y for x, y in zip(a, b)) / max(len(a), len(b), 1))
+    log(f"eval static vs continuous: {same} of {len(agree)} answers "
+        f"identical, {statistics.mean(agree):.4f} of the tokens agree "
+        f"position by position (not gated)")
+    return paths
+
+
 SERVE_KERNELS = ("K1", "K3", "K4", "K5")
 SERVE_INT4_KV_KERNELS = ("K1", "K3", "K4", "K5-int8", "K6")
 TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
 ROLLOUT_BF16_KERNELS = ("K1", "K2", "K3", "K4")
+EVAL_STATIC_KERNELS = ("K1", "K2", "K3", "K4")
+EVAL_CONTINUOUS_KERNELS = ("K1", "K3", "K4", "K5")
 
 # the measured fields of each kernel in the kernels line
 LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1414,6 +1796,12 @@ def main():
     train_cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
         QWEN25_VL_7B.text, num_layers=TRAIN_LM_LAYERS))
     paths.update(train_slice(train_cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    checkpoint_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(eval_slice(QWEN25_VL_7B))
     counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     kernels = [{"name": SOURCES[k][0], "route": "cuda", "source": SOURCES[k][1],

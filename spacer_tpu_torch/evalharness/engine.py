@@ -1,9 +1,13 @@
-"""Inference engine over the continuous batcher (counterpart of the serving
-path of spacer_tpu/evalharness/engine.py::QwenEngine).
+"""Inference engines of the eval workers and the serving CLI (counterpart
+of spacer_tpu/evalharness/engine.py).
 
-Request encoding (spacer_tpu/models/registry.py::encode_request) is folded
-in here for the Qwen2.5-VL family: processor -> rope index -> one serving
-request per conversation.
+QwenEngine.generate is the static path (one Sampler.generate per batch of
+prompts: K1 prefill, K2 decode at one completion per prompt);
+generate_many the continuous one (ContinuousBatcher: K1 prefill, K5
+decode).  Request encoding (spacer_tpu/models/registry.py::encode_request)
+is folded in here for the Qwen2.5-VL family: processor -> rope index -> one
+serving request per conversation.  EchoEngine is a test double that answers
+without weights.
 """
 
 from __future__ import annotations
@@ -12,29 +16,43 @@ import numpy as np
 
 from spacer_tpu_torch.data.processor import pack_vision_inputs
 from spacer_tpu_torch.models.qwen25_vl.rope_index import get_rope_index
+from spacer_tpu_torch.sampler.sampler import Sampler
 from spacer_tpu_torch.serving.batcher import ContinuousBatcher
 
 
 class QwenEngine:
-    """Batched multimodal generation through ContinuousBatcher, on the
-    device that holds `params`.  `decode_quant` (None, "int8", "int8_kv",
-    "int4", "int4_kv") is passed to every batcher."""
+    """Batched multimodal generation on the device that holds `params`.
+    `decode_quant` (None, "int8", "int8_kv", "int4", "int4_kv") applies to
+    the sampler and to every batcher; call k draws from seed + k."""
 
     def __init__(self, cfg, params, processor, length_bucket: int = 512,
-                 top_p: float = 1.0, decode_quant: str | None = None):
+                 top_p: float = 1.0, seed: int = 0,
+                 decode_quant: str | None = None):
         self.cfg = cfg
         self.params = params
         self.processor = processor
         self.length_bucket = length_bucket
         self.top_p = top_p
+        self.seed = seed
         self.decode_quant = decode_quant
         self._calls = 0
         self._batchers: dict = {}   # geometry key -> ContinuousBatcher
+        self.sampler = Sampler(
+            cfg, eos_token_id=processor.eos_token_id,
+            pad_token_id=processor.pad_token_id, length_bucket=length_bucket,
+            decode_quant=decode_quant)
 
     def encode_request(self, conversation: list) -> dict:
         """One conversation -> a serving request (input_ids, attention_mask,
         position_ids, deltas, grid_thw[, vision_kwargs])."""
-        enc = self.processor.process_messages([conversation],
+        return self._encode([conversation])
+
+    def _encode(self, messages_list) -> dict:
+        """Conversations -> one left-padded batch: input_ids,
+        attention_mask, M-RoPE position_ids and deltas, grid_thw and, where
+        there are images or videos, vision_kwargs (pixels of both
+        modalities in placeholder order)."""
+        enc = self.processor.process_messages(list(messages_list),
                                               add_generation_prompt=True)
         pos, deltas = get_rope_index(
             self.cfg, enc["input_ids"],
@@ -50,6 +68,26 @@ class QwenEngine:
         if pixel_values is not None:
             req["vision_kwargs"] = {"pixel_values": pixel_values}
         return req
+
+    def generate(self, messages_list, *, max_new_tokens: int = 128,
+                 temperature: float = 0.01) -> list[str]:
+        """Static batched generation: all prompts in one Sampler.generate
+        (left-padded to the length bucket), every row decoding until the
+        longest finishes.  With decode_quant, the sampler quantizes the
+        weights on every call, as the JAX sampler does."""
+        req = self._encode(messages_list)
+        self._calls += 1
+        out = self.sampler.generate(
+            req["input_ids"], req["attention_mask"], self.params,
+            position_ids=req["position_ids"], deltas=req["deltas"],
+            vision_kwargs=req.get("vision_kwargs"), grid_thw=req["grid_thw"],
+            num_generations=1, max_new_tokens=max_new_tokens,
+            temperature=temperature, top_p=self.top_p,
+            seed=self.seed + self._calls)
+        return self.processor.tokenizer.batch_decode(
+            [seq[:n] for seq, n in zip(out.sequences, out.lengths)],
+            skip_special_tokens=True,
+        )
 
     def generate_many(self, messages_list, *, max_new_tokens: int = 128,
                       temperature: float = 0.01, slots: int = 4,
@@ -99,5 +137,18 @@ class QwenEngine:
                 pad_token_id=self.processor.pad_token_id,
                 temperature=temperature, top_p=self.top_p,
                 decode_quant=self.decode_quant, chunk_steps=chunk_steps,
-                seed=self._calls)
+                seed=self.seed + self._calls)
         return self._batchers[key]
+
+
+class EchoEngine:
+    """Deterministic test engine: returns canned or template answers."""
+
+    def __init__(self, responder=None):
+        self.responder = responder or (lambda messages: "<answer>A</answer>")
+        self.calls: list = []
+
+    def generate(self, messages_list, *, max_new_tokens: int = 128,
+                 temperature: float = 0.01) -> list[str]:
+        self.calls.append(len(messages_list))
+        return [self.responder(m) for m in messages_list]

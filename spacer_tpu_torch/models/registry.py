@@ -25,6 +25,8 @@ class ModelFamily:
     # (params, cfg, vision_kwargs, static_aux, remat=False) -> (N, D) embeddings
     encode_vision: Callable[..., Any]
     merge_vision_embeds: Callable[..., Any]
+    # (checkpoint_dir, cfg=None, dtype=..., device=...) -> (params, cfg)
+    load_params_from_hf: Callable[..., Any]
     # batch keys that carry vision arrays into the train step
     vision_batch_keys: tuple = ("pixel_values",)
 
@@ -67,6 +69,7 @@ def _qwen_encode_vision(params, cfg, vision_kwargs, static_aux,
 
 
 def _make_qwen_family():
+    from spacer_tpu_torch.models.qwen25_vl.loading import load_params_from_hf
     from spacer_tpu_torch.models.qwen25_vl.model import merge_vision_embeds
 
     return ModelFamily(
@@ -75,6 +78,7 @@ def _make_qwen_family():
         pack_vision=_qwen_pack_vision,
         encode_vision=_qwen_encode_vision,
         merge_vision_embeds=merge_vision_embeds,
+        load_params_from_hf=load_params_from_hf,
         vision_batch_keys=("pixel_values",),
     )
 

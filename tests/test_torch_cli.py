@@ -2,7 +2,9 @@
 rows over a real mp4 (one SR_dataset row with a cognitive map, one
 multiple-choice row), a tiny random model, one optimizer step, metrics and
 the final checkpoint written, with bf16 and int8_kv rollouts; an unknown
-decode_quant refused; no CPU run without `--device cpu`."""
+decode_quant refused; no CPU run without `--device cpu`.  The eval entry
+point over a LongVideoBench JSON file prints the benchmark's metrics, and
+refuses speculative decoding (not ported)."""
 
 import json
 import os
@@ -95,3 +97,49 @@ def test_train_sg_rlvr_cli_needs_cuda_or_device_cpu(data_dir, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(_argv(data_dir, tmp_path / "out", "none", device=()))
+
+
+def _lvb_argv(data_dir, out, *extra):
+    rows = [{"id": i, "video_id": "clip", "question": q, "candidates": c,
+             "correct_choice": 0, "question_category": "S2E",
+             "topic_category": "t", "duration": 2.0}
+            for i, (q, c) in enumerate([("What moves?", ["a", "b"]),
+                                        ("Where to?", ["left", "right", "up"])])]
+    data = out.parent / "lvb.json"
+    data.write_text(json.dumps(rows))
+    return ["--task", "LongVideoBench", "--data_file", str(data),
+            "--video_dir", str(data_dir), "--output_dir", str(out),
+            "--num_frames", "4", "--max_new_tokens", "4", "--batch_size", "2",
+            "--random_init", "true", "--dtype", "float32", *extra]
+
+
+def test_evaluate_cli_prints_the_metrics(data_dir, tmp_path):
+    """`python -m spacer_tpu_torch.cli.evaluate` on a LongVideoBench JSON
+    file: both rows written and scored, the metrics printed as JSON."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "out"
+    res = subprocess.run(
+        [sys.executable, "-m", "spacer_tpu_torch.cli.evaluate",
+         *_lvb_argv(data_dir, out, "--device", "cpu")],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    metrics = json.loads(res.stdout[res.stdout.index("{"):])
+    assert {"overall_accuracy", "all_duration_tasks", "perception_task_accuracy",
+            "relation_task_accuracy"} <= set(metrics)
+    docs = [json.loads(line)
+            for line in open(out / "LongVideoBench_results.jsonl")]
+    assert [d["id"] for d in docs] == [0, 1]
+
+
+def test_evaluate_cli_refuses_speculation(data_dir, tmp_path):
+    """--speculate_k > 0 (speculative decoding, not ported) raises before
+    any model is built."""
+    from spacer_tpu_torch.cli.evaluate import main
+
+    with pytest.raises(NotImplementedError, match="speculat"):
+        main(_lvb_argv(data_dir, tmp_path / "out", "--device", "cpu",
+                       "--speculate_k", "2"))

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain versions on a CUDA card
 (K1, K1-bwd, K2, K2-int8, K3, K4, K5, K5-int8, K6), their legality gates,
-and a backward pass through the LM on the card.  These need the card and nvcc: on a host
+a backward pass through the LM and a checkpoint round trip on the card.  These need the card and nvcc: on a host
 without CUDA they skip.  Run them on the card with
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
@@ -448,10 +448,11 @@ def test_grouped_decode_int8_kernel(dev, step):
 
 
 @pytest.mark.parametrize("quant_kv", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("G", [8, 16])
+@pytest.mark.parametrize("G", [1, 8, 16])
 @pytest.mark.parametrize("step", [1, 64, 65, 255])
 def test_grouped_decode_kernel_any_group(dev, quant_kv, G, step):
-    """K2 / K2-int8 at G = 8 and 16 completions of group_q 7 (56 and 112
+    """K2 / K2-int8 at G = 1 (the eval's static path: 7 live rows of a
+    prefix job's 64-row tile), 8 and 16 completions of group_q 7 (56 and 112
     query rows: one and two 64-row tiles of the prefix jobs), live tails
     ending inside, at and just past a 64-key tail job, prompt 0 padded by
     100 keys (its first 64-key chunk all padding: that job reads nothing),
@@ -495,6 +496,39 @@ def test_grouped_decode_kernel_any_group(dev, quant_kv, G, step):
     assert torch.isfinite(first).all()
     assert bool(((first - ref).abs() <= allowed).all()), \
         float((first - ref).abs().max())
+
+
+def test_checkpoint_round_trip_onto_the_card(dev, tmp_path):
+    """export_to_safetensors of params on the card (HF's sharded layout,
+    transposed there) -> load_params_from_hf(device="cuda"): every tensor
+    equal bitwise, on the card."""
+    from spacer_tpu_torch.models.qwen25_vl import (
+        export_to_safetensors,
+        init_params,
+        load_params_from_hf,
+        tiny_config,
+    )
+
+    cfg = tiny_config()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    export_to_safetensors(params, cfg, str(tmp_path), max_shard_bytes=100_000)
+    loaded, _ = load_params_from_hf(str(tmp_path), device="cuda")
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], (*path, k))
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, (*path, i))
+        else:
+            yield path, tree
+
+    want, got = dict(leaves(params)), dict(leaves(loaded))
+    assert set(want) == set(got)
+    for path, x in want.items():
+        y = got[path]
+        assert y.is_cuda and y.dtype == x.dtype and torch.equal(x, y), path
 
 
 def test_ragged_decode_int8_kernel(dev):

@@ -2,7 +2,9 @@
 drive it on the card, chip_smoke.py, profile_train.py and profile_serve.py)
 imports jax or spacer_tpu, and the tiny serving slice and one tiny SG-RLVR
 training step run on the CPU through the kernels' plain versions (no
-kernel launch is counted there)."""
+kernel launch is counted there); a checkpoint round trip needs neither the
+safetensors nor the transformers package, and the eval harness runs a
+benchmark there."""
 
 import os
 import pathlib
@@ -80,6 +82,49 @@ TRAIN_SCRIPT = textwrap.dedent("""
 """)
 
 
+EVAL_SCRIPT = textwrap.dedent("""
+    import json, os, sys, tempfile
+    for name in ("jax", "jaxlib", "spacer_tpu", "safetensors", "transformers"):
+        sys.modules[name] = None
+    import cv2
+    import numpy as np
+    import torch
+    from spacer_tpu_torch.evalharness import EchoEngine, EvalConfig, run_benchmark
+    from spacer_tpu_torch.models.qwen25_vl import (
+        export_to_safetensors, init_params, load_params_from_hf, tiny_config)
+    d = tempfile.mkdtemp()
+    cfg = tiny_config()
+    params = init_params(cfg, dtype=torch.bfloat16)
+    export_to_safetensors(params, cfg, os.path.join(d, "ckpt"),
+                          max_shard_bytes=100_000)
+    loaded, _ = load_params_from_hf(os.path.join(d, "ckpt"), device="cpu")
+    assert torch.equal(loaded["model"]["lm_head"]["kernel"],
+                       params["model"]["lm_head"]["kernel"])
+    w = cv2.VideoWriter(os.path.join(d, "v1.mp4"),
+                        cv2.VideoWriter_fourcc(*"mp4v"), 8.0, (64, 48))
+    for t in range(16):
+        w.write(np.full((48, 64, 3), 8 * t, np.uint8))
+    w.release()
+    rows = [{"id": 1, "video_id": "v1", "question": "What happened?",
+             "candidates": ["first", "second"], "correct_choice": 1,
+             "question_category": "S2E", "topic_category": "t",
+             "duration": 2.0}]
+    with open(os.path.join(d, "lvb.json"), "w") as f:
+        json.dump(rows, f)
+    metrics = run_benchmark(EvalConfig(
+        task="LongVideoBench", data_file=os.path.join(d, "lvb.json"),
+        video_dir=d, output_dir=os.path.join(d, "out"), num_frames=4),
+        EchoEngine(lambda m: "<answer>B</answer>"))
+    assert metrics["overall_accuracy"] == 1.0, metrics
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "spacer_tpu", "safetensors",
+                                  "transformers")
+           and sys.modules[m] is not None]
+    assert not bad, bad
+    print("evaluated")
+""")
+
+
 def _run(script, marker):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -94,6 +139,10 @@ def test_port_imports_no_jax_and_runs_on_cpu():
 
 def test_training_step_runs_without_jax_on_cpu():
     _run(TRAIN_SCRIPT, "trained")
+
+
+def test_checkpoint_and_eval_run_without_jax_safetensors_transformers():
+    _run(EVAL_SCRIPT, "evaluated")
 
 
 def test_no_jax_or_spacer_tpu_import_in_sources():
