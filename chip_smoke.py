@@ -43,7 +43,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      a nonzero gradient for every trainable tensor, per-group gradient
      cosine against a plain-attention replay of the first update (which
      must launch no kernel), moved int8 moments, and every kernel of the
-     path launched;
+     path launched; then the first update's batch again under remat True,
+     "dots_narrow" and "dots_mixed:4" (REMAT_MODES): equal loss and
+     gradients, each mode's seconds and peak memory, K1 recomputed in
+     every mode;
   5b. one bf16 rollout (decode_quant=None) of phase 5's first batch with
      the trained params, its K2 calls held against the plain version live;
   6. a checkpoint at Qwen2.5-VL-7B widths (LM cut to CKPT_LM_LAYERS layers,
@@ -56,10 +59,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      360x640 videos, 32 frames each, once serving="static" (K1, K3, K4, K2
      at G = 1, its K2 calls held against the plain version live) and once
      serving="continuous" (K1, K3, K4, K5); the engine's exceptions, which
-     the harness turns into empty answers, are recorded and fail the phase.
+     the harness turns into empty answers, are recorded and fail the phase;
+  8. SG-RLVR at full Qwen2.5-VL-7B depth (28 LM layers, 8.29 B params):
+     two training_step calls with gradient_accumulation_steps=2 make one
+     optimizer step, int8 moments and the bf16 accumulator offloaded to
+     host memory, two videos of unequal frame size in one rollout (mixed
+     grids: one K4 call per grid), int8_kv rollouts (K2-int8 held against
+     its plain version live); params bitwise unchanged after call 1, moved
+     after call 2, every gradient finite and nonzero, the first update
+     replayed with plain attention on a subset of tensors (two full
+     gradient sets do not fit), the peaks of the rollout, the backward and
+     the optimizer apply, the seconds of each part, the offload copies;
+  8b. one LoRA step (make_lora_grpo_train_step) on phase 8's first update
+     batch: the base bitwise unchanged, the adapters' gradients as the
+     math says (b nonzero, a zero: b starts at zero);
+  9. two SFT steps at full depth with int8 moments, replayed likewise.
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5b and 7, each counted from 0 just before
-it runs); the last line is {"ok": true, "device": {...}}.
+summed over the paths of phases 4-5b and 7-9, each counted from 0 just
+before it runs); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 """
@@ -123,6 +140,22 @@ TRAIN_G, TRAIN_NEW_TOKENS = 8, 256
 # Phase 5 holds K2 against its plain version on the live inputs of every
 # layer at rollout steps 1, 1 + K2_CHECK_EVERY, ...
 K2_CHECK_EVERY = 32
+# Phase 5's addition: phase 5's first update again under these remat modes
+# (loss within REMAT_LOSS_RTOL of remat=True's, per-group gradient cosine
+# >= REMAT_COS_TOL: the same math recomputed, bf16 sums in other orders).
+REMAT_MODES = (True, "dots_narrow", "dots_mixed:4")
+REMAT_LOSS_RTOL, REMAT_COS_TOL = 1e-3, 0.999
+# Phase 8, SG-RLVR at full depth (all 28 LM layers): two video rows of
+# unequal frame size in one rollout (16 frames of 360x640 -> grid
+# (8, 16, 30), chunks of 480 patches, and 16 of 240x320 -> (8, 18, 22),
+# chunks of 396: one ViT call over mixed grids), prompts of 1069 and 901
+# tokens left-padded in the 1536 bucket by FULL_PROMPT_PADS.  (Worked out
+# on the CPU: the processor is deterministic.)  Phase 3 times K4 at the
+# second grid's chunks.
+FULL_VIDEOS = ((16, 360, 640), (16, 240, 320))
+FULL_GRIDS = ((8, 16, 30), (8, 18, 22))
+FULL_PROMPT_PADS = (467, 635)
+FULL_ACCUM_STEPS = 2
 TIMED_RUNS = 25
 # K6 against its plain version: both sum exact bf16 x int4 products in f32,
 # in different orders, so |kernel - plain| <= K6_SUM_TOL * sum |terms| per
@@ -199,7 +232,12 @@ def device_facts():
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True).stdout
     smi = nvidia_smi_line()
-    log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}")
+    from spacer_tpu_torch.parallel.offload import mem_available_bytes
+
+    avail = mem_available_bytes()
+    log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+        f"host MemAvailable "
+        f"{'not readable' if avail is None else f'{avail / 1e9:.2f} GB'}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{[l for l in nvcc.splitlines() if 'release' in l][0].strip()} | "
         f"cv2 {cv2.__version__} | PIL {PIL.__version__}")
@@ -426,8 +464,10 @@ def check_kernels(device="cuda") -> dict:
     # K4 at the ViT's chunks (the kernels line) and at 8 chunks of 252 =
     # 18 x 14 patches (a 252x196 frame pair), no multiple of the kernel's
     # 64-key tiles
+    mixed = vision_layout([FULL_GRIDS[1]], vcfg)
     for tag, S, chunk in (("K4", layout.seq_len, layout.full_chunk),
-                          ("K4 wt=252", 8 * 252, 252)):
+                          ("K4 wt=252", 8 * 252, 252),
+                          ("K4 mixed", mixed.seq_len, mixed.full_chunk)):
         qc, kc, vc = (randn(Hv, S, Dv) for _ in range(3))
         results[tag] = compare(
             f"K4 chunk_attention_hsd (16, {S}, 80) wt={chunk}",
@@ -1184,10 +1224,27 @@ class DecodeProbe:
         return [ms for step, ms in self.ms if not k2_checked(step)]
 
 
-def replay_first_step(step_fn, names, params, batch, kw):
-    """The first update's loss and backward, once with the kernels and once
-    with plain attention, on the same params and batch.  Every trainable
-    tensor must get a finite, nonzero gradient from the kernel run, the
+def group_cosines(names, ga, gb) -> dict:
+    """Per tensor group (_grad_group), cosine(ga, gb) over the tensors that
+    have a gradient in both sets."""
+    sums = {}
+    for n, a, b in zip(names, ga, gb):
+        if a is None or b is None:
+            continue
+        a, b = a.float(), b.float()
+        s = sums.setdefault(_grad_group(n), [0.0, 0.0, 0.0])
+        s[0] += float((a * b).sum())
+        s[1] += float(a.square().sum())
+        s[2] += float(b.square().sum())
+    return {g: d / math.sqrt(x * y) for g, (d, x, y) in sums.items()}
+
+
+def replay_grads(run, names, tag="train", select=None):
+    """An update's loss and backward, once with the kernels and once with
+    plain attention, on the same params and batch: `run(select)` returns
+    loss_and_grads' (loss, metrics, grads).  Every tensor that gets a
+    gradient (all, or those `select` accepts where two full gradient sets
+    do not fit) must get a finite, nonzero one from the kernel run, the
     plain run must launch no kernel, and each tensor group's gradient
     cosine against the plain run must be >= GRAD_COS_TOL.  Returns the
     kernel launches this check made (they are comparisons, not the path's)
@@ -1196,52 +1253,73 @@ def replay_first_step(step_fn, names, params, batch, kw):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    args = (params, batch["ref_logps"],
-            {k: v for k, v in batch.items() if k != "ref_logps"},
-            kw["grid_thw"], kw["num_generations"])
     before = launch_counts()
-    loss_k, _, gk = step_fn.loss_and_grads(*args)
+    loss_k, _, gk = run(select)
     after = launch_counts()
     extra = {k: n - before[k] for k, n in after.items()}
-    bad = [n for n, g in zip(names, gk)
+    checked = [(n, g) for n, g in zip(names, gk) if g is not None]
+    bad = [n for n, g in checked
            if not (bool(torch.isfinite(g).all()) and bool(g.any()))]
     if bad:
         raise RuntimeError(f"{len(bad)} trainable tensors got a zero or "
                            f"non-finite gradient: {bad[:8]}")
     with PlainAttention():
-        loss_p, _, gp = step_fn.loss_and_grads(*args)
+        loss_p, _, gp = run(select)
     if launch_counts() != after:
         raise RuntimeError("the plain-attention replay launched a kernel")
-    sums = {}
-    for n, a, b in zip(names, gk, gp):
-        a, b = a.float(), b.float()
-        s = sums.setdefault(_grad_group(n), [0.0, 0.0, 0.0])
-        s[0] += float((a * b).sum())
-        s[1] += float(a.square().sum())
-        s[2] += float(b.square().sum())
+    cos = group_cosines(names, gk, gp)
     del gk, gp
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    cos = {g: d / math.sqrt(x * y) for g, (d, x, y) in sums.items()}
-    log(f"train: {len(names)} trainable tensors, all with finite nonzero "
-        f"gradients | step-1 loss kernel {float(loss_k):.6e} plain "
-        f"{float(loss_p):.6e} | replay {seconds:.2f} s")
-    log("train: gradient cosine kernel vs plain attention per group: "
+    which = ("all" if select is None
+             else f"{len(checked)} selected of {len(names)}")
+    log(f"{tag}: {which} trainable tensors with finite nonzero gradients | "
+        f"step-1 loss kernel {float(loss_k):.6e} plain {float(loss_p):.6e} "
+        f"| replay {seconds:.2f} s")
+    log(f"{tag}: gradient cosine kernel vs plain attention per group: "
         + ", ".join(f"{g} {c:.5f}" for g, c in sorted(cos.items())))
     if not min(cos.values()) >= GRAD_COS_TOL:
         raise RuntimeError(f"gradient cosine below {GRAD_COS_TOL}: {cos}")
     return extra, seconds
 
 
-def make_trainer(cfg, device, steps: int, out_dir: str, **overrides):
+def grpo_run(step_fn, params, batch, kw):
+    """replay_grads' `run` for a GRPO update batch (with its ref_logps)."""
+    args = (params, batch["ref_logps"],
+            {k: v for k, v in batch.items() if k != "ref_logps"},
+            kw["grid_thw"], kw["num_generations"])
+    return lambda select: step_fn.loss_and_grads(*args, select=select)
+
+
+def replay_first_step(step_fn, names, params, batch, kw):
+    """Phase 5's replay: every tensor's gradient (replay_grads)."""
+    return replay_grads(grpo_run(step_fn, params, batch, kw), names)
+
+
+def video_row(shape, seed: int, problem_id: int = 0) -> dict:
+    """A training row over a random uint8 video of (frames, H, W)."""
+    from spacer_tpu_torch.data import make_conversation
+
+    frames = np.random.default_rng(seed).integers(0, 256, (*shape, 3),
+                                                  np.uint8)
+    row = {"problem": "How many chairs are in the room?",
+           "problem_type": "numerical", "solution": "<answer>3</answer>",
+           "path": frames, "data_type": "video", "data_source": "synthetic",
+           "problem_id": problem_id}
+    row.update(make_conversation(row))
+    return row
+
+
+def make_trainer(cfg, device, steps: int, out_dir: str,
+                 videos=((16, 360, 640),), **overrides):
     """The training slice's SGRLVRTrainer at the widths of `cfg`: random
-    bf16 weights from seed 0, one 16-frame 360x640 video row, temporal
-    shuffle merged into the rollout (2 prompts x TRAIN_G completions of up
-    to TRAIN_NEW_TOKENS tokens), the trainer's default int8_kv rollouts,
-    beta 0.04, int8 moments, `steps` steps; `overrides` replace
-    SGRLVRConfig fields.  Returns (trainer, the params' paths in
-    param_leaves order)."""
-    from spacer_tpu_torch.data import MockTokenizer, VLProcessor, make_conversation
+    bf16 weights from seed 0, one row per shape in `videos` (by default one
+    16-frame 360x640 video), temporal shuffle merged into the rollout
+    (2 prompts per row x TRAIN_G completions of up to TRAIN_NEW_TOKENS
+    tokens), the trainer's default int8_kv rollouts, beta 0.04, int8
+    moments, `steps` steps; `overrides` replace SGRLVRConfig fields.
+    Returns (trainer, the params' paths in param_leaves order)."""
+    from spacer_tpu_torch.data import MockTokenizer, VLProcessor
     from spacer_tpu_torch.models.qwen25_vl import init_params
     from spacer_tpu_torch.rewards import accuracy_reward, format_reward
     from spacer_tpu_torch.train.step import param_leaves
@@ -1255,13 +1333,7 @@ def make_trainer(cfg, device, steps: int, out_dir: str, **overrides):
         f"{cfg.text.num_layers} layers, in {time.perf_counter() - t0:.1f} s")
     proc = VLProcessor(MockTokenizer(vocab_size=cfg.text.vocab_size), cfg,
                        device=device)
-    frames = np.random.default_rng(1).integers(0, 256, (16, 360, 640, 3),
-                                               np.uint8)
-    row = {"problem": "How many chairs are in the room?",
-           "problem_type": "numerical", "solution": "<answer>3</answer>",
-           "path": frames, "data_type": "video", "data_source": "synthetic",
-           "problem_id": 0}
-    row.update(make_conversation(row))
+    rows = [video_row(shape, 1 + i, i) for i, shape in enumerate(videos)]
     shutil.rmtree(out_dir, ignore_errors=True)
     args = SGRLVRConfig(
         num_generations=TRAIN_G, max_completion_length=TRAIN_NEW_TOKENS,
@@ -1272,7 +1344,7 @@ def make_trainer(cfg, device, steps: int, out_dir: str, **overrides):
     args = dataclasses.replace(args, **overrides)
     trainer = SGRLVRTrainer(
         cfg, params, proc, [synthetic_reward, accuracy_reward, format_reward],
-        [row], args)
+        rows, args)
     return trainer, names
 
 
@@ -1291,9 +1363,11 @@ def train_slice(cfg, device="cuda") -> dict:
     out_dir = str(pathlib.Path(__file__).resolve().parent / "build" / "smoke_train")
     trainer, names = make_trainer(cfg, device, 2, out_dir)
     step_fn, steps, extra, replay_s = trainer.step_fn, [], {}, []
+    first = {}
 
     def spy(params, ref_params, opt_state, batch, **kw):
         if not steps:
+            first.update(batch=batch, kw=kw)
             e, sec = replay_first_step(step_fn, names, params, batch, kw)
             extra.update(e)
             replay_s.append(sec)
@@ -1376,9 +1450,78 @@ def train_slice(cfg, device="cuda") -> dict:
     if min(counts[k] for k in TRAIN_KERNELS) < 1:
         raise RuntimeError(f"a kernel of the training path was never "
                            f"launched: {counts}")
+    # the reference copy and the moments are done with: room for the remat
+    # modes' two gradient sets
+    trainer.ref_params = trainer.opt_state = None
+    remat_counts = remat_modes(trainer, names, first["batch"], first["kw"])
+    first.clear()
     a, kw = rollouts[0]
-    return {"train int8_kv": counts,
+    return {"train int8_kv": counts, "train remat modes": remat_counts,
             "rollout bf16": rollout_bf16(trainer, a, kw)}
+
+
+def remat_modes(trainer, names, batch, kw) -> dict:
+    """Phase 5's addition: phase 5's first update batch, loss and backward
+    on the trained params under each of REMAT_MODES (remat=True first),
+    twice each: the loss within REMAT_LOSS_RTOL of True's and a per-group
+    gradient cosine >= REMAT_COS_TOL against True's; the seconds of each
+    run and the peak memory above what was allocated before it (this
+    mode's activations and gradients; True's gradients, kept for the
+    cosine, are not counted).  Attention is recomputed under every mode,
+    so each run launches K1 four times per LM layer (prompt and completion
+    passes, each again in the backward) and the K1-bwd kernels twice.
+    Returns the launches."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.train.step import make_grpo_train_step
+
+    args, L = trainer.args, trainer.cfg.text.num_layers
+    total, ref, rows = collections.Counter(), None, []
+    for mode in REMAT_MODES:
+        step = make_grpo_train_step(trainer.cfg, trainer.tx, beta=args.beta,
+                                    remat=mode, logp_chunk=args.logp_chunk)
+        run = grpo_run(step, trainer.params, batch, kw)
+        secs = []
+        for _ in range(2):
+            grads = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, _, grads = run(None)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = launch_counts()
+            total.update(counts)
+        peak = (torch.cuda.max_memory_allocated() - base,
+                torch.cuda.max_memory_reserved())
+        if counts["K1"] != 4 * L or counts["K1-bwd dq"] != 2 * L:
+            raise RuntimeError(f"remat={mode!r}: K1 {counts['K1']} / dq "
+                               f"{counts['K1-bwd dq']} launches, expected "
+                               f"{4 * L} / {2 * L} (attention recomputed)")
+        if ref is None:
+            ref, note = (float(loss), grads), "reference"
+        else:
+            rel = abs(float(loss) - ref[0]) / abs(ref[0])
+            cos = group_cosines(names, ref[1], grads)
+            note = (f"loss rel diff {rel:.2e} | min group cosine "
+                    f"{min(cos.values()):.6f}")
+            if not (rel <= REMAT_LOSS_RTOL and
+                    min(cos.values()) >= REMAT_COS_TOL):
+                raise RuntimeError(f"remat={mode!r} changed the update: "
+                                   f"{note}: {cos}")
+        del grads
+        rows.append(f"remat={mode!r}: forward+backward "
+                    f"{' / '.join(f'{t:.3f}' for t in secs)} s, peak "
+                    f"{peak[0] / 2**30:.2f} GiB above the start "
+                    f"(max_memory_reserved {peak[1] / 2**30:.2f} GiB), loss "
+                    f"{float(loss):.6e}, K1 {counts['K1']} launches | {note}")
+    ref = None
+    for row in rows:
+        log(f"train remat modes ({L} layers, phase 5's first batch): {row}")
+    return dict(total)
 
 
 def rollout_bf16(trainer, args, kwargs) -> dict:
@@ -1416,6 +1559,415 @@ def rollout_bf16(trainer, args, kwargs) -> dict:
                            f"{probe.k2_bad} of {len(probe.k2_err)} live calls")
     if min(counts[k] for k in ROLLOUT_BF16_KERNELS) < 1:
         raise RuntimeError(f"a kernel of the bf16 rollout was never launched: "
+                           f"{counts}")
+    return counts
+
+
+def full_replay_select(cfg):
+    """The tensors whose gradients the full-depth replays compare: every
+    tensor of the first and last LM layers, of ViT blocks 0 (windowed, K3),
+    7 (full attention, K4) and the last, and the merger.  Two gradient sets
+    of all 8.29 B params (2 x 16.6 GB) do not fit beside the params and the
+    reference copy; these ~0.5 B params' do, and their backward runs
+    through every layer's attention (K1-bwd) and the whole ViT."""
+    lm = {"0", str(cfg.text.num_layers - 1)}
+    vit = {"0", str(cfg.vision.fullatt_block_indexes[0]),
+           str(cfg.vision.depth - 1)}
+
+    def select(name: str) -> bool:
+        p = name.split("/")
+        if p[:2] == ["model", "layers"]:
+            return p[2] in lm
+        if p[:2] == ["visual", "blocks"]:
+            return p[2] in vit
+        return p[:2] == ["visual", "merger"]
+
+    return select
+
+
+class ApplyProbe:
+    """Wraps an optimizer's `apply`: every gradient it is handed must be
+    finite and nonzero (exactly zero where `zero(path)` says the math makes
+    it so); times the apply (synchronised) and records the memory peak
+    before it (the forward and backward) and during it."""
+
+    def __init__(self, tx, names, tag, zero=lambda name: False):
+        self.tx, self.names, self.tag = tx, names, tag
+        self.calls = []
+        apply = tx.apply
+
+        def checked(grads, state, params, gnorm=None):
+            bad = [n for n, g in zip(self.names, grads)
+                   if not (bool(torch.isfinite(g).all())
+                           and bool(g.any()) != zero(n))]
+            if bad:
+                raise RuntimeError(f"{tag}: {len(bad)} trainable tensors got "
+                                   f"a non-finite gradient, or a zero one "
+                                   f"where it must not be (or the reverse): "
+                                   f"{bad[:8]}")
+            torch.cuda.synchronize()
+            before = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = apply(grads, state, params, gnorm=gnorm)
+            torch.cuda.synchronize()
+            self.calls.append(dict(
+                seconds=time.perf_counter() - t0, fwd_bwd_peak=before,
+                peak=torch.cuda.max_memory_allocated(),
+                reserved=torch.cuda.max_memory_reserved()))
+            return out
+
+        tx.apply = checked
+
+
+def gib(n) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def full_train_slice(cfg, device="cuda"):
+    """Phase 8: SG-RLVR at full Qwen2.5-VL-7B depth through
+    SGRLVRTrainer.train: two rows (FULL_VIDEOS) in one rollout of 4
+    prompts (mixed grids: K4 once per grid), G = TRAIN_G, int8_kv rollouts
+    (K2-int8 held against its plain version live), int8 moments and the
+    accumulator offloaded to host memory, remat=True,
+    gradient_accumulation_steps=FULL_ACCUM_STEPS: two training_step calls
+    make one optimizer step.  Checks: after call 1 the params equal the
+    reference copy bitwise and the state is in host memory; after call 2
+    the params moved, every gradient handed to the optimizer (both calls)
+    was finite and nonzero, loss / kl / grad_norm are finite; the first
+    update replayed with plain attention on full_replay_select's tensors
+    has per-group cosine >= GRAD_COS_TOL.  Prints each call's rollout /
+    reward / update seconds, the peaks of the rollout, the forward and
+    backward, and the optimizer apply (the offload copies), and the
+    apply's seconds and bytes streamed.  Returns (launches, the first
+    update's batch and step arguments, the trainer)."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.parallel import is_on_host
+    from spacer_tpu_torch.parallel.offload import (
+        host_bytes,
+        mem_available_bytes,
+    )
+    import spacer_tpu_torch.models.qwen25_vl.vision as vis
+
+    out_dir = str(pathlib.Path(__file__).resolve().parent / "build"
+                  / "smoke_train_full")
+    avail0 = mem_available_bytes()
+    t0 = time.perf_counter()
+    trainer, names = make_trainer(
+        cfg, device, FULL_ACCUM_STEPS, out_dir, videos=FULL_VIDEOS,
+        rollout_batch_size=len(FULL_VIDEOS),
+        gradient_accumulation_steps=FULL_ACCUM_STEPS, offload_opt_state=True)
+    state_bytes = host_bytes(trainer.opt_state)
+    log(f"train full: optimizer state in host memory {state_bytes / 1e9:.2f} "
+        f"GB (int8 moments + bf16 accumulator) | host MemAvailable "
+        f"{avail0 / 1e9 if avail0 else float('nan'):.2f} -> "
+        f"{(mem_available_bytes() or 0) / 1e9:.2f} GB | setup "
+        f"{time.perf_counter() - t0:.1f} s | device "
+        f"{gib(torch.cuda.memory_allocated())} allocated")
+    if not is_on_host(trainer.opt_state):
+        raise RuntimeError("offload_opt_state: the state is not on the host")
+    step_fn, calls, extra, first = trainer.step_fn, [], {}, {}
+    apply_probe = ApplyProbe(trainer.tx, names, "train full")
+    select = full_replay_select(cfg)
+
+    def spy(params, ref_params, opt_state, batch, **kw):
+        if not calls:
+            first.update(batch=batch, kw=kw)
+            e, sec = replay_grads(grpo_run(step_fn, params, batch, kw),
+                                  names, "train full", select)
+            extra.update(e)
+            first["replay_s"] = sec
+        else:
+            # after the first mini-step: nothing applied, state on the host
+            same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                _named(params), _named(ref_params)))
+            if not (same and opt_state.mini_step == 1
+                    and is_on_host(opt_state)):
+                raise RuntimeError(
+                    f"after mini-step 1: params unchanged {same}, mini_step "
+                    f"{opt_state.mini_step}, on host {is_on_host(opt_state)}")
+            log("train full: after call 1 the params equal the reference "
+                "copy bitwise, mini_step 1, moments and accumulator on the "
+                "host")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = step_fn(params, ref_params, opt_state, batch, **kw)
+        torch.cuda.synchronize()
+        calls.append(dict({k: float(v) for k, v in out[2].items()},
+                          update_s=time.perf_counter() - t,
+                          pads=(batch["prompt_mask"] == 0).sum(1).tolist(),
+                          prompt_len=batch["prompt_ids"].shape[1]))
+        return out
+
+    spy.ref_logps_fn = step_fn.ref_logps_fn
+    trainer.step_fn = spy
+    generate, rollouts, k4_chunks = trainer.sampler.generate, [], set()
+
+    def recorded_generate(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = generate(*a, **kw)
+        torch.cuda.synchronize()
+        rollouts.append((kw["grid_thw"], torch.cuda.max_memory_allocated(),
+                         torch.cuda.max_memory_reserved()))
+        return out
+
+    chunk_fn = vis.chunk_attention_hsd
+
+    def recorded_chunk(q, k, v, wt, scale):
+        k4_chunks.add((q.shape[1], wt))
+        return chunk_fn(q, k, v, wt, scale)
+
+    trainer.sampler.generate = recorded_generate
+    vis.chunk_attention_hsd = recorded_chunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    try:
+        with DecodeProbe() as probe:
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        vis.chunk_attention_hsd = chunk_fn
+    counts = {k: n - extra.get(k, 0) for k, n in launch_counts().items()}
+    with open(pathlib.Path(out_dir) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    acc_bytes = sum(a.numel() * a.element_size()
+                    for a in trainer.opt_state.acc_grads)
+    moment_bytes = state_bytes - acc_bytes
+    for i, (c, rec, ap, ro) in enumerate(zip(calls, records,
+                                              apply_probe.calls, rollouts)):
+        emit = (i + 1) % FULL_ACCUM_STEPS == 0
+        streamed = (acc_bytes * (1 if i % FULL_ACCUM_STEPS else 0)
+                    + (2 * moment_bytes if emit else acc_bytes))
+        log(f"train full call {i + 1} ({'emit' if emit else 'accumulate'}): "
+            f"loss {c['loss']:.6e} kl {c['kl']:.6e} grad_norm "
+            f"{c['grad_norm']:.6e} | rollout {rec['time/rollout_s']:.2f} s, "
+            f"reward {rec['time/reward_s']:.3f} s, update {c['update_s']:.2f} "
+            f"s (optimizer apply {ap['seconds']:.3f} s, {streamed / 1e9:.2f} "
+            f"GB streamed host<->device) | peaks: rollout {gib(ro[1])} "
+            f"(reserved {gib(ro[2])}), forward+backward "
+            f"{gib(ap['fwd_bwd_peak'])}, apply {gib(ap['peak'])} (reserved "
+            f"{gib(ap['reserved'])}) | prompt bucket {c['prompt_len']} pads "
+            f"{c['pads']}")
+    log(f"train full: wall {wall:.1f} s incl. the first update's partial "
+        f"replay {first.get('replay_s', 0):.1f} s | rollout decode ms per "
+        f"step median {statistics.median(probe.decode_ms()):.2f} over "
+        f"{len(probe.decode_ms())} unchecked steps of the "
+        f"{cfg.text.num_layers}-layer LM | rollout grids {rollouts[0][0]} | "
+        f"K4 (tokens, chunk) {sorted(k4_chunks)} | launches {counts}")
+    log(f"train full: K2-int8 vs plain on live rollout inputs: "
+        f"{len(probe.k2_err)} calls at (q shape, P, T) "
+        f"{sorted(probe.k2_shapes)}, max_abs_err "
+        f"{max(probe.k2_err, default=float('nan')):.3e}, {probe.k2_bad} outside")
+    st = trainer.opt_state
+    if trainer.global_step != FULL_ACCUM_STEPS or len(calls) != 2:
+        raise RuntimeError(f"expected {FULL_ACCUM_STEPS} calls, got {len(calls)}")
+    if (st.mini_step, st.gradient_step, st.inner_opt_state.count) != (0, 1, 1):
+        raise RuntimeError(f"one optimizer step expected: {st.mini_step} "
+                           f"{st.gradient_step} {st.inner_opt_state.count}")
+    if not is_on_host(st):
+        raise RuntimeError("the optimizer state left the host")
+    for c in calls:
+        if not all(math.isfinite(c[k]) for k in ("loss", "kl", "grad_norm")):
+            raise RuntimeError(f"non-finite step metrics {c}")
+        # the rows' order in the batch follows the epoch's permutation
+        if (c["prompt_len"], sorted(c["pads"])) != (TRAIN_PROMPT_BUCKET,
+                                                    sorted(FULL_PROMPT_PADS)):
+            raise RuntimeError(f"prompt bucket {c['prompt_len']} pads "
+                               f"{c['pads']}, expected {TRAIN_PROMPT_BUCKET} "
+                               f"{FULL_PROMPT_PADS}")
+    if not probe.k2_err or probe.k2_bad:
+        raise RuntimeError(f"K2-int8 disagrees with its plain version on "
+                           f"{probe.k2_bad} of {len(probe.k2_err)} live calls")
+    if probe.nonfinite:
+        raise RuntimeError(f"{probe.nonfinite} rollout steps sampled "
+                           f"non-finite logits")
+    chunks = {wt for _, wt in k4_chunks}
+    want = {h * w for _, h, w in FULL_GRIDS}
+    if not want <= chunks or sorted(rollouts[0][0]) != sorted(FULL_GRIDS * 2):
+        raise RuntimeError(f"mixed grids: K4 chunks {chunks}, rollout grids "
+                           f"{rollouts[0][0]}")
+    moved = sum(not torch.equal(a, b) for (_, a), (_, b) in zip(
+        _named(trainer.params), _named(trainer.ref_params)))
+    mu_moved = sum(bool(s.any()) for _, s in st.inner_opt_state.mu)
+    log(f"train full: after the optimizer step {moved} of {len(names)} "
+        f"tensors changed (bf16 params, lr {trainer.args.learning_rate:g}); "
+        f"int8 moments moved in {mu_moved} of {len(st.inner_opt_state.mu)} "
+        f"groups")
+    if not moved or mu_moved != len(st.inner_opt_state.mu):
+        raise RuntimeError("the optimizer step moved nothing")
+    offload_copy_times(st, device)
+    if min(counts[k] for k in FULL_TRAIN_KERNELS) < 1:
+        raise RuntimeError(f"a kernel of the full-depth path was never "
+                           f"launched: {counts}")
+    return counts, first, trainer
+
+
+def offload_copy_times(state, device):
+    """The offload's copies alone: every host tensor of the optimizer state
+    to the card and back, one at a time, each timed by CUDA events."""
+    hosts = ([a for a in state.acc_grads]
+             + [t for pair in (*state.inner_opt_state.mu,
+                               *state.inner_opt_state.nu) for t in pair])
+    h2d = d2h = 0.0
+    for h in hosts:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        d = h.to(device, non_blocking=True)
+        marks[1].record()
+        h.copy_(d, non_blocking=True)
+        marks[2].record()
+        marks[2].synchronize()
+        h2d += marks[0].elapsed_time(marks[1])
+        d2h += marks[1].elapsed_time(marks[2])
+        del d
+    nbytes = sum(h.numel() * h.element_size() for h in hosts)
+    log(f"train full: offload copies alone, {len(hosts)} tensors, "
+        f"{nbytes / 1e9:.2f} GB each way: host-to-device {h2d / 1e3:.3f} s "
+        f"({nbytes / h2d / 1e6:.1f} GB/s), device-to-host {d2h / 1e3:.3f} s "
+        f"({nbytes / d2h / 1e6:.1f} GB/s); pinned "
+        f"{all(h.is_pinned() for h in hosts)}")
+
+
+def _named(params):
+    from spacer_tpu_torch.train.step import param_leaves
+
+    return param_leaves(params)
+
+
+def lora_phase(trainer, first) -> dict:
+    """Phase 8b: one make_lora_grpo_train_step step (r 8 on q/k/v/o of all
+    28 layers, int8 moments) on phase 8's first update batch with the
+    trained params as the frozen base: the base stays bitwise unchanged
+    (held against a copy), the adapters' gradients are finite, every b's
+    nonzero (every a's exactly zero: b starts at zero), and K1 / K1-bwd are
+    launched.  Returns the launches."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.train.lora import (
+        LoraConfig,
+        init_lora_params,
+        lora_leaves,
+        make_lora_grpo_train_step,
+    )
+    from spacer_tpu_torch.train.optimizer import make_optimizer
+
+    cfg, args = trainer.cfg, trainer.args
+    params = trainer.params
+    trainer.ref_params = trainer.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    snapshot = [t.detach().clone() for _, t in _named(params)]
+    lcfg = LoraConfig()
+    dev = snapshot[0].device
+    lora = init_lora_params(torch.Generator(device=dev).manual_seed(0),
+                            params, lcfg)
+    leaves = lora_leaves(lora)
+    tx = make_optimizer(learning_rate=1e-4, total_steps=10,
+                        moment_dtype="int8", seed=0)
+    state = tx.init([t for _, t in leaves], [n for n, _ in leaves])
+    # b starts at zero, so the first step's gradient of every a is exactly
+    # zero (x^T dy b^T) and every b's is not
+    ApplyProbe(tx, [n for n, _ in leaves], "lora",
+               zero=lambda n: n.endswith("/a"))
+    step = make_lora_grpo_train_step(cfg, tx, lcfg, beta=args.beta,
+                                     remat=args.remat,
+                                     logp_chunk=args.logp_chunk)
+    batch = {k: v for k, v in first["batch"].items() if k != "ref_logps"}
+    b0 = [t.clone() for n, t in leaves if n.endswith("/b")]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lora, state, m = step(params, lora, state, batch, **first["kw"])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    same = all(torch.equal(a, t) for a, (_, t) in zip(snapshot, _named(params)))
+    b_moved = sum(not torch.equal(a, t) for a, (n, t) in zip(
+        b0, [(n, t) for n, t in lora_leaves(lora) if n.endswith("/b")]))
+    log(f"lora: {len(lora)} adapters (r {lcfg.r}, {sum(t.numel() for _, t in leaves) / 1e6:.1f} M params) "
+        f"| loss {float(m['loss']):.6e} kl {float(m['kl']):.6e} grad_norm "
+        f"{float(m['grad_norm']):.6e} | {sec:.2f} s | max_memory_allocated "
+        f"{gib(torch.cuda.max_memory_allocated())} | base bitwise unchanged "
+        f"{same} | b moved in {b_moved} of {len(b0)} | launches {counts}")
+    del snapshot
+    if not same:
+        raise RuntimeError("the LoRA step changed the base params")
+    if not all(math.isfinite(float(m[k])) for k in ("loss", "kl", "grad_norm")):
+        raise RuntimeError(f"non-finite LoRA metrics {m}")
+    if min(counts[k] for k in LORA_KERNELS) < 1:
+        raise RuntimeError(f"a kernel of the LoRA step was never launched: "
+                           f"{counts}")
+    return counts
+
+
+def sft_phase(cfg, device="cuda") -> dict:
+    """Phase 9: two SFTTrainer steps at full Qwen2.5-VL-7B depth, int8
+    moments on the card, remat=True, on one 16-frame 360x640 video row with
+    a templated answer: finite losses, every gradient handed to the
+    optimizer finite and nonzero, the first step replayed with plain
+    attention on full_replay_select's tensors (per-group cosine >=
+    GRAD_COS_TOL), the peaks printed.  Returns the launches."""
+    from spacer_tpu_torch.data import MockTokenizer, VLProcessor
+    from spacer_tpu_torch.models.qwen25_vl import init_params
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.train.sft_trainer import SFTConfig, SFTTrainer
+
+    out_dir = str(pathlib.Path(__file__).resolve().parent / "build"
+                  / "smoke_sft")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    names = [n for n, _ in _named(params)]
+    proc = VLProcessor(MockTokenizer(vocab_size=cfg.text.vocab_size), cfg,
+                       device=device)
+    row = dict(video_row(FULL_VIDEOS[0], 1),
+               solution="<think>Let me think. Two chairs by the table and one "
+               "by the window.</think><answer>3</answer>")
+    trainer = SFTTrainer(cfg, params, proc, [row], SFTConfig(
+        moment_dtype="int8", max_steps=2, num_train_epochs=2, logging_steps=1,
+        save_steps=10 ** 9, output_dir=out_dir, seed=0))
+    apply_probe = ApplyProbe(trainer.tx, names, "sft")
+    step_fn, steps, extra = trainer.step_fn, [], {}
+    select = full_replay_select(cfg)
+
+    def spy(params, opt_state, batch, grid_thw=None):
+        if not steps:
+            extra.update(replay_grads(
+                lambda sel: step_fn.loss_and_grads(params, batch, grid_thw,
+                                                   select=sel),
+                names, "sft", select)[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = step_fn(params, opt_state, batch, grid_thw=grid_thw)
+        torch.cuda.synchronize()
+        steps.append(dict(loss=float(out[2]["loss"]),
+                          n_tokens=int(out[2]["n_tokens"]),
+                          seconds=time.perf_counter() - t,
+                          seq=batch["input_ids"].shape[1], grid=grid_thw))
+        return out
+
+    trainer.step_fn = spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    trainer.train()
+    counts = {k: n - extra.get(k, 0) for k, n in launch_counts().items()}
+    for i, (st, ap) in enumerate(zip(steps, apply_probe.calls)):
+        log(f"sft step {i + 1}: loss {st['loss']:.6e} over {st['n_tokens']} "
+            f"tokens, sequence {st['seq']}, grid {st['grid']} | "
+            f"{st['seconds']:.2f} s (optimizer apply {ap['seconds']:.3f} s) | "
+            f"peaks: forward+backward {gib(ap['fwd_bwd_peak'])}, apply "
+            f"{gib(ap['peak'])} (reserved {gib(ap['reserved'])})")
+    log(f"sft: launches {counts}")
+    if len(steps) != 2 or not all(math.isfinite(s["loss"]) for s in steps):
+        raise RuntimeError(f"SFT steps {steps}")
+    if min(counts[k] for k in SFT_KERNELS) < 1:
+        raise RuntimeError(f"a kernel of the SFT path was never launched: "
                            f"{counts}")
     return counts
 
@@ -1746,6 +2298,9 @@ TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
 ROLLOUT_BF16_KERNELS = ("K1", "K2", "K3", "K4")
 EVAL_STATIC_KERNELS = ("K1", "K2", "K3", "K4")
 EVAL_CONTINUOUS_KERNELS = ("K1", "K3", "K4", "K5")
+FULL_TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
+LORA_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K3", "K4")
+SFT_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K3", "K4")
 
 # the measured fields of each kernel in the kernels line
 LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1802,6 +2357,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(eval_slice(QWEN25_VL_7B))
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts, first, trainer = full_train_slice(QWEN25_VL_7B)
+    paths["train full depth"] = counts
+    paths["lora full depth"] = lora_phase(trainer, first)
+    del trainer, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["sft full depth"] = sft_phase(QWEN25_VL_7B)
     counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     kernels = [{"name": SOURCES[k][0], "route": "cuda", "source": SOURCES[k][1],

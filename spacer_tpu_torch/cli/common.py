@@ -29,6 +29,15 @@ def decode_quant_arg(value) -> str | None:
     return str(value)
 
 
+def remat_arg(value):
+    """The CLI spelling of a remat mode: "true" / "false" (any case, or
+    1 / 0) -> bool; anything else is passed on as the mode's name, which
+    check_remat validates where the step is built."""
+    if isinstance(value, str) and value.lower() in ("true", "1", "false", "0"):
+        return value.lower() in ("true", "1")
+    return value
+
+
 def load_tokenizer(path: str):
     """The checkpoint's tokenizer through transformers.AutoTokenizer (the
     one import of transformers in the port)."""

@@ -21,6 +21,7 @@ from spacer_tpu_torch.cli.common import (
     ModelArgs,
     decode_quant_arg,
     load_model_and_processor,
+    remat_arg,
 )
 from spacer_tpu_torch.utils.config import parse_configs
 
@@ -46,6 +47,7 @@ def main(argv=None):
     script, train_cfg, model_args = parse_configs(
         (ScriptArgs, SGRLVRConfig, ModelArgs), argv)
     train_cfg.decode_quant = decode_quant_arg(train_cfg.decode_quant)
+    train_cfg.remat = remat_arg(train_cfg.remat)
     cfg, params, processor = load_model_and_processor(model_args)
 
     rows = load_jsonl_dataset(script.dataset_name)

@@ -114,7 +114,7 @@ def check_unported(cfg: EvalConfig) -> None:
     if cfg.speculate_k:
         raise NotImplementedError(
             f"speculate_k={cfg.speculate_k}: speculative decoding is not "
-            "ported (ROADMAP queue A item 3); pass --speculate_k 0")
+            "ported (ROADMAP queue A item 2); pass --speculate_k 0")
 
 
 def run_benchmark(cfg: EvalConfig, engine) -> dict:

@@ -11,7 +11,8 @@ Python loop replaces lax.scan).  Two ways to attend over earlier keys:
 - training: `prefix_kv` hands each layer the (N, P, Hkv, Dh) keys/values of
   an earlier pass, concatenated in front of the block's own (functional, as
   JAX's padded cache + write at P), and `return_kv` returns each layer's
-  block keys/values.  Per-layer remat is torch.utils.checkpoint.
+  block keys/values.  Per-layer remat is torch.utils.checkpoint, whole or
+  selective (`check_remat`'s modes).
 
 The grouped rollout's decode step (`lm_decode_step_split`, head-major caches,
 attention through K2, or K2-int8 for int8 caches) writes its tail caches in
@@ -149,17 +150,61 @@ def lm_head(params, cfg: TextConfig, h):
     return dense(params["lm_head"], h)
 
 
-def check_remat(remat) -> bool:
-    """The port's remat modes: False, or True (full per-layer recompute).
-    JAX's selective policies raise until they are ported."""
+def check_remat(remat):
+    """Validate a remat mode up front (a typo must not pass through) and
+    return it normalised: False, True (full per-layer recompute), "dots"
+    (save every matmul output without batch dims), "dots_narrow" (the same
+    but outputs at least intermediate_size wide: gate/up are recomputed) or
+    "dots_mixed:K" ("dots" for the first K layers, "dots_narrow" for the
+    rest), as spacer_tpu's `_remat_wrap` and `lm_apply` take them."""
     if remat in (False, True, None):
         return bool(remat)
-    if isinstance(remat, str) and (remat in ("dots", "dots_narrow")
-                                   or remat.startswith("dots_mixed:")):
-        raise NotImplementedError(
-            f"remat={remat!r} (selective checkpoint policy) is not ported; "
-            "use remat=True (ROADMAP queue A)")
-    raise ValueError(f"unknown remat mode {remat!r}")
+    if remat in ("dots", "dots_narrow"):
+        return remat
+    if isinstance(remat, str) and remat.startswith("dots_mixed:"):
+        k = remat.split(":", 1)[1]
+        if k.isdigit():
+            return f"dots_mixed:{int(k)}"
+    raise ValueError(
+        f"unknown remat mode {remat!r}: expected False, True, 'dots', "
+        "'dots_narrow' or 'dots_mixed:K' with an integer K >= 0")
+
+
+def _layer_remat(remat, layer: int):
+    """The mode one layer runs under: "dots_mixed:K" splits at layer K."""
+    if isinstance(remat, str) and remat.startswith("dots_mixed:"):
+        return "dots" if layer < int(remat.split(":", 1)[1]) else "dots_narrow"
+    return remat
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(wide: Optional[int]):
+    """Selective-checkpoint policy: save the output of every 2-D matmul
+    (`dense`'s aten.mm / addmm; JAX's dots without batch dims) narrower
+    than `wide` columns (None: every one); recompute everything else.
+    Attention's products are batched (bmm) or inside K1's autograd
+    Function, so attention is recomputed, as JAX recomputes its batched
+    dots."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in _MATMULS and (wide is None or args[-1].shape[-1] < wide):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _checkpoint_kwargs(mode, cfg: TextConfig) -> dict:
+    if mode is True:
+        return {}
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    policy = _dots_policy(None if mode == "dots" else cfg.intermediate_size)
+    return {"context_fn":
+            lambda: create_selective_checkpoint_contexts(policy)}
 
 
 def _records_grad(params, x) -> bool:
@@ -191,7 +236,9 @@ def lm_forward(params: Params, cfg: TextConfig, *,
     `last_only` computes the head at the last position only ((B, 1, V)
     logits), which is all a prefill for sampling reads; `logits=False`
     returns the final-norm hidden states.  `remat=True` recomputes each
-    layer in the backward pass (torch.utils.checkpoint)."""
+    layer in the backward pass (torch.utils.checkpoint); the selective
+    modes of `check_remat` save the matmul outputs their policy names
+    (create_selective_checkpoint_contexts) and recompute the rest."""
     remat = check_remat(remat)
     if input_embeds is None:
         input_embeds = embed(params["embed_tokens"], input_ids)
@@ -222,7 +269,8 @@ def lm_forward(params: Params, cfg: TextConfig, *,
         elif remat and grad:
             h, kv = checkpoint(
                 lambda x, lp=lp, kw=kw: _layer(x, lp, None, **kw), h,
-                use_reentrant=False)
+                use_reentrant=False,
+                **_checkpoint_kwargs(_layer_remat(remat, l), cfg))
         else:
             h, kv = _layer(h, lp, None, **kw)
         if return_kv:

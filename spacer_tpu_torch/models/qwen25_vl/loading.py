@@ -37,7 +37,7 @@ def _check_arch(cfg: Qwen25VLConfig) -> None:
     if cfg.vision.arch != "qwen2_5":
         raise NotImplementedError(
             f"ViT arch {cfg.vision.arch!r} (Qwen2-VL) is not ported "
-            "(ROADMAP queue A item 4, Qwen2-VL ViT)")
+            "(ROADMAP queue A item 3, Qwen2-VL ViT)")
 
 
 def _entries(cfg: Qwen25VLConfig) -> list:

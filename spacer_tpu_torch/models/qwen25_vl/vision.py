@@ -7,7 +7,10 @@ spacer_tpu/models/qwen25_vl/vision.py:41-173.  `vit_forward` converts the
 tokens once to the padded-window layout (uniform windows of wt = 64 tokens)
 and runs every block at S_pad: the windowed blocks through K3
 (ops/vit_window_attention.window_attention_hsd), the full-attention blocks
-through K4 (chunk_attention_hsd) over the compact frame-chunk order.
+through K4 (chunk_attention_hsd) over the compact frame-chunk order, one
+call per grid when the grids' frame chunks differ (`chunk_runs`: each
+grid's tokens are contiguous in window order, since windows never cross a
+grid).
 head_dim 80 stays unpadded.  Both kernels are differentiable (their backward
 recomputes through the plain version), and `remat=True` recomputes each
 block in the backward pass (torch.utils.checkpoint), as JAX's
@@ -163,6 +166,25 @@ def _vision_layout_cached(grid_thw: tuple, spatial_merge_size: int,
     )
 
 
+def chunk_runs(layout: VisionLayout) -> list:
+    """[(first token, tokens, chunk tokens)] of the maximal runs of
+    consecutive frame chunks of one size, in window order: each run is one
+    K4 call.  A grid's chunks are uniform and its tokens contiguous (the
+    window order permutes within a frame chunk only), so grids whose chunks
+    differ split into separate runs."""
+    if layout.full_chunk:
+        return [(0, layout.seq_len, layout.full_chunk)]
+    _, sizes = np.unique(layout.full_segments, return_counts=True)
+    runs, start = [], 0
+    for size in sizes.tolist():
+        if runs and runs[-1][2] == size:
+            runs[-1][1] += size
+        else:
+            runs.append([start, size, size])
+        start += size
+    return [tuple(r) for r in runs]
+
+
 def vision_layout(grid_thw, cfg: VisionConfig) -> VisionLayout:
     """grid_thw: iterable of (t, h, w) per image/video (patch units)."""
     key = tuple(tuple(int(v) for v in g) for g in grid_thw)
@@ -213,10 +235,6 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
     in the original (pre-window-permutation) token order."""
     if cfg.arch != "qwen2_5":
         raise NotImplementedError(f"ViT arch {cfg.arch!r} is not ported")
-    if layout.full_chunk == 0:
-        raise NotImplementedError(
-            "grids with unequal frame chunks (mixed grids in one call) need "
-            "segment-masked full attention, which is not ported")
     dev = pixel_values.device
     mu = cfg.spatial_merge_unit
     H, Dh = cfg.num_heads, cfg.head_dim
@@ -238,6 +256,7 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
         validity_bias(layout.win_valid.sum(axis=1), wt)).to(dev)
     scale = Dh ** -0.5
     full_set = set(cfg.fullatt_block_indexes)
+    runs = chunk_runs(layout)
 
     def block(h, bp, full: bool):
         x = rms_norm(bp["norm1"], h, 1e-6)
@@ -245,9 +264,14 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
         q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
         q, k, v = (t.transpose(0, 1) for t in (q, k, qkv[:, 2]))  # (H, S_pad, Dh)
         if full:
-            # frame chunks are contiguous in the compact window order
-            q, k, v = (t[:, to_compact] for t in (q, k, v))
-            attn = chunk_attention_hsd(q, k, v, layout.full_chunk, scale)
+            # frame chunks are contiguous in the compact window order; with
+            # grids whose chunks differ, one K4 call per grid over the
+            # grid's own token range (JAX masks segments over the whole
+            # sequence: the same attention)
+            parts = [chunk_attention_hsd(
+                *(t[:, to_compact[a:a + n]] for t in (q, k, v)), c, scale)
+                for a, n, c in runs]
+            attn = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
             attn = attn[:, pad_gather]
         else:
             q, k, v = (t.contiguous() for t in (q, k, v))

@@ -241,7 +241,7 @@ class Sampler:
                 "(expected None, 'int8', 'int8_kv', 'int4' or 'int4_kv')")
         if speculate_k:
             raise NotImplementedError("speculative rollout decode is not "
-                                      "ported (ROADMAP queue A item 3)")
+                                      "ported (ROADMAP queue A item 2)")
         if mesh is not None:
             raise NotImplementedError("mesh-sharded rollouts are not ported")
         self.cfg = cfg

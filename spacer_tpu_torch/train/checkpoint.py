@@ -2,9 +2,11 @@
 spacer_tpu/train/checkpoint.py, which uses Orbax).
 
 A train-state checkpoint is a directory holding `params.pt` (the nested
-params tree), `opt_state.pt` (the optimizer state) and `meta.json`.
-Restoring maps every tensor onto the device of the matching tensor of the
-`*_like` trees, so a checkpoint saved on one device loads onto another.
+params tree), `opt_state.pt` (the optimizer state: moments, count and, with
+gradient accumulation, the accumulator and its mini-step) and `meta.json`.
+Restoring maps the params onto the device of `params_like` and the state
+onto that of `opt_state_like` (host memory for an offloaded state), so a
+checkpoint saved on one device loads onto another.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ def restore_train_state(path: str, params_like, opt_state_like):
                         map_location=_like_device(params_like),
                         weights_only=False)
     opt_state = torch.load(os.path.join(path, "opt_state.pt"),
-                           map_location=_like_device(params_like),
+                           map_location=(_like_device(opt_state_like)
+                                         or _like_device(params_like)),
                            weights_only=False)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)

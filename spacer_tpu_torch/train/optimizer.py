@@ -9,7 +9,14 @@ JAX package's mask, max_grad_norm 5, betas (0.9, 0.999), eps 1e-8.
 lists of tensors (the params flattened in a fixed order):
     state = tx.init(params, names)
     updates, state = tx.update(grads, state, params)
-and the step applies `p + u.to(p.dtype)` (here in place, under no_grad).
+and a third, the one the train steps call:
+    state = tx.apply(grads, state, params)
+which adds each update to its param in place (`p.add_(u.to(p.dtype))`, JAX's
+`p + u.astype(p.dtype)`) one moment group at a time and drops that group's
+grads, so no params-sized list of updates is ever held.  `MultiSteps(tx, k)`
+wraps it for gradient accumulation as the JAX trainer's optax.MultiSteps
+does.  Moments and the accumulator may live in host memory between updates
+(parallel/offload.py); `apply` streams them through the card.
 
 `names` are the params' paths (train/step.py `param_leaves`), in the same
 order.  The JAX package stacks the per-layer params of the LM ("layers")
@@ -196,41 +203,79 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state: OptState, params):
-        """-> (updates in the grads' dtypes, new state)."""
+        """-> (updates in the grads' dtypes, new state): optax's call, one
+        params-sized list of updates (the tests' path)."""
+        updates = [None] * len(grads)
+
+        def emit(i, u):
+            updates[i] = u
+
+        return updates, self._run(grads, state, params, emit,
+                                  global_norm(grads))
+
+    @torch.no_grad()
+    def apply(self, grads, state: OptState, params, gnorm=None) -> OptState:
+        """The update applied IN PLACE, one moment group at a time: each
+        param gets `p.add_(u.to(p.dtype))` as soon as its update exists and
+        its entry of the `grads` list is dropped (set to None), so neither a
+        list of updates nor the applied grads outlive their group.  The
+        values equal `update` followed by the add.  `gnorm`: the grads'
+        global norm where the caller has it (clipping needs it before any
+        group).  Moments held in host memory (parallel/offload.py) stream
+        through the grads' device a group at a time and back."""
+        if gnorm is None:
+            gnorm = global_norm(grads)
+
+        def emit(i, u):
+            params[i].add_(u.to(params[i].dtype))
+            grads[i] = None
+
+        return self._run(grads, state, params, emit, gnorm)
+
+    def _run(self, grads, state: OptState, params, emit, gnorm) -> OptState:
+        from spacer_tpu_torch.parallel.offload import GroupStream
+
         count = state.count + 1
         bc1 = 1.0 - self.b1 ** count
         bc2 = 1.0 - self.b2 ** count
-        gnorm = global_norm(grads)
         lr = self.schedule(state.count)
+        device = next(g.device for g in grads if g is not None)
+
         def clip(g):
             # optax clips with t / g_norm * max_norm in the grad dtype
             return torch.where(gnorm < self.max_grad_norm, g,
                                (g / gnorm.to(g.dtype)) * self.max_grad_norm)
 
         def finish(i, d):
-            # one tensor's direction -> its update (decay, learning rate);
-            # done per tensor, so no second params-sized list is held
+            # one tensor's direction -> its update (decay, learning rate)
             if state.decay[i]:
                 d = d + self.weight_decay * params[i].to(d.dtype)
-            updates[i] = (-lr) * d
+            emit(i, (-lr) * d)
 
-        updates, mu, nu = [None] * len(grads), [], []
-        if self.moment_dtype == "int8":
-            generator = None
-            if self.sr:
-                generator = torch.Generator(
-                    device=grads[0].device).manual_seed(
-                        self.seed * 1_000_003 + count)
-            for idx, m, v in zip(state.groups, state.mu, state.nu):
-                ds, m, v = self._adam_int8([clip(grads[i]) for i in idx], m,
-                                           v, bc1, bc2, generator)
+        int8 = self.moment_dtype == "int8"
+        if int8:
+            items = [[*m, *v] for m, v in zip(state.mu, state.nu)]
+        else:
+            items = [[state.mu[i] for i in idx] + [state.nu[i] for i in idx]
+                     for idx in state.groups]
+        stream = GroupStream(items, device)
+        generator = None
+        if int8 and self.sr:
+            generator = torch.Generator(device=device).manual_seed(
+                self.seed * 1_000_003 + count)
+        for j, idx in enumerate(state.groups):
+            mv = stream.get(j)
+            if int8:
+                ds, m, v = self._adam_int8([clip(grads[i]) for i in idx],
+                                           tuple(mv[:2]), tuple(mv[2:]),
+                                           bc1, bc2, generator)
                 for i, d in zip(idx, ds):
                     finish(i, d)
-                mu.append(m)
-                nu.append(v)
-        else:
-            for i, (g, m, v) in enumerate(zip(grads, state.mu, state.nu)):
-                g = clip(g)
+                stream.put(j, [*m, *v])
+                continue
+            ms, vs = [], []
+            for i, m, v in zip(idx, mv[:len(idx)], mv[len(idx):]):
+                g = clip(grads[i])
                 if self.moment_dtype == "float32":
                     m = self.b1 * m + (1.0 - self.b1) * g.float()
                     v = self.b2 * v + (1.0 - self.b2) * g.float().square()
@@ -241,9 +286,19 @@ class AdamW:
                     d = (m32 / bc1) / (torch.sqrt(v.float() / bc2) + self.eps)
                     m = m32.to(torch.bfloat16)
                 finish(i, d.to(g.dtype))
-                mu.append(m)
-                nu.append(v)
-        return updates, OptState(count, mu, nu, state.groups, state.decay)
+                ms.append(m)
+                vs.append(v)
+            stream.put(j, ms + vs)
+        items = stream.finish()
+        if int8:
+            mu = [tuple(x[:2]) for x in items]
+            nu = [tuple(x[2:]) for x in items]
+        else:
+            mu, nu = list(state.mu), list(state.nu)
+            for idx, x in zip(state.groups, items):
+                for k, i in enumerate(idx):
+                    mu[i], nu[i] = x[k], x[len(idx) + k]
+        return OptState(count, mu, nu, state.groups, state.decay)
 
     def _adam_int8(self, gs, m_q, v_q, bc1, bc2, generator):
         """Dequant -> adam -> requant over the virtual concatenation of one
@@ -273,6 +328,81 @@ class AdamW:
             vq[sl], vs[sl] = _quantize_nu(v)
         ds = [d.reshape(g.shape).to(g.dtype) for d, g in zip(d_outs, gs)]
         return ds, (mq, ms), (vq, vs)
+
+
+class MultiStepsState(NamedTuple):
+    mini_step: int          # mini-steps accumulated since the last update
+    gradient_step: int      # inner updates made
+    inner_opt_state: OptState
+    acc_grads: list         # per param: running mean, in the params' dtype
+
+
+class MultiSteps:
+    """Gradient accumulation as optax.MultiSteps(tx, every_k_schedule=k)
+    (use_grad_mean=True), the JAX trainer's wrapper:
+
+    - each `apply` is one mini-step: the accumulator, in the params'
+      dtype, becomes `acc + (g - acc) / (mini_step + 1)` (optax's Welford
+      mean, each op rounded to that dtype as XLA rounds it);
+    - on the k-th mini-step the inner AdamW applies the mean (its clip sees
+      the mean's global norm, its count and so its schedule advance) and
+      the accumulator is zeroed;
+    - on the other mini-steps the params, the inner state and its count
+      stay bitwise as they were.  No inner update is computed there
+      (MultiSteps computes one and discards it; the result is the same).
+
+    The accumulator may live in host memory (parallel/offload.py): it then
+    streams through the grads' device a tensor at a time and back."""
+
+    def __init__(self, inner: AdamW, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner, self.every_k = inner, int(every_k)
+
+    def init(self, params, names) -> MultiStepsState:
+        return MultiStepsState(0, 0, self.inner.init(params, names),
+                               [torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def apply(self, grads, state: MultiStepsState, params,
+              gnorm=None) -> MultiStepsState:
+        """One mini-step (see the class docstring).  `gnorm`, the
+        mini-step's own norm, is not the mean's and is not used.  The
+        `grads` entries are dropped as they are consumed."""
+        from spacer_tpu_torch.parallel.offload import GroupStream
+
+        del gnorm
+        n = state.mini_step
+        emit = n == self.every_k - 1
+        device = next(g.device for g in grads if g is not None)
+        acc = state.acc_grads
+        # after an update (or at the start) the accumulator is zero, and
+        # 0 + (g - 0) / 1 is g + 0.0 bitwise (-0.0 becomes +0.0 as there):
+        # nothing is read then
+        stream = GroupStream([[a] for a in acc], device)
+        for i, g in enumerate(grads):
+            if n == 0:
+                new = g + 0.0
+            else:
+                (a,) = stream.get(i)
+                new = g - a
+                new.div_(n + 1)
+                new.add_(a)
+            if emit:
+                grads[i] = new
+            else:
+                grads[i] = None
+                stream.put(i, [new])
+            del g, new
+        if not emit:
+            acc = [x[0] for x in stream.finish()]
+            return MultiStepsState(n + 1, state.gradient_step,
+                                   state.inner_opt_state, acc)
+        stream.finish()
+        inner = self.inner.apply(grads, state.inner_opt_state, params)
+        for a in acc:
+            a.zero_()
+        return MultiStepsState(0, state.gradient_step + 1, inner, acc)
 
 
 def make_optimizer(learning_rate: float = 1e-6, total_steps: int = 10000,

@@ -1,17 +1,21 @@
-"""GRPO train step (counterpart of spacer_tpu/train/step.py).
+"""GRPO and SFT train steps (counterpart of spacer_tpu/train/step.py).
 
-One step: vision encode (once per prompt) -> policy logps over the
+One GRPO step: vision encode (once per prompt) -> policy logps over the
 completion tokens (shared-prefix schema, chunked head) -> k3 KL against the
-reference logps + GRPO loss -> gradients -> AdamW update.  JAX's
-stop_gradient points are torch.no_grad / detach here; its jit is eager
-PyTorch.  Rewards and advantages arrive from the host.
+reference logps + GRPO loss -> gradients -> AdamW update.  One SFT step
+(`make_sft_train_step`): next-token cross-entropy over the labels that are
+not -100.  JAX's stop_gradient points are torch.no_grad / detach here; its
+jit is eager PyTorch.  Rewards and advantages arrive from the host.
 
 Params are nested dicts/lists of tensors (spacer_tpu_torch's layout).  The
-step flattens them in a fixed order (`param_leaves`), takes gradients with
-torch.autograd.grad (nothing is left in .grad), and updates the params IN
-PLACE (`p.add_(u.to(p.dtype))`, JAX's `p + u.astype(p.dtype)` without a
-second params-sized buffer).  Not ported: `step_accum` (not to port),
-`grad_chunk` / `apply_grads` (gradient accumulation, ROADMAP queue A), the
+steps flatten them in a fixed order (`param_leaves`), take gradients with
+torch.autograd.grad (nothing is left in .grad), and update the params IN
+PLACE through `tx.apply` (train/optimizer.py: `p.add_(u.to(p.dtype))`, JAX's
+`p + u.astype(p.dtype)`, one moment group at a time, each group's grads
+dropped once applied).  Gradient accumulation is the optimizer's
+(`MultiSteps`, as the JAX trainer's optax.MultiSteps), not a step of its
+own.  Not ported: `step_accum` and `grad_chunk` / `apply_grads` (the
+bench's one-program and chunked accumulation, which no trainer calls), the
 pipeline-parallel packed path.
 """
 
@@ -35,6 +39,28 @@ def param_leaves(tree, prefix: str = ""):
         return [x for i, v in enumerate(tree)
                 for x in param_leaves(v, f"{prefix}{i}/")]
     return [(prefix[:-1], tree)]
+
+
+def _track(params, select=None):
+    """Leaves in param_leaves order, with requires_grad set on those that
+    get a gradient (all, or those whose path `select` accepts)."""
+    named = param_leaves(params)
+    want = [select is None or bool(select(n)) for n, _ in named]
+    for (_, t), w in zip(named, want):
+        t.requires_grad_(w)
+    return [t for _, t in named], want
+
+
+def _grads(loss, leaves, want):
+    """d loss / d leaves where wanted (zeros where the loss does not reach
+    a tensor, as jax.grad gives), None elsewhere."""
+    got = iter(torch.autograd.grad(
+        loss, [t for t, w in zip(leaves, want) if w], allow_unused=True))
+    out = []
+    for t, w in zip(leaves, want):
+        g = next(got) if w else None
+        out.append(torch.zeros_like(t) if w and g is None else g)
+    return out
 
 
 def _head_kernel(params_model, text_cfg):
@@ -159,19 +185,18 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
             return _logps(ref_params, batch, grid_thw, num_generations)
 
     def loss_and_grads(params, ref_logps, batch, grid_thw=None,
-                       num_generations=1):
+                       num_generations=1, select=None):
         """-> (loss, metrics, grads) with grads in param_leaves order (a
-        parameter the loss does not reach gets zeros, as jax.grad gives)."""
-        leaves = [t for _, t in param_leaves(params)]
-        for t in leaves:
-            t.requires_grad_(True)
+        parameter the loss does not reach gets zeros, as jax.grad gives).
+        `select`, a predicate on param paths, limits the gradients to those
+        tensors (the others get None), for checks that cannot hold two
+        full gradient sets."""
         with torch.enable_grad():
+            leaves, want = _track(params, select)
             logps = _logps(params, batch, grid_thw, num_generations)
             loss, metrics = grpo_loss(logps, ref_logps, batch["advantages"],
                                       batch["completion_mask"], beta=beta)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g
-                 for g, t in zip(grads, leaves)]
+            grads = _grads(loss, leaves, want)
         return loss.detach(), metrics, grads
 
     def step(params, ref_params, opt_state, batch, grid_thw=None,
@@ -189,13 +214,66 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
             grid_thw, num_generations)
         leaves = [t for _, t in param_leaves(params)]
         gnorm = global_norm(grads)
-        updates, opt_state = tx.update(grads, opt_state, leaves)
+        # in place, a moment group at a time; the list's grads are dropped
+        opt_state = tx.apply(grads, opt_state, leaves, gnorm=gnorm)
         del grads
-        with torch.no_grad():
-            for p, u in zip(leaves, updates):
-                p.add_(u.to(p.dtype))
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     step.ref_logps_fn = ref_logps_fn
+    step.loss_and_grads = loss_and_grads
+    return step
+
+
+def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256):
+    """SFT step (sft.py semantics; spacer_tpu's make_sft_train_step):
+    next-token cross-entropy with labels = input_ids, positions labelled
+    -100 (padding and visual tokens) masked out, averaged over the
+    unmasked tokens.
+
+    Returns step(params, opt_state, batch, grid_thw=None) -> (params,
+    opt_state, metrics) with `.loss_and_grads` attached.  batch: tensors
+    on the params' device: input_ids (N, S), labels (N, S), kv_mask
+    (N, S) bool, position_ids (3, N, S), pixel_values optional."""
+    remat = check_remat(remat)
+    family = family_for_config(cfg)
+
+    def loss_fn(params, batch, grid_thw):
+        model = params["model"]
+        token_embeds = embed(model["embed_tokens"], batch["input_ids"])
+        if grid_thw is not None:
+            vk = {k: batch[k] for k in family.vision_batch_keys if k in batch}
+            ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat)
+            token_embeds = family.merge_vision_embeds(
+                cfg, batch["input_ids"], token_embeds, ve)
+        hidden, _ = lm_forward(model, cfg.text, input_embeds=token_embeds,
+                               position_ids=batch["position_ids"],
+                               kv_mask=batch["kv_mask"], logits=False,
+                               remat=remat)
+        labels = batch["labels"][:, 1:]
+        mask = labels != -100
+        # f32 products over the params' dtype, as JAX's f32 upcasts
+        logps = chunked_per_token_logps(
+            hidden[:, :-1], _head_kernel(model, cfg.text),
+            torch.where(mask, labels, 0), chunk=logp_chunk)
+        denom = mask.sum().clamp_min(1)
+        return -(logps * mask).sum() / denom, {"n_tokens": denom}
+
+    def loss_and_grads(params, batch, grid_thw=None, select=None):
+        """-> (loss, metrics, grads in param_leaves order); `select` as in
+        make_grpo_train_step's."""
+        with torch.enable_grad():
+            leaves, want = _track(params, select)
+            loss, metrics = loss_fn(params, batch, grid_thw)
+            grads = _grads(loss, leaves, want)
+        return loss.detach(), metrics, grads
+
+    def step(params, opt_state, batch, grid_thw=None):
+        loss, metrics, grads = loss_and_grads(params, batch, grid_thw)
+        leaves = [t for _, t in param_leaves(params)]
+        gnorm = global_norm(grads)
+        opt_state = tx.apply(grads, opt_state, leaves, gnorm=gnorm)
+        del grads
+        return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
+
     step.loss_and_grads = loss_and_grads
     return step

@@ -11,10 +11,17 @@ loop around it.  As in the JAX trainer:
 
 Rollouts decode at `decode_quant` (the JAX default "int8_kv": int8 weights
 and int8 KV caches for the decode loop only; logps and updates stay in the
-params' dtype; None gives bf16-exact rollouts).  Configurations the port
-does not run raise NotImplementedError at construction: speculative
-rollouts, gradient accumulation, optimizer-state offload, a device mesh,
-and any `attn_impl` / `decode_impl` but None.
+params' dtype; None gives bf16-exact rollouts).
+`gradient_accumulation_steps = k > 1` wraps the optimizer as the JAX
+trainer's optax.MultiSteps does (train/optimizer.py MultiSteps): each
+`training_step` is one mini-step and every k-th applies the mean.
+`offload_opt_state` keeps the moments and the accumulator in page-locked
+host memory between updates (parallel/offload.py); the update streams them
+through the card a moment group at a time.  `save_pretrained` writes an HF
+layout (train/publish.py) and, with `push_to_hub`, uploads it.
+Configurations the port does not run raise NotImplementedError at
+construction: speculative rollouts, a device mesh, and any `attn_impl` /
+`decode_impl` but None.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import dataclasses
 import os
 import time
 from collections import defaultdict
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,7 +43,7 @@ from spacer_tpu_torch.train.grpo import (
     length_control_bonus,
     temporal_bonus,
 )
-from spacer_tpu_torch.train.optimizer import make_optimizer
+from spacer_tpu_torch.train.optimizer import MultiSteps, make_optimizer
 from spacer_tpu_torch.train.step import make_grpo_train_step, param_leaves
 from spacer_tpu_torch.utils.logging import MetricLogger
 
@@ -74,7 +81,8 @@ class SGRLVRConfig:
     offload_opt_state: bool = False
     # Adam moment storage: "int8" (default), "float32", "bfloat16"
     moment_dtype: str = "int8"
-    remat: bool = True
+    # False | True | "dots" | "dots_narrow" | "dots_mixed:K" (check_remat)
+    remat: Any = True
     logp_chunk: int = 256
     # attn_impl / decode_impl: the JAX trainer's fields, kept so its configs
     # parse; the port dispatches attention and decode by device, so only
@@ -93,12 +101,7 @@ class SGRLVRConfig:
 def _unported(args: SGRLVRConfig, mesh):
     if args.speculate_k:
         raise NotImplementedError("speculative rollouts (speculate_k > 0) are "
-                                  "not ported (ROADMAP queue A item 3)")
-    if args.gradient_accumulation_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported "
-                                  "(ROADMAP queue A)")
-    if args.offload_opt_state:
-        raise NotImplementedError("optimizer-state offload is not ported")
+                                  "not ported (ROADMAP queue A item 2)")
     if mesh is not None:
         raise NotImplementedError("mesh / multi-device training is not ported")
     if args.attn_impl is not None or args.decode_impl is not None:
@@ -106,8 +109,6 @@ def _unported(args: SGRLVRConfig, mesh):
             f"attn_impl={args.attn_impl!r} decode_impl={args.decode_impl!r}: "
             "the port has one attention path per device (the CUDA kernels on "
             "the card, their plain versions on the CPU); pass None")
-    if args.push_to_hub:
-        raise NotImplementedError("Hub publishing is not ported")
 
 
 class SGRLVRTrainer:
@@ -139,9 +140,17 @@ class SGRLVRTrainer:
             warmup_steps=args.warmup_steps, weight_decay=args.weight_decay,
             max_grad_norm=args.max_grad_norm, moment_dtype=args.moment_dtype,
             seed=args.seed)
+        if args.gradient_accumulation_steps > 1:
+            # the schedule spans `total` mini-steps but advances once per
+            # emit, as in the JAX trainer (ROADMAP queue C)
+            self.tx = MultiSteps(self.tx, args.gradient_accumulation_steps)
         leaves = param_leaves(params)
         self.opt_state = self.tx.init([t for _, t in leaves],
                                       [n for n, _ in leaves])
+        if args.offload_opt_state:
+            from spacer_tpu_torch.parallel.offload import offload_to_host
+
+            self.opt_state = offload_to_host(self.opt_state)
         self.sampler = Sampler(
             cfg, eos_token_id=processor.eos_token_id,
             pad_token_id=processor.pad_token_id,
@@ -505,11 +514,36 @@ class SGRLVRTrainer:
                          {"global_step": self.global_step})
         return path
 
+    def save_pretrained(self, out_dir: str | None = None,
+                        processor_dir: str | None = None):
+        """HF-layout export (model.safetensors + config.json + processor
+        files) and, with `push_to_hub`, the upload (SG-RLVR.py:383-386)."""
+        from spacer_tpu_torch.train import publish
+
+        out_dir = out_dir or os.path.join(self.args.output_dir, "final")
+        if self.args.push_to_hub and not self.args.hub_model_id:
+            # fail before the export: a basename fallback would publish to
+            # a repo literally named "final"
+            raise ValueError(
+                "push_to_hub=True requires hub_model_id (the Hub repo id); "
+                "refusing to invent one from the output directory name")
+        publish.save_pretrained(out_dir, self.params, self.cfg,
+                                processor_dir=processor_dir)
+        if self.args.push_to_hub:
+            publish.push_to_hub(self.args.hub_model_id, out_dir)
+        return out_dir
+
     def load_checkpoint(self, path: str):
         from spacer_tpu_torch.train.checkpoint import restore_train_state
 
-        self.params, self.opt_state, meta = restore_train_state(
+        self.params, opt_state, meta = restore_train_state(
             path, self.params, self.opt_state)
+        if self.args.offload_opt_state:
+            from spacer_tpu_torch.parallel.offload import restore_into
+
+            # into the host arena allocated at construction
+            opt_state = restore_into(self.opt_state, opt_state)
+        self.opt_state = opt_state
         self.global_step = int(meta.get("global_step", 0))
 
 

@@ -143,3 +143,46 @@ def test_evaluate_cli_refuses_speculation(data_dir, tmp_path):
     with pytest.raises(NotImplementedError, match="speculat"):
         main(_lvb_argv(data_dir, tmp_path / "out", "--device", "cpu",
                        "--speculate_k", "2"))
+
+
+def test_train_grpo_cli_one_step(data_dir, tmp_path):
+    """The plain video-GRPO entry point: one step, its two rewards logged,
+    the final checkpoint written; remat given by name."""
+    from spacer_tpu_torch.cli.train_grpo import main
+
+    out = tmp_path / "grpo"
+    argv = [a for a in _argv(data_dir, out, "none")
+            if a not in ("--cognitive_map_path",
+                         str(data_dir / "cogmap.jsonl"))]
+    main(argv + ["--remat", "dots_narrow"])
+    recs = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    assert len(recs) == 1 and np.isfinite(recs[0]["loss"])
+    assert "rewards/grpo_accuracy_reward" in recs[0]
+    assert "rewards/format_reward" in recs[0]
+    assert os.path.exists(out / "final" / "params.pt")
+
+
+@pytest.mark.parametrize("qtype,solution", [
+    ("multiple choice", "<answer>B</answer>"),
+    ("numerical", "<answer>3</answer>"),
+    ("regression", "<answer>3.2</answer>"),
+    ("OCR", "<answer>exit</answer>"),
+    ("free-form", "<answer>a red chair</answer>")])
+def test_grpo_accuracy_reward_equals_jax(qtype, solution):
+    from spacer_tpu.cli.train_grpo import grpo_accuracy_reward as jax_reward
+    from spacer_tpu_torch.cli.train_grpo import grpo_accuracy_reward
+
+    texts = ["<think>x</think><answer>B</answer>", "<answer>3.5</answer>",
+             "<answer>3</answer>", "<answer>exit</answer>", "no tags",
+             "<answer>a red chair</answer>"]
+    comps = [[{"content": t}] for t in texts]
+    n = len(comps)
+    kw = dict(problem_type=[qtype] * n, data_source=["x"] * n,
+              map_data={"unused": 1})
+    ours = grpo_accuracy_reward(comps, [solution] * n, **dict(kw))
+    theirs = jax_reward(comps, [solution] * n, **dict(kw))
+    assert ours == theirs and len(ours) == n
+    if qtype in ("multiple choice", "numerical"):
+        assert max(ours) > 0
+    else:
+        assert ours == [0.0] * n

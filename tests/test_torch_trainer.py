@@ -91,12 +91,14 @@ def test_two_training_steps_and_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("over", [
     dict(decode_quant="int2"), dict(decode_quant="int4_v"),
-    dict(speculate_k=2), dict(gradient_accumulation_steps=2),
-    dict(offload_opt_state=True), dict(attn_impl="pallas"),
-    dict(decode_impl="flash"), dict(decode_impl="xla")])
+    dict(speculate_k=2), dict(attn_impl="xla"), dict(decode_impl="flash_ref"),
+    dict(attn_impl="pallas"), dict(decode_impl="flash"),
+    dict(decode_impl="xla")])
 def test_unported_configurations_raise(tmp_path, over):
     """Unknown decode_quant values raise ValueError (as in the JAX
-    sampler); the configurations the port does not run NotImplementedError."""
+    sampler); the configurations the port does not run NotImplementedError
+    (gradient accumulation and offload run since they were ported:
+    tests/test_torch_accumulation.py, test_torch_offload.py)."""
     exc = ValueError if "decode_quant" in over else NotImplementedError
     with pytest.raises(exc):
         _trainer(tmp_path, **over)
@@ -152,3 +154,61 @@ def test_rewards_match_spacer_tpu():
     for s in SAMPLES:
         assert (tr.extract_map_data(s, objects)
                 == jr.extract_map_data(s, objects))
+
+
+def test_accumulated_offloaded_step_over_unequal_videos(tmp_path):
+    """gradient_accumulation_steps=2 with offloaded optimizer state, two
+    videos of unequal frame size in one rollout (rollout_batch_size=2: one
+    ViT call over mixed grids, the merged rollout holding 4 prompts): the
+    first call leaves the params bitwise as they were and the state in
+    host memory, the second applies the mean and moves them."""
+    from spacer_tpu_torch.parallel import is_on_host
+
+    rows = _rows()
+    big = np.random.default_rng(1).integers(0, 256, (4, 84, 112, 3), np.uint8)
+    rows.append(dict(rows[0], path=big, problem_id=1))
+    trainer = _trainer(tmp_path, gradient_accumulation_steps=2,
+                       offload_opt_state=True, rollout_batch_size=2,
+                       max_steps=2, num_train_epochs=2)
+    trainer.dataset = rows
+    assert is_on_host(trainer.opt_state)
+    grids = []
+    generate = trainer.sampler.generate
+
+    def recorded(*a, **kw):
+        grids.append(kw["grid_thw"])
+        return generate(*a, **kw)
+
+    trainer.sampler.generate = recorded
+    before = [t.detach().clone() for _, t in param_leaves(trainer.params)]
+    trainer.args.max_steps = 1
+    trainer.train()
+    assert trainer.opt_state.mini_step == 1
+    assert trainer.opt_state.inner_opt_state.count == 0
+    assert is_on_host(trainer.opt_state)
+    for a, (_, b) in zip(before, param_leaves(trainer.params)):
+        assert torch.equal(a, b)
+    trainer.args.max_steps = 2
+    trainer.train()
+    assert trainer.global_step == 2
+    st = trainer.opt_state
+    assert (st.mini_step, st.gradient_step, st.inner_opt_state.count) == (0, 1, 1)
+    moved = [n for (n, t), a in zip(param_leaves(trainer.params), before)
+             if not torch.equal(a, t)]
+    assert any(n.startswith("visual/") for n in moved)
+    assert any(n.startswith("model/layers/") for n in moved)
+    # 2 main + 2 temporal-shuffle prompts in one rollout; frame chunks of
+    # 24 and 48 patches: mixed grids in one ViT call
+    assert len(grids[0]) == 4
+    assert len({h * w for _, h, w in grids[0]}) == 2
+    # a resume restores the offloaded state into its own host tensors
+    ckpt = trainer.save_checkpoint()
+    acc = [a.clone() for a in st.acc_grads]
+    ids = [id(a) for a in st.acc_grads]
+    for a in st.acc_grads:
+        a.fill_(1.0)
+    trainer.load_checkpoint(ckpt)
+    st = trainer.opt_state
+    assert is_on_host(st) and [id(a) for a in st.acc_grads] == ids
+    assert all(torch.equal(a, b) for a, b in zip(acc, st.acc_grads))
+    assert (st.mini_step, st.gradient_step) == (0, 1)
