@@ -33,6 +33,18 @@ Phases, in order; any failure raises and the script exits non-zero:
   4b. the same with decode_quant="int4_kv" (K6 weight products, K5-int8
      attention), replayed through the plain versions likewise; token
      agreement with phase 4 is printed, not gated;
+  4c. the OpenAI-compatible HTTP server (serving/server.py) on phase 4's
+     params: 3 video + 3 text requests at once through 4 slots (refill), one
+     streamed over SSE, one to /v1/completions; every status 200, the
+     streamed deltas equal to the request's final text, a clean shutdown,
+     K1 / K3 / K4 / K5 launched; TTFT and wall per request;
+  4d. speculative serving (speculate_k = SPEC_K), bf16 and int4_kv: the
+     forced-draft check (the block step fed the sequential path's own
+     greedy tokens as drafts: every block position's logits within
+     BF16_TOL * (1 + |x|) of the sequential K5 step's, and every draft with
+     a clear top-2 margin accepted; K6 at M = R * kb under int4_kv), then
+     generate_many with and without speculation: acceptance, ms per block
+     step against ms per ring step, tok/s;
   5. the SG-RLVR training slice at Qwen2.5-VL-7B widths with the LM cut to
      TRAIN_LM_LAYERS layers: two optimizer steps of SGRLVRTrainer.train at
      the trainer's default decode_quant="int8_kv" on a 16-frame video row
@@ -49,6 +61,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      every mode;
   5b. one bf16 rollout (decode_quant=None) of phase 5's first batch with
      the trained params, its K2 calls held against the plain version live;
+  5c. speculative rollouts of that batch at int8_kv and bf16: the
+     forced-draft check of the grouped block step against the K2 / K2-int8
+     sequential steps, then Sampler.generate with and without speculation
+     (acceptance, seconds);
   6. a checkpoint at Qwen2.5-VL-7B widths (LM cut to CKPT_LM_LAYERS layers,
      full vocab, all 32 ViT blocks) written by export_to_safetensors in HF's
      sharded layout and loaded back onto the card by load_params_from_hf:
@@ -73,12 +89,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   8b. one LoRA step (make_lora_grpo_train_step) on phase 8's first update
      batch: the base bitwise unchanged, the adapters' gradients as the
      math says (b nonzero, a zero: b starts at zero);
-  9. two SFT steps at full depth with int8 moments, replayed likewise.
+  9. two SFT steps at full depth with int8 moments, replayed likewise;
+  10. Qwen2-VL-7B at full geometry (32 full-attention ViT blocks): the ViT
+     on two videos of unequal grids (K4 per grid, held against its plain
+     version live; embeddings against the plain-attention ViT), then
+     generate_many on 2 video + 2 text requests (K1, K4, K5).
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5b and 7-9, each counted from 0 just
+summed over the paths of phases 4-5c and 7-10, each counted from 0 just
 before it runs); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 4c,4d     # a development run of some
 """
 
 from __future__ import annotations
@@ -167,9 +188,11 @@ TIMED_RUNS = 25
 K6_SUM_TOL = 1e-5
 K6_BF16_ULP = 2.0 ** -7
 # (K, N) of every int4 decode product at 7B widths: q/o, k/v, gate/up, down,
-# lm_head; M = the serving slots (4) and the rollout's B*G rows (16)
+# lm_head; M = the serving slots (4), the rollout's B*G rows (16) and the
+# speculative block step's R * kb rows at 4 and 8 slots (20, 40)
 K6_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
              (3584, 152064))
+K6_ROWS = (4, 16, 20, 40)
 K6_PATH_SHAPE = (4, 3584, 18944)   # the kernels line's K6 entry: gate/up
 # K2 / K2-int8 also at this many completions per prompt (G * group_q = 112
 # query rows: two of the prefix jobs' 64-row tiles)
@@ -195,6 +218,35 @@ EVAL_PROMPT_PADS = (130, 126)
 EVAL_NEW_TOKENS = 64
 LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
                "perception_task_accuracy", "relation_task_accuracy"}
+# The phases in the order they run (main's --phases selects some of them)
+PHASES = ("3", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9", "10")
+# Phase 4c, the HTTP server: HTTP_VIDEOS video requests over mp4 files of
+# HTTP_VIDEO_SECONDS at HTTP_VIDEO_FPS (16 frames sampled at 2 fps, grid
+# (8, 16, 30) as phase 4's) and as many text requests, through HTTP_SLOTS
+# slots of one HTTP_PROMPT_LEN prompt bucket.
+HTTP_SLOTS, HTTP_PROMPT_LEN, HTTP_VIDEOS = 4, 1024, 3
+HTTP_VIDEO_SECONDS, HTTP_VIDEO_FPS = 8, 4
+# Phases 4d and 5c, speculative decoding: SPEC_K drafts per block (kb = 5
+# tokens per row and step); the forced-draft checks take SPEC_CHECK_STEPS
+# block steps.  Their gate: every block position's logits within cosine
+# SPEC_COS_TOL of the sequential step's, and every draft accepted whose
+# sequential top-2 margin exceeds BF16_TOL * (1 + |x|); the elementwise
+# BF16_TOL * (1 + |x|) is reported, not gated: at 28 bf16 layers either
+# difference between the paths alone (the attention's reduction order, or
+# the GEMMs' row count: R * kb rows against R) puts ~1.5 % of the logits
+# of random weights outside it (control_stats; PERF.md section 6).
+SPEC_K, SPEC_CHECK_STEPS = 4, 8
+SPEC_COS_TOL = 0.999
+# Phase 10, Qwen2-VL-7B: two 16-frame videos of unequal frame size (grids
+# (8, 16, 30) and (8, 20, 28) through the serving processor: chunks of 480
+# and 560 patches, one K4 call per grid in each of the 32 full-attention
+# blocks).  (Worked out on the CPU: the processor is deterministic.)
+QWEN2_VIDEOS = ((16, 360, 640), (16, 240, 320))
+QWEN2_GRIDS = ((8, 16, 30), (8, 20, 28))
+# K4 at the Qwen2-VL ViT's other chunks: the second video's (560), and an
+# image's, an image being one chunk of all its patches: 448x448 (grid
+# (1, 32, 32)) and 1008x1008 ((1, 72, 72))
+K4_QWEN2_CHUNKS = ((8 * 560, 560), (32 * 32, 32 * 32), (72 * 72, 72 * 72))
 # The card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet, at
 # its 700 W limit): HBM bytes per second and dense bf16 tensor-core
 # operations per second.  Every kernel here multiplies bf16 operands (int8
@@ -464,10 +516,14 @@ def check_kernels(device="cuda") -> dict:
     # K4 at the ViT's chunks (the kernels line) and at 8 chunks of 252 =
     # 18 x 14 patches (a 252x196 frame pair), no multiple of the kernel's
     # 64-key tiles
+    # and at the Qwen2-VL ViT's other chunks (K4_QWEN2_CHUNKS; its first
+    # video's chunk is the ViT's 480)
     mixed = vision_layout([FULL_GRIDS[1]], vcfg)
     for tag, S, chunk in (("K4", layout.seq_len, layout.full_chunk),
                           ("K4 wt=252", 8 * 252, 252),
-                          ("K4 mixed", mixed.seq_len, mixed.full_chunk)):
+                          ("K4 mixed", mixed.seq_len, mixed.full_chunk),
+                          *((f"K4 qwen2 wt={c}", S, c)
+                            for S, c in K4_QWEN2_CHUNKS)):
         qc, kc, vc = (randn(Hv, S, Dv) for _ in range(3))
         results[tag] = compare(
             f"K4 chunk_attention_hsd (16, {S}, 80) wt={chunk}",
@@ -554,8 +610,9 @@ def check_ragged_decode(randn, gen, tag, P, C, plen, tlen, admit) -> dict:
 
 
 def check_int4_matmul(gen) -> dict:
-    """Phase 3, K6: every (K, N) of the 7B int4 decode at M = 4 (serving
-    slots) and 16 (rollout rows), against its plain version: the scale-free
+    """Phase 3, K6: every (K, N) of the 7B int4 decode at each M of K6_ROWS
+    (serving slots, rollout rows, speculative blocks), against its plain
+    version: the scale-free
     product (int4_matmul) within the f32 summation-order bound K6_SUM_TOL *
     sum |terms|, and dense_q4 (one launch: row scale, product, column
     scale, cast, bias) within that bound times the column scale plus one
@@ -575,7 +632,7 @@ def check_int4_matmul(gen) -> dict:
         row_scale, col_scale = params["q4_row_scale"], params["q4_col_scale"]
         tinygemm = int4pack_yardstick(codes, col_scale)
         w_bf16 = codes.to(torch.bfloat16)
-        for M in (4, 16):
+        for M in K6_ROWS:
             x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
             allowed = (K6_SUM_TOL * (x.float().abs() @ codes.float().abs())
                        + 1e-6)
@@ -907,17 +964,24 @@ class SliceProbe:
         self.lengths, self.nonfinite = [], 0
         self.live = None   # rows of the next sampled logits that are kept
         self.logits, self.tokens = [], []
+        # host clock: (start, end) of every decode step, and per admitted
+        # request the end of the admission that sampled its first token
+        self.spans, self.admitted = [], []
         self._saved = (bm.prologue, bm.lm_forward, bm.ragged_decode_step,
-                       bm.sample_logits, bm.ContinuousBatcher.poll_finished)
+                       bm.sample_logits, bm.ContinuousBatcher.poll_finished,
+                       bm.ContinuousBatcher.admit)
 
-    def _timed(self, sink, fn, check_logits):
+    def _timed(self, sink, fn, check_logits, spans=None):
         def wrapped(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
+            t1 = time.perf_counter()
             if sink is not None:
-                sink.append((time.perf_counter() - t0) * 1e3)
+                sink.append((t1 - t0) * 1e3)
+            if spans is not None:
+                spans.append((t0, t1))
             logits = out[0] if isinstance(out, tuple) else out
             if check_logits and not bool(torch.isfinite(logits).all()):
                 self.nonfinite += 1
@@ -926,7 +990,7 @@ class SliceProbe:
 
     def __enter__(self):
         bm = self.bm
-        prologue, lm_forward, step, sample, poll = self._saved
+        prologue, lm_forward, step, sample, poll, admit = self._saved
 
         def timed_prologue(params, ids, px, **kw):
             sink = self.vit_ms if px is not None else None
@@ -946,8 +1010,14 @@ class SliceProbe:
             self.lengths += [o.length for _, o in done]
             return done
 
+        def timed_admit(batcher, admissions):
+            admit(batcher, admissions)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.admitted += [now] * len(admissions)
+
         timed_prefill = self._timed(self.prefill_ms, lm_forward, True)
-        timed_step = self._timed(self.decode_ms, step, True)
+        timed_step = self._timed(self.decode_ms, step, True, self.spans)
 
         def prefill(*a, **kw):
             self.live = None   # the admitted rows, all sampled
@@ -967,12 +1037,19 @@ class SliceProbe:
         bm.ragged_decode_step = decode_step
         bm.sample_logits = recorded_sample
         bm.ContinuousBatcher.poll_finished = poll_finished
+        bm.ContinuousBatcher.admit = timed_admit
         return self
 
     def __exit__(self, *exc):
         (self.bm.prologue, self.bm.lm_forward, self.bm.ragged_decode_step,
-         self.bm.sample_logits, self.bm.ContinuousBatcher.poll_finished) = \
-            self._saved
+         self.bm.sample_logits, self.bm.ContinuousBatcher.poll_finished,
+         self.bm.ContinuousBatcher.admit) = self._saved
+
+    def decode_gaps_ms(self) -> list:
+        """Host time between the end of one decode step and the start of
+        the next (sampling, bookkeeping, and between chunks the poll and
+        any admission)."""
+        return [(b[0] - a[1]) * 1e3 for a, b in zip(self.spans, self.spans[1:])]
 
 
 class PlainAttention:
@@ -1008,25 +1085,34 @@ class PlainAttention:
             setattr(m, n, fn)
 
 
-def serve_slice(cfg, device="cuda") -> dict:
+def serve_slice(cfg, device="cuda", phases=PHASES) -> dict:
     """Phases 4 and 4b: the serving slice (at full Qwen2.5-VL-7B geometry
     when called from main) with bf16 decode, then with decode_quant=
     "int4_kv"; each run is followed by the same requests with the kernels
     replaced by their plain versions and the run's tokens replayed: the
-    logits of every sampled step must agree.  Returns the launches of each
-    path, {path: {kernel id: count}}."""
+    logits of every sampled step must agree.  Then, on the same params,
+    phases 4c (http_phase) and 4d (spec_serve_phase), each of `phases`
+    that is selected.  Returns the launches of each path, {path: {kernel
+    id: count}}."""
     params, proc, msgs = serving_setup(cfg, device)
-    counts, bf16 = serve_run(cfg, params, proc, msgs, None, SERVE_KERNELS)
-    counts_q, quant = serve_run(cfg, params, proc, msgs, "int4_kv",
-                                SERVE_INT4_KV_KERNELS)
-    agree = float(torch.cat([(a == b).float()
-                             for a, b in zip(bf16.tokens, quant.tokens)
-                             if a.shape == b.shape]).mean())
-    log(f"slice int4_kv vs bf16: {agree:.4f} of the sampled tokens agree "
-        f"(not gated) | decode ms per step median "
-        f"{statistics.median(quant.decode_ms):.2f} vs "
-        f"{statistics.median(bf16.decode_ms):.2f}")
-    return {"serve": counts, "serve int4_kv": counts_q}
+    paths = {}
+    if "4" in phases:
+        counts, bf16 = serve_run(cfg, params, proc, msgs, None, SERVE_KERNELS)
+        counts_q, quant = serve_run(cfg, params, proc, msgs, "int4_kv",
+                                    SERVE_INT4_KV_KERNELS)
+        agree = float(torch.cat([(a == b).float()
+                                 for a, b in zip(bf16.tokens, quant.tokens)
+                                 if a.shape == b.shape]).mean())
+        log(f"slice int4_kv vs bf16: {agree:.4f} of the sampled tokens agree "
+            f"(not gated) | decode ms per step median "
+            f"{statistics.median(quant.decode_ms):.2f} vs "
+            f"{statistics.median(bf16.decode_ms):.2f}")
+        paths.update({"serve": counts, "serve int4_kv": counts_q})
+    if "4c" in phases:
+        paths["http"] = http_phase(cfg, params, proc)
+    if "4d" in phases:
+        paths.update(spec_serve_phase(cfg, params, proc, msgs))
+    return paths
 
 
 def serving_setup(cfg, device="cuda"):
@@ -1124,6 +1210,470 @@ def serve_run(cfg, params, proc, msgs, decode_quant, kernels):
                            "versions' path")
     probe.logits = ref.logits = None
     return counts, probe
+
+
+def write_videos(root: pathlib.Path, prefix: str, n: int, seconds: int,
+                 fps: int, seed: int, shift: int) -> list:
+    """n 360x640 mp4 files (cv2, mp4v) of `seconds` at `fps`, root/prefix{i}
+    .mp4: a random frame from `seed` scrolling `shift` pixels sideways per
+    frame.  -> their paths."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        path = str(root / f"{prefix}{i}.mp4")
+        out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                              (640, 360))
+        base = rng.integers(0, 256, (360, 640, 3), np.uint8)
+        for t in range(seconds * fps):
+            out.write(np.roll(base, shift * t, axis=1))
+        out.release()
+        paths.append(path)
+    return paths
+
+
+def _http(port, method, path, payload=None, timeout=600):
+    """One request to the phase's server -> (status, parsed body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, body=None if payload is None
+                 else json.dumps(payload),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    return resp.status, body
+
+
+def _http_stream(port, payload, t_sent, timeout=600):
+    """A streaming chat request -> (status, concatenated deltas, seconds to
+    the first content delta, finish reason, [DONE] seen)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request("POST", "/v1/chat/completions",
+                 body=json.dumps({**payload, "stream": True}),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    text, first, finish, done = "", None, None, False
+    while resp.status == 200:
+        line = resp.fp.readline()
+        if not line:
+            break
+        line = line.decode().strip()
+        if line == "data: [DONE]":
+            done = True
+            break
+        if not line.startswith("data: "):
+            continue
+        choice = json.loads(line[len("data: "):])["choices"][0]
+        delta = choice["delta"].get("content", "")
+        if delta and first is None:
+            first = time.perf_counter() - t_sent
+        text += delta
+        finish = choice["finish_reason"] or finish
+    conn.close()
+    return resp.status, text, first, finish, done
+
+
+def _token_agreement(texts_a, texts_b) -> list:
+    """Per pair of answers, the share of positions whose words agree."""
+    return [sum(a == b for a, b in zip(x.split(), y.split()))
+            / max(len(x.split()), len(y.split()), 1)
+            for x, y in zip(texts_a, texts_b)]
+
+
+def http_phase(cfg, params, proc) -> dict:
+    """Phase 4c: the OpenAI-compatible server (serving/server.py) on
+    127.0.0.1, port 0, HTTP_SLOTS slots, prompt bucket HTTP_PROMPT_LEN,
+    greedy, up to SERVE_GEN_KW's 64 new tokens: HTTP_VIDEOS video requests
+    (mp4 files of 16 sampled frames of 360x640) and as many text requests,
+    all sent at once from their own threads, so slots refill; one video
+    request streams (SSE) and one text request uses /v1/completions.
+    Gates: every status 200, the streamed deltas concatenate to that
+    request's final text, every kernel of the path launched, a clean
+    shutdown (the serving thread ends, the port refuses).  Reports each
+    request's TTFT (submit to the end of its admission, on the server; and
+    to the first SSE delta, on the client), its wall through HTTP, and the
+    token agreement with generate_many on the same conversations (not
+    gated).  Returns the path's launches."""
+    import tempfile
+    import threading
+
+    from spacer_tpu_torch.evalharness import QwenEngine
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.serving import OpenAIServer
+
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="smoke_http_", dir=root))
+    try:
+        videos = write_videos(tmp, "http", HTTP_VIDEOS, HTTP_VIDEO_SECONDS,
+                              HTTP_VIDEO_FPS, seed=5, shift=5)
+        rng = np.random.default_rng(6)
+        words = [f"word{i}" for i in range(5000)]
+        questions = ("how many chairs are in the room",
+                     "what is left of the table", "where is the door")
+        convs = [[{"role": "user", "content": [
+            {"type": "video", "video": path},
+            {"type": "text", "text": q}]}] for path, q in zip(videos, questions)]
+        convs += [[{"role": "user", "content": " ".join(rng.choice(words, n))}]
+                  for n in (200, 150, 120)]
+        # one video request streams, the last text one is a plain completion
+        stream_i, plain_i = 0, len(convs) - 1
+        max_new = SERVE_GEN_KW["max_new_tokens"]
+        server = OpenAIServer(cfg, params, proc, slots=HTTP_SLOTS,
+                              prompt_len=HTTP_PROMPT_LEN,
+                              max_new_tokens=max_new, temperature=0.0)
+        submitted, admitted, streamed = {}, {}, []
+        submit, admit = server.loop.submit, server.batcher.admit
+
+        def timed_submit(request, *a, **kw):
+            t = time.perf_counter()
+            pending = submit(request, *a, **kw)
+            submitted[id(pending)] = t
+            if kw.get("stream"):
+                streamed.append(pending)
+            return pending
+
+        def timed_admit(admissions):
+            admit(admissions)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            for pending, *_ in admissions:
+                admitted[id(pending)] = now
+
+        server.loop.submit, server.batcher.admit = timed_submit, timed_admit
+        results = [None] * len(convs)
+
+        def client(i):
+            t0 = time.perf_counter()
+            conv = convs[i]
+            if i == stream_i:
+                status, text, first, finish, done = _http_stream(
+                    port, {"messages": conv, "max_tokens": max_new}, t0)
+                results[i] = dict(status=status, text=text, sse_ttft=first,
+                                  finish=finish, done=done)
+            elif i == plain_i:
+                status, body = _http(port, "POST", "/v1/completions", {
+                    "prompt": conv[0]["content"], "max_tokens": max_new})
+                results[i] = dict(status=status, body=body, text=(
+                    body.get("choices") or [{}])[0].get("text"))
+            else:
+                status, body = _http(port, "POST", "/v1/chat/completions", {
+                    "messages": conv, "max_tokens": max_new})
+                results[i] = dict(status=status, body=body, text=(
+                    body.get("choices") or [{}])[0].get("message", {}).get(
+                        "content"))
+            results[i]["wall"] = time.perf_counter() - t0
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        port = server.start()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(convs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        died = server.loop.died
+        final = None
+        if streamed and streamed[0].output is not None:
+            out = streamed[0].output
+            final = server._decode_text(out.sequences[:out.length])
+        order = sorted(submitted, key=submitted.get)
+        ttft = [admitted.get(k, float("nan")) - submitted[k] for k in order]
+        server.stop()
+        alive = server.loop._thread.is_alive()
+        try:
+            _http(port, "GET", "/health", timeout=10)
+            refused = False
+        except OSError:
+            refused = True
+        statuses = [r and r["status"] for r in results]
+        log(f"http: {len(convs)} concurrent requests ({HTTP_VIDEOS} video, "
+            f"{len(convs) - HTTP_VIDEOS} text) through {HTTP_SLOTS} slots, "
+            f"wall {wall:.2f} s | statuses {statuses} | server-side TTFT s "
+            f"(submit -> admitted), in submission order "
+            f"{[round(x, 3) for x in ttft]} | wall s per request "
+            f"{[round(r['wall'], 3) for r in results if r]} | SSE first delta "
+            f"{results[stream_i] and results[stream_i]['sse_ttft']} s")
+        log(f"http: launches {counts} | loop died: {died} | after stop: "
+            f"serving thread alive {alive}, port refuses {refused}")
+        if statuses != [200] * len(convs) or died:
+            raise RuntimeError(f"http: statuses {statuses}, loop died {died}:"
+                               f" {[r.get('body') for r in results if r]}")
+        sse = results[stream_i]
+        if not (sse["done"] and sse["finish"] in ("stop", "length")
+                and final is not None and sse["text"] == final):
+            raise RuntimeError(f"http: the streamed deltas {sse['text']!r} "
+                               f"(done {sse['done']}, finish {sse['finish']})"
+                               f" are not the request's final text {final!r}")
+        if alive or not refused:
+            raise RuntimeError("http: the server did not shut down cleanly")
+        if min(counts[k] for k in HTTP_KERNELS) < 1:
+            raise RuntimeError(f"http: a kernel of the path was never "
+                               f"launched: {counts}")
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same conversations through generate_many (its own prompt
+        # buckets: the text prompts pad to 512, not HTTP_PROMPT_LEN)
+        texts = QwenEngine(cfg, params, proc).generate_many(
+            convs, **SERVE_GEN_KW)
+        agree = _token_agreement([r["text"] for r in results], texts)
+        log(f"http vs generate_many: {sum(x == 1 for x in agree)} of "
+            f"{len(agree)} answers identical, token agreement per request "
+            f"{[round(x, 4) for x in agree]} (not gated)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def serve_forced_drafts(cfg, params, requests, decode_quant, *,
+                        prompt_len=HTTP_PROMPT_LEN, k=SPEC_K,
+                        steps=SPEC_CHECK_STEPS, tol=BF16_TOL) -> dict:
+    """The speculative block step (serving/speculative.py spec_decode_step)
+    held against the sequential clock-ring step (K5) with forced drafts:
+    the requests are admitted into two batchers of len(requests) slots (no
+    EOS, so no row stops); the sequential one runs kb * steps ring steps
+    (kb = 1 + k), recording every step's logits; the speculative one then
+    takes `steps` block steps whose drafts are the sequential path's own
+    greedy tokens, advancing along that path.  Each block position's logits
+    are held against the sequential step's that predicts the same token
+    (forced_draft_stats, gated by log_forced_drafts), and at the first step
+    a kb = 1 block tells the attention's share of the difference from the
+    GEMM row count's (control_stats).  -> stats, the block's and the ring's
+    ms per step included."""
+    import spacer_tpu_torch.serving.batcher as bm
+    from spacer_tpu_torch.serving import ContinuousBatcher
+    from spacer_tpu_torch.serving.speculative import spec_decode_step
+
+    kb = 1 + k
+    R = len(requests)
+    kw = dict(slots=R, prompt_len=prompt_len, max_new_tokens=kb * steps + 1,
+              eos_token_id=-1, temperature=0.0, decode_quant=decode_quant,
+              chunk_steps=kb * steps)
+    wave = [(i, req, kw["max_new_tokens"], i) for i, req in enumerate(requests)]
+    seq = ContinuousBatcher(cfg, params, **kw)
+    logits, ring_ms = [], []
+    sample, step = bm.sample_logits, bm.ragged_decode_step
+
+    def recorded(lg, *a, **kw2):
+        logits.append(lg.float())
+        return sample(lg, *a, **kw2)
+
+    def timed(*a, **kw2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*a, **kw2)
+        torch.cuda.synchronize()
+        ring_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    bm.sample_logits, bm.ragged_decode_step = recorded, timed
+    try:
+        seq.admit(wave)
+        seq.decode_chunk()
+    finally:
+        bm.sample_logits, bm.ragged_decode_step = sample, step
+    tokens = seq.out.clone()
+    del seq
+    if len(logits) != 1 + kb * steps:
+        raise RuntimeError(f"forced drafts: the sequential run sampled "
+                           f"{len(logits)} times, expected {1 + kb * steps}")
+    spec = ContinuousBatcher(cfg, params, speculate_k=k, **kw)
+    spec.admit(wave)
+    if not torch.equal(spec.cur, tokens[:, 0]):
+        raise RuntimeError("forced drafts: the admissions sampled other "
+                           "first tokens")
+    model = spec.decode_model
+    ar = torch.arange(kb, device=tokens.device)
+    st = dict(err=0.0, outside=0, elements=0, cos_min=1.0, clear=0, missed=0,
+              agree=0, positions=0, block_ms=[])
+    for s in range(steps):
+        t = spec.t
+        first = int(t[0])
+        drafts = tokens[:, first:first + k]
+        toks = torch.cat([spec.cur[:, None], drafts], dim=1)
+        pos = (prompt_len + spec.delta + t - 1)[:, None] + ar
+
+        def block(n):
+            with torch.no_grad():
+                return spec_decode_step(
+                    model["layers"], model, cfg.text, toks[:, :n],
+                    pos[None, :, :n].expand(3, R, n), spec.caches, spec.pmask,
+                    t, ~spec.done).float()
+
+        control = block(1) if s == 0 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = block(kb)
+        torch.cuda.synchronize()
+        st["block_ms"].append((time.perf_counter() - t0) * 1e3)
+        # block position i predicts token t + i, as the ring step whose
+        # logits are logits[t + i]
+        ref = torch.stack(logits[first:first + kb], dim=1)
+        st.update(forced_draft_stats(st, lg, ref, drafts, tol))
+        if control is not None:
+            st.update(control_stats(control[:, 0], lg[:, 0], ref[:, 0], tol))
+        # advance along the sequential path (every draft taken)
+        spec.cur = tokens[:, first + k]
+        spec.t = t + kb
+    del spec
+    st["ring_ms"] = statistics.median(ring_ms)
+    st["block_ms"] = statistics.median(st["block_ms"])
+    return st
+
+
+def forced_draft_stats(st: dict, lg, ref, drafts, tol) -> dict:
+    """One forced-draft block against the sequential logits `ref` of the
+    same positions: st's running max error, elements outside
+    tol * (1 + |ref|) of all compared, min cosine per position, drafts
+    accepted, and the drafts whose sequential top-2 margin exceeds tol
+    (`clear`) that were rejected (`missed`)."""
+    k = drafts.shape[1]
+    diff = (lg - ref).abs()
+    top = ref[:, :k].topk(2, dim=-1).values
+    clear = (top[..., 0] - top[..., 1]) > tol * (1 + top[..., 0].abs())
+    hit = lg[:, :k].argmax(-1) == drafts
+    return dict(
+        err=max(st["err"], float(diff.max())),
+        outside=st["outside"] + int((diff > tol * (1 + ref.abs())).sum()),
+        elements=st["elements"] + diff.numel(),
+        cos_min=min(st["cos_min"], float(
+            torch.nn.functional.cosine_similarity(lg, ref, dim=-1).min())),
+        clear=st["clear"] + int(clear.sum()),
+        missed=st["missed"] + int((clear & ~hit).sum()),
+        agree=st["agree"] + int(hit.sum()),
+        positions=st["positions"] + hit.numel())
+
+
+def control_stats(one, block0, seq0, tol) -> dict:
+    """Where a forced-draft block's differences come from, at its first
+    position: the block step run with kb = 1 (the sequential step's GEMM
+    rows, the block's attention) against the sequential step ("attn"), and
+    the kb-token block against that kb = 1 step (the same attention code,
+    GEMMs at R * kb rows; "rows").  Max abs error and elements outside
+    tol * (1 + |x|) of each."""
+    out = {}
+    for name, a, b in (("attn", one, seq0), ("rows", block0, one)):
+        diff = (a - b).abs()
+        out[f"{name}_err"] = float(diff.max())
+        out[f"{name}_outside"] = int((diff > tol * (1 + b.abs())).sum())
+    return out
+
+
+def log_forced_drafts(tag, st, rows):
+    """Logs a forced-draft check's stats and applies its gate (see
+    SPEC_COS_TOL)."""
+    log(f"{tag} forced drafts: {SPEC_CHECK_STEPS} block steps x {rows} rows "
+        f"x kb {1 + SPEC_K}: logits max_abs_err {st['err']:.3e}, "
+        f"{st['outside']} of {st['elements']} elements outside "
+        f"{BF16_TOL:.0e} * (1 + |x|) (not gated), cosine min "
+        f"{st['cos_min']:.5f} (tol {SPEC_COS_TOL}) | drafts accepted {st['agree']} of "
+        f"{st['positions']}, {st['missed']} rejected of the {st['clear']} "
+        f"with a top-2 margin over the tolerance | block step "
+        f"{st['block_ms']:.2f} ms (M = {rows * (1 + SPEC_K)} rows) vs "
+        f"sequential step {st['ring_ms']:.2f} ms | first position, kb = 1 "
+        f"block vs sequential (attention alone): max_abs_err "
+        f"{st['attn_err']:.3e}, {st['attn_outside']} outside; kb = "
+        f"{1 + SPEC_K} vs kb = 1 (GEMM rows alone): {st['rows_err']:.3e}, "
+        f"{st['rows_outside']} outside")
+    if st["missed"] or not st["cos_min"] >= SPEC_COS_TOL:
+        raise RuntimeError(f"{tag}: the block step disagrees with the "
+                           "sequential step")
+
+
+def spec_serve_phase(cfg, params, proc, msgs) -> dict:
+    """Phase 4d: speculative serving (speculate_k = SPEC_K) at the serving
+    slice's geometry, bf16 and int4_kv.  First the forced-draft check
+    (serve_forced_drafts) over SPEC_CHECK_STEPS block steps at the 4 slots
+    of msgs' requests in one prompt bucket; then generate_many on msgs with
+    and without speculation: acceptance (spec_stats tokens per row-step),
+    ms per block step against ms per ring step, tok/s, and the token
+    agreement of the two (not gated).  Returns the launches of each
+    speculative generate_many."""
+    import spacer_tpu_torch.serving.speculative as spec_mod
+    from spacer_tpu_torch.evalharness import QwenEngine
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    paths = {}
+    requests = [QwenEngine(cfg, params, proc).encode_request(m) for m in msgs]
+    for quant, kernels in ((None, SPEC_SERVE_KERNELS),
+                           ("int4_kv", SPEC_SERVE_INT4_KV_KERNELS)):
+        tag = f"spec[{quant or 'bf16'}]"
+        gc.collect()
+        torch.cuda.empty_cache()
+        log_forced_drafts(tag, serve_forced_drafts(cfg, params, requests,
+                                                   quant), len(requests))
+        runs = {}
+        for k in (0, SPEC_K):
+            engine = QwenEngine(cfg, params, proc, decode_quant=quant,
+                                speculate_k=k)
+            block_ms, block_bad, step = [], [], spec_mod.spec_decode_step
+
+            def timed(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*a, **kw)
+                torch.cuda.synchronize()
+                block_ms.append((time.perf_counter() - t0) * 1e3)
+                if not bool(torch.isfinite(out).all()):
+                    block_bad.append(len(block_ms))
+                return out
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            spec_mod.spec_decode_step = timed
+            reset_launch_counts()
+            try:
+                with SliceProbe() as probe:
+                    t0 = time.perf_counter()
+                    texts = engine.generate_many(msgs, **SERVE_GEN_KW)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                spec_mod.spec_decode_step = step
+            stats = [b.spec_stats for b in engine._batchers.values()]
+            runs[k] = dict(texts=texts, wall=wall, tokens=sum(probe.lengths),
+                           ring_ms=probe.decode_ms, block_ms=block_ms,
+                           steps=sum(s["steps"] for s in stats),
+                           emitted=sum(s["tokens"] for s in stats),
+                           nonfinite=probe.nonfinite + len(block_bad),
+                           counts=launch_counts(),
+                           lengths=probe.lengths)
+            del engine
+        base, sp = runs[0], runs[SPEC_K]
+        agree = _token_agreement(base["texts"], sp["texts"])
+        log(f"{tag} generate_many: speculative {sp['tokens']} tokens in "
+            f"{sp['wall']:.2f} s ({sp['tokens'] / sp['wall']:.1f} tok/s), "
+            f"acceptance {sp['emitted']} tokens / {sp['steps']} row-steps = "
+            f"{sp['emitted'] / max(sp['steps'], 1):.3f}, block step median "
+            f"{statistics.median(sp['block_ms']):.2f} ms over "
+            f"{len(sp['block_ms'])} | sequential {base['tokens']} tokens in "
+            f"{base['wall']:.2f} s ({base['tokens'] / base['wall']:.1f} "
+            f"tok/s), ring step median {statistics.median(base['ring_ms']):.2f}"
+            f" ms | token agreement per request "
+            f"{[round(x, 4) for x in agree]} (not gated) | launches "
+            f"{sp['counts']}")
+        if (len(sp["lengths"]) != len(msgs) or min(sp["lengths"]) < 1
+                or sp["nonfinite"] or not sp["block_ms"] or sp["ring_ms"]):
+            raise RuntimeError(f"{tag}: lengths {sp['lengths']}, "
+                               f"{sp['nonfinite']} non-finite, "
+                               f"{len(sp['block_ms'])} block and "
+                               f"{len(sp['ring_ms'])} ring steps")
+        if min(sp["counts"][k] for k in kernels) < 1:
+            raise RuntimeError(f"{tag}: a kernel of the path was never "
+                               f"launched: {sp['counts']}")
+        paths[f"serve spec {quant or 'bf16'}"] = sp["counts"]
+    return paths
 
 
 def _leaves(tree):
@@ -1348,7 +1898,7 @@ def make_trainer(cfg, device, steps: int, out_dir: str,
     return trainer, names
 
 
-def train_slice(cfg, device="cuda") -> dict:
+def train_slice(cfg, device="cuda", phases=PHASES) -> dict:
     """Phases 5 and 5b: two SG-RLVR optimizer steps through
     SGRLVRTrainer.train at the widths of `cfg` (make_trainer): merged
     int8_kv rollout (K1 prefill + K2-int8 decode, held against its plain
@@ -1357,7 +1907,8 @@ def train_slice(cfg, device="cuda") -> dict:
     int8-moment AdamW update.  The first update is replayed with plain
     attention (replay_first_step); the replay's time is reported apart from
     the steps'.  Then one bf16 rollout of the first step's batch
-    (rollout_bf16).  Returns {path: {kernel id: count}}."""
+    (rollout_bf16) and, if selected, phase 5c on that batch
+    (spec_rollout_phase).  Returns {path: {kernel id: count}}."""
     from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
 
     out_dir = str(pathlib.Path(__file__).resolve().parent / "build" / "smoke_train")
@@ -1456,8 +2007,11 @@ def train_slice(cfg, device="cuda") -> dict:
     remat_counts = remat_modes(trainer, names, first["batch"], first["kw"])
     first.clear()
     a, kw = rollouts[0]
-    return {"train int8_kv": counts, "train remat modes": remat_counts,
-            "rollout bf16": rollout_bf16(trainer, a, kw)}
+    paths = {"train int8_kv": counts, "train remat modes": remat_counts,
+             "rollout bf16": rollout_bf16(trainer, a, kw)}
+    if "5c" in phases:
+        paths.update(spec_rollout_phase(trainer, a, kw))
+    return paths
 
 
 def remat_modes(trainer, names, batch, kw) -> dict:
@@ -1561,6 +2115,154 @@ def rollout_bf16(trainer, args, kwargs) -> dict:
         raise RuntimeError(f"a kernel of the bf16 rollout was never launched: "
                            f"{counts}")
     return counts
+
+
+def rollout_forced_drafts(trainer, args, kwargs, decode_quant, *, k=SPEC_K,
+                          steps=SPEC_CHECK_STEPS, tol=BF16_TOL) -> dict:
+    """The speculative grouped block step (sampler/speculating.py
+    _spec_grouped_step) held against the sequential grouped step (K2 /
+    K2-int8) with forced drafts, on the rollout batch `args` / `kwargs`:
+    Sampler.generate decodes greedily kb * steps + 1 tokens (kb = 1 + k),
+    recording every sampled step's logits and the decode loop's prefix
+    caches; block steps over fresh tails then take the sequential tokens as
+    drafts and advance along that path.  The tolerances are
+    serve_forced_drafts'.  -> stats, with the block's and the sequential
+    step's ms."""
+    import spacer_tpu_torch.sampler.sampler as sm
+    from spacer_tpu_torch.sampler import Sampler
+    from spacer_tpu_torch.sampler.speculating import _spec_grouped_step
+
+    kb = 1 + k
+    sampler = Sampler(trainer.cfg, eos_token_id=trainer.sampler.eos_token_id,
+                      pad_token_id=trainer.sampler.pad_token_id,
+                      length_bucket=trainer.sampler.length_bucket,
+                      decode_quant=decode_quant)
+    args = (*args[:2], trainer.params, *args[3:])
+    kwargs = dict(kwargs, max_new_tokens=kb * steps + 1, temperature=0.0,
+                  top_p=1.0)
+    captured, logits, seq_ms = {}, [], []
+    loop, sample, step = sm._decode_loop, sm.sample_logits, \
+        sm.lm_decode_step_split
+
+    def capture(model, text_cfg, prefix, tails, prefix_mask, first, deltas,
+                prompt_len, group, *rest):
+        captured.update(model=model, prefix=prefix, prefix_mask=prefix_mask,
+                        first=first.clone(), deltas=deltas, S=prompt_len,
+                        G=group, tails=[tuple(torch.zeros_like(x) for x in e)
+                                        for e in tails])
+        return loop(model, text_cfg, prefix, tails, prefix_mask, first,
+                    deltas, prompt_len, group, *rest)
+
+    def recorded(lg, *a, **kw):
+        logits.append(lg.float())
+        return sample(lg, *a, **kw)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*a, **kw)
+        torch.cuda.synchronize()
+        seq_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    sm._decode_loop, sm.sample_logits, sm.lm_decode_step_split = \
+        capture, recorded, timed
+    try:
+        out = sampler.generate(*args, **kwargs)
+    finally:
+        sm._decode_loop, sm.sample_logits, sm.lm_decode_step_split = \
+            loop, sample, step
+    if len(logits) != 1 + kb * steps:
+        raise RuntimeError(f"rollout forced drafts: {len(logits)} sampled "
+                           f"steps, expected {1 + kb * steps}")
+    c = captured
+    model, dev = c["model"], c["first"].device
+    tokens = torch.as_tensor(out.sequences, device=dev)
+    N = tokens.shape[0]
+    t = torch.ones((N,), dtype=torch.long, device=dev)
+    cur = c["first"].long()
+    ar = torch.arange(kb, device=dev)
+    active = torch.ones((N,), dtype=torch.bool, device=dev)
+    st = dict(err=0.0, outside=0, elements=0, cos_min=1.0, clear=0, missed=0,
+              agree=0, positions=0, block_ms=[])
+    for s in range(steps):
+        first = int(t[0])
+        drafts = tokens[:, first:first + k]
+        toks = torch.cat([cur[:, None], drafts], dim=1)
+        pos = (c["S"] + c["deltas"] + t - 1)[:, None] + ar
+
+        def block(n):
+            with torch.no_grad():
+                return _spec_grouped_step(
+                    model["layers"], model, trainer.cfg.text, toks[:, :n],
+                    pos[None, :, :n].expand(3, N, n), c["prefix"],
+                    c["prefix_mask"], c["tails"], t, active, c["G"]).float()
+
+        control = block(1) if s == 0 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = block(kb)
+        torch.cuda.synchronize()
+        st["block_ms"].append((time.perf_counter() - t0) * 1e3)
+        ref = torch.stack(logits[first:first + kb], dim=1)
+        st.update(forced_draft_stats(st, lg, ref, drafts, tol))
+        if control is not None:
+            st.update(control_stats(control[:, 0], lg[:, 0], ref[:, 0], tol))
+        cur, t = tokens[:, first + k], t + kb
+    st["ring_ms"] = statistics.median(seq_ms)
+    st["block_ms"] = statistics.median(st["block_ms"])
+    return st
+
+
+def spec_rollout_phase(trainer, args, kwargs) -> dict:
+    """Phase 5c: speculative rollouts (speculate_k = SPEC_K) of phase 5's
+    first rollout batch on the trained params, at int8_kv (the trainer's
+    default) and bf16: the forced-draft check (rollout_forced_drafts) over
+    SPEC_CHECK_STEPS block steps, then Sampler.generate with and without
+    speculation at the trainer's sampling settings: acceptance and seconds
+    of each.  Returns the launches of each speculative rollout."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.sampler import Sampler
+
+    paths = {}
+    gen_args = (*args[:2], trainer.params, *args[3:])
+    for quant in ("int8_kv", None):
+        tag = f"rollout spec[{quant or 'bf16'}]"
+        gc.collect()
+        torch.cuda.empty_cache()
+        st = rollout_forced_drafts(trainer, args, kwargs, quant)
+        log_forced_drafts(tag, st, args[0].shape[0] * kwargs["num_generations"])
+        sampler = Sampler(trainer.cfg,
+                          eos_token_id=trainer.sampler.eos_token_id,
+                          pad_token_id=trainer.sampler.pad_token_id,
+                          length_bucket=trainer.sampler.length_bucket,
+                          decode_quant=quant)
+        runs = {}
+        for k in (0, SPEC_K):
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = sampler.generate(*gen_args, speculate_k=k, **kwargs)
+            torch.cuda.synchronize()
+            runs[k] = dict(wall=time.perf_counter() - t0, out=out,
+                           counts=launch_counts())
+        base, sp = runs[0], runs[SPEC_K]
+        stats = sp["out"].stats
+        log(f"{tag}: {sp['out'].sequences.shape[0]} completions, "
+            f"{int(sp['out'].lengths.sum())} tokens in {sp['wall']:.2f} s vs "
+            f"sequential {int(base['out'].lengths.sum())} tokens in "
+            f"{base['wall']:.2f} s (temperature "
+            f"{kwargs.get('temperature')}, top_p {kwargs.get('top_p')}) | "
+            f"acceptance {stats['spec_tokens']} tokens / "
+            f"{stats['spec_row_steps']} row-steps = "
+            f"{stats['spec_acceptance']:.3f} | launches {sp['counts']}")
+        if (min(sp["out"].lengths) < 1
+                or min(sp["counts"][k] for k in SPEC_ROLLOUT_KERNELS) < 1):
+            raise RuntimeError(f"{tag}: lengths {sp['out'].lengths}, "
+                               f"launches {sp['counts']}")
+        paths[tag] = sp["counts"]
+    return paths
 
 
 def full_replay_select(cfg):
@@ -2076,17 +2778,8 @@ def write_eval_data(root: pathlib.Path):
     EVAL_VIDEO_SECONDS at EVAL_VIDEO_FPS, written with cv2) and a JSON file
     of 4 rows over them, with questions of differing lengths.
     -> (data file, video directory)."""
-    import cv2
-
-    rng = np.random.default_rng(3)
-    for i in range(2):
-        w = cv2.VideoWriter(str(root / f"v{i}.mp4"),
-                            cv2.VideoWriter_fourcc(*"mp4v"), EVAL_VIDEO_FPS,
-                            (640, 360))
-        base = rng.integers(0, 256, (360, 640, 3), np.uint8)
-        for t in range(EVAL_VIDEO_SECONDS * EVAL_VIDEO_FPS):
-            w.write(np.roll(base, 7 * t, axis=1))
-        w.release()
+    write_videos(root, "v", 2, EVAL_VIDEO_SECONDS, EVAL_VIDEO_FPS, seed=3,
+                 shift=7)
     questions = [
         ("What happens first in the video?", ["a door opens", "a cup falls",
                                               "nothing moves", "a light"]),
@@ -2292,6 +2985,152 @@ def eval_slice(cfg, device="cuda") -> dict:
     return paths
 
 
+class ChunkProbe:
+    """Holds the ViT's K4 calls against chunk_attention_reference on their
+    live inputs, the first `per_shape` calls of each (S, chunk) shape (the
+    plain calls launch nothing), and records the shapes."""
+
+    def __init__(self, per_shape: int = 2):
+        self.per_shape, self.shapes, self.err, self.bad = per_shape, {}, 0.0, 0
+
+    def __enter__(self):
+        import spacer_tpu_torch.models.qwen25_vl.vision as vis
+        from spacer_tpu_torch.ops import vit_window_attention as vwa
+
+        self.vis, self.saved = vis, vis.chunk_attention_hsd
+
+        def checked(q, k, v, wt, scale):
+            out = self.saved(q, k, v, wt, scale)
+            key = (tuple(q.shape), wt)
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            if self.shapes[key] <= self.per_shape:
+                ref = vwa.chunk_attention_reference(q, k, v, wt, scale)
+                diff = (out.float() - ref.float()).abs()
+                self.err = max(self.err, float(diff.max()))
+                self.bad += not bool(
+                    (diff <= BF16_TOL * (1 + ref.float().abs())).all())
+            return out
+
+        vis.chunk_attention_hsd = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.vis.chunk_attention_hsd = self.saved
+
+
+def qwen2_vl_phase(device="cuda") -> dict:
+    """Phase 10: Qwen2-VL-7B (QWEN2_VL_7B: 32 full-attention ViT blocks,
+    LayerNorm, quick_gelu; the 28-layer LM) at full geometry, random bf16
+    weights from seed 0.  The ViT encodes two 16-frame videos of
+    QWEN2_VIDEOS (unequal grids: one K4 call per grid and block), its K4
+    calls held against the plain version per shape (ChunkProbe) and the
+    embeddings against the plain-attention ViT (cosine >= SLICE_COS_TOL per
+    token); the ViT's ms per video alone.  Then generate_many on 2 video +
+    2 text requests (K1, K4, K5; no K3: Qwen2-VL has no windowed block):
+    TTFT per request, decode ms per step and the host gap between steps.
+    Returns the serving path's launches."""
+    from spacer_tpu_torch.data.processor import (
+        MockTokenizer,
+        VLProcessor,
+        pack_vision_inputs,
+    )
+    from spacer_tpu_torch.evalharness import QwenEngine
+    from spacer_tpu_torch.models.qwen25_vl import QWEN2_VL_7B, init_params
+    from spacer_tpu_torch.models.qwen25_vl.model import encode_vision
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = QWEN2_VL_7B
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    log(f"qwen2-vl init: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} "
+        f"B params bf16 in {time.perf_counter() - t0:.1f} s")
+    proc = VLProcessor(MockTokenizer(vocab_size=cfg.text.vocab_size), cfg,
+                       device=device)
+    rng = np.random.default_rng(10)
+    convs = [[{"role": "user", "content": [
+        {"type": "video", "fps": 2.0,
+         "video": rng.integers(0, 256, (*shape, 3), np.uint8)},
+        {"type": "text", "text": q}]}]
+        for shape, q in zip(QWEN2_VIDEOS, ("how many chairs are there",
+                                           "what is on the table"))]
+
+    def pixels(conversations):
+        px, grids = pack_vision_inputs(proc.process_messages(
+            conversations, add_generation_prompt=True))
+        return torch.as_tensor(px, device=device).to(torch.bfloat16), grids
+
+    px, grids = pixels(convs)
+    reset_launch_counts()
+    with ChunkProbe() as probe, torch.no_grad():
+        ve = encode_vision(params, cfg, px, grids)
+        torch.cuda.synchronize()
+    vit_counts = launch_counts()
+    with PlainAttention(), torch.no_grad():
+        ve_plain = encode_vision(params, cfg, px, grids)
+    cos = torch.nn.functional.cosine_similarity(ve.float(), ve_plain.float(),
+                                                dim=-1)
+    per_video = []
+    for conv in convs:
+        px1, g1 = pixels([conv])
+        with torch.no_grad():
+            per_video.append((g1, median_ms(
+                lambda: encode_vision(params, cfg, px1, g1))))
+    log(f"qwen2-vl ViT: grids {grids}, embeddings {tuple(ve.shape)} | K4 vs "
+        f"plain on live inputs: shapes (q, chunk) x calls {probe.shapes}, "
+        f"max_abs_err {probe.err:.3e}, {probe.bad} outside | vs the "
+        f"plain-attention ViT: cosine per token min {float(cos.min()):.5f} "
+        f"median {float(cos.median()):.5f} (tol {SLICE_COS_TOL}) | ms per "
+        f"video alone {[(g, round(ms, 2)) for g, ms in per_video]} | "
+        f"launches {vit_counts}")
+    if tuple(grids) != QWEN2_GRIDS:
+        raise RuntimeError(f"qwen2-vl: video grids {grids}: phase 3 checked "
+                           f"K4 at the chunks of {QWEN2_GRIDS}")
+    if probe.bad or not probe.shapes or len({s for s, _ in probe.shapes}) < 2:
+        raise RuntimeError(f"qwen2-vl: K4 disagrees with its plain version "
+                           f"on {probe.bad} calls, shapes {probe.shapes}")
+    if not float(cos.min()) >= SLICE_COS_TOL or vit_counts["K3"]:
+        raise RuntimeError(f"qwen2-vl: ViT cosine min {float(cos.min())}, "
+                           f"K3 launches {vit_counts['K3']}")
+    del ve, ve_plain, px
+    words = [f"word{i}" for i in range(5000)]
+    msgs = [convs[0], [{"role": "user",
+                        "content": " ".join(rng.choice(words, 200))}],
+            convs[1], [{"role": "user",
+                        "content": " ".join(rng.choice(words, 150))}]]
+    engine = QwenEngine(cfg, params, proc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with SliceProbe() as probe:
+        t0 = time.perf_counter()
+        texts = engine.generate_many(msgs, **SERVE_GEN_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    ttft = sorted(t - t0 for t in probe.admitted)
+    tokens = sum(probe.lengths)
+    log(f"qwen2-vl serve: {len(texts)} completions, lengths {probe.lengths}, "
+        f"wall {wall:.2f} s, {tokens / wall:.1f} generated tok/s | TTFT s "
+        f"(generate_many start -> admission done) {[round(x, 3) for x in ttft]}"
+        f" | ViT ms {[round(x, 2) for x in probe.vit_ms]} | prefill ms per "
+        f"admission {[round(x, 2) for x in probe.prefill_ms]} | decode ms per "
+        f"step median {statistics.median(probe.decode_ms):.2f} over "
+        f"{len(probe.decode_ms)} steps, host gap between steps median "
+        f"{statistics.median(probe.decode_gaps_ms()):.3f} ms | launches "
+        f"{counts} | max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if len(probe.lengths) != len(msgs) or min(probe.lengths) < 1:
+        raise RuntimeError(f"qwen2-vl: a request emitted no token: "
+                           f"{probe.lengths}")
+    if probe.nonfinite:
+        raise RuntimeError(f"qwen2-vl: {probe.nonfinite} non-finite logits")
+    if min(counts[k] for k in QWEN2_KERNELS) < 1 or counts["K3"]:
+        raise RuntimeError(f"qwen2-vl: launches {counts}")
+    return counts
+
+
 SERVE_KERNELS = ("K1", "K3", "K4", "K5")
 SERVE_INT4_KV_KERNELS = ("K1", "K3", "K4", "K5-int8", "K6")
 TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
@@ -2301,6 +3140,13 @@ EVAL_CONTINUOUS_KERNELS = ("K1", "K3", "K4", "K5")
 FULL_TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
 LORA_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K3", "K4")
 SFT_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K3", "K4")
+HTTP_KERNELS = ("K1", "K3", "K4", "K5")
+# the speculative paths decode through the block attention (torch ops),
+# not K5 / K2; under int4_kv their weight products are K6 at M = R * kb
+SPEC_SERVE_KERNELS = ("K1", "K3", "K4")
+SPEC_SERVE_INT4_KV_KERNELS = ("K1", "K3", "K4", "K6")
+SPEC_ROLLOUT_KERNELS = ("K1", "K3", "K4")
+QWEN2_KERNELS = ("K1", "K4", "K5")
 
 # the measured fields of each kernel in the kernels line
 LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2335,39 +3181,70 @@ SOURCES = {
 }
 
 
-def main():
+def main(argv=None):
+    """Every phase (no arguments, as the contract runs it), or with
+    `--phases 3,4c,10` the device facts, the build and those phases only,
+    a development run that prints no kernels line and no result line
+    (4c / 4d run on phase 4's params, 5c after phase 5)."""
+    argv = sys.argv[1:] if argv is None else argv
+    phases = PHASES
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phases":
+            raise SystemExit("usage: chip_smoke.py [--phases 3,4,4c,...]")
+        phases = tuple(argv[1].split(","))
+        unknown = set(phases) - set(PHASES)
+        if unknown or ("5c" in phases and "5" not in phases):
+            raise SystemExit(f"phases {sorted(unknown)} unknown, or 5c "
+                             f"without 5; known: {PHASES}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     smi = device_facts()
     build_kernels()
-    results = check_kernels()
-    results.update(check_training_kernels())
+    results = {}
+    if "3" in phases:
+        results.update(check_kernels())
+        results.update(check_training_kernels())
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
-    paths = serve_slice(QWEN25_VL_7B)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
-        QWEN25_VL_7B.text, num_layers=TRAIN_LM_LAYERS))
-    paths.update(train_slice(train_cfg))
-    gc.collect()
-    torch.cuda.empty_cache()
-    checkpoint_phase()
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths.update(eval_slice(QWEN25_VL_7B))
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts, first, trainer = full_train_slice(QWEN25_VL_7B)
-    paths["train full depth"] = counts
-    paths["lora full depth"] = lora_phase(trainer, first)
-    del trainer, first
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths["sft full depth"] = sft_phase(QWEN25_VL_7B)
+    paths = {}
+    if {"4", "4c", "4d"} & set(phases):
+        paths.update(serve_slice(QWEN25_VL_7B, phases=phases))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "5" in phases:
+        train_cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
+            QWEN25_VL_7B.text, num_layers=TRAIN_LM_LAYERS))
+        paths.update(train_slice(train_cfg, phases=phases))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "6" in phases:
+        checkpoint_phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "7" in phases:
+        paths.update(eval_slice(QWEN25_VL_7B))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "8" in phases:
+        counts, first, trainer = full_train_slice(QWEN25_VL_7B)
+        paths["train full depth"] = counts
+        paths["lora full depth"] = lora_phase(trainer, first)
+        del trainer, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "9" in phases:
+        paths["sft full depth"] = sft_phase(QWEN25_VL_7B)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "10" in phases:
+        paths["qwen2-vl serve"] = qwen2_vl_phase()
     counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
+    if phases != PHASES:
+        log(f"development run of phases {list(phases)}: no kernels line, "
+            "no result")
+        return 0
     kernels = [{"name": SOURCES[k][0], "route": "cuda", "source": SOURCES[k][1],
                 "replaces": SOURCES[k][2], "launches": counts[k],
                 **{f: results[k][f] for f in LINE_FIELDS}}
@@ -2377,6 +3254,7 @@ def main():
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
 
 
 if __name__ == "__main__":

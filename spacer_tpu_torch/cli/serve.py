@@ -1,19 +1,28 @@
-"""Offline batch serving entry point (counterpart of spacer_tpu/cli/serve.py,
-continuous-batching file-in/file-out path).
+"""Serving entry point (counterpart of spacer_tpu/cli/serve.py): the
+file-in/file-out batch path, or with `--http` the OpenAI-compatible online
+server (serving/server.py).
 
-Reads prompts from a jsonl file, streams them through
-QwenEngine.generate_many and writes one completion per row.  Input rows are
-chat-format {"messages": [...]} or shorthand {"prompt": "text",
-"video": "/path.mp4"?, "image": "/path.png"?}; each output row is the
-input row plus a "completion" field.
+The batch path reads prompts from a jsonl file and writes one completion per
+row, through QwenEngine.generate_many (`--serving continuous`, the default:
+decode slots with refill) or QwenEngine.generate (`--serving static`: one
+grouped Sampler.generate per wave).  Input rows are chat-format
+{"messages": [...]} or shorthand {"prompt": "text", "video": "/path.mp4"?,
+"image": "/path.png"?}; each output row is the input row plus a
+"completion" field.
+
+`--speculate_k K` verifies K prompt-lookup drafts per slot and step
+(serving/speculative.py); it needs continuous serving (or --http) and is
+refused with `--serving static` before the model is loaded.
 
 Runs on the card (`--device cuda`, the default) unless given
 `--device cpu`; `--decode_quant int8_kv|int4_kv|...` quantizes the decode
 loop (ops/quant.py).
 
-Example:
+Examples:
     python -m spacer_tpu_torch.cli.serve --random_init true \\
         --input_file prompts.jsonl --slots 8 --decode_quant int4_kv
+    python -m spacer_tpu_torch.cli.serve --random_init true --http \\
+        --port 8000 --prompt_len 1024 --speculate_k 4
 """
 
 from __future__ import annotations
@@ -41,6 +50,14 @@ class ServeConfig:
     # rows per generate_many call (bounds host-side frame memory);
     # 0 = 8 * slots
     wave_size: int = 0
+    serving: str = "continuous"   # "continuous" | "static"
+    # --http: the OpenAI-compatible online server instead of the batch path
+    http: bool = False
+    host: str = "127.0.0.1"
+    port: int = 8000
+    prompt_len: int = 1024        # http: the deployment's prompt bucket
+    # prompt-lookup speculative decoding: drafts verified per step
+    speculate_k: int = 0
 
 
 def _row_to_messages(row: dict) -> list:
@@ -59,11 +76,37 @@ def main(argv=None):
     from spacer_tpu_torch.evalharness.engine import QwenEngine
 
     serve_cfg, model_args = parse_configs((ServeConfig, ModelArgs), argv)
-    if not serve_cfg.input_file:
-        raise SystemExit("--input_file is required")
+    if not serve_cfg.http and not serve_cfg.input_file:
+        raise SystemExit("--input_file is required (or pass --http)")
+    if serve_cfg.serving not in ("continuous", "static"):
+        raise SystemExit(f"--serving {serve_cfg.serving!r}: expected "
+                         "continuous or static")
+    # refused before the (minutes-long) checkpoint load, not on wave 1
+    if (serve_cfg.speculate_k and not serve_cfg.http
+            and serve_cfg.serving != "continuous"):
+        raise SystemExit("--speculate_k requires --serving continuous (the "
+                         "static grouped sampler serves without it)")
     cfg, params, processor = load_model_and_processor(model_args)
+    decode_quant = decode_quant_arg(model_args.decode_quant)
+
+    if serve_cfg.http:
+        from spacer_tpu_torch.serving import OpenAIServer
+
+        server = OpenAIServer(
+            cfg, params, processor,
+            model_name=model_args.model_name_or_path or "spacer",
+            slots=serve_cfg.slots, prompt_len=serve_cfg.prompt_len,
+            max_new_tokens=serve_cfg.max_new_tokens,
+            temperature=serve_cfg.temperature, top_p=serve_cfg.top_p,
+            chunk_steps=serve_cfg.chunk_steps, decode_quant=decode_quant,
+            speculate_k=serve_cfg.speculate_k)
+        print(f"serving {model_args.model_name_or_path or 'model'} on "
+              f"http://{serve_cfg.host}:{serve_cfg.port}/v1", flush=True)
+        server.serve_forever(serve_cfg.host, serve_cfg.port)
+        return None
     engine = QwenEngine(cfg, params, processor, top_p=serve_cfg.top_p,
-                        decode_quant=decode_quant_arg(model_args.decode_quant))
+                        decode_quant=decode_quant,
+                        speculate_k=serve_cfg.speculate_k)
 
     with open(serve_cfg.input_file) as f:
         rows = [json.loads(line) for line in f if line.strip()]
@@ -72,11 +115,16 @@ def main(argv=None):
     with open(serve_cfg.output_file, "w") as out:
         for start in range(0, len(rows), wave):
             batch = rows[start:start + wave]
-            texts = engine.generate_many(
-                [_row_to_messages(r) for r in batch],
-                max_new_tokens=serve_cfg.max_new_tokens,
-                temperature=serve_cfg.temperature, slots=serve_cfg.slots,
-                chunk_steps=serve_cfg.chunk_steps)
+            messages = [_row_to_messages(r) for r in batch]
+            if serve_cfg.serving == "continuous":
+                texts = engine.generate_many(
+                    messages, max_new_tokens=serve_cfg.max_new_tokens,
+                    temperature=serve_cfg.temperature, slots=serve_cfg.slots,
+                    chunk_steps=serve_cfg.chunk_steps)
+            else:
+                texts = engine.generate(
+                    messages, max_new_tokens=serve_cfg.max_new_tokens,
+                    temperature=serve_cfg.temperature)
             for row, text in zip(batch, texts):
                 out.write(json.dumps({**row, "completion": text}) + "\n")
                 n += 1

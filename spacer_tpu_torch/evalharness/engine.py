@@ -4,9 +4,9 @@ of spacer_tpu/evalharness/engine.py).
 QwenEngine.generate is the static path (one Sampler.generate per batch of
 prompts: K1 prefill, K2 decode at one completion per prompt);
 generate_many the continuous one (ContinuousBatcher: K1 prefill, K5
-decode).  Request encoding (spacer_tpu/models/registry.py::encode_request)
-is folded in here for the Qwen2.5-VL family: processor -> rope index -> one
-serving request per conversation.  EchoEngine is a test double that answers
+decode).  Requests are encoded by models/registry.py (processor -> the
+family's rope index -> one serving request per conversation, or one
+padded batch).  EchoEngine is a test double that answers
 without weights.
 """
 
@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from spacer_tpu_torch.data.processor import pack_vision_inputs
-from spacer_tpu_torch.models.qwen25_vl.rope_index import get_rope_index
+from spacer_tpu_torch.models.registry import encode_batch, encode_request
 from spacer_tpu_torch.sampler.sampler import Sampler
 from spacer_tpu_torch.serving.batcher import ContinuousBatcher
 
@@ -23,11 +22,13 @@ from spacer_tpu_torch.serving.batcher import ContinuousBatcher
 class QwenEngine:
     """Batched multimodal generation on the device that holds `params`.
     `decode_quant` (None, "int8", "int8_kv", "int4", "int4_kv") applies to
-    the sampler and to every batcher; call k draws from seed + k."""
+    the sampler and to every batcher; `speculate_k` > 0 makes every batcher
+    speculate (serving/speculative.py: greedy at temperature 0, exact
+    rejection sampling otherwise); call k draws from seed + k."""
 
     def __init__(self, cfg, params, processor, length_bucket: int = 512,
                  top_p: float = 1.0, seed: int = 0,
-                 decode_quant: str | None = None):
+                 decode_quant: str | None = None, speculate_k: int = 0):
         self.cfg = cfg
         self.params = params
         self.processor = processor
@@ -35,6 +36,7 @@ class QwenEngine:
         self.top_p = top_p
         self.seed = seed
         self.decode_quant = decode_quant
+        self.speculate_k = int(speculate_k)
         self._calls = 0
         self._batchers: dict = {}   # geometry key -> ContinuousBatcher
         self.sampler = Sampler(
@@ -45,29 +47,7 @@ class QwenEngine:
     def encode_request(self, conversation: list) -> dict:
         """One conversation -> a serving request (input_ids, attention_mask,
         position_ids, deltas, grid_thw[, vision_kwargs])."""
-        return self._encode([conversation])
-
-    def _encode(self, messages_list) -> dict:
-        """Conversations -> one left-padded batch: input_ids,
-        attention_mask, M-RoPE position_ids and deltas, grid_thw and, where
-        there are images or videos, vision_kwargs (pixels of both
-        modalities in placeholder order)."""
-        enc = self.processor.process_messages(list(messages_list),
-                                              add_generation_prompt=True)
-        pos, deltas = get_rope_index(
-            self.cfg, enc["input_ids"],
-            image_grid_thw=enc.get("image_grid_thw"),
-            video_grid_thw=enc.get("video_grid_thw"),
-            second_per_grid_ts=enc.get("second_per_grid_ts"),
-            attention_mask=enc["attention_mask"],
-        )
-        pixel_values, grid_thw = pack_vision_inputs(enc)
-        req = {"input_ids": enc["input_ids"],
-               "attention_mask": enc["attention_mask"],
-               "position_ids": pos, "deltas": deltas, "grid_thw": grid_thw}
-        if pixel_values is not None:
-            req["vision_kwargs"] = {"pixel_values": pixel_values}
-        return req
+        return encode_request(self.processor, self.cfg, conversation)
 
     def generate(self, messages_list, *, max_new_tokens: int = 128,
                  temperature: float = 0.01) -> list[str]:
@@ -75,7 +55,7 @@ class QwenEngine:
         (left-padded to the length bucket), every row decoding until the
         longest finishes.  With decode_quant, the sampler quantizes the
         weights on every call, as the JAX sampler does."""
-        req = self._encode(messages_list)
+        req = encode_batch(self.processor, self.cfg, messages_list)
         self._calls += 1
         out = self.sampler.generate(
             req["input_ids"], req["attention_mask"], self.params,
@@ -124,7 +104,8 @@ class QwenEngine:
         """Cached per-geometry batcher (least recently used beyond 4 is
         dropped, bounding resident KV).  Cmax is bucketed up to 128s."""
         Cmax = max(128, -(-max_new // 128) * 128)
-        key = (Pmax, Cmax, round(float(temperature), 6), slots, chunk_steps)
+        key = (Pmax, Cmax, round(float(temperature), 6), slots, chunk_steps,
+               self.speculate_k)
         if key in self._batchers:
             self._batchers[key] = self._batchers.pop(key)
         else:
@@ -137,7 +118,7 @@ class QwenEngine:
                 pad_token_id=self.processor.pad_token_id,
                 temperature=temperature, top_p=self.top_p,
                 decode_quant=self.decode_quant, chunk_steps=chunk_steps,
-                seed=self.seed + self._calls)
+                speculate_k=self.speculate_k, seed=self.seed + self._calls)
         return self._batchers[key]
 
 

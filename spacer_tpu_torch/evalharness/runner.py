@@ -50,8 +50,9 @@ class EvalConfig:
     # decode temperature (reference: 0.01 for every benchmark,
     # evaluate.py:106-118).  0.0 = exact greedy
     temperature: float = 0.01
-    # prompt-lookup speculative decoding in the JAX package; kept so its
-    # configs parse, and refused by run_benchmark when nonzero (not ported)
+    # prompt-lookup speculative decoding (serving/speculative.py): draft
+    # tokens verified per step by the engine's batchers (cli/evaluate.py
+    # builds QwenEngine(speculate_k=...)); needs serving="continuous"
     speculate_k: int = 0
 
 
@@ -110,13 +111,6 @@ def _scorer_fn(task: str):
     }[task]
 
 
-def check_unported(cfg: EvalConfig) -> None:
-    if cfg.speculate_k:
-        raise NotImplementedError(
-            f"speculate_k={cfg.speculate_k}: speculative decoding is not "
-            "ported (ROADMAP queue A item 2); pass --speculate_k 0")
-
-
 def run_benchmark(cfg: EvalConfig, engine) -> dict:
     """Run worker shards + merge + score. Returns the metrics dict.
 
@@ -124,7 +118,6 @@ def run_benchmark(cfg: EvalConfig, engine) -> dict:
     TPU host drives all data); in multi-host SPMD each host passes its own
     rank and only rank 0 merges/scores.
     """
-    check_unported(cfg)
     logger = setup_logger(f"eval.{cfg.task}", cfg.output_dir)
     if cfg.task not in SUPPORTED_TASKS:
         raise ValueError(f"unsupported task {cfg.task}")

@@ -1,6 +1,8 @@
-"""Qwen2.5-VL in PyTorch: windowed-attention ViT + M-RoPE language model."""
+"""Qwen2.5-VL and Qwen2-VL in PyTorch: the ViT (windowed or full attention) +
+M-RoPE language model."""
 
 from spacer_tpu_torch.models.qwen25_vl.config import (
+    QWEN2_VL_7B,
     QWEN25_VL_7B,
     Qwen25VLConfig,
     TextConfig,
@@ -22,7 +24,7 @@ from spacer_tpu_torch.models.qwen25_vl.model import (
 from spacer_tpu_torch.models.qwen25_vl.rope_index import get_rope_index
 
 __all__ = [
-    "QWEN25_VL_7B", "Qwen25VLConfig", "TextConfig", "VisionConfig",
+    "QWEN2_VL_7B", "QWEN25_VL_7B", "Qwen25VLConfig", "TextConfig", "VisionConfig",
     "tiny_config", "params_from_jax", "lm_forward", "encode_vision",
     "init_params", "merge_vision_embeds", "get_rope_index",
     "load_params_from_hf", "params_from_torch_state_dict",

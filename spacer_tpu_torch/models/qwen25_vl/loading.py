@@ -1,5 +1,5 @@
-"""HF checkpoint (safetensors) <-> the port's Qwen2.5-VL params
-(counterpart of spacer_tpu/models/qwen25_vl/loading.py).
+"""HF checkpoint (safetensors) <-> the port's Qwen2.5-VL and Qwen2-VL
+params (counterpart of spacer_tpu/models/qwen25_vl/loading.py).
 
 The port's layout is the one `convert.py::params_from_jax` gives: per-layer
 lists ("layers" of the LM, "blocks" of the ViT) of dicts, dense kernels
@@ -7,7 +7,9 @@ lists ("layers" of the LM, "blocks" of the ViT) of dicts, dense kernels
 target device first and transposed there; the ViT's Conv3d patch embed
 (kernel == stride) is a dense kernel over the flattened (C, T, p, p) patch.
 Both transformers layouts load: `model.language_model.*` / `model.visual.*`
-and the legacy `model.*` / `visual.*`.  Files are read and written by
+and the legacy `model.*` / `visual.*`.  The ViT's tensors follow the
+config's arch: Qwen2.5-VL's RMSNorm scales and gate/up/down projections, or
+Qwen2-VL's LayerNorm weight and bias and fc1 / fc2.  Files are read and written by
 `safetensors_io` (no `safetensors` package needed).
 """
 
@@ -31,13 +33,6 @@ def _normalize_key(k: str) -> str:
     k = re.sub(r"^model\.visual\.", "visual.", k)
     k = re.sub(r"^language_model\.model\.", "model.", k)
     return k
-
-
-def _check_arch(cfg: Qwen25VLConfig) -> None:
-    if cfg.vision.arch != "qwen2_5":
-        raise NotImplementedError(
-            f"ViT arch {cfg.vision.arch!r} (Qwen2-VL) is not ported "
-            "(ROADMAP queue A item 3, Qwen2-VL ViT)")
 
 
 def _entries(cfg: Qwen25VLConfig) -> list:
@@ -65,18 +60,25 @@ def _entries(cfg: Qwen25VLConfig) -> list:
         for proj in ("gate_proj", "up_proj", "down_proj"):
             dense(f"{pre}.mlp.{proj}", (*path, "mlp", proj), False)
 
+    qwen2 = v.arch == "qwen2"
+
+    def norm(name, path):
+        out.append((f"{name}.weight", (*path, "scale"), ""))
+        if qwen2:   # LayerNorm
+            out.append((f"{name}.bias", (*path, "bias"), ""))
+
     out.append(("visual.patch_embed.proj.weight",
                 ("visual", "patch_embed", "proj", "kernel"), "patch"))
     for i in range(v.depth):
         pre, path = f"visual.blocks.{i}", ("visual", "blocks", i)
-        for norm in ("norm1", "norm2"):
-            out.append((f"{pre}.{norm}.weight", (*path, norm, "scale"), ""))
+        for name in ("norm1", "norm2"):
+            norm(f"{pre}.{name}", (*path, name))
         for sub in ("qkv", "proj"):
             dense(f"{pre}.attn.{sub}", (*path, "attn", sub), True)
-        for proj in ("gate_proj", "up_proj", "down_proj"):
+        for proj in (("fc1", "fc2") if qwen2
+                     else ("gate_proj", "up_proj", "down_proj")):
             dense(f"{pre}.mlp.{proj}", (*path, "mlp", proj), True)
-    out.append(("visual.merger.ln_q.weight",
-                ("visual", "merger", "ln_q", "scale"), ""))
+    norm("visual.merger.ln_q", ("visual", "merger", "ln_q"))
     dense("visual.merger.mlp.0", ("visual", "merger", "mlp_0"), True)
     dense("visual.merger.mlp.2", ("visual", "merger", "mlp_2"), True)
     return out
@@ -88,7 +90,6 @@ def params_from_torch_state_dict(state: Mapping[str, Any], cfg: Qwen25VLConfig,
     are fetched one at a time (`state` may be a `CheckpointShards`, whose
     `release` is called once a tensor is copied), copied to `device`, cast
     to `dtype` and transposed there."""
-    _check_arch(cfg)
     keymap = {_normalize_key(k): k for k in state.keys()}
     release = getattr(state, "release", None)
     params = {"model": {"layers": [{} for _ in range(cfg.text.num_layers)]},
@@ -121,7 +122,6 @@ def load_params_from_hf(checkpoint_dir: str, cfg: Qwen25VLConfig | None = None,
     if cfg is None:
         with open(os.path.join(checkpoint_dir, CONFIG_FILE)) as f:
             cfg = Qwen25VLConfig.from_hf_config(json.load(f))
-    _check_arch(cfg)
     with st.CheckpointShards(checkpoint_dir) as shards:
         params = params_from_torch_state_dict(shards, cfg, dtype, device)
     return params, cfg
@@ -129,10 +129,43 @@ def load_params_from_hf(checkpoint_dir: str, cfg: Qwen25VLConfig | None = None,
 
 def config_to_hf_dict(cfg: Qwen25VLConfig, torch_dtype: str = "bfloat16") -> dict:
     """An HF-style config.json that `Qwen25VLConfig.from_hf_config` reads
-    back to `cfg`'s text and vision geometry and token ids."""
+    back to `cfg`'s text and vision geometry and token ids: Qwen2.5-VL's, or
+    with arch "qwen2" Qwen2-VL's (model_type "qwen2_vl", whose vision
+    config names the ViT width `embed_dim` and the merger's output
+    `hidden_size`)."""
     t, v = cfg.text, cfg.vision
+    if v.arch == "qwen2":
+        model_type = "qwen2_vl"
+        vision = {
+            "model_type": "qwen2_vl",
+            "depth": v.depth,
+            "embed_dim": v.hidden_size,
+            "mlp_ratio": v.intermediate_size / v.hidden_size,
+            "num_heads": v.num_heads,
+            "in_channels": v.in_channels,
+            "patch_size": v.patch_size,
+            "temporal_patch_size": v.temporal_patch_size,
+            "spatial_merge_size": v.spatial_merge_size,
+            "hidden_size": v.out_hidden_size,
+        }
+    else:
+        model_type = "qwen2_5_vl"
+        vision = {
+            "depth": v.depth,
+            "hidden_size": v.hidden_size,
+            "intermediate_size": v.intermediate_size,
+            "num_heads": v.num_heads,
+            "in_channels": v.in_channels,
+            "patch_size": v.patch_size,
+            "temporal_patch_size": v.temporal_patch_size,
+            "spatial_merge_size": v.spatial_merge_size,
+            "window_size": v.window_size,
+            "fullatt_block_indexes": list(v.fullatt_block_indexes),
+            "out_hidden_size": v.out_hidden_size,
+            "tokens_per_second": v.tokens_per_second,
+        }
     return {
-        "model_type": "qwen2_5_vl",
+        "model_type": model_type,
         "vocab_size": t.vocab_size,
         "hidden_size": t.hidden_size,
         "intermediate_size": t.intermediate_size,
@@ -150,20 +183,7 @@ def config_to_hf_dict(cfg: Qwen25VLConfig, torch_dtype: str = "bfloat16") -> dic
         "vision_start_token_id": cfg.vision_start_token_id,
         "vision_end_token_id": cfg.vision_end_token_id,
         "torch_dtype": torch_dtype,
-        "vision_config": {
-            "depth": v.depth,
-            "hidden_size": v.hidden_size,
-            "intermediate_size": v.intermediate_size,
-            "num_heads": v.num_heads,
-            "in_channels": v.in_channels,
-            "patch_size": v.patch_size,
-            "temporal_patch_size": v.temporal_patch_size,
-            "spatial_merge_size": v.spatial_merge_size,
-            "window_size": v.window_size,
-            "fullatt_block_indexes": list(v.fullatt_block_indexes),
-            "out_hidden_size": v.out_hidden_size,
-            "tokens_per_second": v.tokens_per_second,
-        },
+        "vision_config": vision,
     }
 
 
@@ -174,7 +194,6 @@ def export_to_safetensors(params, cfg: Qwen25VLConfig, path_or_dir: str,
     time.  A path ending in ".safetensors" gets one file; any other path is
     a checkpoint directory that gets config.json and either
     model.safetensors or, with `max_shard_bytes`, HF's shards and index."""
-    _check_arch(cfg)
     v = cfg.vision
     patch_shape = (v.hidden_size, v.in_channels, v.temporal_patch_size,
                    v.patch_size, v.patch_size)

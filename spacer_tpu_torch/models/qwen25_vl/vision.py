@@ -1,5 +1,6 @@
-"""Qwen2.5-VL vision transformer in PyTorch (counterpart of
-spacer_tpu/models/qwen25_vl/vision.py): windowed attention, 2x2 patch merger.
+"""Qwen2.5-VL and Qwen2-VL vision transformers in PyTorch (counterpart of
+spacer_tpu/models/qwen25_vl/vision.py): windowed or full attention, 2x2
+patch merger.
 
 `vision_layout` (the window permutation, padded-window gather/scatter and
 rotary positions per grid) is host numpy, copied verbatim from
@@ -11,6 +12,10 @@ through K4 (chunk_attention_hsd) over the compact frame-chunk order, one
 call per grid when the grids' frame chunks differ (`chunk_runs`: each
 grid's tokens are contiguous in window order, since windows never cross a
 grid).
+Qwen2-VL (`arch="qwen2"`: every block full attention, LayerNorm with bias,
+fc1 -> quick_gelu -> fc2) stays in the native token order with no window
+conversion, and every block's frame-chunk attention is K4 over that order
+(frame chunks occupy the same token ranges in native and window order).
 head_dim 80 stays unpadded.  Both kernels are differentiable (their backward
 recomputes through the plain version), and `remat=True` recomputes each
 block in the backward pass (torch.utils.checkpoint), as JAX's
@@ -28,7 +33,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from spacer_tpu_torch.models.qwen25_vl.config import VisionConfig
-from spacer_tpu_torch.nn.core import dense, dense_init, rms_norm, rms_norm_init
+from spacer_tpu_torch.nn.core import (
+    dense,
+    dense_init,
+    layer_norm,
+    layer_norm_init,
+    quick_gelu,
+    rms_norm,
+    rms_norm_init,
+)
 from spacer_tpu_torch.nn.rope import apply_vision_rope, vision_rope_cos_sin
 from spacer_tpu_torch.ops.vit_window_attention import (
     chunk_attention_hsd,
@@ -195,46 +208,113 @@ def vision_layout(grid_thw, cfg: VisionConfig) -> VisionLayout:
 
 def init_vit_params(cfg: VisionConfig, *, generator: torch.Generator,
                     dtype=torch.float32, device=None) -> Params:
-    """Random Qwen2.5-VL ViT params with spacer_tpu's init scales."""
-    if cfg.arch != "qwen2_5":
-        raise NotImplementedError(f"ViT arch {cfg.arch!r} is not ported")
+    """Random ViT params with spacer_tpu's init scales: Qwen2.5-VL's
+    (RMSNorm, SwiGLU) or, with arch "qwen2", Qwen2-VL's (LayerNorm with
+    bias, fc1 / fc2)."""
     D, I = cfg.hidden_size, cfg.intermediate_size
     merged = D * cfg.spatial_merge_unit
     kw = dict(generator=generator, dtype=dtype, device=device)
+    qwen2 = cfg.arch == "qwen2"
+    norm_init = layer_norm_init if qwen2 else rms_norm_init
 
     def block():
+        if qwen2:
+            mlp = {"fc1": dense_init(D, I, True, **kw),
+                   "fc2": dense_init(I, D, True, **kw)}
+        else:
+            mlp = {"gate_proj": dense_init(D, I, True, **kw),
+                   "up_proj": dense_init(D, I, True, **kw),
+                   "down_proj": dense_init(I, D, True, **kw)}
         return {
-            "norm1": rms_norm_init(D, dtype, device),
-            "norm2": rms_norm_init(D, dtype, device),
+            "norm1": norm_init(D, dtype, device),
+            "norm2": norm_init(D, dtype, device),
             "attn": {"qkv": dense_init(D, 3 * D, True, **kw),
                      "proj": dense_init(D, D, True, **kw)},
-            "mlp": {"gate_proj": dense_init(D, I, True, **kw),
-                    "up_proj": dense_init(D, I, True, **kw),
-                    "down_proj": dense_init(I, D, True, **kw)},
+            "mlp": mlp,
         }
 
     return {
         "patch_embed": {"proj": dense_init(cfg.patch_dim, D, False, **kw)},
         "blocks": [block() for _ in range(cfg.depth)],
         "merger": {
-            "ln_q": rms_norm_init(D, dtype, device),
+            "ln_q": norm_init(D, dtype, device),
             "mlp_0": dense_init(merged, merged, True, **kw),
             "mlp_2": dense_init(merged, cfg.out_hidden_size, True, **kw),
         },
     }
 
 
-def _vit_mlp(mlp, x):
+def _vit_norm(cfg: VisionConfig, params, x):
+    if cfg.arch == "qwen2":
+        return layer_norm(params, x, 1e-6)
+    return rms_norm(params, x, 1e-6)
+
+
+def _vit_mlp(cfg: VisionConfig, mlp, x):
+    if cfg.arch == "qwen2":
+        return dense(mlp["fc2"], quick_gelu(dense(mlp["fc1"], x)))
     return dense(mlp["down_proj"],
                  F.silu(dense(mlp["gate_proj"], x)) * dense(mlp["up_proj"], x))
+
+
+def _merge(params, cfg: VisionConfig, h):
+    """The merger: norm -> group spatial_merge_unit tokens -> linear, exact
+    gelu, linear."""
+    mu = cfg.spatial_merge_unit
+    m = params["merger"]
+    x = _vit_norm(cfg, m["ln_q"], h).reshape(h.shape[0] // mu,
+                                              mu * cfg.hidden_size)
+    return dense(m["mlp_2"], F.gelu(dense(m["mlp_0"], x)))
+
+
+def _run_blocks(params, h, block, remat: bool):
+    """block(h, bp, li) over every ViT block; remat recomputes each block
+    in the backward pass."""
+    remat = remat and torch.is_grad_enabled()
+    for li, bp in enumerate(params["blocks"]):
+        if remat:
+            h = checkpoint(block, h, bp, li, use_reentrant=False)
+        else:
+            h = block(h, bp, li)
+    return h
+
+
+def _vit_forward_full(params: Params, cfg: VisionConfig, pixel_values,
+                      layout: VisionLayout, remat: bool):
+    """Qwen2-VL: every block attends within its frame chunks, in the native
+    token order (JAX's all-full path): K4 once per run of equal chunks
+    (chunk_runs), the run's tokens being one contiguous range."""
+    H, Dh = cfg.num_heads, cfg.head_dim
+    h = dense(params["patch_embed"]["proj"], pixel_values)  # (S, D)
+    S = h.shape[0]
+    pos = torch.as_tensor(layout.pos_hw_native, dtype=torch.long,
+                          device=h.device)
+    cos, sin = vision_rope_cos_sin(pos, Dh, cfg.rope_theta)
+    scale = Dh ** -0.5
+    runs = chunk_runs(layout)
+
+    def block(h, bp, li):
+        x = _vit_norm(cfg, bp["norm1"], h)
+        qkv = dense(bp["attn"]["qkv"], x).reshape(S, 3, H, Dh)
+        q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
+        parts = [chunk_attention_hsd(
+            *(t[a:a + n].transpose(0, 1).contiguous()
+              for t in (q, k, qkv[:, 2])), c, scale)
+            for a, n, c in runs]
+        attn = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        h = h + dense(bp["attn"]["proj"],
+                      attn.transpose(0, 1).reshape(S, H * Dh))
+        return h + _vit_mlp(cfg, bp["mlp"], _vit_norm(cfg, bp["norm2"], h))
+
+    return _merge(params, cfg, _run_blocks(params, h, block, remat))
 
 
 def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
                 layout: VisionLayout, remat: bool = False):
     """pixel_values (S, patch_dim) -> merged embeddings (S / mu, out_hidden)
     in the original (pre-window-permutation) token order."""
-    if cfg.arch != "qwen2_5":
-        raise NotImplementedError(f"ViT arch {cfg.arch!r} is not ported")
+    if len(set(cfg.fullatt_block_indexes)) == cfg.depth:
+        return _vit_forward_full(params, cfg, pixel_values, layout, remat)
     dev = pixel_values.device
     mu = cfg.spatial_merge_unit
     H, Dh = cfg.num_heads, cfg.head_dim
@@ -258,12 +338,12 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
     full_set = set(cfg.fullatt_block_indexes)
     runs = chunk_runs(layout)
 
-    def block(h, bp, full: bool):
-        x = rms_norm(bp["norm1"], h, 1e-6)
+    def block(h, bp, li):
+        x = _vit_norm(cfg, bp["norm1"], h)
         qkv = dense(bp["attn"]["qkv"], x).reshape(S_pad, 3, H, Dh)
         q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
         q, k, v = (t.transpose(0, 1) for t in (q, k, qkv[:, 2]))  # (H, S_pad, Dh)
-        if full:
+        if li in full_set:
             # frame chunks are contiguous in the compact window order; with
             # grids whose chunks differ, one K4 call per grid over the
             # grid's own token range (JAX masks segments over the whole
@@ -278,20 +358,8 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
             attn = window_attention_hsd(q, k, v, bias, wt, scale)
         attn = attn.transpose(0, 1).reshape(S_pad, H * Dh)
         h = h + dense(bp["attn"]["proj"], attn)
-        x = rms_norm(bp["norm2"], h, 1e-6)
-        return h + _vit_mlp(bp["mlp"], x)
+        return h + _vit_mlp(cfg, bp["mlp"], _vit_norm(cfg, bp["norm2"], h))
 
-    remat = remat and torch.is_grad_enabled()
-    for li, bp in enumerate(params["blocks"]):
-        full = li in full_set
-        if remat:
-            h = checkpoint(block, h, bp, full, use_reentrant=False)
-        else:
-            h = block(h, bp, full)
+    h = _run_blocks(params, h, block, remat)
     h = h[to_compact]  # back to the compact window order
-
-    m = params["merger"]
-    x = rms_norm(m["ln_q"], h, 1e-6).reshape(S // mu, mu * cfg.hidden_size)
-    x = F.gelu(dense(m["mlp_0"], x))
-    x = dense(m["mlp_2"], x)
-    return x[idx(layout.reverse_index)]
+    return _merge(params, cfg, h)[idx(layout.reverse_index)]

@@ -2,8 +2,9 @@
 
 One adapter object per family bundles the family-specific seams (positions,
 vision packing / encode / merge) so the sampler, the train step and
-the trainer stay family-agnostic.  Only the Qwen2.5-VL family is ported;
-Aria raises (ROADMAP queue A).
+the trainer stay family-agnostic.  The Qwen family (Qwen2.5-VL and
+Qwen2-VL: the config's vision arch picks the ViT) is ported; Aria raises
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -88,8 +89,8 @@ _CACHE: dict[str, ModelFamily] = {}
 
 def get_family(name_or_model_id: str) -> ModelFamily:
     """Resolve a family by name or HF model-id substring (the reference
-    trainer's dispatch rule): "aria" is not ported, everything else is
-    Qwen2.5-VL."""
+    trainer's dispatch rule): "aria" is not ported, everything else
+    (Qwen2-VL and Qwen2.5-VL alike) is the Qwen family."""
     if "aria" in name_or_model_id.lower():
         raise NotImplementedError(
             "the Aria family is not ported to spacer_tpu_torch (ROADMAP "
@@ -102,3 +103,30 @@ def get_family(name_or_model_id: str) -> ModelFamily:
 def family_for_config(cfg) -> ModelFamily:
     """Resolve from a config object."""
     return get_family(type(cfg).__name__)
+
+
+def encode_batch(processor, cfg, conversations) -> dict:
+    """Conversations (the processor's message schema) -> one left-padded
+    batch: input_ids, attention_mask, the family's rope positions and
+    deltas, grid_thw and, with images or videos, vision_kwargs (pixels of
+    both modalities in placeholder order).  Host numpy throughout when the
+    processor's device is the CPU."""
+    from spacer_tpu_torch.data.processor import pack_vision_inputs
+
+    enc = processor.process_messages(list(conversations),
+                                     add_generation_prompt=True)
+    pos, deltas = family_for_config(cfg).positions(
+        cfg, enc["input_ids"], enc["attention_mask"], enc)
+    pixel_values, grid_thw = pack_vision_inputs(enc)
+    req = {"input_ids": enc["input_ids"],
+           "attention_mask": enc["attention_mask"],
+           "position_ids": pos, "deltas": deltas, "grid_thw": grid_thw}
+    if pixel_values is not None:
+        req["vision_kwargs"] = {"pixel_values": pixel_values}
+    return req
+
+
+def encode_request(processor, cfg, conversation: list) -> dict:
+    """One conversation -> a ContinuousBatcher request: the encode path of
+    QwenEngine.generate_many and the HTTP server (serving/server.py)."""
+    return encode_batch(processor, cfg, [conversation])

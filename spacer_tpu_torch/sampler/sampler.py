@@ -19,6 +19,11 @@ is a host int (K2 reads only live tail chunks), and the all-done early exit
 is checked on the host every few steps (the extra steps only write EOS,
 and the tokens past the JAX exit point are reset to 0 afterwards).
 
+`speculate_k` > 0 replaces the sequential decode with the speculative
+block loop (sampler/speculating.py: prompt-lookup drafts, greedy at
+temperature 0, exact rejection sampling otherwise); SampleOutput.stats then
+holds its acceptance.
+
 Random draws come from a torch.Generator; they differ from jax.random's for
 the same seed, so only the distribution (`filtered_logits`) and greedy
 decoding (temperature 0) are comparable across the two packages.
@@ -197,9 +202,12 @@ def _jax_exit_point(tokens: np.ndarray, eos_token_id: int) -> np.ndarray:
 def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
               deltas, generator, *, num_generations: int,
               max_new_tokens: int, temperature: float, top_p: float,
-              eos_token_id: int, decode_quant=None) -> torch.Tensor:
+              eos_token_id: int, decode_quant=None, speculate_k: int = 0,
+              input_ids=None, pad_token_id: int = 0):
     """Prefill once per prompt (B rows), then the grouped decode loop (its
-    quantized weights and caches are dropped when it returns).
+    quantized weights and caches are dropped when it returns) -> tokens
+    (B*G, max_new), or with speculate_k (drafting from input_ids) the
+    speculative loop's (tokens, [row-steps, emitted tokens]).
     input_embeds: (B, S, D) left-padded."""
     B, S, _ = input_embeds.shape
     G = num_generations
@@ -215,6 +223,13 @@ def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
     model, prefix, tails = _prep_decode(params["model"], cache, B * G,
                                         max_new_tokens, decode_quant)
     del cache
+    if speculate_k:
+        from spacer_tpu_torch.sampler.speculating import spec_decode_loop
+
+        return spec_decode_loop(
+            model, text_cfg, prefix, prompt_mask, tails, first, input_ids,
+            deltas, S, G, max_new_tokens, temperature, top_p, eos_token_id,
+            pad_token_id, speculate_k, generator)
     return _decode_loop(model, text_cfg, prefix, tails, prompt_mask, first,
                         deltas, S, G, max_new_tokens, temperature, top_p,
                         eos_token_id, generator)
@@ -224,10 +239,11 @@ class Sampler:
     """Padding/bucketing around the grouped rollout (spacer_tpu's Sampler).
 
     `decode_quant` is one of DECODE_QUANTS (other values raise ValueError).
-    Configurations the port does not run raise NotImplementedError:
-    speculative decode (`speculate_k > 0`) and a device mesh.  Decode is
-    head-major through K2 / K2-int8 (the kernels on CUDA, their plain
-    versions on the CPU)."""
+    `speculate_k` > 0 (a negative value raises ValueError) decodes with the
+    speculative block loop; generate(speculate_k=...) overrides it per
+    call.  A device mesh is not ported and raises NotImplementedError.
+    Sequential decode is head-major through K2 / K2-int8 (the kernels on
+    CUDA, their plain versions on the CPU)."""
 
     def __init__(self, cfg, eos_token_id: int | None = None,
                  pad_token_id: int | None = None, length_bucket: int = 128,
@@ -239,9 +255,9 @@ class Sampler:
             raise ValueError(
                 f"unknown decode_quant {decode_quant!r} "
                 "(expected None, 'int8', 'int8_kv', 'int4' or 'int4_kv')")
-        if speculate_k:
-            raise NotImplementedError("speculative rollout decode is not "
-                                      "ported (ROADMAP queue A item 2)")
+        self.speculate_k = int(speculate_k or 0)
+        if self.speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
         if mesh is not None:
             raise NotImplementedError("mesh-sharded rollouts are not ported")
         self.cfg = cfg
@@ -263,7 +279,8 @@ class Sampler:
                  pixel_values=None, grid_thw=None,
                  vision_kwargs: dict | None = None, num_generations: int = 1,
                  max_new_tokens: int = 1024, temperature: float = 1.0,
-                 top_p: float = 0.95, seed: int = 0) -> SampleOutput:
+                 top_p: float = 0.95, seed: int = 0,
+                 speculate_k: int | None = None) -> SampleOutput:
         cfg = self.cfg
         input_ids = np.asarray(input_ids)
         if int(np.max(input_ids)) >= cfg.text.vocab_size:
@@ -302,13 +319,23 @@ class Sampler:
         generator = torch.Generator(device=dev).manual_seed(int(seed))
         temp = float(temperature) if temperature is not None else 0.0
         topp = float(top_p) if top_p is not None else 1.0
-        tokens = _generate(
+        spec_k = self.speculate_k if speculate_k is None else int(speculate_k)
+        if spec_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        out = _generate(
             params, cfg.text, embeds, tensor(position_ids),
             tensor(attention_mask, torch.bool), tensor(deltas), generator,
             num_generations=num_generations, max_new_tokens=max_new_tokens,
             temperature=temp, top_p=topp, eos_token_id=self.eos_token_id,
-            decode_quant=self.decode_quant)
-        tokens = _jax_exit_point(tokens.cpu().numpy(), self.eos_token_id)
+            decode_quant=self.decode_quant, speculate_k=spec_k, input_ids=ids,
+            pad_token_id=self.pad_token_id)
+        stats = None
+        if spec_k:
+            tokens, (steps, emitted) = out[0].cpu().numpy(), out[1].tolist()
+            stats = {"spec_row_steps": steps, "spec_tokens": emitted,
+                     "spec_acceptance": emitted / max(steps, 1)}
+        else:
+            tokens = _jax_exit_point(out.cpu().numpy(), self.eos_token_id)
         mask = completion_mask_from_ids(tokens, self.eos_token_id)
         return SampleOutput(sequences=tokens, completion_mask=mask,
-                            lengths=mask.sum(axis=1))
+                            lengths=mask.sum(axis=1), stats=stats)

@@ -18,7 +18,14 @@ layer weights and an untied lm_head for the decode chunks only, once per
 batcher (ops/quant.py; int4 through K6); the admission prefill stays in the
 params' dtype.  "*_kv" holds the prefix and ring caches as int8 codes with
 (R, Hkv, T) f32 scales (attention through K5-int8); admission quantizes
-each slot's prefix.  Speculative decoding is not ported.
+each slot's prefix.
+
+`speculate_k` > 0 replaces the clock-ring steps with prompt-lookup
+speculative block steps (serving/speculative.py): a positional tail in the
+same caches, kb = 1 + speculate_k tokens verified per slot and step, greedy
+at temperature 0 and exact rejection sampling otherwise; admission is
+shared.  `spec_stats` counts the active row-steps and the tokens they
+emitted.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from spacer_tpu_torch.sampler.sampler import (
     sample_logits,
 )
 from spacer_tpu_torch.serving.ragged import ragged_decode_step
+from spacer_tpu_torch.serving.speculative import spec_chunk
 
 
 @dataclasses.dataclass
@@ -64,8 +72,9 @@ class ContinuousBatcher:
             raise ValueError(
                 f"unknown decode_quant {decode_quant!r} "
                 "(expected None, 'int8', 'int8_kv', 'int4' or 'int4_kv')")
-        if speculate_k:
-            raise NotImplementedError("speculative decoding is not ported")
+        self.speculate_k = int(speculate_k)
+        if self.speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
         self.cfg = cfg
         self.params = params
         # the decode chunks' params (quantized once per batcher); the
@@ -101,6 +110,7 @@ class ContinuousBatcher:
                            for _ in range(tc.num_layers)]
         i64 = torch.int64
         self.pmask = zeros((self.R, self.Pmax), torch.bool)
+        self.pids = zeros((self.R, self.Pmax), i64)   # drafting context
         self.delta = zeros((self.R,), i64)
         self.admit_clock = zeros((self.R,), i64)
         self.cur = zeros((self.R,), i64)
@@ -109,6 +119,8 @@ class ContinuousBatcher:
         self.maxnew = zeros((self.R,), i64)
         self.out = zeros((self.R, self.Cmax), i64)
         self.clock = 0
+        # [speculative row-steps run, tokens emitted by them]
+        self.spec = zeros((2,), i64)
         self._slot_req: list = [None] * self.R
 
     # -- request normalization ------------------------------------------
@@ -134,6 +146,13 @@ class ContinuousBatcher:
             pos = np.concatenate([np.ones((3, 1, pad), pos.dtype), pos], 2)
             delta -= pad
         return ids, mask, pos, delta
+
+    def validate_request(self, req: dict) -> None:
+        """Host-side validation of one request (prompt shape, vocabulary
+        range, bucket fit): raises ValueError without touching device
+        state, so the online ServingLoop can fail a malformed request
+        alone at submit time."""
+        self._pad_request(req)
 
     def _admit_wave(self, admissions: list):
         """Admit [(req, budget, slot), ...] with one prefill.  Identical
@@ -208,6 +227,7 @@ class ContinuousBatcher:
         first = sample_logits(logits[:, -1][src_t], self.generator,
                               self.temperature, self.top_p)
         self.pmask[slot_t] = prompt_mask[src_t]
+        self.pids[slot_t] = input_ids[src_t]
         self.delta[slot_t] = delta
         self.admit_clock[slot_t] = self.clock
         self.cur[slot_t] = first
@@ -239,8 +259,14 @@ class ContinuousBatcher:
                           for _tag, req, budget, slot in admissions])
 
     def decode_chunk(self) -> None:
-        """Up to chunk_steps clock-ring steps; stops early once every slot
-        is done (checked before each step, as the JAX while_loop does)."""
+        """Up to chunk_steps clock-ring steps (or speculative block steps
+        with speculate_k); stops early once every slot is done (checked
+        before each step, as the JAX while_loop does)."""
+        if self.speculate_k:
+            spec_chunk(self, self.decode_model["layers"], self.decode_model,
+                       self.cfg.text, chunk_steps=self.chunk_steps,
+                       speculate_k=self.speculate_k)
+            return
         R, Pmax, Cmax = self.R, self.Pmax, self.Cmax
         ring_iota = torch.arange(Cmax, device=self.device)
         rows = torch.arange(R, device=self.device)
@@ -269,6 +295,15 @@ class ContinuousBatcher:
             self.cur = torch.where(was_done, self.cur, nxt)
             self.clock += 1
 
+    @property
+    def spec_stats(self) -> dict:
+        """{"steps", "tokens"} over speculative block row-steps (one active
+        row in one block step, what a sequential decode spends to emit one
+        token): tokens / steps is the mean acceptance including the bonus
+        token; 1.0 means speculation never helped."""
+        steps, tokens = self.spec.tolist()
+        return {"steps": steps, "tokens": tokens}
+
     def poll_finished(self) -> list:
         """(tag, ServedOutput) for slots that finished; frees them."""
         done = self.done.cpu().numpy()
@@ -286,6 +321,15 @@ class ContinuousBatcher:
                                 ServedOutput(sequences=seq, length=length)))
                 self._slot_req[r] = None
         return results
+
+    def poll_progress(self) -> list:
+        """(tag, token_row, t) for every active slot, the streaming feed:
+        token_row[:t] are the emitted tokens (writes stop at done, so at
+        most one trailing EOS).  Fetches the (R, Cmax) token buffer."""
+        ts = self.t.cpu().numpy()
+        out = self.out.cpu().numpy().copy()
+        return [(self._slot_req[r], out[r], int(ts[r]))
+                for r in range(self.R) if self._slot_req[r] is not None]
 
     def run(self, requests: Sequence[dict],
             max_new_tokens: Optional[int] = None) -> list[ServedOutput]:

@@ -19,9 +19,10 @@ trainer's optax.MultiSteps does (train/optimizer.py MultiSteps): each
 host memory between updates (parallel/offload.py); the update streams them
 through the card a moment group at a time.  `save_pretrained` writes an HF
 layout (train/publish.py) and, with `push_to_hub`, uploads it.
-Configurations the port does not run raise NotImplementedError at
-construction: speculative rollouts, a device mesh, and any `attn_impl` /
-`decode_impl` but None.
+`speculate_k` > 0 makes the rollouts speculative (sampler/speculating.py;
+their acceptance is logged as spec_acceptance).  Configurations the port
+does not run raise NotImplementedError at construction: a device mesh, and
+any `attn_impl` / `decode_impl` but None.
 """
 
 from __future__ import annotations
@@ -95,13 +96,12 @@ class SGRLVRConfig:
     decode_impl: Optional[str] = None
     push_to_hub: bool = False
     hub_model_id: str = ""
+    # prompt-lookup speculative rollout decode (sampler/speculating.py):
+    # kb = 1 + speculate_k tokens verified per block step; 0 = off
     speculate_k: int = 0
 
 
 def _unported(args: SGRLVRConfig, mesh):
-    if args.speculate_k:
-        raise NotImplementedError("speculative rollouts (speculate_k > 0) are "
-                                  "not ported (ROADMAP queue A item 2)")
     if mesh is not None:
         raise NotImplementedError("mesh / multi-device training is not ported")
     if args.attn_impl is not None or args.decode_impl is not None:
@@ -154,7 +154,8 @@ class SGRLVRTrainer:
         self.sampler = Sampler(
             cfg, eos_token_id=processor.eos_token_id,
             pad_token_id=processor.pad_token_id,
-            length_bucket=args.prompt_bucket, decode_quant=args.decode_quant)
+            length_bucket=args.prompt_bucket, decode_quant=args.decode_quant,
+            speculate_k=args.speculate_k)
         if args.decode_quant:
             # the JAX trainer's one-line notice: the rollout SAMPLING
             # distribution is quantized; logps and updates are not
@@ -427,6 +428,8 @@ class SGRLVRTrainer:
                 float(np.mean(temporal_flags)) if temporal_flags else 0.5)
         m["reward"].append(float(rewards.mean()))
         m["reward_std"].append(float(group.std(axis=1, ddof=1).mean()))
+        if sample_out.stats and "spec_acceptance" in sample_out.stats:
+            m["spec_acceptance"].append(sample_out.stats["spec_acceptance"])
         m["kl"].append(float(metrics["kl"]))
         m["loss"].append(float(metrics["loss"]))
         m["grad_norm"].append(float(metrics["grad_norm"]))

@@ -4,7 +4,7 @@ multiple-choice row), a tiny random model, one optimizer step, metrics and
 the final checkpoint written, with bf16 and int8_kv rollouts; an unknown
 decode_quant refused; no CPU run without `--device cpu`.  The eval entry
 point over a LongVideoBench JSON file prints the benchmark's metrics, and
-refuses speculative decoding (not ported)."""
+runs speculative decoding with continuous serving only."""
 
 import json
 import os
@@ -135,14 +135,30 @@ def test_evaluate_cli_prints_the_metrics(data_dir, tmp_path):
     assert [d["id"] for d in docs] == [0, 1]
 
 
-def test_evaluate_cli_refuses_speculation(data_dir, tmp_path):
-    """--speculate_k > 0 (speculative decoding, not ported) raises before
-    any model is built."""
-    from spacer_tpu_torch.cli.evaluate import main
+def test_evaluate_cli_refuses_speculation(data_dir, tmp_path, monkeypatch):
+    """--speculate_k with --serving static (the default) is refused with
+    SystemExit before any model is built; with --serving continuous it runs
+    the benchmark through speculating batchers."""
+    import spacer_tpu_torch.cli.evaluate as evaluate
 
-    with pytest.raises(NotImplementedError, match="speculat"):
-        main(_lvb_argv(data_dir, tmp_path / "out", "--device", "cpu",
-                       "--speculate_k", "2"))
+    load = evaluate.load_model_and_processor
+
+    def no_load(args):
+        raise AssertionError("the model was loaded before the refusal")
+
+    monkeypatch.setattr(evaluate, "load_model_and_processor", no_load)
+    with pytest.raises(SystemExit, match="continuous"):
+        evaluate.main(_lvb_argv(data_dir, tmp_path / "out", "--device", "cpu",
+                                "--speculate_k", "2"))
+    monkeypatch.setattr(evaluate, "load_model_and_processor", load)
+    out = tmp_path / "spec"
+    metrics = evaluate.main(_lvb_argv(data_dir, out, "--device", "cpu",
+                                      "--serving", "continuous",
+                                      "--speculate_k", "2"))
+    assert "overall_accuracy" in metrics
+    docs = [json.loads(line)
+            for line in open(out / "LongVideoBench_results.jsonl")]
+    assert [d["id"] for d in docs] == [0, 1]
 
 
 def test_train_grpo_cli_one_step(data_dir, tmp_path):

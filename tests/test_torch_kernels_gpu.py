@@ -147,6 +147,21 @@ def test_window_and_chunk_kernels(dev, chunk):
     _close(out, vwa.chunk_attention_reference(q, k, v, chunk, D ** -0.5))
 
 
+# (S, chunk) of the Qwen2-VL ViT's K4 calls: a 16-frame 360x640 video's
+# 8 chunks of 480 patches, a 240x320 one's 8 of 560 (the serving
+# processor's grid (8, 20, 28)), and images, one chunk of all their patches
+# (448x448: 1024; 1008x1008: 5184)
+@pytest.mark.parametrize("S,chunk", [(3840, 480), (4480, 560), (1024, 1024),
+                                     (5184, 5184)])
+def test_chunk_kernel_at_qwen2_vl_chunks(dev, S, chunk):
+    D = 80
+    q, k, v = (_randn(dev, 16, S, D, seed=i) for i in range(3))
+    before = vwa.chunk_attention_hsd.launches
+    out = vwa.chunk_attention_hsd(q, k, v, chunk, D ** -0.5)
+    assert vwa.chunk_attention_hsd.launches == before + 1
+    _close(out, vwa.chunk_attention_reference(q, k, v, chunk, D ** -0.5))
+
+
 def _vit_window_lengths():
     """Valid tokens per window of the ViT at grid (8, 16, 30): 64 windows of
     wt = 64."""
@@ -608,11 +623,13 @@ def _q4_allowed(p, x, ref):
 
 
 @pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
-@pytest.mark.parametrize("M", [1, 4, 5, 16])
+@pytest.mark.parametrize("M", [1, 4, 5, 16, 20, 40])
 @pytest.mark.parametrize("K,N", K6_7B_SHAPES)
 def test_dense_q4_fused_kernel(dev, K, N, M, bias):
     """dense_q4 on CUDA (row scale, product, column scale, cast, bias in one
-    K6 launch) against its plain composition at every 7B int4 shape."""
+    K6 launch) against its plain composition at every 7B int4 shape; M up
+    to the speculative block step's R * kb rows (20 at 4 slots, 40 at 8,
+    kb = 5): two and three 16-row tiles of x."""
     p = _q4_params(dev, K, N, bias)
     x = _randn(dev, M, K)
     before = im.int4_matmul.launches
@@ -721,3 +738,40 @@ def test_lm_backward_on_the_card_reaches_qkv_projections(dev):
         cos = torch.nn.functional.cosine_similarity(
             g.float().flatten(), r.float().flatten(), dim=0)
         assert float(cos) >= 0.99, float(cos)
+
+
+@pytest.mark.parametrize("quant", [None, "int8_kv", "int4_kv"])
+def test_speculative_block_step_forced_drafts(dev, quant):
+    """The speculative block step on the card (its weight products K6 at
+    M = R * kb under int4_kv) against the sequential K5 ring step with
+    forced drafts (chip_smoke.serve_forced_drafts): a 2-layer model of the
+    7B's head_dim 128, 4 slots of text prompts, 8 block steps of kb 5;
+    every block position's logits within cosine SPEC_COS_TOL of the
+    sequential step's, every draft with a clear top-2 margin accepted."""
+    import dataclasses
+    import sys
+
+    from spacer_tpu_torch.models.qwen25_vl import init_params, tiny_config
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent.parent))
+    import chip_smoke
+
+    base = tiny_config()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, hidden_size=512, intermediate_size=1024, num_heads=4,
+        num_kv_heads=2, mrope_section=(16, 24, 24)))
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(0)
+    requests = []
+    for n in (20, 33, 47, 60):
+        requests.append({
+            "input_ids": rng.integers(10, cfg.text.vocab_size, (1, n)),
+            "attention_mask": np.ones((1, n), np.int32),
+            "position_ids": np.broadcast_to(np.arange(n)[None, None],
+                                            (3, 1, n)).copy()})
+    st = chip_smoke.serve_forced_drafts(cfg, params, requests, quant,
+                                        prompt_len=64)
+    # chip_smoke's gate (SPEC_COS_TOL: the elementwise 2e-2 * (1 + |x|) is
+    # reported there, not gated)
+    assert st["missed"] == 0 and st["cos_min"] >= chip_smoke.SPEC_COS_TOL, st
+    assert st["positions"] == 8 * 4 * 4 and st["clear"] > 0

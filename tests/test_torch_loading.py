@@ -214,9 +214,24 @@ def test_new_hf_prefixes_load_the_same_params(tmp_path):
 
 
 def test_qwen2_vl_checkpoint_is_refused(tmp_path):
+    """A Qwen2-VL checkpoint (once refused, now ported) loads: the port's
+    export in Qwen2-VL's layout (LayerNorm biases, fc1 / fc2, model_type
+    "qwen2_vl") reads back bitwise with its config, and the JAX package
+    loads the same files to the same values."""
     cfg = tiny_config(arch="qwen2")
-    with pytest.raises(NotImplementedError, match="Qwen2-VL"):
-        load_params_from_hf(str(tmp_path), cfg=cfg, device="cpu")
+    params = init_params(cfg, seed=4)
+    export_to_safetensors(params, cfg, str(tmp_path))
+    with open(tmp_path / "config.json") as f:
+        hf = json.load(f)
+    assert hf["model_type"] == "qwen2_vl" and "embed_dim" in hf["vision_config"]
+    loaded, cfg2 = load_params_from_hf(str(tmp_path), dtype=torch.float32,
+                                       device="cpu")
+    assert (cfg2.text, cfg2.vision) == (cfg.text, cfg.vision)
+    _assert_params_equal(loaded, params)
+    jparams, jcfg = jax_load(str(tmp_path), dtype=jnp.float32)
+    assert jcfg.vision.arch == "qwen2"
+    _assert_params_equal(params_from_jax(jax.tree.map(np.asarray, jparams),
+                                         cfg), params)
 
 
 def _hf_name_shapes(tcfg, vcfg):

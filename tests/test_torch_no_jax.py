@@ -1,8 +1,9 @@
 """spacer_tpu_torch stands alone: no module of it (nor the scripts that
 drive it on the card, chip_smoke.py, profile_train.py and profile_serve.py)
-imports jax or spacer_tpu, and the tiny serving slice and one tiny SG-RLVR
-training step run on the CPU through the kernels' plain versions (no
-kernel launch is counted there); a checkpoint round trip needs neither the
+imports jax or spacer_tpu, and the tiny serving slice, one tiny SG-RLVR
+training step and a tiny Qwen2-VL's speculative serving, speculative
+rollout and HTTP server run on the CPU through the kernels' plain versions
+(no kernel launch is counted there); a checkpoint round trip needs neither the
 safetensors nor the transformers package, and the eval harness runs a
 benchmark there."""
 
@@ -125,6 +126,55 @@ EVAL_SCRIPT = textwrap.dedent("""
 """)
 
 
+SERVE_SCRIPT = textwrap.dedent("""
+    import http.client, json, sys
+    for name in ("jax", "jaxlib", "spacer_tpu"):
+        sys.modules[name] = None
+    import numpy as np
+    from spacer_tpu_torch.data import MockTokenizer, VLProcessor
+    from spacer_tpu_torch.evalharness import QwenEngine
+    from spacer_tpu_torch.models.qwen25_vl import init_params, tiny_config
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.sampler import Sampler
+    from spacer_tpu_torch.serving import OpenAIServer
+    cfg = tiny_config(arch="qwen2")
+    params = init_params(cfg)
+    proc = VLProcessor(MockTokenizer(vocab_size=cfg.text.vocab_size), cfg)
+    frames = np.random.default_rng(0).integers(0, 256, (4, 56, 84, 3), np.uint8)
+    msgs = [[{"role": "user", "content": [
+                {"type": "video", "video": frames, "fps": 2.0},
+                {"type": "text", "text": "what moves"}]}],
+            [{"role": "user", "content": "hello hello hello"}]]
+    reset_launch_counts()
+    engine = QwenEngine(cfg, params, proc, length_bucket=64, speculate_k=2)
+    texts = engine.generate_many(msgs, max_new_tokens=6, temperature=0.0,
+                                 slots=2)
+    assert len(texts) == 2
+    req = engine.encode_request(msgs[0])
+    out = Sampler(cfg, length_bucket=64, speculate_k=2).generate(
+        req["input_ids"], req["attention_mask"], params,
+        position_ids=req["position_ids"], deltas=req["deltas"],
+        vision_kwargs=req["vision_kwargs"], grid_thw=req["grid_thw"],
+        num_generations=2, max_new_tokens=6, temperature=0.0)
+    assert out.stats["spec_row_steps"] > 0
+    srv = OpenAIServer(cfg, params, proc, slots=2, prompt_len=64,
+                       max_new_tokens=6, temperature=0.0, speculate_k=2)
+    port = srv.start()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/v1/chat/completions", body=json.dumps(
+        {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 4}))
+    resp = conn.getresponse()
+    assert resp.status == 200, resp.read()
+    srv.stop()
+    assert set(launch_counts().values()) == {0}, launch_counts()
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "spacer_tpu")
+           and sys.modules[m] is not None]
+    assert not bad, bad
+    print("served")
+""")
+
+
 def _run(script, marker):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -139,6 +189,12 @@ def test_port_imports_no_jax_and_runs_on_cpu():
 
 def test_training_step_runs_without_jax_on_cpu():
     _run(TRAIN_SCRIPT, "trained")
+
+
+def test_qwen2_vl_speculation_and_http_run_without_jax():
+    """A tiny Qwen2-VL model: speculative serving and rollout, and an HTTP
+    request to a speculating server, with jax and spacer_tpu blocked."""
+    _run(SERVE_SCRIPT, "served")
 
 
 def test_checkpoint_and_eval_run_without_jax_safetensors_transformers():

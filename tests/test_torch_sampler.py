@@ -105,10 +105,14 @@ def test_greedy_generate_quantized_matches_jax_flash_ref(quant, monkeypatch):
 
 
 def test_unported_configurations_raise():
+    """A device mesh is not ported; speculative decode is (since its port:
+    tests/test_torch_sampler_speculative.py) and constructs."""
     cfg = tiny_config()
-    for kw in (dict(speculate_k=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            Sampler(cfg, **kw)
+    with pytest.raises(NotImplementedError):
+        Sampler(cfg, mesh=object())
+    assert Sampler(cfg, speculate_k=2).speculate_k == 2
+    with pytest.raises(ValueError, match="speculate_k"):
+        Sampler(cfg, speculate_k=-1)
     for quant in (None, "int8", "int8_kv", "int4", "int4_kv"):
         assert Sampler(cfg, decode_quant=quant).decode_quant == quant
     with pytest.raises(ValueError, match="decode_quant"):

@@ -91,17 +91,39 @@ def test_two_training_steps_and_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("over", [
     dict(decode_quant="int2"), dict(decode_quant="int4_v"),
-    dict(speculate_k=2), dict(attn_impl="xla"), dict(decode_impl="flash_ref"),
+    dict(mesh=object()), dict(attn_impl="xla"), dict(decode_impl="flash_ref"),
     dict(attn_impl="pallas"), dict(decode_impl="flash"),
     dict(decode_impl="xla")])
 def test_unported_configurations_raise(tmp_path, over):
     """Unknown decode_quant values raise ValueError (as in the JAX
-    sampler); the configurations the port does not run NotImplementedError
-    (gradient accumulation and offload run since they were ported:
-    tests/test_torch_accumulation.py, test_torch_offload.py)."""
+    sampler); the configurations the port does not run NotImplementedError:
+    a device mesh, any attn_impl / decode_impl (gradient accumulation,
+    offload and speculative rollouts run since they were ported:
+    tests/test_torch_accumulation.py, test_torch_offload.py,
+    test_speculative_rollout_step below)."""
     exc = ValueError if "decode_quant" in over else NotImplementedError
     with pytest.raises(exc):
-        _trainer(tmp_path, **over)
+        if "mesh" in over:
+            cfg = tiny_config()
+            SGRLVRTrainer(cfg, init_params(cfg), VLProcessor(
+                MockTokenizer(vocab_size=cfg.text.vocab_size), cfg),
+                [format_reward], _rows(), SGRLVRConfig(), mesh=over["mesh"])
+        else:
+            _trainer(tmp_path, **over)
+
+
+@pytest.mark.parametrize("quant", [None, "int8_kv"])
+def test_speculative_rollout_step(tmp_path, quant):
+    """speculate_k reaches the rollout sampler: one optimizer step with
+    speculative rollouts, finite metrics, the acceptance logged."""
+    trainer = _trainer(tmp_path, speculate_k=2, decode_quant=quant,
+                       max_steps=1, num_train_epochs=1)
+    assert trainer.sampler.speculate_k == 2
+    trainer.train()
+    rec = json.loads(open(os.path.join(trainer.args.output_dir,
+                                       "metrics.jsonl")).readline())
+    assert np.isfinite(rec["loss"]) and rec["grad_norm"] > 0
+    assert rec["spec_acceptance"] >= 1.0
 
 
 def test_default_config_raises_for_quantised_rollouts(tmp_path, capsys):
