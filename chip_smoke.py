@@ -93,9 +93,23 @@ Phases, in order; any failure raises and the script exits non-zero:
   10. Qwen2-VL-7B at full geometry (32 full-attention ViT blocks): the ViT
      on two videos of unequal grids (K4 per grid, held against its plain
      version live; embeddings against the plain-attention ViT), then
-     generate_many on 2 video + 2 text requests (K1, K4, K5).
+     generate_many on 2 video + 2 text requests (K1, K4, K5);
+  11a. Aria at full ARIA_25B geometry (25.3 B params, random bf16 weights):
+     one 720x1280 image through the AriaProcessor and Sampler.generate
+     (K1 at head_dim 72 in the 27-layer tower and the projector, K1 at the
+     prefill, K2 at group 1), then 4 text requests through generate_many,
+     bf16 (K5) and int4_kv (K5-int8, K6); each run replayed through the
+     plain versions with its own tokens, every sampled step's logits at
+     cosine >= SLICE_COS_TOL; the MoE layer's ms at decode;
+  11b. the GRPO trainer with Aria at full widths, the LM cut to 4 of 28
+     layers: one image row, G = 8, int8_kv rollouts (K2-int8 held live),
+     two optimizer steps (K1 / K1-bwd at group 1, K1 at 72 with the plain
+     backward, the MoE's grouped backward); the first update replayed with
+     plain attention on LM layer 0, tower layer 0 and the projector.
+Phase 3 also checks the kernels at the Aria path's shapes (3c: K1 at
+head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1).
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5c and 7-10, each counted from 0 just
+summed over the paths of phases 4-5c and 7-11, each counted from 0 just
 before it runs); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
@@ -219,7 +233,7 @@ EVAL_NEW_TOKENS = 64
 LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
                "perception_task_accuracy", "relation_task_accuracy"}
 # The phases in the order they run (main's --phases selects some of them)
-PHASES = ("3", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9", "10")
+PHASES = ("3", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9", "10", "11")
 # Phase 4c, the HTTP server: HTTP_VIDEOS video requests over mp4 files of
 # HTTP_VIDEO_SECONDS at HTTP_VIDEO_FPS (16 frames sampled at 2 fps, grid
 # (8, 16, 30) as phase 4's) and as many text requests, through HTTP_SLOTS
@@ -247,6 +261,28 @@ QWEN2_GRIDS = ((8, 16, 30), (8, 20, 28))
 # image's, an image being one chunk of all its patches: 448x448 (grid
 # (1, 32, 32)) and 1008x1008 ((1, 72, 72))
 K4_QWEN2_CHUNKS = ((8 * 560, 560), (32 * 32, 32 * 32), (72 * 72, 72 * 72))
+# Phase 11, Aria (ARIA_25B): a synthetic ARIA_IMAGE_HW image is one
+# 980-pixel crop of 4900 patches whose resized 551 x 980 pixels leave 40 of
+# 70 patch rows live (ARIA_VALID_PATCHES keys), ARIA_QUERIES projector
+# queries; the image rollout and the text serving decode ARIA_NEW_TOKENS.
+# Phase 11b trains the LM cut to ARIA_TRAIN_LM_LAYERS layers on that image
+# (a 270-token prompt, left-padded in the trainer's 512 bucket by
+# ARIA_TRAIN_PROMPT_PAD), ARIA_TRAIN_G completions of up to
+# ARIA_TRAIN_NEW_TOKENS.  (Worked out on the CPU: the processor is
+# deterministic.)  Phase 3c checks the kernels at these shapes.
+ARIA_IMAGE_HW = (720, 1280)
+ARIA_VALID_PATCHES, ARIA_QUERIES = 40 * 70, 256
+ARIA_NEW_TOKENS = 32
+# The image generate's 270-token prompt, left-padded in the sampler's
+# 128-token length bucket (K2 at G = 1, group_q 1 there)
+ARIA_IMAGE_PROMPT_BUCKET, ARIA_IMAGE_PROMPT_PAD = 384, 384 - 270
+# K6 at Aria's int4 decode products (phase 11a's int4_kv serving, M = its 4
+# slots): q/k/v/o 2560 -> 2560, the shared experts' gate/up 2560 -> 3328
+# and down 3328 -> 2560, lm_head 2560 -> 100352
+ARIA_K6_SHAPES = ((2560, 2560), (2560, 3328), (3328, 2560), (2560, 100352))
+ARIA_TRAIN_LM_LAYERS = 4
+ARIA_TRAIN_PROMPT_BUCKET, ARIA_TRAIN_PROMPT_PAD = 512, 512 - 270
+ARIA_TRAIN_G, ARIA_TRAIN_NEW_TOKENS = 8, 128
 # The card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet, at
 # its 700 W limit): HBM bytes per second and dense bf16 tensor-core
 # operations per second.  Every kernel here multiplies bf16 operands (int8
@@ -550,16 +586,17 @@ RAGGED_CASES = {
 }
 
 
-def ragged_decode_case(randn, gen, P, C, plen, tlen, admit):
-    """K5's inputs on R = len(plen) slot rows: row r's prefix live in its
-    last plen[r] of P keys, its ring window the tlen[r] positions from ring
-    index admit[r] on (mod C); bf16 caches for K5, int8 codes + f32 scales
-    of the same values for K5-int8.  -> ({kernel id: args}, kwargs, live
-    rows, {kernel id: (bytes, bf16 operations)})."""
+def ragged_decode_case(randn, gen, P, C, plen, tlen, admit, Hkv=4, gq=7):
+    """K5's inputs on R = len(plen) slot rows of Hkv kv heads and gq query
+    heads each: row r's prefix live in its last plen[r] of P keys, its ring
+    window the tlen[r] positions from ring index admit[r] on (mod C); bf16
+    caches for K5, int8 codes + f32 scales of the same values for K5-int8.
+    -> ({kernel id: args}, kwargs, live rows, {kernel id: (bytes, bf16
+    operations)})."""
     from spacer_tpu_torch.ops import flash_decode as fd
 
     dev = gen.device
-    R, Hkv, gq, D = len(plen), 4, 7, 128
+    R, D = len(plen), 128
     qd = randn(R, Hkv, gq, D)
     pk, pv = randn(R, Hkv, P, D), randn(R, Hkv, P, D)
     tk, tv = randn(R, Hkv, C, D), randn(R, Hkv, C, D)
@@ -585,7 +622,8 @@ def ragged_decode_case(randn, gen, P, C, plen, tlen, admit):
             pmask.any(1) | rmask.any(1), work)
 
 
-def check_ragged_decode(randn, gen, tag, P, C, plen, tlen, admit) -> dict:
+def check_ragged_decode(randn, gen, tag, P, C, plen, tlen, admit, Hkv=4,
+                        gq=7) -> dict:
     """Phase 3, K5 and K5-int8 (results "K5" + tag, "K5-int8" + tag) on
     ragged_decode_case's inputs.  Live rows are held against the plain
     version; rows with no live key must come out exactly 0 (the plain
@@ -593,7 +631,7 @@ def check_ragged_decode(randn, gen, tag, P, C, plen, tlen, admit) -> dict:
     from spacer_tpu_torch.ops import flash_decode as fd
 
     cases, dkw, live, work = ragged_decode_case(randn, gen, P, C, plen, tlen,
-                                                admit)
+                                                admit, Hkv, gq)
     results = {}
     for kid, args in cases.items():
         out = fd.flash_ragged_decode_attention(*args, **dkw)
@@ -602,17 +640,18 @@ def check_ragged_decode(randn, gen, tag, P, C, plen, tlen, admit) -> dict:
                                "rows for slots with no live key")
         results[kid + tag] = compare(
             f"{kid} flash_ragged_decode_attention R={len(plen)} Pmax={P} "
-            f"Cmax={C} ({int(live.sum())} live slots)",
+            f"Cmax={C} Hkv={Hkv} gq={gq} ({int(live.sum())} live slots)",
             lambda: fd.flash_ragged_decode_attention(*args, **dkw),
             lambda: fd.ragged_decode_attention_reference(*args, **dkw),
             lambda x: x[live], work=work[kid])
     return results
 
 
-def check_int4_matmul(gen) -> dict:
-    """Phase 3, K6: every (K, N) of the 7B int4 decode at each M of K6_ROWS
-    (serving slots, rollout rows, speculative blocks), against its plain
-    version: the scale-free
+def check_int4_matmul(gen, shapes=K6_SHAPES, rows=K6_ROWS, tag="") -> dict:
+    """Phase 3, K6: every (K, N) of `shapes` (the 7B int4 decode's by
+    default) at each M of `rows` (by default K6_ROWS: serving slots,
+    rollout rows, speculative blocks), against its plain version: the
+    scale-free
     product (int4_matmul) within the f32 summation-order bound K6_SUM_TOL *
     sum |terms|, and dense_q4 (one launch: row scale, product, column
     scale, cast, bias) within that bound times the column scale plus one
@@ -626,20 +665,20 @@ def check_int4_matmul(gen) -> dict:
 
     dev = gen.device
     results = {}
-    for K, N in K6_SHAPES:
+    for K, N in shapes:
         codes, params = int4_dense_case(gen, K, N)
         packed = params["kernel_q4"]
         row_scale, col_scale = params["q4_row_scale"], params["q4_col_scale"]
         tinygemm = int4pack_yardstick(codes, col_scale)
         w_bf16 = codes.to(torch.bfloat16)
-        for M in K6_ROWS:
+        for M in rows:
             x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
             allowed = (K6_SUM_TOL * (x.float().abs() @ codes.float().abs())
                        + 1e-6)
             q_bytes = K * N // 2 + M * K * 2
             lib = tinygemm(x, False)
-            results[f"K6 M={M} K={K} N={N}"] = compare(
-                f"K6 int4_matmul M={M} K={K} N={N}",
+            results[f"K6{tag} M={M} K={K} N={N}"] = compare(
+                f"K6 int4_matmul{tag} M={M} K={K} N={N}",
                 lambda: im.int4_matmul(x, packed),
                 lambda: im.int4_matmul_reference(x, packed), allowed=allowed,
                 work=(q_bytes + M * N * 4, 2 * M * K * N), library_fn=lib)
@@ -649,19 +688,20 @@ def check_int4_matmul(gen) -> dict:
                        + K6_BF16_ULP * (((xs @ codes.float()) * col_scale).abs()
                                         + ref.float().abs()) + 1e-6)
             lib = tinygemm(x, True)
-            results[f"K6 dense_q4 M={M} K={K} N={N}"] = compare(
-                f"K6 dense_q4 (fused) M={M} K={K} N={N}",
+            results[f"K6{tag} dense_q4 M={M} K={K} N={N}"] = compare(
+                f"K6 dense_q4 (fused){tag} M={M} K={K} N={N}",
                 lambda: quant.dense_q4(params, x),
                 lambda: quant.dense_q4_reference(params, x), allowed=allowed,
                 work=(q_bytes + K * 4 + N * (4 + 2 + M * 2), 2 * M * K * N),
                 library_fn=lib)
-            log(f"K6 M={M} K={K} N={N}: bf16 torch.matmul on the widened "
+            log(f"K6{tag} M={M} K={K} N={N}: bf16 torch.matmul on the widened "
                 f"weight {median_ms(lambda: torch.matmul(x, w_bf16)):.4f} ms")
             del allowed, xs, ref
         del codes, packed, params, tinygemm, w_bf16
         torch.cuda.empty_cache()
-    M, K, N = K6_PATH_SHAPE
-    results["K6"] = results[f"K6 dense_q4 M={M} K={K} N={N}"]
+    if not tag:
+        M, K, N = K6_PATH_SHAPE
+        results["K6"] = results[f"K6 dense_q4 M={M} K={K} N={N}"]
     return results
 
 
@@ -741,16 +781,17 @@ def dense_q8_cost(gen):
     torch.cuda.empty_cache()
 
 
-def grouped_decode_case(randn, gen, P, pads, G, C=TRAIN_NEW_TOKENS):
-    """K2's inputs: len(pads) prompts x G completions of group_q 7, Hkv 4,
-    D 128, prefix P left-padded by `pads`, tails of C tokens; bf16
-    caches for K2, int8 codes + f32 scales of the same values for K2-int8.
-    -> (fn(step) -> {kernel id: args}, kwargs, fn(step) -> {kernel id:
-    (bytes, bf16 operations)})."""
+def grouped_decode_case(randn, gen, P, pads, G, C=TRAIN_NEW_TOKENS, Hkv=4,
+                        gq=7):
+    """K2's inputs: len(pads) prompts x G completions of group_q gq (Qwen's
+    7 by default), Hkv kv heads, D 128, prefix P left-padded by `pads`,
+    tails of C tokens; bf16 caches for K2, int8 codes + f32 scales of the
+    same values for K2-int8.  -> (fn(step) -> {kernel id: args}, kwargs,
+    fn(step) -> {kernel id: (bytes, bf16 operations)})."""
     from spacer_tpu_torch.ops import flash_decode as fd
 
     dev = gen.device
-    Hkv, D, gq = 4, 128, 7
+    D = 128
     Bd = len(pads)
     qd = randn(Bd, Hkv, G * gq, D)
     pk, pv = randn(Bd, Hkv, P, D), randn(Bd, Hkv, P, D)
@@ -782,13 +823,13 @@ def grouped_decode_case(randn, gen, P, pads, G, C=TRAIN_NEW_TOKENS):
 
 
 def check_grouped_decode(randn, gen, P, pads, G, steps, results, tag="",
-                         C=TRAIN_NEW_TOKENS):
+                         C=TRAIN_NEW_TOKENS, Hkv=4, gq=7):
     """Phase 3b, K2 and K2-int8 on grouped_decode_case's inputs at each live
     step of `steps`, against the plain version (results "K2" / "K2-int8" +
     tag + " P=.. step=..")."""
     from spacer_tpu_torch.ops import flash_decode as fd
 
-    args, dkw, work = grouped_decode_case(randn, gen, P, pads, G, C)
+    args, dkw, work = grouped_decode_case(randn, gen, P, pads, G, C, Hkv, gq)
     for step in steps:
         a, w = args(step), work(step)
         for kid in ("K2", "K2-int8"):
@@ -1052,37 +1093,63 @@ class SliceProbe:
         return [(b[0] - a[1]) * 1e3 for a, b in zip(self.spans, self.spans[1:])]
 
 
-class PlainAttention:
-    """For a reference run only: routes the slices' kernel calls (attention,
-    and K6 in the int4 weight products, dense_q4) to the kernels' plain
-    versions (the library itself has no such switch)."""
+class RouteLog:
+    """The MoE's expert choices (ops/moe.route_topk, Aria's LM), recorded in
+    call order, or with `replay` (an earlier run's) forced: the router's
+    logits are this run's own, gathered at the replayed experts.  Top-k is
+    discontinuous: bf16 rounding differences between a kernel run and its
+    plain replay flip near-tied choices, which moves the logits by whole
+    experts and says nothing about the kernels, so a replay takes the
+    kernel run's routes as it takes its tokens.  `flips` counts the routes
+    this run would have chosen otherwise (reported, not gated).  A model
+    without an MoE makes no call: nothing is recorded or replayed."""
+
+    def __init__(self, replay=None):
+        import spacer_tpu_torch.ops.moe as moe
+
+        self.moe, self.replay, self.saved = moe, replay, moe.route_topk
+        self.idx, self.rows, self.flips = [], 0, 0
 
     def __enter__(self):
-        import spacer_tpu_torch.models.qwen25_vl.language as lang
-        import spacer_tpu_torch.models.qwen25_vl.vision as vis
-        import spacer_tpu_torch.ops.quant as quant
-        import spacer_tpu_torch.serving.ragged as rag
-        from spacer_tpu_torch.nn.attention import xla_attention
-        from spacer_tpu_torch.ops import flash_decode as fd
-        from spacer_tpu_torch.ops import vit_window_attention as vwa
+        route = self.saved
 
-        self.routes = [
-            (lang, "dot_product_attention", xla_attention),
-            (lang, "flash_decode_attention", fd.decode_attention_reference),
-            (vis, "window_attention_hsd", vwa.window_attention_reference),
-            (vis, "chunk_attention_hsd", vwa.chunk_attention_reference),
-            (rag, "flash_ragged_decode_attention",
-             fd.ragged_decode_attention_reference),
-            (quant, "dense_q4", quant.dense_q4_reference),
-        ]
-        self.saved = [getattr(m, n) for m, n, _ in self.routes]
-        for m, n, plain in self.routes:
-            setattr(m, n, plain)
+        def logged(router_kernel, x, topk):
+            scores, idx = route(router_kernel, x, topk)
+            if self.replay is not None:
+                want = self.replay[len(self.idx)]
+                self.flips += int((torch.sort(idx, -1).values
+                                   != torch.sort(want, -1).values).any(-1)
+                                  .sum())
+                logits = torch.matmul(x.float(), router_kernel.float())
+                scores, idx = torch.softmax(logits.gather(-1, want), -1), want
+            self.idx.append(idx)
+            self.rows += idx.shape[0]
+            return scores, idx
+
+        self.moe.route_topk = logged
         return self
 
     def __exit__(self, *exc):
-        for (m, n, _), fn in zip(self.routes, self.saved):
-            setattr(m, n, fn)
+        self.moe.route_topk = self.saved
+
+    def note(self) -> str:
+        """The share of routed rows whose expert set the replay overrode.
+        Padded prompt rows count too, and differ wholesale: K1 writes 0 for
+        a row that sees no key, the plain version the mean of V."""
+        return (f" | MoE routes replayed: {self.flips} of {self.rows} "
+                f"routed rows ({self.flips / max(self.rows, 1):.4f}, padded "
+                f"rows included) would have taken other experts"
+                if self.rows else "")
+
+
+def plain_kernels():
+    """For a reference run only: utils.debugging.interpret_kernels, which
+    sends every kernel wrapper's call on the card to its plain version (no
+    launch, so the launch counts stay the path's) and yields the rerouted
+    calls by kernel id."""
+    from spacer_tpu_torch.utils.debugging import interpret_kernels
+
+    return interpret_kernels()
 
 
 def serve_slice(cfg, device="cuda", phases=PHASES) -> dict:
@@ -1151,30 +1218,31 @@ def serving_setup(cfg, device="cuda"):
 SERVE_GEN_KW = dict(max_new_tokens=64, temperature=0.0, slots=4)
 
 
-def serve_run(cfg, params, proc, msgs, decode_quant, kernels):
-    """One serving path and its plain replay (see serve_slice)."""
+def serve_run(cfg, params, proc, msgs, decode_quant, kernels,
+              gen_kw=SERVE_GEN_KW, grid=((8, 16, 30),), tag="slice"):
+    """One serving path and its plain replay (see serve_slice): the first
+    request's vision grid must be `grid`."""
     from spacer_tpu_torch.evalharness import QwenEngine
     from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    tag = f"slice[{decode_quant or 'bf16'}]"
-    gen_kw = SERVE_GEN_KW
+    tag = f"{tag}[{decode_quant or 'bf16'}]"
     engine = QwenEngine(cfg, params, proc, decode_quant=decode_quant)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    with SliceProbe() as probe:
+    with RouteLog() as routes, SliceProbe() as probe:
         t0 = time.perf_counter()
         texts = engine.generate_many(msgs, **gen_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    grid = engine.encode_request(msgs[0])["grid_thw"]
+    got_grid = engine.encode_request(msgs[0])["grid_thw"]
     tokens = sum(probe.lengths)
-    log(f"{tag}: {len(texts)} completions, lengths {probe.lengths}, video "
-        f"grid {grid}, wall {wall:.2f} s (the batcher's weight quantization "
-        f"included), {tokens / wall:.1f} generated tok/s")
+    log(f"{tag}: {len(texts)} completions, lengths {probe.lengths}, vision "
+        f"grid {got_grid}, wall {wall:.2f} s (the batcher's weight "
+        f"quantization included), {tokens / wall:.1f} generated tok/s")
     log(f"{tag}: ViT encode ms {[round(x, 2) for x in probe.vit_ms]} | prefill "
         f"ms per admission {[round(x, 2) for x in probe.prefill_ms]} | decode "
         f"ms per step median {statistics.median(probe.decode_ms):.2f} over "
@@ -1185,16 +1253,19 @@ def serve_run(cfg, params, proc, msgs, decode_quant, kernels):
         raise RuntimeError(f"a request emitted no token: {probe.lengths}")
     if probe.nonfinite:
         raise RuntimeError(f"{probe.nonfinite} non-finite logits tensors")
-    if grid != ((8, 16, 30),):
-        raise RuntimeError(f"unexpected video grid {grid}")
+    if got_grid != grid:
+        raise RuntimeError(f"unexpected vision grid {got_grid}")
     if min(counts[k] for k in kernels) < 1:
         raise RuntimeError(f"a kernel of the path was never launched: {counts}")
     del engine
 
     # reference run: plain versions everywhere, the kernel run's tokens
-    with PlainAttention(), SliceProbe(replay=probe.tokens) as ref:
+    # (and MoE routes)
+    with plain_kernels(), RouteLog(replay=routes.idx) as ref_routes, \
+            SliceProbe(replay=probe.tokens) as ref:
         QwenEngine(cfg, params, proc, decode_quant=decode_quant
                    ).generate_many(msgs, **gen_kw)
+    routes = None
     if launch_counts() != counts or len(ref.logits) != len(probe.logits):
         raise RuntimeError("the reference run launched a kernel or took "
                            "other steps")
@@ -1204,7 +1275,8 @@ def serve_run(cfg, params, proc, msgs, decode_quant, kernels):
                        for a, b in zip(probe.logits, ref.logits)]).mean()
     log(f"{tag} vs plain versions: logits cosine min {float(cos.min()):.5f} "
         f"median {float(cos.median()):.5f} over {len(cos)} sampled steps "
-        f"(tol {SLICE_COS_TOL}) | greedy argmax agreement {float(agree):.4f}")
+        f"(tol {SLICE_COS_TOL}) | greedy argmax agreement {float(agree):.4f}"
+        + ref_routes.note())
     if not float(cos.min()) >= SLICE_COS_TOL:
         raise RuntimeError("the kernel path's logits disagree with the plain "
                            "versions' path")
@@ -1804,7 +1876,8 @@ def replay_grads(run, names, tag="train", select=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     before = launch_counts()
-    loss_k, _, gk = run(select)
+    with RouteLog() as routes:
+        loss_k, _, gk = run(select)
     after = launch_counts()
     extra = {k: n - before[k] for k, n in after.items()}
     checked = [(n, g) for n, g in zip(names, gk) if g is not None]
@@ -1813,8 +1886,9 @@ def replay_grads(run, names, tag="train", select=None):
     if bad:
         raise RuntimeError(f"{len(bad)} trainable tensors got a zero or "
                            f"non-finite gradient: {bad[:8]}")
-    with PlainAttention():
+    with plain_kernels(), RouteLog(replay=routes.idx) as ref_routes:
         loss_p, _, gp = run(select)
+    routes = None
     if launch_counts() != after:
         raise RuntimeError("the plain-attention replay launched a kernel")
     cos = group_cosines(names, gk, gp)
@@ -1825,7 +1899,7 @@ def replay_grads(run, names, tag="train", select=None):
              else f"{len(checked)} selected of {len(names)}")
     log(f"{tag}: {which} trainable tensors with finite nonzero gradients | "
         f"step-1 loss kernel {float(loss_k):.6e} plain {float(loss_p):.6e} "
-        f"| replay {seconds:.2f} s")
+        f"| replay {seconds:.2f} s" + ref_routes.note())
     log(f"{tag}: gradient cosine kernel vs plain attention per group: "
         + ", ".join(f"{g} {c:.5f}" for g, c in sorted(cos.items())))
     if not min(cos.values()) >= GRAD_COS_TOL:
@@ -3066,7 +3140,7 @@ def qwen2_vl_phase(device="cuda") -> dict:
         ve = encode_vision(params, cfg, px, grids)
         torch.cuda.synchronize()
     vit_counts = launch_counts()
-    with PlainAttention(), torch.no_grad():
+    with plain_kernels(), torch.no_grad():
         ve_plain = encode_vision(params, cfg, px, grids)
     cos = torch.nn.functional.cosine_similarity(ve.float(), ve_plain.float(),
                                                 dim=-1)
@@ -3131,6 +3205,520 @@ def qwen2_vl_phase(device="cuda") -> dict:
     return counts
 
 
+# ---- phase 3c and phase 11: the Aria family (ARIA_25B) -------------------
+
+
+def check_aria_kernels(device="cuda") -> dict:
+    """Phase 3c: the kernels at the Aria path's shapes against their plain
+    versions.  K1 at head_dim 72: the tower's self-attention (1, 4900, 16,
+    72) under the patch mask of ARIA_IMAGE_HW (ARIA_VALID_PATCHES live keys)
+    and the projector's 256 queries against those keys; K1 and K1-bwd at
+    the LM's multi-head attention (group 1: Hq = Hkv = 20, head_dim 128),
+    a causal left-padded prompt of 1024; K2 / K2-int8 at Hkv 20, group_q
+    1, G = ARIA_TRAIN_G (phase 11b's rollout: prompt bucket
+    ARIA_TRAIN_PROMPT_BUCKET, its padding) and G = 1 (phase 11a's image
+    generate: ARIA_IMAGE_PROMPT_BUCKET, its padding); K5 / K5-int8 at Hkv
+    20, group_q 1 (phase 11a's 4 slots, Pmax 512, Cmax 128); K6 at
+    ARIA_K6_SHAPES, M = 4 (phase 11a's int4_kv serving)."""
+    from spacer_tpu_torch.nn.attention import xla_attention
+    from spacer_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    results = {}
+    # the tower and the projector: head_dim 72, no causal mask, the keys of
+    # the crop's padded band masked
+    Np, Hv, Dv, n_live = 4900, 16, 72, ARIA_VALID_PATCHES
+    pmask = torch.zeros((1, Np), dtype=torch.bool, device=dev)
+    pmask[0, :n_live] = True
+    kv = (randn(1, Np, Hv, Dv), randn(1, Np, Hv, Dv))
+    for tag, Sq in (("vit", Np), ("projector", ARIA_QUERIES)):
+        q = randn(1, Sq, Hv, Dv)
+        kw = dict(kv_mask=pmask, return_lse=True)
+        results[f"K1 aria {tag}"] = compare(
+            f"K1 flash_attention [aria {tag}: q (1, {Sq}, 16, 72), k/v "
+            f"(1, 4900, 16, 72), {n_live} live keys]",
+            lambda: fa.flash_attention(q, *kv, **kw),
+            lambda: xla_attention(q, *kv, **kw),
+            work=(Sq * Hv * Dv * 2 * 2 + n_live * Hv * Dv * 2 * 2
+                  + Sq * Hv * 4, 4 * Dv * Hv * Sq * n_live),
+            library_fn=lambda: sdpa_masked(q, *kv, pmask[:, None, None, :]))
+    # the LM's attention: 20 heads of 128, group 1, causal, left-padded
+    P, H, D, pad = 1024, 20, 128, 300
+    mask = torch.ones((1, P), dtype=torch.bool, device=dev)
+    mask[0, :pad] = False
+    q, k, v = randn(1, P, H, D), randn(1, P, H, D), randn(1, P, H, D)
+    dout = randn(1, P, H, D) * mask[:, :, None, None]
+    kw = dict(causal=True, kv_mask=mask)
+    n, pairs = P - pad, causal_pairs([P - pad])
+    sdpa_mask = (torch.ones((P, P), dtype=torch.bool, device=dev).tril()[None]
+                 & mask[:, None, :])[:, None]
+
+    def live(x):
+        return x[:, pad:]
+
+    results["K1 aria lm"] = compare(
+        f"K1 flash_attention [aria lm: (1, {P}, 20, 128) MHA, pad {pad}]",
+        lambda: fa.flash_attention(q, k, v, **kw),
+        lambda: xla_attention(q, k, v, **kw), live,
+        work=(n * H * D * 2 * 4 + n * H * 4, 4 * D * H * pairs),
+        library_fn=lambda: sdpa_masked(q, k, v, sdpa_mask))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    args = (q, k, v, out, lse, dout)
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lout = sdpa_masked(lq, lk, lv, sdpa_mask)
+
+    def library():
+        return torch.autograd.grad(lout, (lq, lk, lv), dout, retain_graph=True)
+
+    q_bytes = n * H * (D * 2 + 4)
+    results["K1-bwd dq aria lm"] = compare(
+        f"K1-bwd dq [aria lm: (1, {P}, 20, 128) MHA]",
+        lambda: fa.flash_attention_bwd_dq(*args, **kw),
+        lambda: fa.attention_bwd_reference(q, k, v, dout, **kw)[0],
+        rel_norm=True, library_fn=library,
+        work=(q_bytes + n * H * D * 2 * 3 + n * H * D * 2 * 2,
+              6 * D * H * pairs))
+    results["K1-bwd dkv aria lm"] = compare(
+        f"K1-bwd dk/dv [aria lm: (1, {P}, 20, 128) MHA, splits "
+        f"{fa.dkv_split_count(q, k)}]",
+        lambda: fa.flash_attention_bwd_dkv(*args, **kw),
+        lambda: fa.attention_bwd_reference(q, k, v, dout, **kw)[1:],
+        rel_norm=True, library_fn=library,
+        work=(q_bytes + n * H * D * 2 * 2 + n * H * D * 2 * 4,
+              8 * D * H * pairs))
+    del lout, lq, lk, lv
+    # K2 / K2-int8 at group 1 (phase 11b's rollout) and K5 / K5-int8
+    # (phase 11a's serving slots)
+    check_grouped_decode(
+        randn, gen, ARIA_TRAIN_PROMPT_BUCKET, (ARIA_TRAIN_PROMPT_PAD,),
+        ARIA_TRAIN_G, (1, 64, ARIA_TRAIN_NEW_TOKENS - 1), results,
+        tag=" aria", C=ARIA_TRAIN_NEW_TOKENS, Hkv=20, gq=1)
+    check_grouped_decode(
+        randn, gen, ARIA_IMAGE_PROMPT_BUCKET, (ARIA_IMAGE_PROMPT_PAD,), 1,
+        (1, 16, ARIA_NEW_TOKENS - 1), results, tag=" aria image",
+        C=ARIA_NEW_TOKENS, Hkv=20, gq=1)
+    results.update(check_ragged_decode(
+        randn, gen, " aria", 512, 128, [230, 212, 251, 198], [32, 17, 1, 9],
+        [0, 40, 100, 127], Hkv=20, gq=1))
+    results.update(check_int4_matmul(gen, ARIA_K6_SHAPES, (4,), tag=" aria"))
+    return results
+
+
+def aria_param_count(cfg) -> int:
+    """Parameters of an Aria config, reckoned from its widths."""
+    t, v = cfg.text, cfg.vision
+    D, Dh, E, I = t.hidden_size, t.head_dim, t.moe_num_experts, \
+        t.intermediate_size
+    Is = I * t.moe_num_shared_experts
+    layer = (2 * D + D * (t.num_heads + 2 * t.num_kv_heads) * Dh
+             + t.num_heads * Dh * D + D * E + E * 3 * D * I + 3 * D * Is)
+    lm = t.num_layers * layer + D + t.vocab_size * D * (
+        1 if t.tie_word_embeddings else 2)
+    Dv, Iv = v.hidden_size, v.intermediate_size
+    vit = (v.num_channels * v.patch_size ** 2 * Dv + Dv
+           + v.num_patches_per_side ** 2 * Dv + 2 * Dv
+           + v.num_layers * (4 * Dv + 4 * (Dv * Dv + Dv) + 2 * Dv * Iv + Iv
+                             + Dv))
+    proj = (cfg.max_projector_queries * Dv + 3 * Dv * Dv + 3 * Dv * Dv
+            + 3 * Dv + 2 * (Dv * Dv + Dv) + 6 * Dv
+            + Dv * t.hidden_size + t.hidden_size ** 2)
+    return lm + vit + proj
+
+
+def aria_image(root: pathlib.Path) -> str:
+    """A synthetic ARIA_IMAGE_HW PNG (smooth gradients and noise, seed 0),
+    written under `root`; -> its path."""
+    from PIL import Image
+
+    h, w = ARIA_IMAGE_HW
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 255 // (h + w)],
+                   -1) + rng.integers(0, 40, (h, w, 3))
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / "aria_scene.png"
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path)
+    return str(path)
+
+
+class SampleLog:
+    """Observes Sampler.generate: records the logits of every sampled step
+    (the prefill's last position, then each decode step) and, with
+    `replay`, returns those tokens instead of sampling; times the prefill
+    and each decode step (synchronised)."""
+
+    def __init__(self, replay=None):
+        import spacer_tpu_torch.sampler.sampler as sm
+
+        self.sm, self.replay = sm, replay
+        self.logits, self.tokens = [], []
+        self.prefill_ms, self.decode_ms = [], []
+        self.saved = (sm.sample_logits, sm.lm_forward, sm.lm_decode_step_split)
+
+    @staticmethod
+    def _timed(sink, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    def __enter__(self):
+        sample, forward, step = self.saved
+
+        def recorded(logits, *a, **kw):
+            tokens = sample(logits, *a, **kw)
+            if self.replay is not None:
+                tokens = self.replay[len(self.tokens)]
+            self.logits.append(logits.float())
+            self.tokens.append(tokens)
+            return tokens
+
+        self.sm.sample_logits = recorded
+        self.sm.lm_forward = self._timed(self.prefill_ms, forward)
+        self.sm.lm_decode_step_split = self._timed(self.decode_ms, step)
+        return self
+
+    def __exit__(self, *exc):
+        (self.sm.sample_logits, self.sm.lm_forward,
+         self.sm.lm_decode_step_split) = self.saved
+
+
+def logits_cosine(tag, a_steps, b_steps, note="") -> float:
+    """Per sampled step, the least row cosine of two runs' logits; fails
+    below SLICE_COS_TOL.  -> the least over the steps."""
+    cos = torch.stack([torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
+                       for a, b in zip(a_steps, b_steps)])
+    log(f"{tag} vs plain versions: logits cosine min {float(cos.min()):.5f} "
+        f"median {float(cos.median()):.5f} over {len(cos)} sampled steps "
+        f"(tol {SLICE_COS_TOL}){note}")
+    if len(a_steps) != len(b_steps) or not float(cos.min()) >= SLICE_COS_TOL:
+        raise RuntimeError(f"{tag}: the kernel path's logits disagree with "
+                           "the plain versions' path")
+    return float(cos.min())
+
+
+def grouped_mm_f32(x, w, group_sizes):
+    """The grouped product in JAX's order (ragged_dot with
+    preferred_element_type f32): bf16 operands, f32 sums, an f32 result;
+    one f32 matmul per group on the widened operands (TF32 is off)."""
+    out, start = [], 0
+    for g, n in enumerate(group_sizes.tolist()):
+        out.append(torch.matmul(x[start:start + n].float(), w[g].float()))
+        start += n
+    return torch.cat(out, dim=0)
+
+
+def moe_decode_ms(params, cfg, device="cuda") -> dict:
+    """The MoE feed-forward of one ARIA_25B layer: moe_mlp on M tokens (1:
+    the image generate at G = 1; 4: the serving slots; 8: phase 11b's
+    rollout; ARIA_IMAGE_PROMPT_BUCKET: a prefill).  Its output is held
+    against the same moe_mlp with JAX's f32 expert sums (grouped_mm_f32;
+    torch._grouped_mm on the card rounds each product to bf16):
+    |out - ref| <= BF16_TOL * (1 + |ref|) and ||out - ref|| <=
+    GRAD_REL_TOL * ||ref||; the routes are the same (the router runs in f32
+    on the same x).  Times the grouped products (torch._grouped_mm) against
+    the per-expert loop over the same sorted rows (moe.grouped_mm_reference,
+    which reads the group sizes on the host).  moe_mlp must take no host
+    sync (CUDA's sync debug mode raises on one).  -> {M: (max_abs_err,
+    rel-norm)}."""
+    from spacer_tpu_torch.ops import moe
+
+    mlp = params["model"]["layers"][0]["mlp"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    gaps = {}
+    for M in (1, 4, 8, ARIA_IMAGE_PROMPT_BUCKET):
+        x = torch.randn((M, 1, cfg.text.hidden_size), generator=gen,
+                        device=device).to(torch.bfloat16)
+        with torch.no_grad():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = moe.moe_mlp(mlp, x, topk=cfg.text.moe_topk).float()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            saved = moe.grouped_mm
+            moe.grouped_mm = grouped_mm_f32
+            try:
+                ref = moe.moe_mlp(mlp, x, topk=cfg.text.moe_topk).float()
+            finally:
+                moe.grouped_mm = saved
+            diff = (out - ref).abs()
+            err = float(diff.max())
+            rel = float(diff.norm() / ref.norm().clamp_min(1e-30))
+            gaps[M] = (err, rel)
+            if not (bool(torch.isfinite(out).all())
+                    and bool((diff <= BF16_TOL * (1 + ref.abs())).all())
+                    and rel <= GRAD_REL_TOL):
+                raise RuntimeError(
+                    f"aria moe_mlp M={M}: the grouped products disagree with "
+                    f"JAX's f32 expert sums: max_abs_err {err}, rel-norm {rel}")
+            grouped = median_ms(lambda: moe.moe_mlp(mlp, x, topk=cfg.text.moe_topk))
+            dev_ms = device_ms(lambda: moe.moe_mlp(mlp, x,
+                                                   topk=cfg.text.moe_topk))
+            saved = moe.grouped_mm
+            moe.grouped_mm = moe.grouped_mm_reference
+            try:
+                loop = median_ms(lambda: moe.moe_mlp(mlp, x,
+                                                     topk=cfg.text.moe_topk))
+            finally:
+                moe.grouped_mm = saved
+        log(f"aria moe_mlp one layer, M={M} tokens x top-"
+            f"{cfg.text.moe_topk} of {cfg.text.moe_num_experts}: grouped_mm "
+            f"{grouped:.4f} ms (device "
+            + ("not measured" if dev_ms is None else f"{dev_ms:.4f}")
+            + f" ms) | per-expert loop {loop:.4f} ms | vs JAX's f32 expert "
+            f"sums: max_abs_err {err:.3e} (tol {BF16_TOL:.0e} * (1 + |ref|)), "
+            f"rel-norm {rel:.3e} (tol {GRAD_REL_TOL:.0e}), |ref| max "
+            f"{float(ref.abs().max()):.3e}")
+    return gaps
+
+
+def aria_serve_phase(device="cuda") -> dict:
+    """Phase 11a: Aria at full ARIA_25B geometry (random bf16 weights, seed
+    0).  One ARIA_IMAGE_HW PNG through AriaProcessor (one 980-pixel crop,
+    its padded band masked) and Sampler.generate at G = 1,
+    ARIA_NEW_TOKENS greedy tokens (K1 at head_dim 72 in the tower and the
+    projector, K1 at the prefill, K2 at group 1), replayed through the
+    plain versions with the same tokens: every sampled step's logits at
+    cosine >= SLICE_COS_TOL.  Then four text requests through
+    QwenEngine.generate_many (4 slots), bf16 (K1, K5) and int4_kv (K1,
+    K5-int8, K6), each replayed likewise (serve_run).  Prints the tower +
+    projector ms per image, prefill ms, decode ms per step, tok/s, the MoE
+    layer's ms at decode and the peaks.  Returns the launches per path."""
+    from spacer_tpu_torch.models.aria import ARIA_25B, init_params
+    from spacer_tpu_torch.models.registry import aria_positions, get_family
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.sampler import Sampler
+
+    cfg, family = ARIA_25B, get_family("aria")
+    n = aria_param_count(cfg)
+    log(f"aria 25B: reckoned {n / 1e9:.2f} B params, {2 * n / 1e9:.1f} GB in "
+        f"bf16, before the caches (card: "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    got = sum(t.numel() for t in _leaves(params))
+    log(f"aria 25B init: {got / 1e9:.2f} B params bf16 in "
+        f"{time.perf_counter() - t0:.1f} s | max_memory_allocated "
+        f"{gib(torch.cuda.max_memory_allocated())}")
+    if got != n:
+        raise RuntimeError(f"aria: {got} params, reckoned {n}")
+    proc = family.make_processor(family.mock_tokenizer(cfg.text.vocab_size),
+                                 cfg)
+    root = pathlib.Path(__file__).resolve().parent / "build" / "smoke_aria"
+    image = aria_image(root)
+    enc = proc.process_messages([[{"role": "user", "content": [
+        {"type": "image", "image": image},
+        {"type": "text", "text": "how many chairs are in the room"}]}]])
+    vk, _ = family.pack_vision(enc)
+    live = int(enc["patch_mask"].sum())
+    log(f"aria image {ARIA_IMAGE_HW}: crops {tuple(enc['pixel_values'].shape)}"
+        f", live patches {live} of {enc['patch_mask'].size}, prompt "
+        f"{enc['input_ids'].shape[1]} tokens")
+    if live != ARIA_VALID_PATCHES or enc["pixel_values"].shape[0] != 1:
+        raise RuntimeError(f"aria: {live} live patches, phase 3c checked K1 "
+                           f"at {ARIA_VALID_PATCHES}")
+    with torch.no_grad():
+        vit_ms = [median_ms(lambda: family.encode_vision(params, cfg, vk,
+                                                         None))]
+    pos, deltas = aria_positions(cfg, enc["input_ids"], enc["attention_mask"])
+    sampler = Sampler(cfg, eos_token_id=proc.eos_token_id,
+                      pad_token_id=proc.pad_token_id)
+    kw = dict(position_ids=pos, deltas=deltas, vision_kwargs=vk,
+              num_generations=1, max_new_tokens=ARIA_NEW_TOKENS,
+              temperature=0.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with RouteLog() as routes, DecodeProbe() as probe, SampleLog() as run:
+        t0 = time.perf_counter()
+        out = sampler.generate(enc["input_ids"], enc["attention_mask"],
+                               params, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    k2_prefix = {P for _, P, _ in probe.k2_shapes}
+    pad = ARIA_IMAGE_PROMPT_BUCKET - enc["input_ids"].shape[1]
+    log(f"aria image generate: K2 vs plain on live inputs: "
+        f"{len(probe.k2_err)} calls at (q shape, P, T) "
+        f"{sorted(probe.k2_shapes)}, prompt pad {pad}, max_abs_err "
+        f"{max(probe.k2_err, default=float('nan')):.3e}, {probe.k2_bad} "
+        f"outside (tol {BF16_TOL:.0e} * (1 + |ref|))")
+    if not probe.k2_err or probe.k2_bad or probe.nonfinite:
+        raise RuntimeError(f"aria image: K2 disagrees with its plain version "
+                           f"on {probe.k2_bad} of {len(probe.k2_err)} live "
+                           f"calls, {probe.nonfinite} non-finite logits")
+    if k2_prefix != {ARIA_IMAGE_PROMPT_BUCKET} or pad != ARIA_IMAGE_PROMPT_PAD:
+        raise RuntimeError(f"aria image: K2 prefix {k2_prefix} pad {pad}: "
+                           f"phase 3c checked K2 at {ARIA_IMAGE_PROMPT_BUCKET}"
+                           f" pad {ARIA_IMAGE_PROMPT_PAD}")
+    log(f"aria image generate: {int(out.lengths[0])} tokens in {wall:.2f} s "
+        f"({out.lengths.sum() / wall:.1f} tok/s) | tower + projector "
+        f"{vit_ms[0]:.2f} ms per image | prefill ms {run.prefill_ms} | decode "
+        f"ms per step median {statistics.median(run.decode_ms):.2f} over "
+        f"{len(run.decode_ms)} steps | launches {counts} | "
+        f"max_memory_allocated {gib(torch.cuda.max_memory_allocated())}")
+    if (counts["K1"] != cfg.vision.num_layers + 1 + cfg.text.num_layers
+            or counts["K2"] < 1):
+        raise RuntimeError(f"aria image: launches {counts}: expected K1 "
+                           f"{cfg.vision.num_layers} + 1 (tower, projector) + "
+                           f"{cfg.text.num_layers} (prefill) and K2")
+    with plain_kernels(), RouteLog(replay=routes.idx) as ref_routes, \
+            SampleLog(replay=run.tokens) as ref:
+        sampler.generate(enc["input_ids"], enc["attention_mask"], params, **kw)
+    if launch_counts() != counts:
+        raise RuntimeError("aria: the plain replay launched a kernel")
+    logits_cosine("aria image generate", run.logits, ref.logits,
+                  ref_routes.note())
+    run = ref = routes = None
+    paths = {"aria image": counts}
+
+    rng = np.random.default_rng(11)
+    words = [f"word{i}" for i in range(5000)]
+    msgs = [[{"role": "user", "content": " ".join(rng.choice(words, nw))}]
+            for nw in (200, 150, 190, 120)]
+    gen_kw = dict(max_new_tokens=ARIA_NEW_TOKENS, temperature=0.0, slots=4)
+    for quant, kernels in ((None, ARIA_SERVE_KERNELS),
+                           ("int4_kv", ARIA_SERVE_INT4_KV_KERNELS)):
+        counts, _ = serve_run(cfg, params, proc, msgs, quant, kernels,
+                              gen_kw=gen_kw, grid=None, tag="aria serve")
+        paths[f"aria serve {quant or 'bf16'}"] = counts
+    moe_decode_ms(params, cfg, device)
+    return paths
+
+
+def aria_train_phase(device="cuda") -> dict:
+    """Phase 11b: SGRLVRTrainer.train with the Aria family at ARIA_25B's
+    widths, the LM cut to ARIA_TRAIN_LM_LAYERS of 28 layers (all 64 experts
+    a layer, the full 27-layer tower and the projector), random bf16
+    weights from seed 0: one ARIA_IMAGE_HW image row, G = ARIA_TRAIN_G
+    completions of up to ARIA_TRAIN_NEW_TOKENS, int8_kv rollouts (K2-int8
+    held against its plain version on live inputs), beta 0.04, int8
+    moments, remat, two optimizer steps (the update through K1 at 72 and
+    128, K1-bwd at 128 and the MoE's grouped backward).  The first update
+    is replayed with plain attention on LM layer 0's, tower layer 0's and
+    the projector's tensors: each group's gradient cosine >= GRAD_COS_TOL.
+    Returns the path's launches."""
+    from spacer_tpu_torch.models.aria import ARIA_25B, init_params
+    from spacer_tpu_torch.models.registry import get_family
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.rewards import accuracy_reward, format_reward
+    from spacer_tpu_torch.train.step import param_leaves
+    from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
+
+    cfg = dataclasses.replace(ARIA_25B, text=dataclasses.replace(
+        ARIA_25B.text, num_layers=ARIA_TRAIN_LM_LAYERS))
+    family = get_family("aria")
+    n = aria_param_count(cfg)
+    log(f"aria train: reckoned {n / 1e9:.2f} B params: bf16 params, the "
+        f"reference copy and bf16 grads {3 * 2 * n / 1e9:.1f} GB + int8 "
+        f"moments {2 * n / 1e9:.1f} GB, before activations")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    names = [nm for nm, _ in param_leaves(params)]
+    log(f"aria train init: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f}"
+        f" B params bf16, LM {ARIA_TRAIN_LM_LAYERS} layers, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    root = pathlib.Path(__file__).resolve().parent / "build" / "smoke_aria"
+    row = {"problem": "How many chairs are in the room?",
+           "problem_type": "numerical", "solution": "<answer>3</answer>",
+           "path": aria_image(root), "data_type": "image",
+           "data_source": "synthetic", "problem_id": 0,
+           "prompt": [{"role": "user", "content": [
+               {"type": "image"},
+               {"type": "text", "text": "How many chairs are in the room?"}]}]}
+    out_dir = str(root / "train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = SGRLVRConfig(
+        num_generations=ARIA_TRAIN_G,
+        max_completion_length=ARIA_TRAIN_NEW_TOKENS, temperature=1.0,
+        top_p=0.95, beta=0.04, moment_dtype="int8", max_steps=2,
+        num_train_epochs=2, logging_steps=1, save_steps=10 ** 9,
+        skip_failed_steps=False, output_dir=out_dir, seed=0)
+    trainer = SGRLVRTrainer(
+        cfg, params, family.make_processor(
+            family.mock_tokenizer(cfg.text.vocab_size), cfg),
+        [synthetic_reward, accuracy_reward, format_reward], [row], args)
+    step_fn, steps, extra = trainer.step_fn, [], {}
+
+    def select(name):
+        return name.startswith(("model/layers/0/", "visual/encoder/0/",
+                                "projector/"))
+
+    def spy(params, ref_params, opt_state, batch, **kw):
+        if not steps:
+            e, _ = replay_grads(grpo_run(step_fn, params, batch, kw), names,
+                                tag="aria train", select=select)
+            extra.update(e)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(params, ref_params, opt_state, batch, **kw)
+        torch.cuda.synchronize()
+        steps.append(dict({k: float(v) for k, v in out[2].items()},
+                          update_s=time.perf_counter() - t,
+                          prompt_len=batch["prompt_ids"].shape[1],
+                          prompt_pad=int((batch["prompt_mask"] == 0).sum())))
+        return out
+
+    spy.ref_logps_fn = step_fn.ref_logps_fn
+    trainer.step_fn = spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with DecodeProbe() as probe:
+        trainer.train()
+        torch.cuda.synchronize()
+    counts = {k: c - extra.get(k, 0) for k, c in launch_counts().items()}
+    with open(pathlib.Path(out_dir) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    for i, (st, rec) in enumerate(zip(steps, records)):
+        log(f"aria train step {i + 1}: loss {st['loss']:.6e} kl "
+            f"{st['kl']:.6e} grad_norm {st['grad_norm']:.6e} | rollout "
+            f"{rec['time/rollout_s']:.2f} s, update {st['update_s']:.2f} s | "
+            f"prompt bucket {st['prompt_len']} (pad {st['prompt_pad']}), "
+            f"mean completion length {rec['completion_length']:.1f}")
+    log(f"aria train: rollout decode ms per step median "
+        f"{statistics.median(probe.decode_ms()):.2f} | K2-int8 vs plain on "
+        f"live inputs: {len(probe.k2_err)} calls at (q shape, P, T) "
+        f"{sorted(probe.k2_shapes)}, max_abs_err "
+        f"{max(probe.k2_err, default=float('nan')):.3e}, {probe.k2_bad} "
+        f"outside | max_memory_allocated "
+        f"{gib(torch.cuda.max_memory_allocated())} | launches {counts}")
+    if trainer.global_step != 2 or len(steps) != 2:
+        raise RuntimeError(f"aria: expected 2 optimizer steps, got {len(steps)}")
+    for st in steps:
+        if (st["prompt_len"], st["prompt_pad"]) != (ARIA_TRAIN_PROMPT_BUCKET,
+                                                    ARIA_TRAIN_PROMPT_PAD):
+            raise RuntimeError(
+                f"aria: prompt bucket {st['prompt_len']} pad "
+                f"{st['prompt_pad']}: phase 3c checked K2 at "
+                f"{ARIA_TRAIN_PROMPT_BUCKET} pad {ARIA_TRAIN_PROMPT_PAD}")
+        if not all(math.isfinite(st[k]) for k in ("loss", "kl", "grad_norm")):
+            raise RuntimeError(f"aria: non-finite step metrics {st}")
+    if not probe.k2_err or probe.k2_bad or probe.nonfinite:
+        raise RuntimeError(f"aria: K2-int8 disagrees with its plain version "
+                           f"on {probe.k2_bad} of {len(probe.k2_err)} live "
+                           f"calls, {probe.nonfinite} non-finite logits")
+    if min(counts[k] for k in ARIA_TRAIN_KERNELS) < 1:
+        raise RuntimeError(f"aria: a kernel of the training path was never "
+                           f"launched: {counts}")
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 SERVE_KERNELS = ("K1", "K3", "K4", "K5")
 SERVE_INT4_KV_KERNELS = ("K1", "K3", "K4", "K5-int8", "K6")
 TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
@@ -3147,6 +3735,9 @@ SPEC_SERVE_KERNELS = ("K1", "K3", "K4")
 SPEC_SERVE_INT4_KV_KERNELS = ("K1", "K3", "K4", "K6")
 SPEC_ROLLOUT_KERNELS = ("K1", "K3", "K4")
 QWEN2_KERNELS = ("K1", "K4", "K5")
+ARIA_SERVE_KERNELS = ("K1", "K5")
+ARIA_SERVE_INT4_KV_KERNELS = ("K1", "K5-int8", "K6")
+ARIA_TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8")
 
 # the measured fields of each kernel in the kernels line
 LINE_FIELDS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3205,6 +3796,7 @@ def main(argv=None):
     if "3" in phases:
         results.update(check_kernels())
         results.update(check_training_kernels())
+        results.update(check_aria_kernels())
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
     paths = {}
@@ -3239,6 +3831,13 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "10" in phases:
         paths["qwen2-vl serve"] = qwen2_vl_phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "11" in phases:
+        paths.update(aria_serve_phase())
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["aria train"] = aria_train_phase()
     counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     if phases != PHASES:

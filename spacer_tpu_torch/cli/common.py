@@ -14,6 +14,9 @@ class ModelArgs:
     tokenizer_path: str = ""           # defaults to model_name_or_path
     dtype: str = "bfloat16"            # param dtype
     random_init: bool = False          # tiny random model (smoke runs)
+    # model family override; empty = dispatch on the model id substring
+    # (the reference's "Aria" in model_id rule)
+    model_family: str = ""
     # torch device the model runs on; the CPU only when asked for
     device: str = "cuda"
     # decode-path quantization: "" (bf16) | "int8" | "int8_kv" | "int4" |
@@ -52,13 +55,14 @@ def load_tokenizer(path: str):
 
 
 def load_model_and_processor(args: ModelArgs):
-    """Returns (cfg, params, processor): the checkpoint at
+    """Returns (cfg, params, processor) of the family `model_family` names
+    (or, empty, that the model id names): the checkpoint at
     `model_name_or_path` loaded onto `device` with its tokenizer, or with
-    `random_init` (or no path) the tiny random model and MockTokenizer."""
-    from spacer_tpu_torch.data.processor import MockTokenizer, VLProcessor
-    from spacer_tpu_torch.models.qwen25_vl import init_params, tiny_config
+    `random_init` (or no path) the family's tiny random model and mock
+    tokenizer."""
     from spacer_tpu_torch.models.registry import get_family
 
+    family = get_family(args.model_family or args.model_name_or_path)
     device = torch.device(args.device)
     # the entry points never carry on on the CPU unless told to
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -67,13 +71,12 @@ def load_model_and_processor(args: ModelArgs):
             "pass --device cpu to run on the CPU")
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.dtype]
     if args.random_init or not args.model_name_or_path:
-        cfg = tiny_config()
-        params = init_params(cfg, seed=0, dtype=dtype, device=device)
-        tokenizer = MockTokenizer(vocab_size=cfg.text.vocab_size)
+        cfg = family.tiny_config()
+        params = family.init_params(cfg, seed=0, dtype=dtype, device=device)
+        tokenizer = family.mock_tokenizer(cfg.text.vocab_size)
     else:
-        family = get_family(args.model_name_or_path)
         params, cfg = family.load_params_from_hf(
             args.model_name_or_path, dtype=dtype, device=device)
         tokenizer = load_tokenizer(args.tokenizer_path
                                    or args.model_name_or_path)
-    return cfg, params, VLProcessor(tokenizer, cfg, device=device)
+    return cfg, params, family.make_processor(tokenizer, cfg, device)

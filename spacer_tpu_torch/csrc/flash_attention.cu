@@ -3,7 +3,8 @@
 // Replaces the Pallas kernel spacer_tpu/ops/flash_attention.py
 // (flash_attention -> _flash_fwd_impl -> _fwd_kernel).  Same contract as the
 // plain version spacer_tpu_torch/nn/attention.py::xla_attention: q (B,Sq,Hq,D),
-// k/v (B,Skv,Hkv,D) bf16 in the JAX layout, D = 128, causal with a static
+// k/v (B,Skv,Hkv,D) bf16 in the JAX layout, D = 128 (the LMs) or 72 (the Aria
+// vision tower and its projector, 1152 / 16 heads), causal with a static
 // q_offset (key j is visible to query i when j <= i + q_offset), a (B,Skv)
 // validity mask and optional (B,S) segment ids, GQA (q head h reads kv head
 // h / (Hq/Hkv)).  Writes out (B,Sq,Hq,D) bf16 and the LSE (B,Hq,Sq) f32 that
@@ -41,6 +42,15 @@
 //     tail of a completion) are skipped by producer and consumers alike.
 //   - The grid's slowest dimension is the q tile, reversed: the longest
 //     causal walks start first.
+//
+// D = 72: the same kernel on sm90.cuh's D = 80 tile (a [R][64] block with the
+// 128-byte swizzle and a [R][16] block with the 32-byte swizzle, K4's
+// layout).  The tensor maps declare the head 72 wide, so TMA fills columns
+// 72-79 of the second box with zeros: Q K^T runs its five k-steps over
+// zeros there (the products are unchanged), P V runs as an n64 and an n16
+// product whose columns 72-79 are 0 and are never stored.  The scale is
+// 72^-0.5 from the wrapper.  wgmma's k-step of 16 is why the tile is 80
+// wide: 72 is no multiple of it.
 // sm90.cuh holds the TMA / mbarrier / wgmma building blocks and the
 // shared-memory layout the descriptors read.
 #include "sm90.cuh"
@@ -48,7 +58,6 @@
 namespace spacer {
 namespace k1fwd {
 
-constexpr int D = 128;
 constexpr int BM = 128;       // query rows per CTA (2 consumer warpgroups)
 constexpr int BN = 64;        // keys per tile
 constexpr int STAGES = 3;
@@ -58,10 +67,16 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float MASK2 = -1e30f * LOG2E;   // the -1e30 mask in log2 units
 
+// DP: the tile's width in shared memory (72 is held as 80)
+template <int D>
+constexpr int tile_width() { return D == 128 ? 128 : 80; }
+
+template <int D>
 struct Smem {
-  static constexpr int q = 0;                                 // bf16 [BM][D]
-  static constexpr int kv = q + BM * D * 2;                   // [STAGES] x (K, V)
-  static constexpr int tile = BN * D * 2;                     // one K or V tile
+  static constexpr int DP = tile_width<D>();
+  static constexpr int q = 0;                                 // bf16 [BM][DP]
+  static constexpr int kv = q + BM * DP * 2;                  // [STAGES] x (K, V)
+  static constexpr int tile = BN * DP * 2;                    // one K or V tile
   static constexpr int codes = kv + STAGES * 2 * tile;        // int [STAGES][BN]
   static constexpr int live = codes + STAGES * BN * 4;        // int [MAX_TILES]
   static constexpr int bars = live + MAX_TILES * 4;           // full, empty, q
@@ -69,22 +84,49 @@ struct Smem {
   static constexpr int alloc = bytes + 1024;                  // base alignment
 };
 
+// Rows [s0, s0 + R) of head h, batch row b into a tile: two 64-column boxes
+// (D = 128), or a 64- and a 16-column box from the two maps (D = 72).
+template <int D, int R>
+__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
+                                          const CUtensorMap* map16, uint64_t* bar,
+                                          int h, int s0, int b) {
+  if constexpr (D == 128) {
+    sm90::tma_load_rows<R>(dst, map, bar, h, s0, b);
+  } else {
+    sm90::tma_load_4d(dst, map, bar, 0, h, s0, b);
+    sm90::tma_load_4d(static_cast<char*>(dst) + R * 128, map16, bar, 64, h, s0, b);
+  }
+}
+
+// K-major descriptor of k-step kk of a tile of R rows
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(const void* tile, int r0, int kk) {
+  if constexpr (D == 128) return sm90::desc_kmajor<R>(tile, r0, kk);
+  else return sm90::desc_kmajor_d80<R>(tile, r0, kk);
+}
+
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tq16,
                  const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                 const __grid_constant__ CUtensorMap tk16,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tv16, bf16* __restrict__ out,
                  float* __restrict__ lse, const uint8_t* __restrict__ kv_valid,
                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
                  int Sq, int Skv, int Hq, int Hkv, int causal, int q_offset,
                  float scale_log2) {
   using namespace sm90;
+  using SmemD = Smem<D>;
+  constexpr int DP = SmemD::DP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Smem::q);
-  int* codes = reinterpret_cast<int*>(smem + Smem::codes);
-  int* live = reinterpret_cast<int*>(smem + Smem::live);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::bars);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + SmemD::q);
+  int* codes = reinterpret_cast<int*>(smem + SmemD::codes);
+  int* live = reinterpret_cast<int*>(smem + SmemD::live);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SmemD::bars);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
 
@@ -125,8 +167,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x >= 256 + 32) return;   // one producer warp
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
-      mbar_arrive_expect_tx(qbar, BM * D * 2);
-      tma_load_rows<BM>(Qs, &tq, qbar, h, q0, b);
+      mbar_arrive_expect_tx(qbar, BM * DP * 2);
+      load_rows<D, BM>(Qs, &tq, &tq16, qbar, h, q0, b);
     }
     RingPos pos;
     for (int i = 0; i < n_kt; ++i) {
@@ -143,10 +185,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         codes[pos.stage * BN + j] = code;
       }
       if (lane == 0) {
-        unsigned char* st = smem + Smem::kv + pos.stage * 2 * Smem::tile;
-        mbar_arrive_expect_tx(&full[pos.stage], 2 * Smem::tile);
-        tma_load_rows<BN>(st, &tk, &full[pos.stage], hk, k0, b);
-        tma_load_rows<BN>(st + Smem::tile, &tv, &full[pos.stage], hk, k0, b);
+        unsigned char* st = smem + SmemD::kv + pos.stage * 2 * SmemD::tile;
+        mbar_arrive_expect_tx(&full[pos.stage], 2 * SmemD::tile);
+        load_rows<D, BN>(st, &tk, &tk16, &full[pos.stage], hk, k0, b);
+        load_rows<D, BN>(st + SmemD::tile, &tv, &tv16, &full[pos.stage], hk, k0, b);
       } else {
         mbar_arrive(&full[pos.stage]);
       }
@@ -168,9 +210,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
   const int wg_first_row = q0 + 64 * wg;
 
-  float o[64];
+  // O: columns 0-127 (D = 128), or 0-63 and 64-79 (D = 72)
+  constexpr int NO = D == 128 ? 64 : 32;
+  float o[NO], o16[8];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o16[i] = 0.f;
   float m[2] = {MASK2, MASK2}, l[2] = {0.f, 0.f};
 
   mbar_wait(qbar, 0);
@@ -178,8 +224,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < n_kt; ++i) {
     if (!tile_live(i)) continue;
     mbar_wait(&full[pos.stage], pos.phase);
-    const unsigned char* Ks = smem + Smem::kv + pos.stage * 2 * Smem::tile;
-    const unsigned char* Vs = Ks + Smem::tile;
+    const unsigned char* Ks = smem + SmemD::kv + pos.stage * 2 * SmemD::tile;
+    const unsigned char* Vs = Ks + SmemD::tile;
     const int* kcode = codes + pos.stage * BN;
     const int k0 = i * BN;
 
@@ -188,9 +234,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     float s[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(s, desc_kmajor<BM>(Qs, 64 * wg, kk),
-                         desc_kmajor<BN>(Ks, 0, kk), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_m64n64k16_ss(s, desc_k<D, BM>(Qs, 64 * wg, kk),
+                         desc_k<D, BN>(Ks, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -233,7 +279,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + rsum[j];
 #pragma unroll
-    for (int idx = 0; idx < 64; ++idx) o[idx] *= alpha[(idx / 2) % 2];
+    for (int idx = 0; idx < NO; ++idx) o[idx] *= alpha[(idx / 2) % 2];
+    if constexpr (D != 128) {
+#pragma unroll
+      for (int idx = 0; idx < 8; ++idx) o16[idx] *= alpha[(idx / 2) % 2];
+    }
 
     // O += P V, P rounded to bf16 in registers
     uint32_t pa[BN / 16][4];
@@ -241,11 +291,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kb = 0; kb < BN / 16; ++kb) frag_from_acc(pa[kb], s, kb);
     wgmma_fence();
 #pragma unroll
-    for (int kb = 0; kb < BN / 16; ++kb)
-      wgmma_m64n128k16_rs(o, pa[kb], desc_mnmajor<BN>(Vs, kb), 1);
+    for (int kb = 0; kb < BN / 16; ++kb) {
+      if constexpr (D == 128) {
+        wgmma_m64n128k16_rs(o, pa[kb], desc_mnmajor<BN>(Vs, kb), 1);
+      } else {
+        wgmma_m64n64k16_rs(o, pa[kb], desc_mnmajor<BN>(Vs, kb), 1);
+        wgmma_m64n16k16_rs(o16, pa[kb], desc_mnmajor_d80_hi<BN>(Vs, kb), 1);
+      }
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
+    if constexpr (D != 128) fence_regs(o16);
     mbar_arrive(&empty[pos.stage]);
     pos.advance<STAGES>();
   }
@@ -262,29 +319,42 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= Sq) continue;
     bf16* orow = out + (((long)b * Sq + row) * Hq + h) * D + (lane % 4) * 2;
 #pragma unroll
-    for (int n8 = 0; n8 < D / 8; ++n8)
+    for (int n8 = 0; n8 < NO / 4; ++n8)
       *reinterpret_cast<uint32_t*>(orow + n8 * 8) =
           pack_bf16(o[4 * n8 + 2 * j] * inv, o[4 * n8 + 2 * j + 1] * inv);
+    if constexpr (D != 128)   // columns 64-71; 72-79 are the tile's zeros
+      *reinterpret_cast<uint32_t*>(orow + 64) =
+          pack_bf16(o16[2 * j] * inv, o16[2 * j + 1] * inv);
     if (lane % 4 == 0) lse[((long)b * Hq + h) * Sq + row] = m[j] * LN2 + logf(l_safe);
   }
 }
 
+template <int D>
 static cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                           void* lse, const void* kv_valid, const void* q_seg,
                           const void* kv_seg, int B, int Sq, int Skv, int Hq,
                           int Hkv, int causal, int q_offset, float scale,
                           cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
+  // D = 128: 64-column boxes only (the 16-column maps are unused copies);
+  // D = 72: columns 0-63 and 64-79 (72-79 past the head: zeros)
+  CUtensorMap tq, tk, tv, tq16, tk16, tv16;
   cudaError_t err = sm90::encode_bshd(&tq, q, B, Sq, Hq, D, BM);
   if (err == cudaSuccess) err = sm90::encode_bshd(&tk, k, B, Skv, Hkv, D, BN);
   if (err == cudaSuccess) err = sm90::encode_bshd(&tv, v, B, Skv, Hkv, D, BN);
+  tq16 = tq, tk16 = tk, tv16 = tv;
+  if (D != 128) {
+    if (err == cudaSuccess) err = sm90::encode_bshd(&tq16, q, B, Sq, Hq, D, BM, 16);
+    if (err == cudaSuccess) err = sm90::encode_bshd(&tk16, k, B, Skv, Hkv, D, BN, 16);
+    if (err == cudaSuccess) err = sm90::encode_bshd(&tv16, v, B, Skv, Hkv, D, BN, 16);
+  }
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::alloc);
+  err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem<D>::alloc);
   if (err != cudaSuccess) return err;
   dim3 grid(Hq, B, (Sq + BM - 1) / BM);
-  flash_fwd_kernel<<<grid, NTHREADS, Smem::alloc, stream>>>(
-      tq, tk, tv, (bf16*)out, (float*)lse, (const uint8_t*)kv_valid,
+  flash_fwd_kernel<D><<<grid, NTHREADS, Smem<D>::alloc, stream>>>(
+      tq, tq16, tk, tk16, tv, tv16, (bf16*)out, (float*)lse, (const uint8_t*)kv_valid,
       (const int*)q_seg, (const int*)kv_seg, Sq, Skv, Hq, Hkv, causal, q_offset,
       scale * LOG2E);
   return cudaGetLastError();
@@ -298,10 +368,16 @@ extern "C" int spacer_flash_attention_fwd(
     const void* kv_valid, const void* q_seg, const void* kv_seg, int B, int Sq,
     int Skv, int Hq, int Hkv, int D, int causal, int q_offset, float scale,
     void* stream) {
-  if (D != spacer::k1fwd::D || Sq <= 0 || Skv <= 0) return (int)cudaErrorInvalidValue;
-  return spacer::k1fwd::launch(q, k, v, out, lse, kv_valid, q_seg, kv_seg, B, Sq,
-                               Skv, Hq, Hkv, causal, q_offset, scale,
-                               (cudaStream_t)stream);
+  if (Sq <= 0 || Skv <= 0) return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return spacer::k1fwd::launch<128>(q, k, v, out, lse, kv_valid, q_seg, kv_seg, B,
+                                      Sq, Skv, Hq, Hkv, causal, q_offset, scale,
+                                      (cudaStream_t)stream);
+  if (D == 72)
+    return spacer::k1fwd::launch<72>(q, k, v, out, lse, kv_valid, q_seg, kv_seg, B,
+                                     Sq, Skv, Hq, Hkv, causal, q_offset, scale,
+                                     (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* spacer_error_string(int err) {

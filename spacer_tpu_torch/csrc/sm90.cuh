@@ -7,7 +7,9 @@
 //   - TMA: 4-D tile loads from a CUtensorMap passed as a __grid_constant__
 //     kernel parameter, completing on an mbarrier; host-side encoders,
 //     fetched through cudaGetDriverEntryPoint (no -lcuda), of a (B, S, H, D)
-//     bf16 tensor as a (D, H, S, B) map with the 128-byte swizzle (D = 128),
+//     bf16 tensor as a (D, H, S, B) map with the 128-byte swizzle (D = 128;
+//     D = 72 also as 16-column boxes with the 32-byte swizzle, into a D = 80
+//     tile),
 //     of a (B, H, S, 128) tensor of bf16 (128-byte swizzle) or int8 codes (no
 //     swizzle) as a (128, S, H, B) map, of an (H, S, 80) tensor cut into
 //     chunks of wt rows as two (80, wt, n, H) maps, columns 0-63 with the
@@ -37,7 +39,7 @@
 //   second 64-column block); the k-th 16-row step starts 2048 bytes on.
 // Every tile base is 1024-byte aligned, so the descriptors' base offset is 0.
 //
-// Tile layout in shared memory, D = 80 (K3, K4).  80 = 64 + 16: a tile of R rows
+// Tile layout in shared memory, D = 80 (K3, K4; K1 at D = 72).  80 = 64 + 16: a tile of R rows
 // is a [R][64] block with the 128-byte swizzle (R * 128 bytes, as above)
 // followed by a [R][16] block with the 32-byte swizzle (R * 32 bytes, a run
 // of 256-byte atoms: 8 rows of 32 bytes, the 16-byte chunk j of row r stored
@@ -396,16 +398,18 @@ inline cudaError_t encode_4d(
 }
 
 // A contiguous (B, S, H, D) bf16 tensor as a 4-D TMA map (D, H, S, B) with a
-// (64, 1, rows, 1) box and the 128-byte swizzle.  Rows past S (and columns
-// past D) read as zeros.
+// (cols, 1, rows, 1) box: cols = 64 with the 128-byte swizzle, or 16 with
+// the 32-byte swizzle (the second block of a D = 80 tile).  Rows past S (and
+// columns past D) read as zeros.
 inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B, int S,
-                               int H, int D, int rows) {
+                               int H, int D, int rows, int cols = 64) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return encode_4d(map, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  return encode_4d(map, base, dims, strides, box,
+                   cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 // A contiguous (H, S, 80) bf16 tensor, S = n * wt, as a 4-D TMA map (80, wt,

@@ -1,8 +1,10 @@
-"""Map a spacer_tpu (JAX) Qwen2.5-VL parameter tree into the port's params.
+"""Map a spacer_tpu (JAX) parameter tree of either family (Qwen2.5-VL /
+Qwen2-VL, Aria) into the port's params.
 
 The JAX tree stacks per-layer weights on a leading axis ("layers" of the LM,
-"blocks" of the ViT) and stores dense kernels as (in, out); the port keeps
-the (in, out) layout and unstacks those axes into lists of per-layer dicts.
+"blocks" of the Qwen ViT, "encoder" of the Aria ViT) and stores dense
+kernels as (in, out); the port keeps the (in, out) layout and unstacks
+those axes into lists of per-layer dicts.
 Leaves may be numpy arrays or anything `np.asarray` accepts (a JAX array
 included), so this module needs no JAX.  Every parity test builds both
 packages' weights this way, so both compute the same function.
@@ -18,10 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spacer_tpu_torch.models.qwen25_vl.config import Qwen25VLConfig
 from spacer_tpu_torch.models.qwen25_vl.language import split_layers
 
-STACKED = {("model", "layers"): "num_layers", ("visual", "blocks"): "depth"}
+# stacked subtree -> (config part, its depth attribute)
+STACKED = {("model", "layers"): ("text", "num_layers"),
+           ("visual", "blocks"): ("vision", "depth"),
+           ("visual", "encoder"): ("vision", "num_layers")}
 
 
 def _tensor(x, dtype, device):
@@ -42,20 +46,19 @@ def _convert(tree, dtype, device):
     return _tensor(tree, dtype, device)
 
 
-def params_from_jax(np_tree, cfg: Qwen25VLConfig, *, dtype=None,
-                    device="cpu"):
-    """JAX params {"model": ..., "visual": ...} -> port params (dtype: cast
-    floating leaves, None keeps each leaf's own)."""
+def params_from_jax(np_tree, cfg, *, dtype=None, device="cpu"):
+    """JAX params {"model": ..., "visual": ...[, "projector": ...]} -> port
+    params (dtype: cast floating leaves, None keeps each leaf's own)."""
     out = {}
     for top, sub in np_tree.items():
         out[top] = {}
         for name, val in sub.items():
-            depth_attr = STACKED.get((top, name))
-            if depth_attr is None:
+            stacked = STACKED.get((top, name))
+            if stacked is None:
                 out[top][name] = _convert(val, dtype, device)
                 continue
-            cfg_part = cfg.text if top == "model" else cfg.vision
-            n = getattr(cfg_part, depth_attr)
+            part, depth_attr = stacked
+            n = getattr(getattr(cfg, part), depth_attr)
             out[top][name] = [_convert(layer, dtype, device)
                               for layer in split_layers(val, n)]
     return out

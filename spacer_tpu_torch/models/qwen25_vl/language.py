@@ -91,7 +91,12 @@ def init_kv_cache(cfg: TextConfig, batch: int, max_len: int,
 
 
 def _mlp_block(p_mlp, x, cfg: TextConfig):
-    """SwiGLU feed-forward."""
+    """Feed-forward: SwiGLU (Qwen), or with cfg.moe_topk > 0 the MoE
+    (Aria; ops/moe.py)."""
+    if getattr(cfg, "moe_topk", 0):
+        from spacer_tpu_torch.ops.moe import moe_mlp
+
+        return moe_mlp(p_mlp, x, topk=cfg.moe_topk, impl=cfg.moe_impl)
     gate = F.silu(dense(p_mlp["gate_proj"], x))
     return dense(p_mlp["down_proj"], gate * dense(p_mlp["up_proj"], x))
 

@@ -1,7 +1,10 @@
 """Hand-written Hopper kernels (counterpart of spacer_tpu/ops).  Each wrapper
 runs its plain PyTorch version on CPU tensors and launches its CUDA kernel
 (csrc/, built by nvcc on first use) on CUDA tensors, counting the launches
-in its `.launches` attribute.
+in its `.launches` attribute; inside utils.debugging.interpret_kernels,
+and only there, a CUDA tensor takes the plain version too (counted by that
+context, _build.takes_plain).  moe.py's grouped products are torch ops
+(torch._grouped_mm), as the JAX package leaves its ragged_dot to XLA.
 
 | kernel     | wrapper                                      | replaces (Pallas)                     |
 |------------|----------------------------------------------|---------------------------------------|

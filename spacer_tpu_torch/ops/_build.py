@@ -8,7 +8,8 @@ so an edited source never loads a stale build.  The build directory is
 `<repo>/build/spacer_tpu_torch` (override: SPACER_TORCH_BUILD_DIR).
 
 Nothing is compiled or loaded at import time: `kernels()` does it on the
-first launch.
+first launch.  `takes_plain` is every wrapper's choice between its kernel
+and its plain version.
 """
 
 from __future__ import annotations
@@ -66,6 +67,22 @@ SIGNATURES = {
     # () -> K6 CTAs an SM holds at once
     "spacer_int4_matmul_ctas_per_sm": [],
 }
+
+# the Counters of the open utils.debugging.interpret_kernels contexts
+INTERPRET: list = []
+
+
+def takes_plain(t, kernel: str) -> bool:
+    """Whether a wrapper runs its plain version on tensor `t`: always on a
+    CPU tensor; on a CUDA tensor only inside interpret_kernels, which counts
+    the call under `kernel`.  Otherwise the wrapper launches or raises."""
+    if t.device.type == "cpu":
+        return True
+    if INTERPRET:
+        INTERPRET[-1][kernel] += 1
+        return True
+    return False
+
 
 def build_dir() -> Path:
     env = os.environ.get("SPACER_TORCH_BUILD_DIR")

@@ -17,6 +17,12 @@ stays a torch op, as the TPU wrapper computes it outside Pallas, once per
 backward for both kernels.  The plain versions of the two backward kernels
 are autograd through `xla_attention` (`attention_bwd_reference`).
 
+The forward takes head_dim 128 (the LMs) and 72 (the Aria vision tower and
+its projector, 1152 / 16 heads: a D = 80 tile whose last 8 columns TMA fills
+with zeros).  The backward kernels take 128; at 72 the backward recomputes
+through the plain version, as K3's and K4's do (the JAX package's gradient
+there is XLA's: its Pallas kernel refuses D % 128 != 0).
+
 Bound on the H100: tensor-core flops at prefill lengths (~P/2 flops per
 K/V byte).  All three kernels run on wgmma with TMA-fed rings and their
 accumulators in registers (csrc/sm90.cuh; see the .cu notes).  dk/dv splits
@@ -35,7 +41,10 @@ import torch
 from spacer_tpu_torch.nn.attention import xla_attention
 from spacer_tpu_torch.ops import _build
 
-HEAD_DIMS = (128,)
+HEAD_DIMS = (72, 128)
+# head dims of the dq and dk/dv kernels; the others' backward is the plain
+# version's (attention_bwd_reference)
+BWD_HEAD_DIMS = (128,)
 
 
 def dkv_splits(B: int, Skv: int, Hq: int, Hkv: int, sms: int,
@@ -128,6 +137,12 @@ class _FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse, *masks = ctx.saved_tensors
         dout = dout.contiguous()
+        if q.shape[-1] not in BWD_HEAD_DIMS:
+            valid, q_seg, kv_seg = masks
+            grads = attention_bwd_reference(
+                q, k, v, dout, kv_mask=valid, q_segment_ids=q_seg,
+                kv_segment_ids=kv_seg, **ctx.kw)
+            return (*grads, None, None, None, None, None, None)
         delta = _delta(out, dout)
         dq = _launch_dq(q, k, v, dout, lse, delta, masks, **ctx.kw)
         dk, dv = _launch_dkv(q, k, v, dout, lse, delta, masks, **ctx.kw)
@@ -141,7 +156,7 @@ def flash_attention(q, k, v, *, causal: bool = False, q_segment_ids=None,
     Differentiable in q, k and v on either device."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if _build.takes_plain(q, "K1"):
         return xla_attention(
             q, k, v, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,
@@ -178,6 +193,9 @@ def _bwd_args(q, k, v, out, lse, dout, kv_mask, q_segment_ids,
               kv_segment_ids, q_offset):
     """Checks of a public backward call -> (lse, delta, masks)."""
     _check(q, k, v, kv_mask, q_segment_ids, kv_segment_ids, q_offset)
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernels take head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {q.shape[-1]}")
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous bf16 tensor of q's shape")
@@ -227,7 +245,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = False,
     forward's out and lse and the output gradient dout."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if _build.takes_plain(q, "K1-bwd dq"):
         return attention_bwd_reference(
             q, k, v, dout, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,
@@ -245,7 +263,7 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, *, causal: bool = False,
     (dk, dv), each (B, Skv, Hkv, D), summed over each kv head's q heads."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if _build.takes_plain(q, "K1-bwd dkv"):
         return attention_bwd_reference(
             q, k, v, dout, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, kv_mask=kv_mask, scale=scale,

@@ -162,7 +162,7 @@ def flash_ragged_decode_attention(q, pk, pv, bias_p, tk, tv, bias_t,
     """K5 (bf16 caches) or, given scales, K5-int8.  Returns
     (R, Hkv, group_q, Dh) f32."""
     scales = (pk_scale, pv_scale, tk_scale, tv_scale)
-    if q.device.type == "cpu":
+    if _build.takes_plain(q, "K5" if pk_scale is None else "K5-int8"):
         return ragged_decode_attention_reference(
             q, pk, pv, bias_p, tk, tv, bias_t, *scales, group_q=group_q,
             sm_scale=sm_scale)
@@ -297,7 +297,7 @@ def flash_decode_attention(q, pk, pv, bias_p, tk, tv, step: int,
     """K2 (bf16 caches) or, given scales, K2-int8.  Returns
     (B, Hkv, G*group_q, Dh) f32."""
     scales = (pk_scale, pv_scale, tk_scale, tv_scale)
-    if q.device.type == "cpu":
+    if _build.takes_plain(q, "K2" if pk_scale is None else "K2-int8"):
         return decode_attention_reference(
             q, pk, pv, bias_p, tk, tv, step, *scales, group=group,
             group_q=group_q, sm_scale=sm_scale)

@@ -180,7 +180,7 @@ def _launch(x, packed, row_scale, col_scale, bias, out):
 def int4_matmul(x, packed):
     """K6.  x (M, K) (cast to bf16, as the TPU kernel does), packed (K/2, N)
     -> (M, N) f32."""
-    if x.device.type == "cpu":
+    if _build.takes_plain(x, "K6"):
         return int4_matmul_reference(x, packed)
     x = x.to(torch.bfloat16).contiguous()
     _check(x, packed)

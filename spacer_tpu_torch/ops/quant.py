@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from spacer_tpu_torch.ops import _build
 from spacer_tpu_torch.ops.int4_matmul import (
     dense_q4_fused,
     int4_matmul_reference,
@@ -82,7 +83,7 @@ def dense_q4(params, x):
     dense_q4_fused: bf16 x and bias); on the CPU its plain composition,
     dense_q4_reference.  JAX pads M to a multiple of 8 for the TPU's tiles;
     the CUDA kernel masks M itself."""
-    if x.device.type == "cpu":
+    if _build.takes_plain(x, "K6"):
         return dense_q4_reference(params, x)
     *lead, K = x.shape
     y = dense_q4_fused(x.view(-1, K), params["kernel_q4"],

@@ -147,7 +147,7 @@ class _ChunkFn(torch.autograd.Function):
 
 def window_attention_hsd(q, k, v, bias, wt: int, scale: float):
     """K3.  q, k, v (H, S, D); bias (1, S) f32 from validity_bias()."""
-    if q.device.type == "cpu":
+    if _build.takes_plain(q, "K3"):
         return window_attention_reference(q, k, v, bias, wt, scale)
     _check(q, k, v, wt)
     if wt > WINDOW_MAX:
@@ -161,7 +161,7 @@ def window_attention_hsd(q, k, v, bias, wt: int, scale: float):
 
 def chunk_attention_hsd(q, k, v, wt: int, scale: float):
     """K4.  q, k, v (H, S, D), S = n_chunks * wt, every slot valid."""
-    if q.device.type == "cpu":
+    if _build.takes_plain(q, "K4"):
         return chunk_attention_reference(q, k, v, wt, scale)
     _check(q, k, v, wt)
     return _ChunkFn.apply(q, k, v, wt, scale)

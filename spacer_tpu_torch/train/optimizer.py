@@ -20,7 +20,8 @@ does.  Moments and the accumulator may live in host memory between updates
 
 `names` are the params' paths (train/step.py `param_leaves`), in the same
 order.  The JAX package stacks the per-layer params of the LM ("layers")
-and the ViT ("blocks") on a leading (L, ...) axis, and two things follow
+and the ViTs (Qwen's "blocks", Aria's "encoder") on a leading (L, ...)
+axis, and two things follow
 from that layout, which the port reproduces from the paths:
 - the decay mask is `ndim > 1` on the STACKED leaf, so every per-layer
   tensor is decayed whatever its own rank (norm scales and biases too);
@@ -90,7 +91,8 @@ def _stacked_key(name: str):
     for a per-layer tensor of the JAX package's stacked trees, else None."""
     parts = name.split("/")
     for i in range(len(parts) - 1):
-        if parts[i] in ("layers", "blocks") and parts[i + 1].isdigit():
+        if (parts[i] in ("layers", "blocks", "encoder")
+                and parts[i + 1].isdigit()):
             return "/".join(parts[:i + 1] + ["*"] + parts[i + 2:])
     return None
 

@@ -8,12 +8,11 @@ Reference conventions:
     saved config has use_cache=True.
 
 The artifact is an HF-layout directory: model.safetensors and config.json,
-written by the port's `export_to_safetensors` (models/qwen25_vl/loading.py,
-which `load_params_from_hf` reads back), plus the processor / tokenizer
-files of a source checkpoint.  `push_to_hub` uploads it through
-huggingface_hub, imported at call time: where the package is missing it
-raises with what to do instead.  Only the Qwen2.5-VL family is exported
-(Aria is not ported).
+written by the family's `export_to_safetensors` (models/qwen25_vl/loading.py
+or models/aria/loading.py, whose `load_params_from_hf` reads it back), plus
+the processor / tokenizer files of a source checkpoint.  `push_to_hub`
+uploads it through huggingface_hub, imported at call time: where the
+package is missing it raises with what to do instead.
 """
 
 from __future__ import annotations
@@ -44,13 +43,14 @@ def save_pretrained(out_dir: str, params, cfg,
     in the params' dtype), config.json (use_cache forced True, torch_dtype
     the params'), and the processor files found in `processor_dir` (never
     its weights)."""
-    from spacer_tpu_torch.models.qwen25_vl.loading import export_to_safetensors
     from spacer_tpu_torch.models.registry import family_for_config
 
-    family = family_for_config(cfg)
-    if family.name != "qwen25_vl":
-        raise NotImplementedError(
-            f"save_pretrained of the {family.name!r} family is not ported")
+    if family_for_config(cfg).name == "aria":
+        from spacer_tpu_torch.models.aria.loading import export_to_safetensors
+    else:
+        from spacer_tpu_torch.models.qwen25_vl.loading import (
+            export_to_safetensors,
+        )
     export_to_safetensors(params, cfg, out_dir)
     path = os.path.join(out_dir, "config.json")
     with open(path) as f:

@@ -193,6 +193,10 @@ class SGRLVRTrainer:
             prompt[0]["content"][0]["image"] = row["path"]
         elif row["data_type"] == "video":
             prompt[0]["content"][0]["video"] = row["path"]
+        if self.family.name == "aria":
+            # Aria is image-only (the reference's Aria branch); its
+            # processor fetches the image and sets the crop geometry itself
+            return self.processor.process_messages([prompt]), False
         for msg in prompt:
             if isinstance(msg.get("content"), list):
                 for ele in msg["content"]:
@@ -219,8 +223,9 @@ class SGRLVRTrainer:
 
     def _collate(self, encs: list[dict]) -> dict:
         """B single-row processor outputs -> one batch dict: prompts
-        left-padded to the common length, media patches/grids concatenated
-        in row order."""
+        left-padded to the common length, media patches/grids (Aria: image
+        crops with their position ids and patch masks) concatenated in row
+        order."""
         from spacer_tpu_torch.data.processor import pack_vision_inputs
 
         pad_id = self.processor.pad_token_id
@@ -233,6 +238,13 @@ class SGRLVRTrainer:
             mask.append(np.pad(e["attention_mask"], ((0, 0), (p, 0))))
         out = {"input_ids": np.concatenate(ids),
                "attention_mask": np.concatenate(mask)}
+        if self.family.name == "aria":
+            # image crops, their NaViT ids and patch masks in row order
+            with_px = [e for e in encs if "pixel_values" in e]
+            if with_px:
+                out.update({key: np.concatenate([e[key] for e in with_px])
+                            for key in self.family.vision_batch_keys})
+            return out
         pixels, vgrids, igrids, spgt, allg = [], [], [], [], []
         for e in encs:
             px, grids = pack_vision_inputs(e)

@@ -6,6 +6,7 @@ decode_quant refused; no CPU run without `--device cpu`.  The eval entry
 point over a LongVideoBench JSON file prints the benchmark's metrics, and
 runs speculative decoding with continuous serving only."""
 
+import dataclasses
 import json
 import os
 
@@ -202,3 +203,58 @@ def test_grpo_accuracy_reward_equals_jax(qtype, solution):
         assert max(ours) > 0
     else:
         assert ours == [0.0] * n
+
+
+def test_serve_cli_aria_text(tmp_path):
+    """`serve --model_family aria --random_init true`: the tiny random Aria
+    model serves text rows through the continuous batcher."""
+    from spacer_tpu_torch.cli.serve import main
+
+    inp, out = tmp_path / "in.jsonl", tmp_path / "out.jsonl"
+    inp.write_text("".join(json.dumps({"prompt": p}) + "\n"
+                           for p in ("count the chairs", "what is here")))
+    main(["--model_family", "aria", "--random_init", "true", "--dtype",
+          "float32", "--device", "cpu", "--input_file", str(inp),
+          "--output_file", str(out), "--max_new_tokens", "4", "--slots", "2"])
+    rows = [json.loads(line) for line in open(out)]
+    assert [r["prompt"] for r in rows] == ["count the chairs", "what is here"]
+    assert all(isinstance(r["completion"], str) for r in rows)
+
+
+def test_train_grpo_cli_aria_image_step(tmp_path, monkeypatch):
+    """`train_grpo --model_family aria --random_init true` on an image row:
+    one step through the tiny Aria tower, projector and MoE LM.  The
+    family's processor is the reference's, whose 490 / 980-pixel crops
+    hand tiny_aria_config's 56-pixel tower a patch count its projector has
+    no queries for (ROADMAP queue C), so the test gives it crops of the
+    tower's size, as the parity tests do."""
+    from PIL import Image
+
+    from spacer_tpu_torch.cli.train_grpo import main
+    from spacer_tpu_torch.data.aria_processor import AriaProcessor
+    from spacer_tpu_torch.models import registry
+
+    family = registry.get_family("aria")
+    monkeypatch.setitem(registry._CACHE, "aria", dataclasses.replace(
+        family, make_processor=lambda tok, cfg, device="cpu": AriaProcessor(
+            tok, cfg, max_image_size=56, min_image_size=14,
+            size_conversion={56: 8})))
+
+    img = tmp_path / "scene.png"
+    Image.fromarray(np.random.default_rng(0).integers(
+        0, 255, (120, 160, 3), np.uint8)).save(img)
+    data = tmp_path / "train.jsonl"
+    data.write_text(json.dumps({
+        "problem": "How many chairs?", "problem_type": "numerical",
+        "solution": "<answer>3</answer>", "path": str(img),
+        "data_type": "image", "data_source": "other", "problem_id": 0}) + "\n")
+    out = tmp_path / "grpo"
+    main(["--dataset_name", str(data), "--model_family", "aria",
+          "--random_init", "true", "--dtype", "float32", "--device", "cpu",
+          "--output_dir", str(out), "--max_steps", "1", "--num_generations",
+          "2", "--max_completion_length", "4", "--prompt_bucket", "64",
+          "--logp_chunk", "4", "--decode_quant", "none"])
+    recs = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    assert len(recs) == 1 and np.isfinite(recs[0]["loss"])
+    assert "rewards/grpo_accuracy_reward" in recs[0]
+    assert os.path.exists(out / "final" / "params.pt")

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain versions on a CUDA card
-(K1, K1-bwd, K2, K2-int8, K3, K4, K5, K5-int8, K6), their legality gates,
+(K1 at head_dim 128 and 72, K1-bwd, K2, K2-int8, K3, K4, K5, K5-int8, K6),
+their legality gates,
 a backward pass through the LM and a checkpoint round trip on the card.  These need the card and nvcc: on a host
 without CUDA they skip.  Run them on the card with
 
@@ -125,6 +126,37 @@ def test_flash_attention_fully_masked_rows(dev):
     # queries 128, 129 walk the key tiles of keys 128-255 (two padded keys)
     walked = v[1, 128:].float().mean(0).repeat_interleave(H // Hkv, dim=0)
     _close(out[1, 128:pad], walked.expand(pad - 128, H, D))
+
+
+# K1 at head_dim 72 (the Aria tower and projector, non-causal, a patch mask
+# that kills a padded band of keys): (Sq, Skv, H, valid keys)
+K1_D72_CASES = [(300, 300, 16, 230), (64, 300, 16, 300), (256, 1225, 16, 1100)]
+
+
+@pytest.mark.parametrize("Sq,Skv,H,valid", K1_D72_CASES)
+def test_flash_attention_kernel_head_dim_72(dev, Sq, Skv, H, valid):
+    B, D = 2, 72
+    q, k, v = _randn(dev, B, Sq, H, D), _randn(dev, B, Skv, H, D), \
+        _randn(dev, B, Skv, H, D)
+    mask = torch.zeros((B, Skv), dtype=torch.bool, device=dev)
+    mask[0, :valid] = True
+    mask[1, :Skv // 2] = True
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, kv_mask=mask, return_lse=True)
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = xla_attention(q, k, v, kv_mask=mask, return_lse=True)
+    _close(out, ref)
+    _close(lse, ref_lse)
+    # the backward recomputes through the plain version at this head dim
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    dout = _randn(dev, B, Sq, H, D, seed=1)
+    grads = torch.autograd.grad(flash_attention(qg, kg, vg, kv_mask=mask),
+                                (qg, kg, vg), dout)
+    refs = fa.attention_bwd_reference(q, k, v, dout, kv_mask=mask)
+    for g, r in zip(grads, refs):
+        _close_norm(g, r)
+    with pytest.raises(ValueError, match="backward kernels"):
+        fa.flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=mask)
 
 
 # K4 chunk sizes: a multiple of 32 but not of 64; (h/14)(w/14) patch chunks

@@ -1,11 +1,12 @@
 """spacer_tpu_torch stands alone: no module of it (nor the scripts that
 drive it on the card, chip_smoke.py, profile_train.py and profile_serve.py)
 imports jax or spacer_tpu, and the tiny serving slice, one tiny SG-RLVR
-training step and a tiny Qwen2-VL's speculative serving, speculative
-rollout and HTTP server run on the CPU through the kernels' plain versions
-(no kernel launch is counted there); a checkpoint round trip needs neither the
-safetensors nor the transformers package, and the eval harness runs a
-benchmark there."""
+training step, a tiny Qwen2-VL's speculative serving, speculative
+rollout and HTTP server, and the tiny Aria family (text serving, an image
+rollout, one image training step, an Aria checkpoint round trip) run on the
+CPU through the kernels' plain versions (no kernel launch is counted
+there); a checkpoint round trip needs neither the safetensors nor the
+transformers package, and the eval harness runs a benchmark there."""
 
 import os
 import pathlib
@@ -175,6 +176,67 @@ SERVE_SCRIPT = textwrap.dedent("""
 """)
 
 
+ARIA_SCRIPT = textwrap.dedent("""
+    import sys, tempfile
+    for name in ("jax", "jaxlib", "spacer_tpu", "safetensors", "transformers"):
+        sys.modules[name] = None
+    import numpy as np
+    import torch
+    from spacer_tpu_torch.cli.common import ModelArgs, load_model_and_processor
+    from spacer_tpu_torch.data import make_conversation
+    from spacer_tpu_torch.data.aria_processor import AriaProcessor
+    from spacer_tpu_torch.evalharness import QwenEngine
+    from spacer_tpu_torch.models.aria import (
+        export_to_safetensors, load_params_from_hf)
+    from spacer_tpu_torch.models.registry import aria_positions, get_family
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.rewards import format_reward
+    from spacer_tpu_torch.sampler import Sampler
+    from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
+    cfg, params, proc = load_model_and_processor(ModelArgs(
+        random_init=True, model_family="aria", dtype="float32", device="cpu"))
+    reset_launch_counts()
+    texts = QwenEngine(cfg, params, proc, length_bucket=32).generate_many(
+        [[{"role": "user", "content": "hello there"}]], max_new_tokens=4,
+        temperature=0.0, slots=2)
+    assert len(texts) == 1
+    # crops of the tiny tower's size (the family's processor is the
+    # reference's, with 490 / 980-pixel crops)
+    proc = AriaProcessor(proc.tokenizer, cfg, max_image_size=56,
+                         min_image_size=14, size_conversion={56: 8})
+    img = np.random.default_rng(0).integers(0, 256, (40, 56, 3), np.uint8)
+    enc = proc.process_messages([[{"role": "user", "content": [
+        {"type": "image", "image": img}, {"type": "text", "text": "what"}]}]])
+    pos, deltas = aria_positions(cfg, enc["input_ids"], enc["attention_mask"])
+    out = Sampler(cfg, length_bucket=32).generate(
+        enc["input_ids"], enc["attention_mask"], params, position_ids=pos,
+        deltas=deltas, vision_kwargs=get_family("aria").pack_vision(enc)[0],
+        num_generations=2, max_new_tokens=4, temperature=0.0)
+    assert out.sequences.shape == (2, 4)
+    row = {"problem": "how many", "problem_type": "numerical",
+           "solution": "<answer>1</answer>", "path": img,
+           "data_type": "image", "data_source": "synthetic"}
+    row.update(make_conversation(row))
+    args = SGRLVRConfig(num_generations=2, max_completion_length=4,
+                        prompt_bucket=32, logp_chunk=4, decode_quant=None,
+                        output_dir=tempfile.mkdtemp())
+    m = SGRLVRTrainer(cfg, params, proc, [format_reward], [row],
+                      args).training_step([row], np.random.default_rng(0))
+    assert np.isfinite(float(m["loss"])), m
+    d = export_to_safetensors(params, cfg, tempfile.mkdtemp() + "/ckpt")
+    back, _ = load_params_from_hf(d, dtype=torch.float32, device="cpu")
+    assert torch.equal(back["visual"]["encoder"][0]["mlp"]["fc1"]["kernel"],
+                       params["visual"]["encoder"][0]["mlp"]["fc1"]["kernel"])
+    assert set(launch_counts().values()) == {0}, launch_counts()
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "spacer_tpu", "safetensors",
+                                  "transformers")
+           and sys.modules[m] is not None]
+    assert not bad, bad
+    print("aria ran")
+""")
+
+
 def _run(script, marker):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -195,6 +257,10 @@ def test_qwen2_vl_speculation_and_http_run_without_jax():
     """A tiny Qwen2-VL model: speculative serving and rollout, and an HTTP
     request to a speculating server, with jax and spacer_tpu blocked."""
     _run(SERVE_SCRIPT, "served")
+
+
+def test_aria_serves_rolls_out_and_trains_without_jax():
+    _run(ARIA_SCRIPT, "aria ran")
 
 
 def test_checkpoint_and_eval_run_without_jax_safetensors_transformers():

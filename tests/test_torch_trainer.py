@@ -27,6 +27,17 @@ def length_reward(completions, **kwargs):
     return [float(len(c[0]["content"]) % 5) for c in completions]
 
 
+def parity_reward(completions, **kwargs):
+    """A reward that keeps neighbouring completions of a group apart
+    whatever they say: 0.5 at odd positions, so that with the integer
+    rewards beside it a total at an odd position is never one at an even
+    one.  The mock tokenizer's word ids come from Python's per-process
+    string hash, so the prompt, and with it a random model's completions,
+    changes with PYTHONHASHSEED; for some seeds length_reward alone ties
+    across a whole group (zero advantages, a zero gradient)."""
+    return [0.5 * (i % 2) for i in range(len(completions))]
+
+
 def _rows():
     frames = np.random.default_rng(0).integers(0, 256, (4, 56, 84, 3), np.uint8)
     row = {"problem": "How many chairs are visible?",
@@ -48,7 +59,8 @@ def _trainer(tmp_path, **over):
               logp_chunk=8, decode_quant=None, moment_dtype="int8",
               output_dir=str(tmp_path / "out"), seed=3)
     kw.update(over)
-    return SGRLVRTrainer(cfg, params, proc, [length_reward, format_reward],
+    return SGRLVRTrainer(cfg, params, proc,
+                         [length_reward, format_reward, parity_reward],
                          _rows(), SGRLVRConfig(**kw))
 
 
