@@ -106,13 +106,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      two optimizer steps (K1 / K1-bwd at group 1, K1 at 72 with the plain
      backward, the MoE's grouped backward); the first update replayed with
      plain attention on LM layer 0, tower layer 0 and the projector.
+  12. the data x fsdp path (spacer_tpu_torch/parallel) at world 1 over
+     NCCL, set up by parallel.multihost.initialize() from torchrun's
+     environment for rank 0 of 1: two SGRLVRTrainer steps at 7B widths
+     with the LM cut to FSDP_LM_LAYERS layers (phase 5's row, G and
+     int8_kv rollouts), unsharded, then over create_mesh({"data": 1,
+     "fsdp": 1, "tp": 1}) and shard_params on the same params, rows and
+     seed: completions, losses, every update's gradients, the final params
+     and int8 moments bitwise equal (grad_norm within rel 1e-6, the params
+     within one bf16 ulp where the clip scaled a step and the norms
+     differ), every collective counted (calls, bytes, CUDA-event ms), s per
+     step and peaks of both; then a torchrun launch of train_sg_rlvr
+     (--multihost true) for one step at the tiny config.  `--phases 12
+     --world N` runs it over N cards at full depth instead (a development
+     run on a host with N cards; the default run needs one).
 Phase 3 also checks the kernels at the Aria path's shapes (3c: K1 at
 head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1).
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5c and 7-11, each counted from 0 just
+summed over the paths of phases 4-5c and 7-12, each counted from 0 just
 before it runs); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 12 --world 4   # fsdp over four cards
     python3 chip_smoke.py --phases 4c,4d     # a development run of some
 """
 
@@ -233,7 +248,8 @@ EVAL_NEW_TOKENS = 64
 LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
                "perception_task_accuracy", "relation_task_accuracy"}
 # The phases in the order they run (main's --phases selects some of them)
-PHASES = ("3", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9", "10", "11")
+PHASES = ("3", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9", "10", "11",
+          "12")
 # Phase 4c, the HTTP server: HTTP_VIDEOS video requests over mp4 files of
 # HTTP_VIDEO_SECONDS at HTTP_VIDEO_FPS (16 frames sampled at 2 fps, grid
 # (8, 16, 30) as phase 4's) and as many text requests, through HTTP_SLOTS
@@ -1935,13 +1951,17 @@ def video_row(shape, seed: int, problem_id: int = 0) -> dict:
 
 
 def make_trainer(cfg, device, steps: int, out_dir: str,
-                 videos=((16, 360, 640),), **overrides):
+                 videos=((16, 360, 640),), mesh=None, share_ref=False,
+                 **overrides):
     """The training slice's SGRLVRTrainer at the widths of `cfg`: random
     bf16 weights from seed 0, one row per shape in `videos` (by default one
     16-frame 360x640 video), temporal shuffle merged into the rollout
     (2 prompts per row x TRAIN_G completions of up to TRAIN_NEW_TOKENS
     tokens), the trainer's default int8_kv rollouts, beta 0.04, int8
-    moments, `steps` steps; `overrides` replace SGRLVRConfig fields.
+    moments, `steps` steps; `overrides` replace SGRLVRConfig fields.  With
+    a `mesh` the params are fsdp-sharded onto it (QWEN_PARTITION_RULES);
+    `share_ref` makes the reference model the policy's own tensors (the
+    same values until the first update, without a second copy).
     Returns (trainer, the params' paths in param_leaves order)."""
     from spacer_tpu_torch.data import MockTokenizer, VLProcessor
     from spacer_tpu_torch.models.qwen25_vl import init_params
@@ -1966,9 +1986,18 @@ def make_trainer(cfg, device, steps: int, out_dir: str,
         num_train_epochs=steps, logging_steps=1, save_steps=10 ** 9,
         skip_failed_steps=False, output_dir=out_dir, seed=0)
     args = dataclasses.replace(args, **overrides)
+    if mesh is not None:
+        from spacer_tpu_torch.parallel.partition import (
+            QWEN_PARTITION_RULES,
+            shard_params,
+        )
+
+        params = shard_params(params, mesh, QWEN_PARTITION_RULES)[0]
+        gc.collect()
+        torch.cuda.empty_cache()
     trainer = SGRLVRTrainer(
         cfg, params, proc, [synthetic_reward, accuracy_reward, format_reward],
-        rows, args)
+        rows, args, mesh=mesh, ref_params=params if share_ref else None)
     return trainer, names
 
 
@@ -2372,7 +2401,7 @@ class ApplyProbe:
         self.calls = []
         apply = tx.apply
 
-        def checked(grads, state, params, gnorm=None):
+        def checked(grads, state, params, **kw):
             bad = [n for n, g in zip(self.names, grads)
                    if not (bool(torch.isfinite(g).all())
                            and bool(g.any()) != zero(n))]
@@ -2385,7 +2414,7 @@ class ApplyProbe:
             before = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            out = apply(grads, state, params, gnorm=gnorm)
+            out = apply(grads, state, params, **kw)
             torch.cuda.synchronize()
             self.calls.append(dict(
                 seconds=time.perf_counter() - t0, fwd_bwd_peak=before,
@@ -3719,6 +3748,527 @@ def aria_train_phase(device="cuda") -> dict:
     return counts
 
 
+# Phase 12: the data x fsdp path (spacer_tpu_torch/parallel) at world 1 over
+# NCCL: the sharded SGRLVRTrainer against the unsharded one on the same
+# params, rows and seed at 7B widths, the LM cut to FSDP_LM_LAYERS layers.
+FSDP_LM_LAYERS = 4
+FSDP_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
+# The collectives phase 12's sharded run must make.
+FSDP_COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce",
+                    "object_gather", "object_broadcast")
+# --world N (a development run on N cards; never by default): full depth,
+# FSDP_WORLD_ROWS video rows per step (rollout_batch_size), step 1 against
+# a world-1 reference of the same rows and completions: the loss within
+# FSDP_WORLD_LOSS_RTOL, every gradient group's cosine >= FSDP_WORLD_COS_TOL
+# over the gradients of LM layers FSDP_WORLD_LAYERS, ViT blocks
+# FSDP_WORLD_BLOCKS and every tensor outside the layer lists (the whole
+# model's 16.6 GB of bf16 gradients would be written and read back).
+FSDP_WORLD_ROWS = 4
+FSDP_WORLD_LOSS_RTOL, FSDP_WORLD_COS_TOL = 1e-3, 0.999
+FSDP_WORLD_LAYERS, FSDP_WORLD_BLOCKS = (0, 13, 27), (0, 31)
+
+
+class GradTap:
+    """Wraps an optimizer's apply: sink(update, grads, gnorm) sees every
+    update's gradients (this rank's blocks of sharded tensors) before they
+    are applied."""
+
+    def __init__(self, tx, sink):
+        self.apply, self.sink, self.n = tx.apply, sink, 0
+        tx.apply = self
+
+    def __call__(self, grads, state, params, **kw):
+        self.sink(self.n, grads, kw.get("gnorm"))
+        self.n += 1
+        return self.apply(grads, state, params, **kw)
+
+
+def _full_view(t, leaf):
+    """A Shard's blocks as the tensor's own shape (at fsdp 1 the blocks
+    hold the whole tensor); any other tensor as it is."""
+    from spacer_tpu_torch.parallel import fsdp
+
+    if isinstance(leaf, fsdp.Shard):
+        return t.reshape(-1)[:leaf.numel].view(leaf.shape)
+    return t
+
+
+def fsdp_train_run(cfg, out_dir, mesh=None, ref=None, device="cuda") -> dict:
+    """Two SGRLVRTrainer.train steps (make_trainer's slice) with or
+    without `mesh`.  Without `ref` the completions, step metrics, every
+    update's gradients, the final params and the int8 moments are kept on
+    the host; with `ref` (that record) each is held bitwise against it as
+    it comes, and the names of the tensors that differ are kept."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.parallel import fsdp, multihost
+    from spacer_tpu_torch.train.step import param_leaves
+
+    trainer, names = make_trainer(cfg, device, 2, out_dir, mesh=mesh)
+    raw = fsdp.raw_leaves(trainer.params)
+    rec = {"rollouts": [], "steps": [], "grads": [], "grad_bad": [],
+           "check_s": []}
+
+    def sink(update, grads, gnorm):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        check(update, grads)
+        torch.cuda.synchronize()
+        rec["check_s"].append(time.perf_counter() - t)
+
+    def check(update, grads):
+        gs = [_full_view(g, leaf) for g, leaf in zip(grads, raw)]
+        if ref is None:
+            rec["grads"].append([g.detach().cpu() for g in gs])
+        else:
+            want = ref["grads"][update]
+            rec["grad_bad"].append([
+                names[i] for i, g in enumerate(gs)
+                if not torch.equal(g, want[i].to(g.device))])
+
+    GradTap(trainer.tx, sink)
+    generate = trainer.sampler.generate
+
+    def recorded(*a, **kw):
+        out = generate(*a, **kw)
+        rec["rollouts"].append(out.sequences.copy())
+        return out
+
+    trainer.sampler.generate = recorded
+    step_fn = trainer.step_fn
+
+    def spy(params, ref_params, opt_state, batch, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(params, ref_params, opt_state, batch, **kw)
+        torch.cuda.synchronize()
+        # the gradient check inside the update is not the update's time
+        rec["steps"].append(dict(
+            {k: float(out[2][k]) for k in ("loss", "kl", "grad_norm")},
+            update_s=time.perf_counter() - t - rec["check_s"][-1]))
+        return out
+
+    spy.ref_logps_fn = step_fn.ref_logps_fn
+    trainer.step_fn = spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    multihost.reset_collective_stats()
+    multihost.time_collectives(mesh is not None)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    rec["wall"] = time.perf_counter() - t0
+    rec["counts"] = launch_counts()
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["collectives"] = multihost.collective_stats()
+    multihost.time_collectives(False)
+    with open(pathlib.Path(out_dir) / "metrics.jsonl") as f:
+        rec["rollout_s"] = [json.loads(line)["time/rollout_s"] for line in f]
+    params = fsdp.gather_params(trainer.params)
+    state = fsdp.state_to_full(trainer.opt_state, trainer.params)
+    finals = [t.detach() for _, t in param_leaves(params)]
+    moments = [x for pair in state.mu + state.nu for x in pair]
+    if ref is None:
+        rec["params"] = [t.cpu() for t in finals]
+        rec["moments"] = [x.cpu() for x in moments]
+    else:
+        ulp = []
+        rec["param_bad"] = []
+        for n, t, want in zip(names, finals, ref["params"]):
+            want = want.to(t.device)
+            if not torch.equal(t, want):
+                rec["param_bad"].append(n)
+                a, b = t.float(), want.float()
+                ulp.append(bool(((a - b).abs() <= torch.maximum(
+                    a.abs(), b.abs()) * 2.0 ** -7).all()))
+        rec["param_one_ulp"] = all(ulp)
+        rec["moment_bad"] = sum(not torch.equal(x, w.to(x.device))
+                                for x, w in zip(moments, ref["moments"]))
+    rec["n_tensors"] = len(names)
+    del trainer, params, state, finals, moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _collective_line(stats: dict, steps: int) -> str:
+    return ", ".join(
+        f"{k} {v['calls'] / steps:.0f} calls {v['bytes'] / steps / 1e9:.3f} "
+        f"GB" + (f" {v['ms'] / steps:.1f} ms" if "ms" in v else "")
+        for k, v in sorted(stats.items()))
+
+
+def world1_env():
+    """torchrun's environment for rank 0 of a world of 1 (a free port)."""
+    from spacer_tpu_torch.parallel.multihost import _free_port
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(_free_port()))
+
+
+def fsdp_phase(device="cuda") -> dict:
+    """Phase 12: world 1 over NCCL through parallel.multihost.initialize()
+    (torchrun's environment for rank 0 of 1), create_mesh({"data": 1,
+    "fsdp": 1, "tp": 1}) and shard_params; two SGRLVRTrainer steps at
+    Qwen2.5-VL-7B widths with the LM cut to FSDP_LM_LAYERS layers, the
+    full ViT, one 16-frame video row, G = TRAIN_G, int8_kv rollouts,
+    unsharded and then sharded on the same params, rows and seed.  Gate:
+    completions, losses, kl, every update's gradients, the final params and
+    int8 moments bitwise equal (at world 1 every collective is a copy);
+    grad_norm within rel 1e-6, and where the clip scaled a step and the
+    norms differ, the params within one bf16 ulp.  The sharded run must
+    make every collective of FSDP_COLLECTIVES and launch every kernel of
+    FSDP_KERNELS.  Then one `torchrun --nproc_per_node 1 -m
+    spacer_tpu_torch.cli.train_sg_rlvr --multihost true --device cuda` step
+    at the tiny random-init config.  Returns the sharded run's launches."""
+    import torch.distributed as dist
+
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+
+    world1_env()
+    multihost.initialize(device=device)
+    backend = "nccl" if device == "cuda" else "gloo"
+    if dist.get_backend() != backend or dist.get_world_size() != 1:
+        raise RuntimeError(f"expected {backend} at world 1, got "
+                           f"{dist.get_backend()} at {dist.get_world_size()}")
+    mesh = create_mesh({"data": 1, "fsdp": 1, "tp": 1})
+    cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
+        QWEN25_VL_7B.text, num_layers=FSDP_LM_LAYERS))
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    plain = fsdp_train_run(cfg, str(root / "smoke_fsdp_plain"), device=device)
+    sharded = fsdp_train_run(cfg, str(root / "smoke_fsdp_sharded"), mesh=mesh,
+                             ref=plain, device=device)
+    for tag, r in (("unsharded", plain), ("sharded", sharded)):
+        for i, st in enumerate(r["steps"]):
+            log(f"fsdp {tag} step {i + 1}: loss {st['loss']!r} kl "
+                f"{st['kl']!r} grad_norm {st['grad_norm']!r} | rollout "
+                f"{r['rollout_s'][i]:.2f} s update {st['update_s']:.2f} s "
+                f"(the gradient check's {r['check_s'][i]:.2f} s apart)")
+        log(f"fsdp {tag}: wall {r['wall']:.1f} s for 2 steps, checks "
+            f"included; max_memory_allocated {gib(r['peak'])}")
+    a, b = plain["steps"][1], sharded["steps"][1]
+    log(f"fsdp step 2 (both warm), sharded vs unsharded: rollout "
+        f"{sharded['rollout_s'][1]:.2f} vs {plain['rollout_s'][1]:.2f} s, "
+        f"update {b['update_s']:.2f} vs {a['update_s']:.2f} s")
+    log(f"fsdp sharded: collectives per step: "
+        + _collective_line(sharded["collectives"], 2))
+    same_rollouts = (len(plain["rollouts"]) == len(sharded["rollouts"]) == 2
+                     and all(np.array_equal(a, b) for a, b in
+                             zip(plain["rollouts"], sharded["rollouts"])))
+    clipped = any(st["grad_norm"] >= 5.0 for st in plain["steps"])
+    norms_equal = all(a["grad_norm"] == b["grad_norm"]
+                      for a, b in zip(plain["steps"], sharded["steps"]))
+    log(f"fsdp world 1 vs unsharded: completions equal {same_rollouts}, "
+        f"losses {[s['loss'] for s in sharded['steps']]} vs "
+        f"{[s['loss'] for s in plain['steps']]}, grad_norm bitwise "
+        f"{norms_equal} (clip active: {clipped}), gradients differing "
+        f"{[len(b) for b in sharded['grad_bad']]} of {plain['n_tensors']} "
+        f"per update, params differing {len(sharded['param_bad'])}, "
+        f"int8 moment tensors differing {sharded['moment_bad']}")
+    problems = []
+    if not same_rollouts:
+        problems.append("completions differ")
+    for a, b in zip(plain["steps"], sharded["steps"]):
+        if a["loss"] != b["loss"] or a["kl"] != b["kl"]:
+            problems.append(f"loss/kl {b} vs {a}")
+        if abs(a["grad_norm"] - b["grad_norm"]) > 1e-6 * abs(a["grad_norm"]):
+            problems.append(f"grad_norm {b['grad_norm']} vs {a['grad_norm']}")
+    if len(sharded["grad_bad"]) != 2 or any(sharded["grad_bad"]):
+        problems.append(f"gradients differ: {sharded['grad_bad']}")
+    if sharded["param_bad"] and not (clipped and not norms_equal
+                                     and sharded["param_one_ulp"]):
+        problems.append(f"params differ: {sharded['param_bad'][:8]}")
+    if sharded["moment_bad"]:
+        problems.append(f"{sharded['moment_bad']} moment tensors differ")
+    missing = [k for k in FSDP_COLLECTIVES
+               if not sharded["collectives"].get(k, {}).get("calls")]
+    if missing:
+        problems.append(f"no {missing} collective in the sharded run")
+    counts = sharded["counts"]
+    log(f"fsdp sharded: launches {counts}")
+    if min(counts[k] for k in FSDP_KERNELS) < 1:
+        problems.append(f"a kernel of the path was never launched: {counts}")
+    del plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    cli_step_under_torchrun(root / "smoke_fsdp_cli", device)
+    if problems:
+        raise RuntimeError("phase 12: " + "; ".join(problems))
+    return counts
+
+
+def cli_step_under_torchrun(root: pathlib.Path, device="cuda"):
+    """`torchrun --nproc_per_node 1 chip_smoke.py --cli-step --multihost
+    true --device cuda ...`: spacer_tpu_torch.cli.train_sg_rlvr.main for one
+    step at the tiny random-init config on one 4-second video row; it must
+    exit 0 and record its step.  The tiny config's heads (16 wide) are
+    outside every kernel, which raise on CUDA tensors of such shapes, so
+    the step runs inside utils.debugging.interpret_kernels (the kernels'
+    plain versions on the card; `cli_step_main`)."""
+    from spacer_tpu_torch.parallel.multihost import _free_port
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    (video,) = write_videos(root, "clip", 1, 4, 8, seed=5, shift=3)
+    with open(root / "train.jsonl", "w") as f:
+        f.write(json.dumps({
+            "problem": "How many chairs?", "problem_type": "numerical",
+            "solution": "<answer>3</answer>", "path": video,
+            "data_type": "video", "data_source": "SR_dataset",
+            "problem_id": 0}) + "\n")
+    with open(root / "cogmap.jsonl", "w") as f:
+        f.write(json.dumps({"video_id": "clip0", "cognitive_map": {},
+                            "object_list": []}) + "\n")
+    out = root / "out"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           "1", "--master_port", str(_free_port()), __file__, "--cli-step",
+           "--multihost", "true", "--device", device, "--random_init", "true",
+           "--dataset_name", str(root / "train.jsonl"),
+           "--cognitive_map_path", str(root / "cogmap.jsonl"),
+           "--output_dir", str(out), "--max_steps", "1",
+           "--skip_failed_steps", "false",
+           "--num_generations", "4", "--max_completion_length", "32"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                        "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=str(pathlib.Path(__file__).resolve().parent),
+                          env=env)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or not (out / "metrics.jsonl").exists():
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-6000:])
+        raise RuntimeError(f"torchrun train_sg_rlvr exited {proc.returncode}")
+    with open(out / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != 1 or recs[0].get("step") != 1:
+        raise RuntimeError(f"torchrun train_sg_rlvr recorded {recs}")
+    rec = recs[0]
+    log(f"fsdp cli: torchrun --nproc_per_node 1 train_sg_rlvr --multihost "
+        f"true --device {device}: exit 0 in {seconds:.1f} s, step "
+        f"{rec['step']}: "
+        f"loss {rec['loss']:.6e} grad_norm {rec['grad_norm']:.6e} reward "
+        f"{rec['reward']:.3f}")
+
+
+def _world_selected(name: str) -> bool:
+    """The tensors whose gradients --world N compares (FSDP_WORLD_LAYERS,
+    FSDP_WORLD_BLOCKS and every tensor outside the layer lists)."""
+    parts = name.split("/")
+    if parts[:2] == ["model", "layers"]:
+        return int(parts[2]) in FSDP_WORLD_LAYERS
+    if parts[:2] == ["visual", "blocks"]:
+        return int(parts[2]) in FSDP_WORLD_BLOCKS
+    return True
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak(device, reset=False) -> int:
+    """max_memory_allocated on CUDA (0 elsewhere), optionally reset."""
+    if torch.device(device).type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated()
+
+
+def _world_trainer(out_dir, steps, mesh=None, share_ref=False,
+                   device="cuda"):
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+
+    return make_trainer(QWEN25_VL_7B, device, steps, out_dir,
+                        videos=(FULL_VIDEOS[0],) * FSDP_WORLD_ROWS,
+                        mesh=mesh, share_ref=share_ref,
+                        rollout_batch_size=FSDP_WORLD_ROWS)
+
+
+def _world_reference(rank, out, device="cuda"):
+    """--world N's reference, one process on card 0 without a mesh: step
+    1's rollout, loss and the selected gradients (no update: the reference
+    model is the policy's own tensors and no moments are kept) -> out/
+    ref.pt."""
+    trainer, names = _world_trainer(out + "/ref", 1, share_ref=True,
+                                    device=device)
+    trainer.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    _peak(device, reset=True)
+    rec, generate, step_fn = {}, trainer.sampler.generate, trainer.step_fn
+
+    def recorded(*a, **kw):
+        _sync(device)
+        t = time.perf_counter()
+        res = generate(*a, **kw)
+        rec.update(rollout=res, rollout_s=time.perf_counter() - t)
+        return res
+
+    def loss_only(params, ref_params, opt_state, batch, **kw):
+        _sync(device)
+        t = time.perf_counter()
+        loss, metrics, grads = step_fn.loss_and_grads(
+            params, batch["ref_logps"],
+            {k: v for k, v in batch.items() if k != "ref_logps"},
+            kw["grid_thw"], kw["num_generations"], select=_world_selected)
+        _sync(device)
+        rec.update(loss=float(loss), grad_s=time.perf_counter() - t,
+                   adv_scale=float(batch["advantages"].abs().mean()),
+                   grads={n: g.cpu() for n, g in zip(names, grads)
+                          if g is not None})
+        return params, opt_state, dict(metrics, loss=loss,
+                                       grad_norm=torch.zeros(()))
+
+    loss_only.ref_logps_fn = step_fn.ref_logps_fn
+    trainer.sampler.generate, trainer.step_fn = recorded, loss_only
+    trainer.training_step(trainer.dataset, np.random.default_rng(0))
+    rec["peak"] = _peak(device)
+    torch.save(rec, out + "/ref.pt")
+    log(f"fsdp world reference (1 card, no mesh): rollout "
+        f"{rec['rollout_s']:.2f} s, loss and gradients {rec['grad_s']:.2f} s, "
+        f"loss {rec['loss']!r}, max_memory_allocated {gib(rec['peak'])}")
+
+
+def _world_rank(rank, out, device="cuda"):
+    """One rank of --world N: fsdp over every rank, the full-depth trainer
+    on this rank's share of the FSDP_WORLD_ROWS rows, two steps; step 1
+    replays the reference's completions (its own rollout still runs and is
+    timed) and its gradients are held against the reference's per group."""
+    from spacer_tpu_torch.parallel import fsdp, multihost
+
+    world = multihost.process_count()
+    mesh = multihost.global_mesh()
+    trainer, names = _world_trainer(f"{out}/rank{rank}", 2, mesh=mesh,
+                                    device=device)
+    ref = torch.load(out + "/ref.pt", weights_only=False, mmap=True)
+    raw = fsdp.raw_leaves(trainer.params)
+    rec = {"rollout_s": [], "update_s": [], "loss": [], "peak": []}
+    generate, step_fn = trainer.sampler.generate, trainer.step_fn
+    sums = collections.defaultdict(lambda: torch.zeros(3, dtype=torch.float64,
+                                                       device=device))
+
+    def replayed(*a, **kw):
+        _sync(device)
+        t = time.perf_counter()
+        res = generate(*a, **kw)
+        rec["rollout_s"].append(time.perf_counter() - t)
+        return ref["rollout"] if len(rec["rollout_s"]) == 1 else res
+
+    def sink(update, grads, gnorm):
+        if update:
+            return
+        from spacer_tpu_torch.train.optimizer import BLOCK as B
+
+        for n, g, leaf in zip(names, grads, raw):
+            if n not in ref["grads"]:
+                continue
+            want = ref["grads"][n].reshape(-1)
+            if isinstance(leaf, fsdp.Shard):
+                lo = leaf.block_lo * B
+                mine = g.reshape(-1)[:max(0, min(g.numel(), leaf.numel - lo))]
+                want = want[lo:lo + mine.numel()]
+            elif rank:
+                continue   # a replicated gradient counts once
+            else:
+                mine = g.reshape(-1)
+            a, b = mine.double(), want.to(mine.device).double()
+            sums[_grad_group(n)] += torch.stack([(a * b).sum(), a.square()
+                                                 .sum(), b.square().sum()])
+
+    def timed(params, ref_params, opt_state, batch, **kw):
+        _sync(device)
+        t = time.perf_counter()
+        res = step_fn(params, ref_params, opt_state, batch, **kw)
+        _sync(device)
+        rec["update_s"].append(time.perf_counter() - t)
+        rec["loss"].append(float(res[2]["loss"]))
+        return res
+
+    timed.ref_logps_fn = step_fn.ref_logps_fn
+    GradTap(trainer.tx, sink)
+    trainer.sampler.generate, trainer.step_fn = replayed, timed
+    rows = trainer.dataset[rank * FSDP_WORLD_ROWS // world:
+                           (rank + 1) * FSDP_WORLD_ROWS // world]
+    multihost.reset_collective_stats()
+    multihost.time_collectives(True)
+    for step in range(2):
+        _peak(device, reset=True)
+        trainer.training_step(rows, np.random.default_rng(step))
+        rec["peak"].append(_peak(device))
+    rec["collectives"] = multihost.collective_stats()
+    # replicated tensors' groups are summed on rank 0 only
+    groups = sorted(set().union(*multihost.all_gather_objects(sorted(sums))))
+    vec = torch.stack([sums[g] for g in groups])
+    multihost.all_reduce(vec, mesh.group("batch"))
+    rec["cos"] = {g: float(d / math.sqrt(x * y)) for g, (d, x, y)
+                  in zip(groups, vec.tolist())}
+    rec["ref_loss"], rec["adv_scale"] = ref["loss"], ref["adv_scale"]
+    rec["ref_rollout_s"], rec["ref_grad_s"] = ref["rollout_s"], ref["grad_s"]
+    rec["ref_peak"] = ref["peak"]
+    parts = multihost.all_gather_objects(rec)
+    if rank == 0:
+        torch.save(parts, out + "/world.pt")
+
+
+def fsdp_world_phase(world: int, device="cuda"):
+    """`--phases 12 --world N`: the reference on card 0, then N ranks
+    (parallel.multihost.launch_local, NCCL, fsdp N) at full depth; the gate
+    and the numbers of each rank (FSDP_WORLD_* above)."""
+    out = str(pathlib.Path(__file__).resolve().parent / "build"
+              / "smoke_fsdp_world")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    log("fsdp world cards (nvidia-smi): "
+        + " | ".join(smi.stdout.strip().splitlines()[:world]))
+    from spacer_tpu_torch.parallel.multihost import launch_local
+
+    # every process hashes the mock tokenizer's words alike
+    os.environ["PYTHONHASHSEED"] = "0"
+    launch_local(_world_reference, 1, args=(out, device), device=device,
+                 timeout=1200)
+    launch_local(_world_rank, world, args=(out, device), device=device,
+                 timeout=1800)
+    parts = torch.load(out + "/world.pt", weights_only=False)
+    first = parts[0]
+    for r, p in enumerate(parts):
+        log(f"fsdp world {world} rank {r}: rollout s per step "
+            f"{[round(x, 2) for x in p['rollout_s']]}, update s per step "
+            f"{[round(x, 2) for x in p['update_s']]}, peak per step "
+            f"{[gib(x) for x in p['peak']]}, loss {p['loss']}")
+        log(f"fsdp world {world} rank {r}: collectives per step: "
+            + _collective_line(p["collectives"], 2))
+    cos = first["cos"]
+    dl = abs(first["loss"][0] - first["ref_loss"])
+    log(f"fsdp world {world} vs world 1 at step 1: loss {first['loss'][0]!r} "
+        f"vs {first['ref_loss']!r} (|diff| {dl:.3e}, mean |advantage| "
+        f"{first['adv_scale']:.4f}); gradient cosine per group: "
+        + ", ".join(f"{g} {c:.6f}" for g, c in sorted(cos.items())))
+    log(f"fsdp world 1 reference: rollout {first['ref_rollout_s']:.2f} s, "
+        f"loss and gradients {first['ref_grad_s']:.2f} s, max_memory_"
+        f"allocated {gib(first['ref_peak'])}")
+    # the step-1 loss is a mean of per-row terms of +-|advantage| that
+    # cancel (advantages are centred per group): its scale is the mean
+    # |advantage|, not its own value near zero
+    scale = max(abs(first["ref_loss"]), first["adv_scale"])
+    if dl > FSDP_WORLD_LOSS_RTOL * scale:
+        raise RuntimeError(f"world {world} step-1 loss {first['loss'][0]} vs "
+                           f"{first['ref_loss']}")
+    if not min(cos.values()) >= FSDP_WORLD_COS_TOL:
+        raise RuntimeError(f"gradient cosine below {FSDP_WORLD_COS_TOL}: "
+                           f"{cos}")
+
+
 SERVE_KERNELS = ("K1", "K3", "K4", "K5")
 SERVE_INT4_KV_KERNELS = ("K1", "K3", "K4", "K5-int8", "K6")
 TRAIN_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv", "K2-int8", "K3", "K4")
@@ -3772,26 +4322,56 @@ SOURCES = {
 }
 
 
+def cli_step_main(argv):
+    """`chip_smoke.py --cli-step ARGS` (cli_step_under_torchrun's torchrun
+    target): spacer_tpu_torch.cli.train_sg_rlvr.main(ARGS) with every
+    kernel call sent to its plain version."""
+    from spacer_tpu_torch.cli.train_sg_rlvr import main as train_main
+    from spacer_tpu_torch.utils.debugging import interpret_kernels
+
+    with interpret_kernels() as calls:
+        train_main(argv)
+    log(f"cli step: kernel calls sent to their plain versions: "
+        f"{dict(calls)}")
+    return 0
+
+
 def main(argv=None):
     """Every phase (no arguments, as the contract runs it), or with
     `--phases 3,4c,10` the device facts, the build and those phases only,
     a development run that prints no kernels line and no result line
-    (4c / 4d run on phase 4's params, 5c after phase 5)."""
+    (4c / 4d run on phase 4's params, 5c after phase 5).  `--phases 12
+    --world N` runs phase 12's N-card variant instead (fsdp_world_phase)."""
     argv = sys.argv[1:] if argv is None else argv
-    phases = PHASES
+    if argv[:1] == ["--cli-step"]:
+        return cli_step_main(argv[1:])
+    phases, world = PHASES, None
     if argv:
-        if len(argv) != 2 or argv[0] != "--phases":
-            raise SystemExit("usage: chip_smoke.py [--phases 3,4,4c,...]")
+        usage = "usage: chip_smoke.py [--phases 3,4,4c,... [--world N]]"
+        if len(argv) not in (2, 4) or argv[0] != "--phases":
+            raise SystemExit(usage)
         phases = tuple(argv[1].split(","))
         unknown = set(phases) - set(PHASES)
         if unknown or ("5c" in phases and "5" not in phases):
             raise SystemExit(f"phases {sorted(unknown)} unknown, or 5c "
                              f"without 5; known: {PHASES}")
+        if len(argv) == 4:
+            if argv[2] != "--world" or phases != ("12",):
+                raise SystemExit(usage + " (--world with --phases 12 only)")
+            world = int(argv[3])
+            if not 1 <= world <= torch.cuda.device_count():
+                raise SystemExit(f"--world {world}: "
+                                 f"{torch.cuda.device_count()} cards")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     smi = device_facts()
     build_kernels()
+    if world is not None:
+        fsdp_world_phase(world)
+        log(f"development run of phase 12 at world {world}: no kernels "
+            "line, no result")
+        return 0
     results = {}
     if "3" in phases:
         results.update(check_kernels())
@@ -3838,6 +4418,10 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
         paths["aria train"] = aria_train_phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "12" in phases:
+        paths["train fsdp world 1"] = fsdp_phase()
     counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     if phases != PHASES:

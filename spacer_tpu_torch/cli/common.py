@@ -1,9 +1,11 @@
-"""Shared CLI plumbing: model and processor loading (counterpart of
-spacer_tpu/cli/common.py)."""
+"""Shared CLI plumbing: model and processor loading, mesh setup
+(counterpart of spacer_tpu/cli/common.py)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional
 
 import torch
 
@@ -19,6 +21,10 @@ class ModelArgs:
     model_family: str = ""
     # torch device the model runs on; the CPU only when asked for
     device: str = "cuda"
+    tp: int = 1                        # tensor-parallel axis size
+    fsdp: Optional[int] = None         # fsdp axis size (default: all)
+    # join torchrun's process group (NCCL on CUDA, gloo on --device cpu)
+    multihost: bool = False
     # decode-path quantization: "" (bf16) | "int8" | "int8_kv" | "int4" |
     # "int4_kv" (applies to the rollout sampler and the serving batcher)
     decode_quant: str = ""
@@ -54,13 +60,41 @@ def load_tokenizer(path: str):
     return AutoTokenizer.from_pretrained(path)
 
 
+def setup_distributed(args: ModelArgs):
+    """--multihost true: join torchrun's process group (one process per
+    device; parallel/multihost.initialize), which must exist."""
+    if not args.multihost:
+        return
+    from spacer_tpu_torch.parallel import multihost
+
+    if "WORLD_SIZE" not in os.environ:
+        raise RuntimeError("--multihost true runs under torchrun (its RANK, "
+                           "WORLD_SIZE and MASTER_ADDR / MASTER_PORT "
+                           "environment was not found)")
+    multihost.initialize(device=args.device)
+
+
+def refuse_mesh(mesh, what: str):
+    """Serving and evaluation run on one device: a sharded model would need
+    tensor parallelism, which the port does not have yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} over {mesh.size} processes is not ported: a sharded "
+            "model serves through tensor parallelism (ROADMAP queue A item "
+            "2b); run it as one process")
+
+
 def load_model_and_processor(args: ModelArgs):
-    """Returns (cfg, params, processor) of the family `model_family` names
-    (or, empty, that the model id names): the checkpoint at
+    """Returns (cfg, params, processor, mesh) of the family `model_family`
+    names (or, empty, that the model id names): the checkpoint at
     `model_name_or_path` loaded onto `device` with its tokenizer, or with
     `random_init` (or no path) the family's tiny random model and mock
-    tokenizer."""
+    tokenizer.  Over more than one process (setup_distributed) the params
+    are sharded onto a (data, fsdp, tp) mesh by the family's partition
+    rules; the mesh is None in a single process, as JAX gives None on one
+    device."""
     from spacer_tpu_torch.models.registry import get_family
+    from spacer_tpu_torch.parallel import multihost
 
     family = get_family(args.model_family or args.model_name_or_path)
     device = torch.device(args.device)
@@ -79,4 +113,11 @@ def load_model_and_processor(args: ModelArgs):
             args.model_name_or_path, dtype=dtype, device=device)
         tokenizer = load_tokenizer(args.tokenizer_path
                                    or args.model_name_or_path)
-    return cfg, params, family.make_processor(tokenizer, cfg, device)
+    processor = family.make_processor(tokenizer, cfg, device)
+    mesh = None
+    if multihost.process_count() > 1 or args.tp > 1:
+        from spacer_tpu_torch.parallel.partition import shard_params
+
+        mesh = multihost.global_mesh(tp=args.tp, fsdp=args.fsdp)
+        params, _ = shard_params(params, mesh, family.partition_rules)
+    return cfg, params, processor, mesh

@@ -22,6 +22,8 @@ from spacer_tpu_torch.cli.common import (
     ModelArgs,
     decode_quant_arg,
     load_model_and_processor,
+    refuse_mesh,
+    setup_distributed,
 )
 from spacer_tpu_torch.utils.config import parse_configs
 
@@ -33,7 +35,9 @@ def main(argv=None):
     if eval_cfg.speculate_k and eval_cfg.serving != "continuous":
         # fail before the checkpoint load with a clear message
         raise SystemExit("--speculate_k requires --serving continuous")
-    cfg, params, processor = load_model_and_processor(model_args)
+    setup_distributed(model_args)
+    cfg, params, processor, mesh = load_model_and_processor(model_args)
+    refuse_mesh(mesh, "evaluation")
     engine = QwenEngine(cfg, params, processor,
                         decode_quant=decode_quant_arg(model_args.decode_quant),
                         speculate_k=eval_cfg.speculate_k)

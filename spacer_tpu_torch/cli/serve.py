@@ -34,6 +34,8 @@ from spacer_tpu_torch.cli.common import (
     ModelArgs,
     decode_quant_arg,
     load_model_and_processor,
+    refuse_mesh,
+    setup_distributed,
 )
 from spacer_tpu_torch.utils.config import parse_configs
 
@@ -86,7 +88,9 @@ def main(argv=None):
             and serve_cfg.serving != "continuous"):
         raise SystemExit("--speculate_k requires --serving continuous (the "
                          "static grouped sampler serves without it)")
-    cfg, params, processor = load_model_and_processor(model_args)
+    setup_distributed(model_args)
+    cfg, params, processor, mesh = load_model_and_processor(model_args)
+    refuse_mesh(mesh, "serving")
     decode_quant = decode_quant_arg(model_args.decode_quant)
 
     if serve_cfg.http:

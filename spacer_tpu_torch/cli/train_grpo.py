@@ -20,6 +20,7 @@ from spacer_tpu_torch.cli.common import (
     ModelArgs,
     decode_quant_arg,
     load_model_and_processor,
+    setup_distributed,
     remat_arg,
 )
 from spacer_tpu_torch.utils.config import parse_configs
@@ -54,7 +55,8 @@ def main(argv=None):
         (ScriptArgs, SGRLVRConfig, ModelArgs), argv)
     train_cfg.decode_quant = decode_quant_arg(train_cfg.decode_quant)
     train_cfg.remat = remat_arg(train_cfg.remat)
-    cfg, params, processor = load_model_and_processor(model_args)
+    setup_distributed(model_args)
+    cfg, params, processor, mesh = load_model_and_processor(model_args)
 
     rows = load_jsonl_dataset(script.dataset_name)
     if script.max_rows:
@@ -65,7 +67,7 @@ def main(argv=None):
     reward_funcs = [registry[n] for n in script.reward_funcs]
 
     trainer = SGRLVRTrainer(cfg, params, processor, reward_funcs, dataset,
-                            train_cfg, map_data=None)
+                            train_cfg, map_data=None, mesh=mesh)
     trainer.train(resume_from_checkpoint=script.resume_from_checkpoint)
     trainer.save_checkpoint(train_cfg.output_dir + "/final")
 

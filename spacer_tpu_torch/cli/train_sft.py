@@ -18,6 +18,7 @@ from typing import Optional
 from spacer_tpu_torch.cli.common import (
     ModelArgs,
     load_model_and_processor,
+    setup_distributed,
     remat_arg,
 )
 from spacer_tpu_torch.utils.config import parse_configs
@@ -36,13 +37,14 @@ def main(argv=None):
     script, train_cfg, model_args = parse_configs(
         (ScriptArgs, SFTConfig, ModelArgs), argv)
     train_cfg.remat = remat_arg(train_cfg.remat)
-    cfg, params, processor = load_model_and_processor(model_args)
+    setup_distributed(model_args)
+    cfg, params, processor, mesh = load_model_and_processor(model_args)
 
     rows = load_jsonl_dataset(script.dataset_name)
     if script.max_rows:
         rows = rows[:script.max_rows]
 
-    trainer = SFTTrainer(cfg, params, processor, rows, train_cfg)
+    trainer = SFTTrainer(cfg, params, processor, rows, train_cfg, mesh=mesh)
     trainer.train()
     trainer.save_checkpoint(train_cfg.output_dir + "/final")
 

@@ -38,6 +38,7 @@ from spacer_tpu_torch.nn.core import (
     layer_norm,
     layer_norm_init,
 )
+from spacer_tpu_torch.parallel.fsdp import gather
 
 Params = Any
 
@@ -132,6 +133,7 @@ def vit_forward(params: Params, cfg: AriaVisionConfig, pixel_values,
     Returns (last layer's hidden, post-layernormed): the former feeds the
     projector (HF vision_feature_layer = -1), the latter is the tower's
     last_hidden_state."""
+    params = gather(params, keep=("encoder",))
     patches = patchify(pixel_values, cfg.patch_size)
     h = dense(params["embeddings"]["patch_embedding"], patches)
     h = h + params["embeddings"]["position_embedding"]["embedding"][
@@ -139,11 +141,13 @@ def vit_forward(params: Params, cfg: AriaVisionConfig, pixel_values,
     kw = dict(eps=cfg.layer_norm_eps, num_heads=cfg.num_heads)
     remat = remat and torch.is_grad_enabled()
     for lp in params["encoder"]:
+        # fsdp Shards gathered inside the (checkpointed) layer
         if remat:
-            h = checkpoint(lambda x, lp=lp: _vit_layer(x, lp, patch_mask, **kw),
-                           h, use_reentrant=False)
+            h = checkpoint(
+                lambda x, lp=lp: _vit_layer(x, gather(lp), patch_mask, **kw),
+                h, use_reentrant=False)
         else:
-            h = _vit_layer(h, lp, patch_mask, **kw)
+            h = _vit_layer(h, gather(lp), patch_mask, **kw)
     return h, layer_norm(params["post_layernorm"], h, cfg.layer_norm_eps)
 
 

@@ -40,6 +40,7 @@ from spacer_tpu_torch.nn.core import (
 from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
 from spacer_tpu_torch.ops.flash_decode import flash_decode_attention
 from spacer_tpu_torch.ops.quant import quantize_kv
+from spacer_tpu_torch.parallel.fsdp import gather
 
 Params = Any
 
@@ -245,6 +246,9 @@ def lm_forward(params: Params, cfg: TextConfig, *,
     modes of `check_remat` save the matmul outputs their policy names
     (create_selective_checkpoint_contexts) and recompute the rest."""
     remat = check_remat(remat)
+    # fsdp Shards are gathered where used: the layers one at a time, inside
+    # each (checkpointed) layer
+    params = gather(params, keep=("layers",))
     if input_embeds is None:
         input_embeds = embed(params["embed_tokens"], input_ids)
     B, S, _ = input_embeds.shape
@@ -270,14 +274,14 @@ def lm_forward(params: Params, cfg: TextConfig, *,
                   cache_index=cache_index,
                   prefix_kv=None if prefix_kv is None else prefix_kv[l])
         if cache is not None:
-            h, kv = _layer(h, lp, (cache["k"][l], cache["v"][l]), **kw)
+            h, kv = _layer(h, gather(lp), (cache["k"][l], cache["v"][l]), **kw)
         elif remat and grad:
             h, kv = checkpoint(
-                lambda x, lp=lp, kw=kw: _layer(x, lp, None, **kw), h,
+                lambda x, lp=lp, kw=kw: _layer(x, gather(lp), None, **kw), h,
                 use_reentrant=False,
                 **_checkpoint_kwargs(_layer_remat(remat, l), cfg))
         else:
-            h, kv = _layer(h, lp, None, **kw)
+            h, kv = _layer(h, gather(lp), None, **kw)
         if return_kv:
             kvs.append(kv)
     h = rms_norm(params["norm"], h, cfg.rms_norm_eps)

@@ -48,6 +48,7 @@ from spacer_tpu_torch.ops.vit_window_attention import (
     validity_bias,
     window_attention_hsd,
 )
+from spacer_tpu_torch.parallel.fsdp import gather
 
 Params = Any
 
@@ -271,11 +272,16 @@ def _run_blocks(params, h, block, remat: bool):
     """block(h, bp, li) over every ViT block; remat recomputes each block
     in the backward pass."""
     remat = remat and torch.is_grad_enabled()
+
+    def gathered_block(h, bp, li):
+        # fsdp Shards gathered inside the (checkpointed) block
+        return block(h, gather(bp), li)
+
     for li, bp in enumerate(params["blocks"]):
         if remat:
-            h = checkpoint(block, h, bp, li, use_reentrant=False)
+            h = checkpoint(gathered_block, h, bp, li, use_reentrant=False)
         else:
-            h = block(h, bp, li)
+            h = gathered_block(h, bp, li)
     return h
 
 
@@ -313,6 +319,7 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
                 layout: VisionLayout, remat: bool = False):
     """pixel_values (S, patch_dim) -> merged embeddings (S / mu, out_hidden)
     in the original (pre-window-permutation) token order."""
+    params = gather(params, keep=("blocks",))
     if len(set(cfg.fullatt_block_indexes)) == cfg.depth:
         return _vit_forward_full(params, cfg, pixel_values, layout, remat)
     dev = pixel_values.device

@@ -41,6 +41,8 @@ class ModelFamily:
     load_params_from_hf: Callable[..., Any]
     # batch keys that carry vision arrays into the train step
     vision_batch_keys: tuple = ("pixel_values",)
+    # parallel/partition.py rules for shard_params
+    partition_rules: tuple = ()
 
 
 def _qwen_positions(cfg, input_ids, attention_mask, enc):
@@ -150,6 +152,7 @@ def _make_qwen_family():
         init_params,
         merge_vision_embeds,
     )
+    from spacer_tpu_torch.parallel.partition import QWEN_PARTITION_RULES
     from spacer_tpu_torch.train.step import tile_vision_embeds
 
     return ModelFamily(
@@ -166,6 +169,7 @@ def _make_qwen_family():
         tile_vision_embeds=tile_vision_embeds,
         load_params_from_hf=load_params_from_hf,
         vision_batch_keys=("pixel_values",),
+        partition_rules=tuple(QWEN_PARTITION_RULES),
     )
 
 
@@ -180,6 +184,7 @@ def _make_aria_family():
         merge_vision_embeds,
         tiny_aria_config,
     )
+    from spacer_tpu_torch.parallel.partition import ARIA_PARTITION_RULES
 
     return ModelFamily(
         name="aria",
@@ -197,6 +202,7 @@ def _make_aria_family():
         load_params_from_hf=load_params_from_hf,
         vision_batch_keys=("pixel_values", "pixel_position_ids",
                            "patch_mask"),
+        partition_rules=tuple(ARIA_PARTITION_RULES),
     )
 
 

@@ -1,0 +1,121 @@
+"""Device mesh over torch.distributed ranks (counterpart of
+spacer_tpu/parallel/mesh.py).
+
+One process per device, as torchrun runs the reference.  The mesh has
+the JAX package's axes (data, fsdp, tp); rank r sits at the row-major
+coordinates of r over those sizes, as `np.asarray(devices).reshape(sizes)`
+places device r there.  It holds the process groups the port's collectives
+use: the fsdp axis (params are sharded over it), the data axis (gradients
+of a shard are summed over it) and data x fsdp (the batch axes).  Tensor
+parallelism (tp > 1) is not ported (ROADMAP queue A item 2b).
+"""
+
+from __future__ import annotations
+
+import math
+
+AXES = ("data", "fsdp", "tp")
+
+
+# copied from spacer_tpu/parallel/mesh.py mesh_shape_for
+def mesh_shape_for(n_devices: int, tp: int = 1, fsdp: int | None = None
+                   ) -> dict[str, int]:
+    """Pick a (data, fsdp, tp) factorization of n_devices.
+
+    Default: all non-tp devices go to fsdp (ZeRO-3-like: batch sharded over
+    data*fsdp, params sharded over fsdp).
+    """
+    assert n_devices % tp == 0, (n_devices, tp)
+    rest = n_devices // tp
+    if fsdp is None:
+        fsdp = rest
+    assert rest % fsdp == 0, (rest, fsdp)
+    return {"data": rest // fsdp, "fsdp": fsdp, "tp": tp}
+
+
+class Mesh:
+    """This rank's place on a (data, fsdp, tp) mesh and its process groups.
+
+    `shape` maps every axis to its size (`mesh.shape["fsdp"]` reads as in
+    JAX); `coords` maps every axis to this rank's index on it.  `groups`
+    maps "fsdp", "data" and "batch" (data x fsdp) to torch.distributed
+    process groups; a Mesh built without them (tests that only place
+    batches) has none and cannot run a collective."""
+
+    def __init__(self, shape: dict, rank: int, groups: dict | None = None):
+        self.shape = {a: int(shape.get(a, 1)) for a in AXES}
+        if self.shape["tp"] != 1:
+            raise NotImplementedError(
+                f"tp={self.shape['tp']}: tensor parallelism is not ported "
+                "(ROADMAP queue A item 2b)")
+        self.size = math.prod(self.shape.values())
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not on a mesh of {self.size}")
+        self.rank = int(rank)
+        rest, coords = self.rank, {}
+        for a in reversed(AXES):
+            coords[a] = rest % self.shape[a]
+            rest //= self.shape[a]
+        self.coords = {a: coords[a] for a in AXES}
+        self.groups = dict(groups or {})
+
+    def group(self, name: str):
+        if name not in self.groups:
+            raise RuntimeError(f"this Mesh has no {name!r} process group "
+                               "(build it with create_mesh)")
+        return self.groups[name]
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's index over the batch axes (data major, fsdp minor)."""
+        return self.coords["data"] * self.shape["fsdp"] + self.coords["fsdp"]
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def _axis_groups(shape: dict):
+    """Rank lists of the fsdp groups (one per data index), the data groups
+    (one per fsdp index) and the whole batch group."""
+    D, F = shape["data"], shape["fsdp"]
+    fsdp = [[d * F + f for f in range(F)] for d in range(D)]
+    data = [[d * F + f for d in range(D)] for f in range(F)]
+    return fsdp, data
+
+
+def create_mesh(shape: dict | None = None, tp: int = 1) -> Mesh:
+    """Build this rank's Mesh over the initialized process group.
+
+    `shape` maps axis name -> size; missing axes get size 1.  Its product
+    must equal the world size.  With shape=None, uses mesh_shape_for(world,
+    tp).  Every rank must call it (new_group is collective)."""
+    import torch.distributed as dist
+
+    tp = int((shape or {}).get("tp", tp))
+    if tp != 1:
+        raise NotImplementedError(
+            f"tp={tp}: tensor parallelism is not ported "
+            "(ROADMAP queue A item 2b)")
+    if not dist.is_initialized():
+        raise RuntimeError("create_mesh needs an initialized process group "
+                           "(parallel.multihost.initialize)")
+    world = dist.get_world_size()
+    if shape is None:
+        shape = mesh_shape_for(world)
+    full = {a: int(shape.get(a, 1)) for a in AXES}
+    if math.prod(full.values()) != world:
+        raise ValueError(f"mesh {full} != {world} processes")
+    rank = dist.get_rank()
+    fsdp_lists, data_lists = _axis_groups(full)
+    groups = {}
+    # new_group is collective: every rank creates every group, in order
+    for ranks in fsdp_lists:
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            groups["fsdp"] = g
+    for ranks in data_lists:
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            groups["data"] = g
+    groups["batch"] = dist.new_group(list(range(world)))
+    return Mesh(full, rank, groups)

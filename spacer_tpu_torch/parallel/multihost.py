@@ -1,0 +1,322 @@
+"""Process-group setup and host-side exchanges (counterpart of
+spacer_tpu/parallel/multihost.py).
+
+The port runs one process per device under torchrun, as the reference does
+(run_SpaceR_SG_RLVR.sh:9-21): `initialize()` joins the process group from
+torchrun's environment (NCCL on CUDA; gloo only when the CPU is asked for),
+`global_mesh` builds the (data, fsdp, tp) mesh over all ranks, and the
+helpers below carry the exchanges the SG-RLVR loop needs: python objects
+(encodings, completion rewards) gathered from or broadcast to every rank,
+metric means, and row shards of a tensor gathered onto every rank.
+
+Without an initialized process group (a plain single-process run) every
+helper is the identity.  Once a group exists, a world of one runs the same
+collectives as any other world.
+
+Every collective the port issues goes through this module's counters
+(`collective_stats`): per kind, the calls and the bytes of their input
+tensors (a shard for an all-gather, the whole padded tensor for a
+reduce-scatter, a pickle for an object exchange), and with
+`time_collectives(True)` on CUDA their CUDA-event time.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import defaultdict
+from typing import Any
+
+import numpy as np
+import torch
+
+_STATS = defaultdict(lambda: {"calls": 0, "bytes": 0})
+_EVENTS: list = []
+_TIMING = [False]
+
+
+def reset_collective_stats():
+    _STATS.clear()
+    _EVENTS.clear()
+
+
+def time_collectives(on: bool = True):
+    """Record a CUDA event pair around every collective on CUDA tensors
+    from now on (read back, summed, by collective_stats)."""
+    _TIMING[0] = bool(on)
+
+
+def collective_stats() -> dict:
+    """{kind: {"calls", "bytes"[, "ms"]}} since the last reset; "ms" sums
+    the CUDA-event times of the timed calls (it synchronizes the card)."""
+    out = {k: dict(v) for k, v in _STATS.items()}
+    if _EVENTS:
+        torch.cuda.synchronize()
+        for kind, a, b in _EVENTS:
+            out[kind]["ms"] = out[kind].get("ms", 0.0) + a.elapsed_time(b)
+    return out
+
+
+class _Record:
+    """Count one collective (and time it on CUDA when timing is on)."""
+
+    def __init__(self, kind: str, nbytes: int, cuda: bool):
+        self.kind, self.nbytes = kind, int(nbytes)
+        self.events = None
+        if _TIMING[0] and cuda:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self):
+        s = _STATS[self.kind]
+        s["calls"] += 1
+        s["bytes"] += self.nbytes
+        if self.events:
+            self.events[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if self.events:
+            self.events[1].record()
+            _EVENTS.append((self.kind, *self.events))
+        return False
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def is_initialized() -> bool:
+    dist = _dist()
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_count() -> int:
+    return _dist().get_world_size() if is_initialized() else 1
+
+
+def process_index() -> int:
+    return _dist().get_rank() if is_initialized() else 0
+
+
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def initialize(device: str = "cuda", **kwargs) -> None:
+    """init_process_group from torchrun's environment (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR / MASTER_PORT), or from explicit `kwargs`
+    (init_method, world_size, rank, ...), after torch.cuda.set_device(
+    LOCAL_RANK) on CUDA.
+
+    Idempotent.  With no torchrun environment and no kwargs it is a
+    single-process no-op, as JAX's initialize() is without a cluster.  The
+    backend is NCCL on CUDA and gloo on the CPU (`device="cpu"`); a failing
+    rendezvous or backend raises, never degrading to another backend or to
+    one process."""
+    dist = _dist()
+    if dist.is_initialized():
+        return
+    if not kwargs and not all(k in os.environ for k in _TORCHRUN_ENV):
+        return
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r}: CUDA is not available; "
+                               "pass the CPU explicitly to use gloo")
+        local = int(os.environ.get("LOCAL_RANK", kwargs.get("rank", 0)))
+        torch.cuda.set_device(local)
+        kwargs.setdefault("device_id", torch.device("cuda", local))
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend=kwargs.pop("backend", backend), **kwargs)
+
+
+def global_mesh(tp: int = 1, fsdp: int | None = None):
+    """Mesh over all ranks.  fsdp caps the fsdp-axis size; remaining ranks
+    go to `data` (e.g. 8 ranks, fsdp=4 -> data=2)."""
+    from spacer_tpu_torch.parallel.mesh import create_mesh, mesh_shape_for
+
+    if tp != 1:
+        return create_mesh({"tp": tp})   # raises: tp is not ported
+    return create_mesh(mesh_shape_for(process_count(), fsdp=fsdp))
+
+
+# -- tensor collectives (counted) --------------------------------------------
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor, group):
+    with _Record("all_gather", x.numel() * x.element_size(), x.is_cuda):
+        _dist().all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group):
+    """SUM-reduce `x` over the group; this rank keeps its equal part."""
+    with _Record("reduce_scatter", x.numel() * x.element_size(), x.is_cuda):
+        _dist().reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def all_reduce(x: torch.Tensor, group):
+    """SUM over the group, in place."""
+    with _Record("all_reduce", x.numel() * x.element_size(), x.is_cuda):
+        _dist().all_reduce(x, group=group)
+    return x
+
+
+# -- python objects (counted) ------------------------------------------------
+
+
+def _object_bytes(obj) -> int:
+    import pickle
+
+    return len(pickle.dumps(obj))
+
+
+def all_gather_objects(obj: Any, group=None) -> list[Any]:
+    """Gather a python object from every rank (reward strings, encodings:
+    the analogue of accelerate's gather_object), in rank order."""
+    if not is_initialized():
+        return [obj]
+    dist = _dist()
+    out = [None] * dist.get_world_size(group)
+    with _Record("object_gather", _object_bytes(obj), False):
+        dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def broadcast_from_host0(obj: Any) -> Any:
+    """Rank 0's object on every rank (broadcast_object_list)."""
+    if not is_initialized():
+        return obj
+    box = [obj if process_index() == 0 else None]
+    with _Record("object_broadcast",
+                 _object_bytes(obj) if process_index() == 0 else 0, False):
+        _dist().broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def barrier():
+    """Wait for every rank (no-op without a process group)."""
+    if is_initialized():
+        _dist().barrier()
+
+
+def mean_across_hosts(value: float) -> float:
+    """Mean of a scalar metric over the ranks (gather_for_metrics)."""
+    if not is_initialized():
+        return float(value)
+    return float(np.mean(all_gather_objects(float(value))))
+
+
+# -- batches -----------------------------------------------------------------
+
+
+def fetch_to_host(local: torch.Tensor, mesh, axes=("data", "fsdp")
+                  ) -> np.ndarray:
+    """Row shards -> the full array, identical on every rank (numpy).
+
+    `local` holds this rank's rows of an array whose dim 0 is split over
+    `axes` (("data", "fsdp"), ("data",), or () for a replicated array),
+    every shard the same size."""
+    if mesh is None or not axes:
+        return local.cpu().numpy()
+    world, F = mesh.size, mesh.shape["fsdp"]
+    out = torch.empty((world * local.shape[0], *local.shape[1:]),
+                      dtype=local.dtype, device=local.device)
+    all_gather_into(out, local, mesh.group("batch"))
+    parts = out.reshape(world, *local.shape)
+    if tuple(axes) == ("data",):
+        parts = parts[::F]     # fsdp replicas hold the same data shard
+    return parts.reshape(-1, *local.shape[1:]).cpu().numpy()
+
+
+def global_batch_from_local(local_batch: dict, mesh):
+    """This rank's numpy rows -> its rows of the global batch.
+
+    With one device per process a rank's local rows ARE its shard of the
+    global batch whenever the row count tiles the batch axes; a dim that
+    does not tile is exchanged and replicated, the fallback JAX applies
+    (global_batch_from_local)."""
+    from spacer_tpu_torch.parallel.partition import _BATCH_DIM1_KEYS
+
+    if mesh is None or not is_initialized():
+        return local_batch
+    total = mesh.shape["data"] * mesh.shape["fsdp"]
+    nproc = process_count()
+    out = {}
+    for k, x in local_batch.items():
+        x = np.asarray(x)
+        dim = 1 if k in _BATCH_DIM1_KEYS else 0
+        if x.ndim > dim and (x.shape[dim] * nproc) % total == 0:
+            out[k] = x
+            continue
+        parts = all_gather_objects(x)
+        out[k] = np.concatenate(parts, axis=dim) if x.ndim > dim else parts[0]
+    return out
+
+
+def place_global_batch(batch: dict, mesh):
+    """A global batch, identical on every rank -> this rank's rows of it
+    (partition.place_batch).  mesh=None returns the batch as it is."""
+    if mesh is None:
+        return batch
+    from spacer_tpu_torch.parallel.partition import place_batch
+
+    return place_batch(batch, mesh)
+
+
+# -- local launcher ----------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch_entry(rank, fn, world, port, device, threads, args):
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    if threads:
+        torch.set_num_threads(threads)
+    initialize(device=device)
+    try:
+        fn(rank, *args)
+        barrier()
+    finally:
+        _dist().destroy_process_group()
+
+
+def launch_local(fn, world: int, args=(), device: str = "cuda",
+                 timeout: float | None = None, threads: int = 0):
+    """Run fn(rank, *args) in `world` fresh processes on this host, joined
+    in one process group through torchrun's environment (initialize(): NCCL
+    with one card per rank on CUDA, gloo on the CPU), as
+    `torchrun --nproc_per_node world` would.  `fn` must be importable by
+    name.  Raises if a rank raises or the run outlasts `timeout` seconds
+    (every rank is then killed)."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(
+        _launch_entry, args=(fn, world, _free_port(), device, threads,
+                             tuple(args)),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        while not ctx.join(None if deadline is None
+                           else max(1e-3, deadline - time.monotonic())):
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks of {fn.__name__} ran "
+                                   f"past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()

@@ -26,7 +26,18 @@ holds its acceptance.
 
 Random draws come from a torch.Generator; they differ from jax.random's for
 the same seed, so only the distribution (`filtered_logits`) and greedy
-decoding (temperature 0) are comparable across the two packages.
+decoding (temperature 0) are comparable across the two packages.  A
+sample is the exponential race torch.multinomial runs for one draw
+(argmax of probs / Exp(1) noise), with the noise drawn for the WHOLE
+batch even where a rank decodes some of its rows: each row then gets the
+draws it gets in a single process, whatever the sharding (JAX's draws do
+not depend on the sharding either).
+
+With a device mesh (parallel/mesh.py) every rank calls `generate` with the
+same global batch.  The prompt rows split over data x fsdp when they
+divide, else over data, else every rank decodes them all (JAX's
+`_rollout_spec`); the params' fsdp Shards are gathered once for the
+rollout and dropped when it ends, and every rank returns every row.
 """
 
 from __future__ import annotations
@@ -95,12 +106,20 @@ def filtered_logits(logits, temperature: float, top_p: float):
 
 
 def sample_logits(logits, generator: torch.Generator | None,
-                  temperature: float, top_p: float):
-    """(B, V) logits -> (B,) token ids; greedy argmax at temperature <= 0."""
+                  temperature: float, top_p: float, rows=None):
+    """(B, V) logits -> (B,) token ids; greedy argmax at temperature <= 0.
+    A draw is torch.multinomial's for one sample (the same tokens): argmax
+    of probs / q with q ~ Exp(1).  `rows` = (n, lo): these B rows are rows
+    [lo, lo + B) of a batch of n, and q is drawn for all n rows."""
     if temperature is None or temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(filtered_logits(logits, temperature, top_p), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    n, lo = rows if rows is not None else (probs.shape[0], 0)
+    q = torch.empty((n, probs.shape[1]), dtype=probs.dtype,
+                    device=probs.device).exponential_(1, generator=generator)
+    if n != probs.shape[0]:
+        q = q[lo:lo + probs.shape[0]]
+    return torch.argmax(probs / q, dim=-1)
 
 
 def prologue(params, ids, pixel_values, *, cfg, grid_thw):
@@ -163,8 +182,9 @@ def _prep_decode(model, prefix_cache, n_rows: int, max_new_tokens: int,
 def _decode_loop(model, text_cfg, prefix_split, tails, prefix_mask,
                  first_tokens, deltas, prompt_len: int, group: int,
                  max_new_tokens: int, temperature: float, top_p: float,
-                 eos_token_id: int, generator) -> torch.Tensor:
-    """Shared-prefix autoregressive loop -> tokens (B*G, max_new)."""
+                 eos_token_id: int, generator, rows=None) -> torch.Tensor:
+    """Shared-prefix autoregressive loop -> tokens (B*G, max_new); `rows`
+    as sample_logits takes it."""
     N = first_tokens.shape[0]
     dev = first_tokens.device
     bias_p = torch.where(prefix_mask, 0.0, MASK_VALUE)[:, None, :].float()
@@ -181,7 +201,8 @@ def _decode_loop(model, text_cfg, prefix_split, tails, prefix_mask,
         logits = lm_decode_step_split(
             model["layers"], model, text_cfg, cur, pos, prefix_split, bias_p,
             tails, tail_index=step - 1, group=group, tail_len=step)
-        nxt = sample_logits(logits[:, -1], generator, temperature, top_p)
+        nxt = sample_logits(logits[:, -1], generator, temperature, top_p,
+                            rows)
         nxt = torch.where(done, eos, nxt)
         tokens[:, step] = nxt
         done = done | (nxt == eos_token_id)
@@ -189,9 +210,14 @@ def _decode_loop(model, text_cfg, prefix_split, tails, prefix_mask,
 
 
 def _jax_exit_point(tokens: np.ndarray, eos_token_id: int) -> np.ndarray:
-    """Zero the positions the JAX loop never writes: it stops before step s
-    once every row has an EOS in tokens[:, :s]."""
+    """EOS after each row's first EOS, then zero the positions the JAX loop
+    never writes: it stops before step s once every row has an EOS in
+    tokens[:, :s].  (A loop over some of the rows may stop before the
+    others' end; this is the same result for any split of the rows.)"""
     is_eos = tokens == eos_token_id
+    after = np.cumsum(is_eos, axis=1) > 0
+    if (after & ~is_eos).any():
+        tokens = np.where(after, eos_token_id, tokens)
     if is_eos.any(axis=1).all():
         stop = int(is_eos.argmax(axis=1).max()) + 1
         tokens = tokens.copy()
@@ -203,12 +229,13 @@ def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
               deltas, generator, *, num_generations: int,
               max_new_tokens: int, temperature: float, top_p: float,
               eos_token_id: int, decode_quant=None, speculate_k: int = 0,
-              input_ids=None, pad_token_id: int = 0):
+              input_ids=None, pad_token_id: int = 0, rows=None):
     """Prefill once per prompt (B rows), then the grouped decode loop (its
     quantized weights and caches are dropped when it returns) -> tokens
     (B*G, max_new), or with speculate_k (drafting from input_ids) the
     speculative loop's (tokens, [row-steps, emitted tokens]).
-    input_embeds: (B, S, D) left-padded."""
+    input_embeds: (B, S, D) left-padded; `rows` = (n, lo): the B*G
+    completion rows are rows [lo, lo + B*G) of n (sample_logits)."""
     B, S, _ = input_embeds.shape
     G = num_generations
     cache = init_kv_cache(text_cfg, B, S, dtype=input_embeds.dtype,
@@ -219,7 +246,7 @@ def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
         cache_index=0, last_only=True)
     last = logits[:, -1].repeat_interleave(G, dim=0)        # (B*G, V)
     deltas = deltas.reshape(-1).repeat_interleave(G)
-    first = sample_logits(last, generator, temperature, top_p)
+    first = sample_logits(last, generator, temperature, top_p, rows)
     model, prefix, tails = _prep_decode(params["model"], cache, B * G,
                                         max_new_tokens, decode_quant)
     del cache
@@ -232,7 +259,7 @@ def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
             pad_token_id, speculate_k, generator)
     return _decode_loop(model, text_cfg, prefix, tails, prompt_mask, first,
                         deltas, S, G, max_new_tokens, temperature, top_p,
-                        eos_token_id, generator)
+                        eos_token_id, generator, rows)
 
 
 class Sampler:
@@ -241,9 +268,11 @@ class Sampler:
     `decode_quant` is one of DECODE_QUANTS (other values raise ValueError).
     `speculate_k` > 0 (a negative value raises ValueError) decodes with the
     speculative block loop; generate(speculate_k=...) overrides it per
-    call.  A device mesh is not ported and raises NotImplementedError.
-    Sequential decode is head-major through K2 / K2-int8 (the kernels on
-    CUDA, their plain versions on the CPU)."""
+    call.  `mesh`: the port's parallel.mesh.Mesh (anything else raises
+    TypeError), see the module docstring; a speculative rollout over rows
+    split across ranks raises NotImplementedError.  Sequential decode is
+    head-major through K2 / K2-int8 (the kernels on CUDA, their plain
+    versions on the CPU)."""
 
     def __init__(self, cfg, eos_token_id: int | None = None,
                  pad_token_id: int | None = None, length_bucket: int = 128,
@@ -258,8 +287,12 @@ class Sampler:
         self.speculate_k = int(speculate_k or 0)
         if self.speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded rollouts are not ported")
+        from spacer_tpu_torch.parallel.mesh import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a spacer_tpu_torch.parallel.mesh."
+                            f"Mesh, got {type(mesh).__name__}")
+        self.mesh = mesh
         self.cfg = cfg
         self.family = family_for_config(cfg)
         self.eos_token_id = (eos_token_id if eos_token_id is not None
@@ -272,6 +305,26 @@ class Sampler:
     def _bucket(self, n: int) -> int:
         b = self.length_bucket
         return max(b, -(-n // b) * b)
+
+    def _rollout_axes(self, n: int) -> tuple:
+        """The batch axes the n prompt rows split over: data x fsdp where
+        they divide, then data, then none (JAX's _rollout_spec)."""
+        if self.mesh is None:
+            return ()
+        shape = self.mesh.shape
+        for axes in (("data", "fsdp"), ("data",)):
+            k = int(np.prod([shape[a] for a in axes]))
+            if k > 1 and n % k == 0:
+                return axes
+        return ()
+
+    def _local_prompts(self, n: int, axes) -> tuple[int, int]:
+        if not axes:
+            return 0, n
+        idx = (self.mesh.batch_index if axes == ("data", "fsdp")
+               else self.mesh.coords["data"])
+        per = n // int(np.prod([self.mesh.shape[a] for a in axes]))
+        return idx * per, (idx + 1) * per
 
     @torch.no_grad()
     def generate(self, input_ids: np.ndarray, attention_mask: np.ndarray,
@@ -302,6 +355,19 @@ class Sampler:
             # delta = max_pos + 1 - seq_len; padding grows seq_len
             deltas = np.asarray(deltas) - pad
 
+        spec_k = self.speculate_k if speculate_k is None else int(speculate_k)
+        if spec_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        axes = self._rollout_axes(B)
+        if spec_k and axes:
+            raise NotImplementedError(
+                "speculative rollouts over prompt rows split across ranks "
+                "are not ported (ROADMAP queue A item 2b); use "
+                "speculate_k=0 or a batch the mesh does not split")
+        from spacer_tpu_torch.parallel.fsdp import gather_params
+
+        # fsdp Shards gathered once for the whole rollout, dropped after it
+        params = gather_params(params)
         emb = params["model"]["embed_tokens"]["embedding"]
         dev = emb.device
 
@@ -316,26 +382,34 @@ class Sampler:
             ve = self.family.encode_vision(params, cfg, vision_kwargs,
                                            grid_thw)
             embeds = self.family.merge_vision_embeds(cfg, ids, embeds, ve)
+        lo, hi = self._local_prompts(B, axes)
+        G = num_generations
+        rows = (B * G, lo * G) if axes else None
+        sl = slice(lo, hi)
         generator = torch.Generator(device=dev).manual_seed(int(seed))
         temp = float(temperature) if temperature is not None else 0.0
         topp = float(top_p) if top_p is not None else 1.0
-        spec_k = self.speculate_k if speculate_k is None else int(speculate_k)
-        if spec_k < 0:
-            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
         out = _generate(
-            params, cfg.text, embeds, tensor(position_ids),
-            tensor(attention_mask, torch.bool), tensor(deltas), generator,
-            num_generations=num_generations, max_new_tokens=max_new_tokens,
+            params, cfg.text, embeds[sl], tensor(position_ids[:, sl]),
+            tensor(attention_mask[sl], torch.bool), tensor(deltas[sl]),
+            generator, num_generations=G, max_new_tokens=max_new_tokens,
             temperature=temp, top_p=topp, eos_token_id=self.eos_token_id,
-            decode_quant=self.decode_quant, speculate_k=spec_k, input_ids=ids,
-            pad_token_id=self.pad_token_id)
+            decode_quant=self.decode_quant, speculate_k=spec_k,
+            input_ids=ids[sl], pad_token_id=self.pad_token_id, rows=rows)
+        del params, emb, embeds
         stats = None
         if spec_k:
             tokens, (steps, emitted) = out[0].cpu().numpy(), out[1].tolist()
             stats = {"spec_row_steps": steps, "spec_tokens": emitted,
                      "spec_acceptance": emitted / max(steps, 1)}
         else:
-            tokens = _jax_exit_point(out.cpu().numpy(), self.eos_token_id)
+            if axes:
+                from spacer_tpu_torch.parallel.multihost import fetch_to_host
+
+                tokens = fetch_to_host(out, self.mesh, axes)
+            else:
+                tokens = out.cpu().numpy()
+            tokens = _jax_exit_point(tokens, self.eos_token_id)
         mask = completion_mask_from_ids(tokens, self.eos_token_id)
         return SampleOutput(sequences=tokens, completion_mask=mask,
                             lengths=mask.sum(axis=1), stats=stats)

@@ -7,6 +7,12 @@ gradient accumulation, the accumulator and its mini-step) and `meta.json`.
 Restoring maps the params onto the device of `params_like` and the state
 onto that of `opt_state_like` (host memory for an offloaded state), so a
 checkpoint saved on one device loads onto another.
+
+Sharded params (parallel/fsdp.py) save as the full tensors and the
+world-1 optimizer state, gathered on every rank and written by rank 0, so
+a checkpoint is the same whatever the world that wrote it; restoring cuts
+it for the current world (the Shards of `params_like`), whatever the
+world was at save: JAX's cross-topology resume (`_restore_tree`).
 """
 
 from __future__ import annotations
@@ -16,10 +22,12 @@ import os
 
 import torch
 
+from spacer_tpu_torch.parallel import fsdp, multihost
+
 
 def _like_device(like):
     """The device of the first tensor in a nested tree (None if none)."""
-    if isinstance(like, torch.Tensor):
+    if isinstance(like, (torch.Tensor, fsdp.Shard)):
         return like.device
     items = (like.values() if isinstance(like, dict)
              else like if isinstance(like, (list, tuple)) else ())
@@ -32,11 +40,16 @@ def _like_device(like):
 
 def save_train_state(path: str, params, opt_state, metadata: dict):
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    torch.save(params, os.path.join(path, "params.pt"))
-    torch.save(opt_state, os.path.join(path, "opt_state.pt"))
-    with open(os.path.join(path, "meta.json"), "w") as f:
-        json.dump(metadata, f)
+    if fsdp.has_shards(params):
+        opt_state = fsdp.state_to_full(opt_state, params)
+        params = fsdp.gather_params(params)
+    if multihost.process_index() == 0:
+        os.makedirs(path, exist_ok=True)
+        torch.save(params, os.path.join(path, "params.pt"))
+        torch.save(opt_state, os.path.join(path, "opt_state.pt"))
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(metadata, f)
+    multihost.barrier()
     return path
 
 
@@ -51,13 +64,19 @@ def restore_train_state(path: str, params_like, opt_state_like):
                            weights_only=False)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
+    if fsdp.has_shards(params_like):
+        params = fsdp.params_from_full(params, params_like)
+        opt_state = fsdp.state_from_full(opt_state, params_like)
     return params, opt_state, meta
 
 
 def save_model_only(path: str, params):
     """--save_only_model equivalent."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    torch.save(params, os.path.join(path, "params.pt"))
+    params = fsdp.gather_params(params)
+    if multihost.process_index() == 0:
+        os.makedirs(path, exist_ok=True)
+        torch.save(params, os.path.join(path, "params.pt"))
+    multihost.barrier()
     return path
 

@@ -132,14 +132,14 @@ def _scatter(outs, start: int, values):
         outs[l][a - l * n:b - l * n] = values[a - start:b - start]
 
 
-def _quantize_mu(m, generator, sr: bool):
-    """Linear per-block absmax int8 with optional stochastic rounding."""
+def _quantize_mu(m, noise=None):
+    """Linear per-block absmax int8, with stochastic rounding where
+    `noise` (uniform [0, 1) draws shaped like m) is given."""
     absmax = m.abs().amax(dim=1, keepdim=True)
     scale = absmax.clamp_min(1e-30) / 127.0
     y = m / scale
-    if sr:
-        y = y + (torch.rand(m.shape, generator=generator, device=m.device)
-                 - 0.5)
+    if noise is not None:
+        y = y + (noise - 0.5)
     return y.round().clamp(-127.0, 127.0).to(torch.int8), scale
 
 
@@ -162,6 +162,9 @@ class OptState(NamedTuple):
     nu: list
     groups: list            # moment groups: lists of param indices
     decay: list             # per param: weight-decayed or not
+    # per group: None, or (first block, blocks of the whole tensor) where
+    # the group is one fsdp Shard's blocks (parallel/fsdp.py)
+    blocks: list | None = None
 
 
 class AdamW:
@@ -183,8 +186,16 @@ class AdamW:
         self.sr = sr_impl != "off"
         self.seed = seed
 
-    def init(self, params, names) -> OptState:
+    def init(self, params, names, blocks=None) -> OptState:
+        """`blocks`: per param None, or (first block, blocks of the whole
+        tensor) for a Shard's blocks (parallel/fsdp.shard_blocks): the
+        int8 stochastic rounding then draws the whole tensor's dither and
+        keeps this shard's rows, as a single process would draw it."""
         groups, decay = moment_layout(params, names)
+        gblocks = None
+        if blocks is not None and any(b is not None for b in blocks):
+            gblocks = [blocks[idx[0]] if len(idx) == 1 else None
+                       for idx in groups]
         mu, nu = [], []
         if self.moment_dtype == "int8":
             for idx in groups:
@@ -201,7 +212,7 @@ class AdamW:
                 vdt = torch.float32 if self.moment_dtype == "float32" else p.dtype
                 mu.append(torch.zeros(p.shape, dtype=mdt, device=p.device))
                 nu.append(torch.zeros(p.shape, dtype=vdt, device=p.device))
-        return OptState(0, mu, nu, groups, decay)
+        return OptState(0, mu, nu, groups, decay, gblocks)
 
     @torch.no_grad()
     def update(self, grads, state: OptState, params):
@@ -216,17 +227,19 @@ class AdamW:
                                   global_norm(grads))
 
     @torch.no_grad()
-    def apply(self, grads, state: OptState, params, gnorm=None) -> OptState:
+    def apply(self, grads, state: OptState, params, gnorm=None,
+              norm=global_norm) -> OptState:
         """The update applied IN PLACE, one moment group at a time: each
         param gets `p.add_(u.to(p.dtype))` as soon as its update exists and
         its entry of the `grads` list is dropped (set to None), so neither a
         list of updates nor the applied grads outlive their group.  The
         values equal `update` followed by the add.  `gnorm`: the grads'
         global norm where the caller has it (clipping needs it before any
-        group).  Moments held in host memory (parallel/offload.py) stream
-        through the grads' device a group at a time and back."""
+        group), else norm(grads) (fsdp shards: parallel/fsdp.global_norm).
+        Moments held in host memory (parallel/offload.py) stream through
+        the grads' device a group at a time and back."""
         if gnorm is None:
-            gnorm = global_norm(grads)
+            gnorm = norm(grads)
 
         def emit(i, u):
             params[i].add_(u.to(params[i].dtype))
@@ -268,9 +281,10 @@ class AdamW:
         for j, idx in enumerate(state.groups):
             mv = stream.get(j)
             if int8:
-                ds, m, v = self._adam_int8([clip(grads[i]) for i in idx],
-                                           tuple(mv[:2]), tuple(mv[2:]),
-                                           bc1, bc2, generator)
+                ds, m, v = self._adam_int8(
+                    [clip(grads[i]) for i in idx], tuple(mv[:2]),
+                    tuple(mv[2:]), bc1, bc2, generator,
+                    state.blocks[j] if state.blocks else None)
                 for i, d in zip(idx, ds):
                     finish(i, d)
                 stream.put(j, [*m, *v])
@@ -300,21 +314,43 @@ class AdamW:
             for idx, x in zip(state.groups, items):
                 for k, i in enumerate(idx):
                     mu[i], nu[i] = x[k], x[len(idx) + k]
-        return OptState(count, mu, nu, state.groups, state.decay)
+        return OptState(count, mu, nu, state.groups, state.decay,
+                        state.blocks)
 
-    def _adam_int8(self, gs, m_q, v_q, bc1, bc2, generator):
+    def _adam_int8(self, gs, m_q, v_q, bc1, bc2, generator, blocks=None):
         """Dequant -> adam -> requant over the virtual concatenation of one
-        moment group's flattened grads, a slab of blocks at a time."""
+        moment group's flattened grads, a slab of blocks at a time.
+
+        `blocks` = (lo, nb) marks the group as blocks [lo, lo + rows) of a
+        tensor of nb blocks (an fsdp Shard): the slabs are the whole
+        tensor's, each draws its whole dither (the same stream as one
+        process updating the whole tensor) and this shard's rows take
+        theirs; rows past nb are padding and stay zero."""
         flats = [g.reshape(-1) for g in gs]
         total = sum(f.numel() for f in flats)
-        d_outs = [torch.empty(f.numel(), dtype=torch.float32, device=f.device)
-                  for f in flats]
+        rows = m_q[0].shape[0]
+        lo, nb = blocks if blocks is not None else (0, rows)
+        d_outs = [(torch.zeros if blocks is not None else torch.empty)(
+            f.numel(), dtype=torch.float32, device=f.device) for f in flats]
         mq, ms = torch.empty_like(m_q[0]), torch.empty_like(m_q[1])
         vq, vs = torch.empty_like(v_q[0]), torch.empty_like(v_q[1])
-        for s0 in range(0, m_q[0].shape[0], SLAB_BLOCKS):
-            sl = slice(s0, s0 + SLAB_BLOCKS)
-            start = s0 * BLOCK
-            end = min(start + SLAB_BLOCKS * BLOCK, total)
+        if blocks is not None:
+            for t in (mq, ms, vq, vs):
+                t.zero_()
+        for s0 in range(0, nb, SLAB_BLOCKS):
+            s1 = min(s0 + SLAB_BLOCKS, nb)
+            noise = None
+            if self.sr:
+                noise = torch.rand((s1 - s0, BLOCK), generator=generator,
+                                   device=m_q[0].device)
+            a, b = max(s0, lo), min(s1, lo + rows)
+            if a >= b:
+                continue
+            if noise is not None and (a, b) != (s0, s1):
+                noise = noise[a - s0:b - s0]
+            sl = slice(a - lo, b - lo)
+            start = (a - lo) * BLOCK
+            end = min((b - lo) * BLOCK, total)
             g = _gather(flats, start, end)
             pad = (-g.numel()) % BLOCK
             if pad:
@@ -326,7 +362,7 @@ class AdamW:
             v = self.b2 * v + (1.0 - self.b2) * g * g
             d = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             _scatter(d_outs, start, d.reshape(-1)[:end - start])
-            mq[sl], ms[sl] = _quantize_mu(m, generator, self.sr)
+            mq[sl], ms[sl] = _quantize_mu(m, noise)
             vq[sl], vs[sl] = _quantize_nu(v)
         ds = [d.reshape(g.shape).to(g.dtype) for d, g in zip(d_outs, gs)]
         return ds, (mq, ms), (vq, vs)
@@ -361,16 +397,17 @@ class MultiSteps:
             raise ValueError(f"every_k must be >= 1, got {every_k}")
         self.inner, self.every_k = inner, int(every_k)
 
-    def init(self, params, names) -> MultiStepsState:
-        return MultiStepsState(0, 0, self.inner.init(params, names),
+    def init(self, params, names, blocks=None) -> MultiStepsState:
+        return MultiStepsState(0, 0, self.inner.init(params, names, blocks),
                                [torch.zeros_like(p) for p in params])
 
     @torch.no_grad()
     def apply(self, grads, state: MultiStepsState, params,
-              gnorm=None) -> MultiStepsState:
+              gnorm=None, norm=global_norm) -> MultiStepsState:
         """One mini-step (see the class docstring).  `gnorm`, the
-        mini-step's own norm, is not the mean's and is not used.  The
-        `grads` entries are dropped as they are consumed."""
+        mini-step's own norm, is not the mean's and is not used; the inner
+        update clips at norm(mean).  The `grads` entries are dropped as they
+        are consumed."""
         from spacer_tpu_torch.parallel.offload import GroupStream
 
         del gnorm
@@ -401,7 +438,8 @@ class MultiSteps:
             return MultiStepsState(n + 1, state.gradient_step,
                                    state.inner_opt_state, acc)
         stream.finish()
-        inner = self.inner.apply(grads, state.inner_opt_state, params)
+        inner = self.inner.apply(grads, state.inner_opt_state, params,
+                                 norm=norm)
         for a in acc:
             a.zero_()
         return MultiStepsState(0, state.gradient_step + 1, inner, acc)

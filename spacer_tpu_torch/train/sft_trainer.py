@@ -1,6 +1,10 @@
 """SFT trainer (counterpart of spacer_tpu/train/sft_trainer.py; sft.py
 parity): chat-template collation with pad / visual label masking,
-next-token cross-entropy through `make_sft_train_step`, on one device.
+next-token cross-entropy through `make_sft_train_step`, on one device or,
+with a device mesh (parallel/mesh.py), on each of its ranks: as in the
+JAX trainer, every rank collates the same batch of `per_device_batch_size`
+rows (the global batch), and the step runs each rank's rows of it over
+the fsdp-sharded params.  Only rank 0 writes metrics and checkpoints.
 
 Behavioral reference: sft.py:84-182 (prepare_dataset, collate_fn masking ids
 {pad, 151652, 151653, 151656}) and :184-272 (loop / save).  The prompt
@@ -18,9 +22,10 @@ import numpy as np
 import torch
 
 from spacer_tpu_torch.models.qwen25_vl.rope_index import get_rope_index
+from spacer_tpu_torch.parallel import fsdp
 from spacer_tpu_torch.train.optimizer import make_optimizer
 from spacer_tpu_torch.train.step import make_sft_train_step, param_leaves
-from spacer_tpu_torch.utils.logging import MetricLogger
+from spacer_tpu_torch.utils.logging import rank_logger
 
 SFT_SYSTEM_MESSAGE = "You are a helpful assistant"
 
@@ -106,10 +111,13 @@ class SFTConfig:
 
 
 class SFTTrainer:
-    """Single-process SFT on the params' device."""
+    """SFT on the params' device; with a `mesh`, one rank of it."""
 
     def __init__(self, cfg, params, processor, train_dataset: Sequence[dict],
-                 args: SFTConfig):
+                 args: SFTConfig, mesh=None):
+        from spacer_tpu_torch.train.trainer import _check_mesh
+
+        _check_mesh(mesh)
         self.cfg = cfg
         self.args = args
         self.processor = processor
@@ -124,12 +132,14 @@ class SFTTrainer:
             seed=args.seed)
         leaves = param_leaves(params)
         self.opt_state = self.tx.init([t for _, t in leaves],
-                                      [n for n, _ in leaves])
+                                      [n for n, _ in leaves],
+                                      blocks=fsdp.shard_blocks(params))
         self.step_fn = make_sft_train_step(cfg, self.tx, remat=args.remat,
-                                           logp_chunk=args.logp_chunk)
+                                           logp_chunk=args.logp_chunk,
+                                           mesh=mesh)
         self.global_step = 0
         self._metrics = defaultdict(list)
-        self.logger = MetricLogger(args.output_dir)
+        self.logger = rank_logger(args.output_dir)
 
     @property
     def device(self):

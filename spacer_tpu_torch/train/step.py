@@ -17,6 +17,16 @@ dropped once applied).  Gradient accumulation is the optimizer's
 own.  Not ported: `step_accum` and `grad_chunk` / `apply_grads` (the
 bench's one-program and chunked accumulation, which no trainer calls), the
 pipeline-parallel packed path.
+
+With a device mesh (parallel/mesh.py) the params may hold fsdp Shards
+(parallel/fsdp.py, gathered layer by layer where they are used) and the
+step takes the GLOBAL batch on every rank: each rank runs its rows of it
+(parallel/partition.row_range over data x fsdp; the prompt rows a rank's
+completion rows need when the prompts do not divide), weights its local
+mean by its share of the global rows or tokens, and the summed gradients
+are the single-process ones.  The vision tower encodes the whole batch's
+media on every rank (JAX replicates the packed pixels) and each rank
+merges them into the whole prompt batch before keeping its rows.
 """
 
 from __future__ import annotations
@@ -26,12 +36,18 @@ import torch
 from spacer_tpu_torch.models.qwen25_vl.language import check_remat, lm_forward
 from spacer_tpu_torch.models.registry import family_for_config
 from spacer_tpu_torch.nn.core import embed
+from spacer_tpu_torch.parallel import fsdp
+from spacer_tpu_torch.parallel.partition import row_range
 from spacer_tpu_torch.train.grpo import chunked_per_token_logps, grpo_loss
 from spacer_tpu_torch.train.optimizer import global_norm
 
 
 def param_leaves(tree, prefix: str = ""):
-    """[(path, tensor)] of a nested dict/list params tree, in a fixed order."""
+    """[(path, tensor)] of a nested dict/list params tree, in a fixed order
+    (an fsdp Shard contributes its blocks, the tensor the optimizer
+    updates)."""
+    if isinstance(tree, fsdp.Shard):
+        return [(prefix[:-1], tree.data)]
     if isinstance(tree, dict):
         return [x for k, v in tree.items()
                 for x in param_leaves(v, f"{prefix}{k}/")]
@@ -64,6 +80,7 @@ def _grads(loss, leaves, want):
 
 
 def _head_kernel(params_model, text_cfg):
+    params_model = fsdp.gather(params_model, keep=("layers",))
     if text_cfg.tie_word_embeddings:
         return params_model["embed_tokens"]["embedding"].T
     return params_model["lm_head"]["kernel"]
@@ -108,12 +125,19 @@ def _completion_logps(params, cfg, input_ids, position_ids, kv_mask,
     return chunked_per_token_logps(h, head, targets, chunk=logp_chunk)
 
 
+def _rows(x, lo: int, hi: int, dim: int = 0):
+    """Rows [lo, hi) of dim `dim`; the tensor itself for all of them."""
+    if (lo, hi) == (0, x.shape[dim]):
+        return x
+    return x.narrow(dim, lo, hi - lo)
+
+
 def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
                              prompt_mask, completion_ids,
                              completion_position_ids, completion_mask,
                              num_generations: int, vision_embeds=None,
                              remat=False, logp_chunk: int = 256,
-                             merge_fn=None):
+                             merge_fn=None, rows=None):
     """Shared-prefix per-token completion logps: the prompt forward runs
     once per group (B rows) and its per-layer K/V, repeated G times, is the
     prefix of the G completion rows' attention.  The repeat's backward sums
@@ -121,37 +145,58 @@ def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
     the packed full forward's up to summation order.
 
     prompt_ids (B, P) left-padded; completion_ids (B*G, C) group-major;
-    completion_mask doubles as the completion part of the attention mask."""
+    completion_mask doubles as the completion part of the attention mask.
+    `rows` = (c_lo, c_hi) computes completion rows [c_lo, c_hi) only,
+    running the prompt rows they belong to (the vision embeddings are
+    merged into the whole prompt batch first); None is all rows."""
     from spacer_tpu_torch.models.qwen25_vl.model import merge_vision_embeds
 
     merge_fn = merge_fn or merge_vision_embeds
     G = num_generations
     tc = cfg.text
-    model = params["model"]
+    model = fsdp.gather(params["model"], keep=("layers",))
+    B = prompt_ids.shape[0]
+    c_lo, c_hi = rows if rows is not None else (0, B * G)
+    p_lo, p_hi = c_lo // G, -(-c_hi // G)
     prompt_embeds = embed(model["embed_tokens"], prompt_ids)
     if vision_embeds is not None:
         prompt_embeds = merge_fn(cfg, prompt_ids, prompt_embeds, vision_embeds)
-    prompt_mask = prompt_mask.bool()
+    prompt_embeds = _rows(prompt_embeds, p_lo, p_hi)
+    prompt_position_ids = _rows(prompt_position_ids, p_lo, p_hi, dim=1)
+    prompt_mask = _rows(prompt_mask, p_lo, p_hi).bool()
+    completion_ids = _rows(completion_ids, c_lo, c_hi)
+    completion_position_ids = _rows(completion_position_ids, c_lo, c_hi,
+                                    dim=1)
+    completion_mask = _rows(completion_mask, c_lo, c_hi)
+    off, n = c_lo - p_lo * G, c_hi - c_lo
+
+    def expand(x):
+        # prompt rows -> the rows of their completions [c_lo, c_hi); an
+        # expand (whose backward sums the G rows: jnp.repeat's VJP, the
+        # same bits on every run) rather than repeat_interleave (an
+        # index_select, whose backward adds the G rows atomically on CUDA)
+        rep = x[:, None].expand(x.shape[0], G, *x.shape[1:])
+        return _rows(rep.reshape(x.shape[0] * G, *x.shape[1:]), off, off + n)
+
     hp, prompt_kv = lm_forward(
-        model, tc, input_embeds=prompt_embeds, position_ids=prompt_position_ids,
-        kv_mask=prompt_mask, logits=False, remat=remat, return_kv=True)
-    prefix_kv = [(k.repeat_interleave(G, dim=0), v.repeat_interleave(G, dim=0))
-                 for k, v in prompt_kv]
-    kv_mask = torch.cat([prompt_mask.repeat_interleave(G, dim=0),
-                         completion_mask.bool()], dim=1)
+        model, tc, input_embeds=prompt_embeds,
+        position_ids=prompt_position_ids, kv_mask=prompt_mask,
+        logits=False, remat=remat, return_kv=True)
+    prefix_kv = [(expand(k), expand(v)) for k, v in prompt_kv]
+    kv_mask = torch.cat([expand(prompt_mask), completion_mask.bool()], dim=1)
     comp_embeds = embed(model["embed_tokens"], completion_ids)
     hc, _ = lm_forward(model, tc, input_embeds=comp_embeds,
                        position_ids=completion_position_ids, kv_mask=kv_mask,
                        logits=False, remat=remat, prefix_kv=prefix_kv)
     # position P-1 (shared across the group) predicts completion token 0;
     # completion position i predicts token i+1
-    h = torch.cat([hp[:, -1:].repeat_interleave(G, dim=0), hc[:, :-1]], dim=1)
+    h = torch.cat([expand(hp[:, -1:]), hc[:, :-1]], dim=1)
     head = _head_kernel(model, tc)
     return chunked_per_token_logps(h, head, completion_ids, chunk=logp_chunk)
 
 
 def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
-                         logp_chunk: int = 256):
+                         logp_chunk: int = 256, mesh=None):
     """Returns step(params, ref_params, opt_state, batch, grid_thw,
     num_generations) -> (params, opt_state, metrics), with `.ref_logps_fn`
     and `.loss_and_grads` attached.
@@ -160,9 +205,17 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
     prompt_ids (B, P), prompt_mask, prompt_position_ids (3, B, P),
     completion_ids (B*G, C), completion_position_ids (3, B*G, C),
     completion_mask (B*G, C), advantages (B*G,), pixel_values.  (The packed
-    `_completion_logps` above is its numerics oracle in the tests.)"""
+    `_completion_logps` above is its numerics oracle in the tests.)  With
+    a `mesh` the batch is the global one and the logps, ref logps and
+    gradients are this rank's (see the module docstring); the loss and
+    the metrics are global."""
     remat = check_remat(remat)
     family = family_for_config(cfg)
+
+    def _local(batch):
+        if mesh is None:
+            return None
+        return row_range(batch["completion_ids"].shape[0], mesh)
 
     def _logps(params, batch, grid_thw, num_generations):
         vk = {k: batch[k] for k in family.vision_batch_keys if k in batch}
@@ -174,11 +227,12 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
             batch["prompt_mask"], batch["completion_ids"],
             batch["completion_position_ids"], batch["completion_mask"],
             num_generations, vision_embeds=ve, remat=remat,
-            logp_chunk=logp_chunk, merge_fn=family.merge_vision_embeds)
+            logp_chunk=logp_chunk, merge_fn=family.merge_vision_embeds,
+            rows=_local(batch))
 
     def ref_logps_fn(ref_params, batch, grid_thw=None, num_generations=1):
-        """Reference logps (no gradient); None at beta == 0 (no reference
-        model, TRL GRPOConfig beta=0 semantics)."""
+        """Reference logps (no gradient) of this rank's rows; None at
+        beta == 0 (no reference model, TRL GRPOConfig beta=0 semantics)."""
         if beta == 0.0:
             return None
         with torch.no_grad():
@@ -190,13 +244,25 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
         parameter the loss does not reach gets zeros, as jax.grad gives).
         `select`, a predicate on param paths, limits the gradients to those
         tensors (the others get None), for checks that cannot hold two
-        full gradient sets."""
+        full gradient sets.  With a mesh the grads are this rank's blocks
+        of the summed gradients (replicated leaves: the whole sum)."""
+        rows = _local(batch)
+        lo, hi = rows if rows is not None else (0, None)
         with torch.enable_grad():
             leaves, want = _track(params, select)
             logps = _logps(params, batch, grid_thw, num_generations)
-            loss, metrics = grpo_loss(logps, ref_logps, batch["advantages"],
-                                      batch["completion_mask"], beta=beta)
+            loss, metrics = grpo_loss(
+                logps, ref_logps, batch["advantages"][lo:hi],
+                batch["completion_mask"][lo:hi], beta=beta)
+            if mesh is not None:
+                share = fsdp.global_share(hi - lo, loss.device, mesh)
+                loss = loss * share
+                metrics = {k: fsdp.global_sum(v * share, mesh)
+                           for k, v in metrics.items()}
             grads = _grads(loss, leaves, want)
+        if mesh is not None:
+            fsdp.reduce_replicated(grads, fsdp.raw_leaves(params), mesh)
+            loss = fsdp.global_sum(loss, mesh)
         return loss.detach(), metrics, grads
 
     def step(params, ref_params, opt_state, batch, grid_thw=None,
@@ -213,9 +279,10 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
                                 if k != "ref_logps"},
             grid_thw, num_generations)
         leaves = [t for _, t in param_leaves(params)]
-        gnorm = global_norm(grads)
+        norm = _norm_fn(params, mesh)
+        gnorm = norm(grads)
         # in place, a moment group at a time; the list's grads are dropped
-        opt_state = tx.apply(grads, opt_state, leaves, gnorm=gnorm)
+        opt_state = tx.apply(grads, opt_state, leaves, gnorm=gnorm, norm=norm)
         del grads
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
@@ -224,7 +291,16 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
     return step
 
 
-def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256):
+def _norm_fn(params, mesh):
+    """The gradients' global norm: over fsdp shards with a mesh."""
+    if mesh is None:
+        return global_norm
+    raw = fsdp.raw_leaves(params)
+    return lambda grads: fsdp.global_norm(grads, raw, mesh)
+
+
+def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256,
+                        mesh=None):
     """SFT step (sft.py semantics; spacer_tpu's make_sft_train_step):
     next-token cross-entropy with labels = input_ids, positions labelled
     -100 (padding and visual tokens) masked out, averaged over the
@@ -233,29 +309,40 @@ def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256):
     Returns step(params, opt_state, batch, grid_thw=None) -> (params,
     opt_state, metrics) with `.loss_and_grads` attached.  batch: tensors
     on the params' device: input_ids (N, S), labels (N, S), kv_mask
-    (N, S) bool, position_ids (3, N, S), pixel_values optional."""
+    (N, S) bool, position_ids (3, N, S), pixel_values optional.  With a
+    `mesh` the batch is the global one, each rank runs its rows and the
+    mean is over the global batch's unmasked tokens."""
     remat = check_remat(remat)
     family = family_for_config(cfg)
 
     def loss_fn(params, batch, grid_thw):
-        model = params["model"]
-        token_embeds = embed(model["embed_tokens"], batch["input_ids"])
+        model = fsdp.gather(params["model"], keep=("layers",))
+        ids = batch["input_ids"]
+        lo, hi = row_range(ids.shape[0], mesh)
+        token_embeds = embed(model["embed_tokens"], ids)
         if grid_thw is not None:
             vk = {k: batch[k] for k in family.vision_batch_keys if k in batch}
             ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat)
-            token_embeds = family.merge_vision_embeds(
-                cfg, batch["input_ids"], token_embeds, ve)
-        hidden, _ = lm_forward(model, cfg.text, input_embeds=token_embeds,
-                               position_ids=batch["position_ids"],
-                               kv_mask=batch["kv_mask"], logits=False,
-                               remat=remat)
-        labels = batch["labels"][:, 1:]
+            token_embeds = family.merge_vision_embeds(cfg, ids, token_embeds,
+                                                      ve)
+        hidden, _ = lm_forward(
+            model, cfg.text, input_embeds=_rows(token_embeds, lo, hi),
+            position_ids=_rows(batch["position_ids"], lo, hi, dim=1),
+            kv_mask=_rows(batch["kv_mask"], lo, hi), logits=False,
+            remat=remat)
+        labels = _rows(batch["labels"], lo, hi)[:, 1:]
         mask = labels != -100
         # f32 products over the params' dtype, as JAX's f32 upcasts
         logps = chunked_per_token_logps(
             hidden[:, :-1], _head_kernel(model, cfg.text),
             torch.where(mask, labels, 0), chunk=logp_chunk)
-        denom = mask.sum().clamp_min(1)
+        n = mask.sum()
+        # a batch that does not divide runs whole on every rank, and its
+        # tokens then count once per rank: the summed gradients stay right
+        if mesh is None:
+            denom = n.clamp_min(1)
+        else:
+            denom = fsdp.global_sum(n, mesh).clamp_min(1)
         return -(logps * mask).sum() / denom, {"n_tokens": denom}
 
     def loss_and_grads(params, batch, grid_thw=None, select=None):
@@ -265,13 +352,17 @@ def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256):
             leaves, want = _track(params, select)
             loss, metrics = loss_fn(params, batch, grid_thw)
             grads = _grads(loss, leaves, want)
+        if mesh is not None:
+            fsdp.reduce_replicated(grads, fsdp.raw_leaves(params), mesh)
+            loss = fsdp.global_sum(loss, mesh)
         return loss.detach(), metrics, grads
 
     def step(params, opt_state, batch, grid_thw=None):
         loss, metrics, grads = loss_and_grads(params, batch, grid_thw)
         leaves = [t for _, t in param_leaves(params)]
-        gnorm = global_norm(grads)
-        opt_state = tx.apply(grads, opt_state, leaves, gnorm=gnorm)
+        norm = _norm_fn(params, mesh)
+        gnorm = norm(grads)
+        opt_state = tx.apply(grads, opt_state, leaves, gnorm=gnorm, norm=norm)
         del grads
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
 

@@ -1,5 +1,5 @@
 """SG-RLVR trainer: rollout -> rewards -> advantages -> update (counterpart
-of spacer_tpu/train/trainer.py, single process, one device).
+of spacer_tpu/train/trainer.py).
 
 Behavioral reference: SG_RLVR_trainer.py compute_loss and the HF Trainer
 loop around it.  As in the JAX trainer:
@@ -21,8 +21,22 @@ through the card a moment group at a time.  `save_pretrained` writes an HF
 layout (train/publish.py) and, with `push_to_hub`, uploads it.
 `speculate_k` > 0 makes the rollouts speculative (sampler/speculating.py;
 their acceptance is logged as spec_acceptance).  Configurations the port
-does not run raise NotImplementedError at construction: a device mesh, and
-any `attn_impl` / `decode_impl` but None.
+does not run raise NotImplementedError at construction: any `attn_impl` /
+`decode_impl` but None.
+
+With a device mesh (parallel/mesh.py; one process per device under
+torchrun) the params and ref params hold fsdp Shards and the optimizer
+state is each rank's blocks.  `training_step` takes each rank's own rows:
+every rank prepares (decodes the media of) its rows only, the encodings
+are exchanged so that every rank holds the same global batch, the
+rollout decodes each rank's share of the prompts (Sampler) and returns
+every row everywhere, each rank scores the rewards of its own rows, the
+rewards are exchanged, and the update runs each rank's rows of the global
+batch (train/step.py).  `train()` hands each rank its contiguous share of
+every chunk of `rollout_batch_size` rows (the GLOBAL prompts per step, as
+in JAX on a multi-device mesh).  Only rank 0 writes metrics and
+checkpoints; a failing step raises on every rank (one rank cannot skip a
+step the others' collectives wait for).
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ import numpy as np
 import torch
 
 from spacer_tpu_torch.models.registry import family_for_config
+from spacer_tpu_torch.parallel import fsdp, multihost
 from spacer_tpu_torch.sampler.sampler import SampleOutput, Sampler
 from spacer_tpu_torch.train.grpo import (
     group_advantages,
@@ -46,7 +61,7 @@ from spacer_tpu_torch.train.grpo import (
 )
 from spacer_tpu_torch.train.optimizer import MultiSteps, make_optimizer
 from spacer_tpu_torch.train.step import make_grpo_train_step, param_leaves
-from spacer_tpu_torch.utils.logging import MetricLogger
+from spacer_tpu_torch.utils.logging import rank_logger
 
 
 @dataclasses.dataclass
@@ -101,9 +116,16 @@ class SGRLVRConfig:
     speculate_k: int = 0
 
 
+def _check_mesh(mesh):
+    from spacer_tpu_torch.parallel.mesh import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a spacer_tpu_torch.parallel.mesh.Mesh, "
+                        f"got {type(mesh).__name__}")
+
+
 def _unported(args: SGRLVRConfig, mesh):
-    if mesh is not None:
-        raise NotImplementedError("mesh / multi-device training is not ported")
+    _check_mesh(mesh)
     if args.attn_impl is not None or args.decode_impl is not None:
         raise NotImplementedError(
             f"attn_impl={args.attn_impl!r} decode_impl={args.decode_impl!r}: "
@@ -112,7 +134,8 @@ def _unported(args: SGRLVRConfig, mesh):
 
 
 class SGRLVRTrainer:
-    """Single-process trainer on the params' device."""
+    """Trainer on the params' device; with a `mesh`, one rank of it (the
+    module docstring)."""
 
     def __init__(self, cfg, params, processor,
                  reward_funcs: Sequence[Callable],
@@ -126,12 +149,14 @@ class SGRLVRTrainer:
         self.reward_funcs = list(reward_funcs)
         self.dataset = list(train_dataset)
         self.map_data = map_data
+        self.mesh = mesh
         self.params = params
-        # beta == 0 means no KL term: no reference copy is made
+        # beta == 0 means no KL term: no reference copy is made (a copy of
+        # sharded params is sharded alike)
         self.ref_params = (
             ref_params if ref_params is not None
             else None if args.beta == 0.0
-            else _tree_map(lambda t: t.detach().clone(), params))
+            else _tree_map(_clone, params))
         steps_per_epoch = -(-len(self.dataset)
                             // max(1, args.rollout_batch_size))
         total = args.max_steps or (args.num_train_epochs * steps_per_epoch)
@@ -146,7 +171,8 @@ class SGRLVRTrainer:
             self.tx = MultiSteps(self.tx, args.gradient_accumulation_steps)
         leaves = param_leaves(params)
         self.opt_state = self.tx.init([t for _, t in leaves],
-                                      [n for n, _ in leaves])
+                                      [n for n, _ in leaves],
+                                      blocks=fsdp.shard_blocks(params))
         if args.offload_opt_state:
             from spacer_tpu_torch.parallel.offload import offload_to_host
 
@@ -155,8 +181,8 @@ class SGRLVRTrainer:
             cfg, eos_token_id=processor.eos_token_id,
             pad_token_id=processor.pad_token_id,
             length_bucket=args.prompt_bucket, decode_quant=args.decode_quant,
-            speculate_k=args.speculate_k)
-        if args.decode_quant:
+            speculate_k=args.speculate_k, mesh=mesh)
+        if args.decode_quant and multihost.process_index() == 0:
             # the JAX trainer's one-line notice: the rollout SAMPLING
             # distribution is quantized; logps and updates are not
             print(f"[spacer] rollout decode quantized: "
@@ -165,10 +191,10 @@ class SGRLVRTrainer:
                   f"for bf16-exact rollouts)", flush=True)
         self.step_fn = make_grpo_train_step(
             cfg, self.tx, beta=args.beta, remat=args.remat,
-            logp_chunk=args.logp_chunk)
+            logp_chunk=args.logp_chunk, mesh=mesh)
         self.global_step = 0
         self._metrics = defaultdict(list)
-        self.logger = MetricLogger(args.output_dir)
+        self.logger = rank_logger(args.output_dir)
 
     @property
     def device(self):
@@ -177,10 +203,11 @@ class SGRLVRTrainer:
     # -- data prep ------------------------------------------------------
 
     def _prepare_inputs(self, row: dict, shuffle_frames: bool = False,
-                        rng: np.random.Generator | None = None):
+                        rng: np.random.Generator | None = None, perm=None):
         """Row -> (processor outputs, has_video).  Injects the media (a path
         or a (T, H, W, C) uint8 frame array) into the first content
-        element."""
+        element.  `shuffle_frames` permutes the video's frames by `perm`,
+        or by a permutation drawn from `rng`."""
         from spacer_tpu_torch.vision.process import process_vision_info
 
         prompt = copy.deepcopy(row["prompt"])
@@ -207,7 +234,11 @@ class SGRLVRTrainer:
             [prompt], return_video_kwargs=True,
             device=getattr(self.processor, "device", "cpu"))
         if shuffle_frames and videos:
-            perm = rng.permutation(videos[0].shape[0])
+            if perm is None:
+                perm = rng.permutation(videos[0].shape[0])
+            if len(perm) != videos[0].shape[0]:
+                raise ValueError(f"a permutation of {len(perm)} frames for "
+                                 f"a video of {videos[0].shape[0]}")
             videos = [videos[0][perm]]
         text = self.processor.apply_chat_template(prompt,
                                                   add_generation_prompt=True)
@@ -278,35 +309,67 @@ class SGRLVRTrainer:
 
     # -- one training step ---------------------------------------------
 
+    def _n_frames(self, enc: dict) -> int:
+        """Frames of a prepared row's (first) video: its temporal grid
+        times the temporal patch (every sampled frame count is a multiple
+        of it)."""
+        return (int(np.asarray(enc["video_grid_thw"])[0][0])
+                * self.cfg.vision.temporal_patch_size)
+
+    def _exchange(self, local):
+        """Every rank's `local` list, concatenated in rank order (and the
+        offset of this rank's part); without a mesh, `local` itself."""
+        if self.mesh is None:
+            return list(local), 0
+        parts = multihost.all_gather_objects(list(local))
+        off = sum(len(p) for p in parts[:multihost.process_index()])
+        return [x for p in parts for x in p], off
+
     def training_step(self, rows, rng: np.random.Generator, prepared=None):
-        """One optimizer step over B = len(rows) prompt-groups."""
+        """One optimizer step over B = len(rows) prompt-groups (with a mesh:
+        this rank's rows of the global step)."""
         args = self.args
         G = args.num_generations
         if isinstance(rows, dict):
             rows = [rows]
         if prepared is not None and not isinstance(prepared, list):
             prepared = [prepared]
-        B = len(rows)
+        B_local = len(rows)
         t_start = time.perf_counter()
 
         preps = prepared if prepared is not None else [
             self._prepare_inputs(r) for r in rows]
-        encs = [self._truncate_prompt(p[0]) for p in preps]
-        has_video = [p[1] for p in preps]
+        # every rank holds the global batch's encodings; each decoded the
+        # media of its own rows only
+        gathered, row_off = self._exchange(
+            [(self._truncate_prompt(p[0]), p[1]) for p in preps])
+        encs = [e for e, _ in gathered]
+        has_video = [h for _, h in gathered]
+        B = len(encs)
+        mine = range(row_off, row_off + B_local)
+        video_idx = [b for b in range(B) if has_video[b]]
         # temporal-shuffle prompts, prepared before the rollout so both
-        # decode in one grouped program
+        # decode in one grouped program; the permutations are drawn for
+        # every video row in row order on every rank (one process's draws)
         s_encs = []
-        if args.temporal:
-            for b in [b for b in range(B) if has_video[b]]:
-                s_enc, _ = self._prepare_inputs(rows[b], shuffle_frames=True,
-                                                rng=rng)
-                s_encs.append(self._truncate_prompt(s_enc))
+        if args.temporal and video_idx:
+            perms = {b: rng.permutation(self._n_frames(encs[b]))
+                     for b in video_idx}
+            s_encs, _ = self._exchange([
+                self._truncate_prompt(self._prepare_inputs(
+                    rows[b - row_off], shuffle_frames=True, perm=perms[b])[0])
+                for b in video_idx if b in mine])
+
+        def rollout_seed() -> int:
+            s = int(rng.integers(2**31))
+            if self.mesh is not None:
+                return int(multihost.broadcast_from_host0(s))
+            return s
 
         enc = self._collate(encs)
         pos, deltas = self._positions(enc)
         grid_thw = enc.get("grid_thw")
         vision_kwargs = self._vision_kwargs(enc)
-        video_idx = [b for b in range(B) if has_video[b]]
         do_temporal = args.temporal and bool(video_idx)
         merge_shuffled = do_temporal and args.merge_temporal_rollout
         gen_kw = dict(num_generations=G,
@@ -322,7 +385,7 @@ class SGRLVRTrainer:
                 position_ids=a_pos, deltas=a_deltas,
                 vision_kwargs=self._vision_kwargs(all_col),
                 grid_thw=all_col.get("grid_thw"),
-                seed=int(rng.integers(2**31)), **gen_kw)
+                seed=rollout_seed(), **gen_kw)
             n_main = B * G
             sample_out = SampleOutput(
                 sequences=out_all.sequences[:n_main],
@@ -336,10 +399,12 @@ class SGRLVRTrainer:
             sample_out = self.sampler.generate(
                 enc["input_ids"], enc["attention_mask"], self.params,
                 position_ids=pos, deltas=deltas, vision_kwargs=vision_kwargs,
-                grid_thw=grid_thw, seed=int(rng.integers(2**31)), **gen_kw)
+                grid_thw=grid_thw, seed=rollout_seed(), **gen_kw)
+        # decode only the rows this rank scores
+        lsl = slice(row_off * G, (row_off + B_local) * G)
         completions = self.processor.tokenizer.batch_decode(
-            [seq[:n] for seq, n in zip(sample_out.sequences,
-                                       sample_out.lengths)],
+            [seq[:n] for seq, n in zip(sample_out.sequences[lsl],
+                                       sample_out.lengths[lsl])],
             skip_special_tokens=True)
         t_rollout = time.perf_counter()
 
@@ -374,7 +439,8 @@ class SGRLVRTrainer:
         ref_logps = self.step_fn.ref_logps_fn(
             self.ref_params, batch, grid_thw, G)
 
-        # temporal-shuffle rewards (G/2 generations per video row)
+        # temporal-shuffle rewards (G/2 generations per video row) of this
+        # rank's rows
         shuffled_rewards = {}
         if do_temporal:
             Gs = G // 2
@@ -390,19 +456,28 @@ class SGRLVRTrainer:
                     position_ids=s_pos, deltas=s_deltas,
                     vision_kwargs=self._vision_kwargs(s_col),
                     grid_thw=s_col.get("grid_thw"),
-                    seed=int(rng.integers(2**31)),
+                    seed=rollout_seed(),
                     **dict(gen_kw, num_generations=Gs))
                 s_seqs, s_lens = s_sep.sequences, s_sep.lengths
             for j, b in enumerate(video_idx):
+                if b not in mine:
+                    continue
                 s_comp = self.processor.tokenizer.batch_decode(
                     [seq[:n] for seq, n in zip(s_seqs[j * Gs:(j + 1) * Gs],
                                                s_lens[j * Gs:(j + 1) * Gs])],
                     skip_special_tokens=True)
-                shuffled_rewards[b] = self._compute_rewards(rows[b], s_comp)
+                shuffled_rewards[b] = self._compute_rewards(
+                    rows[b - row_off], s_comp)
 
-        rewards_per_func = np.concatenate([
+        local_rewards = [
             self._compute_rewards(rows[j], completions[j * G:(j + 1) * G])
-            for j in range(B)])
+            for j in range(B_local)]
+        # one exchange carries the main and the shuffled local rewards
+        parts, _ = self._exchange([(local_rewards, shuffled_rewards)])
+        rewards_per_func = np.concatenate([r for p in parts for r in p[0]])
+        shuffled_rewards = {}
+        for p in parts:
+            shuffled_rewards.update(p[1])
         temporal_flags = []
         rewards = np.zeros(B * G, np.float32)
         for b in range(B):
@@ -484,7 +559,9 @@ class SGRLVRTrainer:
                 len(self.dataset))
             if epoch < start_epoch:
                 continue
-            chunks = [order[i:i + B] for i in range(0, len(order), B)]
+            # each rank takes its contiguous share of every global chunk
+            chunks = [self._rank_share(order[i:i + B])
+                      for i in range(0, len(order), B)]
             skip = (self.global_step % steps_per_epoch
                     if epoch == start_epoch else 0)
             for ci in range(skip, len(chunks)):
@@ -498,7 +575,7 @@ class SGRLVRTrainer:
                         {"step": self.global_step, "error": repr(e),
                          "problem_id": [r.get("problem_id")
                                         for r in chunk_rows]})
-                    if not args.skip_failed_steps:
+                    if not args.skip_failed_steps or self.mesh is not None:
                         raise
                     continue
                 self.global_step += 1
@@ -507,8 +584,21 @@ class SGRLVRTrainer:
                 if self.global_step % args.save_steps == 0:
                     self.save_checkpoint()
 
+    def _rank_share(self, chunk):
+        """This rank's contiguous share of a global chunk of rows."""
+        if self.mesh is None:
+            return chunk
+        n, r = multihost.process_count(), multihost.process_index()
+        return chunk[r * len(chunk) // n:(r + 1) * len(chunk) // n]
+
     def _flush_metrics(self):
         avg = {k: sum(v) / len(v) for k, v in self._metrics.items() if v}
+        if self.mesh is not None:
+            # the rank-local timings averaged over the ranks (the others
+            # are the same on every rank already)
+            avg = {k: (multihost.mean_across_hosts(v)
+                       if k.startswith("time/") else v)
+                   for k, v in avg.items()}
         avg["step"] = self.global_step
         self.logger.log_metrics(avg)
         self._metrics.clear()
@@ -542,10 +632,15 @@ class SGRLVRTrainer:
             raise ValueError(
                 "push_to_hub=True requires hub_model_id (the Hub repo id); "
                 "refusing to invent one from the output directory name")
-        publish.save_pretrained(out_dir, self.params, self.cfg,
-                                processor_dir=processor_dir)
-        if self.args.push_to_hub:
-            publish.push_to_hub(self.args.hub_model_id, out_dir)
+        # the full params, written by rank 0
+        params = fsdp.gather_params(self.params)
+        if multihost.process_index() == 0:
+            publish.save_pretrained(out_dir, params, self.cfg,
+                                    processor_dir=processor_dir)
+            if self.args.push_to_hub:
+                publish.push_to_hub(self.args.hub_model_id, out_dir)
+        del params
+        multihost.barrier()
         return out_dir
 
     def load_checkpoint(self, path: str):
@@ -560,6 +655,12 @@ class SGRLVRTrainer:
             opt_state = restore_into(self.opt_state, opt_state)
         self.opt_state = opt_state
         self.global_step = int(meta.get("global_step", 0))
+
+
+def _clone(t):
+    if isinstance(t, fsdp.Shard):
+        return fsdp.Shard(t.data.detach().clone(), t.shape, t.mesh)
+    return t.detach().clone()
 
 
 def _tree_map(fn, tree):

@@ -101,3 +101,22 @@ def debug_trace(kind: str, **fields):
         f.write(f"------------- {stamp} {kind} -------------\n")
         for k, v in fields.items():
             f.write(f"{k}: {v}\n")
+
+
+class NullLogger:
+    """The MetricLogger of a rank that writes nothing (every rank of a
+    multi-process run but rank 0)."""
+
+    def log_metrics(self, record: dict):
+        pass
+
+    def log_event(self, record: dict):
+        pass
+
+
+def rank_logger(output_dir: str):
+    """MetricLogger on rank 0 (or without a process group), else a
+    NullLogger."""
+    from spacer_tpu_torch.parallel.multihost import process_index
+
+    return MetricLogger(output_dir) if process_index() == 0 else NullLogger()

@@ -1,7 +1,8 @@
 """spacer_tpu_torch stands alone: no module of it (nor the scripts that
 drive it on the card, chip_smoke.py, profile_train.py and profile_serve.py)
 imports jax or spacer_tpu, and the tiny serving slice, one tiny SG-RLVR
-training step, a tiny Qwen2-VL's speculative serving, speculative
+training step (also over fsdp-sharded params in a gloo world of one,
+through parallel/), a tiny Qwen2-VL's speculative serving, speculative
 rollout and HTTP server, and the tiny Aria family (text serving, an image
 rollout, one image training step, an Aria checkpoint round trip) run on the
 CPU through the kernels' plain versions (no kernel launch is counted
@@ -31,7 +32,7 @@ SCRIPT = textwrap.dedent("""
     from spacer_tpu_torch.cli.common import ModelArgs, load_model_and_processor
     from spacer_tpu_torch.evalharness import QwenEngine
     from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
-    cfg, params, proc = load_model_and_processor(
+    cfg, params, proc, _ = load_model_and_processor(
         ModelArgs(random_init=True, dtype="float32", device="cpu"))
     frames = np.random.default_rng(0).integers(0, 256, (4, 56, 84, 3), np.uint8)
     msgs = [[{"role": "user", "content": [
@@ -61,7 +62,7 @@ TRAIN_SCRIPT = textwrap.dedent("""
     from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
     from spacer_tpu_torch.rewards import format_reward
     from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
-    cfg, params, proc = load_model_and_processor(
+    cfg, params, proc, _ = load_model_and_processor(
         ModelArgs(random_init=True, dtype="float32", device="cpu"))
     frames = np.random.default_rng(0).integers(0, 256, (4, 56, 84, 3), np.uint8)
     row = {"problem": "how many", "problem_type": "numerical",
@@ -75,6 +76,24 @@ TRAIN_SCRIPT = textwrap.dedent("""
     trainer = SGRLVRTrainer(cfg, params, proc, [format_reward], [row], args)
     m = trainer.training_step([row], np.random.default_rng(0))
     assert np.isfinite(float(m["loss"])), m
+    # the same step over fsdp-sharded params in a gloo world of one
+    import os
+    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+    from spacer_tpu_torch.parallel.partition import (
+        QWEN_PARTITION_RULES, shard_params)
+    os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(multihost._free_port()))
+    multihost.initialize(device="cpu")
+    mesh = create_mesh({"data": 1, "fsdp": 1, "tp": 1})
+    cfg, params, proc, _ = load_model_and_processor(
+        ModelArgs(random_init=True, dtype="float32", device="cpu"))
+    params, _ = shard_params(params, mesh, QWEN_PARTITION_RULES)
+    args.output_dir = tempfile.mkdtemp()
+    sharded = SGRLVRTrainer(cfg, params, proc, [format_reward], [row], args,
+                            mesh=mesh)
+    m2 = sharded.training_step([row], np.random.default_rng(0))
+    assert float(m2["loss"]) == float(m["loss"]), (m, m2)
     assert set(launch_counts().values()) == {0}, launch_counts()
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "spacer_tpu")
@@ -193,7 +212,7 @@ ARIA_SCRIPT = textwrap.dedent("""
     from spacer_tpu_torch.rewards import format_reward
     from spacer_tpu_torch.sampler import Sampler
     from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
-    cfg, params, proc = load_model_and_processor(ModelArgs(
+    cfg, params, proc, _ = load_model_and_processor(ModelArgs(
         random_init=True, model_family="aria", dtype="float32", device="cpu"))
     reset_launch_counts()
     texts = QwenEngine(cfg, params, proc, length_bucket=32).generate_many(

@@ -105,11 +105,19 @@ def test_greedy_generate_quantized_matches_jax_flash_ref(quant, monkeypatch):
 
 
 def test_unported_configurations_raise():
-    """A device mesh is not ported; speculative decode is (since its port:
-    tests/test_torch_sampler_speculative.py) and constructs."""
+    """A mesh that is not the port's parallel.mesh.Mesh raises TypeError
+    and a tp > 1 mesh NotImplementedError (the data x fsdp mesh runs since
+    its port: tests/test_torch_parallel.py); speculative decode is ported
+    (tests/test_torch_sampler_speculative.py) and constructs."""
+    from spacer_tpu_torch.parallel.mesh import Mesh
+
     cfg = tiny_config()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         Sampler(cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 2b"):
+        Sampler(cfg, mesh=Mesh({"data": 1, "fsdp": 2, "tp": 2}, rank=0))
+    assert Sampler(cfg, mesh=Mesh({"fsdp": 2}, rank=1)).mesh.coords == {
+        "data": 0, "fsdp": 1, "tp": 0}
     assert Sampler(cfg, speculate_k=2).speculate_k == 2
     with pytest.raises(ValueError, match="speculate_k"):
         Sampler(cfg, speculate_k=-1)

@@ -105,21 +105,31 @@ def test_two_training_steps_and_checkpoint(tmp_path):
     dict(decode_quant="int2"), dict(decode_quant="int4_v"),
     dict(mesh=object()), dict(attn_impl="xla"), dict(decode_impl="flash_ref"),
     dict(attn_impl="pallas"), dict(decode_impl="flash"),
-    dict(decode_impl="xla")])
+    dict(decode_impl="xla"), dict(mesh={"data": 1, "fsdp": 1, "tp": 2})])
 def test_unported_configurations_raise(tmp_path, over):
     """Unknown decode_quant values raise ValueError (as in the JAX
-    sampler); the configurations the port does not run NotImplementedError:
-    a device mesh, any attn_impl / decode_impl (gradient accumulation,
-    offload and speculative rollouts run since they were ported:
-    tests/test_torch_accumulation.py, test_torch_offload.py,
-    test_speculative_rollout_step below)."""
-    exc = ValueError if "decode_quant" in over else NotImplementedError
+    sampler) and a mesh that is not the port's parallel.mesh.Mesh
+    TypeError; the configurations the port does not run
+    NotImplementedError: a tp > 1 mesh, any attn_impl / decode_impl
+    (gradient accumulation, offload, speculative rollouts and the data x
+    fsdp mesh run since they were ported: tests/test_torch_accumulation.py,
+    test_torch_offload.py, test_speculative_rollout_step below,
+    test_torch_fsdp_trainer.py)."""
+    exc = (ValueError if "decode_quant" in over
+           else TypeError if "mesh" in over
+           and not isinstance(over["mesh"], dict)
+           else NotImplementedError)
     with pytest.raises(exc):
         if "mesh" in over:
+            from spacer_tpu_torch.parallel.mesh import Mesh
+
             cfg = tiny_config()
+            mesh = over["mesh"]
+            if isinstance(mesh, dict):
+                mesh = Mesh(mesh, rank=0)
             SGRLVRTrainer(cfg, init_params(cfg), VLProcessor(
                 MockTokenizer(vocab_size=cfg.text.vocab_size), cfg),
-                [format_reward], _rows(), SGRLVRConfig(), mesh=over["mesh"])
+                [format_reward], _rows(), SGRLVRConfig(), mesh=mesh)
         else:
             _trainer(tmp_path, **over)
 
