@@ -120,14 +120,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      (--multihost true) for one step at the tiny config.  `--phases 12
      --world N` runs it over N cards at full depth instead (a development
      run on a host with N cards; the default run needs one).
+  13. tensor parallelism (spacer_tpu_torch/parallel/tp.py) at world 1 over
+     NCCL: the Qwen2.5-VL-7B widths with the LM cut to TP_LM_LAYERS, each
+     once unsharded and once over create_mesh({"data": 1, "fsdp": 1,
+     "tp": 1}) with shard_params' tp plan (the tp code paths: local heads,
+     the conjugate operations, the vocab-parallel embedding and logps, every
+     tp collective counted and none issued): phase 4's requests through
+     generate_many at bf16 and int4_kv and one static generate, tokens and
+     every sampled step's logits bitwise equal; two SG-RLVR steps under
+     phase 12's gate; then a torchrun launch of cli/serve.py (--multihost
+     true --tp 1) on a jsonl file at the tiny config.  `--phases 13
+     --world 2,4` runs it at full depth over tp = 2 and 4 cards instead.
 Phase 3 also checks the kernels at the Aria path's shapes (3c: K1 at
-head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1).
+head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1), and
+3d at the shapes one rank of a tp-2 or tp-4 Qwen2.5-VL-7B runs (14 / 7
+query heads, 2 / 1 KV heads, 8 / 4 ViT heads, K6 at the sliced products).
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5c and 7-12, each counted from 0 just
+summed over the paths of phases 4-5c and 7-13, each counted from 0 just
 before it runs); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 12 --world 4   # fsdp over four cards
+    python3 chip_smoke.py --phases 13 --world 2,4   # tp over 2, then 4
     python3 chip_smoke.py --phases 4c,4d     # a development run of some
 """
 
@@ -248,8 +262,8 @@ EVAL_NEW_TOKENS = 64
 LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
                "perception_task_accuracy", "relation_task_accuracy"}
 # The phases in the order they run (main's --phases selects some of them)
-PHASES = ("3", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9", "10", "11",
-          "12")
+PHASES = ("3", "3d", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9", "10",
+          "11", "12", "13")
 # Phase 4c, the HTTP server: HTTP_VIDEOS video requests over mp4 files of
 # HTTP_VIDEO_SECONDS at HTTP_VIDEO_FPS (16 frames sampled at 2 fps, grid
 # (8, 16, 30) as phase 4's) and as many text requests, through HTTP_SLOTS
@@ -299,6 +313,15 @@ ARIA_K6_SHAPES = ((2560, 2560), (2560, 3328), (3328, 2560), (2560, 100352))
 ARIA_TRAIN_LM_LAYERS = 4
 ARIA_TRAIN_PROMPT_BUCKET, ARIA_TRAIN_PROMPT_PAD = 512, 512 - 270
 ARIA_TRAIN_G, ARIA_TRAIN_NEW_TOKENS = 8, 128
+# Phases 3d and 13: the tensor-parallel sizes whose per-rank shapes phase 3d
+# holds every kernel at (the 7B's 4 KV heads allow 2 and 4)
+TP_SIZES = (2, 4)
+# Phase 13 at world 1 (tp 1): the LM cut to TP_LM_LAYERS layers (the ViT
+# whole); its two SG-RLVR steps run TP_TRAIN_G completions of up to
+# TP_TRAIN_NEW_TOKENS tokens on one TP_TRAIN_VIDEO row
+TP_LM_LAYERS = 4
+TP_TRAIN_G, TP_TRAIN_NEW_TOKENS = 4, 64
+TP_TRAIN_VIDEO = (16, 360, 640)
 # The card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet, at
 # its 700 W limit): HBM bytes per second and dense bf16 tensor-core
 # operations per second.  Every kernel here multiplies bf16 operands (int8
@@ -500,7 +523,6 @@ def check_kernels(device="cuda") -> dict:
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
     from spacer_tpu_torch.models.qwen25_vl.vision import vision_layout
     from spacer_tpu_torch.nn.attention import xla_attention
-    from spacer_tpu_torch.ops import vit_window_attention as vwa
     from spacer_tpu_torch.ops.flash_attention import flash_attention
 
     dev = torch.device(device)
@@ -542,11 +564,32 @@ def check_kernels(device="cuda") -> dict:
     for tag, case in RAGGED_CASES.items():
         results.update(check_ragged_decode(randn, gen, tag, P, *case))
 
-    # K3 / K4: ViT at grid (8, 16, 30): 16 heads, head_dim 80
+    # K3 / K4: ViT at grid (8, 16, 30): 16 heads, head_dim 80; K4 at the
+    # ViT's chunks (the kernels line) and at 8 chunks of 252 = 18 x 14
+    # patches (a 252x196 frame pair), no multiple of the kernel's 64-key
+    # tiles, and at the Qwen2-VL ViT's other chunks (K4_QWEN2_CHUNKS; its
+    # first video's chunk is the ViT's 480)
     vcfg = QWEN25_VL_7B.vision
     layout = vision_layout([(8, 16, 30)], vcfg)
+    mixed = vision_layout([FULL_GRIDS[1]], vcfg)
+    results.update(check_vit_kernels(
+        randn, dev, layout, vcfg.num_heads, vcfg.head_dim,
+        (("K4", layout.seq_len, layout.full_chunk),
+         ("K4 wt=252", 8 * 252, 252),
+         ("K4 mixed", mixed.seq_len, mixed.full_chunk),
+         *((f"K4 qwen2 wt={c}", S, c) for S, c in K4_QWEN2_CHUNKS))))
+    results.update(check_int4_matmul(gen))
+    dense_q8_cost(gen)
+    return results
+
+
+def check_vit_kernels(randn, dev, layout, Hv, Dv, k4_cases, tag="") -> dict:
+    """K3 on the windows of `layout` and K4 at each (result key, tokens,
+    chunk) of `k4_cases`, Hv heads of Dv, against their plain versions
+    (results "K3" + tag and the cases' keys)."""
+    from spacer_tpu_torch.ops import vit_window_attention as vwa
+
     n_win, wt = layout.win_gather.shape
-    Hv, Dv = vcfg.num_heads, vcfg.head_dim
     scale = Dv ** -0.5
     qw, kw3, vw = (randn(Hv, n_win * wt, Dv) for _ in range(3))
     lengths = np.asarray(layout.win_valid.sum(1))
@@ -556,8 +599,9 @@ def check_kernels(device="cuda") -> dict:
     def windows(x, n, w):
         return x.view(Hv, n, w, Dv)
 
-    results["K3"] = compare(
-        f"K3 window_attention_hsd (16, {n_win * wt}, 80) wt={wt}",
+    results = {}
+    results["K3" + tag] = compare(
+        f"K3 window_attention_hsd ({Hv}, {n_win * wt}, {Dv}) wt={wt}{tag}",
         lambda: vwa.window_attention_hsd(qw, kw3, vw, bias, wt, scale),
         lambda: vwa.window_attention_reference(qw, kw3, vw, bias, wt, scale),
         work=(4 * Hv * int(lengths.sum()) * Dv * 2 + n_win * wt * 4,
@@ -565,28 +609,16 @@ def check_kernels(device="cuda") -> dict:
         library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(
             *(windows(x, n_win, wt) for x in (qw, kw3, vw)),
             attn_mask=win_mask, scale=scale))
-    # K4 at the ViT's chunks (the kernels line) and at 8 chunks of 252 =
-    # 18 x 14 patches (a 252x196 frame pair), no multiple of the kernel's
-    # 64-key tiles
-    # and at the Qwen2-VL ViT's other chunks (K4_QWEN2_CHUNKS; its first
-    # video's chunk is the ViT's 480)
-    mixed = vision_layout([FULL_GRIDS[1]], vcfg)
-    for tag, S, chunk in (("K4", layout.seq_len, layout.full_chunk),
-                          ("K4 wt=252", 8 * 252, 252),
-                          ("K4 mixed", mixed.seq_len, mixed.full_chunk),
-                          *((f"K4 qwen2 wt={c}", S, c)
-                            for S, c in K4_QWEN2_CHUNKS)):
+    for key, S, chunk in k4_cases:
         qc, kc, vc = (randn(Hv, S, Dv) for _ in range(3))
-        results[tag] = compare(
-            f"K4 chunk_attention_hsd (16, {S}, 80) wt={chunk}",
+        results[key] = compare(
+            f"K4 chunk_attention_hsd ({Hv}, {S}, {Dv}) wt={chunk}{tag}",
             lambda: vwa.chunk_attention_hsd(qc, kc, vc, chunk, scale),
             lambda: vwa.chunk_attention_reference(qc, kc, vc, chunk, scale),
             work=(4 * Hv * S * Dv * 2, 4 * Dv * Hv * S * chunk),
             library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(
                 *(windows(x, S // chunk, chunk) for x in (qc, kc, vc)),
                 scale=scale))
-    results.update(check_int4_matmul(gen))
-    dense_q8_cost(gen)
     return results
 
 
@@ -663,7 +695,8 @@ def check_ragged_decode(randn, gen, tag, P, C, plen, tlen, admit, Hkv=4,
     return results
 
 
-def check_int4_matmul(gen, shapes=K6_SHAPES, rows=K6_ROWS, tag="") -> dict:
+def check_int4_matmul(gen, shapes=K6_SHAPES, rows=K6_ROWS, tag="",
+                      fused_only=False) -> dict:
     """Phase 3, K6: every (K, N) of `shapes` (the 7B int4 decode's by
     default) at each M of `rows` (by default K6_ROWS: serving slots,
     rollout rows, speculative blocks), against its plain version: the
@@ -675,7 +708,8 @@ def check_int4_matmul(gen, shapes=K6_SHAPES, rows=K6_ROWS, tag="") -> dict:
     _weight_int4pack_mm (tinygemm; the same codes + 8 as unsigned nibbles,
     group size 128, zero 0, scale 1 for the scale-free product and the
     column scale for dense_q4, repacked once outside the timing) and the
-    bf16 torch.matmul on the widened weight, which the port never calls."""
+    bf16 torch.matmul on the widened weight, which the port never calls.
+    `fused_only`: dense_q4 alone (the call the decode path makes)."""
     from spacer_tpu_torch.ops import int4_matmul as im
     from spacer_tpu_torch.ops import quant
 
@@ -692,12 +726,13 @@ def check_int4_matmul(gen, shapes=K6_SHAPES, rows=K6_ROWS, tag="") -> dict:
             allowed = (K6_SUM_TOL * (x.float().abs() @ codes.float().abs())
                        + 1e-6)
             q_bytes = K * N // 2 + M * K * 2
-            lib = tinygemm(x, False)
-            results[f"K6{tag} M={M} K={K} N={N}"] = compare(
-                f"K6 int4_matmul{tag} M={M} K={K} N={N}",
-                lambda: im.int4_matmul(x, packed),
-                lambda: im.int4_matmul_reference(x, packed), allowed=allowed,
-                work=(q_bytes + M * N * 4, 2 * M * K * N), library_fn=lib)
+            if not fused_only:
+                results[f"K6{tag} M={M} K={K} N={N}"] = compare(
+                    f"K6 int4_matmul{tag} M={M} K={K} N={N}",
+                    lambda: im.int4_matmul(x, packed),
+                    lambda: im.int4_matmul_reference(x, packed),
+                    allowed=allowed, work=(q_bytes + M * N * 4, 2 * M * K * N),
+                    library_fn=tinygemm(x, False))
             xs = (x * row_scale.to(x.dtype)).float()
             ref = quant.dense_q4_reference(params, x)
             allowed = (K6_SUM_TOL * (xs.abs() @ codes.float().abs()) * col_scale
@@ -710,8 +745,10 @@ def check_int4_matmul(gen, shapes=K6_SHAPES, rows=K6_ROWS, tag="") -> dict:
                 lambda: quant.dense_q4_reference(params, x), allowed=allowed,
                 work=(q_bytes + K * 4 + N * (4 + 2 + M * 2), 2 * M * K * N),
                 library_fn=lib)
-            log(f"K6{tag} M={M} K={K} N={N}: bf16 torch.matmul on the widened "
-                f"weight {median_ms(lambda: torch.matmul(x, w_bf16)):.4f} ms")
+            if not fused_only:
+                log(f"K6{tag} M={M} K={K} N={N}: bf16 torch.matmul on the "
+                    f"widened weight "
+                    f"{median_ms(lambda: torch.matmul(x, w_bf16)):.4f} ms")
             del allowed, xs, ref
         del codes, packed, params, tinygemm, w_bf16
         torch.cuda.empty_cache()
@@ -857,6 +894,122 @@ def check_grouped_decode(randn, gen, P, pads, G, steps, results, tag="",
                 work=w[kid])
 
 
+def check_k1_passes(randn, gen, P, pads, results, H=28, Hkv=4, G=TRAIN_G,
+                    C=TRAIN_NEW_TOKENS, suffix=""):
+    """K1 and K1-bwd (dq, dk/dv) against their plain versions on an
+    update's two attention passes: the prompt pass (len(pads) prompts of P
+    keys, left-padded by `pads`) and the completion pass (G completions of
+    C tokens per prompt against the prompt's keys and their own), H query
+    and Hkv KV heads of 128 (results "K1 <pass><suffix>", "K1-bwd dq ...",
+    "K1-bwd dkv ...")."""
+    from spacer_tpu_torch.nn.attention import xla_attention
+    from spacer_tpu_torch.ops import flash_attention as fa
+
+    dev, D = gen.device, 128
+    mask = torch.ones((len(pads), P), dtype=torch.bool, device=dev)
+    for b, pad in enumerate(pads):
+        mask[b, :pad] = False
+    # prompt pass: B prompts, Sq=Skv=P; the padded query rows get no
+    # output gradient (nothing downstream reads them)
+    B = len(pads)
+    prompt = dict(causal=True, kv_mask=mask)
+    q, k, v = randn(B, P, H, D), randn(B, P, Hkv, D), randn(B, P, Hkv, D)
+    dout = randn(B, P, H, D) * mask[:, :, None, None]
+    # completion pass: N=B*G rows, Sq=C completion tokens against
+    # Skv=P+C keys at q_offset=P; each group's prompt padding,
+    # completions ending at random lengths (later keys masked)
+    N = B * G
+    ends = torch.randint(1, C + 1, (N,), generator=gen, device=dev)
+    cmask = torch.cat([mask.repeat_interleave(G, dim=0),
+                       torch.arange(C, device=dev)[None] < ends[:, None]],
+                      dim=1)
+    completion = dict(causal=True, kv_mask=cmask, q_offset=P)
+    qc, kc, vc, doutc = randn(N, C, H, D), randn(N, P + C, Hkv, D), \
+        randn(N, P + C, Hkv, D), randn(N, C, H, D)
+    # work of the backward: query rows (q, out, dout, dq bf16 + lse f32),
+    # the key rows the masks keep (k, v, and dk, dv for dk/dv), and the
+    # (query, key) pairs: 3 products per pair for dq, 4 for dk/dv
+    causal_p = torch.ones((P, P), dtype=torch.bool, device=dev).tril()
+    pad_c = torch.tensor(pads, device=dev).repeat_interleave(G)
+    i = torch.arange(C, device=dev)
+    comp_pairs = int((C * (P - pad_c)).sum()
+                     + torch.minimum(i[None] + 1, ends[:, None]).sum())
+    kv_rows = (P - pad_c + ends).sum().item()
+    shapes = {
+        "prompt": (sum(P - p for p in pads), sum(P - p for p in pads),
+                   causal_pairs([P - p for p in pads]),
+                   (causal_p[None] & mask[:, None, :])[:, None]),
+        "completion": (N * C, kv_rows, comp_pairs,
+                       (torch.cat([torch.ones((C, P), dtype=torch.bool,
+                                              device=dev),
+                                   causal_p[:C, :C]], 1)[None]
+                        & cmask[:, None, :])[:, None]),
+    }
+    for tag, (q_, k_, v_, do_, kw), (q_rows, k_rows, pairs, sdpa_mask) in (
+            (f"prompt B={B} S={P}{suffix}", (q, k, v, dout, prompt),
+             shapes["prompt"]),
+            (f"completion N={N} Sq={C} Skv={P + C}{suffix}",
+             (qc, kc, vc, doutc, completion), shapes["completion"])):
+        # the forward at the training shapes (valid query rows compared)
+        live_q = (torch.arange(q_.shape[1], device=dev)[None] + kw.get(
+            "q_offset", 0)) >= torch.tensor(pads, device=dev).repeat_interleave(
+            q_.shape[0] // B)[:, None]
+        results[f"K1 {tag}"] = compare(
+            f"K1 flash_attention [{tag}]",
+            lambda: fa.flash_attention(q_, k_, v_, **kw),
+            lambda: xla_attention(q_, k_, v_, **kw), lambda x: x[live_q],
+            work=(q_rows * H * D * 2 * 2 + k_rows * Hkv * D * 2 * 2
+                  + q_rows * H * 4, 4 * D * H * pairs),
+            library_fn=lambda: sdpa_masked(q_, k_, v_, sdpa_mask))
+        out, lse = fa.flash_attention(q_, k_, v_, return_lse=True, **kw)
+        args = (q_, k_, v_, out, lse, do_)
+        # delta = rowsum(dout * out): torch ops that each public dq and
+        # dk/dv call below runs (the autograd backward runs them once)
+        delta_dev = device_ms(lambda: fa._delta(out, do_))
+        log(f"K1-bwd delta [{tag}]: device_ms "
+            + ("not measured" if delta_dev is None else f"{delta_dev:.4f}")
+            + " (inside each dq and dk/dv call's device_ms below)")
+        grads = (*fa.flash_attention_bwd_dq(*args, **kw),
+                 *fa.flash_attention_bwd_dkv(*args, **kw))
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise RuntimeError(f"K1-bwd wrote non-finite gradients ({tag})")
+        # library: the backward of torch's SDPA (dq, dk and dv in one)
+        lq, lk, lv = (t.detach().requires_grad_(True) for t in (q_, k_, v_))
+        lout = sdpa_masked(lq, lk, lv, sdpa_mask)
+
+        def library(lout=lout, lq=lq, lk=lk, lv=lv, do_=do_):
+            return torch.autograd.grad(lout, (lq, lk, lv), do_,
+                                       retain_graph=True)
+
+        q_bytes = q_rows * (H * D * 2 + H * 4)     # q, out, dout, lse
+        results[f"K1-bwd dq {tag}"] = compare(
+            f"K1-bwd dq [{tag}]",
+            lambda: fa.flash_attention_bwd_dq(*args, **kw),
+            lambda: fa.attention_bwd_reference(q_, k_, v_, do_, **kw)[0],
+            rel_norm=True, library_fn=library,
+            work=(q_bytes + q_rows * H * D * 2 * 3
+                  + k_rows * Hkv * D * 2 * 2, 6 * D * H * pairs))
+        # dk/dv: its bound is the function's own work; the f32 partial
+        # sums that the split design adds (each written once and read
+        # once, over every key row) are logged beside it, not counted
+        dkv_work = (q_bytes + q_rows * H * D * 2 * 2
+                    + k_rows * Hkv * D * 2 * 4, 8 * D * H * pairs)
+        splits = (fa.dkv_split_count(q_, k_) if dev.type == "cuda"
+                  else 1)
+        partial_bytes = 2 * 2 * splits * k_.numel() * 4 if splits > 1 else 0
+        design = roofline(dkv_work[0] + partial_bytes, dkv_work[1])
+        log(f"K1-bwd dk/dv [{tag}]: splits {splits}, f32 partials "
+            f"{partial_bytes / 1e6:.1f} MB, design bound "
+            f"{design['bound_ms']:.4f} ms ({design['bound_by']})")
+        results[f"K1-bwd dkv {tag}"] = compare(
+            f"K1-bwd dk/dv [{tag}]",
+            lambda: fa.flash_attention_bwd_dkv(*args, **kw),
+            lambda: fa.attention_bwd_reference(q_, k_, v_, do_, **kw)[1:],
+            rel_norm=True, library_fn=library, work=dkv_work)
+        del lout, lq, lk, lv
+
+
+
 def check_training_kernels(device="cuda") -> dict:
     """Phase 3b: K1, K1-bwd (dq, dk/dv) and K2 against their plain versions, at
     the training slice's shapes (prompt bucket TRAIN_PROMPT_BUCKET, padding
@@ -865,9 +1018,6 @@ def check_training_kernels(device="cuda") -> dict:
     two-prompt batch (P=1024, one prompt padded by 300), which the slice's
     single row leaves out: a batch index past 0 and rows of differing
     padding."""
-    from spacer_tpu_torch.nn.attention import xla_attention
-    from spacer_tpu_torch.ops import flash_attention as fa
-
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
@@ -875,120 +1025,14 @@ def check_training_kernels(device="cuda") -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf)
 
-    def left_padded(P, pads):
-        mask = torch.ones((len(pads), P), dtype=torch.bool, device=dev)
-        for b, pad in enumerate(pads):
-            mask[b, :pad] = False
-        return mask
-
     results = {}
-    H, Hkv, D = 28, 4, 128
     G, C = TRAIN_G, TRAIN_NEW_TOKENS
     path_P, path_pad = TRAIN_PROMPT_BUCKET, TRAIN_PROMPT_PAD
     # (P, padding of the update's prompts, of the rollout's prompts, steps)
     for P, pads, k2_pads, steps in (
             (path_P, (path_pad,), (path_pad, path_pad), (1, 100, C - 1)),
             (1024, (0, 300), (0, 300), (1, 100, C))):
-        # prompt pass: B prompts, Sq=Skv=P; the padded query rows get no
-        # output gradient (nothing downstream reads them)
-        B = len(pads)
-        mask = left_padded(P, pads)
-        prompt = dict(causal=True, kv_mask=mask)
-        q, k, v = randn(B, P, H, D), randn(B, P, Hkv, D), randn(B, P, Hkv, D)
-        dout = randn(B, P, H, D) * mask[:, :, None, None]
-        # completion pass: N=B*G rows, Sq=C completion tokens against
-        # Skv=P+C keys at q_offset=P; each group's prompt padding,
-        # completions ending at random lengths (later keys masked)
-        N = B * G
-        ends = torch.randint(1, C + 1, (N,), generator=gen, device=dev)
-        cmask = torch.cat([mask.repeat_interleave(G, dim=0),
-                           torch.arange(C, device=dev)[None] < ends[:, None]],
-                          dim=1)
-        completion = dict(causal=True, kv_mask=cmask, q_offset=P)
-        qc, kc, vc, doutc = randn(N, C, H, D), randn(N, P + C, Hkv, D), \
-            randn(N, P + C, Hkv, D), randn(N, C, H, D)
-        # work of the backward: query rows (q, out, dout, dq bf16 + lse f32),
-        # the key rows the masks keep (k, v, and dk, dv for dk/dv), and the
-        # (query, key) pairs: 3 products per pair for dq, 4 for dk/dv
-        causal_p = torch.ones((P, P), dtype=torch.bool, device=dev).tril()
-        pad_c = torch.tensor(pads, device=dev).repeat_interleave(G)
-        i = torch.arange(C, device=dev)
-        comp_pairs = int((C * (P - pad_c)).sum()
-                         + torch.minimum(i[None] + 1, ends[:, None]).sum())
-        kv_rows = (P - pad_c + ends).sum().item()
-        shapes = {
-            "prompt": (sum(P - p for p in pads), sum(P - p for p in pads),
-                       causal_pairs([P - p for p in pads]),
-                       (causal_p[None] & mask[:, None, :])[:, None]),
-            "completion": (N * C, kv_rows, comp_pairs,
-                           (torch.cat([torch.ones((C, P), dtype=torch.bool,
-                                                  device=dev),
-                                       causal_p[:C, :C]], 1)[None]
-                            & cmask[:, None, :])[:, None]),
-        }
-        for tag, (q_, k_, v_, do_, kw), (q_rows, k_rows, pairs, sdpa_mask) in (
-                (f"prompt B={B} S={P}", (q, k, v, dout, prompt),
-                 shapes["prompt"]),
-                (f"completion N={N} Sq={C} Skv={P + C}",
-                 (qc, kc, vc, doutc, completion), shapes["completion"])):
-            # the forward at the training shapes (valid query rows compared)
-            live_q = (torch.arange(q_.shape[1], device=dev)[None] + kw.get(
-                "q_offset", 0)) >= torch.tensor(pads, device=dev).repeat_interleave(
-                q_.shape[0] // B)[:, None]
-            results[f"K1 {tag}"] = compare(
-                f"K1 flash_attention [{tag}]",
-                lambda: fa.flash_attention(q_, k_, v_, **kw),
-                lambda: xla_attention(q_, k_, v_, **kw), lambda x: x[live_q],
-                work=(q_rows * H * D * 2 * 2 + k_rows * Hkv * D * 2 * 2
-                      + q_rows * H * 4, 4 * D * H * pairs),
-                library_fn=lambda: sdpa_masked(q_, k_, v_, sdpa_mask))
-            out, lse = fa.flash_attention(q_, k_, v_, return_lse=True, **kw)
-            args = (q_, k_, v_, out, lse, do_)
-            # delta = rowsum(dout * out): torch ops that each public dq and
-            # dk/dv call below runs (the autograd backward runs them once)
-            delta_dev = device_ms(lambda: fa._delta(out, do_))
-            log(f"K1-bwd delta [{tag}]: device_ms "
-                + ("not measured" if delta_dev is None else f"{delta_dev:.4f}")
-                + " (inside each dq and dk/dv call's device_ms below)")
-            grads = (*fa.flash_attention_bwd_dq(*args, **kw),
-                     *fa.flash_attention_bwd_dkv(*args, **kw))
-            if not all(bool(torch.isfinite(g).all()) for g in grads):
-                raise RuntimeError(f"K1-bwd wrote non-finite gradients ({tag})")
-            # library: the backward of torch's SDPA (dq, dk and dv in one)
-            lq, lk, lv = (t.detach().requires_grad_(True) for t in (q_, k_, v_))
-            lout = sdpa_masked(lq, lk, lv, sdpa_mask)
-
-            def library(lout=lout, lq=lq, lk=lk, lv=lv, do_=do_):
-                return torch.autograd.grad(lout, (lq, lk, lv), do_,
-                                           retain_graph=True)
-
-            q_bytes = q_rows * (H * D * 2 + H * 4)     # q, out, dout, lse
-            results[f"K1-bwd dq {tag}"] = compare(
-                f"K1-bwd dq [{tag}]",
-                lambda: fa.flash_attention_bwd_dq(*args, **kw),
-                lambda: fa.attention_bwd_reference(q_, k_, v_, do_, **kw)[0],
-                rel_norm=True, library_fn=library,
-                work=(q_bytes + q_rows * H * D * 2 * 3
-                      + k_rows * Hkv * D * 2 * 2, 6 * D * H * pairs))
-            # dk/dv: its bound is the function's own work; the f32 partial
-            # sums that the split design adds (each written once and read
-            # once, over every key row) are logged beside it, not counted
-            dkv_work = (q_bytes + q_rows * H * D * 2 * 2
-                        + k_rows * Hkv * D * 2 * 4, 8 * D * H * pairs)
-            splits = (fa.dkv_split_count(q_, k_) if dev.type == "cuda"
-                      else 1)
-            partial_bytes = 2 * 2 * splits * k_.numel() * 4 if splits > 1 else 0
-            design = roofline(dkv_work[0] + partial_bytes, dkv_work[1])
-            log(f"K1-bwd dk/dv [{tag}]: splits {splits}, f32 partials "
-                f"{partial_bytes / 1e6:.1f} MB, design bound "
-                f"{design['bound_ms']:.4f} ms ({design['bound_by']})")
-            results[f"K1-bwd dkv {tag}"] = compare(
-                f"K1-bwd dk/dv [{tag}]",
-                lambda: fa.flash_attention_bwd_dkv(*args, **kw),
-                lambda: fa.attention_bwd_reference(q_, k_, v_, do_, **kw)[1:],
-                rel_norm=True, library_fn=library, work=dkv_work)
-            del lout, lq, lk, lv
-
+        check_k1_passes(randn, gen, P, pads, results)
         check_grouped_decode(randn, gen, P, k2_pads, G, steps, results)
     # K2 / K2-int8 at K2_WIDE_G completions per prompt, the path's prompts
     check_grouped_decode(randn, gen, path_P, (path_pad, path_pad), K2_WIDE_G,
@@ -1959,7 +2003,8 @@ def make_trainer(cfg, device, steps: int, out_dir: str,
     (2 prompts per row x TRAIN_G completions of up to TRAIN_NEW_TOKENS
     tokens), the trainer's default int8_kv rollouts, beta 0.04, int8
     moments, `steps` steps; `overrides` replace SGRLVRConfig fields.  With
-    a `mesh` the params are fsdp-sharded onto it (QWEN_PARTITION_RULES);
+    a `mesh` the params are sharded onto it (QWEN_PARTITION_RULES, and
+    split over its tp axis by the Qwen tp plan);
     `share_ref` makes the reference model the policy's own tensors (the
     same values until the first update, without a second copy).
     Returns (trainer, the params' paths in param_leaves order)."""
@@ -1989,10 +2034,12 @@ def make_trainer(cfg, device, steps: int, out_dir: str,
     if mesh is not None:
         from spacer_tpu_torch.parallel.partition import (
             QWEN_PARTITION_RULES,
+            qwen_tp_plan,
             shard_params,
         )
 
-        params = shard_params(params, mesh, QWEN_PARTITION_RULES)[0]
+        params = shard_params(params, mesh, QWEN_PARTITION_RULES,
+                              qwen_tp_plan(cfg))[0]
         gc.collect()
         torch.cuda.empty_cache()
     trainer = SGRLVRTrainer(
@@ -3339,6 +3386,55 @@ def check_aria_kernels(device="cuda") -> dict:
     return results
 
 
+def tp_k6_shapes(tp: int) -> tuple:
+    """The (K, N) of a tp rank's int4 decode products at the 7B widths:
+    q, k / v, o, gate / up, down and lm_head, the column-parallel ones'
+    N and the row-parallel ones' K cut by tp."""
+    return ((3584, 3584 // tp), (3584, 512 // tp), (3584 // tp, 3584),
+            (3584, 18944 // tp), (18944 // tp, 3584), (3584, 152064 // tp))
+
+
+def check_tp_kernels(device="cuda") -> dict:
+    """Phase 3d: every kernel against its plain version at the shapes one
+    rank of a tp-2 and a tp-4 Qwen2.5-VL-7B runs (TP_SIZES): K1 and K1-bwd
+    on phase 5's update (H 14 / 7 query and Hkv 2 / 1 KV heads), K2 and
+    K2-int8 on its rollout (Hkv 2 / 1), K5 and K5-int8 on phase 4's slots
+    (Hkv 2 / 1), K3 and K4 on phase 4's video (8 / 4 ViT heads), K6 (fused
+    dense_q4) at the sliced products of tp_k6_shapes, M = 4 and 16.
+    Results carry a " tp=N" suffix; none of them enters the kernels line."""
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.models.qwen25_vl.vision import vision_layout
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    tc, vcfg = QWEN25_VL_7B.text, QWEN25_VL_7B.vision
+    layout = vision_layout([(8, 16, 30)], vcfg)
+    results = {}
+    for tp in TP_SIZES:
+        sfx = f" tp={tp}"
+        H, Hkv = tc.num_heads // tp, tc.num_kv_heads // tp
+        t0 = time.perf_counter()
+        check_k1_passes(randn, gen, TRAIN_PROMPT_BUCKET, (TRAIN_PROMPT_PAD,),
+                        results, H=H, Hkv=Hkv, suffix=sfx)
+        check_grouped_decode(randn, gen, TRAIN_PROMPT_BUCKET,
+                             (TRAIN_PROMPT_PAD, TRAIN_PROMPT_PAD), TRAIN_G,
+                             (1, TRAIN_NEW_TOKENS - 1), results, tag=sfx,
+                             Hkv=Hkv)
+        results.update(check_ragged_decode(randn, gen, sfx, 1024,
+                                           *RAGGED_CASES[""], Hkv=Hkv))
+        results.update(check_vit_kernels(
+            randn, dev, layout, vcfg.num_heads // tp, vcfg.head_dim,
+            ((f"K4{sfx}", layout.seq_len, layout.full_chunk),), tag=sfx))
+        results.update(check_int4_matmul(gen, tp_k6_shapes(tp), (4, 16),
+                                         tag=sfx, fused_only=True))
+        log(f"phase 3d tp={tp}: {time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def aria_param_count(cfg) -> int:
     """Parameters of an Aria config, reckoned from its widths."""
     t, v = cfg.text, cfg.vision
@@ -3763,6 +3859,8 @@ FSDP_COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce",
 # over the gradients of LM layers FSDP_WORLD_LAYERS, ViT blocks
 # FSDP_WORLD_BLOCKS and every tensor outside the layer lists (the whole
 # model's 16.6 GB of bf16 gradients would be written and read back).
+# phase 13's tp collectives (counted at world 1, where none is issued)
+TP_COLLECTIVES = ("tp_all_reduce", "tp_all_gather", "tp_max")
 FSDP_WORLD_ROWS = 4
 FSDP_WORLD_LOSS_RTOL, FSDP_WORLD_COS_TOL = 1e-3, 0.999
 FSDP_WORLD_LAYERS, FSDP_WORLD_BLOCKS = (0, 13, 27), (0, 31)
@@ -3793,17 +3891,20 @@ def _full_view(t, leaf):
     return t
 
 
-def fsdp_train_run(cfg, out_dir, mesh=None, ref=None, device="cuda") -> dict:
-    """Two SGRLVRTrainer.train steps (make_trainer's slice) with or
-    without `mesh`.  Without `ref` the completions, step metrics, every
-    update's gradients, the final params and the int8 moments are kept on
-    the host; with `ref` (that record) each is held bitwise against it as
-    it comes, and the names of the tensors that differ are kept."""
+def fsdp_train_run(cfg, out_dir, mesh=None, ref=None, device="cuda",
+                   **trainer_kw) -> dict:
+    """Two SGRLVRTrainer.train steps (make_trainer's slice; `trainer_kw`
+    go to it) with or without `mesh`.  Without `ref` the completions, step
+    metrics, every update's gradients, the final params and the int8
+    moments are kept on the host; with `ref` (that record) each is held
+    bitwise against it as it comes, and the names of the tensors that
+    differ are kept."""
     from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
     from spacer_tpu_torch.parallel import fsdp, multihost
     from spacer_tpu_torch.train.step import param_leaves
 
-    trainer, names = make_trainer(cfg, device, 2, out_dir, mesh=mesh)
+    trainer, names = make_trainer(cfg, device, 2, out_dir, mesh=mesh,
+                                  **trainer_kw)
     raw = fsdp.raw_leaves(trainer.params)
     rec = {"rollouts": [], "steps": [], "grads": [], "grad_bad": [],
            "check_s": []}
@@ -3865,7 +3966,7 @@ def fsdp_train_run(cfg, out_dir, mesh=None, ref=None, device="cuda") -> dict:
     multihost.time_collectives(False)
     with open(pathlib.Path(out_dir) / "metrics.jsonl") as f:
         rec["rollout_s"] = [json.loads(line)["time/rollout_s"] for line in f]
-    params = fsdp.gather_params(trainer.params)
+    params = fsdp.full_params(trainer.params)
     state = fsdp.state_to_full(trainer.opt_state, trainer.params)
     finals = [t.detach() for _, t in param_leaves(params)]
     moments = [x for pair in state.mu + state.nu for x in pair]
@@ -3899,6 +4000,66 @@ def _collective_line(stats: dict, steps: int) -> str:
         for k, v in sorted(stats.items()))
 
 
+def sharded_run_problems(plain, sharded, name, collectives, kernels) -> list:
+    """Log two fsdp_train_run records (unsharded, then over a world-1 mesh)
+    and return what breaks phase 12's gate: completions, losses, kl and
+    every update's gradients, the final params and int8 moments bitwise
+    (grad_norm within rel 1e-6; where the clip scaled a step and the norms
+    differ, the params within one bf16 ulp), every collective kind of
+    `collectives` made and every kernel of `kernels` launched."""
+    for tag, r in (("unsharded", plain), ("sharded", sharded)):
+        for i, st in enumerate(r["steps"]):
+            log(f"{name} {tag} step {i + 1}: loss {st['loss']!r} kl "
+                f"{st['kl']!r} grad_norm {st['grad_norm']!r} | rollout "
+                f"{r['rollout_s'][i]:.2f} s update {st['update_s']:.2f} s "
+                f"(the gradient check's {r['check_s'][i]:.2f} s apart)")
+        log(f"{name} {tag}: wall {r['wall']:.1f} s for 2 steps, checks "
+            f"included; max_memory_allocated {gib(r['peak'])}")
+    a, b = plain["steps"][1], sharded["steps"][1]
+    log(f"{name} step 2 (both warm), sharded vs unsharded: rollout "
+        f"{sharded['rollout_s'][1]:.2f} vs {plain['rollout_s'][1]:.2f} s, "
+        f"update {b['update_s']:.2f} vs {a['update_s']:.2f} s")
+    log(f"{name} sharded: collectives per step: "
+        + _collective_line(sharded["collectives"], 2))
+    same_rollouts = (len(plain["rollouts"]) == len(sharded["rollouts"]) == 2
+                     and all(np.array_equal(a, b) for a, b in
+                             zip(plain["rollouts"], sharded["rollouts"])))
+    clipped = any(st["grad_norm"] >= 5.0 for st in plain["steps"])
+    norms_equal = all(a["grad_norm"] == b["grad_norm"]
+                      for a, b in zip(plain["steps"], sharded["steps"]))
+    log(f"{name} world 1 vs unsharded: completions equal {same_rollouts}, "
+        f"losses {[s['loss'] for s in sharded['steps']]} vs "
+        f"{[s['loss'] for s in plain['steps']]}, grad_norm bitwise "
+        f"{norms_equal} (clip active: {clipped}), gradients differing "
+        f"{[len(b) for b in sharded['grad_bad']]} of {plain['n_tensors']} "
+        f"per update, params differing {len(sharded['param_bad'])}, "
+        f"int8 moment tensors differing {sharded['moment_bad']}")
+    problems = []
+    if not same_rollouts:
+        problems.append("completions differ")
+    for a, b in zip(plain["steps"], sharded["steps"]):
+        if a["loss"] != b["loss"] or a["kl"] != b["kl"]:
+            problems.append(f"loss/kl {b} vs {a}")
+        if abs(a["grad_norm"] - b["grad_norm"]) > 1e-6 * abs(a["grad_norm"]):
+            problems.append(f"grad_norm {b['grad_norm']} vs {a['grad_norm']}")
+    if len(sharded["grad_bad"]) != 2 or any(sharded["grad_bad"]):
+        problems.append(f"gradients differ: {sharded['grad_bad']}")
+    if sharded["param_bad"] and not (clipped and not norms_equal
+                                     and sharded["param_one_ulp"]):
+        problems.append(f"params differ: {sharded['param_bad'][:8]}")
+    if sharded["moment_bad"]:
+        problems.append(f"{sharded['moment_bad']} moment tensors differ")
+    missing = [k for k in collectives
+               if not sharded["collectives"].get(k, {}).get("calls")]
+    if missing:
+        problems.append(f"no {missing} collective in the sharded run")
+    counts = sharded["counts"]
+    log(f"{name} sharded: launches {counts}")
+    if min(counts[k] for k in kernels) < 1:
+        problems.append(f"a kernel of the path was never launched: {counts}")
+    return problems
+
+
 def world1_env():
     """torchrun's environment for rank 0 of a world of 1 (a free port)."""
     from spacer_tpu_torch.parallel.multihost import _free_port
@@ -3926,9 +4087,10 @@ def fsdp_phase(device="cuda") -> dict:
     import torch.distributed as dist
 
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
-    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.parallel import multihost, tp
     from spacer_tpu_torch.parallel.mesh import create_mesh
 
+    tp.set_mesh(None)    # the unsharded run runs as one process
     world1_env()
     multihost.initialize(device=device)
     backend = "nccl" if device == "cuda" else "gloo"
@@ -3942,60 +4104,14 @@ def fsdp_phase(device="cuda") -> dict:
     plain = fsdp_train_run(cfg, str(root / "smoke_fsdp_plain"), device=device)
     sharded = fsdp_train_run(cfg, str(root / "smoke_fsdp_sharded"), mesh=mesh,
                              ref=plain, device=device)
-    for tag, r in (("unsharded", plain), ("sharded", sharded)):
-        for i, st in enumerate(r["steps"]):
-            log(f"fsdp {tag} step {i + 1}: loss {st['loss']!r} kl "
-                f"{st['kl']!r} grad_norm {st['grad_norm']!r} | rollout "
-                f"{r['rollout_s'][i]:.2f} s update {st['update_s']:.2f} s "
-                f"(the gradient check's {r['check_s'][i]:.2f} s apart)")
-        log(f"fsdp {tag}: wall {r['wall']:.1f} s for 2 steps, checks "
-            f"included; max_memory_allocated {gib(r['peak'])}")
-    a, b = plain["steps"][1], sharded["steps"][1]
-    log(f"fsdp step 2 (both warm), sharded vs unsharded: rollout "
-        f"{sharded['rollout_s'][1]:.2f} vs {plain['rollout_s'][1]:.2f} s, "
-        f"update {b['update_s']:.2f} vs {a['update_s']:.2f} s")
-    log(f"fsdp sharded: collectives per step: "
-        + _collective_line(sharded["collectives"], 2))
-    same_rollouts = (len(plain["rollouts"]) == len(sharded["rollouts"]) == 2
-                     and all(np.array_equal(a, b) for a, b in
-                             zip(plain["rollouts"], sharded["rollouts"])))
-    clipped = any(st["grad_norm"] >= 5.0 for st in plain["steps"])
-    norms_equal = all(a["grad_norm"] == b["grad_norm"]
-                      for a, b in zip(plain["steps"], sharded["steps"]))
-    log(f"fsdp world 1 vs unsharded: completions equal {same_rollouts}, "
-        f"losses {[s['loss'] for s in sharded['steps']]} vs "
-        f"{[s['loss'] for s in plain['steps']]}, grad_norm bitwise "
-        f"{norms_equal} (clip active: {clipped}), gradients differing "
-        f"{[len(b) for b in sharded['grad_bad']]} of {plain['n_tensors']} "
-        f"per update, params differing {len(sharded['param_bad'])}, "
-        f"int8 moment tensors differing {sharded['moment_bad']}")
-    problems = []
-    if not same_rollouts:
-        problems.append("completions differ")
-    for a, b in zip(plain["steps"], sharded["steps"]):
-        if a["loss"] != b["loss"] or a["kl"] != b["kl"]:
-            problems.append(f"loss/kl {b} vs {a}")
-        if abs(a["grad_norm"] - b["grad_norm"]) > 1e-6 * abs(a["grad_norm"]):
-            problems.append(f"grad_norm {b['grad_norm']} vs {a['grad_norm']}")
-    if len(sharded["grad_bad"]) != 2 or any(sharded["grad_bad"]):
-        problems.append(f"gradients differ: {sharded['grad_bad']}")
-    if sharded["param_bad"] and not (clipped and not norms_equal
-                                     and sharded["param_one_ulp"]):
-        problems.append(f"params differ: {sharded['param_bad'][:8]}")
-    if sharded["moment_bad"]:
-        problems.append(f"{sharded['moment_bad']} moment tensors differ")
-    missing = [k for k in FSDP_COLLECTIVES
-               if not sharded["collectives"].get(k, {}).get("calls")]
-    if missing:
-        problems.append(f"no {missing} collective in the sharded run")
+    problems = sharded_run_problems(plain, sharded, "fsdp", FSDP_COLLECTIVES,
+                                    FSDP_KERNELS)
     counts = sharded["counts"]
-    log(f"fsdp sharded: launches {counts}")
-    if min(counts[k] for k in FSDP_KERNELS) < 1:
-        problems.append(f"a kernel of the path was never launched: {counts}")
     del plain, sharded
     gc.collect()
     torch.cuda.empty_cache()
     dist.destroy_process_group()
+    tp.set_mesh(None)
     cli_step_under_torchrun(root / "smoke_fsdp_cli", device)
     if problems:
         raise RuntimeError("phase 12: " + "; ".join(problems))
@@ -4009,9 +4125,7 @@ def cli_step_under_torchrun(root: pathlib.Path, device="cuda"):
     exit 0 and record its step.  The tiny config's heads (16 wide) are
     outside every kernel, which raise on CUDA tensors of such shapes, so
     the step runs inside utils.debugging.interpret_kernels (the kernels'
-    plain versions on the card; `cli_step_main`)."""
-    from spacer_tpu_torch.parallel.multihost import _free_port
-
+    plain versions on the card; `cli_main`)."""
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     (video,) = write_videos(root, "clip", 1, 4, 8, seed=5, shift=3)
@@ -4025,26 +4139,14 @@ def cli_step_under_torchrun(root: pathlib.Path, device="cuda"):
         f.write(json.dumps({"video_id": "clip0", "cognitive_map": {},
                             "object_list": []}) + "\n")
     out = root / "out"
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-           "1", "--master_port", str(_free_port()), __file__, "--cli-step",
-           "--multihost", "true", "--device", device, "--random_init", "true",
-           "--dataset_name", str(root / "train.jsonl"),
-           "--cognitive_map_path", str(root / "cogmap.jsonl"),
-           "--output_dir", str(out), "--max_steps", "1",
-           "--skip_failed_steps", "false",
-           "--num_generations", "4", "--max_completion_length", "32"]
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
-                        "MASTER_ADDR", "MASTER_PORT")}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                          cwd=str(pathlib.Path(__file__).resolve().parent),
-                          env=env)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0 or not (out / "metrics.jsonl").exists():
-        log(proc.stdout[-3000:])
-        log(proc.stderr[-6000:])
-        raise RuntimeError(f"torchrun train_sg_rlvr exited {proc.returncode}")
+    seconds = torchrun_self(
+        "--cli-step", ["--device", device, "--random_init", "true",
+                       "--dataset_name", str(root / "train.jsonl"),
+                       "--cognitive_map_path", str(root / "cogmap.jsonl"),
+                       "--output_dir", str(out), "--max_steps", "1",
+                       "--skip_failed_steps", "false", "--num_generations",
+                       "4", "--max_completion_length", "32"],
+        out / "metrics.jsonl")
     with open(out / "metrics.jsonl") as f:
         recs = [json.loads(line) for line in f]
     if len(recs) != 1 or recs[0].get("step") != 1:
@@ -4055,6 +4157,30 @@ def cli_step_under_torchrun(root: pathlib.Path, device="cuda"):
         f"{rec['step']}: "
         f"loss {rec['loss']:.6e} grad_norm {rec['grad_norm']:.6e} reward "
         f"{rec['reward']:.3f}")
+
+
+def torchrun_self(mode: str, argv: list, result: pathlib.Path) -> float:
+    """`torchrun --nproc_per_node 1 chip_smoke.py MODE --multihost true
+    ARGV` (cli_main under torchrun's environment for
+    rank 0 of 1, a free port), which must exit 0 and write `result`; ->
+    its seconds."""
+    from spacer_tpu_torch.parallel.multihost import _free_port
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           "1", "--master_port", str(_free_port()), __file__, mode,
+           "--multihost", "true", *argv]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                        "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=str(pathlib.Path(__file__).resolve().parent),
+                          env=env)
+    if proc.returncode != 0 or not result.exists():
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-6000:])
+        raise RuntimeError(f"torchrun {mode} exited {proc.returncode}")
+    return time.perf_counter() - t0
 
 
 def _world_selected(name: str) -> bool:
@@ -4137,15 +4263,17 @@ def _world_reference(rank, out, device="cuda"):
         f"loss {rec['loss']!r}, max_memory_allocated {gib(rec['peak'])}")
 
 
-def _world_rank(rank, out, device="cuda"):
-    """One rank of --world N: fsdp over every rank, the full-depth trainer
-    on this rank's share of the FSDP_WORLD_ROWS rows, two steps; step 1
-    replays the reference's completions (its own rollout still runs and is
-    timed) and its gradients are held against the reference's per group."""
+def _world_rank(rank, out, device="cuda", shape=None):
+    """One rank of --world N: fsdp over every rank (or the mesh `shape`,
+    tp slices included), the full-depth trainer on this rank's share of
+    the FSDP_WORLD_ROWS rows, two steps; step 1 replays the reference's
+    completions (its own rollout still runs and is timed) and its
+    gradients are held against the reference's per group."""
     from spacer_tpu_torch.parallel import fsdp, multihost
+    from spacer_tpu_torch.parallel.mesh import create_mesh
 
     world = multihost.process_count()
-    mesh = multihost.global_mesh()
+    mesh = create_mesh(shape) if shape else multihost.global_mesh()
     trainer, names = _world_trainer(f"{out}/rank{rank}", 2, mesh=mesh,
                                     device=device)
     ref = torch.load(out + "/ref.pt", weights_only=False, mmap=True)
@@ -4167,18 +4295,23 @@ def _world_rank(rank, out, device="cuda"):
             return
         from spacer_tpu_torch.train.optimizer import BLOCK as B
 
+        if mesh.coords["data"]:
+            return   # data replicas hold the same blocks
         for n, g, leaf in zip(names, grads, raw):
             if n not in ref["grads"]:
                 continue
-            want = ref["grads"][n].reshape(-1)
+            want = ref["grads"][n]
             if isinstance(leaf, fsdp.Shard):
+                if leaf.split is not None:
+                    want = leaf.split.take(want)   # this rank's tp slice
+                want = want.reshape(-1)
                 lo = leaf.block_lo * B
                 mine = g.reshape(-1)[:max(0, min(g.numel(), leaf.numel - lo))]
                 want = want[lo:lo + mine.numel()]
             elif rank:
                 continue   # a replicated gradient counts once
             else:
-                mine = g.reshape(-1)
+                want, mine = want.reshape(-1), g.reshape(-1)
             a, b = mine.double(), want.to(mine.device).double()
             sums[_grad_group(n)] += torch.stack([(a * b).sum(), a.square()
                                                  .sum(), b.square().sum()])
@@ -4204,10 +4337,11 @@ def _world_rank(rank, out, device="cuda"):
         trainer.training_step(rows, np.random.default_rng(step))
         rec["peak"].append(_peak(device))
     rec["collectives"] = multihost.collective_stats()
-    # replicated tensors' groups are summed on rank 0 only
+    # replicated tensors' groups are summed on rank 0 only, the shards' and
+    # tp slices' on every rank of data index 0
     groups = sorted(set().union(*multihost.all_gather_objects(sorted(sums))))
     vec = torch.stack([sums[g] for g in groups])
-    multihost.all_reduce(vec, mesh.group("batch"))
+    multihost.all_reduce(vec, None)
     rec["cos"] = {g: float(d / math.sqrt(x * y)) for g, (d, x, y)
                   in zip(groups, vec.tolist())}
     rec["ref_loss"], rec["adv_scale"] = ref["loss"], ref["adv_scale"]
@@ -4239,22 +4373,30 @@ def fsdp_world_phase(world: int, device="cuda"):
                  timeout=1200)
     launch_local(_world_rank, world, args=(out, device), device=device,
                  timeout=1800)
+    report_world_ranks(out, world, "fsdp")
+
+
+def report_world_ranks(out, world: int, name: str):
+    """Log the ranks' records of a --world run (_world_rank -> world.pt)
+    and raise RuntimeError unless the step-1 loss is within
+    FSDP_WORLD_LOSS_RTOL of the reference's (scaled as below) and every
+    group's gradient cosine is >= FSDP_WORLD_COS_TOL."""
     parts = torch.load(out + "/world.pt", weights_only=False)
     first = parts[0]
     for r, p in enumerate(parts):
-        log(f"fsdp world {world} rank {r}: rollout s per step "
+        log(f"{name} world {world} rank {r}: rollout s per step "
             f"{[round(x, 2) for x in p['rollout_s']]}, update s per step "
             f"{[round(x, 2) for x in p['update_s']]}, peak per step "
             f"{[gib(x) for x in p['peak']]}, loss {p['loss']}")
-        log(f"fsdp world {world} rank {r}: collectives per step: "
+        log(f"{name} world {world} rank {r}: collectives per step: "
             + _collective_line(p["collectives"], 2))
     cos = first["cos"]
     dl = abs(first["loss"][0] - first["ref_loss"])
-    log(f"fsdp world {world} vs world 1 at step 1: loss {first['loss'][0]!r} "
+    log(f"{name} world {world} vs world 1 at step 1: loss {first['loss'][0]!r} "
         f"vs {first['ref_loss']!r} (|diff| {dl:.3e}, mean |advantage| "
         f"{first['adv_scale']:.4f}); gradient cosine per group: "
         + ", ".join(f"{g} {c:.6f}" for g, c in sorted(cos.items())))
-    log(f"fsdp world 1 reference: rollout {first['ref_rollout_s']:.2f} s, "
+    log(f"{name} world 1 reference: rollout {first['ref_rollout_s']:.2f} s, "
         f"loss and gradients {first['ref_grad_s']:.2f} s, max_memory_"
         f"allocated {gib(first['ref_peak'])}")
     # the step-1 loss is a mean of per-row terms of +-|advantage| that
@@ -4322,16 +4464,394 @@ SOURCES = {
 }
 
 
-def cli_step_main(argv):
-    """`chip_smoke.py --cli-step ARGS` (cli_step_under_torchrun's torchrun
-    target): spacer_tpu_torch.cli.train_sg_rlvr.main(ARGS) with every
-    kernel call sent to its plain version."""
-    from spacer_tpu_torch.cli.train_sg_rlvr import main as train_main
+class SampleTap:
+    """Records every sampled step's logits and tokens of the grouped
+    sampler (sampler.sample_logits: the static path's prefill and decode
+    steps); with `replay` (an earlier run's tokens) the sampler returns
+    those instead, so a second run sees identical inputs."""
+
+    def __init__(self, replay=None):
+        self.replay, self.logits, self.tokens = replay, [], []
+
+    def __enter__(self):
+        import spacer_tpu_torch.sampler.sampler as sm
+
+        self.sm, self.saved = sm, sm.sample_logits
+
+        def recorded(logits, *a, **kw):
+            tokens = self.saved(logits, *a, **kw)
+            if self.replay is not None:
+                tokens = self.replay[len(self.tokens)]
+            self.logits.append(logits.float())
+            self.tokens.append(tokens)
+            return tokens
+
+        sm.sample_logits = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.sm.sample_logits = self.saved
+        return False
+
+
+def tp_serve_runs(cfg, params, proc, msgs, replay=None) -> dict:
+    """Phase 13's serving on `params` (sharded or not): phase 4's requests
+    through generate_many at bf16 ("serve") and int4_kv ("serve int4_kv"),
+    then one static QwenEngine.generate of them (bf16, "static"); with
+    `replay` (an earlier call's result) each run returns those tokens.
+    -> {run: texts, tokens and logits per sampled step (host), launches,
+    decode ms per step, peak, wall s, tp collectives}."""
+    from spacer_tpu_torch.evalharness import QwenEngine
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.parallel import multihost
+
+    dev = params["model"]["embed_tokens"]["embedding"].device
+    runs = {}
+    for run, quant in (("serve", None), ("serve int4_kv", "int4_kv"),
+                       ("static", None)):
+        engine = QwenEngine(cfg, params, proc, decode_quant=quant)
+        rep = (None if replay is None
+               else [t.to(dev) for t in replay[run]["tokens"]])
+        probe = (SampleTap(rep) if run == "static"
+                 else SliceProbe(replay=rep))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        multihost.reset_collective_stats()
+        with probe:
+            t0 = time.perf_counter()
+            if run == "static":
+                texts = engine.generate(
+                    msgs, max_new_tokens=SERVE_GEN_KW["max_new_tokens"],
+                    temperature=0.0)
+            else:
+                texts = engine.generate_many(msgs, **SERVE_GEN_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[run] = dict(
+            texts=texts, tokens=[t.cpu() for t in probe.tokens],
+            logits=[x.cpu() for x in probe.logits], counts=launch_counts(),
+            decode_ms=list(getattr(probe, "decode_ms", [])),
+            peak=torch.cuda.max_memory_allocated(), wall=wall,
+            tp={k: v["calls"] for k, v in multihost.collective_stats().items()
+                if k.startswith("tp_")})
+        del engine, probe
+    return runs
+
+
+def tp_phase(device="cuda") -> dict:
+    """Phase 13: the tensor-parallel code paths at world 1 over NCCL
+    (parallel.multihost.initialize() from torchrun's environment for rank 0
+    of 1; create_mesh({"data": 1, "fsdp": 1, "tp": 1}): every tp collective
+    counted, none issued), Qwen2.5-VL-7B widths with the LM cut to
+    TP_LM_LAYERS layers.  Each once unsharded and once over the mesh
+    (shard_params with the Qwen tp plan, the fsdp shards gathered once as
+    the serve CLI does): phase 4's requests through generate_many, bf16
+    and int4_kv, and one static generate (tp_serve_runs); then two
+    SG-RLVR steps (TP_TRAIN_G completions of up to TP_TRAIN_NEW_TOKENS on a
+    TP_TRAIN_VIDEO row).  Gates: tokens and the logits of every sampled
+    step bitwise equal, the training runs under phase 12's gate
+    (sharded_run_problems), the tp collectives counted, every kernel of
+    each path launched.  Then a torchrun launch of cli/serve.py
+    (--multihost true --tp 1) on a jsonl file at the tiny config
+    (cli_serve_under_torchrun).  Returns the launches of the sharded paths,
+    {path: {kernel id: count}}."""
+    import torch.distributed as dist
+
+    from spacer_tpu_torch.cli.common import serving_params
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.parallel import multihost, tp
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+    from spacer_tpu_torch.parallel.partition import (
+        QWEN_PARTITION_RULES,
+        qwen_tp_plan,
+        shard_params,
+    )
+
+    tp.set_mesh(None)
+    world1_env()
+    multihost.initialize(device=device)
+    mesh = create_mesh({"data": 1, "fsdp": 1, "tp": 1})
+    cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
+        QWEN25_VL_7B.text, num_layers=TP_LM_LAYERS))
+    problems, paths = [], {}
+    params, proc, msgs = serving_setup(cfg, device)
+    plain = tp_serve_runs(cfg, params, proc, msgs)
+    sp = serving_params(shard_params(params, mesh, QWEN_PARTITION_RULES,
+                                     qwen_tp_plan(cfg))[0], mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = tp_serve_runs(cfg, sp, proc, msgs)
+    del sp
+    kernels = {"serve": SERVE_KERNELS, "serve int4_kv": SERVE_INT4_KV_KERNELS,
+               "static": EVAL_STATIC_KERNELS}
+    for run, a in plain.items():
+        b = sharded[run]
+        same_tokens = (len(a["tokens"]) == len(b["tokens"]) and all(
+            torch.equal(x, y) for x, y in zip(a["tokens"], b["tokens"])))
+        same_logits = (len(a["logits"]) == len(b["logits"]) and all(
+            torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])))
+        diff = max((float((x - y).abs().max()) for x, y in
+                    zip(a["logits"], b["logits"]) if x.shape == y.shape),
+                   default=float("nan"))
+        per_step = {k: v / max(1, len(b["tokens"])) for k, v in b["tp"].items()}
+        ms = (f"{statistics.median(b['decode_ms']):.2f} vs "
+              f"{statistics.median(a['decode_ms']):.2f}"
+              if a["decode_ms"] and b["decode_ms"] else "not measured")
+        log(f"tp world 1 [{run}]: tokens equal {same_tokens}, logits bitwise "
+            f"{same_logits} over {len(b['logits'])} sampled steps (max |diff| "
+            f"{diff:.3e}) | decode ms per step median, tp paths vs none: {ms} "
+            f"| wall {b['wall']:.2f} vs {a['wall']:.2f} s | peak "
+            f"{gib(b['peak'])} vs {gib(a['peak'])} | tp collectives "
+            f"{b['tp']} ({ {k: round(v, 1) for k, v in per_step.items()} } "
+            f"per sampled step) | launches {b['counts']}")
+        if not (same_tokens and same_logits):
+            problems.append(f"{run}: tokens or logits differ")
+        if not all(b["tp"].get(k) for k in ("tp_all_reduce", "tp_all_gather")):
+            problems.append(f"{run}: tp collectives not counted: {b['tp']}")
+        if min(b["counts"][k] for k in kernels[run]) < 1:
+            problems.append(f"{run}: a kernel of the path was never launched")
+        paths[f"tp world 1 {run}"] = b["counts"]
+    del plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    kw = dict(videos=(TP_TRAIN_VIDEO,), num_generations=TP_TRAIN_G,
+              max_completion_length=TP_TRAIN_NEW_TOKENS)
+    tp.set_mesh(None)
+    plain = fsdp_train_run(cfg, str(root / "smoke_tp_plain"), device=device,
+                           **kw)
+    shard = fsdp_train_run(cfg, str(root / "smoke_tp_sharded"), mesh=mesh,
+                           ref=plain, device=device, **kw)
+    problems += sharded_run_problems(plain, shard, "tp", TP_COLLECTIVES,
+                                     FSDP_KERNELS)
+    log("tp train: tp collectives per step: " + _collective_line(
+        {k: v for k, v in shard["collectives"].items()
+         if k.startswith("tp_")}, 2))
+    paths["tp world 1 train"] = shard["counts"]
+    del plain, shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    tp.set_mesh(None)
+    cli_serve_under_torchrun(root / "smoke_tp_cli", device)
+    if problems:
+        raise RuntimeError("phase 13: " + "; ".join(problems))
+    return paths
+
+
+def cli_serve_under_torchrun(root: pathlib.Path, device="cuda"):
+    """`torchrun --nproc_per_node 1 chip_smoke.py --cli-serve --multihost
+    true --tp 1 --device cuda ...`: spacer_tpu_torch.cli.serve.main on a
+    jsonl file of 3 text prompts at the tiny random-init config, inside
+    utils.debugging.interpret_kernels (the tiny heads are outside every
+    kernel; cli_step_under_torchrun says why); it must exit 0 and write a
+    completion per row."""
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rows = [{"prompt": "how many chairs are there"}, {"prompt": "what now"},
+            {"messages": [{"role": "user", "content": "hello"}]}]
+    with open(root / "in.jsonl", "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in rows))
+    out = root / "out.jsonl"
+    seconds = torchrun_self(
+        "--cli-serve", ["--tp", "1", "--device", device, "--random_init",
+                        "true", "--input_file", str(root / "in.jsonl"),
+                        "--output_file", str(out), "--max_new_tokens", "8",
+                        "--temperature", "0"], out)
+    with open(out) as f:
+        done = [json.loads(line) for line in f]
+    if len(done) != len(rows) or not all("completion" in d for d in done):
+        raise RuntimeError(f"torchrun cli.serve wrote {done}")
+    log(f"tp cli: torchrun --nproc_per_node 1 serve --multihost true --tp 1 "
+        f"--device {device}: exit 0 in {seconds:.1f} s, {len(done)} "
+        f"completions")
+
+
+def _tp_eval(params, cfg, out_dir, device="cuda") -> dict:
+    """Phase 7's LongVideoBench rows through run_benchmark (static, as
+    cli/evaluate.py runs by default) on `params`: {"answers": {id:
+    predicted answer}, "metrics", "errors", "s"}; under a process group
+    rank 0 writes, the others return no metrics."""
+    from spacer_tpu_torch.data.processor import MockTokenizer, VLProcessor
+    from spacer_tpu_torch.evalharness import EvalConfig, QwenEngine, run_benchmark
+    from spacer_tpu_torch.evalharness.util import read_jsonl
+
+    out_dir = pathlib.Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    data_file, video_dir = write_eval_data(out_dir)
+    proc = VLProcessor(MockTokenizer(vocab_size=cfg.text.vocab_size), cfg,
+                       device=device)
+    engine = RecordingEngine(QwenEngine(cfg, params, proc))
+    ecfg = EvalConfig(task="LongVideoBench", data_file=data_file,
+                      video_dir=video_dir, output_dir=str(out_dir / "out"),
+                      num_frames=32, fps=1, prompt_type="thinking",
+                      max_new_tokens=EVAL_NEW_TOKENS, temperature=0.0,
+                      batch_size=2, serving="static")
+    t0 = time.perf_counter()
+    metrics = run_benchmark(ecfg, engine)
+    torch.cuda.synchronize()
+    res = {"metrics": metrics, "errors": [repr(e) for e in engine.errors],
+           "s": time.perf_counter() - t0, "answers": {}}
+    results = out_dir / "out" / "LongVideoBench_results.jsonl"
+    if results.exists():
+        res["answers"] = {d["id"]: d["predicted_answer"]
+                          for d in read_jsonl(str(results))}
+    return res
+
+
+def _tp_world_reference(rank, out, device="cuda"):
+    """--phases 13 --world's reference, one process on card 0 without a
+    mesh at full Qwen2.5-VL-7B depth: tp_serve_runs (tokens and logits of
+    every sampled step) and the eval's answers -> out/serve_ref.pt, then
+    phase 12's GRPO reference (_world_reference -> out/ref.pt)."""
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+
+    params, proc, msgs = serving_setup(QWEN25_VL_7B, device)
+    runs = tp_serve_runs(QWEN25_VL_7B, params, proc, msgs)
+    runs["eval"] = _tp_eval(params, QWEN25_VL_7B, out + "/eval_ref", device)
+    torch.save(runs, out + "/serve_ref.pt")
+    for run, r in runs.items():
+        if run != "eval":
+            log(f"tp world reference [{run}] (1 card): decode ms per step "
+                + (f"{statistics.median(r['decode_ms']):.2f}"
+                   if r["decode_ms"] else "not measured")
+                + f", wall {r['wall']:.2f} s, max_memory_allocated "
+                  f"{gib(r['peak'])}")
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    _world_reference(rank, out, device)
+
+
+def _tp_world_serve(rank, out, device="cuda"):
+    """One rank of --phases 13 --world N's serving: the full-depth model
+    split over tp = N (shard_params with the Qwen tp plan, the fsdp shards
+    gathered once), the reference's runs replayed (its tokens) with every
+    sampled step's logits held against its by cosine, then the eval's rows
+    -> out/serve_world.pt (rank 0)."""
+    from spacer_tpu_torch.cli.common import serving_params
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+    from spacer_tpu_torch.parallel.partition import (
+        QWEN_PARTITION_RULES,
+        qwen_tp_plan,
+        shard_params,
+    )
+
+    world = multihost.process_count()
+    mesh = create_mesh({"data": 1, "fsdp": 1, "tp": world})
+    ref = torch.load(out + "/serve_ref.pt", weights_only=False)
+    params, proc, msgs = serving_setup(QWEN25_VL_7B, device)
+    params = serving_params(shard_params(params, mesh, QWEN_PARTITION_RULES,
+                                         qwen_tp_plan(QWEN25_VL_7B))[0], mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = tp_serve_runs(QWEN25_VL_7B, params, proc, msgs, replay=ref)
+    rec = {}
+    for run, r in runs.items():
+        cos = [float(torch.nn.functional.cosine_similarity(
+            a, b, dim=-1).min()) for a, b in zip(r["logits"],
+                                                 ref[run]["logits"])]
+        rec[run] = {k: r[k] for k in ("decode_ms", "peak", "wall", "tp",
+                                      "counts")}
+        rec[run].update(cos_min=min(cos), cos_median=statistics.median(cos),
+                        steps=len(cos), ref_steps=len(ref[run]["logits"]))
+    rec["eval"] = _tp_eval(params, QWEN25_VL_7B, f"{out}/eval_{world}",
+                           device)
+    parts = multihost.all_gather_objects(rec)
+    if rank == 0:
+        torch.save(parts, out + "/serve_world.pt")
+
+
+def tp_world_phase(worlds, device="cuda"):
+    """`--phases 13 --world N[,M]`: the reference on card 0
+    (_tp_world_reference), then for each N: N ranks serving and evaluating
+    the model split over tp = N (_tp_world_serve: logits cosine >=
+    SLICE_COS_TOL at every sampled step with the reference's tokens
+    replayed), and a GRPO step at (data 1, fsdp 1, tp N) and, at N = 4, at
+    (1, 2, 2) (phase 12's _world_rank: the step-1 loss and per-group
+    gradient cosines under FSDP_WORLD_LOSS_RTOL / FSDP_WORLD_COS_TOL);
+    per-rank peaks, ms per decode step, s per step and tp collectives per
+    step are logged."""
+    out = str(pathlib.Path(__file__).resolve().parent / "build"
+              / "smoke_tp_world")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    log("tp world cards (nvidia-smi): "
+        + " | ".join(smi.stdout.strip().splitlines()[:max(worlds)]))
+    from spacer_tpu_torch.parallel.multihost import launch_local
+
+    os.environ["PYTHONHASHSEED"] = "0"
+    launch_local(_tp_world_reference, 1, args=(out, device), device=device,
+                 timeout=1800)
+    ref = torch.load(out + "/serve_ref.pt", weights_only=False)
+    problems = []
+    for world in worlds:
+        launch_local(_tp_world_serve, world, args=(out, device),
+                     device=device, timeout=1800)
+        parts = torch.load(out + "/serve_world.pt", weights_only=False)
+        for r, part in enumerate(parts):
+            for run in ("serve", "serve int4_kv", "static"):
+                p, a = part[run], ref[run]
+                ms = (f"{statistics.median(p['decode_ms']):.2f} vs "
+                      f"{statistics.median(a['decode_ms']):.2f}"
+                      if p["decode_ms"] else "not measured")
+                steps = max(1, p["steps"])
+                log(f"tp={world} rank {r} [{run}]: logits cosine min "
+                    f"{p['cos_min']:.5f} median {p['cos_median']:.5f} over "
+                    f"{p['steps']} sampled steps (reference {p['ref_steps']}; "
+                    f"tol {SLICE_COS_TOL}) | decode ms per step median vs 1 "
+                    f"card: {ms} | wall {p['wall']:.2f} vs {a['wall']:.2f} s "
+                    f"| max_memory_allocated {gib(p['peak'])} vs "
+                    f"{gib(a['peak'])} | tp collectives per sampled step "
+                    + str({k: round(v / steps, 1) for k, v in p["tp"].items()}))
+                if not (p["steps"] == p["ref_steps"]
+                        and p["cos_min"] >= SLICE_COS_TOL):
+                    problems.append(f"tp={world} {run} rank {r}: cosine "
+                                    f"{p['cos_min']} over {p['steps']} steps")
+        ev, ev_ref = parts[0]["eval"], ref["eval"]
+        agree = sum(ev["answers"].get(i) == x
+                    for i, x in ev_ref["answers"].items())
+        log(f"tp={world} eval (LongVideoBench, static): {len(ev['answers'])} "
+            f"rows, {agree} of {len(ev_ref['answers'])} answers as the 1-card "
+            f"run's, metrics {ev['metrics']}, {ev['s']:.1f} s vs "
+            f"{ev_ref['s']:.1f} s, engine errors {ev['errors']}")
+        if ev["errors"] or len(ev["answers"]) != len(ev_ref["answers"]):
+            problems.append(f"tp={world} eval: {ev['errors']}")
+        shapes = [{"data": 1, "fsdp": 1, "tp": world}]
+        if world == 4:
+            shapes.append({"data": 1, "fsdp": 2, "tp": 2})
+        for shape in shapes:
+            launch_local(_world_rank, world, args=(out, device, shape),
+                         device=device, timeout=1800)
+            try:
+                report_world_ranks(out, world, f"tp {shape}")
+            except RuntimeError as e:
+                problems.append(str(e))
+    if problems:
+        raise RuntimeError("phase 13 --world: " + "; ".join(problems))
+
+
+def cli_main(mode: str, argv):
+    """`chip_smoke.py --cli-step ARGS` / `--cli-serve ARGS` (torchrun_self's
+    targets): spacer_tpu_torch.cli.train_sg_rlvr.main(ARGS) /
+    spacer_tpu_torch.cli.serve.main(ARGS) with every kernel call sent to
+    its plain version."""
+    from spacer_tpu_torch.cli import serve, train_sg_rlvr
     from spacer_tpu_torch.utils.debugging import interpret_kernels
 
+    entry = {"--cli-step": train_sg_rlvr, "--cli-serve": serve}[mode]
     with interpret_kernels() as calls:
-        train_main(argv)
-    log(f"cli step: kernel calls sent to their plain versions: "
+        entry.main(argv)
+    log(f"cli {mode[6:]}: kernel calls sent to their plain versions: "
         f"{dict(calls)}")
     return 0
 
@@ -4341,10 +4861,11 @@ def main(argv=None):
     `--phases 3,4c,10` the device facts, the build and those phases only,
     a development run that prints no kernels line and no result line
     (4c / 4d run on phase 4's params, 5c after phase 5).  `--phases 12
-    --world N` runs phase 12's N-card variant instead (fsdp_world_phase)."""
+    --world N` runs phase 12's N-card variant instead (fsdp_world_phase),
+    `--phases 13 --world N[,M]` phase 13's (tp_world_phase)."""
     argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["--cli-step"]:
-        return cli_step_main(argv[1:])
+    if argv[:1] in (["--cli-step"], ["--cli-serve"]):
+        return cli_main(argv[0], argv[1:])
     phases, world = PHASES, None
     if argv:
         usage = "usage: chip_smoke.py [--phases 3,4,4c,... [--world N]]"
@@ -4356,11 +4877,14 @@ def main(argv=None):
             raise SystemExit(f"phases {sorted(unknown)} unknown, or 5c "
                              f"without 5; known: {PHASES}")
         if len(argv) == 4:
-            if argv[2] != "--world" or phases != ("12",):
-                raise SystemExit(usage + " (--world with --phases 12 only)")
-            world = int(argv[3])
-            if not 1 <= world <= torch.cuda.device_count():
-                raise SystemExit(f"--world {world}: "
+            if argv[2] != "--world" or phases not in (("12",), ("13",)):
+                raise SystemExit(usage + " (--world with --phases 12 or 13 "
+                                 "only)")
+            world = [int(w) for w in argv[3].split(",")]
+            if phases == ("12",) and len(world) != 1:
+                raise SystemExit("--phases 12 takes one --world")
+            if not all(1 <= w <= torch.cuda.device_count() for w in world):
+                raise SystemExit(f"--world {argv[3]}: "
                                  f"{torch.cuda.device_count()} cards")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4368,15 +4892,20 @@ def main(argv=None):
     smi = device_facts()
     build_kernels()
     if world is not None:
-        fsdp_world_phase(world)
-        log(f"development run of phase 12 at world {world}: no kernels "
-            "line, no result")
+        if phases == ("12",):
+            fsdp_world_phase(world[0])
+        else:
+            tp_world_phase(world)
+        log(f"development run of phase {phases[0]} at world {world}: no "
+            "kernels line, no result")
         return 0
     results = {}
     if "3" in phases:
         results.update(check_kernels())
         results.update(check_training_kernels())
         results.update(check_aria_kernels())
+    if "3d" in phases:
+        check_tp_kernels()
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
     paths = {}
@@ -4422,6 +4951,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "12" in phases:
         paths["train fsdp world 1"] = fsdp_phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "13" in phases:
+        paths.update(tp_phase())
     counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     if phases != PHASES:

@@ -74,14 +74,17 @@ def setup_distributed(args: ModelArgs):
     multihost.initialize(device=args.device)
 
 
-def refuse_mesh(mesh, what: str):
-    """Serving and evaluation run on one device: a sharded model would need
-    tensor parallelism, which the port does not have yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} over {mesh.size} processes is not ported: a sharded "
-            "model serves through tensor parallelism (ROADMAP queue A item "
-            "2b); run it as one process")
+def serving_params(params, mesh):
+    """The params serving and evaluation run on: over a mesh, the fsdp
+    shards gathered once (serving holds no optimizer state; tp slices stay
+    slices), so every batch group computes the same batch with the tp
+    group's collectives only (JAX gathers on use instead: ROADMAP queue
+    C)."""
+    if mesh is None:
+        return params
+    from spacer_tpu_torch.parallel.fsdp import gather_params
+
+    return gather_params(params)
 
 
 def load_model_and_processor(args: ModelArgs):
@@ -90,9 +93,9 @@ def load_model_and_processor(args: ModelArgs):
     `model_name_or_path` loaded onto `device` with its tokenizer, or with
     `random_init` (or no path) the family's tiny random model and mock
     tokenizer.  Over more than one process (setup_distributed) the params
-    are sharded onto a (data, fsdp, tp) mesh by the family's partition
-    rules; the mesh is None in a single process, as JAX gives None on one
-    device."""
+    are sharded onto a (data, fsdp, tp) mesh (`tp` ranks the fastest axis)
+    by the family's partition rules and tp plan; the mesh is None in a
+    single process, as JAX gives None on one device."""
     from spacer_tpu_torch.models.registry import get_family
     from spacer_tpu_torch.parallel import multihost
 
@@ -119,5 +122,6 @@ def load_model_and_processor(args: ModelArgs):
         from spacer_tpu_torch.parallel.partition import shard_params
 
         mesh = multihost.global_mesh(tp=args.tp, fsdp=args.fsdp)
-        params, _ = shard_params(params, mesh, family.partition_rules)
+        params, _ = shard_params(params, mesh, family.partition_rules,
+                                 family.tp_plan(cfg, args.tp))
     return cfg, params, processor, mesh

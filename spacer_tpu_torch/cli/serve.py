@@ -18,25 +18,35 @@ Runs on the card (`--device cuda`, the default) unless given
 `--device cpu`; `--decode_quant int8_kv|int4_kv|...` quantizes the decode
 loop (ops/quant.py).
 
+A model split over a tensor-parallel mesh serves under torchrun with
+`--multihost true --tp N`: every rank runs the same batcher steps in
+lockstep; rank 0 alone writes the output file, and with `--http` rank 0
+alone listens and broadcasts each wave's admissions to the others
+(serving/server.py), which follow until it stops.
+
 Examples:
     python -m spacer_tpu_torch.cli.serve --random_init true \\
         --input_file prompts.jsonl --slots 8 --decode_quant int4_kv
     python -m spacer_tpu_torch.cli.serve --random_init true --http \\
         --port 8000 --prompt_len 1024 --speculate_k 4
+    torchrun --nproc_per_node 2 -m spacer_tpu_torch.cli.serve \\
+        --multihost true --tp 2 --model_name_or_path DIR --input_file x.jsonl
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 
 from spacer_tpu_torch.cli.common import (
     ModelArgs,
     decode_quant_arg,
     load_model_and_processor,
-    refuse_mesh,
+    serving_params,
     setup_distributed,
 )
+from spacer_tpu_torch.parallel import multihost
 from spacer_tpu_torch.utils.config import parse_configs
 
 
@@ -90,8 +100,9 @@ def main(argv=None):
                          "static grouped sampler serves without it)")
     setup_distributed(model_args)
     cfg, params, processor, mesh = load_model_and_processor(model_args)
-    refuse_mesh(mesh, "serving")
+    params = serving_params(params, mesh)
     decode_quant = decode_quant_arg(model_args.decode_quant)
+    rank0 = multihost.process_index() == 0
 
     if serve_cfg.http:
         from spacer_tpu_torch.serving import OpenAIServer
@@ -103,7 +114,10 @@ def main(argv=None):
             max_new_tokens=serve_cfg.max_new_tokens,
             temperature=serve_cfg.temperature, top_p=serve_cfg.top_p,
             chunk_steps=serve_cfg.chunk_steps, decode_quant=decode_quant,
-            speculate_k=serve_cfg.speculate_k)
+            speculate_k=serve_cfg.speculate_k, follower=not rank0)
+        if not rank0:
+            server.follow()
+            return None
         print(f"serving {model_args.model_name_or_path or 'model'} on "
               f"http://{serve_cfg.host}:{serve_cfg.port}/v1", flush=True)
         server.serve_forever(serve_cfg.host, serve_cfg.port)
@@ -116,7 +130,8 @@ def main(argv=None):
         rows = [json.loads(line) for line in f if line.strip()]
     wave = serve_cfg.wave_size or serve_cfg.slots * 8
     n = 0
-    with open(serve_cfg.output_file, "w") as out:
+    # every rank runs every wave (lockstep); rank 0 writes
+    with open(serve_cfg.output_file if rank0 else os.devnull, "w") as out:
         for start in range(0, len(rows), wave):
             batch = rows[start:start + wave]
             messages = [_row_to_messages(r) for r in batch]
@@ -132,7 +147,8 @@ def main(argv=None):
             for row, text in zip(batch, texts):
                 out.write(json.dumps({**row, "completion": text}) + "\n")
                 n += 1
-    print(f"wrote {n} completions to {serve_cfg.output_file}")
+    if rank0:
+        print(f"wrote {n} completions to {serve_cfg.output_file}")
     return serve_cfg.output_file
 
 

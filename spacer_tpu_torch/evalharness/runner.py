@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import tempfile
 import time
 from typing import Optional
 
@@ -116,8 +117,22 @@ def run_benchmark(cfg: EvalConfig, engine) -> dict:
 
     With cfg.rank=None all shards run sequentially in this process (single
     TPU host drives all data); in multi-host SPMD each host passes its own
-    rank and only rank 0 merges/scores.
+    rank and only rank 0 merges/scores.  Over a process group that splits
+    the model (tensor parallelism) every process runs the same rows in
+    lockstep and only process 0 writes: the others' shard files and log go
+    to a temporary directory, and they return {}.
     """
+    from spacer_tpu_torch.parallel import multihost
+
+    if multihost.process_index() != 0:
+        with tempfile.TemporaryDirectory() as tmp:
+            _run_shards(dataclasses.replace(cfg, output_dir=tmp), engine,
+                        score=False)
+        return {}
+    return _run_shards(cfg, engine)
+
+
+def _run_shards(cfg: EvalConfig, engine, score: bool = True) -> dict:
     logger = setup_logger(f"eval.{cfg.task}", cfg.output_dir)
     if cfg.task not in SUPPORTED_TASKS:
         raise ValueError(f"unsupported task {cfg.task}")
@@ -147,7 +162,7 @@ def run_benchmark(cfg: EvalConfig, engine) -> dict:
         f"{cfg.task}: {len(elapsed)} shard(s), max shard time "
         f"{format_time(max(elapsed))}"
     )
-    if cfg.rank not in (None, 0):
+    if cfg.rank not in (None, 0) or not score:
         return {}
 
     merged = os.path.join(cfg.output_dir, f"{cfg.task}_results.jsonl")

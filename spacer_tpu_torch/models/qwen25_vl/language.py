@@ -17,6 +17,14 @@ Python loop replaces lax.scan).  Two ways to attend over earlier keys:
 The grouped rollout's decode step (`lm_decode_step_split`, head-major caches,
 attention through K2, or K2-int8 for int8 caches) writes its tail caches in
 place, under no_grad.
+
+Tensor parallelism (parallel/tp.py, active once params are sharded onto a
+mesh): every layer runs on this rank's heads and columns (head counts
+cfg.num_heads // tp), q/k/v and gate/up are column-parallel after
+`copy_to_tp`, o_proj and down_proj row-parallel with `reduce_from_tp`, the
+embedding vocab-parallel, and `lm_head` all-gathers the local vocabulary's
+logits (`local_logits` keeps them local: the train step's logps).  KV
+caches hold the local KV heads (`init_kv_cache`, `local_kv_heads`).
 """
 
 from __future__ import annotations
@@ -30,7 +38,6 @@ from torch.utils.checkpoint import checkpoint
 from spacer_tpu_torch.models.qwen25_vl.config import TextConfig
 from spacer_tpu_torch.nn.attention import dot_product_attention
 from spacer_tpu_torch.nn.core import (
-    dense,
     dense_init,
     embed,
     embed_init,
@@ -40,6 +47,7 @@ from spacer_tpu_torch.nn.core import (
 from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
 from spacer_tpu_torch.ops.flash_decode import flash_decode_attention
 from spacer_tpu_torch.ops.quant import quantize_kv
+from spacer_tpu_torch.parallel import tp
 from spacer_tpu_torch.parallel.fsdp import gather
 
 Params = Any
@@ -80,9 +88,14 @@ def init_lm_params(cfg: TextConfig, *, generator: torch.Generator,
     return params
 
 
+def local_kv_heads(cfg: TextConfig) -> int:
+    """The KV heads this rank holds (all of them without tp)."""
+    return tp.local_heads(cfg.num_kv_heads, "num_kv_heads")
+
+
 def init_kv_cache(cfg: TextConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device=None):
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, max_len, local_kv_heads(cfg), cfg.head_dim)
     return {
         "k": [torch.zeros(shape, dtype=dtype, device=device)
               for _ in range(cfg.num_layers)],
@@ -98,8 +111,29 @@ def _mlp_block(p_mlp, x, cfg: TextConfig):
         from spacer_tpu_torch.ops.moe import moe_mlp
 
         return moe_mlp(p_mlp, x, topk=cfg.moe_topk, impl=cfg.moe_impl)
-    gate = F.silu(dense(p_mlp["gate_proj"], x))
-    return dense(p_mlp["down_proj"], gate * dense(p_mlp["up_proj"], x))
+    I = cfg.intermediate_size
+    x = tp.copy_to_tp(x)
+    gate = F.silu(tp.column(p_mlp["gate_proj"], x, I))
+    return tp.row(p_mlp["down_proj"], gate * tp.column(p_mlp["up_proj"], x, I),
+                  I)
+
+
+def qkv_proj(p_attn, x, cfg: TextConfig):
+    """q (..., H, Dh), k and v (..., Hkv, Dh) of this rank's heads."""
+    H, Dh = tp.local_heads(cfg.num_heads, "num_heads"), cfg.head_dim
+    Hkv = local_kv_heads(cfg)
+    lead = x.shape[:-1]
+    x = tp.copy_to_tp(x)
+    q = tp.column(p_attn["q_proj"], x, cfg.num_heads * Dh)
+    k = tp.column(p_attn["k_proj"], x, cfg.num_kv_heads * Dh)
+    v = tp.column(p_attn["v_proj"], x, cfg.num_kv_heads * Dh)
+    return (q.reshape(*lead, H, Dh), k.reshape(*lead, Hkv, Dh),
+            v.reshape(*lead, Hkv, Dh))
+
+
+def o_proj(p_attn, attn, cfg: TextConfig):
+    """The row-parallel output projection of (..., local heads * Dh)."""
+    return tp.row(p_attn["o_proj"], attn, cfg.num_heads * cfg.head_dim)
 
 
 def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
@@ -109,13 +143,10 @@ def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
     prefix_kv: (pk, pv) (B, P, Hkv, Dh) keys/values attended before the
     block's own (causal offset P), or None."""
     B, S, _ = h.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p_attn = layer_params["self_attn"]
 
     x = rms_norm(layer_params["input_layernorm"], h, cfg.rms_norm_eps)
-    q = dense(p_attn["q_proj"], x).reshape(B, S, H, Dh)
-    k = dense(p_attn["k_proj"], x).reshape(B, S, Hkv, Dh)
-    v = dense(p_attn["v_proj"], x).reshape(B, S, Hkv, Dh)
+    q, k, v = qkv_proj(p_attn, x, cfg)
     q, k = apply_rope(q, k, cos, sin)
     block_kv = (k, v)
 
@@ -134,7 +165,7 @@ def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
 
     attn = dot_product_attention(q, k, v, causal=True, kv_mask=kv_mask,
                                  q_offset=q_offset)
-    h = h + dense(p_attn["o_proj"], attn.reshape(B, S, H * Dh))
+    h = h + o_proj(p_attn, attn.reshape(B, S, -1), cfg)
     x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
     return h + _mlp_block(layer_params["mlp"], x, cfg), block_kv
 
@@ -150,10 +181,19 @@ def split_layers(stacked, num_layers: int):
     return tuple(take(stacked, l) for l in range(num_layers))
 
 
-def lm_head(params, cfg: TextConfig, h):
+def local_logits(params, cfg: TextConfig, h):
+    """Logits over this rank's vocabulary slice (all of it without tp)."""
+    h = tp.copy_to_tp(h)
     if cfg.tie_word_embeddings:
-        return torch.matmul(h, params["embed_tokens"]["embedding"].T)
-    return dense(params["lm_head"], h)
+        table = tp.local(params["embed_tokens"]["embedding"], 0,
+                         cfg.vocab_size)
+        return torch.matmul(h, table.T)
+    return tp.column(params["lm_head"], h, cfg.vocab_size)
+
+
+def lm_head(params, cfg: TextConfig, h):
+    """Logits over the whole vocabulary (all-gathered over tp)."""
+    return tp.gather_from_tp(local_logits(params, cfg, h))
 
 
 def check_remat(remat):
@@ -312,17 +352,15 @@ def _decode_layer_hm(h, layer_params, prefix_entry, tail_entry, *,
     with their scales; bias_p: (B, 1, P) additive f32; tail_len: live tail
     length after the write (a host int)."""
     N = h.shape[0]
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pk, pv = prefix_entry[:2]
     tk, tv = tail_entry[:2]
     quant = len(prefix_entry) == 4
-    B, G, group_q = pk.shape[0], group, H // Hkv
     p_attn = layer_params["self_attn"]
 
     x = rms_norm(layer_params["input_layernorm"], h, cfg.rms_norm_eps)
-    q = dense(p_attn["q_proj"], x).reshape(N, 1, H, Dh)
-    k = dense(p_attn["k_proj"], x).reshape(N, 1, Hkv, Dh)
-    v = dense(p_attn["v_proj"], x).reshape(N, 1, Hkv, Dh)
+    q, k, v = qkv_proj(p_attn, x, cfg)
+    H, Hkv, Dh = q.shape[-2], k.shape[-2], cfg.head_dim
+    B, G, group_q = pk.shape[0], group, H // Hkv
     q, k = apply_rope(q, k, cos, sin)
     # in-place tail write
     if quant:
@@ -345,7 +383,7 @@ def _decode_layer_hm(h, layer_params, prefix_entry, tail_entry, *,
                                  sm_scale=Dh ** -0.5)
     out = out.reshape(B, Hkv, G, group_q, Dh).permute(0, 2, 1, 3, 4).reshape(
         N, 1, H * Dh).to(h.dtype)
-    h = h + dense(p_attn["o_proj"], out)
+    h = h + o_proj(p_attn, out, cfg)
     x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
     return h + _mlp_block(layer_params["mlp"], x, cfg)
 

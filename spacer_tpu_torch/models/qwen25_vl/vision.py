@@ -20,6 +20,12 @@ head_dim 80 stays unpadded.  Both kernels are differentiable (their backward
 recomputes through the plain version), and `remat=True` recomputes each
 block in the backward pass (torch.utils.checkpoint), as JAX's
 jax.checkpoint of the block does.
+
+Tensor parallelism (parallel/tp.py): each rank attends over its heads
+(num_heads // tp) through K3 and K4; the fused qkv is column-parallel
+head-aware (its q, k and v columns each cut per head), the MLP's gate/up or
+fc1 and the merger's mlp_0 column-parallel, proj, down or fc2 and mlp_2
+row-parallel with their all-reduce.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from spacer_tpu_torch.ops.vit_window_attention import (
     validity_bias,
     window_attention_hsd,
 )
+from spacer_tpu_torch.parallel import tp
 from spacer_tpu_torch.parallel.fsdp import gather
 
 Params = Any
@@ -252,10 +259,13 @@ def _vit_norm(cfg: VisionConfig, params, x):
 
 
 def _vit_mlp(cfg: VisionConfig, mlp, x):
+    I = cfg.intermediate_size
+    x = tp.copy_to_tp(x)
     if cfg.arch == "qwen2":
-        return dense(mlp["fc2"], quick_gelu(dense(mlp["fc1"], x)))
-    return dense(mlp["down_proj"],
-                 F.silu(dense(mlp["gate_proj"], x)) * dense(mlp["up_proj"], x))
+        return tp.row(mlp["fc2"], quick_gelu(tp.column(mlp["fc1"], x, I)), I)
+    return tp.row(mlp["down_proj"],
+                  F.silu(tp.column(mlp["gate_proj"], x, I))
+                  * tp.column(mlp["up_proj"], x, I), I)
 
 
 def _merge(params, cfg: VisionConfig, h):
@@ -263,9 +273,24 @@ def _merge(params, cfg: VisionConfig, h):
     gelu, linear."""
     mu = cfg.spatial_merge_unit
     m = params["merger"]
-    x = _vit_norm(cfg, m["ln_q"], h).reshape(h.shape[0] // mu,
-                                              mu * cfg.hidden_size)
-    return dense(m["mlp_2"], F.gelu(dense(m["mlp_0"], x)))
+    merged = mu * cfg.hidden_size
+    x = _vit_norm(cfg, m["ln_q"], h).reshape(h.shape[0] // mu, merged)
+    x = tp.copy_to_tp(x)
+    return tp.row(m["mlp_2"], F.gelu(tp.column(m["mlp_0"], x, merged)),
+                  merged)
+
+
+def _qkv(cfg: VisionConfig, attn, x):
+    """(S, 3, local heads, Dh): the fused qkv, column-parallel per head."""
+    D, Dh = cfg.hidden_size, cfg.head_dim
+    qkv = tp.column(attn["qkv"], tp.copy_to_tp(x), 3 * D, pre=3, post=Dh)
+    return qkv.reshape(x.shape[0], 3, -1, Dh)
+
+
+def _proj(cfg: VisionConfig, attn, out):
+    """The row-parallel output projection of (S, local heads, Dh)."""
+    return tp.row(attn["proj"], out.reshape(out.shape[0], -1),
+                  cfg.hidden_size)
 
 
 def _run_blocks(params, h, block, remat: bool):
@@ -290,9 +315,8 @@ def _vit_forward_full(params: Params, cfg: VisionConfig, pixel_values,
     """Qwen2-VL: every block attends within its frame chunks, in the native
     token order (JAX's all-full path): K4 once per run of equal chunks
     (chunk_runs), the run's tokens being one contiguous range."""
-    H, Dh = cfg.num_heads, cfg.head_dim
+    Dh = cfg.head_dim
     h = dense(params["patch_embed"]["proj"], pixel_values)  # (S, D)
-    S = h.shape[0]
     pos = torch.as_tensor(layout.pos_hw_native, dtype=torch.long,
                           device=h.device)
     cos, sin = vision_rope_cos_sin(pos, Dh, cfg.rope_theta)
@@ -301,15 +325,14 @@ def _vit_forward_full(params: Params, cfg: VisionConfig, pixel_values,
 
     def block(h, bp, li):
         x = _vit_norm(cfg, bp["norm1"], h)
-        qkv = dense(bp["attn"]["qkv"], x).reshape(S, 3, H, Dh)
+        qkv = _qkv(cfg, bp["attn"], x)
         q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
         parts = [chunk_attention_hsd(
             *(t[a:a + n].transpose(0, 1).contiguous()
               for t in (q, k, qkv[:, 2])), c, scale)
             for a, n, c in runs]
         attn = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        h = h + dense(bp["attn"]["proj"],
-                      attn.transpose(0, 1).reshape(S, H * Dh))
+        h = h + _proj(cfg, bp["attn"], attn.transpose(0, 1))
         return h + _vit_mlp(cfg, bp["mlp"], _vit_norm(cfg, bp["norm2"], h))
 
     return _merge(params, cfg, _run_blocks(params, h, block, remat))
@@ -324,7 +347,7 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
         return _vit_forward_full(params, cfg, pixel_values, layout, remat)
     dev = pixel_values.device
     mu = cfg.spatial_merge_unit
-    H, Dh = cfg.num_heads, cfg.head_dim
+    Dh = cfg.head_dim
     h = dense(params["patch_embed"]["proj"], pixel_values)  # (S, D)
     S = h.shape[0]
 
@@ -332,8 +355,7 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
         return torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)
 
     h = h.reshape(S // mu, mu, -1)[idx(layout.window_index)].reshape(S, -1)
-    n_win, wt = layout.win_gather.shape
-    S_pad = n_win * wt
+    wt = layout.win_gather.shape[1]
     pad_gather = idx(layout.win_gather.reshape(-1))   # (S_pad,) -> window order
     to_compact = idx(layout.win_scatter)               # (S,) -> padded index
     h = h[pad_gather]  # pad slots replicate a token of their window
@@ -347,7 +369,7 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
 
     def block(h, bp, li):
         x = _vit_norm(cfg, bp["norm1"], h)
-        qkv = dense(bp["attn"]["qkv"], x).reshape(S_pad, 3, H, Dh)
+        qkv = _qkv(cfg, bp["attn"], x)
         q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
         q, k, v = (t.transpose(0, 1) for t in (q, k, qkv[:, 2]))  # (H, S_pad, Dh)
         if li in full_set:
@@ -363,8 +385,7 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
         else:
             q, k, v = (t.contiguous() for t in (q, k, v))
             attn = window_attention_hsd(q, k, v, bias, wt, scale)
-        attn = attn.transpose(0, 1).reshape(S_pad, H * Dh)
-        h = h + dense(bp["attn"]["proj"], attn)
+        h = h + _proj(cfg, bp["attn"], attn.transpose(0, 1))
         return h + _vit_mlp(cfg, bp["mlp"], _vit_norm(cfg, bp["norm2"], h))
 
     h = _run_blocks(params, h, block, remat)

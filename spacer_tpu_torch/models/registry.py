@@ -43,6 +43,9 @@ class ModelFamily:
     vision_batch_keys: tuple = ("pixel_values",)
     # parallel/partition.py rules for shard_params
     partition_rules: tuple = ()
+    # (cfg, tp) -> the partition.TPPlan of shard_params (which leaves split
+    # over tp, the head counts tp must divide)
+    tp_plan: Callable[..., Any] = None
 
 
 def _qwen_positions(cfg, input_ids, attention_mask, enc):
@@ -144,6 +147,22 @@ def _aria_tile_vision_embeds(ve, cfg, static_aux, num_generations,
     return torch.cat(parts, dim=0)
 
 
+def _qwen_tp_plan(cfg, tp: int = 1):
+    from spacer_tpu_torch.parallel.partition import qwen_tp_plan
+
+    return qwen_tp_plan(cfg)
+
+
+def _aria_tp_plan(cfg, tp: int = 1):
+    """Aria splits nothing over tp yet: at tp > 1 its experts would need the
+    placement `moe_mlp(impl="ep")` shares (ROADMAP queue A item 2b.2)."""
+    if tp > 1:
+        raise NotImplementedError(
+            f"tp={tp}: tensor parallelism of the Aria family is not ported "
+            "(ROADMAP queue A item 2b.2, with moe_mlp impl='ep')")
+    return None
+
+
 def _make_qwen_family():
     from spacer_tpu_torch.data.processor import MockTokenizer, VLProcessor
     from spacer_tpu_torch.models.qwen25_vl.config import tiny_config
@@ -170,6 +189,7 @@ def _make_qwen_family():
         load_params_from_hf=load_params_from_hf,
         vision_batch_keys=("pixel_values",),
         partition_rules=tuple(QWEN_PARTITION_RULES),
+        tp_plan=_qwen_tp_plan,
     )
 
 
@@ -203,6 +223,7 @@ def _make_aria_family():
         vision_batch_keys=("pixel_values", "pixel_position_ids",
                            "patch_mask"),
         partition_rules=tuple(ARIA_PARTITION_RULES),
+        tp_plan=_aria_tp_plan,
     )
 
 

@@ -51,6 +51,13 @@ def embed_init(vocab: int, dim: int, *, generator=None, dtype=torch.float32,
 
 
 def embed(params, ids):
+    """Table lookup; with tensor parallelism active the table is this
+    rank's vocabulary slice and the lookup vocab-parallel
+    (parallel/tp.embed)."""
+    from spacer_tpu_torch.parallel import tp
+
+    if tp.active():
+        return tp.embed(params["embedding"], ids)
     return params["embedding"][ids]
 
 

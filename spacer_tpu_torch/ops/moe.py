@@ -146,8 +146,8 @@ def moe_mlp(params: Params, x, *, topk: int, impl: str | None = None):
     if impl == "ep":
         raise NotImplementedError(
             "moe_mlp impl='ep' (expert-parallel dispatch, moe_mlp_ep) is not "
-            "ported: it comes with the parallel/ slice (ROADMAP queue A "
-            "item 2)")
+            "ported: it comes with Aria under tensor parallelism (ROADMAP "
+            "queue A item 2b.2)")
     if impl not in ("ragged", "dense"):
         raise ValueError(f"unknown moe impl {impl!r} (expected 'ragged', "
                          "'dense' or 'ep')")

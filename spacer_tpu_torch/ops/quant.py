@@ -12,6 +12,13 @@ Param convention (the JAX package's): a quantized dense dict carries
 (f32 (..., K)) and "q4_col_scale" (f32 (..., N)); nn.core.dense dispatches
 on the key.  Rounding is torch.round (half to even, as jnp.round) with the
 same max(scale, 1e-12) guard, so codes equal JAX's.
+
+Under tensor parallelism (parallel/tp.py) each rank quantizes its slice of
+a kernel, and a scale that reduces over a dim the slice cuts is max-reduced
+over tp before rounding (JAX's scales are the whole tensor's under GSPMD):
+the int8 and int4 column scales of a row-parallel kernel (o_proj,
+down_proj: K is cut), the int4 row scale of a column-parallel one (N is
+cut).  A rank's codes and scales are then the slice of one process's.
 """
 
 from __future__ import annotations
@@ -24,16 +31,25 @@ from spacer_tpu_torch.ops.int4_matmul import (
     int4_matmul_reference,
     pack_int4,
 )
+from spacer_tpu_torch.parallel import tp
+
+# row-parallel products (their K is the one tp cuts); the rest are
+# column-parallel
+_ROW_PARALLEL = ("o_proj", "down_proj")
 
 
-def quantize_dense_int8(p):
+def quantize_dense_int8(p, row_parallel: bool = False):
     """{"kernel": (..., in, out), [bias]} -> int8 weight dict.
-    Per-output-channel symmetric: scale[j] = max_i |w[..., i, j]| / 127.
-    Already-quantized dicts pass through."""
+    Per-output-channel symmetric: scale[j] = max_i |w[..., i, j]| / 127
+    (the max over tp too for a row-parallel slice).  Already-quantized
+    dicts pass through."""
     if "kernel_q8" in p:
         return p
     k = p["kernel"].float()
-    scale = k.abs().amax(dim=-2, keepdim=True) / 127.0
+    scale = k.abs().amax(dim=-2, keepdim=True)
+    if row_parallel:
+        scale = tp.all_max(scale)
+    scale = scale / 127.0
     q = torch.round(k / scale.clamp_min(1e-12))
     out = {"kernel_q8": q.clamp(-127, 127).to(torch.int8), "q8_scale": scale}
     if "bias" in p:
@@ -53,17 +69,23 @@ def dense_q8(params, x):
     return y
 
 
-def quantize_dense_int4(p):
+def quantize_dense_int4(p, row_parallel: bool = False):
     """{"kernel": (..., K, N), [bias]} -> packed int4 weight dict.
     Rank-1-scaled symmetric 4-bit: w ~ q * row_scale[k] * col_scale[n] with
     codes in [-7, 7]; the row scale folds into the activation, the column
-    scale into the output, so the packed matmul (K6) is scale-free."""
+    scale into the output, so the packed matmul (K6) is scale-free.  Under
+    tp the column scale of a row-parallel slice and the row scale of a
+    column-parallel one are max-reduced over tp."""
     if "kernel_q4" in p:
         return p
     k = p["kernel"].float()
     col = k.abs().amax(dim=-2, keepdim=True)                 # (..., 1, N)
+    if row_parallel:
+        col = tp.all_max(col)
     u = k / col.clamp_min(1e-12)
     row = u.abs().amax(dim=-1, keepdim=True)                 # (..., K, 1)
+    if not row_parallel:
+        row = tp.all_max(row)
     q = torch.round(7.0 * u / row.clamp_min(1e-12))
     out = {
         "kernel_q4": pack_int4(q.clamp(-7, 7).to(torch.int8)),
@@ -121,13 +143,13 @@ def _is_dense(node) -> bool:
 
 
 def _quantize_tree(tree, quant, skip_names):
-    def walk(node, skip):
+    def walk(node, skip, name=""):
         if skip:
             return node
         if _is_dense(node):
-            return quant(node)
+            return quant(node, name in _ROW_PARALLEL)
         if isinstance(node, dict):
-            return {k: walk(v, k in skip_names) for k, v in node.items()}
+            return {k: walk(v, k in skip_names, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v, False) for v in node)
         return node
@@ -145,10 +167,10 @@ def quantize_tree_int8(tree, skip_names=("router", "experts")):
 def quantize_tree_int4(tree, skip_names=("router", "experts")):
     """int4 variant of quantize_tree_int8 (same skip list); kernels whose
     input dim is odd stay int8 (packing needs even K)."""
-    def quant(p):
+    def quant(p, row_parallel=False):
         if p["kernel"].shape[-2] % 2:
-            return quantize_dense_int8(p)
-        return quantize_dense_int4(p)
+            return quantize_dense_int8(p, row_parallel)
+        return quantize_dense_int4(p, row_parallel)
 
     return _quantize_tree(tree, quant, skip_names)
 

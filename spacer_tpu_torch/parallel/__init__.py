@@ -2,9 +2,9 @@
 the (data, fsdp, tp) mesh (mesh.py), process-group setup and host-side
 exchanges (multihost.py), the partition rules and batch placement
 (partition.py), the fsdp Shards with their gather and reduce-scatter
-(fsdp.py) and the host offload of optimizer state (offload.py).  Tensor
-parallelism, the pipeline and ring attention are not ported (ROADMAP
-queue A item 2b)."""
+(fsdp.py), tensor parallelism's conjugate operations (tp.py) and the host
+offload of optimizer state (offload.py).  The pipeline, ring attention
+and Aria under tp are not ported (ROADMAP queue A item 2b)."""
 
 from spacer_tpu_torch.parallel.mesh import (  # noqa: F401
     AXES,

@@ -20,9 +20,19 @@ ordinary autograd gradient, summed over data x fsdp by `reduce_replicated`.
 The steps normalise their losses over the global batch (`global_share`) so
 the summed gradients are the world-1 gradients; `global_norm` counts each
 shard once and every replicated leaf once.
+
+With tensor parallelism a Shard holds this rank's blocks of its tp SLICE
+(`split`, a parallel/tp.Split; partition.py says which leaves): `gather`
+and `gather_params` collect over fsdp only and give the slice, which the
+model multiplies as it is; `full_params` (checkpoints, exports) also
+joins the tp slices.  The batch group is data x fsdp at one tp index, so
+the gradients of leaves whole on every tp rank (the same on each: the
+conjugate operations of parallel/tp.py see to it) sum as at tp 1.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,18 +49,24 @@ class Shard:
     """One rank's share of an fsdp-sharded tensor of `shape`: blocks
     [block_lo, block_lo + nb_local) of its flat view cut into BLOCK-element
     blocks, as a (nb_local, BLOCK) tensor `data`; blocks past the tensor's
-    end are zeros.  `data` is the leaf the optimizer updates."""
+    end are zeros.  `data` is the leaf the optimizer updates.  With a
+    `split` (parallel/tp.Split) the tensor of `shape` is this rank's tp
+    slice of a tensor of split.shape."""
 
-    __slots__ = ("data", "shape", "mesh")
+    __slots__ = ("data", "shape", "mesh", "split")
 
-    def __init__(self, data: torch.Tensor, shape, mesh):
+    def __init__(self, data: torch.Tensor, shape, mesh, split=None):
         self.data = data
         self.shape = torch.Size(shape)
         self.mesh = mesh
+        self.split = split
 
     @classmethod
-    def from_full(cls, full: torch.Tensor, mesh) -> "Shard":
-        """This rank's blocks of a full tensor (the same on every rank)."""
+    def from_full(cls, full: torch.Tensor, mesh, split=None) -> "Shard":
+        """This rank's blocks of a full tensor (the same on every rank), or
+        of its tp slice with a `split`."""
+        if split is not None:
+            full = split.take(full.detach())
         B = _block()
         F = mesh.shape["fsdp"]
         nb = -(-full.numel() // B)
@@ -60,7 +76,7 @@ class Shard:
         data = torch.zeros(per * B, dtype=full.dtype, device=full.device)
         piece = flat[lo:lo + per * B]
         data[:piece.numel()] = piece
-        return cls(data.reshape(per, B), full.shape, mesh)
+        return cls(data.reshape(per, B), full.shape, mesh, split)
 
     @property
     def numel(self) -> int:
@@ -88,13 +104,33 @@ class Shard:
         return self.data.requires_grad
 
     def full(self) -> torch.Tensor:
-        """The gathered tensor, outside autograd."""
+        """The gathered tensor (this rank's tp slice), outside autograd."""
         with torch.no_grad():
             return _all_gather(self.data, self)
 
+    def unsplit(self) -> torch.Tensor:
+        """The whole tensor: gathered over fsdp, then its tp slices
+        joined, outside autograd."""
+        return join_tp(self.full(), self)
+
     def __repr__(self):
+        tp = (f", tp slice {self.split.index} of {tuple(self.split.shape)}"
+              if self.split else "")
         return (f"Shard({tuple(self.shape)}, blocks {self.block_lo}+"
-                f"{self.data.shape[0]} of {self.nb_full}, {self.dtype})")
+                f"{self.data.shape[0]} of {self.nb_full}, {self.dtype}{tp})")
+
+
+def join_tp(local: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """A tensor shaped like the Shard's tp slice -> the whole tensor, its
+    slices all-gathered over tp (the tensor itself without a split)."""
+    split = shard.split
+    if split is None:
+        return local
+    local = local.contiguous().reshape(-1)
+    out = torch.empty((split.tp * local.numel(),), dtype=local.dtype,
+                      device=local.device)
+    multihost.all_gather_into(out, local, shard.mesh.group("tp"))
+    return split.join(out.view(split.tp, -1).unbind(0))
 
 
 def _all_gather(data: torch.Tensor, shard: Shard) -> torch.Tensor:
@@ -159,6 +195,18 @@ def gather_params(tree):
     return tree
 
 
+def full_params(tree):
+    """The whole tree gathered over fsdp AND tp (checkpoints and exports:
+    every tensor whole), outside autograd."""
+    if isinstance(tree, Shard):
+        return tree.unsplit()
+    if isinstance(tree, dict):
+        return {k: full_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full_params(v) for v in tree)
+    return tree
+
+
 def has_shards(tree) -> bool:
     if isinstance(tree, Shard):
         return True
@@ -180,13 +228,20 @@ def raw_leaves(tree) -> list:
 
 def shard_blocks(tree):
     """Per leaf in param_leaves order: (first block, blocks of the whole
-    tensor) for a Shard, None for a replicated leaf; None for a tree
-    without Shards (the optimizer's `blocks`)."""
+    tensor) for a Shard, with the Shard itself as a third entry for a tp
+    slice (the optimizer reads its Split and mesh), None for a replicated
+    leaf; None for a tree without Shards (the optimizer's `blocks`)."""
     raw = raw_leaves(tree)
     if not any(isinstance(leaf, Shard) for leaf in raw):
         return None
-    return [(leaf.block_lo, leaf.nb_full) if isinstance(leaf, Shard)
-            else None for leaf in raw]
+    return [_blocks_of(leaf) if isinstance(leaf, Shard) else None
+            for leaf in raw]
+
+
+def _blocks_of(leaf: Shard):
+    if leaf.split is None:
+        return (leaf.block_lo, leaf.nb_full)
+    return (leaf.block_lo, leaf.nb_full, leaf)
 
 
 def reduce_replicated(grads: list, raw: list, mesh) -> list:
@@ -211,8 +266,8 @@ def reduce_replicated(grads: list, raw: list, mesh) -> list:
 def global_norm(grads: list, raw: list, mesh) -> torch.Tensor:
     """sqrt(sum of squares) of the full gradients, accumulated in f32:
     each Shard's blocks summed over fsdp (its data replicas hold the same
-    blocks; the zero padding adds nothing), each replicated leaf counted
-    once."""
+    blocks; the zero padding adds nothing), then a tp slice's sums over tp,
+    each replicated leaf (also whole on every tp rank) counted once."""
     def square_sum(g, leaf):
         if isinstance(leaf, Shard) and leaf.mesh.shape["fsdp"] == 1:
             # one rank holds the whole tensor: sum it in its own shape, the
@@ -226,6 +281,13 @@ def global_norm(grads: list, raw: list, mesh) -> torch.Tensor:
     part = torch.where(sharded, sq, torch.zeros_like(sq))
     multihost.all_reduce(part, mesh.group("fsdp"))
     sq = torch.where(sharded, part, sq)
+    split = [isinstance(leaf, Shard) and leaf.split is not None
+             for leaf in raw]
+    if any(split):
+        split = torch.tensor(split, device=sq.device)
+        part = torch.where(split, sq, torch.zeros_like(sq))
+        multihost.all_reduce(part, mesh.group("tp"))
+        sq = torch.where(split, part, sq)
     return torch.sqrt(sum(sq.unbind()))
 
 
@@ -259,10 +321,19 @@ def _state_leaf_to_full(t: torch.Tensor, leaf: Shard, per_param: bool):
     out = torch.empty((F * t.shape[0], *t.shape[1:]), dtype=t.dtype,
                       device=t.device)
     multihost.all_gather_into(out, t.contiguous(), leaf.mesh.group("fsdp"))
-    out = out.to(home)
     if per_param:
-        return out.reshape(-1)[:leaf.numel].view(leaf.shape)
-    return out[:leaf.nb_full]
+        return join_tp(out.reshape(-1)[:leaf.numel].view(leaf.shape),
+                       leaf).to(home)
+    if leaf.split is None:
+        return out.to(home)[:leaf.nb_full]
+    # int8 payload rows of a tp slice -> the whole tensor's rows
+    B = _block()
+    whole = join_tp(out.reshape(-1)[:leaf.numel].view(leaf.shape),
+                    leaf).reshape(-1).to(home)
+    rows = torch.zeros((-(-whole.numel() // B) * B,), dtype=t.dtype,
+                       device=home)
+    rows[:whole.numel()] = whole
+    return rows.view(-1, B)
 
 
 def _state_leaf_from_full(t: torch.Tensor, leaf: Shard, per_param: bool):
@@ -270,6 +341,14 @@ def _state_leaf_from_full(t: torch.Tensor, leaf: Shard, per_param: bool):
     B = _block()
     per = leaf.data.shape[0]
     lo = leaf.block_lo
+    if leaf.split is not None:
+        # the whole tensor's (elements or int8 payload rows) -> the slice's
+        n = leaf.numel
+        whole = leaf.split.shape
+        t = leaf.split.take(t.reshape(-1)[:math.prod(whole)].view(
+            whole)).reshape(-1)
+        if not per_param:
+            t = torch.nn.functional.pad(t, (0, (-n) % B)).view(-1, B)
     if per_param:
         rows = torch.zeros((per * B,), dtype=t.dtype, device=t.device)
         piece = t.reshape(-1)[lo * B:(lo + per) * B]
@@ -300,7 +379,10 @@ def _convert_state(state, raw: list, fn):
             for pair, idx in zip(pairs, state.groups):
                 leaf = raw[idx[0]]
                 if len(idx) == 1 and isinstance(leaf, Shard):
-                    pair = tuple(fn(x, leaf, False) for x in pair)
+                    # a tp slice's scales are the whole tensor's already
+                    pair = (fn(pair[0], leaf, False),
+                            pair[1] if leaf.split is not None
+                            else fn(pair[1], leaf, False))
                 out.append(pair)
             return out
     else:
@@ -332,7 +414,7 @@ def params_from_full(full, like):
     """Full params -> the layout of `like`: Shards where `like` has them
     (cut for the mesh `like`'s Shards are on), the full tensor elsewhere."""
     if isinstance(like, Shard):
-        return Shard.from_full(full.to(like.device), like.mesh)
+        return Shard.from_full(full.to(like.device), like.mesh, like.split)
     if isinstance(like, dict):
         return {k: params_from_full(full[k], v) for k, v in like.items()}
     if isinstance(like, (list, tuple)):

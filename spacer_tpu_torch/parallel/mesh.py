@@ -4,10 +4,13 @@ spacer_tpu/parallel/mesh.py).
 One process per device, as torchrun runs the reference.  The mesh has
 the JAX package's axes (data, fsdp, tp); rank r sits at the row-major
 coordinates of r over those sizes, as `np.asarray(devices).reshape(sizes)`
-places device r there.  It holds the process groups the port's collectives
-use: the fsdp axis (params are sharded over it), the data axis (gradients
-of a shard are summed over it) and data x fsdp (the batch axes).  Tensor
-parallelism (tp > 1) is not ported (ROADMAP queue A item 2b).
+places device r there: tp is the fastest axis, so a tp group is contiguous
+ranks, as on one NVLink host.  It holds the process groups the port's
+collectives use, each at this rank's coordinates on the other axes: the
+fsdp axis (params are sharded over it), the data axis (gradients of a shard
+are summed over it), data x fsdp ("batch": the batch axes, at one tp
+index), the tp axis (tensor parallelism, parallel/tp.py) and fsdp x tp
+("model": every piece of one tensor, at one data index).
 """
 
 from __future__ import annotations
@@ -38,16 +41,13 @@ class Mesh:
 
     `shape` maps every axis to its size (`mesh.shape["fsdp"]` reads as in
     JAX); `coords` maps every axis to this rank's index on it.  `groups`
-    maps "fsdp", "data" and "batch" (data x fsdp) to torch.distributed
-    process groups; a Mesh built without them (tests that only place
-    batches) has none and cannot run a collective."""
+    maps "fsdp", "data", "tp", "batch" (data x fsdp) and "model" (fsdp x
+    tp) to torch.distributed process groups; a Mesh built without them
+    (tests that only place batches) has none and cannot run a
+    collective."""
 
     def __init__(self, shape: dict, rank: int, groups: dict | None = None):
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
-        if self.shape["tp"] != 1:
-            raise NotImplementedError(
-                f"tp={self.shape['tp']}: tensor parallelism is not ported "
-                "(ROADMAP queue A item 2b)")
         self.size = math.prod(self.shape.values())
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} is not on a mesh of {self.size}")
@@ -74,13 +74,28 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
 
-def _axis_groups(shape: dict):
-    """Rank lists of the fsdp groups (one per data index), the data groups
-    (one per fsdp index) and the whole batch group."""
-    D, F = shape["data"], shape["fsdp"]
-    fsdp = [[d * F + f for f in range(F)] for d in range(D)]
-    data = [[d * F + f for d in range(D)] for f in range(F)]
-    return fsdp, data
+def _axis_groups(shape: dict) -> dict:
+    """{group name: rank lists}: one group per coordinate of the axes a
+    group does not span (fsdp: per (data, tp); data: per (fsdp, tp); tp:
+    per (data, fsdp); batch = data x fsdp: per tp; model = fsdp x tp: per
+    data), ranks row-major over (data, fsdp, tp)."""
+    D, F, T = shape["data"], shape["fsdp"], shape["tp"]
+
+    def rank(d, f, t):
+        return (d * F + f) * T + t
+
+    return {
+        "fsdp": [[rank(d, f, t) for f in range(F)]
+                 for d in range(D) for t in range(T)],
+        "data": [[rank(d, f, t) for d in range(D)]
+                 for f in range(F) for t in range(T)],
+        "tp": [[rank(d, f, t) for t in range(T)]
+               for d in range(D) for f in range(F)],
+        "batch": [[rank(d, f, t) for d in range(D) for f in range(F)]
+                  for t in range(T)],
+        "model": [[rank(d, f, t) for f in range(F) for t in range(T)]
+                  for d in range(D)],
+    }
 
 
 def create_mesh(shape: dict | None = None, tp: int = 1) -> Mesh:
@@ -91,31 +106,21 @@ def create_mesh(shape: dict | None = None, tp: int = 1) -> Mesh:
     tp).  Every rank must call it (new_group is collective)."""
     import torch.distributed as dist
 
-    tp = int((shape or {}).get("tp", tp))
-    if tp != 1:
-        raise NotImplementedError(
-            f"tp={tp}: tensor parallelism is not ported "
-            "(ROADMAP queue A item 2b)")
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs an initialized process group "
                            "(parallel.multihost.initialize)")
     world = dist.get_world_size()
     if shape is None:
-        shape = mesh_shape_for(world)
+        shape = mesh_shape_for(world, tp=tp)
     full = {a: int(shape.get(a, 1)) for a in AXES}
     if math.prod(full.values()) != world:
         raise ValueError(f"mesh {full} != {world} processes")
     rank = dist.get_rank()
-    fsdp_lists, data_lists = _axis_groups(full)
     groups = {}
     # new_group is collective: every rank creates every group, in order
-    for ranks in fsdp_lists:
-        g = dist.new_group(ranks)
-        if rank in ranks:
-            groups["fsdp"] = g
-    for ranks in data_lists:
-        g = dist.new_group(ranks)
-        if rank in ranks:
-            groups["data"] = g
-    groups["batch"] = dist.new_group(list(range(world)))
+    for name, lists in _axis_groups(full).items():
+        for ranks in lists:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = g
     return Mesh(full, rank, groups)

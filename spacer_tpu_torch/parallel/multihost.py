@@ -17,7 +17,9 @@ Every collective the port issues goes through this module's counters
 (`collective_stats`): per kind, the calls and the bytes of their input
 tensors (a shard for an all-gather, the whole padded tensor for a
 reduce-scatter, a pickle for an object exchange), and with
-`time_collectives(True)` on CUDA their CUDA-event time.
+`time_collectives(True)` on CUDA their CUDA-event time.  Tensor
+parallelism's collectives (parallel/tp.py) count under their own kinds,
+"tp_all_reduce", "tp_all_gather" and "tp_max".
 """
 
 from __future__ import annotations
@@ -134,20 +136,27 @@ def initialize(device: str = "cuda", **kwargs) -> None:
 
 
 def global_mesh(tp: int = 1, fsdp: int | None = None):
-    """Mesh over all ranks.  fsdp caps the fsdp-axis size; remaining ranks
-    go to `data` (e.g. 8 ranks, fsdp=4 -> data=2)."""
+    """Mesh over all ranks.  tp ranks form the fastest axis; fsdp caps the
+    fsdp-axis size of the rest, the remaining ranks go to `data` (e.g. 8
+    ranks, tp=2, fsdp=2 -> data=2)."""
     from spacer_tpu_torch.parallel.mesh import create_mesh, mesh_shape_for
 
-    if tp != 1:
-        return create_mesh({"tp": tp})   # raises: tp is not ported
-    return create_mesh(mesh_shape_for(process_count(), fsdp=fsdp))
+    return create_mesh(mesh_shape_for(process_count(), tp=tp, fsdp=fsdp))
 
 
 # -- tensor collectives (counted) --------------------------------------------
 
 
-def all_gather_into(out: torch.Tensor, x: torch.Tensor, group):
-    with _Record("all_gather", x.numel() * x.element_size(), x.is_cuda):
+def record(kind: str, x: torch.Tensor):
+    """Count a collective of `kind` on x that a group of one need not issue
+    (parallel/tp.py at tp 1)."""
+    with _Record(kind, x.numel() * x.element_size(), False):
+        pass
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor, group,
+                    kind: str = "all_gather"):
+    with _Record(kind, x.numel() * x.element_size(), x.is_cuda):
         _dist().all_gather_into_tensor(out, x.contiguous(), group=group)
     return out
 
@@ -159,10 +168,13 @@ def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group):
     return out
 
 
-def all_reduce(x: torch.Tensor, group):
-    """SUM over the group, in place."""
-    with _Record("all_reduce", x.numel() * x.element_size(), x.is_cuda):
-        _dist().all_reduce(x, group=group)
+def all_reduce(x: torch.Tensor, group, kind: str = "all_reduce",
+               op: str = "sum"):
+    """SUM (or MAX) over the group, in place."""
+    dist = _dist()
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    with _Record(kind, x.numel() * x.element_size(), x.is_cuda):
+        dist.all_reduce(x, op=red, group=group)
     return x
 
 
@@ -223,7 +235,8 @@ def fetch_to_host(local: torch.Tensor, mesh, axes=("data", "fsdp")
     every shard the same size."""
     if mesh is None or not axes:
         return local.cpu().numpy()
-    world, F = mesh.size, mesh.shape["fsdp"]
+    F = mesh.shape["fsdp"]
+    world = mesh.shape["data"] * F    # the batch group (one tp index)
     out = torch.empty((world * local.shape[0], *local.shape[1:]),
                       dtype=local.dtype, device=local.device)
     all_gather_into(out, local, mesh.group("batch"))

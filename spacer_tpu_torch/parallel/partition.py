@@ -24,6 +24,25 @@ stays replicated: a per-layer tensor whose size is not a multiple of 2048
 all layers' copies of it (JAX's stacked leaf cut into blocks) and a shard
 would split that group.
 
+Tensor parallelism.  Each rule's "tp" entry names the dim a leaf splits
+over the tp axis (column, row or vocab: parallel/tp.py).  A family's tp
+plan (`TPPlan`, QWEN_TP_LEAVES for the Qwen families) says which of those
+leaves are stored split: the rank at tp index t keeps part t of that dim
+(parallel/tp.Split), cut head-aware for the ViT's fused qkv kernel (its
+3 * heads * head_dim columns split per q, k and v: heads [t * H / tp,
+(t + 1) * H / tp) of each), and shards that slice over fsdp in whole
+2048-element blocks as above.  Every leaf the plan splits is an fsdp Shard
+at the 7B geometry.  The others stay whole on every tp rank, and the model
+takes their slice where it uses them (parallel/tp.local, whose gradient
+is all-gathered back to the whole leaf): the column-parallel biases (q/k/v,
+the ViT's qkv, gate/up and fc1, the merger's mlp_0), the row-parallel
+biases (added after the all-reduce, unsplit), `visual/patch_embed/proj`
+(1176 x 1280: a split would only add an all-gather) and a planned kernel
+that stays whole over fsdp (a per-layer tensor whose size is not a
+multiple of 2048, as the tiny configs' ViT qkv and proj).  A tp that does
+not divide the LM's heads, its KV heads, the ViT's heads or a split dim
+raises ValueError at `shard_params`, naming it.
+
 Batches: row-indexed arrays split their batch dim over data x fsdp, each
 rank taking a contiguous range in row-major rank order (JAX's P(("data",
 "fsdp"))); packed vision inputs replicate, and a dim that does not divide
@@ -33,7 +52,7 @@ falls back to replication, as JAX's place_batch does.
 from __future__ import annotations
 
 import re
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -110,6 +129,47 @@ ARIA_PARTITION_RULES: list = _QUANT_MOMENT_RULES + [
     (r".*", ()),
 ]
 
+# the leaves a Qwen model stores split over tp (the others, tp-ruled or not,
+# stay whole on every tp rank: see the module docstring); "qkv" splits
+# head-aware
+QWEN_TP_LEAVES: list = [
+    (r"model/layers/self_attn/(q|k|v|o)_proj/kernel", "split"),
+    (r"model/layers/mlp/(gate|up|down)_proj/kernel", "split"),
+    (r"model/embed_tokens/embedding", "split"),
+    (r"model/lm_head/kernel", "split"),
+    (r"visual/blocks/attn/qkv/kernel", "qkv"),
+    (r"visual/blocks/attn/proj/kernel", "split"),
+    (r"visual/blocks/mlp/(gate|up|down)_proj/kernel", "split"),
+    (r"visual/blocks/mlp/fc[12]/kernel", "split"),
+    (r"visual/merger/mlp_[02]/kernel", "split"),
+]
+
+
+class TPPlan(NamedTuple):
+    """A family's tensor-parallel plan for one config: the leaves stored
+    split ([(regex, "split" | "qkv")]), the head counts tp must divide
+    ({name: count}) and the head_dim of a "qkv" split."""
+
+    leaves: list
+    heads: dict
+    qkv_head_dim: int = 1
+
+    def kind(self, path: str):
+        jax_path, _ = _unstacked(path)
+        for pattern, kind in self.leaves:
+            if re.fullmatch(pattern, jax_path):
+                return kind
+        return None
+
+
+def qwen_tp_plan(cfg) -> TPPlan:
+    return TPPlan(QWEN_TP_LEAVES,
+                  {"the LM's num_heads": cfg.text.num_heads,
+                   "the LM's num_kv_heads": cfg.text.num_kv_heads,
+                   "the ViT's num_heads": cfg.vision.num_heads},
+                  cfg.vision.head_dim)
+
+
 # the port's per-layer list containers (JAX's stacked leaves)
 _STACKED = ("layers", "blocks", "encoder")
 
@@ -172,23 +232,57 @@ def fsdp_sharded(path: str, leaf, spec) -> bool:
     return not (_unstacked(path)[1] and leaf.numel() % BLOCK)
 
 
-def shard_params(params, mesh, rules=None):
+def tp_split(path: str, leaf, spec, mesh, plan: TPPlan | None):
+    """The parallel.tp.Split of a leaf the plan stores split (its spec's
+    "tp" dim), or None for a leaf whole on every tp rank (and at tp 1)."""
+    from spacer_tpu_torch.parallel.tp import Split
+
+    tp = mesh.shape["tp"]
+    if tp == 1 or plan is None or "tp" not in spec:
+        return None
+    kind = plan.kind(path)
+    if kind is None or not fsdp_sharded(path, leaf, spec):
+        return None
+    pre, post = (3, plan.qkv_head_dim) if kind == "qkv" else (1, 1)
+    return Split.make(leaf.shape, spec.index("tp"), tp, mesh.coords["tp"],
+                      pre, post, what=path)
+
+
+def shard_params(params, mesh, rules=None, tp_plan: TPPlan | None = None):
     """Full params (the same on every rank) -> (this rank's params, specs):
     the fsdp-sharded leaves become parallel.fsdp.Shard (this rank's whole
-    blocks), the others stay as they are (replicated)."""
+    blocks of its tp slice where `tp_plan` splits the leaf), the others
+    stay as they are (replicated).  Makes `mesh` (one built by
+    create_mesh) the active one of parallel/tp.py.  At tp > 1 a plan is
+    required, and a tp that does not divide its head counts or a split dim
+    raises ValueError."""
+    from spacer_tpu_torch.parallel import tp as tpmod
     from spacer_tpu_torch.parallel.fsdp import Shard
 
+    tp = mesh.shape["tp"]
+    if tp > 1:
+        if tp_plan is None:
+            raise ValueError(f"tp={tp} needs the model family's tp plan "
+                             "(ModelFamily.tp_plan)")
+        for what, n in tp_plan.heads.items():
+            if n % tp:
+                raise ValueError(f"tp={tp} does not divide {what}={n}")
     specs = partition_spec_tree(params, rules)
     spec_of = dict(_named_leaves(specs))
 
     def place(path, leaf):
         if isinstance(leaf, Shard):
             raise ValueError(f"{path} is already sharded")
-        if fsdp_sharded(path, leaf, spec_of[path]):
-            return Shard.from_full(leaf, mesh)
+        spec = spec_of[path]
+        if fsdp_sharded(path, leaf, spec):
+            return Shard.from_full(leaf, mesh,
+                                   tp_split(path, leaf, spec, mesh, tp_plan))
         return leaf
 
-    return _map_named(place, params), specs
+    placed = _map_named(place, params)
+    if mesh.groups:     # a mesh over a process group (not a placement test's)
+        tpmod.set_mesh(mesh)
+    return placed, specs
 
 
 def batch_spec(mesh) -> tuple:

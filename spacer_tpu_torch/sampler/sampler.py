@@ -269,10 +269,11 @@ class Sampler:
     `speculate_k` > 0 (a negative value raises ValueError) decodes with the
     speculative block loop; generate(speculate_k=...) overrides it per
     call.  `mesh`: the port's parallel.mesh.Mesh (anything else raises
-    TypeError), see the module docstring; a speculative rollout over rows
-    split across ranks raises NotImplementedError.  Sequential decode is
-    head-major through K2 / K2-int8 (the kernels on CUDA, their plain
-    versions on the CPU)."""
+    TypeError; a tp mesh for a family without tensor parallelism, Aria,
+    NotImplementedError), see the module docstring; a speculative rollout
+    over rows split across ranks raises NotImplementedError.  Sequential
+    decode is head-major through K2 / K2-int8 (the kernels on CUDA, their
+    plain versions on the CPU)."""
 
     def __init__(self, cfg, eos_token_id: int | None = None,
                  pad_token_id: int | None = None, length_bucket: int = 128,
@@ -295,6 +296,9 @@ class Sampler:
         self.mesh = mesh
         self.cfg = cfg
         self.family = family_for_config(cfg)
+        if mesh is not None:
+            # a family without tensor parallelism refuses a tp mesh
+            self.family.tp_plan(cfg, mesh.shape["tp"])
         self.eos_token_id = (eos_token_id if eos_token_id is not None
                              else cfg.eos_token_id)
         self.pad_token_id = (pad_token_id if pad_token_id is not None

@@ -1,14 +1,17 @@
 #!/usr/bin/env bash
-# Multi-benchmark evaluation on one GPU (reference parity:
-# SpaceR-Eval/evaluate.py __main__ constants): torchrun with one process;
-# evaluation over more processes needs tensor parallelism, which is not
-# ported.  Counterpart of scripts/run_eval.sh.
+# Multi-benchmark evaluation (reference parity: SpaceR-Eval/evaluate.py
+# __main__ constants): torchrun with NPROC processes (1 by default), the
+# model split over tp = TP of them (NPROC by default); every rank runs the
+# same rows, rank 0 writes.  Counterpart of scripts/run_eval.sh.
 set -euo pipefail
 
+NPROC="${NPROC:-1}"
+TP="${TP:-$NPROC}"
 TASK="${TASK:-VSI-Bench}"   # VSI-Bench STI-Bench SPAR-Bench Video-MME LongVideoBench TempCompass
 
-torchrun --nproc_per_node 1 -m spacer_tpu_torch.cli.evaluate \
+torchrun --nproc_per_node "$NPROC" -m spacer_tpu_torch.cli.evaluate \
     --multihost true \
+    --tp "$TP" \
     --task "$TASK" \
     --model_name_or_path "${MODEL:-checkpoints/SpaceR}" \
     --data_root "${DATA_ROOT:-.}" \

@@ -1,17 +1,20 @@
 #!/usr/bin/env bash
 # SG-RLVR training on NPROC GPUs of one host (reference parity:
 # run_SpaceR_SG_RLVR.sh): one process per GPU under torchrun, params,
-# gradients and optimizer state sharded over fsdp = NPROC, one prompt per
-# rank and step (rollout_batch_size is the global prompt count, the
-# reference's 8 processes x 1).  Counterpart of scripts/run_spacer_sg_rlvr.sh.
+# gradients and optimizer state sharded over fsdp = NPROC / TP and split
+# over tp = TP (Qwen only; TP=1 by default), NPROC prompts per step
+# (rollout_batch_size is the global prompt count, the reference's 8
+# processes x 1).  Counterpart of scripts/run_spacer_sg_rlvr.sh.
 set -euo pipefail
 
 NPROC="${NPROC:-8}"
+TP="${TP:-1}"     # tensor-parallel cards per model copy (divides NPROC)
 export DEBUG_MODE="${DEBUG_MODE:-false}"   # rollout tracing (rewards append to LOG_PATH)
 export LOG_PATH="${LOG_PATH:-./debug_log_SpaceR.txt}"
 
 torchrun --nproc_per_node "$NPROC" -m spacer_tpu_torch.cli.train_sg_rlvr \
     --multihost true \
+    --tp "$TP" \
     --rollout_batch_size "$NPROC" \
     --output_dir "output/SpaceR-SG-RLVR" \
     --model_name_or_path "${MODEL:-checkpoints/Qwen2.5-VL-7B-Instruct}" \

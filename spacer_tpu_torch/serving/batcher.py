@@ -37,7 +37,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from spacer_tpu_torch.models.qwen25_vl.language import init_kv_cache, lm_forward
+from spacer_tpu_torch.models.qwen25_vl.language import (
+    init_kv_cache,
+    lm_forward,
+    local_kv_heads,
+)
 from spacer_tpu_torch.nn.core import embed
 from spacer_tpu_torch.ops.quant import quantize_decode_model, quantize_kv
 from spacer_tpu_torch.sampler.sampler import (
@@ -91,8 +95,9 @@ class ContinuousBatcher:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         tc = cfg.text
-        pshape = (self.R, tc.num_kv_heads, self.Pmax, tc.head_dim)
-        tshape = (self.R, tc.num_kv_heads, self.Cmax, tc.head_dim)
+        hkv = local_kv_heads(tc)      # this rank's KV heads under tp
+        pshape = (self.R, hkv, self.Pmax, tc.head_dim)
+        tshape = (self.R, hkv, self.Cmax, tc.head_dim)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)

@@ -21,8 +21,13 @@ from __future__ import annotations
 import torch
 
 from spacer_tpu_torch.models.qwen25_vl.config import TextConfig
-from spacer_tpu_torch.models.qwen25_vl.language import _mlp_block, lm_head
-from spacer_tpu_torch.nn.core import dense, embed, rms_norm
+from spacer_tpu_torch.models.qwen25_vl.language import (
+    _mlp_block,
+    lm_head,
+    o_proj,
+    qkv_proj,
+)
+from spacer_tpu_torch.nn.core import embed, rms_norm
 from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
 from spacer_tpu_torch.ops.flash_decode import (
     MASK_VALUE,
@@ -37,14 +42,12 @@ def _ragged_layer_hm(h, layer_params, cache_entry, *, cfg: TextConfig, cos,
     h: (R, 1, D).  With int8 caches the new k/v are quantized per (row,
     head) and written with their scales."""
     R = h.shape[0]
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pk, pv, tk, tv = cache_entry[:4]
     p_attn = layer_params["self_attn"]
 
     x = rms_norm(layer_params["input_layernorm"], h, cfg.rms_norm_eps)
-    q = dense(p_attn["q_proj"], x).reshape(R, 1, H, Dh)
-    k = dense(p_attn["k_proj"], x).reshape(R, 1, Hkv, Dh)
-    v = dense(p_attn["v_proj"], x).reshape(R, 1, Hkv, Dh)
+    q, k, v = qkv_proj(p_attn, x, cfg)
+    H, Hkv, Dh = q.shape[-2], k.shape[-2], cfg.head_dim
     q, k = apply_rope(q, k, cos, sin)
     # in-place ring write, every row
     if len(cache_entry) == 8:
@@ -62,7 +65,7 @@ def _ragged_layer_hm(h, layer_params, cache_entry, *, cfg: TextConfig, cos,
     out = flash_ragged_decode_attention(
         q.reshape(R, Hkv, group_q, Dh), pk, pv, bias_p, tk, tv, bias_t,
         *scales, group_q=group_q, sm_scale=Dh ** -0.5)
-    h = h + dense(p_attn["o_proj"], out.reshape(R, 1, H * Dh).to(h.dtype))
+    h = h + o_proj(p_attn, out.reshape(R, 1, H * Dh).to(h.dtype), cfg)
     x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
     return h + _mlp_block(layer_params["mlp"], x, cfg)
 

@@ -51,6 +51,11 @@ class _Pending:
         self.pushed = 0   # emitted tokens already fed (serving thread only)
 
 
+# an idle lockstep loop tells its followers it is alive this often (s), so
+# that none waits out the process group's timeout in its broadcast
+IDLE_BEAT_S = 10.0
+
+
 class ServingLoop:
     """One background thread driving a ContinuousBatcher.
 
@@ -60,10 +65,17 @@ class ServingLoop:
     slots free up, so concurrent requests share decode steps.  If a device
     step fails, every request fails (the wave being admitted, the slots in
     flight and the queue) and the loop stops: the slot state can no longer
-    be trusted."""
+    be trusted.
 
-    def __init__(self, batcher):
+    `lockstep` (a model split over a process group: rank 0's loop) makes
+    the loop broadcast every wave's admissions before it steps, ("idle",)
+    while it waits and ("stop",) or ("error", message) when it ends; the
+    other ranks run `follow` on the same batcher geometry and take the
+    same steps."""
+
+    def __init__(self, batcher, lockstep: bool = False):
         self.batcher = batcher
+        self.lockstep = lockstep
         self._cv = threading.Condition()
         self._queue: deque = deque()
         self._stop = False
@@ -108,16 +120,28 @@ class ServingLoop:
 
     # -- serving thread ---------------------------------------------------
 
+    def _tell(self, kind: str, payload=None):
+        """Broadcast a message to the lockstep followers (no-op alone)."""
+        if self.lockstep:
+            from spacer_tpu_torch.parallel import multihost
+
+            multihost.broadcast_from_host0((kind, payload))
+
     def _run(self):
         b = self.batcher
         if b.device.type == "cuda":
             torch.cuda.set_device(b.device)
         while True:
             with self._cv:
+                idle = time.monotonic()
                 while not self._queue and not b.has_active():
                     if self._stop:
+                        self._tell("stop")
                         return
                     self._cv.wait(timeout=0.5)
+                    if time.monotonic() - idle > IDLE_BEAT_S:
+                        self._tell("idle")
+                        idle = time.monotonic()
                 admissions = []
                 for slot in b.free_slots():
                     if not self._queue:
@@ -125,6 +149,8 @@ class ServingLoop:
                     pending, req, budget = self._queue.popleft()
                     admissions.append((pending, req, budget, slot))
             try:
+                self._tell("step", [(req, budget, slot)
+                                    for _p, req, budget, slot in admissions])
                 if admissions:
                     b.admit(admissions)
                 b.decode_chunk()
@@ -144,7 +170,9 @@ class ServingLoop:
                                             toks[tag.pushed:t].tolist()))
                             tag.pushed = t
             except Exception as e:  # noqa: BLE001
-                self._fail_all(f"{type(e).__name__}: {e}", admissions)
+                msg = f"{type(e).__name__}: {e}"
+                self._fail_all(msg, admissions)
+                self._tell("error", msg)
                 return
 
     def _fail_all(self, msg: str, admissions: list) -> None:
@@ -165,6 +193,39 @@ class ServingLoop:
                 if pending.tokens is not None:
                     pending.tokens.put(("error", msg))
                 pending.event.set()
+
+
+def follow(batcher) -> None:
+    """A lockstep follower (ranks other than 0 of a split model): take rank
+    0's serving steps on this rank's batcher until its loop stops.  A step
+    that fails here stops the stepping; the failure is raised when rank 0
+    reports its own end, so no rank is left in a collective."""
+    from spacer_tpu_torch.parallel import multihost
+
+    if batcher.device.type == "cuda":
+        torch.cuda.set_device(batcher.device)
+    failed = None
+    while True:
+        kind, payload = multihost.broadcast_from_host0(None)
+        if kind == "idle":
+            continue
+        if kind in ("stop", "error"):
+            if failed is not None:
+                raise failed
+            if kind == "error":
+                raise RuntimeError(f"the serving loop of rank 0 died: "
+                                   f"{payload}")
+            return
+        if failed is not None:
+            continue
+        try:
+            if payload:
+                batcher.admit([(slot, req, budget, slot)
+                               for req, budget, slot in payload])
+            batcher.decode_chunk()
+            batcher.poll_finished()
+        except Exception as e:  # noqa: BLE001
+            failed = e
 
 
 def _to_processor_content(content) -> list:
@@ -204,14 +265,18 @@ class _HttpError(Exception):
 class OpenAIServer:
     """stdlib HTTP server speaking the OpenAI completion schema over one
     ContinuousBatcher on the params' device (`decode_quant` and
-    `speculate_k` as the batcher takes them)."""
+    `speculate_k` as the batcher takes them).  Over a process group (a
+    model split by tensor parallelism) rank 0's server listens and steps
+    in lockstep with the others, built with `follower=True`, whose
+    `follow()` runs its steps until it stops."""
 
     def __init__(self, cfg, params, processor, *, model_name: str = "spacer",
                  slots: int = 4, prompt_len: int = 1024,
                  max_new_tokens: int = 512, temperature: float = 0.01,
                  top_p: float = 1.0, chunk_steps: int = 16,
                  decode_quant: Optional[str] = None, speculate_k: int = 0,
-                 request_timeout: float = 600.0):
+                 request_timeout: float = 600.0, follower: bool = False):
+        from spacer_tpu_torch.parallel import multihost
         from spacer_tpu_torch.serving.batcher import ContinuousBatcher
 
         self.cfg = cfg
@@ -231,8 +296,13 @@ class OpenAIServer:
             pad_token_id=processor.pad_token_id, temperature=temperature,
             top_p=top_p, chunk_steps=chunk_steps, decode_quant=decode_quant,
             speculate_k=speculate_k)
-        self.loop = ServingLoop(self.batcher)
+        self.loop = None if follower else ServingLoop(
+            self.batcher, lockstep=multihost.process_count() > 1)
         self._httpd: Optional[ThreadingHTTPServer] = None
+
+    def follow(self) -> None:
+        """A follower's serving: rank 0's steps, until its loop stops."""
+        follow(self.batcher)
 
     # -- request handling -------------------------------------------------
 

@@ -35,8 +35,13 @@ from __future__ import annotations
 import torch
 
 from spacer_tpu_torch.models.qwen25_vl.config import TextConfig
-from spacer_tpu_torch.models.qwen25_vl.language import _mlp_block, lm_head
-from spacer_tpu_torch.nn.core import dense, embed, rms_norm
+from spacer_tpu_torch.models.qwen25_vl.language import (
+    _mlp_block,
+    lm_head,
+    o_proj,
+    qkv_proj,
+)
+from spacer_tpu_torch.nn.core import embed, rms_norm
 from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
 from spacer_tpu_torch.ops.quant import quantize_kv
 
@@ -137,14 +142,11 @@ def _spec_layer(h, layer_params, cache_entry, *, cfg: TextConfig, cos, sin,
     its own KV.  Keep numerically in sync with serving/ragged.py (its
     kb = 1 case)."""
     R, kb, _ = h.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pk, pv, tk, tv = cache_entry[:4]
     p_attn = layer_params["self_attn"]
 
     x = rms_norm(layer_params["input_layernorm"], h, cfg.rms_norm_eps)
-    q = dense(p_attn["q_proj"], x).reshape(R, kb, H, Dh)
-    k = dense(p_attn["k_proj"], x).reshape(R, kb, Hkv, Dh)
-    v = dense(p_attn["v_proj"], x).reshape(R, kb, Hkv, Dh)
+    q, k, v = qkv_proj(p_attn, x, cfg)
     q, k = apply_rope(q, k, cos, sin)
     scales = None
     if len(cache_entry) == 8:
@@ -158,7 +160,7 @@ def _spec_layer(h, layer_params, cache_entry, *, cfg: TextConfig, cos, sin,
         write_block(tv, v, index)
     attn = block_attention(q, pk, pv, tk[:, :, :tail_len], tv[:, :, :tail_len],
                            scales, bias_p, bias_t, group=1, dtype=h.dtype)
-    h = h + dense(p_attn["o_proj"], attn)
+    h = h + o_proj(p_attn, attn, cfg)
     x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
     return h + _mlp_block(layer_params["mlp"], x, cfg)
 

@@ -8,8 +8,8 @@ Restoring maps the params onto the device of `params_like` and the state
 onto that of `opt_state_like` (host memory for an offloaded state), so a
 checkpoint saved on one device loads onto another.
 
-Sharded params (parallel/fsdp.py) save as the full tensors and the
-world-1 optimizer state, gathered on every rank and written by rank 0, so
+Sharded params (parallel/fsdp.py; fsdp blocks of tp slices too) save as
+the full tensors and the world-1 optimizer state, gathered on every rank and written by rank 0, so
 a checkpoint is the same whatever the world that wrote it; restoring cuts
 it for the current world (the Shards of `params_like`), whatever the
 world was at save: JAX's cross-topology resume (`_restore_tree`).
@@ -42,7 +42,7 @@ def save_train_state(path: str, params, opt_state, metadata: dict):
     path = os.path.abspath(path)
     if fsdp.has_shards(params):
         opt_state = fsdp.state_to_full(opt_state, params)
-        params = fsdp.gather_params(params)
+        params = fsdp.full_params(params)
     if multihost.process_index() == 0:
         os.makedirs(path, exist_ok=True)
         torch.save(params, os.path.join(path, "params.pt"))
@@ -73,7 +73,7 @@ def restore_train_state(path: str, params_like, opt_state_like):
 def save_model_only(path: str, params):
     """--save_only_model equivalent."""
     path = os.path.abspath(path)
-    params = fsdp.gather_params(params)
+    params = fsdp.full_params(params)
     if multihost.process_index() == 0:
         os.makedirs(path, exist_ok=True)
         torch.save(params, os.path.join(path, "params.pt"))

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from spacer_tpu_torch.parallel import tp
+
 
 def per_token_logps_from_logits(logits, target_ids):
     """log softmax + gather, f32.  logits: (B, S, V) for positions
@@ -31,6 +33,11 @@ def per_token_logps_from_logits(logits, target_ids):
 def _chunk_logps(h, head_kernel, t):
     # bf16 operands, f32 products and sums: the JAX einsum's
     # preferred_element_type=f32 (a bf16 product is exact in f32)
+    if tp.active():
+        # this rank's vocabulary columns: vocab-parallel logps, no
+        # all-gather of the (chunk x vocab) logits
+        logits = torch.matmul(tp.copy_to_tp(h).float(), head_kernel.float())
+        return tp.vocab_logps(logits, t)
     logits = torch.matmul(h.float(), head_kernel.float())
     return per_token_logps_from_logits(logits, t)
 
@@ -41,7 +48,8 @@ def chunked_per_token_logps(hidden, head_kernel, target_ids, chunk: int = 256):
     chunk is checkpointed, so the backward recomputes its logits).
 
     hidden: (B, S, D) final hidden states aligned so position i predicts
-    target_ids[:, i].  head_kernel: (D, V)."""
+    target_ids[:, i].  head_kernel: (D, V), or under tensor parallelism
+    this rank's (D, V / tp) vocabulary columns (parallel/tp.vocab_logps)."""
     S = hidden.shape[1]
     if S <= chunk:
         return _chunk_logps(hidden, head_kernel, target_ids)

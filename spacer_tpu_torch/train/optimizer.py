@@ -198,13 +198,16 @@ class AdamW:
                        for idx in groups]
         mu, nu = [], []
         if self.moment_dtype == "int8":
-            for idx in groups:
+            for j, idx in enumerate(groups):
                 nb = -(-sum(params[i].numel() for i in idx) // BLOCK)
+                # a tp slice's scales are the whole tensor's blocks'
+                ns = (_tp_blocks(gblocks[j]) if gblocks and gblocks[j]
+                      and len(gblocks[j]) == 3 else nb)
                 z = dict(device=params[idx[0]].device)
                 mu.append((torch.zeros((nb, BLOCK), dtype=torch.int8, **z),
-                           torch.zeros((nb, 1), dtype=torch.float32, **z)))
+                           torch.zeros((ns, 1), dtype=torch.float32, **z)))
                 nu.append((torch.zeros((nb, BLOCK), dtype=torch.uint8, **z),
-                           torch.zeros((nb, 1), dtype=torch.float32, **z)))
+                           torch.zeros((ns, 1), dtype=torch.float32, **z)))
         else:
             for p in params:
                 mdt = (torch.float32 if self.moment_dtype == "float32"
@@ -281,7 +284,11 @@ class AdamW:
         for j, idx in enumerate(state.groups):
             mv = stream.get(j)
             if int8:
-                ds, m, v = self._adam_int8(
+                adam = self._adam_int8
+                if state.blocks and state.blocks[j] and len(
+                        state.blocks[j]) == 3:
+                    adam = self._adam_int8_tp
+                ds, m, v = adam(
                     [clip(grads[i]) for i in idx], tuple(mv[:2]),
                     tuple(mv[2:]), bc1, bc2, generator,
                     state.blocks[j] if state.blocks else None)
@@ -366,6 +373,120 @@ class AdamW:
             vq[sl], vs[sl] = _quantize_nu(v)
         ds = [d.reshape(g.shape).to(g.dtype) for d, g in zip(d_outs, gs)]
         return ds, (mq, ms), (vq, vs)
+
+
+
+    def _adam_int8_tp(self, gs, m_q, v_q, bc1, bc2, generator, blocks):
+        """The int8 update of a tp slice (blocks = (lo, nb, Shard)): its
+        moments keep this rank's elements' payloads in the slice's block
+        layout and the WHOLE tensor's per-block scales, so the codes and
+        scales are world 1's.  Each element reads its scale at its block of
+        the whole tensor (parallel/tp.Split.full_index); the new scales
+        are each block's max over every rank that holds a piece of it
+        (all-reduced over the "model" group, fsdp x tp), and the dither is
+        the whole tensor's stream, each element taking its own draw."""
+        from spacer_tpu_torch.parallel import multihost
+
+        (g,) = gs
+        lo, _, shard = blocks
+        split = shard.split
+        rows = m_q[0].shape[0]
+        nb_whole = m_q[1].shape[0]
+        real = min(rows * BLOCK, max(shard.numel - lo * BLOCK, 0))
+        flat = g.reshape(-1).float()
+        dev = flat.device
+        slabs = [(a, min(a + SLAB_BLOCKS, rows))
+                 for a in range(0, rows, SLAB_BLOCKS)]
+
+        def slab(a, b):
+            n = max(min(b * BLOCK, real) - a * BLOCK, 0)
+            li = torch.arange(a * BLOCK, a * BLOCK + n, device=dev)
+            fi = split.full_index(lo * BLOCK + li)
+            return li, fi, fi // BLOCK
+
+        def moments(li, blk):
+            # the new f32 moments of these elements, from the dequantized
+            # old ones (each element's scale is its whole-tensor block's)
+            g = flat[li]
+            m = m_q[0].view(-1)[li].float() * m_q[1][blk, 0]
+            v = _dequant_nu(v_q[0].view(-1)[li], v_q[1][blk, 0])
+            m = self.b1 * m + (1.0 - self.b1) * g
+            v = self.b2 * v + (1.0 - self.b2) * g * g
+            return m, v
+
+        mmax = torch.zeros((nb_whole,), dtype=torch.float32, device=dev)
+        vmax = torch.zeros_like(mmax)
+        for a, b in slabs:
+            li, _, blk = slab(a, b)
+            if li.numel():
+                m, v = moments(li, blk)
+                mmax.scatter_reduce_(0, blk, m.abs(), "amax")
+                vmax.scatter_reduce_(0, blk, v, "amax")
+        group = shard.mesh.group("model")
+        multihost.all_reduce(mmax, group, kind="opt_max", op="max")
+        multihost.all_reduce(vmax, group, kind="opt_max", op="max")
+        ms = (mmax.clamp_min(1e-30) / 127.0)[:, None]
+        vs = vmax[:, None]
+        noise = _WholeNoise(generator, nb_whole, dev) if self.sr else None
+        mq = torch.zeros_like(m_q[0])
+        vq = torch.zeros_like(v_q[0])
+        d_out = torch.zeros((rows * BLOCK,), dtype=torch.float32, device=dev)
+        for a, b in slabs:
+            li, fi, blk = slab(a, b)
+            if not li.numel():
+                continue
+            m, v = moments(li, blk)
+            d_out[li] = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            y = m / ms[blk, 0]
+            if noise is not None:
+                y = y + (noise.at(fi) - 0.5)
+            mq.view(-1)[li] = y.round().clamp(-127.0, 127.0).to(torch.int8)
+            r = v / vs[blk, 0].clamp_min(1e-38)
+            u = torch.log(r.clamp_min(1e-6)) / LOG_RMIN
+            vq.view(-1)[li] = ((1.0 - u) * 255.0).round().clamp(
+                0.0, 255.0).to(torch.uint8)
+        if noise is not None:
+            noise.finish()
+        return [d_out.view(g.shape).to(g.dtype)], (mq, ms), (vq, vs)
+
+
+def _tp_blocks(entry) -> int:
+    """Blocks of the whole tensor of a tp slice's optimizer `blocks` entry."""
+    return -(-math.prod(entry[2].split.shape) // BLOCK)
+
+
+class _WholeNoise:
+    """The int8 stochastic rounding's dither of a whole tensor of nb blocks,
+    drawn slab by slab from the generator in the one-process order
+    (AdamW._adam_int8's), read at increasing flat indices of the whole
+    tensor; `finish` draws the slabs no element read, so the generator
+    leaves the tensor where one process leaves it."""
+
+    def __init__(self, generator, nb: int, device):
+        self.generator, self.nb, self.device = generator, nb, device
+        self.slabs: dict = {}
+        self.next = 0            # the next slab to draw (in slabs)
+
+    def _draw_to(self, s: int):
+        while self.next <= s:
+            s0 = self.next * SLAB_BLOCKS
+            self.slabs[self.next] = torch.rand(
+                (min(SLAB_BLOCKS, self.nb - s0), BLOCK),
+                generator=self.generator, device=self.device).reshape(-1)
+            self.next += 1
+
+    def at(self, fi: torch.Tensor) -> torch.Tensor:
+        per = SLAB_BLOCKS * BLOCK
+        s_lo, s_hi = int(fi[0]) // per, int(fi[-1]) // per
+        self._draw_to(s_hi)
+        for k in [k for k in self.slabs if k < s_lo]:
+            del self.slabs[k]
+        cat = torch.cat([self.slabs[k] for k in range(s_lo, s_hi + 1)])
+        return cat[fi - s_lo * per]
+
+    def finish(self):
+        self._draw_to(-(-self.nb // SLAB_BLOCKS) - 1)
+        self.slabs.clear()
 
 
 class MultiStepsState(NamedTuple):

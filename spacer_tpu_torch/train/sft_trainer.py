@@ -117,7 +117,7 @@ class SFTTrainer:
                  args: SFTConfig, mesh=None):
         from spacer_tpu_torch.train.trainer import _check_mesh
 
-        _check_mesh(mesh)
+        _check_mesh(mesh, cfg)
         self.cfg = cfg
         self.args = args
         self.processor = processor

@@ -26,7 +26,10 @@ completion rows need when the prompts do not divide), weights its local
 mean by its share of the global rows or tokens, and the summed gradients
 are the single-process ones.  The vision tower encodes the whole batch's
 media on every rank (JAX replicates the packed pixels) and each rank
-merges them into the whole prompt batch before keeping its rows.
+merges them into the whole prompt batch before keeping its rows.  Under
+tensor parallelism the rows split over data x fsdp only (a tp group runs
+the same rows), and the logps are vocab-parallel on the rank's head
+columns (train/grpo.chunked_per_token_logps).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 from spacer_tpu_torch.models.qwen25_vl.language import check_remat, lm_forward
 from spacer_tpu_torch.models.registry import family_for_config
 from spacer_tpu_torch.nn.core import embed
-from spacer_tpu_torch.parallel import fsdp
+from spacer_tpu_torch.parallel import fsdp, tp
 from spacer_tpu_torch.parallel.partition import row_range
 from spacer_tpu_torch.train.grpo import chunked_per_token_logps, grpo_loss
 from spacer_tpu_torch.train.optimizer import global_norm
@@ -80,10 +83,13 @@ def _grads(loss, leaves, want):
 
 
 def _head_kernel(params_model, text_cfg):
+    """The (D, V) head, or under tensor parallelism this rank's (D, V / tp)
+    vocabulary columns."""
     params_model = fsdp.gather(params_model, keep=("layers",))
+    V = text_cfg.vocab_size
     if text_cfg.tie_word_embeddings:
-        return params_model["embed_tokens"]["embedding"].T
-    return params_model["lm_head"]["kernel"]
+        return tp.local(params_model["embed_tokens"]["embedding"], 0, V).T
+    return tp.local(params_model["lm_head"]["kernel"], -1, V)
 
 
 def tile_vision_embeds(ve, cfg, grid_thw, num_generations: int,

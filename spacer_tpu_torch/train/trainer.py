@@ -116,16 +116,20 @@ class SGRLVRConfig:
     speculate_k: int = 0
 
 
-def _check_mesh(mesh):
+def _check_mesh(mesh, cfg=None):
+    """A mesh must be the port's Mesh; a tp mesh needs a family with tensor
+    parallelism (Aria's tp plan refuses one)."""
     from spacer_tpu_torch.parallel.mesh import Mesh
 
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a spacer_tpu_torch.parallel.mesh.Mesh, "
                         f"got {type(mesh).__name__}")
+    if mesh is not None and cfg is not None:
+        family_for_config(cfg).tp_plan(cfg, mesh.shape["tp"])
 
 
-def _unported(args: SGRLVRConfig, mesh):
-    _check_mesh(mesh)
+def _unported(args: SGRLVRConfig, mesh, cfg=None):
+    _check_mesh(mesh, cfg)
     if args.attn_impl is not None or args.decode_impl is not None:
         raise NotImplementedError(
             f"attn_impl={args.attn_impl!r} decode_impl={args.decode_impl!r}: "
@@ -141,7 +145,7 @@ class SGRLVRTrainer:
                  reward_funcs: Sequence[Callable],
                  train_dataset: Sequence[dict], args: SGRLVRConfig, *,
                  map_data: dict | None = None, ref_params=None, mesh=None):
-        _unported(args, mesh)
+        _unported(args, mesh, cfg)
         self.cfg = cfg
         self.family = family_for_config(cfg)
         self.args = args
@@ -632,8 +636,8 @@ class SGRLVRTrainer:
             raise ValueError(
                 "push_to_hub=True requires hub_model_id (the Hub repo id); "
                 "refusing to invent one from the output directory name")
-        # the full params, written by rank 0
-        params = fsdp.gather_params(self.params)
+        # the full params (tp slices joined), written by rank 0
+        params = fsdp.full_params(self.params)
         if multihost.process_index() == 0:
             publish.save_pretrained(out_dir, params, self.cfg,
                                     processor_dir=processor_dir)
@@ -659,7 +663,7 @@ class SGRLVRTrainer:
 
 def _clone(t):
     if isinstance(t, fsdp.Shard):
-        return fsdp.Shard(t.data.detach().clone(), t.shape, t.mesh)
+        return fsdp.Shard(t.data.detach().clone(), t.shape, t.mesh, t.split)
     return t.detach().clone()
 
 

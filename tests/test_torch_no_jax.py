@@ -1,8 +1,9 @@
 """spacer_tpu_torch stands alone: no module of it (nor the scripts that
-drive it on the card, chip_smoke.py, profile_train.py and profile_serve.py)
+drive it on the card, chip_smoke.py, profile_train.py, profile_serve.py,
+profile_tp.py and time_tp_collectives.py)
 imports jax or spacer_tpu, and the tiny serving slice, one tiny SG-RLVR
 training step (also over fsdp-sharded params in a gloo world of one,
-through parallel/), a tiny Qwen2-VL's speculative serving, speculative
+through parallel/, and split over tp = 2 in a gloo world of two), a tiny Qwen2-VL's speculative serving, speculative
 rollout and HTTP server, and the tiny Aria family (text serving, an image
 rollout, one image training step, an Aria checkpoint round trip) run on the
 CPU through the kernels' plain versions (no kernel launch is counted
@@ -52,6 +53,44 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
+# one rank of a tp-2 training step: a gloo world of 2 joined from torchrun's
+# environment (the parent script starts both ranks), jax blocked in each
+TP_RANK_SCRIPT = textwrap.dedent("""
+    import sys, tempfile
+    for name in ("jax", "jaxlib", "spacer_tpu"):
+        sys.modules[name] = None
+    import numpy as np
+    from spacer_tpu_torch.cli.common import (
+        ModelArgs, load_model_and_processor, setup_distributed)
+    from spacer_tpu_torch.data import make_conversation
+    from spacer_tpu_torch.rewards import format_reward
+    from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
+    margs = ModelArgs(random_init=True, dtype="float32", device="cpu",
+                      multihost=True, tp=2)
+    setup_distributed(margs)
+    cfg, params, proc, mesh = load_model_and_processor(margs)
+    assert mesh.shape == {"data": 1, "fsdp": 1, "tp": 2}, mesh
+    frames = np.random.default_rng(0).integers(0, 256, (4, 56, 84, 3), np.uint8)
+    row = {"problem": "how many", "problem_type": "numerical",
+           "solution": "<answer>1</answer>", "path": frames,
+           "data_type": "video", "data_source": "synthetic"}
+    row.update(make_conversation(row))
+    args = SGRLVRConfig(num_generations=2, max_completion_length=4,
+                        prompt_bucket=64, logp_chunk=4, decode_quant=None,
+                        output_dir=tempfile.mkdtemp())
+    trainer = SGRLVRTrainer(cfg, params, proc, [format_reward], [row], args,
+                            mesh=mesh)
+    m = trainer.training_step([row] if mesh.rank == 0 else [],
+                              np.random.default_rng(0))
+    assert np.isfinite(float(m["loss"])), m
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "spacer_tpu")
+           and sys.modules[m] is not None]
+    assert not bad, bad
+    print("tp step", repr(float(m["loss"])))
+""")
+
+
 TRAIN_SCRIPT = textwrap.dedent("""
     import sys, tempfile
     for name in ("jax", "jaxlib", "spacer_tpu"):
@@ -95,12 +134,25 @@ TRAIN_SCRIPT = textwrap.dedent("""
     m2 = sharded.training_step([row], np.random.default_rng(0))
     assert float(m2["loss"]) == float(m["loss"]), (m, m2)
     assert set(launch_counts().values()) == {0}, launch_counts()
+    # a tp-2 step: two ranks of TP_RANK_SCRIPT under torchrun's environment
+    import subprocess
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(multihost._free_port()), PYTHONHASHSEED="0")
+    ranks = [subprocess.Popen(
+        [sys.executable, "-c", TP_RANK_SCRIPT_TEXT],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = [p.communicate(timeout=240) for p in ranks]
+    assert all(p.returncode == 0 for p in ranks), [e[-3000:] for _, e in outs]
+    losses = {o.split("tp step")[1].strip() for o, _ in outs}
+    assert len(losses) == 1, outs      # the loss replicated on both ranks
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "spacer_tpu")
            and sys.modules[m] is not None]
     assert not bad, bad
     print("trained")
-""")
+""").replace("TP_RANK_SCRIPT_TEXT", repr(TP_RANK_SCRIPT))
 
 
 EVAL_SCRIPT = textwrap.dedent("""
@@ -290,7 +342,8 @@ def test_no_jax_or_spacer_tpu_import_in_sources():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|spacer_tpu)(\.|\s|$)",
                          re.M)
     sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py",
-               REPO / "profile_train.py", REPO / "profile_serve.py"]
+               REPO / "profile_train.py", REPO / "profile_serve.py",
+               REPO / "profile_tp.py", REPO / "time_tp_collectives.py"]
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pattern.search(p.read_text())]
     assert not offenders, offenders

@@ -60,21 +60,36 @@ def test_rank_coords_match_jax_device_positions(cpu_devices, shape):
 
 
 def test_tp_meshes_raise():
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        Mesh({"data": 1, "fsdp": 2, "tp": 2}, 0)
-    with pytest.raises(NotImplementedError, match="item 2b"):
+    """Since tensor parallelism was ported a tp Mesh constructs, tp the
+    fastest axis (tests/test_torch_tp.py holds it against JAX's); only
+    create_mesh without a process group raises."""
+    mesh = Mesh({"data": 1, "fsdp": 2, "tp": 2}, 3)
+    assert mesh.coords == {"data": 0, "fsdp": 1, "tp": 1}
+    assert mesh.shape == {"data": 1, "fsdp": 2, "tp": 2} and mesh.size == 4
+    assert mesh.batch_index == 1
+    with pytest.raises(RuntimeError, match="initialized process group"):
         create_mesh({"fsdp": 1, "tp": 2})
 
 
 def test_serving_and_evaluation_refuse_a_mesh():
-    """Over more than one process the CLIs' serve and evaluate raise (a
-    sharded model would serve through tensor parallelism, not ported)."""
-    from spacer_tpu_torch.cli.common import refuse_mesh
+    """Serving and evaluation run over a mesh since tensor parallelism was
+    ported (tests/test_torch_tp_serving.py); what still refuses a tp mesh
+    is the Aria family (ROADMAP queue A item 2b.2), in its tp plan, the
+    Sampler its engines build and the trainers, while a Qwen Sampler
+    takes one."""
+    from spacer_tpu_torch.models.aria import tiny_aria_config
+    from spacer_tpu_torch.models.registry import get_family
+    from spacer_tpu_torch.sampler import Sampler
 
-    refuse_mesh(None, "serving")
-    for what in ("serving", "evaluation"):
-        with pytest.raises(NotImplementedError, match="item 2b"):
-            refuse_mesh(Mesh({"fsdp": 2}, 0), what)
+    aria = tiny_aria_config()
+    tp_mesh = Mesh({"tp": 2}, 0)
+    with pytest.raises(NotImplementedError, match="item 2b"):
+        get_family("aria").tp_plan(aria, 2)
+    with pytest.raises(NotImplementedError, match="item 2b"):
+        Sampler(aria, mesh=tp_mesh)
+    assert Sampler(aria, mesh=Mesh({"fsdp": 2}, 0)).mesh.shape["tp"] == 1
+    qwen = get_family("qwen").tiny_config()
+    assert Sampler(qwen, mesh=tp_mesh).mesh.coords["tp"] == 0
 
 
 def test_rules_are_jaxs():
@@ -324,12 +339,13 @@ def test_gather_backward_and_global_norm(collective_runs, world):
 
 def _script_argv(path):
     """(module, argv) of a launch script's torchrun (or python -m) line,
-    shell defaults resolved ("${X:-d}" -> d, "$NPROC" -> 8)."""
+    shell defaults resolved ("${X:-d}" -> d, "$NPROC" -> 8, "$TP" -> 1)."""
     import re
     import shlex
 
     text = open(path).read()
-    text = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", text).replace("$NPROC", "8")
+    text = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", text).replace(
+        "$NPROC", "8").replace("$TP", "1")
     words = shlex.split(text.split(" -m ", 1)[1].replace("\\\n", " "),
                         comments=True)
     words = words[:words.index("$@")]
@@ -341,8 +357,9 @@ def _script_argv(path):
                                   "run_eval.sh"])
 def test_launch_scripts_parse(name):
     """spacer_tpu_torch/scripts/<name> passes the JAX script's flags, plus
-    --multihost true (and, for the GRPO trainers, the global prompt count
-    as rollout_batch_size), and its entry point parses them all."""
+    --multihost true, --tp (TP=, 1 by default; not Aria's) and, for the
+    GRPO trainers, the global prompt count as rollout_batch_size, and its
+    entry point parses them all."""
     import pathlib
 
     from spacer_tpu_torch.cli import evaluate, train_grpo, train_sft
@@ -359,7 +376,8 @@ def test_launch_scripts_parse(name):
     assert module == jax_module.replace("spacer_tpu.", "spacer_tpu_torch.")
     flags = {w for w in argv if w.startswith("--")}
     jax_flags = {w for w in jax_argv if w.startswith("--")}
-    assert flags - jax_flags <= {"--multihost", "--rollout_batch_size"}
+    assert flags - jax_flags <= {"--multihost", "--rollout_batch_size",
+                                 "--tp"}
     assert jax_flags <= flags
     classes = {
         "spacer_tpu_torch.cli.train_sg_rlvr": (train_sg_rlvr.ScriptArgs,
@@ -372,6 +390,9 @@ def test_launch_scripts_parse(name):
     }[module]
     parsed = parse_configs(classes, argv)
     assert parsed[-1].multihost is True
+    # Aria has no tensor parallelism (ROADMAP queue A item 2b.2)
+    assert ("--tp" in flags) == (name != "run_aria_moe.sh")
+    assert parsed[-1].tp == 1
     if "--rollout_batch_size" in flags:
         assert parsed[1].rollout_batch_size == 8
 

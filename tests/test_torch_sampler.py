@@ -106,16 +106,21 @@ def test_greedy_generate_quantized_matches_jax_flash_ref(quant, monkeypatch):
 
 def test_unported_configurations_raise():
     """A mesh that is not the port's parallel.mesh.Mesh raises TypeError
-    and a tp > 1 mesh NotImplementedError (the data x fsdp mesh runs since
-    its port: tests/test_torch_parallel.py); speculative decode is ported
+    and a tp > 1 mesh for Aria NotImplementedError (ROADMAP queue A item
+    2b.2); a Qwen tp mesh constructs since tensor parallelism was ported
+    (tests/test_torch_tp_model.py), as the data x fsdp mesh does
+    (tests/test_torch_parallel.py); speculative decode is ported
     (tests/test_torch_sampler_speculative.py) and constructs."""
+    from spacer_tpu_torch.models.aria import tiny_aria_config
     from spacer_tpu_torch.parallel.mesh import Mesh
 
     cfg = tiny_config()
     with pytest.raises(TypeError):
         Sampler(cfg, mesh=object())
+    tp_mesh = Mesh({"data": 1, "fsdp": 2, "tp": 2}, rank=0)
     with pytest.raises(NotImplementedError, match="item 2b"):
-        Sampler(cfg, mesh=Mesh({"data": 1, "fsdp": 2, "tp": 2}, rank=0))
+        Sampler(tiny_aria_config(), mesh=tp_mesh)
+    assert Sampler(cfg, mesh=tp_mesh).mesh.shape["tp"] == 2
     assert Sampler(cfg, mesh=Mesh({"fsdp": 2}, rank=1)).mesh.coords == {
         "data": 0, "fsdp": 1, "tp": 0}
     assert Sampler(cfg, speculate_k=2).speculate_k == 2

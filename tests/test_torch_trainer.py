@@ -110,11 +110,30 @@ def test_unported_configurations_raise(tmp_path, over):
     """Unknown decode_quant values raise ValueError (as in the JAX
     sampler) and a mesh that is not the port's parallel.mesh.Mesh
     TypeError; the configurations the port does not run
-    NotImplementedError: a tp > 1 mesh, any attn_impl / decode_impl
-    (gradient accumulation, offload, speculative rollouts and the data x
-    fsdp mesh run since they were ported: tests/test_torch_accumulation.py,
+    NotImplementedError: a tp > 1 mesh for Aria (ROADMAP queue A item
+    2b.2; a Qwen trainer takes one since tensor parallelism was ported:
+    tests/test_torch_tp_model.py), any attn_impl / decode_impl (gradient
+    accumulation, offload, speculative rollouts and the data x fsdp mesh
+    run since they were ported: tests/test_torch_accumulation.py,
     test_torch_offload.py, test_speculative_rollout_step below,
     test_torch_fsdp_trainer.py)."""
+    if isinstance(over.get("mesh"), dict):
+        from spacer_tpu_torch.models.aria import init_params as aria_init
+        from spacer_tpu_torch.models.aria import tiny_aria_config
+        from spacer_tpu_torch.parallel.mesh import Mesh
+
+        cfg = tiny_config()
+        mesh = Mesh(over["mesh"], rank=0)
+        trainer = SGRLVRTrainer(
+            cfg, init_params(cfg), VLProcessor(
+                MockTokenizer(vocab_size=cfg.text.vocab_size), cfg),
+            [format_reward], _rows(), SGRLVRConfig(), mesh=mesh)
+        assert trainer.sampler.mesh is mesh
+        aria = tiny_aria_config()
+        with pytest.raises(NotImplementedError, match="item 2b"):
+            SGRLVRTrainer(aria, aria_init(aria), None, [format_reward],
+                          _rows(), SGRLVRConfig(), mesh=mesh)
+        return
     exc = (ValueError if "decode_quant" in over
            else TypeError if "mesh" in over
            and not isinstance(over["mesh"], dict)
