@@ -131,23 +131,39 @@ Phases, in order; any failure raises and the script exits non-zero:
      phase 12's gate; then a torchrun launch of cli/serve.py (--multihost
      true --tp 1) on a jsonl file at the tiny config.  `--phases 13
      --world 2,4` runs it at full depth over tp = 2 and 4 cards instead.
+  14. expert parallelism (spacer_tpu_torch/parallel/expert.py) and Aria's
+     tensor parallelism at world 1 over NCCL: ARIA_25B widths with the LM
+     cut to ARIA_EP_LM_LAYERS, moe_impl "ep": phase 11's text requests
+     through generate_many (bf16, int4_kv) and its image through
+     Sampler.generate, unsharded; under "ragged" with the ep run's tokens
+     and routes forced (logits cosine >= SLICE_COS_TOL, the capacity's
+     drops reported); over create_mesh({"data": 1, "fsdp": 1, "tp": 1})
+     with the Aria tp plan and the experts placed by expert (tokens and
+     logits bitwise equal, the ep and tp collectives counted and none
+     issued); two GRPO steps unsharded and over the mesh under phase 12's
+     gate.  `--phases 14 --world 2,4` runs full-depth serving over tp 2 and
+     4 and GRPO steps over (1, 2, 2) and (1, 4, 1) instead.
 Phase 3 also checks the kernels at the Aria path's shapes (3c: K1 at
-head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1), and
-3d at the shapes one rank of a tp-2 or tp-4 Qwen2.5-VL-7B runs (14 / 7
-query heads, 2 / 1 KV heads, 8 / 4 ViT heads, K6 at the sliced products).
+head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1), 3d at
+the shapes one rank of a tp-2 or tp-4 Qwen2.5-VL-7B runs (14 / 7 query
+heads, 2 / 1 KV heads, 8 / 4 ViT heads, K6 at the sliced products), and 3e
+at an Aria tp-2 or tp-4 rank's (8 / 4 tower heads at head_dim 72, 10 / 5
+LM heads at group 1, K6 at the sliced products, K = 832 included).
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5c and 7-13, each counted from 0 just
+summed over the paths of phases 4-5c and 7-14, each counted from 0 just
 before it runs); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 12 --world 4   # fsdp over four cards
     python3 chip_smoke.py --phases 13 --world 2,4   # tp over 2, then 4
+    python3 chip_smoke.py --phases 14 --world 2,4   # Aria tp 2, 4; ep 4
     python3 chip_smoke.py --phases 4c,4d     # a development run of some
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -262,8 +278,8 @@ EVAL_NEW_TOKENS = 64
 LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
                "perception_task_accuracy", "relation_task_accuracy"}
 # The phases in the order they run (main's --phases selects some of them)
-PHASES = ("3", "3d", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9", "10",
-          "11", "12", "13")
+PHASES = ("3", "3d", "3e", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9",
+          "10", "11", "12", "13", "14")
 # Phase 4c, the HTTP server: HTTP_VIDEOS video requests over mp4 files of
 # HTTP_VIDEO_SECONDS at HTTP_VIDEO_FPS (16 frames sampled at 2 fps, grid
 # (8, 16, 30) as phase 4's) and as many text requests, through HTTP_SLOTS
@@ -1832,6 +1848,8 @@ def _grad_group(name: str) -> str:
     parts = name.split("/")
     if parts[:2] == ["model", "layers"]:
         kind = parts[3]
+        if kind == "mlp" and parts[4] in ("experts", "shared", "router"):
+            return f"lm mlp {parts[4]}"
         return (f"lm {parts[4]}" if kind == "self_attn"
                 else "lm mlp" if kind == "mlp" else "lm norms")
     if parts[:2] == ["visual", "blocks"]:
@@ -3435,6 +3453,70 @@ def check_tp_kernels(device="cuda") -> dict:
     return results
 
 
+def aria_tp_k6_shapes(tp: int) -> tuple:
+    """The (K, N) of a tp rank's int4 decode products at ARIA_25B's widths:
+    q / k / v and o, the shared experts' gate / up and down, lm_head, the
+    column-parallel ones' N and the row-parallel ones' K cut by tp (the
+    shared down_proj's K is 832 at tp 4: one K-block with a half chunk)."""
+    return ((2560, 2560 // tp), (2560 // tp, 2560), (2560, 3328 // tp),
+            (3328 // tp, 2560), (2560, 100352 // tp))
+
+
+def check_aria_tp_kernels(device="cuda") -> dict:
+    """Phase 3e: every kernel of the Aria path against its plain version
+    at the shapes one rank of a tp-2 and a tp-4 ARIA_25B runs (TP_SIZES):
+    K1 at head_dim 72 on the tower (16 / tp heads, phase 11's crop of 4900
+    patches, ARIA_VALID_PATCHES live keys); K1 and K1-bwd on phase 11b's
+    update (20 / tp query and KV heads, group 1), K2 and K2-int8 on its
+    rollout (Hkv 20 / tp, group_q 1), K5 and K5-int8 on phase 11a's slots
+    (Hkv 20 / tp, group_q 1), K6 (fused dense_q4) at aria_tp_k6_shapes, M
+    = 4 and 16.  Results carry an " aria tp=N" suffix; none of them enters
+    the kernels line."""
+    from spacer_tpu_torch.nn.attention import xla_attention
+    from spacer_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    Np, Dv, n_live = 4900, 72, ARIA_VALID_PATCHES
+    pmask = torch.zeros((1, Np), dtype=torch.bool, device=dev)
+    pmask[0, :n_live] = True
+    results = {}
+    for tp in TP_SIZES:
+        sfx = f" aria tp={tp}"
+        t0 = time.perf_counter()
+        Hv, H = 16 // tp, 20 // tp
+        q, k, v = randn(1, Np, Hv, Dv), randn(1, Np, Hv, Dv), \
+            randn(1, Np, Hv, Dv)
+        kw = dict(kv_mask=pmask, return_lse=True)
+        results[f"K1 vit{sfx}"] = compare(
+            f"K1 flash_attention [aria vit{sfx}: (1, {Np}, {Hv}, 72), "
+            f"{n_live} live keys]",
+            lambda: fa.flash_attention(q, k, v, **kw),
+            lambda: xla_attention(q, k, v, **kw),
+            work=(Np * Hv * Dv * 2 * 2 + n_live * Hv * Dv * 2 * 2
+                  + Np * Hv * 4, 4 * Dv * Hv * Np * n_live),
+            library_fn=lambda: sdpa_masked(q, k, v, pmask[:, None, None, :]))
+        del q, k, v
+        check_k1_passes(randn, gen, ARIA_TRAIN_PROMPT_BUCKET,
+                        (ARIA_TRAIN_PROMPT_PAD,), results, H=H, Hkv=H,
+                        G=ARIA_TRAIN_G, C=ARIA_TRAIN_NEW_TOKENS, suffix=sfx)
+        check_grouped_decode(
+            randn, gen, ARIA_TRAIN_PROMPT_BUCKET, (ARIA_TRAIN_PROMPT_PAD,),
+            ARIA_TRAIN_G, (1, ARIA_TRAIN_NEW_TOKENS - 1), results, tag=sfx,
+            C=ARIA_TRAIN_NEW_TOKENS, Hkv=H, gq=1)
+        results.update(check_ragged_decode(
+            randn, gen, sfx, 512, 128, [230, 212, 251, 198], [32, 17, 1, 9],
+            [0, 40, 100, 127], Hkv=H, gq=1))
+        results.update(check_int4_matmul(gen, aria_tp_k6_shapes(tp), (4, 16),
+                                         tag=sfx, fused_only=True))
+        log(f"phase 3e tp={tp}: {time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def aria_param_count(cfg) -> int:
     """Parameters of an Aria config, reckoned from its widths."""
     t, v = cfg.text, cfg.vision
@@ -3468,7 +3550,11 @@ def aria_image(root: pathlib.Path) -> str:
                    -1) + rng.integers(0, 40, (h, w, 3))
     root.mkdir(parents=True, exist_ok=True)
     path = root / "aria_scene.png"
-    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path)
+    # written whole under another name, then renamed: ranks that write it
+    # at once never read a partial file
+    tmp = root / f"aria_scene.{os.getpid()}.png"
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(tmp)
+    os.replace(tmp, path)
     return str(path)
 
 
@@ -3892,9 +3978,9 @@ def _full_view(t, leaf):
 
 
 def fsdp_train_run(cfg, out_dir, mesh=None, ref=None, device="cuda",
-                   **trainer_kw) -> dict:
-    """Two SGRLVRTrainer.train steps (make_trainer's slice; `trainer_kw`
-    go to it) with or without `mesh`.  Without `ref` the completions, step
+                   make=None, **trainer_kw) -> dict:
+    """Two SGRLVRTrainer.train steps (make_trainer's slice, or `make`'s;
+    `trainer_kw` go to it) with or without `mesh`.  Without `ref` the completions, step
     metrics, every update's gradients, the final params and the int8
     moments are kept on the host; with `ref` (that record) each is held
     bitwise against it as it comes, and the names of the tensors that
@@ -3903,8 +3989,8 @@ def fsdp_train_run(cfg, out_dir, mesh=None, ref=None, device="cuda",
     from spacer_tpu_torch.parallel import fsdp, multihost
     from spacer_tpu_torch.train.step import param_leaves
 
-    trainer, names = make_trainer(cfg, device, 2, out_dir, mesh=mesh,
-                                  **trainer_kw)
+    trainer, names = (make or make_trainer)(cfg, device, 2, out_dir,
+                                            mesh=mesh, **trainer_kw)
     raw = fsdp.raw_leaves(trainer.params)
     rec = {"rollouts": [], "steps": [], "grads": [], "grad_bad": [],
            "check_s": []}
@@ -4183,14 +4269,17 @@ def torchrun_self(mode: str, argv: list, result: pathlib.Path) -> float:
     return time.perf_counter() - t0
 
 
-def _world_selected(name: str) -> bool:
+def _world_selected(name: str, kind: str = "qwen") -> bool:
     """The tensors whose gradients --world N compares (FSDP_WORLD_LAYERS,
-    FSDP_WORLD_BLOCKS and every tensor outside the layer lists)."""
+    FSDP_WORLD_BLOCKS and every tensor outside the layer lists; for Aria,
+    EP_WORLD_LAYERS, tower layer 0 and every tensor outside the lists)."""
     parts = name.split("/")
+    layers, blocks = ((FSDP_WORLD_LAYERS, FSDP_WORLD_BLOCKS) if kind == "qwen"
+                      else (EP_WORLD_LAYERS, (0,)))
     if parts[:2] == ["model", "layers"]:
-        return int(parts[2]) in FSDP_WORLD_LAYERS
-    if parts[:2] == ["visual", "blocks"]:
-        return int(parts[2]) in FSDP_WORLD_BLOCKS
+        return int(parts[2]) in layers
+    if parts[:2] in (["visual", "blocks"], ["visual", "encoder"]):
+        return int(parts[2]) in blocks
     return True
 
 
@@ -4209,22 +4298,32 @@ def _peak(device, reset=False) -> int:
 
 
 def _world_trainer(out_dir, steps, mesh=None, share_ref=False,
-                   device="cuda"):
+                   device="cuda", kind="qwen"):
+    """The --world runs' trainer: Qwen2.5-VL-7B at full depth on
+    FSDP_WORLD_ROWS video rows ("qwen"), or ARIA_25B under moe_impl "ep" on
+    EP_WORLD_ROWS image rows, its LM cut to EP_WORLD_LM_LAYERS at capacity
+    factor EP_WORLD_CF ("aria") or whole at the default 2.0 ("aria full")."""
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
+    if kind != "qwen":
+        cfg = (aria_ep_cfg(28) if kind == "aria full"
+               else aria_ep_cfg(EP_WORLD_LM_LAYERS, cf=EP_WORLD_CF))
+        return aria_ep_trainer(cfg, device, steps, out_dir, mesh=mesh,
+                               share_ref=share_ref, rows=EP_WORLD_ROWS,
+                               rollout_batch_size=EP_WORLD_ROWS)
     return make_trainer(QWEN25_VL_7B, device, steps, out_dir,
                         videos=(FULL_VIDEOS[0],) * FSDP_WORLD_ROWS,
                         mesh=mesh, share_ref=share_ref,
                         rollout_batch_size=FSDP_WORLD_ROWS)
 
 
-def _world_reference(rank, out, device="cuda"):
+def _world_reference(rank, out, device="cuda", kind="qwen"):
     """--world N's reference, one process on card 0 without a mesh: step
     1's rollout, loss and the selected gradients (no update: the reference
     model is the policy's own tensors and no moments are kept) -> out/
     ref.pt."""
     trainer, names = _world_trainer(out + "/ref", 1, share_ref=True,
-                                    device=device)
+                                    device=device, kind=kind)
     trainer.opt_state = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -4244,7 +4343,8 @@ def _world_reference(rank, out, device="cuda"):
         loss, metrics, grads = step_fn.loss_and_grads(
             params, batch["ref_logps"],
             {k: v for k, v in batch.items() if k != "ref_logps"},
-            kw["grid_thw"], kw["num_generations"], select=_world_selected)
+            kw["grid_thw"], kw["num_generations"],
+            select=lambda n: _world_selected(n, kind))
         _sync(device)
         rec.update(loss=float(loss), grad_s=time.perf_counter() - t,
                    adv_scale=float(batch["advantages"].abs().mean()),
@@ -4263,20 +4363,25 @@ def _world_reference(rank, out, device="cuda"):
         f"loss {rec['loss']!r}, max_memory_allocated {gib(rec['peak'])}")
 
 
-def _world_rank(rank, out, device="cuda", shape=None):
+def _world_rank(rank, out, device="cuda", shape=None, kind="qwen",
+                compare=True):
     """One rank of --world N: fsdp over every rank (or the mesh `shape`,
-    tp slices included), the full-depth trainer on this rank's share of
-    the FSDP_WORLD_ROWS rows, two steps; step 1 replays the reference's
-    completions (its own rollout still runs and is timed) and its
-    gradients are held against the reference's per group."""
+    tp slices included), the trainer of `kind` (_world_trainer) on this
+    rank's share of its rows, two steps; with `compare`, step 1 replays
+    the reference's completions (its own rollout still runs and is timed)
+    and its gradients are held against the reference's per group."""
     from spacer_tpu_torch.parallel import fsdp, multihost
     from spacer_tpu_torch.parallel.mesh import create_mesh
 
     world = multihost.process_count()
     mesh = create_mesh(shape) if shape else multihost.global_mesh()
+    # at full Aria depth the reference model is the policy's own tensors
+    # (its 12.6 GB a rank would not leave room for the tower's backward)
     trainer, names = _world_trainer(f"{out}/rank{rank}", 2, mesh=mesh,
-                                    device=device)
-    ref = torch.load(out + "/ref.pt", weights_only=False, mmap=True)
+                                    device=device, kind=kind,
+                                    share_ref=kind == "aria full")
+    ref = (torch.load(out + "/ref.pt", weights_only=False, mmap=True)
+           if compare else {"grads": {}})
     raw = fsdp.raw_leaves(trainer.params)
     rec = {"rollout_s": [], "update_s": [], "loss": [], "peak": []}
     generate, step_fn = trainer.sampler.generate, trainer.step_fn
@@ -4288,7 +4393,8 @@ def _world_rank(rank, out, device="cuda", shape=None):
         t = time.perf_counter()
         res = generate(*a, **kw)
         rec["rollout_s"].append(time.perf_counter() - t)
-        return ref["rollout"] if len(rec["rollout_s"]) == 1 else res
+        return (ref["rollout"] if compare and len(rec["rollout_s"]) == 1
+                else res)
 
     def sink(update, grads, gnorm):
         if update:
@@ -4328,25 +4434,46 @@ def _world_rank(rank, out, device="cuda", shape=None):
     timed.ref_logps_fn = step_fn.ref_logps_fn
     GradTap(trainer.tx, sink)
     trainer.sampler.generate, trainer.step_fn = replayed, timed
-    rows = trainer.dataset[rank * FSDP_WORLD_ROWS // world:
-                           (rank + 1) * FSDP_WORLD_ROWS // world]
+    rec["apply_s"] = []
+    tapped = trainer.tx.apply
+
+    def timed_apply(*a, **kw):
+        # the optimizer's update applied (step 1's includes the gradient
+        # check above)
+        _sync(device)
+        t = time.perf_counter()
+        res = tapped(*a, **kw)
+        _sync(device)
+        rec["apply_s"].append(time.perf_counter() - t)
+        return res
+
+    trainer.tx.apply = timed_apply
+    n_rows = len(trainer.dataset)
+    rows = trainer.dataset[rank * n_rows // world:(rank + 1) * n_rows // world]
     multihost.reset_collective_stats()
     multihost.time_collectives(True)
-    for step in range(2):
-        _peak(device, reset=True)
-        trainer.training_step(rows, np.random.default_rng(step))
-        rec["peak"].append(_peak(device))
+    with DropLog() as drops:
+        for step in range(2):
+            _peak(device, reset=True)
+            trainer.training_step(rows, np.random.default_rng(step))
+            rec["peak"].append(_peak(device))
     rec["collectives"] = multihost.collective_stats()
+    rec["drops"] = drops.counts()
     # replicated tensors' groups are summed on rank 0 only, the shards' and
     # tp slices' on every rank of data index 0
     groups = sorted(set().union(*multihost.all_gather_objects(sorted(sums))))
-    vec = torch.stack([sums[g] for g in groups])
-    multihost.all_reduce(vec, None)
-    rec["cos"] = {g: float(d / math.sqrt(x * y)) for g, (d, x, y)
-                  in zip(groups, vec.tolist())}
-    rec["ref_loss"], rec["adv_scale"] = ref["loss"], ref["adv_scale"]
-    rec["ref_rollout_s"], rec["ref_grad_s"] = ref["rollout_s"], ref["grad_s"]
-    rec["ref_peak"] = ref["peak"]
+    rec["cos"] = {}
+    if groups:
+        vec = torch.stack([sums[g] for g in groups])
+        multihost.all_reduce(vec, None)
+        # two zero gradients (a step whose advantages all vanish) agree
+        rec["cos"] = {g: (float(d / math.sqrt(x * y)) if x * y > 0
+                          else float(x == y)) for g, (d, x, y)
+                      in zip(groups, vec.tolist())}
+    if compare:
+        rec["ref_loss"], rec["adv_scale"] = ref["loss"], ref["adv_scale"]
+        rec["ref_rollout_s"] = ref["rollout_s"]
+        rec["ref_grad_s"], rec["ref_peak"] = ref["grad_s"], ref["peak"]
     parts = multihost.all_gather_objects(rec)
     if rank == 0:
         torch.save(parts, out + "/world.pt")
@@ -4840,6 +4967,646 @@ def tp_world_phase(worlds, device="cuda"):
         raise RuntimeError("phase 13 --world: " + "; ".join(problems))
 
 
+# Phase 14: expert parallelism (spacer_tpu_torch/parallel/expert.py) and
+# Aria's tensor parallelism at world 1 over NCCL: ARIA_25B widths with the
+# LM cut to ARIA_EP_LM_LAYERS of 28 layers, moe_impl "ep" at its default
+# capacity factor 2.0; the training run takes ARIA_EP_TRAIN_G completions
+# of up to ARIA_EP_TRAIN_NEW_TOKENS on phase 11's image.
+ARIA_EP_LM_LAYERS = 4
+ARIA_EP_TRAIN_G, ARIA_EP_TRAIN_NEW_TOKENS = 4, 64
+# the collectives the world-1 mesh runs must count (the ep and tp ones are
+# counted and not issued at world 1)
+EP_SERVE_COLLECTIVES = ("ep_all_gather", "ep_reduce_scatter",
+                        "tp_all_reduce", "tp_all_gather")
+EP_TRAIN_COLLECTIVES = EP_SERVE_COLLECTIVES + ("all_gather", "reduce_scatter",
+                                               "all_reduce")
+# --phases 14 --world N[,M] (a development run on a host with that many
+# cards): serving at full depth over tp N against the 1-card run, every
+# sampled step's logits at cosine >= EP_WORLD_COS_TOL; GRPO steps on
+# EP_WORLD_ROWS image rows: with the LM cut to EP_WORLD_LM_LAYERS at
+# capacity factor EP_WORLD_CF (nothing drops) against world 1 (step-1
+# gradients of LM layers EP_WORLD_LAYERS, tower layer 0 and every tensor
+# outside the lists, per group at cosine >= FSDP_WORLD_COS_TOL), and at
+# full depth over (data 1, fsdp 4, tp 1) with its numbers only (its
+# reference model the policy's own tensors).
+EP_WORLD_COS_TOL = 0.999
+EP_WORLD_ROWS = 4
+EP_WORLD_LM_LAYERS = 4
+# C >= T at a capacity factor >= E / K (64 / 6): no assignment can drop
+# (at 8.0, 4.3 % of this step's assignments dropped on four H100s: the
+# pads and the image's projector tokens route alike)
+EP_WORLD_CF = 11.0
+EP_WORLD_LAYERS = (0,)
+
+
+def aria_ep_cfg(layers: int = ARIA_EP_LM_LAYERS, impl: str = "ep",
+                cf: float | None = None):
+    """ARIA_25B with its LM cut to `layers`, moe_impl `impl` (and a capacity
+    factor `cf`, else the config's 2.0)."""
+    from spacer_tpu_torch.models.aria import ARIA_25B
+
+    text = dataclasses.replace(ARIA_25B.text, num_layers=layers, moe_impl=impl)
+    if cf is not None:
+        text = dataclasses.replace(text, moe_capacity_factor=cf)
+    return dataclasses.replace(ARIA_25B, text=text)
+
+
+class DropLog:
+    """Counts the MoE's kept and dropped assignments (ops/moe
+    kept_expert_ffn's `keep`: under "ep" with rows split, an owner sees its
+    ep group's assignments), summed on the device and read once; with
+    `record`, keeps each call's keep mask too (`keeps`)."""
+
+    def __init__(self, record: bool = False):
+        self.record, self.keeps = record, []
+
+    def __enter__(self):
+        import spacer_tpu_torch.ops.moe as moe
+
+        self.moe, self.saved = moe, moe.kept_expert_ffn
+        self.dropped, self.total, self.calls = 0, 0, 0
+
+        def counted(fc1, fc2, xt, code, keep, *a):
+            self.dropped = self.dropped + (~keep).sum()
+            self.total += keep.numel()
+            self.calls += 1
+            if self.record:
+                self.keeps.append(keep.detach().clone())
+            return self.saved(fc1, fc2, xt, code, keep, *a)
+
+        moe.kept_expert_ffn = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.kept_expert_ffn = self.saved
+        return False
+
+    def counts(self) -> dict:
+        return {"dropped": int(self.dropped), "assignments": self.total,
+                "calls": self.calls}
+
+
+class ForcedDrops:
+    """The dropless MoE ("ragged") with an ep run's dropped assignments
+    forced: ops/moe.combine, which both impls call once per MoE call,
+    weights a dropped assignment's output by 0 (`keeps`: that run's keep
+    masks in call order)."""
+
+    def __init__(self, keeps):
+        self.keeps, self.n = keeps, 0
+
+    def __enter__(self):
+        import spacer_tpu_torch.ops.moe as moe
+
+        self.moe, self.saved = moe, moe.combine
+
+        def forced(y, scores):
+            keep = self.keeps[self.n].to(y.device)
+            self.n += 1
+            return self.saved(y * keep[:, None].to(y.dtype), scores)
+
+        moe.combine = forced
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.combine = self.saved
+        return False
+
+
+def keep_rule_problems(routes, keeps, cfg) -> int:
+    """The calls whose kept assignments are not JAX's rule on their own
+    routes: an assignment is kept iff its position in its expert, counted
+    in flat (token, k) order (the one-hot cumsum of spacer_tpu's
+    moe_mlp_ep), is below C = moe_capacity(T, K, E, capacity factor)."""
+    from spacer_tpu_torch.ops.moe import moe_capacity
+
+    t, bad = cfg.text, 0
+    for idx, keep in zip(routes, keeps):
+        idx = idx.to(keep.device)
+        T, K = idx.shape
+        flat = idx.reshape(-1)
+        oh = torch.nn.functional.one_hot(flat, t.moe_num_experts)
+        pos = (oh.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+        C = moe_capacity(T, K, t.moe_num_experts, t.moe_capacity_factor)
+        bad += int(not torch.equal(pos < C, keep))
+    return bad + abs(len(routes) - len(keeps))
+
+
+def cosine_line(a_steps, b_steps) -> str:
+    cos = torch.stack([torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
+                       for a, b in zip(a_steps, b_steps)])
+    return (f"logits cosine min {float(cos.min()):.5f} median "
+            f"{float(cos.median()):.5f} over {len(cos)} sampled steps")
+
+
+class IssuedCollectives:
+    """Counts the torch.distributed collectives actually issued (the
+    counted-but-not-issued ones of a group of one never reach them)."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_to_all_single", "broadcast", "all_gather_object",
+             "broadcast_object_list")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, self.saved, self.calls = dist, {}, collections.Counter()
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(dist, name)
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+        return False
+
+
+def aria_ep_trainer(cfg, device, steps: int, out_dir: str, mesh=None,
+                    share_ref=False, rows: int = 1, **overrides):
+    """make_trainer's Aria counterpart: random bf16 weights from seed 0
+    at `cfg`, `rows` rows of phase 11's image, ARIA_EP_TRAIN_G completions
+    of up to ARIA_EP_TRAIN_NEW_TOKENS, int8_kv rollouts, beta 0.04, int8
+    moments; with a `mesh` the params are sharded onto it by
+    ARIA_PARTITION_RULES and Aria's tp plan (the experts placed by expert
+    under moe_impl "ep"), the full tensors freed before the trainer copies
+    its reference.  -> (trainer, the params' paths)."""
+    from spacer_tpu_torch.models.aria import init_params
+    from spacer_tpu_torch.models.registry import get_family
+    from spacer_tpu_torch.parallel.partition import (
+        ARIA_PARTITION_RULES,
+        aria_tp_plan,
+        shard_params,
+    )
+    from spacer_tpu_torch.rewards import accuracy_reward, format_reward
+    from spacer_tpu_torch.train.step import param_leaves
+    from spacer_tpu_torch.train.trainer import SGRLVRConfig, SGRLVRTrainer
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    names = [n for n, _ in param_leaves(params)]
+    log(f"aria ep train init: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f}"
+        f" B params bf16, LM {cfg.text.num_layers} layers, moe_impl "
+        f"{cfg.text.moe_impl} cf {cfg.text.moe_capacity_factor}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if mesh is not None:
+        params = shard_params(params, mesh, ARIA_PARTITION_RULES,
+                              aria_tp_plan(cfg))[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+    family = get_family("aria")
+    root = pathlib.Path(__file__).resolve().parent / "build" / "smoke_aria"
+    image = aria_image(root)
+    data = [{"problem": f"How many chairs are in the room? ({i})",
+             "problem_type": "numerical", "solution": "<answer>3</answer>",
+             "path": image, "data_type": "image", "data_source": "synthetic",
+             "problem_id": i,
+             "prompt": [{"role": "user", "content": [
+                 {"type": "image"},
+                 {"type": "text", "text": "How many chairs are in the room?"}]}]}
+            for i in range(rows)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = SGRLVRConfig(
+        num_generations=ARIA_EP_TRAIN_G,
+        max_completion_length=ARIA_EP_TRAIN_NEW_TOKENS, temperature=1.0,
+        top_p=0.95, beta=0.04, moment_dtype="int8", max_steps=steps,
+        num_train_epochs=steps, logging_steps=1, save_steps=10 ** 9,
+        skip_failed_steps=False, output_dir=out_dir, seed=0)
+    args = dataclasses.replace(args, **overrides)
+    trainer = SGRLVRTrainer(
+        cfg, params, family.make_processor(
+            family.mock_tokenizer(cfg.text.vocab_size), cfg),
+        [synthetic_reward, accuracy_reward, format_reward], data, args,
+        mesh=mesh, ref_params=params if share_ref else None)
+    return trainer, names
+
+
+def aria_ep_requests(cfg, proc):
+    """Phase 11's four text conversations and its image request (the
+    Sampler.generate inputs of one ARIA_IMAGE_HW image)."""
+    from spacer_tpu_torch.models.registry import aria_positions, get_family
+
+    rng = np.random.default_rng(11)
+    words = [f"word{i}" for i in range(5000)]
+    msgs = [[{"role": "user", "content": " ".join(rng.choice(words, nw))}]
+            for nw in (200, 150, 190, 120)]
+    root = pathlib.Path(__file__).resolve().parent / "build" / "smoke_aria"
+    enc = proc.process_messages([[{"role": "user", "content": [
+        {"type": "image", "image": aria_image(root)},
+        {"type": "text", "text": "how many chairs are in the room"}]}]])
+    vk, _ = get_family("aria").pack_vision(enc)
+    pos, deltas = aria_positions(cfg, enc["input_ids"], enc["attention_mask"])
+    image = ((enc["input_ids"], enc["attention_mask"]),
+             dict(position_ids=pos, deltas=deltas, vision_kwargs=vk,
+                  num_generations=1, max_new_tokens=ARIA_NEW_TOKENS,
+                  temperature=0.0))
+    return msgs, image
+
+
+def aria_ep_serve_runs(cfg, params, proc, msgs, image, replay=None,
+                       static=False, force_drops=False) -> dict:
+    """Aria's serving on `params` (sharded or not): the text requests
+    through generate_many at bf16 ("serve") and int4_kv ("serve
+    int4_kv"), the image through Sampler.generate ("image") and, with
+    `static`, one static QwenEngine.generate of the texts ("static");
+    with `replay` (an earlier call's result) each run takes its tokens and
+    MoE routes, and with `force_drops` its dropped assignments
+    (ForcedDrops).  -> {run: tokens and logits per sampled step, routes
+    and keep masks (host), launches, decode ms per step, peak, wall, ep /
+    tp collectives counted, the torch.distributed calls issued, drops}."""
+    from spacer_tpu_torch.evalharness import QwenEngine
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.sampler import Sampler
+
+    dev = params["model"]["embed_tokens"]["embedding"].device
+    kw = dict(max_new_tokens=ARIA_NEW_TOKENS, temperature=0.0, slots=4)
+    runs = {}
+    names = [("serve", None), ("serve int4_kv", "int4_kv"), ("image", None)]
+    for run, quant in names + ([("static", None)] if static else []):
+        rep = routes = None
+        if replay is not None:
+            rep = [t.to(dev) for t in replay[run]["tokens"]]
+            routes = [t.to(dev) for t in replay[run]["routes"]]
+        probe = (SampleTap(rep) if run == "static" else SampleLog(rep)
+                 if run == "image" else SliceProbe(replay=rep))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        multihost.reset_collective_stats()
+        forced = (ForcedDrops(replay[run]["keeps"]) if force_drops
+                  else contextlib.nullcontext())
+        with probe, RouteLog(replay=routes) as rl, DropLog(True) as drops, \
+                forced, IssuedCollectives() as issued:
+            t0 = time.perf_counter()
+            if run == "image":
+                Sampler(cfg, eos_token_id=proc.eos_token_id,
+                        pad_token_id=proc.pad_token_id).generate(
+                    *image[0], params, **image[1])
+            elif run == "static":
+                QwenEngine(cfg, params, proc).generate(
+                    msgs, max_new_tokens=ARIA_NEW_TOKENS, temperature=0.0)
+            else:
+                QwenEngine(cfg, params, proc, decode_quant=quant
+                           ).generate_many(msgs, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[run] = dict(
+            tokens=[t.cpu() for t in probe.tokens],
+            logits=[x.cpu() for x in probe.logits],
+            routes=[t.cpu() for t in rl.idx], flips=rl.flips,
+            keeps=[k.cpu() for k in drops.keeps],
+            counts=launch_counts(),
+            decode_ms=list(getattr(probe, "decode_ms", [])),
+            peak=torch.cuda.max_memory_allocated(), wall=wall,
+            collectives={k: v["calls"] for k, v in
+                         multihost.collective_stats().items()
+                         if k.startswith(("ep_", "tp_"))},
+            issued=dict(issued.calls), drops=drops.counts())
+        del probe
+    return runs
+
+
+def aria_moe_ms(params, cfg, M: int = 4) -> tuple:
+    """One MoE layer (layer 0's moe_mlp under cfg's impl) on M decode
+    tokens, as the serving decode calls it (under the active mesh's tp,
+    every rank the same rows) -> (CUDA-event ms per call, median of
+    TIMED_RUNS: under tp the ranks run in lockstep through its all-reduce;
+    device ms from torch.profiler, which under tp also counts the NCCL
+    kernel's wait for the other ranks' hosts)."""
+    from spacer_tpu_torch.ops import moe
+    from spacer_tpu_torch.parallel import expert
+
+    from spacer_tpu_torch.parallel.fsdp import gather_params
+
+    t = cfg.text
+    mlp = gather_params(params["model"]["layers"][0]["mlp"])
+    dev = mlp["router"]["kernel"].device
+    x = torch.randn((M, 1, t.hidden_size), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev).to(mlp["router"]["kernel"].dtype)
+    I = t.intermediate_size
+
+    def call():
+        with torch.no_grad(), expert.rows(expert.EVERY_RANK):
+            return moe.moe_mlp(mlp, x, topk=t.moe_topk, impl=t.moe_impl,
+                               capacity_factor=t.moe_capacity_factor,
+                               widths=(I, I * t.moe_num_shared_experts))
+
+    call()
+    return median_ms(call), device_ms(call)
+
+
+def aria_ep_phase(device="cuda") -> dict:
+    """Phase 14: expert parallelism and Aria's tensor parallelism at world
+    1 over NCCL (parallel.multihost.initialize() from torchrun's
+    environment for rank 0 of 1; create_mesh({"data": 1, "fsdp": 1, "tp":
+    1})), ARIA_25B widths with the LM cut to ARIA_EP_LM_LAYERS layers,
+    random bf16 weights from seed 0, moe_impl "ep".  Serving
+    (aria_ep_serve_runs: phase 11's 4 text requests through generate_many
+    at bf16 and int4_kv, its image through Sampler.generate) unsharded,
+    then under moe_impl "ragged" with the ep run's tokens and routes
+    forced (gate: every sampled step's logits at cosine >= SLICE_COS_TOL;
+    the assignments the capacity factor 2.0 dropped are reported), then
+    over the mesh with the Aria tp plan and the experts placed by expert,
+    the non-expert fsdp shards gathered as the serve CLI does (gate:
+    tokens and every sampled step's logits bitwise equal, the ep and tp
+    collectives counted and no torch.distributed collective issued).  Then
+    two GRPO steps unsharded and over the mesh under phase 12's gate
+    (sharded_run_problems).  Returns the launches of the mesh's paths."""
+    import torch.distributed as dist
+
+    from spacer_tpu_torch.cli.common import serving_params
+    from spacer_tpu_torch.models.aria import init_params
+    from spacer_tpu_torch.models.registry import get_family
+    from spacer_tpu_torch.parallel import multihost, tp
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+    from spacer_tpu_torch.parallel.partition import (
+        ARIA_PARTITION_RULES,
+        aria_tp_plan,
+        shard_params,
+    )
+
+    t_phase = time.perf_counter()
+    tp.set_mesh(None)
+    world1_env()
+    multihost.initialize(device=device)
+    mesh = create_mesh({"data": 1, "fsdp": 1, "tp": 1})
+    cfg = aria_ep_cfg()
+    family = get_family("aria")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    proc = family.make_processor(family.mock_tokenizer(cfg.text.vocab_size),
+                                 cfg)
+    msgs, image = aria_ep_requests(cfg, proc)
+    plain = aria_ep_serve_runs(cfg, params, proc, msgs, image)
+    ragged_cfg = aria_ep_cfg(impl="ragged")
+    ragged = aria_ep_serve_runs(ragged_cfg, params, proc, msgs, image,
+                                replay=plain, force_drops=True)
+    dropless = aria_ep_serve_runs(ragged_cfg, params, proc, msgs, image,
+                                  replay=plain)
+    sp = serving_params(shard_params(params, mesh, ARIA_PARTITION_RULES,
+                                     aria_tp_plan(cfg))[0], mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = aria_ep_serve_runs(cfg, sp, proc, msgs, image)
+    moe_ms = aria_moe_ms(sp, cfg)
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems, paths = [], {}
+    kernels = {"serve": ARIA_SERVE_KERNELS,
+               "serve int4_kv": ARIA_SERVE_INT4_KV_KERNELS,
+               "image": ("K1", "K2")}
+    for run, a in plain.items():
+        b, r = sharded[run], ragged[run]
+        same_tokens = (len(a["tokens"]) == len(b["tokens"]) and all(
+            torch.equal(x, y) for x, y in zip(a["tokens"], b["tokens"])))
+        same_logits = (len(a["logits"]) == len(b["logits"]) and all(
+            torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])))
+        d = a["drops"]
+        log(f"ep world 1 [{run}]: tokens equal {same_tokens}, logits bitwise "
+            f"{same_logits} over {len(b['logits'])} sampled steps | decode ms "
+            f"per step median, mesh vs none: "
+            + (f"{statistics.median(b['decode_ms']):.2f} vs "
+               f"{statistics.median(a['decode_ms']):.2f}" if a["decode_ms"]
+               else "not measured")
+            + f" | wall {b['wall']:.2f} vs {a['wall']:.2f} s | peak "
+            f"{gib(b['peak'])} vs {gib(a['peak'])} | counted {b['collectives']}"
+            f" | issued {b['issued']} | launches {b['counts']} | capacity "
+            f"factor {cfg.text.moe_capacity_factor}: {d['dropped']} of "
+            f"{d['assignments']} assignments dropped over {d['calls']} MoE "
+            f"calls")
+        bad = keep_rule_problems(a["routes"], a["keeps"], cfg)
+        log(f"ep world 1 [{run}]: kept assignments against JAX's rule "
+            f"(position in flat order < C) on the run's own routes: {bad} "
+            f"of {len(a['keeps'])} MoE calls differ | the drops' effect, ep "
+            f"vs ragged with the routes forced and nothing dropped: "
+            + cosine_line(a["logits"], dropless[run]["logits"]))
+        if bad:
+            problems.append(f"{run}: {bad} MoE calls keep other assignments "
+                            "than JAX's rule")
+        logits_cosine(f"ep vs ragged [{run}]", a["logits"], r["logits"],
+                      f" | ragged with the ep run's tokens, routes and drops "
+                      f"forced ({r['flips']} routed rows overridden)")
+        if not (same_tokens and same_logits):
+            problems.append(f"{run}: tokens or logits differ")
+        missing = [k for k in EP_SERVE_COLLECTIVES
+                   if not b["collectives"].get(k)]
+        if missing or b["issued"]:
+            problems.append(f"{run}: collectives {missing} not counted, or "
+                            f"issued {b['issued']}")
+        if min(b["counts"][k] for k in kernels[run]) < 1:
+            problems.append(f"{run}: a kernel of the path was never launched")
+        paths[f"ep world 1 {run}"] = b["counts"]
+    log("ep world 1: one MoE layer (moe_impl ep, 64 experts, M = 4 decode "
+        f"tokens) {moe_ms[0]:.4f} ms by events, device ms "
+        + ("not measured" if moe_ms[1] is None else f"{moe_ms[1]:.4f}"))
+    del plain, ragged, dropless, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    tp.set_mesh(None)
+    plain = fsdp_train_run(cfg, str(root / "smoke_ep_plain"), device=device,
+                           make=aria_ep_trainer)
+    shard = fsdp_train_run(cfg, str(root / "smoke_ep_sharded"), mesh=mesh,
+                           ref=plain, device=device, make=aria_ep_trainer)
+    problems += sharded_run_problems(plain, shard, "ep", EP_TRAIN_COLLECTIVES,
+                                     ARIA_TRAIN_KERNELS)
+    paths["ep world 1 train"] = shard["counts"]
+    del plain, shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    tp.set_mesh(None)
+    shutil.rmtree(root / "smoke_aria", ignore_errors=True)
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        raise RuntimeError("phase 14: " + "; ".join(problems))
+    return paths
+
+
+def _aria_world_reference(rank, out, device="cuda"):
+    """--phases 14 --world's reference, one process on card 0 without a
+    mesh: full-depth ARIA_25B (moe_impl "ep") serving (aria_ep_serve_runs
+    with the static generate) -> out/serve_ref.pt, one MoE layer's decode
+    ms, then the GRPO reference at EP_WORLD_LM_LAYERS layers and capacity
+    factor EP_WORLD_CF (_world_reference -> out/ref.pt)."""
+    from spacer_tpu_torch.models.aria import init_params
+    from spacer_tpu_torch.models.registry import get_family
+
+    cfg = aria_ep_cfg(28)
+    family = get_family("aria")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    proc = family.make_processor(family.mock_tokenizer(cfg.text.vocab_size),
+                                 cfg)
+    msgs, image = aria_ep_requests(cfg, proc)
+    runs = aria_ep_serve_runs(cfg, params, proc, msgs, image, static=True)
+    runs["moe_ms"] = aria_moe_ms(params, cfg)
+    torch.save(runs, out + "/serve_ref.pt")
+    for run, r in runs.items():
+        if run != "moe_ms":
+            log(f"ep world reference [{run}] (1 card, 28 layers): decode ms "
+                "per step " + (f"{statistics.median(r['decode_ms']):.2f}"
+                               if r["decode_ms"] else "not measured")
+                + f", wall {r['wall']:.2f} s, max_memory_allocated "
+                  f"{gib(r['peak'])}, drops {r['drops']}")
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    _world_reference(rank, out, device, kind="aria")
+
+
+def _aria_world_serve(rank, out, device="cuda"):
+    """One rank of --phases 14 --world N's serving: full-depth ARIA_25B
+    split over tp = N (the Aria tp plan, the non-expert fsdp shards
+    gathered once), the reference's runs replayed (its tokens and routes)
+    with every sampled step's logits held against its by cosine
+    -> out/serve_world.pt (rank 0)."""
+    from spacer_tpu_torch.cli.common import serving_params
+    from spacer_tpu_torch.models.aria import init_params
+    from spacer_tpu_torch.models.registry import get_family
+    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+    from spacer_tpu_torch.parallel.partition import (
+        ARIA_PARTITION_RULES,
+        aria_tp_plan,
+        shard_params,
+    )
+
+    world = multihost.process_count()
+    mesh = create_mesh({"data": 1, "fsdp": 1, "tp": world})
+    ref = torch.load(out + "/serve_ref.pt", weights_only=False)
+    cfg = aria_ep_cfg(28)
+    family = get_family("aria")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    params = serving_params(shard_params(params, mesh, ARIA_PARTITION_RULES,
+                                         aria_tp_plan(cfg))[0], mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = family.make_processor(family.mock_tokenizer(cfg.text.vocab_size),
+                                 cfg)
+    msgs, image = aria_ep_requests(cfg, proc)
+    runs = aria_ep_serve_runs(cfg, params, proc, msgs, image, replay=ref,
+                              static=True)
+    rec = {"moe_ms": aria_moe_ms(params, cfg)}
+    for run, r in runs.items():
+        cos = [float(torch.nn.functional.cosine_similarity(
+            a, b, dim=-1).min()) for a, b in zip(r["logits"],
+                                                 ref[run]["logits"])]
+        rec[run] = {k: r[k] for k in ("decode_ms", "peak", "wall",
+                                      "collectives", "counts", "drops")}
+        rec[run].update(cos_min=min(cos), cos_median=statistics.median(cos),
+                        steps=len(cos), ref_steps=len(ref[run]["logits"]))
+    parts = multihost.all_gather_objects(rec)
+    if rank == 0:
+        torch.save(parts, out + "/serve_world.pt")
+
+
+def aria_world_phase(worlds, device="cuda"):
+    """`--phases 14 --world N[,M]`: the reference on card 0
+    (_aria_world_reference), then for each N: N ranks serving the
+    full-depth model split over tp = N (_aria_world_serve: logits cosine
+    >= EP_WORLD_COS_TOL at every sampled step with the reference's tokens
+    and routes replayed; per-rank peaks, decode ms per step, the MoE
+    layer's decode ms); a GRPO step under "ep" at EP_WORLD_LM_LAYERS layers
+    and capacity factor EP_WORLD_CF (nothing drops) over (1, 2, 2) at N =
+    4, else (1, N, 1), against world 1 (phase 12's _world_rank gate); and
+    at N = 4 two GRPO steps at full depth over (data 1, fsdp 4, tp 1),
+    which one card cannot hold: per-rank peaks, rollout / update / apply
+    s, the ep exchanges' calls, bytes and CUDA-event ms per step, drops."""
+    out = str(pathlib.Path(__file__).resolve().parent / "build"
+              / "smoke_ep_world")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    log("ep world cards (nvidia-smi): "
+        + " | ".join(smi.stdout.strip().splitlines()[:max(worlds)]))
+    from spacer_tpu_torch.parallel.multihost import launch_local
+
+    os.environ["PYTHONHASHSEED"] = "0"
+    # the ranks' allocators grow segments rather than keep fragments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    launch_local(_aria_world_reference, 1, args=(out, device), device=device,
+                 timeout=1800)
+    log(f"ep world reference: {time.perf_counter() - t0:.1f} s")
+    ref = torch.load(out + "/serve_ref.pt", weights_only=False)
+    problems = []
+    for world in worlds:
+        t0 = time.perf_counter()
+        launch_local(_aria_world_serve, world, args=(out, device),
+                     device=device, timeout=1800)
+        parts = torch.load(out + "/serve_world.pt", weights_only=False)
+        for r, part in enumerate(parts):
+            (ev, dev), (ev1, dev1) = part["moe_ms"], ref["moe_ms"]
+            log(f"tp={world} rank {r}: one MoE layer (ep, M = 4) {ev:.4f} ms "
+                f"by events vs 1 card {ev1:.4f}; device ms (NCCL waits "
+                "included) " + ("not measured" if dev is None
+                                 else f"{dev:.4f}")
+                + " vs " + ("not measured" if dev1 is None else f"{dev1:.4f}"))
+            for run in ("serve", "serve int4_kv", "image", "static"):
+                p, a = part[run], ref[run]
+                ms = (f"{statistics.median(p['decode_ms']):.2f} vs "
+                      f"{statistics.median(a['decode_ms']):.2f}"
+                      if p["decode_ms"] else "not measured")
+                log(f"tp={world} rank {r} [{run}]: logits cosine min "
+                    f"{p['cos_min']:.5f} median {p['cos_median']:.5f} over "
+                    f"{p['steps']} sampled steps (reference {p['ref_steps']}; "
+                    f"tol {EP_WORLD_COS_TOL}) | decode ms per step median vs "
+                    f"1 card: {ms} | wall {p['wall']:.2f} vs {a['wall']:.2f} "
+                    f"s | max_memory_allocated {gib(p['peak'])} vs "
+                    f"{gib(a['peak'])} | collectives {p['collectives']} | "
+                    f"drops {p['drops']}")
+                if not (p["steps"] == p["ref_steps"]
+                        and p["cos_min"] >= EP_WORLD_COS_TOL):
+                    problems.append(f"tp={world} {run} rank {r}: cosine "
+                                    f"{p['cos_min']} over {p['steps']} steps")
+        log(f"tp={world} serving: {time.perf_counter() - t0:.1f} s")
+    train_world = max(worlds)
+    shape = ({"data": 1, "fsdp": 2, "tp": 2} if train_world == 4
+             else {"data": 1, "fsdp": train_world, "tp": 1})
+    t0 = time.perf_counter()
+    launch_local(_world_rank, train_world, args=(out, device, shape, "aria"),
+                 device=device, timeout=1800)
+    try:
+        report_world_ranks(out, train_world, f"ep {shape}")
+    except RuntimeError as e:
+        problems.append(str(e))
+    log(f"ep {shape}: drops per rank "
+        + str([p["drops"] for p in torch.load(out + "/world.pt",
+                                                weights_only=False)]))
+    log(f"ep {shape} step: {time.perf_counter() - t0:.1f} s")
+    if train_world == 4:
+        t0 = time.perf_counter()
+        launch_local(_world_rank, 4, args=(out, device, {"fsdp": 4},
+                                           "aria full", False),
+                     device=device, timeout=2400)
+        parts = torch.load(out + "/world.pt", weights_only=False)
+        for r, p in enumerate(parts):
+            log(f"ep full depth (1, 4, 1) rank {r}: rollout s per step "
+                f"{[round(x, 2) for x in p['rollout_s']]}, update s per step "
+                f"{[round(x, 2) for x in p['update_s']]}, apply s per step "
+                f"{[round(x, 2) for x in p['apply_s']]}, peak per step "
+                f"{[gib(x) for x in p['peak']]}, loss {p['loss']}, drops "
+                f"{p['drops']}")
+            log(f"ep full depth (1, 4, 1) rank {r}: collectives per step: "
+                + _collective_line(p["collectives"], 2))
+            if not all(math.isfinite(x) for x in p["loss"]):
+                problems.append(f"full depth rank {r}: loss {p['loss']}")
+        log(f"ep full depth (1, 4, 1): {time.perf_counter() - t0:.1f} s")
+    if problems:
+        raise RuntimeError("phase 14 --world: " + "; ".join(problems))
+
+
 def cli_main(mode: str, argv):
     """`chip_smoke.py --cli-step ARGS` / `--cli-serve ARGS` (torchrun_self's
     targets): spacer_tpu_torch.cli.train_sg_rlvr.main(ARGS) /
@@ -4862,7 +5629,8 @@ def main(argv=None):
     a development run that prints no kernels line and no result line
     (4c / 4d run on phase 4's params, 5c after phase 5).  `--phases 12
     --world N` runs phase 12's N-card variant instead (fsdp_world_phase),
-    `--phases 13 --world N[,M]` phase 13's (tp_world_phase)."""
+    `--phases 13 --world N[,M]` phase 13's (tp_world_phase), `--phases 14
+    --world N[,M]` phase 14's (aria_world_phase)."""
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] in (["--cli-step"], ["--cli-serve"]):
         return cli_main(argv[0], argv[1:])
@@ -4877,9 +5645,10 @@ def main(argv=None):
             raise SystemExit(f"phases {sorted(unknown)} unknown, or 5c "
                              f"without 5; known: {PHASES}")
         if len(argv) == 4:
-            if argv[2] != "--world" or phases not in (("12",), ("13",)):
-                raise SystemExit(usage + " (--world with --phases 12 or 13 "
-                                 "only)")
+            if argv[2] != "--world" or phases not in (("12",), ("13",),
+                                                      ("14",)):
+                raise SystemExit(usage + " (--world with --phases 12, 13 or "
+                                 "14 only)")
             world = [int(w) for w in argv[3].split(",")]
             if phases == ("12",) and len(world) != 1:
                 raise SystemExit("--phases 12 takes one --world")
@@ -4894,8 +5663,10 @@ def main(argv=None):
     if world is not None:
         if phases == ("12",):
             fsdp_world_phase(world[0])
-        else:
+        elif phases == ("13",):
             tp_world_phase(world)
+        else:
+            aria_world_phase(world)
         log(f"development run of phase {phases[0]} at world {world}: no "
             "kernels line, no result")
         return 0
@@ -4906,6 +5677,8 @@ def main(argv=None):
         results.update(check_aria_kernels())
     if "3d" in phases:
         check_tp_kernels()
+    if "3e" in phases:
+        check_aria_tp_kernels()
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
     paths = {}
@@ -4955,6 +5728,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "13" in phases:
         paths.update(tp_phase())
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "14" in phases:
+        paths.update(aria_ep_phase())
     counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     if phases != PHASES:

@@ -79,7 +79,8 @@ def serving_params(params, mesh):
     shards gathered once (serving holds no optimizer state; tp slices stay
     slices), so every batch group computes the same batch with the tp
     group's collectives only (JAX gathers on use instead: ROADMAP queue
-    C)."""
+    C).  Under moe_impl "ep" the experts stay on their owners
+    (parallel/expert.py) and each MoE layer exchanges over fsdp."""
     if mesh is None:
         return params
     from spacer_tpu_torch.parallel.fsdp import gather_params

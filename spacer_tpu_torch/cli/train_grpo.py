@@ -8,7 +8,10 @@ Example (random tiny weights, on the CPU):
 
 Runs on the card (`--device cuda`, the default) unless given `--device
 cpu`; every SGRLVRConfig field is a flag (`--gradient_accumulation_steps`,
-`--offload_opt_state`, `--remat dots_narrow`, ...).
+`--offload_opt_state`, `--remat dots_narrow`, ...).  Under torchrun with
+`--multihost true`, `--tp N` splits each model copy over N ranks, Aria's
+too (`--model_family aria`; SPACER_MOE_IMPL=ep places its experts by
+expert over the fsdp ranks: spacer_tpu_torch/scripts/run_aria_moe.sh).
 """
 
 from __future__ import annotations

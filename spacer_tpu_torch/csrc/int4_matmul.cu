@@ -31,8 +31,13 @@
 //     M read as zeros) and the row scale over the same K indices.  12.5 KB
 //     per stage (8 KB of it from device memory), 4 CTAs per SM (<= 128
 //     registers): up to 128 KB of weights in flight per SM, and nothing of
-//     x is staged by threads.  A chunk never straddles a K-block (K % 128
-//     == 0, splits start at multiples of 64 rows).
+//     x is staged by threads.  A chunk never straddles a K-block: splits
+//     start at multiples of 64 rows, and a K of several blocks has blocks
+//     of 256-1024 (half-blocks of whole chunks).  K % 64 == 0 suffices: a K
+//     that is not a multiple of 128 (832, Aria's shared down_proj at tp 4)
+//     is one block (bk = K) whose last chunk is half (32 packed rows); its
+//     boxes read zeros past K / 2 packed rows and past K, and the k16 loop
+//     stops at the last real row.
 //   - Products on tensor cores: mma.sync m16n8k16 bf16 with f32 sums, x as
 //     the 16-row A operand (M = 4 pads rows with zeros).  mma.sync and not
 //     wgmma: wgmma's 64-row A would be 4-16x padding, and its B must sit in
@@ -368,16 +373,16 @@ extern "C" int spacer_int4_matmul_ctas_per_sm() {
 // the three: out (M, N) f32.  `splits` CTAs of `rows` packed rows each (a
 // multiple of 64) cover K/2; with splits > 1, part holds splits * M * N f32
 // and tickets one zeroed int per (column tile, 16-row tile), which every
-// launch leaves zeroed.  K % 128 == 0 (chunks of 64 packed rows never
-// straddle a K-block), N % 16 == 0; x, packed and the scales 16-byte
-// aligned (TMA).
+// launch leaves zeroed.  K % 64 == 0 and bk a multiple of 128 or K itself
+// (chunks of 64 packed rows never straddle a K-block; the last may be
+// half), N % 16 == 0; x, packed and the scales 16-byte aligned (TMA).
 extern "C" int spacer_int4_matmul(const void* x, const void* packed, const void* row_scale,
                                   const void* col_scale, const void* bias, void* part,
                                   void* tickets, void* out, int M, int K, int N, int bk,
                                   int splits, int rows, void* stream) {
   using namespace spacer::k6;
   const int K2 = K / 2;
-  if (M < 1 || K < 128 || K % 128 || N < 16 || N % 16 || bk < 128 || bk % 128 || K % bk ||
+  if (M < 1 || K < 64 || K % 64 || N < 16 || N % 16 || (bk % 128 && bk != K) || K % bk ||
       rows < CH || rows % CH || splits < 1 || splits > 65535 ||
       (long)splits * rows < K2 || (long)(splits - 1) * rows >= K2 ||
       (M + MT - 1) / MT > 65535 || (splits > 1 && (part == nullptr || tickets == nullptr)) ||

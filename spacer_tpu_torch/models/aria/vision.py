@@ -13,6 +13,11 @@ and modeling_aria.py (AriaCrossAttention, AriaProjector).
 - Attention runs at head_dim 72 (1152 / 16 heads) through
   nn.attention.dot_product_attention: K1 on CUDA tensors, the plain
   version on CPU tensors, with the patch mask as the kv mask.
+- Under tensor parallelism (parallel/tp.py) each encoder layer runs on
+  this rank's heads (16 / tp at head_dim 72, through K1 on the card) and
+  fc1 columns; out_proj and fc2 are row-parallel with their bias added
+  after the all-reduce.  The embeddings and the projector stay whole: the
+  projector runs on every rank on the whole features.
 - Aria reads the tower at vision_feature_layer = -1, which in HF indexes
   the recorded hidden states: the last encoder layer's output, before
   post_layernorm.  `vit_forward` returns both.
@@ -38,6 +43,7 @@ from spacer_tpu_torch.nn.core import (
     layer_norm,
     layer_norm_init,
 )
+from spacer_tpu_torch.parallel import tp
 from spacer_tpu_torch.parallel.fsdp import gather
 
 Params = Any
@@ -107,20 +113,26 @@ def patchify(pixel_values, patch_size: int):
     return x.reshape(N, (H // p) * (W // p), p * p * C)
 
 
-def _vit_layer(h, lp, kv_mask, *, eps: float, num_heads: int):
+def _vit_layer(h, lp, kv_mask, *, eps: float, num_heads: int,
+               intermediate: int):
+    """One encoder layer; under tensor parallelism q/k/v and fc1 are
+    column-parallel (this rank's heads and columns, their bias columns),
+    out_proj and fc2 row-parallel with their bias after the all-reduce."""
     N, S, D = h.shape
     Dh = D // num_heads
-    x = layer_norm(lp["layer_norm1"], h, eps)
+    H = tp.local_heads(num_heads, "the tower's num_heads")
+    x = tp.copy_to_tp(layer_norm(lp["layer_norm1"], h, eps))
     attn = lp["self_attn"]
-    q = dense(attn["q_proj"], x).reshape(N, S, num_heads, Dh)
-    k = dense(attn["k_proj"], x).reshape(N, S, num_heads, Dh)
-    v = dense(attn["v_proj"], x).reshape(N, S, num_heads, Dh)
+    q = tp.column(attn["q_proj"], x, D).reshape(N, S, H, Dh)
+    k = tp.column(attn["k_proj"], x, D).reshape(N, S, H, Dh)
+    v = tp.column(attn["v_proj"], x, D).reshape(N, S, H, Dh)
     o = dot_product_attention(q, k, v, kv_mask=kv_mask)
-    h = h + dense(attn["out_proj"], o.reshape(N, S, D))
+    h = h + tp.row(attn["out_proj"], o.reshape(N, S, H * Dh), D)
 
-    x = layer_norm(lp["layer_norm2"], h, eps)
-    x = F.gelu(dense(lp["mlp"]["fc1"], x), approximate="tanh")
-    return h + dense(lp["mlp"]["fc2"], x)
+    x = tp.copy_to_tp(layer_norm(lp["layer_norm2"], h, eps))
+    x = F.gelu(tp.column(lp["mlp"]["fc1"], x, intermediate),
+               approximate="tanh")
+    return h + tp.row(lp["mlp"]["fc2"], x, intermediate)
 
 
 def vit_forward(params: Params, cfg: AriaVisionConfig, pixel_values,
@@ -138,7 +150,8 @@ def vit_forward(params: Params, cfg: AriaVisionConfig, pixel_values,
     h = dense(params["embeddings"]["patch_embedding"], patches)
     h = h + params["embeddings"]["position_embedding"]["embedding"][
         position_ids.long()]
-    kw = dict(eps=cfg.layer_norm_eps, num_heads=cfg.num_heads)
+    kw = dict(eps=cfg.layer_norm_eps, num_heads=cfg.num_heads,
+              intermediate=cfg.intermediate_size)
     remat = remat and torch.is_grad_enabled()
     for lp in params["encoder"]:
         # fsdp Shards gathered inside the (checkpointed) layer

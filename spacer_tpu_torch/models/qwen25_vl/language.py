@@ -47,7 +47,7 @@ from spacer_tpu_torch.nn.core import (
 from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
 from spacer_tpu_torch.ops.flash_decode import flash_decode_attention
 from spacer_tpu_torch.ops.quant import quantize_kv
-from spacer_tpu_torch.parallel import tp
+from spacer_tpu_torch.parallel import expert, tp
 from spacer_tpu_torch.parallel.fsdp import gather
 
 Params = Any
@@ -110,7 +110,11 @@ def _mlp_block(p_mlp, x, cfg: TextConfig):
     if getattr(cfg, "moe_topk", 0):
         from spacer_tpu_torch.ops.moe import moe_mlp
 
-        return moe_mlp(p_mlp, x, topk=cfg.moe_topk, impl=cfg.moe_impl)
+        I = cfg.intermediate_size
+        return moe_mlp(p_mlp, x, topk=cfg.moe_topk, impl=cfg.moe_impl,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       ep_axis=cfg.moe_ep_axis,
+                       widths=(I, I * cfg.moe_num_shared_experts))
     I = cfg.intermediate_size
     x = tp.copy_to_tp(x)
     gate = F.silu(tp.column(p_mlp["gate_proj"], x, I))
@@ -168,6 +172,12 @@ def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
     h = h + o_proj(p_attn, attn.reshape(B, S, -1), cfg)
     x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
     return h + _mlp_block(layer_params["mlp"], x, cfg), block_kv
+
+
+def _layer_in(layout, h, *args, **kw):
+    """_layer under a parallel/expert.rows layout."""
+    with expert.rows(layout):
+        return _layer(h, *args, **kw)
 
 
 def split_layers(stacked, num_layers: int):
@@ -308,6 +318,8 @@ def lm_forward(params: Params, cfg: TextConfig, *,
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=dev)
     cos, sin = mrope_cos_sin(position_ids, inv_freq, cfg.mrope_section)
 
+    # the MoE's row layout, which the backward's recomputed layers run under
+    layout = expert.current()
     h, kvs = input_embeds, []
     for l, lp in enumerate(params["layers"]):
         kw = dict(cfg=cfg, cos=cos, sin=sin, kv_mask=kv_mask,
@@ -317,7 +329,8 @@ def lm_forward(params: Params, cfg: TextConfig, *,
             h, kv = _layer(h, gather(lp), (cache["k"][l], cache["v"][l]), **kw)
         elif remat and grad:
             h, kv = checkpoint(
-                lambda x, lp=lp, kw=kw: _layer(x, gather(lp), None, **kw), h,
+                lambda x, lp=lp, kw=kw: _layer_in(layout, x, gather(lp),
+                                                  None, **kw), h,
                 use_reentrant=False,
                 **_checkpoint_kwargs(_layer_remat(remat, l), cfg))
         else:

@@ -154,13 +154,11 @@ def _qwen_tp_plan(cfg, tp: int = 1):
 
 
 def _aria_tp_plan(cfg, tp: int = 1):
-    """Aria splits nothing over tp yet: at tp > 1 its experts would need the
-    placement `moe_mlp(impl="ep")` shares (ROADMAP queue A item 2b.2)."""
-    if tp > 1:
-        raise NotImplementedError(
-            f"tp={tp}: tensor parallelism of the Aria family is not ported "
-            "(ROADMAP queue A item 2b.2, with moe_mlp impl='ep')")
-    return None
+    """Aria's plan (partition.aria_tp_plan); a tp that does not divide its
+    heads or widths raises ValueError."""
+    from spacer_tpu_torch.parallel.partition import aria_tp_plan
+
+    return aria_tp_plan(cfg).check(tp)
 
 
 def _make_qwen_family():

@@ -134,8 +134,8 @@ def _check(x, packed):
                          " disagree on K")
     if packed.dtype != torch.int8 or x.dtype != torch.bfloat16:
         raise ValueError("K6 takes bf16 x and int8 packed bytes")
-    if N % 16 or K % 128 or M < 1:
-        raise ValueError(f"K6 needs N % 16 == 0 and K % 128 == 0, got K={K} "
+    if N % 16 or K % 64 or M < 1:
+        raise ValueError(f"K6 needs N % 16 == 0 and K % 64 == 0, got K={K} "
                          f"N={N}")
     for name, t in (("x", x), ("packed", packed)):
         if t.device != x.device or not t.is_contiguous():

@@ -2,9 +2,10 @@
 the (data, fsdp, tp) mesh (mesh.py), process-group setup and host-side
 exchanges (multihost.py), the partition rules and batch placement
 (partition.py), the fsdp Shards with their gather and reduce-scatter
-(fsdp.py), tensor parallelism's conjugate operations (tp.py) and the host
-offload of optimizer state (offload.py).  The pipeline, ring attention
-and Aria under tp are not ported (ROADMAP queue A item 2b)."""
+(fsdp.py), tensor parallelism's conjugate operations (tp.py), expert
+parallelism over the fsdp axis (expert.py) and the host offload of
+optimizer state (offload.py).  The pipeline and ring attention are not
+ported (ROADMAP queue A items 2b.3 and 2b.4)."""
 
 from spacer_tpu_torch.parallel.mesh import (  # noqa: F401
     AXES,

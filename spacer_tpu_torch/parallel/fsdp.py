@@ -21,6 +21,9 @@ The steps normalise their losses over the global batch (`global_share`) so
 the summed gradients are the world-1 gradients; `global_norm` counts each
 shard once and every replicated leaf once.
 
+Under expert parallelism the experts' Shards are placed by expert and
+never gathered (parallel/expert.py).
+
 With tensor parallelism a Shard holds this rank's blocks of its tp SLICE
 (`split`, a parallel/tp.Split; partition.py says which leaves): `gather`
 and `gather_params` collect over fsdp only and give the slice, which the
@@ -53,16 +56,19 @@ class Shard:
     `split` (parallel/tp.Split) the tensor of `shape` is this rank's tp
     slice of a tensor of split.shape."""
 
-    __slots__ = ("data", "shape", "mesh", "split")
+    __slots__ = ("data", "shape", "mesh", "split", "experts")
 
-    def __init__(self, data: torch.Tensor, shape, mesh, split=None):
+    def __init__(self, data: torch.Tensor, shape, mesh, split=None,
+                 experts: bool = False):
         self.data = data
         self.shape = torch.Size(shape)
         self.mesh = mesh
         self.split = split
+        self.experts = experts
 
     @classmethod
-    def from_full(cls, full: torch.Tensor, mesh, split=None) -> "Shard":
+    def from_full(cls, full: torch.Tensor, mesh, split=None,
+                  experts: bool = False) -> "Shard":
         """This rank's blocks of a full tensor (the same on every rank), or
         of its tp slice with a `split`."""
         if split is not None:
@@ -76,7 +82,7 @@ class Shard:
         data = torch.zeros(per * B, dtype=full.dtype, device=full.device)
         piece = flat[lo:lo + per * B]
         data[:piece.numel()] = piece
-        return cls(data.reshape(per, B), full.shape, mesh, split)
+        return cls(data.reshape(per, B), full.shape, mesh, split, experts)
 
     @property
     def numel(self) -> int:
@@ -115,7 +121,7 @@ class Shard:
 
     def __repr__(self):
         tp = (f", tp slice {self.split.index} of {tuple(self.split.shape)}"
-              if self.split else "")
+              if self.split else "") + (", experts" if self.experts else "")
         return (f"Shard({tuple(self.shape)}, blocks {self.block_lo}+"
                 f"{self.data.shape[0]} of {self.nb_full}, {self.dtype}{tp})")
 
@@ -171,8 +177,11 @@ def gather(tree, keep=()):
     """`tree` with every Shard replaced by its full tensor (autograd-aware:
     gradients flow back to the Shards' blocks).  Entries of a dict named in
     `keep` stay as they are (the layer lists a loop gathers one layer at a
-    time).  A tree without Shards comes back as it is."""
+    time).  A tree without Shards comes back as it is; so do expert-placed
+    Shards (parallel/expert.py), which are never gathered."""
     if isinstance(tree, Shard):
+        if tree.experts:
+            return tree
         return _Gather.apply(tree.data, tree)
     if isinstance(tree, dict):
         if not has_shards(tree):
@@ -185,9 +194,10 @@ def gather(tree, keep=()):
 
 def gather_params(tree):
     """The whole tree gathered once, outside autograd (a rollout's or a
-    checkpoint's full params); the caller drops it when done."""
+    checkpoint's full params); the caller drops it when done.  Expert-placed
+    Shards stay on their owners."""
     if isinstance(tree, Shard):
-        return tree.full()
+        return tree if tree.experts else tree.full()
     if isinstance(tree, dict):
         return {k: gather_params(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -414,7 +424,8 @@ def params_from_full(full, like):
     """Full params -> the layout of `like`: Shards where `like` has them
     (cut for the mesh `like`'s Shards are on), the full tensor elsewhere."""
     if isinstance(like, Shard):
-        return Shard.from_full(full.to(like.device), like.mesh, like.split)
+        return Shard.from_full(full.to(like.device), like.mesh, like.split,
+                               like.experts)
     if isinstance(like, dict):
         return {k: params_from_full(full[k], v) for k, v in like.items()}
     if isinstance(like, (list, tuple)):

@@ -161,9 +161,10 @@ def all_gather_into(out: torch.Tensor, x: torch.Tensor, group,
     return out
 
 
-def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group):
+def reduce_scatter(out: torch.Tensor, x: torch.Tensor, group,
+                   kind: str = "reduce_scatter"):
     """SUM-reduce `x` over the group; this rank keeps its equal part."""
-    with _Record("reduce_scatter", x.numel() * x.element_size(), x.is_cuda):
+    with _Record(kind, x.numel() * x.element_size(), x.is_cuda):
         _dist().reduce_scatter_tensor(out, x.contiguous(), group=group)
     return out
 

@@ -30,7 +30,10 @@ plan (`TPPlan`, QWEN_TP_LEAVES for the Qwen families) says which of those
 leaves are stored split: the rank at tp index t keeps part t of that dim
 (parallel/tp.Split), cut head-aware for the ViT's fused qkv kernel (its
 3 * heads * head_dim columns split per q, k and v: heads [t * H / tp,
-(t + 1) * H / tp) of each), and shards that slice over fsdp in whole
+(t + 1) * H / tp) of each) and per half for Aria's experts' fc1 (its
+[projection, gate] columns: each rank keeps columns [t * I / tp, (t + 1)
+* I / tp) of each half; JAX cuts 2I contiguously and lets GSPMD reshard
+around the split), and shards that slice over fsdp in whole
 2048-element blocks as above.  Every leaf the plan splits is an fsdp Shard
 at the 7B geometry.  The others stay whole on every tp rank, and the model
 takes their slice where it uses them (parallel/tp.local, whose gradient
@@ -42,6 +45,12 @@ that stays whole over fsdp (a per-layer tensor whose size is not a
 multiple of 2048, as the tiny configs' ViT qkv and proj).  A tp that does
 not divide the LM's heads, its KV heads, the ViT's heads or a split dim
 raises ValueError at `shard_params`, naming it.
+
+Expert parallelism.  A family's plan may name leaves placed by expert
+(Aria's experts under moe_impl "ep": `TPPlan.experts`): they become fsdp
+Shards flagged `experts`, whose blocks are exactly their rank's experts
+(parallel/expert.py says why and raises where fsdp does not cut them into
+whole experts of whole blocks); they are never gathered.
 
 Batches: row-indexed arrays split their batch dim over data x fsdp, each
 rank taking a contiguous range in row-major rank order (JAX's P(("data",
@@ -145,14 +154,35 @@ QWEN_TP_LEAVES: list = [
 ]
 
 
+# the leaves an Aria model stores split over tp; "halves" splits the
+# experts' fc1 (E, D, 2I) per [projection, gate] half (each rank keeps its
+# columns of both); the router, the norms, the tower's embeddings and the
+# projector stay whole
+ARIA_TP_LEAVES: list = [
+    (r"model/layers/self_attn/(q|k|v|o)_proj/kernel", "split"),
+    (r"model/layers/mlp/shared/(gate|up|down)_proj/kernel", "split"),
+    (r"model/layers/mlp/experts/fc1/kernel", "halves"),
+    (r"model/layers/mlp/experts/fc2/kernel", "split"),
+    (r"model/embed_tokens/embedding", "split"),
+    (r"model/lm_head/kernel", "split"),
+    (r"visual/encoder/self_attn/(q|k|v|out)_proj/kernel", "split"),
+    (r"visual/encoder/mlp/fc[12]/kernel", "split"),
+]
+
+# the expert leaves moe_impl "ep" places by expert over fsdp
+ARIA_EXPERT_LEAVES = r"model/layers/mlp/experts/fc[12]/kernel"
+
+
 class TPPlan(NamedTuple):
     """A family's tensor-parallel plan for one config: the leaves stored
-    split ([(regex, "split" | "qkv")]), the head counts tp must divide
-    ({name: count}) and the head_dim of a "qkv" split."""
+    split ([(regex, "split" | "qkv" | "halves")]), the counts tp must
+    divide ({name: count}), the head_dim of a "qkv" split and the regex of
+    the leaves placed by expert (moe_impl "ep"; parallel/expert.py)."""
 
     leaves: list
     heads: dict
     qkv_head_dim: int = 1
+    experts: str | None = None
 
     def kind(self, path: str):
         jax_path, _ = _unstacked(path)
@@ -161,6 +191,17 @@ class TPPlan(NamedTuple):
                 return kind
         return None
 
+    def check(self, tp: int) -> "TPPlan":
+        """ValueError naming a count tp does not divide."""
+        for what, n in self.heads.items():
+            if n % tp:
+                raise ValueError(f"tp={tp} does not divide {what}={n}")
+        return self
+
+    def placed(self, path: str) -> bool:
+        return self.experts is not None and bool(
+            re.fullmatch(self.experts, _unstacked(path)[0]))
+
 
 def qwen_tp_plan(cfg) -> TPPlan:
     return TPPlan(QWEN_TP_LEAVES,
@@ -168,6 +209,21 @@ def qwen_tp_plan(cfg) -> TPPlan:
                    "the LM's num_kv_heads": cfg.text.num_kv_heads,
                    "the ViT's num_heads": cfg.vision.num_heads},
                   cfg.vision.head_dim)
+
+
+def aria_tp_plan(cfg) -> TPPlan:
+    """Aria's plan: tp must divide the LM's heads and KV heads, the tower's
+    heads, the expert intermediate and the shared experts' width; under
+    moe_impl "ep" the experts are placed by expert."""
+    t = cfg.text
+    return TPPlan(ARIA_TP_LEAVES,
+                  {"the LM's num_heads": t.num_heads,
+                   "the LM's num_kv_heads": t.num_kv_heads,
+                   "the tower's num_heads": cfg.vision.num_heads,
+                   "the expert intermediate_size": t.intermediate_size,
+                   "the shared experts' width":
+                   t.intermediate_size * t.moe_num_shared_experts},
+                  experts=ARIA_EXPERT_LEAVES if t.moe_impl == "ep" else None)
 
 
 # the port's per-layer list containers (JAX's stacked leaves)
@@ -243,7 +299,8 @@ def tp_split(path: str, leaf, spec, mesh, plan: TPPlan | None):
     kind = plan.kind(path)
     if kind is None or not fsdp_sharded(path, leaf, spec):
         return None
-    pre, post = (3, plan.qkv_head_dim) if kind == "qkv" else (1, 1)
+    pre, post = {"qkv": (3, plan.qkv_head_dim),
+                 "halves": (2, 1)}.get(kind, (1, 1))
     return Split.make(leaf.shape, spec.index("tp"), tp, mesh.coords["tp"],
                       pre, post, what=path)
 
@@ -255,8 +312,11 @@ def shard_params(params, mesh, rules=None, tp_plan: TPPlan | None = None):
     stay as they are (replicated).  Makes `mesh` (one built by
     create_mesh) the active one of parallel/tp.py.  At tp > 1 a plan is
     required, and a tp that does not divide its head counts or a split dim
-    raises ValueError."""
+    raises ValueError.  The leaves the plan places by expert become
+    expert-placed Shards (parallel/expert.py; ValueError where fsdp does not
+    cut them into whole experts)."""
     from spacer_tpu_torch.parallel import tp as tpmod
+    from spacer_tpu_torch.parallel.expert import check_placement
     from spacer_tpu_torch.parallel.fsdp import Shard
 
     tp = mesh.shape["tp"]
@@ -264,9 +324,7 @@ def shard_params(params, mesh, rules=None, tp_plan: TPPlan | None = None):
         if tp_plan is None:
             raise ValueError(f"tp={tp} needs the model family's tp plan "
                              "(ModelFamily.tp_plan)")
-        for what, n in tp_plan.heads.items():
-            if n % tp:
-                raise ValueError(f"tp={tp} does not divide {what}={n}")
+        tp_plan.check(tp)
     specs = partition_spec_tree(params, rules)
     spec_of = dict(_named_leaves(specs))
 
@@ -274,9 +332,17 @@ def shard_params(params, mesh, rules=None, tp_plan: TPPlan | None = None):
         if isinstance(leaf, Shard):
             raise ValueError(f"{path} is already sharded")
         spec = spec_of[path]
+        placed = tp_plan is not None and tp_plan.placed(path)
         if fsdp_sharded(path, leaf, spec):
-            return Shard.from_full(leaf, mesh,
-                                   tp_split(path, leaf, spec, mesh, tp_plan))
+            shard = Shard.from_full(leaf, mesh,
+                                    tp_split(path, leaf, spec, mesh, tp_plan),
+                                    experts=placed)
+            if placed:
+                check_placement(shard)
+            return shard
+        if placed:
+            raise ValueError(f"{path} ({tuple(leaf.shape)}) is not whole "
+                             "2048-blocks: moe_impl='ep' cannot place it")
         return leaf
 
     placed = _map_named(place, params)

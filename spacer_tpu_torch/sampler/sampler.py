@@ -37,7 +37,11 @@ With a device mesh (parallel/mesh.py) every rank calls `generate` with the
 same global batch.  The prompt rows split over data x fsdp when they
 divide, else over data, else every rank decodes them all (JAX's
 `_rollout_spec`); the params' fsdp Shards are gathered once for the
-rollout and dropped when it ends, and every rank returns every row.
+rollout and dropped when it ends, and every rank returns every row.  The
+MoE is told how the rows lie (parallel/expert.rows), and with the experts
+placed by expert (moe_impl "ep") over split rows the batch group agrees on
+the all-done exit (parallel/expert.all_done), since a rank that left
+would stop issuing its expert exchanges.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from spacer_tpu_torch.models.qwen25_vl.model import (
 )
 from spacer_tpu_torch.nn.core import embed
 from spacer_tpu_torch.ops.quant import quantize_decode_model, quantize_kv
+from spacer_tpu_torch.parallel import expert
 
 MASK_VALUE = -1e30
 DECODE_QUANTS = (None, "int8", "int8_kv", "int4", "int4_kv")
@@ -182,9 +187,12 @@ def _prep_decode(model, prefix_cache, n_rows: int, max_new_tokens: int,
 def _decode_loop(model, text_cfg, prefix_split, tails, prefix_mask,
                  first_tokens, deltas, prompt_len: int, group: int,
                  max_new_tokens: int, temperature: float, top_p: float,
-                 eos_token_id: int, generator, rows=None) -> torch.Tensor:
+                 eos_token_id: int, generator, rows=None,
+                 lockstep=None) -> torch.Tensor:
     """Shared-prefix autoregressive loop -> tokens (B*G, max_new); `rows`
-    as sample_logits takes it."""
+    as sample_logits takes it.  `lockstep`: the mesh whose batch group
+    must leave the loop together (expert-parallel exchanges over rows the
+    ranks split), or None (this rank's rows decide)."""
     N = first_tokens.shape[0]
     dev = first_tokens.device
     bias_p = torch.where(prefix_mask, 0.0, MASK_VALUE)[:, None, :].float()
@@ -194,7 +202,9 @@ def _decode_loop(model, text_cfg, prefix_split, tails, prefix_mask,
     done = first_tokens == eos_token_id
     eos = torch.full_like(first_tokens, eos_token_id)
     for step in range(1, max_new_tokens):
-        if step % DONE_CHECK_EVERY == 1 and bool(done.all()):
+        if step % DONE_CHECK_EVERY == 1 and (
+                expert.all_done(done, lockstep) if lockstep is not None
+                else bool(done.all())):
             break
         cur = tokens[:, step - 1:step]
         pos = (prompt_len + deltas + step - 1).reshape(1, N, 1).expand(3, N, 1)
@@ -229,37 +239,42 @@ def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
               deltas, generator, *, num_generations: int,
               max_new_tokens: int, temperature: float, top_p: float,
               eos_token_id: int, decode_quant=None, speculate_k: int = 0,
-              input_ids=None, pad_token_id: int = 0, rows=None):
+              input_ids=None, pad_token_id: int = 0, rows=None,
+              layout=expert.EVERY_RANK, lockstep=None):
     """Prefill once per prompt (B rows), then the grouped decode loop (its
     quantized weights and caches are dropped when it returns) -> tokens
     (B*G, max_new), or with speculate_k (drafting from input_ids) the
     speculative loop's (tokens, [row-steps, emitted tokens]).
     input_embeds: (B, S, D) left-padded; `rows` = (n, lo): the B*G
-    completion rows are rows [lo, lo + B*G) of n (sample_logits)."""
+    completion rows are rows [lo, lo + B*G) of n (sample_logits);
+    `layout`: the prompt rows' parallel.expert.RowLayout; `lockstep` as
+    _decode_loop takes it."""
     B, S, _ = input_embeds.shape
     G = num_generations
     cache = init_kv_cache(text_cfg, B, S, dtype=input_embeds.dtype,
                           device=input_embeds.device)
-    logits, cache = lm_forward(
-        params["model"], text_cfg, input_embeds=input_embeds,
-        position_ids=position_ids, kv_mask=prompt_mask, cache=cache,
-        cache_index=0, last_only=True)
+    with expert.rows(layout):
+        logits, cache = lm_forward(
+            params["model"], text_cfg, input_embeds=input_embeds,
+            position_ids=position_ids, kv_mask=prompt_mask, cache=cache,
+            cache_index=0, last_only=True)
     last = logits[:, -1].repeat_interleave(G, dim=0)        # (B*G, V)
     deltas = deltas.reshape(-1).repeat_interleave(G)
     first = sample_logits(last, generator, temperature, top_p, rows)
     model, prefix, tails = _prep_decode(params["model"], cache, B * G,
                                         max_new_tokens, decode_quant)
     del cache
-    if speculate_k:
-        from spacer_tpu_torch.sampler.speculating import spec_decode_loop
+    with expert.rows(expert.expand_layout(layout, G)):
+        if speculate_k:
+            from spacer_tpu_torch.sampler.speculating import spec_decode_loop
 
-        return spec_decode_loop(
-            model, text_cfg, prefix, prompt_mask, tails, first, input_ids,
-            deltas, S, G, max_new_tokens, temperature, top_p, eos_token_id,
-            pad_token_id, speculate_k, generator)
-    return _decode_loop(model, text_cfg, prefix, tails, prompt_mask, first,
-                        deltas, S, G, max_new_tokens, temperature, top_p,
-                        eos_token_id, generator, rows)
+            return spec_decode_loop(
+                model, text_cfg, prefix, prompt_mask, tails, first, input_ids,
+                deltas, S, G, max_new_tokens, temperature, top_p,
+                eos_token_id, pad_token_id, speculate_k, generator)
+        return _decode_loop(model, text_cfg, prefix, tails, prompt_mask,
+                            first, deltas, S, G, max_new_tokens, temperature,
+                            top_p, eos_token_id, generator, rows, lockstep)
 
 
 class Sampler:
@@ -269,8 +284,8 @@ class Sampler:
     `speculate_k` > 0 (a negative value raises ValueError) decodes with the
     speculative block loop; generate(speculate_k=...) overrides it per
     call.  `mesh`: the port's parallel.mesh.Mesh (anything else raises
-    TypeError; a tp mesh for a family without tensor parallelism, Aria,
-    NotImplementedError), see the module docstring; a speculative rollout
+    TypeError; a tp the family's heads or widths do not divide,
+    ValueError), see the module docstring; a speculative rollout
     over rows split across ranks raises NotImplementedError.  Sequential
     decode is head-major through K2 / K2-int8 (the kernels on CUDA, their
     plain versions on the CPU)."""
@@ -297,7 +312,7 @@ class Sampler:
         self.cfg = cfg
         self.family = family_for_config(cfg)
         if mesh is not None:
-            # a family without tensor parallelism refuses a tp mesh
+            # a tp the family's heads or widths do not divide raises
             self.family.tp_plan(cfg, mesh.shape["tp"])
         self.eos_token_id = (eos_token_id if eos_token_id is not None
                              else cfg.eos_token_id)
@@ -387,6 +402,12 @@ class Sampler:
                                            grid_thw)
             embeds = self.family.merge_vision_embeds(cfg, ids, embeds, ve)
         lo, hi = self._local_prompts(B, axes)
+        # the MoE's rows (parallel/expert.py): every rank of the batch group
+        # must also leave the decode loop together where they hold
+        # different rows and share expert exchanges
+        layout = expert.split_layout(B, self.mesh, axes)
+        lockstep = (self.mesh if axes and expert.has_placed(params)
+                    else None)
         G = num_generations
         rows = (B * G, lo * G) if axes else None
         sl = slice(lo, hi)
@@ -399,7 +420,8 @@ class Sampler:
             generator, num_generations=G, max_new_tokens=max_new_tokens,
             temperature=temp, top_p=topp, eos_token_id=self.eos_token_id,
             decode_quant=self.decode_quant, speculate_k=spec_k,
-            input_ids=ids[sl], pad_token_id=self.pad_token_id, rows=rows)
+            input_ids=ids[sl], pad_token_id=self.pad_token_id, rows=rows,
+            layout=layout, lockstep=lockstep)
         del params, emb, embeds
         stats = None
         if spec_k:

@@ -50,6 +50,7 @@ from spacer_tpu_torch.sampler.sampler import (
     prologue,
     sample_logits,
 )
+from spacer_tpu_torch.parallel import expert
 from spacer_tpu_torch.serving.ragged import ragged_decode_step
 from spacer_tpu_torch.serving.speculative import spec_chunk
 
@@ -211,10 +212,12 @@ class ContinuousBatcher:
             input_embeds = embed(self.params["model"]["embed_tokens"], input_ids)
         Bu, S, _ = input_embeds.shape
         cache = init_kv_cache(self.cfg.text, Bu, S, self.dtype, self.device)
-        logits, cache = lm_forward(
-            self.params["model"], self.cfg.text, input_embeds=input_embeds,
-            position_ids=position_ids, kv_mask=prompt_mask, cache=cache,
-            cache_index=0, last_only=True)
+        with expert.rows(expert.EVERY_RANK):
+            logits, cache = lm_forward(
+                self.params["model"], self.cfg.text,
+                input_embeds=input_embeds, position_ids=position_ids,
+                kv_mask=prompt_mask, cache=cache, cache_index=0,
+                last_only=True)
         # (Bu, Pmax, Hkv, Dh) prefill cache -> head-major slot rows, in
         # place (int8 caches: codes and scales, quantized per unique row)
         for entry, ck, cv in zip(self.caches, cache["k"], cache["v"]):
@@ -266,7 +269,12 @@ class ContinuousBatcher:
     def decode_chunk(self) -> None:
         """Up to chunk_steps clock-ring steps (or speculative block steps
         with speculate_k); stops early once every slot is done (checked
-        before each step, as the JAX while_loop does)."""
+        before each step, as the JAX while_loop does).  Every rank runs
+        the same slots, so every rank stops alike (parallel/expert.py)."""
+        with expert.rows(expert.EVERY_RANK):
+            self._decode_chunk()
+
+    def _decode_chunk(self) -> None:
         if self.speculate_k:
             spec_chunk(self, self.decode_model["layers"], self.decode_model,
                        self.cfg.text, chunk_steps=self.chunk_steps,

@@ -29,7 +29,9 @@ media on every rank (JAX replicates the packed pixels) and each rank
 merges them into the whole prompt batch before keeping its rows.  Under
 tensor parallelism the rows split over data x fsdp only (a tp group runs
 the same rows), and the logps are vocab-parallel on the rank's head
-columns (train/grpo.chunked_per_token_logps).
+columns (train/grpo.chunked_per_token_logps).  The MoE is told every
+rank's rows (parallel/expert.rows): the completion rows as row_range
+splits them, and the prompt rows they belong to.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 from spacer_tpu_torch.models.qwen25_vl.language import check_remat, lm_forward
 from spacer_tpu_torch.models.registry import family_for_config
 from spacer_tpu_torch.nn.core import embed
-from spacer_tpu_torch.parallel import fsdp, tp
+from spacer_tpu_torch.parallel import expert, fsdp, tp
 from spacer_tpu_torch.parallel.partition import row_range
 from spacer_tpu_torch.train.grpo import chunked_per_token_logps, grpo_loss
 from spacer_tpu_torch.train.optimizer import global_norm
@@ -143,7 +145,7 @@ def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
                              completion_position_ids, completion_mask,
                              num_generations: int, vision_embeds=None,
                              remat=False, logp_chunk: int = 256,
-                             merge_fn=None, rows=None):
+                             merge_fn=None, rows=None, layout=None):
     """Shared-prefix per-token completion logps: the prompt forward runs
     once per group (B rows) and its per-layer K/V, repeated G times, is the
     prefix of the G completion rows' attention.  The repeat's backward sums
@@ -154,7 +156,9 @@ def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
     completion_mask doubles as the completion part of the attention mask.
     `rows` = (c_lo, c_hi) computes completion rows [c_lo, c_hi) only,
     running the prompt rows they belong to (the vision embeddings are
-    merged into the whole prompt batch first); None is all rows."""
+    merged into the whole prompt batch first); None is all rows.  `layout`
+    (parallel/expert.RowLayout) lays out every rank's completion rows for
+    the MoE, and its prompt rows follow."""
     from spacer_tpu_torch.models.qwen25_vl.model import merge_vision_embeds
 
     merge_fn = merge_fn or merge_vision_embeds
@@ -184,16 +188,19 @@ def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
         rep = x[:, None].expand(x.shape[0], G, *x.shape[1:])
         return _rows(rep.reshape(x.shape[0] * G, *x.shape[1:]), off, off + n)
 
-    hp, prompt_kv = lm_forward(
-        model, tc, input_embeds=prompt_embeds,
-        position_ids=prompt_position_ids, kv_mask=prompt_mask,
-        logits=False, remat=remat, return_kv=True)
+    with expert.rows(layout and expert.group_layout(layout, G)):
+        hp, prompt_kv = lm_forward(
+            model, tc, input_embeds=prompt_embeds,
+            position_ids=prompt_position_ids, kv_mask=prompt_mask,
+            logits=False, remat=remat, return_kv=True)
     prefix_kv = [(expand(k), expand(v)) for k, v in prompt_kv]
     kv_mask = torch.cat([expand(prompt_mask), completion_mask.bool()], dim=1)
     comp_embeds = embed(model["embed_tokens"], completion_ids)
-    hc, _ = lm_forward(model, tc, input_embeds=comp_embeds,
-                       position_ids=completion_position_ids, kv_mask=kv_mask,
-                       logits=False, remat=remat, prefix_kv=prefix_kv)
+    with expert.rows(layout):
+        hc, _ = lm_forward(model, tc, input_embeds=comp_embeds,
+                           position_ids=completion_position_ids,
+                           kv_mask=kv_mask, logits=False, remat=remat,
+                           prefix_kv=prefix_kv)
     # position P-1 (shared across the group) predicts completion token 0;
     # completion position i predicts token i+1
     h = torch.cat([expand(hp[:, -1:]), hc[:, :-1]], dim=1)
@@ -234,7 +241,9 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
             batch["completion_position_ids"], batch["completion_mask"],
             num_generations, vision_embeds=ve, remat=remat,
             logp_chunk=logp_chunk, merge_fn=family.merge_vision_embeds,
-            rows=_local(batch))
+            rows=_local(batch),
+            layout=expert.batch_layout(batch["completion_ids"].shape[0],
+                                       mesh))
 
     def ref_logps_fn(ref_params, batch, grid_thw=None, num_generations=1):
         """Reference logps (no gradient) of this rank's rows; None at
@@ -331,11 +340,12 @@ def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256,
             ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat)
             token_embeds = family.merge_vision_embeds(cfg, ids, token_embeds,
                                                       ve)
-        hidden, _ = lm_forward(
-            model, cfg.text, input_embeds=_rows(token_embeds, lo, hi),
-            position_ids=_rows(batch["position_ids"], lo, hi, dim=1),
-            kv_mask=_rows(batch["kv_mask"], lo, hi), logits=False,
-            remat=remat)
+        with expert.rows(expert.batch_layout(ids.shape[0], mesh)):
+            hidden, _ = lm_forward(
+                model, cfg.text, input_embeds=_rows(token_embeds, lo, hi),
+                position_ids=_rows(batch["position_ids"], lo, hi, dim=1),
+                kv_mask=_rows(batch["kv_mask"], lo, hi), logits=False,
+                remat=remat)
         labels = _rows(batch["labels"], lo, hi)[:, 1:]
         mask = labels != -100
         # f32 products over the params' dtype, as JAX's f32 upcasts

@@ -117,8 +117,8 @@ class SGRLVRConfig:
 
 
 def _check_mesh(mesh, cfg=None):
-    """A mesh must be the port's Mesh; a tp mesh needs a family with tensor
-    parallelism (Aria's tp plan refuses one)."""
+    """A mesh must be the port's Mesh; its tp must divide the family's
+    heads and widths (the family's tp plan raises ValueError)."""
     from spacer_tpu_torch.parallel.mesh import Mesh
 
     if mesh is not None and not isinstance(mesh, Mesh):
@@ -663,7 +663,8 @@ class SGRLVRTrainer:
 
 def _clone(t):
     if isinstance(t, fsdp.Shard):
-        return fsdp.Shard(t.data.detach().clone(), t.shape, t.mesh, t.split)
+        return fsdp.Shard(t.data.detach().clone(), t.shape, t.mesh, t.split,
+                          t.experts)
     return t.detach().clone()
 
 

@@ -603,8 +603,11 @@ def test_ragged_decode_int8_kernel(dev):
 
 
 @pytest.mark.parametrize("M,K,N", [(4, 3584, 512), (16, 3584, 1024),
-                                   (5, 1024, 3584), (33, 512, 272)])
+                                   (5, 1024, 3584), (33, 512, 272),
+                                   (4, 832, 2560), (16, 832, 2560)])
 def test_int4_matmul_kernel(dev, M, K, N):
+    """K = 832 (Aria's shared down_proj at tp 4) is one K-block whose last
+    64-row chunk is half."""
     g = torch.Generator(device=dev).manual_seed(M + K + N)
     codes = torch.randint(-7, 8, (K, N), generator=g, device=dev,
                           dtype=torch.int8)
@@ -619,8 +622,8 @@ def test_int4_matmul_kernel(dev, M, K, N):
     assert bool(((out - ref).abs() <= bound).all()), float((out - ref).abs().max())
     with pytest.raises(ValueError):   # N % 16 != 0 (the TMA row stride)
         im.int4_matmul(x, packed[:, :N - 4].contiguous())
-    with pytest.raises(ValueError):   # K % 128 != 0 (a chunk would straddle)
-        im.int4_matmul(x[:, :K - 64].contiguous(), packed[:K // 2 - 32])
+    with pytest.raises(ValueError):   # K % 64 != 0
+        im.int4_matmul(x[:, :K - 32].contiguous(), packed[:K // 2 - 16])
 
 
 # (K, N) of every int4 decode product of the 7B: q/o, k/v, gate/up, down,

@@ -93,8 +93,15 @@ def test_moe_mlp_gradients_match_dense_oracle(layer):
 
 
 def test_moe_ep_impl_raises(layer):
+    """impl "ep" runs (moe_mlp_ep: tests/test_torch_moe_ep.py holds it to
+    JAX's) and equals the dropless path where nothing drops; an ep axis
+    other than fsdp and an unknown impl raise."""
     _, tparams, x = layer
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        moe.moe_mlp(tparams, torch.from_numpy(x), topk=K, impl="ep")
+    xt = torch.from_numpy(x)
+    got = moe.moe_mlp(tparams, xt, topk=K, impl="ep", capacity_factor=8.0)
+    np.testing.assert_allclose(
+        got.numpy(), moe.moe_mlp(tparams, xt, topk=K).numpy(), **TOL)
+    with pytest.raises(NotImplementedError, match="queue A item 2b.5"):
+        moe.moe_mlp(tparams, xt, topk=K, impl="ep", ep_axis="data")
     with pytest.raises(ValueError, match="unknown moe impl"):
         moe.moe_mlp(tparams, torch.from_numpy(x), topk=K, impl="sparse")

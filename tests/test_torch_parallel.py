@@ -73,20 +73,22 @@ def test_tp_meshes_raise():
 
 def test_serving_and_evaluation_refuse_a_mesh():
     """Serving and evaluation run over a mesh since tensor parallelism was
-    ported (tests/test_torch_tp_serving.py); what still refuses a tp mesh
-    is the Aria family (ROADMAP queue A item 2b.2), in its tp plan, the
-    Sampler its engines build and the trainers, while a Qwen Sampler
-    takes one."""
+    ported (tests/test_torch_tp_serving.py), the Aria family's too since
+    its tp plan was (tests/test_torch_aria_tp.py): what still refuses a tp
+    mesh is a tp that does not divide the family's heads or widths, in its
+    tp plan and the Sampler its engines build (ValueError)."""
     from spacer_tpu_torch.models.aria import tiny_aria_config
     from spacer_tpu_torch.models.registry import get_family
     from spacer_tpu_torch.sampler import Sampler
 
     aria = tiny_aria_config()
     tp_mesh = Mesh({"tp": 2}, 0)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        get_family("aria").tp_plan(aria, 2)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        Sampler(aria, mesh=tp_mesh)
+    assert get_family("aria").tp_plan(aria, 2).experts is None
+    assert Sampler(aria, mesh=tp_mesh).mesh.shape["tp"] == 2
+    with pytest.raises(ValueError, match="does not divide"):
+        get_family("aria").tp_plan(aria, 4)
+    with pytest.raises(ValueError, match="does not divide"):
+        Sampler(aria, mesh=Mesh({"tp": 4}, 0))
     assert Sampler(aria, mesh=Mesh({"fsdp": 2}, 0)).mesh.shape["tp"] == 1
     qwen = get_family("qwen").tiny_config()
     assert Sampler(qwen, mesh=tp_mesh).mesh.coords["tp"] == 0
@@ -357,7 +359,7 @@ def _script_argv(path):
                                   "run_eval.sh"])
 def test_launch_scripts_parse(name):
     """spacer_tpu_torch/scripts/<name> passes the JAX script's flags, plus
-    --multihost true, --tp (TP=, 1 by default; not Aria's) and, for the
+    --multihost true, --tp (TP=, 1 by default) and, for the
     GRPO trainers, the global prompt count as rollout_batch_size, and its
     entry point parses them all."""
     import pathlib
@@ -390,8 +392,8 @@ def test_launch_scripts_parse(name):
     }[module]
     parsed = parse_configs(classes, argv)
     assert parsed[-1].multihost is True
-    # Aria has no tensor parallelism (ROADMAP queue A item 2b.2)
-    assert ("--tp" in flags) == (name != "run_aria_moe.sh")
+    # every script carries --tp (Aria's since its tp plan was ported)
+    assert "--tp" in flags
     assert parsed[-1].tp == 1
     if "--rollout_batch_size" in flags:
         assert parsed[1].rollout_batch_size == 8

@@ -106,9 +106,10 @@ def test_greedy_generate_quantized_matches_jax_flash_ref(quant, monkeypatch):
 
 def test_unported_configurations_raise():
     """A mesh that is not the port's parallel.mesh.Mesh raises TypeError
-    and a tp > 1 mesh for Aria NotImplementedError (ROADMAP queue A item
-    2b.2); a Qwen tp mesh constructs since tensor parallelism was ported
-    (tests/test_torch_tp_model.py), as the data x fsdp mesh does
+    and a tp that does not divide Aria's heads or widths ValueError (the
+    tiny tower's 2 heads at tp 4); Aria's and Qwen's tp-2 meshes construct
+    since tensor parallelism was ported (tests/test_torch_tp_model.py,
+    tests/test_torch_aria_tp.py), as the data x fsdp mesh does
     (tests/test_torch_parallel.py); speculative decode is ported
     (tests/test_torch_sampler_speculative.py) and constructs."""
     from spacer_tpu_torch.models.aria import tiny_aria_config
@@ -118,8 +119,9 @@ def test_unported_configurations_raise():
     with pytest.raises(TypeError):
         Sampler(cfg, mesh=object())
     tp_mesh = Mesh({"data": 1, "fsdp": 2, "tp": 2}, rank=0)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        Sampler(tiny_aria_config(), mesh=tp_mesh)
+    assert Sampler(tiny_aria_config(), mesh=tp_mesh).mesh.shape["tp"] == 2
+    with pytest.raises(ValueError, match="tower's num_heads=2"):
+        Sampler(tiny_aria_config(), mesh=Mesh({"tp": 4}, rank=0))
     assert Sampler(cfg, mesh=tp_mesh).mesh.shape["tp"] == 2
     assert Sampler(cfg, mesh=Mesh({"fsdp": 2}, rank=1)).mesh.coords == {
         "data": 0, "fsdp": 1, "tp": 0}

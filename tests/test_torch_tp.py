@@ -166,12 +166,35 @@ def test_a_tp_that_does_not_divide_the_heads_raises():
 
 
 def test_aria_refuses_tp():
+    """Aria's tp plan at tp 2 (its leaves and counts; moe_impl "ep" places
+    the experts), and a ValueError at a tp that does not divide the heads
+    (20 / 16 at ARIA_25B) or the expert intermediate (1664)."""
+    import dataclasses
+
+    from spacer_tpu_torch.models.aria import ARIA_25B
     from spacer_tpu_torch.models.registry import get_family
 
     aria = get_family("aria")
-    assert aria.tp_plan(aria.tiny_config(), 1) is None
-    with pytest.raises(NotImplementedError, match="item 2b.2"):
-        aria.tp_plan(aria.tiny_config(), 2)
+    plan = aria.tp_plan(aria.tiny_config(), 2)
+    assert plan.leaves == tpart.ARIA_TP_LEAVES and plan.experts is None
+    assert plan.kind("model/layers/3/mlp/experts/fc1/kernel") == "halves"
+    assert plan.kind("model/layers/3/mlp/router/kernel") is None
+    assert plan.kind("visual/encoder/0/self_attn/out_proj/kernel") == "split"
+    assert plan.kind("projector/cross_attn/q_proj/kernel") is None
+    for tp in (1, 2, 4):
+        aria.tp_plan(ARIA_25B, tp)
+    for tp, what in ((8, "num_heads=20"), (3, "num_heads=20")):
+        with pytest.raises(ValueError, match=what):
+            aria.tp_plan(ARIA_25B, tp)
+    wide_heads = dataclasses.replace(
+        ARIA_25B, text=dataclasses.replace(ARIA_25B.text, num_heads=40,
+                                           num_kv_heads=40),
+        vision=dataclasses.replace(ARIA_25B.vision, num_heads=40))
+    with pytest.raises(ValueError, match="intermediate_size=1664"):
+        aria.tp_plan(wide_heads, 5)
+    ep = dataclasses.replace(ARIA_25B, text=dataclasses.replace(
+        ARIA_25B.text, moe_impl="ep"))
+    assert aria.tp_plan(ep, 2).placed("model/layers/0/mlp/experts/fc2/kernel")
 
 
 # -- the conjugate operations at a gloo world of 2 --------------------------

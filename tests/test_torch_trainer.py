@@ -109,10 +109,11 @@ def test_two_training_steps_and_checkpoint(tmp_path):
 def test_unported_configurations_raise(tmp_path, over):
     """Unknown decode_quant values raise ValueError (as in the JAX
     sampler) and a mesh that is not the port's parallel.mesh.Mesh
-    TypeError; the configurations the port does not run
-    NotImplementedError: a tp > 1 mesh for Aria (ROADMAP queue A item
-    2b.2; a Qwen trainer takes one since tensor parallelism was ported:
-    tests/test_torch_tp_model.py), any attn_impl / decode_impl (gradient
+    TypeError, and a tp that does not divide Aria's heads ValueError (a
+    Qwen and an Aria trainer take a tp-2 mesh since tensor parallelism was
+    ported: tests/test_torch_tp_model.py, tests/test_torch_aria_tp.py); the
+    configurations the port does not run NotImplementedError: any
+    attn_impl / decode_impl (gradient
     accumulation, offload, speculative rollouts and the data x fsdp mesh
     run since they were ported: tests/test_torch_accumulation.py,
     test_torch_offload.py, test_speculative_rollout_step below,
@@ -129,10 +130,21 @@ def test_unported_configurations_raise(tmp_path, over):
                 MockTokenizer(vocab_size=cfg.text.vocab_size), cfg),
             [format_reward], _rows(), SGRLVRConfig(), mesh=mesh)
         assert trainer.sampler.mesh is mesh
+        from spacer_tpu_torch.data.aria_processor import (
+            AriaProcessor,
+            MockAriaTokenizer,
+        )
+
         aria = tiny_aria_config()
-        with pytest.raises(NotImplementedError, match="item 2b"):
-            SGRLVRTrainer(aria, aria_init(aria), None, [format_reward],
-                          _rows(), SGRLVRConfig(), mesh=mesh)
+        proc = AriaProcessor(MockAriaTokenizer(aria.text.vocab_size), aria)
+        trainer = SGRLVRTrainer(aria, aria_init(aria), proc, [format_reward],
+                                _rows(), SGRLVRConfig(), mesh=mesh)
+        assert trainer.sampler.mesh is mesh
+        # the tiny tower's 2 heads: tp 4 does not divide them
+        with pytest.raises(ValueError, match="tower's num_heads=2"):
+            SGRLVRTrainer(aria, aria_init(aria), proc, [format_reward],
+                          _rows(), SGRLVRConfig(),
+                          mesh=Mesh(dict(over["mesh"], tp=4), rank=0))
         return
     exc = (ValueError if "decode_quant" in over
            else TypeError if "mesh" in over
