@@ -143,20 +143,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      issued); two GRPO steps unsharded and over the mesh under phase 12's
      gate.  `--phases 14 --world 2,4` runs full-depth serving over tp 2 and
      4 and GRPO steps over (1, 2, 2) and (1, 4, 1) instead.
+  15. ring attention (spacer_tpu_torch/ops/ring_attention.py) and the
+     pipeline (spacer_tpu_torch/parallel/pipeline.py) at world 1 over NCCL:
+     Qwen2.5-VL-7B widths with the LM cut to PP_LM_LAYERS, two GRPO steps
+     on TRAIN_G packed rows of phase 5's shapes, plain, with the ring tuple
+     over create_mesh({"fsdp": 1}) and with pipeline (mesh, 1) over
+     create_mesh({"pipe": 1}) (both bitwise equal to the plain step), and
+     with pipeline (mesh, 2) (loss and gradient cosines within
+     PP_LOSS_RTOL / PP_COS_TOL); the collectives counted and none issued;
+     one SFT step through the pipeline.  `--phases 15 --world 2,4` runs
+     the ring over 2 and 4 cards and the pipeline over 2 and 4 stages and
+     pipe 2 x data 2 at full depth against a one-card reference instead.
 Phase 3 also checks the kernels at the Aria path's shapes (3c: K1 at
 head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1), 3d at
 the shapes one rank of a tp-2 or tp-4 Qwen2.5-VL-7B runs (14 / 7 query
 heads, 2 / 1 KV heads, 8 / 4 ViT heads, K6 at the sliced products), and 3e
 at an Aria tp-2 or tp-4 rank's (8 / 4 tower heads at head_dim 72, 10 / 5
-LM heads at group 1, K6 at the sliced products, K = 832 included).
+LM heads at group 1, K6 at the sliced products, K = 832 included), and 3f
+K1 and K1-bwd as ring attention calls them (blocks of an 8192-token row
+over 4 emulated shards, the backward with the merged LSE and delta).
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5c and 7-14, each counted from 0 just
+summed over the paths of phases 4-5c and 7-15, each counted from 0 just
 before it runs); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 12 --world 4   # fsdp over four cards
     python3 chip_smoke.py --phases 13 --world 2,4   # tp over 2, then 4
     python3 chip_smoke.py --phases 14 --world 2,4   # Aria tp 2, 4; ep 4
+    python3 chip_smoke.py --phases 15 --world 2,4   # ring / pipe, 2 and 4
     python3 chip_smoke.py --phases 4c,4d     # a development run of some
 """
 
@@ -278,8 +292,8 @@ EVAL_NEW_TOKENS = 64
 LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
                "perception_task_accuracy", "relation_task_accuracy"}
 # The phases in the order they run (main's --phases selects some of them)
-PHASES = ("3", "3d", "3e", "4", "4c", "4d", "5", "5c", "6", "7", "8", "9",
-          "10", "11", "12", "13", "14")
+PHASES = ("3", "3d", "3e", "3f", "4", "4c", "4d", "5", "5c", "6", "7", "8",
+          "9", "10", "11", "12", "13", "14", "15")
 # Phase 4c, the HTTP server: HTTP_VIDEOS video requests over mp4 files of
 # HTTP_VIDEO_SECONDS at HTTP_VIDEO_FPS (16 frames sampled at 2 fps, grid
 # (8, 16, 30) as phase 4's) and as many text requests, through HTTP_SLOTS
@@ -5105,7 +5119,7 @@ class IssuedCollectives:
 
     NAMES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
              "all_to_all_single", "broadcast", "all_gather_object",
-             "broadcast_object_list")
+             "broadcast_object_list", "batch_isend_irecv")
 
     def __enter__(self):
         import torch.distributed as dist
@@ -5607,6 +5621,647 @@ def aria_world_phase(worlds, device="cuda"):
         raise RuntimeError("phase 14 --world: " + "; ".join(problems))
 
 
+# -- phases 3f and 15: ring attention and the pipeline --------------------------
+
+# Phase 3f: ring attention's blocks at Qwen2.5-VL-7B attention widths (28
+# query heads, 4 KV heads, head_dim 128): one row of RING_SEQ tokens
+# left-padded by RING_PAD, cut into RING_SHARDS emulated sequence shards
+RING_SEQ, RING_SHARDS, RING_PAD = 8192, 4, 300
+# Phase 15 at world 1: Qwen2.5-VL-7B widths, the LM cut to PP_LM_LAYERS,
+# TRAIN_G packed GRPO rows of TRAIN_PROMPT_BUCKET + TRAIN_NEW_TOKENS tokens
+# (phase 5's shapes, the prompt left-padded by TRAIN_PROMPT_PAD), two steps
+# per run; the pipeline at M = 2 against the plain step: the loss within
+# PP_LOSS_RTOL and every tensor's gradient cosine >= PP_COS_TOL
+PP_LM_LAYERS = 4
+PP_LOSS_RTOL, PP_COS_TOL = 1e-3, 0.9999
+PP_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv")
+# --world 2,4 (a development run; never by default): full depth, the same
+# rows; the ring over 2 and 4 cards, the pipeline over 2 and 4 stages and
+# pipe 2 x data 2 at PP_WORLD_MICRO microbatches, step 1 against a one-card
+# reference: the loss as phase 12's gate (FSDP_WORLD_LOSS_RTOL), grad_norm
+# within PP_WORLD_NORM_RTOL (bf16 gradients summed in other orders), every
+# compared tensor's cosine >= FSDP_WORLD_COS_TOL (the tensors of
+# _world_selected)
+PP_WORLD_MICRO = 4
+PP_WORLD_NORM_RTOL = 1e-2
+PP_WORLD_CONFIGS = {2: (("ring", {"fsdp": 2}), ("pipe", {"pipe": 2})),
+                    4: (("ring", {"fsdp": 4}), ("pipe", {"pipe": 4}),
+                        ("pipe", {"pipe": 2, "data": 2}))}
+
+
+def check_ring_kernels(device="cuda") -> dict:
+    """Phase 3f: K1 and K1-bwd as ring attention calls them, at
+    Qwen2.5-VL-7B attention widths on RING_SHARDS emulated shards of one
+    RING_SEQ-token row left-padded by RING_PAD: every shard's blocks and
+    their LSE merge against xla_attention over the whole sequence (live
+    rows); K1 on the causal diagonal block, a past block and a past block
+    holding the padding against the plain version (SDPA's forward as the
+    library yardstick); K1-bwd dq and dk/dv on those blocks with the MERGED
+    LSE and delta against attention_bwd_from_stats (whose LSE is natural
+    log: a kernel reading another unit would scale every probability), with
+    torch's flash backward fed the merged LSE as the yardstick where it
+    computes the same function; and the whole ring backward against the
+    whole-sequence plain gradient (rel-norm GRAD_REL_TOL per tensor)."""
+    from spacer_tpu_torch.nn.attention import xla_attention
+    from spacer_tpu_torch.ops import flash_attention as fa
+    from spacer_tpu_torch.ops import ring_attention as ra
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    H, Hkv, D, n, S = 28, 4, 128, RING_SHARDS, RING_SEQ
+    s = S // n
+    q, k, v = randn(1, S, H, D), randn(1, S, Hkv, D), randn(1, S, Hkv, D)
+    mask = torch.ones((1, S), dtype=torch.bool, device=dev)
+    mask[0, :RING_PAD] = False
+
+    def sl(x, i):
+        return x[:, i * s:(i + 1) * s].contiguous()
+
+    # every emulated rank's blocks, merged; the plain whole-sequence rows
+    # of each shard (its future keys are masked: they are left out)
+    outs, lses, worst = [], [], 0.0
+    for r in range(n):
+        out = lse = None
+        for src in range(r + 1):
+            out, lse = ra.merge(out, lse, *ra.block_forward(
+                sl(q, r), sl(k, src), sl(v, src), q_index=r, k_index=src,
+                causal=True, kv_mask=sl(mask, src)))
+        outs.append(out.to(bf))
+        lses.append(lse)
+        ref = xla_attention(sl(q, r), k[:, :(r + 1) * s], v[:, :(r + 1) * s],
+                            causal=True, kv_mask=mask[:, :(r + 1) * s],
+                            q_offset=r * s).float()
+        live = torch.arange(r * s, (r + 1) * s, device=dev) >= RING_PAD
+        diff = (outs[-1].float() - ref)[:, live].abs()
+        worst = max(worst, float(diff.max()))
+        if not bool((diff <= BF16_TOL * (1 + ref[:, live].abs())).all()):
+            raise RuntimeError(f"ring shard {r}: merged blocks disagree with "
+                               f"the whole-sequence attention ({worst})")
+    _sync(device)
+    log(f"ring forward: {n} shards of {s}, blocks merged by LSE vs "
+        f"xla_attention over {S} keys: max_abs_err {worst:.3e} on live rows "
+        f"(tol {BF16_TOL:.0e} * (1 + |ref|))")
+
+    results = {}
+    # (tag, query shard, key shard): the causal diagonal block, a past block
+    # of live keys, a past block holding the padding
+    blocks = (("diagonal", 1, 1), ("past", 2, 1), ("past padded", 1, 0))
+    for tag, r, src in blocks:
+        causal = src == r
+        qb, kb, vb, mb = sl(q, r), sl(k, src), sl(v, src), sl(mask, src)
+        live_k = int(mb.sum())
+        pairs = s * (s + 1) // 2 if causal else s * live_k
+        smask = mb[:, None, None, :].expand(1, 1, s, s)
+        if causal:
+            smask = smask & torch.ones((s, s), dtype=torch.bool,
+                                       device=dev).tril()
+        kw = dict(causal=causal, kv_mask=mb)
+        name = f"ring {tag} block S={s}"
+        q_bytes = s * (H * D * 2 + H * 4)
+        results[f"K1 {name}"] = compare(
+            f"K1 flash_attention [{name}]",
+            lambda: fa.flash_attention(qb, kb, vb, return_lse=True, **kw),
+            lambda: xla_attention(qb, kb, vb, return_lse=True, **kw),
+            work=(q_bytes + s * H * D * 2 + live_k * Hkv * D * 2 * 2,
+                  4 * D * H * pairs),
+            library_fn=lambda: sdpa_masked(qb, kb, vb, smask))
+        # the backward with the merged statistics of shard r
+        dout = randn(1, s, H, D)
+        lse, delta = lses[r], ra.delta_of(outs[r], dout)
+        args = (qb, kb, vb, dout, lse, delta)
+        library = flash_bwd_yardstick(qb, kb, vb, dout, outs[r], lse, causal,
+                                      bool(mb.all()))
+        results[f"K1-bwd dq {name}"] = compare(
+            f"K1-bwd dq [{name}, merged LSE]",
+            lambda: fa.flash_attention_bwd_dq_from_stats(*args, **kw),
+            lambda: fa.attention_bwd_from_stats(*args, **kw)[0],
+            rel_norm=True, library_fn=library,
+            work=(q_bytes + s * H * D * 2 * 3 + live_k * Hkv * D * 2 * 2,
+                  6 * D * H * pairs))
+        results[f"K1-bwd dkv {name}"] = compare(
+            f"K1-bwd dk/dv [{name}, merged LSE]",
+            lambda: fa.flash_attention_bwd_dkv_from_stats(*args, **kw),
+            lambda: fa.attention_bwd_from_stats(*args, **kw)[1:],
+            rel_norm=True, library_fn=library,
+            work=(q_bytes + s * H * D * 2 * 2 + live_k * Hkv * D * 2 * 4,
+                  8 * D * H * pairs))
+    # the whole ring backward (every shard's blocks, kernels) against the
+    # whole-sequence plain gradient; dead rows get no output gradient
+    live = (torch.arange(S, device=dev) >= RING_PAD)[None, :, None, None]
+    dout = randn(1, S, H, D) * live
+    got = [torch.zeros(x.shape, dtype=torch.float32, device=dev)
+           for x in (q, k, v)]
+    want = [torch.zeros_like(g) for g in got]
+    for r in range(n):
+        dr = sl(dout, r)
+        delta = ra.delta_of(outs[r], dr)
+        for src in range(r + 1):
+            g = ra.block_backward(sl(q, r), sl(k, src), sl(v, src), dr,
+                                  lses[r], delta, q_index=r, k_index=src,
+                                  causal=True, kv_mask=sl(mask, src))
+            for acc, x, i in zip(got, g, (r, src, src)):
+                acc[:, i * s:(i + 1) * s] += x.float()
+        e = (r + 1) * s
+        ref = fa.attention_bwd_reference(sl(q, r), k[:, :e], v[:, :e], dr,
+                                         causal=True, kv_mask=mask[:, :e],
+                                         q_offset=r * s)
+        want[0][:, r * s:e] += ref[0].float()
+        want[1][:, :e] += ref[1].float()
+        want[2][:, :e] += ref[2].float()
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(got, want)]
+    log(f"ring backward: {n} shards, K1-bwd with the merged LSE / delta vs "
+        f"the whole-sequence plain gradient: rel-norm dq {rel[0]:.3e} dk "
+        f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {GRAD_REL_TOL:.0e}; the LSE the "
+        "plain version reads is natural log)")
+    if not max(rel) <= GRAD_REL_TOL:
+        raise RuntimeError(f"ring backward disagrees with the plain "
+                           f"gradient: {rel}")
+    return results
+
+
+def flash_bwd_yardstick(q, k, v, dout, out, lse, causal, all_live):
+    """torch's flash-attention backward (dq, dk, dv in one call) fed the
+    merged LSE, on the GQA heads repeated, where it computes the same
+    function (no key mask: a block whose keys are all live); None (logged
+    "-") where it does not or refuses the call.  Timing only."""
+    if not all_live:
+        log("K1-bwd library yardstick: '-' (the block masks keys; torch's "
+            "flash backward takes no key mask)")
+        return None
+    g = q.shape[2] // k.shape[2]
+    t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    qt, ot, dt = t(q), t(out), t(dout)
+    kt, vt = (t(x.repeat_interleave(g, dim=2)) for x in (k, v))
+    seed = torch.zeros((), dtype=torch.int64, device=q.device)
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dt, qt, kt, vt, ot, lse, None, None, q.shape[1], k.shape[1], 0.0,
+            causal, seed, seed, scale=q.shape[-1] ** -0.5)
+
+    try:
+        library()
+    except (RuntimeError, TypeError) as e:
+        log(f"K1-bwd library yardstick: '-' (torch's flash backward refused "
+            f"the merged LSE: {str(e).splitlines()[0][:120]})")
+        return None
+    return library
+
+
+def packed_rows(cfg, device, seed: int) -> dict:
+    """TRAIN_G packed GRPO rows (one prompt of TRAIN_PROMPT_BUCKET tokens
+    left-padded by TRAIN_PROMPT_PAD, each row's completion of
+    TRAIN_NEW_TOKENS tokens ending at a random length), random ids from
+    `seed`, on `device`."""
+    rng = np.random.default_rng(seed)
+    G, P, C, pad = TRAIN_G, TRAIN_PROMPT_BUCKET, TRAIN_NEW_TOKENS, \
+        TRAIN_PROMPT_PAD
+    ids = rng.integers(10, cfg.text.vocab_size, size=(G, P + C))
+    ids[:, :P] = ids[:1, :P]          # one prompt, G completions
+    ids[:, :pad] = cfg.pad_token_id
+    ends = rng.integers(1, C + 1, size=G)
+    cmask = np.arange(C)[None] < ends[:, None]
+    kv_mask = np.concatenate([np.broadcast_to(np.arange(P) >= pad, (G, P)),
+                              cmask], axis=1)
+    pos = np.maximum(np.cumsum(kv_mask, axis=1) - 1, 0)
+    t = lambda x, dt: torch.as_tensor(np.ascontiguousarray(x), dtype=dt,  # noqa: E731
+                                      device=device)
+    return {"input_ids": t(ids, torch.long), "kv_mask": t(kv_mask, torch.bool),
+            "position_ids": t(np.broadcast_to(pos, (3, G, P + C)), torch.long),
+            "completion_mask": t(cmask, torch.int32),
+            "advantages": t(rng.normal(size=G), torch.float32)}
+
+
+def pp_model(cfg, device, seed: int = 0):
+    """{"model": the LM's random bf16 params} (the packed text rows reach
+    no vision tower)."""
+    from spacer_tpu_torch.models.qwen25_vl.language import init_lm_params
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"model": init_lm_params(cfg.text, generator=gen,
+                                    dtype=torch.bfloat16, device=device)}
+
+
+def pp_train_run(cfg, device, kind, mesh=None, micro=1, ref=None) -> dict:
+    """Two GRPO steps on phase 15's packed rows (batches of seeds 1 and 2)
+    with `kind` "plain", "ring" (attn_impl over `mesh`'s fsdp axis) or
+    "pipe" (pipeline=(mesh, micro)).  Without `ref` it keeps step 1's
+    gradients and the final params on the card; with `ref` (that record)
+    each is held against it: the tensors that differ and per tensor the
+    gradient cosine."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.parallel.pipeline import shard_layers_for_pipeline
+    from spacer_tpu_torch.train.optimizer import make_optimizer
+    from spacer_tpu_torch.train.step import make_grpo_train_step, param_leaves
+
+    params, ref_params = pp_model(cfg, device), pp_model(cfg, device)
+    kw = {}
+    if kind == "ring":
+        kw["attn_impl"] = ("ring", mesh, "fsdp")
+    elif kind == "pipe":
+        kw["pipeline"] = (mesh, micro)
+        for p in (params, ref_params):
+            p["model"] = shard_layers_for_pipeline(p["model"], mesh)
+    tx = make_optimizer(learning_rate=1e-5, total_steps=10,
+                        moment_dtype="int8")
+    named = param_leaves(params)
+    names = [n for n, _ in named]
+    state = tx.init([t for _, t in named], names)
+    step = make_grpo_train_step(cfg, tx, beta=0.04, remat=True, **kw)
+    rec = {"steps": [], "grad_bad": [], "cos": {}}
+
+    def sink(update, grads, gnorm):
+        if update:
+            return
+        if ref is None:
+            rec["grads"] = [g.detach().clone() for g in grads]
+            return
+        for n, g, w in zip(names, grads, ref["grads"]):
+            if not torch.equal(g, w):
+                rec["grad_bad"].append(n)
+            a, b = g.double().reshape(-1), w.double().reshape(-1)
+            d = float(a.norm() * b.norm())
+            rec["cos"][n] = float(a @ b) / d if d > 0 else float(
+                bool(torch.equal(g, w)))
+
+    GradTap(tx, sink)
+    batches = [packed_rows(cfg, device, seed) for seed in (1, 2)]
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    _peak(device, reset=True)
+    multihost.reset_collective_stats()
+    multihost.time_collectives(torch.device(device).type == "cuda")
+    reset_launch_counts()
+    with IssuedCollectives() as issued:
+        for batch in batches:
+            _sync(device)
+            t = time.perf_counter()
+            params, state, m = step(params, ref_params, state, batch,
+                                    num_generations=TRAIN_G)
+            _sync(device)
+            rec["steps"].append(dict(
+                {k: float(m[k]) for k in ("loss", "kl", "grad_norm")},
+                s=time.perf_counter() - t))
+    rec["counts"] = launch_counts()
+    rec["peak"] = _peak(device)
+    rec["collectives"] = multihost.collective_stats()
+    rec["issued"] = dict(issued.calls)
+    multihost.time_collectives(False)
+    finals = [t.detach() for _, t in param_leaves(params)]
+    if ref is None:
+        rec["params"] = [t.clone() for t in finals]
+    else:
+        rec["param_bad"] = [n for n, t, w in zip(names, finals,
+                                                 ref["params"])
+                            if not torch.equal(t, w)]
+    del params, ref_params, state, finals
+    gc.collect()
+    return rec
+
+
+def pp_sft_step(cfg, device, mesh, micro: int) -> dict:
+    """One SFT step through the pipeline on phase 15's first rows (labels:
+    the tokens the kv_mask keeps)."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.parallel.pipeline import shard_layers_for_pipeline
+    from spacer_tpu_torch.train.optimizer import make_optimizer
+    from spacer_tpu_torch.train.step import make_sft_train_step, param_leaves
+
+    params = pp_model(cfg, device)
+    params["model"] = shard_layers_for_pipeline(params["model"], mesh)
+    tx = make_optimizer(learning_rate=1e-5, total_steps=10,
+                        moment_dtype="int8")
+    named = param_leaves(params)
+    state = tx.init([t for _, t in named], [n for n, _ in named])
+    rows = packed_rows(cfg, device, 1)
+    batch = {k: rows[k] for k in ("input_ids", "kv_mask", "position_ids")}
+    batch["labels"] = torch.where(rows["kv_mask"], rows["input_ids"], -100)
+    step = make_sft_train_step(cfg, tx, remat=True, pipeline=(mesh, micro))
+    reset_launch_counts()
+    _peak(device, reset=True)
+    _sync(device)
+    t = time.perf_counter()
+    _, _, m = step(params, state, batch)
+    _sync(device)
+    rec = {"loss": float(m["loss"]), "s": time.perf_counter() - t,
+           "peak": _peak(device), "counts": launch_counts()}
+    del params, state
+    gc.collect()
+    return rec
+
+
+def ring_pipe_phase(device="cuda") -> dict:
+    """Phase 15: ring attention and the pipeline at world 1 over NCCL
+    (torchrun's environment for rank 0 of 1), Qwen2.5-VL-7B widths with the
+    LM cut to PP_LM_LAYERS, two GRPO steps each on TRAIN_G packed rows of
+    phase 5's shapes: plain; with attn_impl ("ring", mesh, "fsdp") on
+    create_mesh({"fsdp": 1}) and with pipeline (mesh, 1) on
+    create_mesh({"pipe": 1}), both bitwise equal to the plain step (losses,
+    step 1's gradients, the final params); with pipeline (mesh, 2) the loss
+    within PP_LOSS_RTOL and every tensor's gradient cosine >= PP_COS_TOL
+    (its GEMMs run half the rows).  Every run counts its collectives and
+    issues none; every kernel of PP_KERNELS is launched.  Then one SFT step
+    through the pipeline at M = 2.  Returns each run's launches."""
+    import torch.distributed as dist
+
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.parallel import multihost, tp
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+
+    tp.set_mesh(None)
+    world1_env()
+    multihost.initialize(device=device)
+    cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
+        QWEN25_VL_7B.text, num_layers=PP_LM_LAYERS))
+    ring_mesh = create_mesh({"fsdp": 1})
+    pipe_mesh = create_mesh({"pipe": 1})
+    plain = pp_train_run(cfg, device, "plain")
+    runs = {"ring": pp_train_run(cfg, device, "ring", ring_mesh, ref=plain),
+            "pipe M=1": pp_train_run(cfg, device, "pipe", pipe_mesh, 1,
+                                     ref=plain),
+            "pipe M=2": pp_train_run(cfg, device, "pipe", pipe_mesh, 2,
+                                     ref=plain)}
+    del plain["grads"], plain["params"]
+    problems = []
+    for name, r in (("plain", plain), *runs.items()):
+        for i, st in enumerate(r["steps"]):
+            log(f"phase 15 {name} step {i + 1}: loss {st['loss']!r} kl "
+                f"{st['kl']!r} grad_norm {st['grad_norm']!r} | "
+                f"{st['s']:.2f} s")
+        log(f"phase 15 {name}: max_memory_allocated {gib(r['peak'])}, "
+            f"launches {r['counts']}, collectives counted per step: "
+            + (_collective_line(r["collectives"], 2) or "none")
+            + f", issued {r['issued'] or 'none'}")
+        if r["issued"]:
+            problems.append(f"{name}: issued {r['issued']} at world 1")
+        if min(r["counts"][k] for k in PP_KERNELS) < 1:
+            problems.append(f"{name}: a kernel was never launched")
+    for name in ("ring", "pipe M=1"):
+        r = runs[name]
+        same = all(a[key] == b[key] for a, b in zip(plain["steps"],
+                                                     r["steps"])
+                   for key in ("loss", "kl", "grad_norm"))
+        log(f"phase 15 {name} vs plain: losses / kl / grad_norm bitwise "
+            f"{same}, step 1 gradients differing {len(r['grad_bad'])} of "
+            f"{len(r['cos'])}, final params differing {len(r['param_bad'])}")
+        if not same or r["grad_bad"] or r["param_bad"]:
+            problems.append(f"{name} is not bitwise the plain step: "
+                            f"{r['grad_bad'][:4]} {r['param_bad'][:4]}")
+        if name == "ring" and not r["collectives"].get(
+                "ring_all_gather", {}).get("calls"):
+            problems.append("ring: no ring_all_gather counted")
+    r = runs["pipe M=2"]
+    a, b = plain["steps"][0]["loss"], r["steps"][0]["loss"]
+    cos = min(r["cos"].values())
+    log(f"phase 15 pipe M=2 vs plain at step 1: loss {b!r} vs {a!r} (rel "
+        f"{abs(b - a) / abs(a):.3e}, tol {PP_LOSS_RTOL:.0e}), gradient "
+        f"cosine min {cos:.6f} over {len(r['cos'])} tensors (tol "
+        f"{PP_COS_TOL}), bitwise {len(r['cos']) - len(r['grad_bad'])}")
+    if abs(b - a) > PP_LOSS_RTOL * abs(a) or not cos >= PP_COS_TOL:
+        problems.append(f"pipe M=2: loss {b} vs {a}, cosine {cos}")
+    if not r["collectives"].get("pp_broadcast", {}).get("calls"):
+        problems.append("pipe: no pp_broadcast counted")
+    sft = pp_sft_step(cfg, device, pipe_mesh, 2)
+    log(f"phase 15 SFT through the pipeline (M=2): loss {sft['loss']!r}, "
+        f"{sft['s']:.2f} s, max_memory_allocated {gib(sft['peak'])}, "
+        f"launches {sft['counts']}")
+    if not math.isfinite(sft["loss"]):
+        problems.append(f"SFT loss {sft['loss']}")
+    dist.destroy_process_group()
+    if problems:
+        raise RuntimeError("phase 15: " + "; ".join(problems))
+    paths = {f"train {k} world 1": r["counts"] for k, r in runs.items()}
+    paths["sft pipe world 1"] = sft["counts"]
+    return paths
+
+
+def _pp_world_params(cfg, device, kind, mesh):
+    """(params, the global indices of the layers they hold) of a --world
+    run: the LM from phase 15's seed, whole, or cut to the stage's
+    layers."""
+    from spacer_tpu_torch.parallel.pipeline import (
+        shard_layers_for_pipeline,
+        stage_layers,
+    )
+
+    params = pp_model(cfg, device)
+    if kind != "pipe":
+        return params, range(cfg.text.num_layers)
+    params["model"] = shard_layers_for_pipeline(params["model"], mesh)
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return params, stage_layers(cfg.text.num_layers, mesh)
+
+
+def _pp_world_step(cfg, device, params, kind, mesh):
+    """-> fn() running one loss-and-gradients step of --world's packed rows
+    (the policy its own reference), returning (loss, grad_norm, names,
+    grads)."""
+    from spacer_tpu_torch.parallel import pipeline as pp
+    from spacer_tpu_torch.train.optimizer import global_norm, make_optimizer
+    from spacer_tpu_torch.train.step import make_grpo_train_step, param_leaves
+
+    kw = ({"attn_impl": ("ring", mesh, "fsdp")} if kind == "ring" else
+          {"pipeline": (mesh, PP_WORLD_MICRO)} if kind == "pipe" else {})
+    step = make_grpo_train_step(cfg, make_optimizer(), beta=0.04, remat=True,
+                                **kw)
+    batch = packed_rows(cfg, device, 1)
+    names = [n for n, _ in param_leaves(params)]
+
+    def run():
+        ref = step.ref_logps_fn(params, batch, num_generations=TRAIN_G)
+        loss, _, grads = step.loss_and_grads(params, ref, batch,
+                                             num_generations=TRAIN_G)
+        norm = (pp.global_norm(grads, names, mesh) if kind == "pipe"
+                else global_norm(grads))
+        return float(loss), float(norm), names, grads
+
+    return run
+
+
+def _pp_world_reference(rank, out, device="cuda"):
+    """--world's reference, one card without a mesh, full depth: the loss,
+    grad_norm and the selected gradients (_world_selected) of phase 15's
+    step on its first rows, its second (warm) step timed -> out/ref.pt."""
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+
+    params, _ = _pp_world_params(QWEN25_VL_7B, device, "plain", None)
+    run = _pp_world_step(QWEN25_VL_7B, device, params, "plain", None)
+    run()    # warm: the ranks' timed step is their second too
+    _peak(device, reset=True)
+    _sync(device)
+    t = time.perf_counter()
+    loss, norm, names, grads = run()
+    _sync(device)
+    rec = {"loss": loss, "grad_norm": norm, "s": time.perf_counter() - t,
+           "peak": _peak(device),
+           "adv_scale": float(packed_rows(QWEN25_VL_7B, device, 1)[
+               "advantages"].abs().mean()),
+           "grads": {n: g.cpu() for n, g in zip(names, grads)
+                     if _world_selected(n)}}
+    torch.save(rec, out + "/ref.pt")
+    log(f"ring / pipe world reference (1 card): loss {loss!r} grad_norm "
+        f"{norm!r}, {rec['s']:.2f} s, max_memory_allocated {gib(rec['peak'])}")
+
+
+def idle_share(fn, device) -> tuple:
+    """(wall s, share of the wall with no compute kernel running) of one
+    call of fn under torch.profiler: the union of the CUDA kernels' spans
+    other than NCCL's (a P2P or collective kernel also spans its wait)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        _sync(device)
+        wall = time.perf_counter() - t
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "nccl" not in e.name.lower())
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, 1.0 - busy / 1e6 / wall if wall > 0 else 0.0
+
+
+def _pp_world_rank(rank, out, device="cuda"):
+    """One rank of --world N: PP_WORLD_CONFIGS[N] in turn, each three
+    loss-and-gradients steps: the first held against the reference, the
+    second timed (its peak and collectives), the third profiled."""
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+    from spacer_tpu_torch.train.step import param_leaves
+
+    world = multihost.process_count()
+    ref = torch.load(out + "/ref.pt", weights_only=False)
+    recs = {}
+    for kind, shape in PP_WORLD_CONFIGS[world]:
+        tag = f"{kind} {shape}"
+        mesh = create_mesh(shape)
+        params, span = _pp_world_params(QWEN25_VL_7B, device, kind, mesh)
+        run = _pp_world_step(QWEN25_VL_7B, device, params, kind, mesh)
+        held = sum(t.numel() * t.element_size()
+                   for _, t in param_leaves(params))
+        loss, norm, names, grads = run()
+        rec = {"loss": loss, "grad_norm": norm, "held": held, "cos": {}}
+        for n, g in zip(names, grads):
+            parts = n.split("/")
+            if parts[:2] == ["model", "layers"]:
+                parts[2] = str(span[int(parts[2])])
+            full = "/".join(parts)
+            w = ref["grads"].get(full)
+            if w is None or (kind == "pipe" and mesh.coords["data"]):
+                continue
+            a, b = g.double().reshape(-1), w.to(g.device).double().reshape(-1)
+            d = float(a.norm() * b.norm())
+            rec["cos"][full] = (float(a @ b) / d if d > 0
+                                else float(bool(torch.equal(a, b))))
+        del grads
+        gc.collect()
+        # the second (warm) step: time, peak and collectives
+        _peak(device, reset=True)
+        multihost.reset_collective_stats()
+        multihost.time_collectives(torch.device(device).type == "cuda")
+        _sync(device)
+        t = time.perf_counter()
+        run()
+        _sync(device)
+        rec["s"] = time.perf_counter() - t
+        multihost.time_collectives(False)
+        rec["collectives"] = multihost.collective_stats()
+        rec["peak"] = _peak(device)
+        rec["profiled_s"], rec["idle"] = idle_share(run, device)
+        if kind == "pipe":
+            S = mesh.shape["pipe"]
+            rec["bubble"] = (S - 1) / (PP_WORLD_MICRO + S - 1)
+        recs[tag] = rec
+        del params, run
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    parts = multihost.all_gather_objects(recs)
+    if rank == 0:
+        torch.save(parts, out + f"/world{world}.pt")
+
+
+def ring_pipe_world_phase(worlds, device="cuda"):
+    """`--phases 15 --world 2,4`: the one-card reference on card 0 at full
+    depth, then each world's PP_WORLD_CONFIGS (parallel.multihost.
+    launch_local, NCCL): per config and rank the loss, grad_norm and every
+    compared tensor's gradient cosine against the reference (the gates
+    above), the peak memory and the parameter bytes a rank holds, s per
+    step, for the pipeline the bubble share (S - 1) / (M + S - 1) beside
+    the measured idle share, and the P2P and collective calls, bytes and
+    CUDA-event ms per step."""
+    out = str(pathlib.Path(__file__).resolve().parent / "build"
+              / "smoke_pp_world")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    log("ring / pipe world cards (nvidia-smi): " + " | ".join(
+        subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True
+                       ).stdout.strip().splitlines()[:max(worlds)]))
+    from spacer_tpu_torch.parallel.multihost import launch_local
+
+    launch_local(_pp_world_reference, 1, args=(out, device), device=device,
+                 timeout=900)
+    ref = torch.load(out + "/ref.pt", weights_only=False)
+    scale = max(abs(ref["loss"]), ref["adv_scale"])
+    problems = []
+    for world in worlds:
+        launch_local(_pp_world_rank, world, args=(out, device),
+                     device=device, timeout=1500)
+        parts = torch.load(out + f"/world{world}.pt", weights_only=False)
+        for tag in parts[0]:
+            cos = {}
+            for r, p in enumerate(parts):
+                rec = p[tag]
+                cos.update(rec["cos"])
+                log(f"{tag} world {world} rank {r}: loss {rec['loss']!r} "
+                    f"grad_norm {rec['grad_norm']!r} | {rec['s']:.2f} s per "
+                    f"step, idle share {rec['idle']:.3f} (of a profiled "
+                    f"step, {rec['profiled_s']:.2f} s)"
+                    + (f" (bubble {rec['bubble']:.3f})" if "bubble" in rec
+                       else "")
+                    + f" | max_memory_allocated {gib(rec['peak'])}, params "
+                    f"held {gib(rec['held'])} | per step: "
+                    + _collective_line(rec["collectives"], 1))
+                if abs(rec["loss"] - ref["loss"]) > (FSDP_WORLD_LOSS_RTOL
+                                                     * scale):
+                    problems.append(f"{tag} rank {r}: loss {rec['loss']}")
+                if abs(rec["grad_norm"] - ref["grad_norm"]) > (
+                        PP_WORLD_NORM_RTOL * ref["grad_norm"]):
+                    problems.append(f"{tag} rank {r}: grad_norm "
+                                    f"{rec['grad_norm']}")
+            worst = min(cos.values()) if cos else float("nan")
+            log(f"{tag} world {world} vs 1 card: loss {parts[0][tag]['loss']!r}"
+                f" vs {ref['loss']!r}, grad_norm {parts[0][tag]['grad_norm']!r}"
+                f" vs {ref['grad_norm']!r}, gradient cosine min {worst:.6f} "
+                f"over {len(cos)} of {len(ref['grads'])} tensors")
+            if len(cos) != len(ref["grads"]) or not worst >= FSDP_WORLD_COS_TOL:
+                problems.append(f"{tag}: cosines {worst} over {len(cos)}")
+    log(f"ring / pipe world reference (1 card): {ref['s']:.2f} s per warm "
+        f"step, max_memory_allocated {gib(ref['peak'])}")
+    if problems:
+        raise RuntimeError("phase 15 --world: " + "; ".join(problems))
+
+
 def cli_main(mode: str, argv):
     """`chip_smoke.py --cli-step ARGS` / `--cli-serve ARGS` (torchrun_self's
     targets): spacer_tpu_torch.cli.train_sg_rlvr.main(ARGS) /
@@ -5630,7 +6285,8 @@ def main(argv=None):
     (4c / 4d run on phase 4's params, 5c after phase 5).  `--phases 12
     --world N` runs phase 12's N-card variant instead (fsdp_world_phase),
     `--phases 13 --world N[,M]` phase 13's (tp_world_phase), `--phases 14
-    --world N[,M]` phase 14's (aria_world_phase)."""
+    --world N[,M]` phase 14's (aria_world_phase), `--phases 15 --world
+    N[,M]` phase 15's (ring_pipe_world_phase)."""
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] in (["--cli-step"], ["--cli-serve"]):
         return cli_main(argv[0], argv[1:])
@@ -5646,9 +6302,9 @@ def main(argv=None):
                              f"without 5; known: {PHASES}")
         if len(argv) == 4:
             if argv[2] != "--world" or phases not in (("12",), ("13",),
-                                                      ("14",)):
-                raise SystemExit(usage + " (--world with --phases 12, 13 or "
-                                 "14 only)")
+                                                      ("14",), ("15",)):
+                raise SystemExit(usage + " (--world with --phases 12, 13, 14 "
+                                 "or 15 only)")
             world = [int(w) for w in argv[3].split(",")]
             if phases == ("12",) and len(world) != 1:
                 raise SystemExit("--phases 12 takes one --world")
@@ -5665,8 +6321,10 @@ def main(argv=None):
             fsdp_world_phase(world[0])
         elif phases == ("13",):
             tp_world_phase(world)
-        else:
+        elif phases == ("14",):
             aria_world_phase(world)
+        else:
+            ring_pipe_world_phase(world)
         log(f"development run of phase {phases[0]} at world {world}: no "
             "kernels line, no result")
         return 0
@@ -5679,6 +6337,10 @@ def main(argv=None):
         check_tp_kernels()
     if "3e" in phases:
         check_aria_tp_kernels()
+    if "3f" in phases:
+        check_ring_kernels()
+        gc.collect()
+        torch.cuda.empty_cache()
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
     paths = {}
@@ -5732,6 +6394,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "14" in phases:
         paths.update(aria_ep_phase())
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "15" in phases:
+        paths.update(ring_pipe_phase())
     counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     if phases != PHASES:

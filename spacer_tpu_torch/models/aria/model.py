@@ -72,9 +72,10 @@ def merge_vision_embeds(cfg: AriaConfig, input_ids, token_embeds,
 def forward(params: Params, cfg: AriaConfig, input_ids, *, pixel_values=None,
             pixel_position_ids=None, patch_mask=None, vision_embeds=None,
             position_ids=None, kv_mask=None, cache=None, cache_index: int = 0,
-            logits: bool = True, remat=False):
+            logits: bool = True, remat=False, attn_impl=None):
     """Full multimodal forward -> (logits or hidden, cache).  position_ids:
-    (3, B, S) with equal rows, or (B, S)."""
+    (3, B, S) with equal rows, or (B, S).  `attn_impl` reaches the LM only
+    (the tower keeps its own attention)."""
     token_embeds = embed(params["model"]["embed_tokens"], input_ids)
     if vision_embeds is None and pixel_values is not None:
         vision_embeds = encode_vision(params, cfg, pixel_values,
@@ -87,7 +88,8 @@ def forward(params: Params, cfg: AriaConfig, input_ids, *, pixel_values=None,
         position_ids = positions_1d_to_3d(position_ids)
     return lm_forward(params["model"], cfg.text, input_embeds=token_embeds,
                       position_ids=position_ids, kv_mask=kv_mask, cache=cache,
-                      cache_index=cache_index, logits=logits, remat=remat)
+                      cache_index=cache_index, logits=logits, remat=remat,
+                      attn_impl=attn_impl)
 
 
 def make_kv_cache(cfg: AriaConfig, batch: int, max_len: int,

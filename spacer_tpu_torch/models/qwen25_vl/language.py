@@ -14,6 +14,11 @@ Python loop replaces lax.scan).  Two ways to attend over earlier keys:
   block keys/values.  Per-layer remat is torch.utils.checkpoint, whole or
   selective (`check_remat`'s modes).
 
+`attn_impl=("ring", mesh, axis)` (lm_forward, `_layer`) runs the layers'
+self-attention as ring attention over that mesh axis where it applies (no
+cache, no prefix: Sq == Skv at q_offset 0), as JAX's attn_impl tuple does
+(nn/attention.dot_product_attention).
+
 The grouped rollout's decode step (`lm_decode_step_split`, head-major caches,
 attention through K2, or K2-int8 for int8 caches) writes its tail caches in
 place, under no_grad.
@@ -141,11 +146,12 @@ def o_proj(p_attn, attn, cfg: TextConfig):
 
 
 def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
-           cache_index: int, prefix_kv=None):
+           cache_index: int, prefix_kv=None, attn_impl=None):
     """One decoder layer -> (h, (k, v) of this block).  h: (B, S, D);
     cache_kv: (k, v) cache tensors of this layer, updated in place, or None;
     prefix_kv: (pk, pv) (B, P, Hkv, Dh) keys/values attended before the
-    block's own (causal offset P), or None."""
+    block's own (causal offset P), or None; attn_impl: None or ("ring",
+    mesh, axis)."""
     B, S, _ = h.shape
     p_attn = layer_params["self_attn"]
 
@@ -168,7 +174,7 @@ def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
         q_offset = pk.shape[1]
 
     attn = dot_product_attention(q, k, v, causal=True, kv_mask=kv_mask,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, impl=attn_impl)
     h = h + o_proj(p_attn, attn.reshape(B, S, -1), cfg)
     x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
     return h + _mlp_block(layer_params["mlp"], x, cfg), block_kv
@@ -204,6 +210,18 @@ def local_logits(params, cfg: TextConfig, h):
 def lm_head(params, cfg: TextConfig, h):
     """Logits over the whole vocabulary (all-gathered over tp)."""
     return tp.gather_from_tp(local_logits(params, cfg, h))
+
+
+def check_attn_impl(attn_impl, cfg: TextConfig):
+    """Validate an attn_impl (None or ("ring", mesh, axis)); the MoE's
+    expert-parallel row layout (moe_impl "ep") has no meaning on a
+    sequence shard, so it refuses the ring (NotImplementedError)."""
+    from spacer_tpu_torch.nn.attention import ring_impl
+
+    if ring_impl(attn_impl) is not None and getattr(cfg, "moe_impl",
+                                                    None) == "ep":
+        raise NotImplementedError("moe_impl='ep' under ring attention is "
+                                  "not ported (ROADMAP queue C)")
 
 
 def check_remat(remat):
@@ -280,7 +298,7 @@ def lm_forward(params: Params, cfg: TextConfig, *,
                kv_mask: Optional[torch.Tensor] = None, cache=None,
                cache_index: int = 0, last_only: bool = False,
                logits: bool = True, remat=False, prefix_kv=None,
-               return_kv: bool = False):
+               return_kv: bool = False, attn_impl=None):
     """Run the causal LM -> (logits or hidden, cache or per-layer kv).
 
     With `cache`, the current block's keys/values are written in place at
@@ -294,8 +312,11 @@ def lm_forward(params: Params, cfg: TextConfig, *,
     returns the final-norm hidden states.  `remat=True` recomputes each
     layer in the backward pass (torch.utils.checkpoint); the selective
     modes of `check_remat` save the matmul outputs their policy names
-    (create_selective_checkpoint_contexts) and recompute the rest."""
+    (create_selective_checkpoint_contexts) and recompute the rest.
+    `attn_impl` ("ring", mesh, axis) runs the self-attention as ring
+    attention over that axis where it applies (see the module docstring)."""
     remat = check_remat(remat)
+    check_attn_impl(attn_impl, cfg)
     # fsdp Shards are gathered where used: the layers one at a time, inside
     # each (checkpointed) layer
     params = gather(params, keep=("layers",))
@@ -323,7 +344,7 @@ def lm_forward(params: Params, cfg: TextConfig, *,
     h, kvs = input_embeds, []
     for l, lp in enumerate(params["layers"]):
         kw = dict(cfg=cfg, cos=cos, sin=sin, kv_mask=kv_mask,
-                  cache_index=cache_index,
+                  cache_index=cache_index, attn_impl=attn_impl,
                   prefix_kv=None if prefix_kv is None else prefix_kv[l])
         if cache is not None:
             h, kv = _layer(h, gather(lp), (cache["k"][l], cache["v"][l]), **kw)

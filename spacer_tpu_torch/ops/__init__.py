@@ -20,7 +20,10 @@ context, _build.takes_plain).  moe.py's grouped products are torch ops
 | K6         | int4_matmul.int4_matmul, int4_matmul.dense_q4_fused (quant.dense_q4) | ops/int4_matmul.py:112 |
 
 K2 and K5 take the int8 caches' scales and hand such calls to their int8
-wrappers, so each kernel keeps its own count.  K6's two entry points (the
+wrappers, so each kernel keeps its own count.  K1-bwd's entries from given
+statistics (`flash_attention_bwd_dq_from_stats` / `_dkv_from_stats`, ring
+attention's: ring_attention.py) launch the same two kernels and count
+under theirs.  K6's two entry points (the
 scale-free product and dense_q4 with its scales, cast and bias) launch one
 kernel and count under `int4_matmul.launches`.
 """

@@ -17,6 +17,15 @@ stays a torch op, as the TPU wrapper computes it outside Pallas, once per
 backward for both kernels.  The plain versions of the two backward kernels
 are autograd through `xla_attention` (`attention_bwd_reference`).
 
+Both backward kernels read the LSE and delta as arguments, so they also take
+statistics that are not the block's own: `flash_attention_bwd_dq_from_stats`
+and `flash_attention_bwd_dkv_from_stats` take an external (B, Hq, Sq) f32
+`lse` (natural log, the unit the forward writes) and `delta`.  Ring attention
+(ops/ring_attention.py) runs them on each sequence block with the merged
+LSE and delta of all blocks.  Their plain version is
+`attention_bwd_from_stats`, the backward written out from the statistics
+(autograd through `xla_attention` equals it only at the block's own).
+
 The forward takes head_dim 128 (the LMs) and 72 (the Aria vision tower and
 its projector, 1152 / 16 heads: a D = 80 tile whose last 8 columns TMA fills
 with zeros).  The backward kernels take 128; at 72 the backward recomputes
@@ -38,7 +47,7 @@ from __future__ import annotations
 
 import torch
 
-from spacer_tpu_torch.nn.attention import xla_attention
+from spacer_tpu_torch.nn.attention import visible, xla_attention
 from spacer_tpu_torch.ops import _build
 
 HEAD_DIMS = (72, 128)
@@ -182,11 +191,43 @@ def attention_bwd_reference(q, k, v, dout, *, causal: bool = False,
         return torch.autograd.grad(out, (qd, kd, vd), dout)
 
 
+def attention_bwd_from_stats(q, k, v, dout, lse, delta, *, causal=False,
+                             q_segment_ids=None, kv_segment_ids=None,
+                             kv_mask=None, scale=None, q_offset: int = 0):
+    """Plain version of the backward from given statistics -> (dq, dk, dv)
+    in the inputs' dtype, computed in f32: P = exp(s * scale - lse) on the
+    visible keys (0 elsewhere, as in the kernels), dv = P^T dout, dS = P *
+    (dout v^T - delta), dq = scale dS k, dk = scale dS^T q summed over each
+    kv head's q heads.  lse and delta are (B, Hq, Sq) f32."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    mask = visible(q, k, causal=causal, q_segment_ids=q_segment_ids,
+                   kv_segment_ids=kv_segment_ids, kv_mask=kv_mask,
+                   q_offset=q_offset)[:, None, None]
+    qg = q.reshape(b, sq, hkv, group, d).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    stat = lambda t: t.float().reshape(b, hkv, group, sq, 1)  # noqa: E731
+    p = torch.where(mask, torch.exp(s - stat(lse)), 0.0)
+    do = dout.reshape(b, sq, hkv, group, d).float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", do, vf) - stat(delta))
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def _delta(out, dout):
     """delta = rowsum(dout * out), (B, Hq, Sq) f32 like the LSE.  The
     product is taken in f32 in place in dout's f32 copy, reading out as bf16
-    (no f32 copy of out, no third tensor)."""
-    return dout.float().mul_(out).sum(-1).transpose(1, 2).contiguous()
+    (no f32 copy of out, no third tensor; an f32 dout is copied, not
+    overwritten)."""
+    return (dout.to(torch.float32, copy=True).mul_(out).sum(-1)
+            .transpose(1, 2).contiguous())
 
 
 def _bwd_args(q, k, v, out, lse, dout, kv_mask, q_segment_ids,
@@ -204,6 +245,26 @@ def _bwd_args(q, k, v, out, lse, dout, kv_mask, q_segment_ids,
         raise ValueError("lse must be the forward's (B, Hq, Sq) f32 LSE")
     masks = _mask_args(q, k, kv_mask, q_segment_ids, kv_segment_ids)
     return lse.contiguous(), _delta(out, dout), masks
+
+
+def _stats_args(q, k, v, dout, lse, delta, kv_mask, q_segment_ids,
+                kv_segment_ids, q_offset):
+    """Checks of a backward call from given statistics -> (lse, delta,
+    masks)."""
+    _check(q, k, v, kv_mask, q_segment_ids, kv_segment_ids, q_offset)
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernels take head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {q.shape[-1]}")
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("dout must be a bf16 tensor of q's shape")
+    B, Sq, Hq, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, Hq, Sq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be (B, Hq, Sq) f32")
+        if t.device != q.device:
+            raise ValueError("all inputs must be on q's device")
+    masks = _mask_args(q, k, kv_mask, q_segment_ids, kv_segment_ids)
+    return lse.contiguous(), delta.contiguous(), masks
 
 
 def _launch_dq(q, k, v, dout, lse, delta, masks, *, causal, q_offset, scale):
@@ -272,6 +333,49 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, dout, *, causal: bool = False,
                                   q_segment_ids, kv_segment_ids, q_offset)
     return _launch_dkv(q, k, v, dout, lse, delta, masks, causal=causal,
                        q_offset=q_offset, scale=scale)
+
+
+def flash_attention_bwd_dq_from_stats(q, k, v, dout, lse, delta, *,
+                                      causal: bool = False,
+                                      q_segment_ids=None, kv_segment_ids=None,
+                                      kv_mask=None, scale=None,
+                                      q_offset: int = 0):
+    """K1-bwd dq from given statistics: dq (B, Sq, Hq, D) of this block of
+    keys, with P = exp(s * scale - lse) under the given `lse` and dS = P *
+    (dP - delta) under the given `delta` (each (B, Hq, Sq) f32).  Counts
+    under `flash_attention_bwd_dq.launches`, the kernel's count."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _build.takes_plain(q, "K1-bwd dq"):
+        return attention_bwd_from_stats(
+            q, k, v, dout, lse, delta, causal=causal,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            kv_mask=kv_mask, scale=scale, q_offset=q_offset)[0]
+    lse, delta, masks = _stats_args(q, k, v, dout, lse, delta, kv_mask,
+                                    q_segment_ids, kv_segment_ids, q_offset)
+    return _launch_dq(q, k, v, dout.contiguous(), lse, delta, masks,
+                      causal=causal, q_offset=q_offset, scale=scale)
+
+
+def flash_attention_bwd_dkv_from_stats(q, k, v, dout, lse, delta, *,
+                                       causal: bool = False,
+                                       q_segment_ids=None,
+                                       kv_segment_ids=None, kv_mask=None,
+                                       scale=None, q_offset: int = 0):
+    """K1-bwd dk/dv from given statistics (as the dq entry): (dk, dv),
+    each (B, Skv, Hkv, D), summed over each kv head's q heads.  Counts
+    under `flash_attention_bwd_dkv.launches`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _build.takes_plain(q, "K1-bwd dkv"):
+        return attention_bwd_from_stats(
+            q, k, v, dout, lse, delta, causal=causal,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            kv_mask=kv_mask, scale=scale, q_offset=q_offset)[1:]
+    lse, delta, masks = _stats_args(q, k, v, dout, lse, delta, kv_mask,
+                                    q_segment_ids, kv_segment_ids, q_offset)
+    return _launch_dkv(q, k, v, dout.contiguous(), lse, delta, masks,
+                       causal=causal, q_offset=q_offset, scale=scale)
 
 
 flash_attention.launches = 0

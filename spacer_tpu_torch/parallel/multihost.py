@@ -19,7 +19,12 @@ tensors (a shard for an all-gather, the whole padded tensor for a
 reduce-scatter, a pickle for an object exchange), and with
 `time_collectives(True)` on CUDA their CUDA-event time.  Tensor
 parallelism's collectives (parallel/tp.py) count under their own kinds,
-"tp_all_reduce", "tp_all_gather" and "tp_max".
+"tp_all_reduce", "tp_all_gather" and "tp_max"; ring attention's
+(ops/ring_attention.py) under "ring_p2p" and "ring_all_gather", the
+pipeline's (parallel/pipeline.py) under "pp_send", "pp_recv",
+"pp_broadcast", "pp_all_gather" and "pp_all_reduce".  Point-to-point
+transfers go through `p2p`, one dist.batch_isend_irecv per call (NCCL
+deadlocks on unpaired blocking sends).
 """
 
 from __future__ import annotations
@@ -150,8 +155,7 @@ def global_mesh(tp: int = 1, fsdp: int | None = None):
 def record(kind: str, x: torch.Tensor):
     """Count a collective of `kind` on x that a group of one need not issue
     (parallel/tp.py at tp 1)."""
-    with _Record(kind, x.numel() * x.element_size(), False):
-        pass
+    record_bytes(kind, x.numel() * x.element_size())
 
 
 def all_gather_into(out: torch.Tensor, x: torch.Tensor, group,
@@ -177,6 +181,64 @@ def all_reduce(x: torch.Tensor, group, kind: str = "all_reduce",
     with _Record(kind, x.numel() * x.element_size(), x.is_cuda):
         dist.all_reduce(x, op=red, group=group)
     return x
+
+
+def broadcast(x: torch.Tensor, src: int, group, kind: str = "broadcast"):
+    """Rank `src`'s x (a global rank) on every rank of the group, in place."""
+    with _Record(kind, x.numel() * x.element_size(), x.is_cuda):
+        _dist().broadcast(x, src, group=group)
+    return x
+
+
+def _nbytes(pairs) -> int:
+    return sum(t.numel() * t.element_size() for t, _ in pairs)
+
+
+def p2p(sends=(), recvs=(), group=None, send_kind: str = "p2p_send",
+        recv_kind: str | None = None):
+    """Send each (tensor, peer) of `sends` and receive into each (buffer,
+    peer) of `recvs` in one dist.batch_isend_irecv, and wait for all of it
+    (peers are global ranks).  Counted: `send_kind` one call with the bytes
+    sent, `recv_kind` (if given) one call with the bytes received; the
+    batch is timed under the first of the two that counts.  Empty lists
+    issue and count nothing."""
+    sends, recvs = list(sends), list(recvs)
+    if not sends and not recvs:
+        return
+    dist = _dist()
+    ops = ([dist.P2POp(dist.isend, t, peer, group) for t, peer in sends]
+           + [dist.P2POp(dist.irecv, t, peer, group) for t, peer in recvs])
+    counted = [(k, pairs) for k, pairs in ((send_kind, sends),
+                                            (recv_kind, recvs))
+               if k is not None and pairs]
+    for kind, pairs in counted[1:]:
+        record_bytes(kind, _nbytes(pairs))
+    kind, pairs = counted[0] if counted else (send_kind, sends)
+    with _Record(kind, _nbytes(pairs), ops[0].tensor.is_cuda):
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def warm_p2p(mesh, axis: str):
+    """Open the point-to-point communicators of this rank's `axis` group
+    of `mesh` once: NCCL makes them lazily, and the first
+    batch_isend_irecv on a group must include every rank of it (here each
+    rank sends to the next around the group)."""
+    if axis in mesh.warm or mesh.shape[axis] == 1:
+        return
+    ranks, i, n = mesh.peers(axis), mesh.coords[axis], mesh.shape[axis]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if _dist().get_backend() == "nccl" else torch.device("cpu"))
+    x, got = torch.zeros(1, device=dev), torch.empty(1, device=dev)
+    p2p([(x, ranks[(i + 1) % n])], [(got, ranks[(i - 1) % n])],
+        mesh.group(axis), send_kind="p2p_warm_up")
+    mesh.warm.add(axis)
+
+
+def record_bytes(kind: str, nbytes: int):
+    """Count one call of `kind` moving `nbytes` without timing it."""
+    with _Record(kind, nbytes, False):
+        pass
 
 
 # -- python objects (counted) ------------------------------------------------

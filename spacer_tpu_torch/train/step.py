@@ -15,8 +15,21 @@ PLACE through `tx.apply` (train/optimizer.py: `p.add_(u.to(p.dtype))`, JAX's
 dropped once applied).  Gradient accumulation is the optimizer's
 (`MultiSteps`, as the JAX trainer's optax.MultiSteps), not a step of its
 own.  Not ported: `step_accum` and `grad_chunk` / `apply_grads` (the
-bench's one-program and chunked accumulation, which no trainer calls), the
-pipeline-parallel packed path.
+bench's one-program and chunked accumulation, which no trainer calls).
+
+`make_grpo_train_step` takes JAX's two batch schemas, dispatched on
+"prompt_ids" in the batch: the shared-prefix one (the trainers') and the
+packed (input_ids / kv_mask) one (`_completion_logps`).  Both builders take
+JAX's `attn_impl=("ring", mesh, axis)` (sequence-parallel ring attention,
+ops/ring_attention.py, wherever self-attention has Sq == Skv: the packed
+rows, the shared-prefix prompt pass) and `pipeline=(mesh, M)` (the decoder
+stack pipelined over the mesh's pipe axis in M microbatches,
+parallel/pipeline.py; packed schema only).  Each runs the whole batch on
+every rank of its mesh, so the loss and the replicated gradients come out
+whole on every rank; under the pipeline each stage's layer gradients are
+its own layers' (summed over data), and the global norm sums those over
+the stages and counts each replicated tensor once.  Neither composes with
+the `mesh` below (ValueError).
 
 With a device mesh (parallel/mesh.py) the params may hold fsdp Shards
 (parallel/fsdp.py, gathered layer by layer where they are used) and the
@@ -40,9 +53,12 @@ import torch
 
 from spacer_tpu_torch.models.qwen25_vl.language import check_remat, lm_forward
 from spacer_tpu_torch.models.registry import family_for_config
+from spacer_tpu_torch.nn.attention import ring_impl
 from spacer_tpu_torch.nn.core import embed
 from spacer_tpu_torch.parallel import expert, fsdp, tp
+from spacer_tpu_torch.parallel import pipeline as pp
 from spacer_tpu_torch.parallel.partition import row_range
+from spacer_tpu_torch.parallel.pipeline import pipeline_lm_forward
 from spacer_tpu_torch.train.grpo import chunked_per_token_logps, grpo_loss
 from spacer_tpu_torch.train.optimizer import global_norm
 
@@ -114,18 +130,29 @@ def tile_vision_embeds(ve, cfg, grid_thw, num_generations: int,
 
 def _completion_logps(params, cfg, input_ids, position_ids, kv_mask,
                       prompt_len: int, vision_embeds=None, remat=False,
-                      logp_chunk: int = 256, merge_fn=None):
+                      logp_chunk: int = 256, merge_fn=None, attn_impl=None,
+                      pipeline=None):
     """Per-token logps of the completion part of packed (N, P+C) rows (the
-    numerics oracle of the shared-prefix path)."""
+    packed schema's, and the numerics oracle of the shared-prefix path).
+    `pipeline` = (mesh, M) runs the decoder stack pipelined
+    (parallel/pipeline.py), its rows over the mesh's data axis."""
     from spacer_tpu_torch.models.qwen25_vl.model import merge_vision_embeds
 
     merge_fn = merge_fn or merge_vision_embeds
     token_embeds = embed(params["model"]["embed_tokens"], input_ids)
     if vision_embeds is not None:
         token_embeds = merge_fn(cfg, input_ids, token_embeds, vision_embeds)
-    hidden, _ = lm_forward(params["model"], cfg.text, input_embeds=token_embeds,
-                           position_ids=position_ids, kv_mask=kv_mask,
-                           logits=False, remat=remat)
+    if pipeline is not None:
+        pp_mesh, n_micro = pipeline
+        hidden = pipeline_lm_forward(
+            params["model"], cfg.text, pp_mesh, num_microbatches=n_micro,
+            input_embeds=token_embeds, position_ids=position_ids,
+            kv_mask=kv_mask, remat=remat, logits=False, batch_axis="data")
+    else:
+        hidden, _ = lm_forward(params["model"], cfg.text,
+                               input_embeds=token_embeds,
+                               position_ids=position_ids, kv_mask=kv_mask,
+                               logits=False, remat=remat, attn_impl=attn_impl)
     # position i predicts token i+1; completion tokens are ids[:, P:]
     h = hidden[:, prompt_len - 1:-1]
     targets = input_ids[:, prompt_len:]
@@ -145,7 +172,8 @@ def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
                              completion_position_ids, completion_mask,
                              num_generations: int, vision_embeds=None,
                              remat=False, logp_chunk: int = 256,
-                             merge_fn=None, rows=None, layout=None):
+                             merge_fn=None, rows=None, layout=None,
+                             attn_impl=None):
     """Shared-prefix per-token completion logps: the prompt forward runs
     once per group (B rows) and its per-layer K/V, repeated G times, is the
     prefix of the G completion rows' attention.  The repeat's backward sums
@@ -158,7 +186,8 @@ def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
     running the prompt rows they belong to (the vision embeddings are
     merged into the whole prompt batch first); None is all rows.  `layout`
     (parallel/expert.RowLayout) lays out every rank's completion rows for
-    the MoE, and its prompt rows follow."""
+    the MoE, and its prompt rows follow.  `attn_impl` reaches both passes
+    (the ring applies to the prompt pass, where Sq == Skv)."""
     from spacer_tpu_torch.models.qwen25_vl.model import merge_vision_embeds
 
     merge_fn = merge_fn or merge_vision_embeds
@@ -192,7 +221,7 @@ def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
         hp, prompt_kv = lm_forward(
             model, tc, input_embeds=prompt_embeds,
             position_ids=prompt_position_ids, kv_mask=prompt_mask,
-            logits=False, remat=remat, return_kv=True)
+            logits=False, remat=remat, return_kv=True, attn_impl=attn_impl)
     prefix_kv = [(expand(k), expand(v)) for k, v in prompt_kv]
     kv_mask = torch.cat([expand(prompt_mask), completion_mask.bool()], dim=1)
     comp_embeds = embed(model["embed_tokens"], completion_ids)
@@ -200,7 +229,7 @@ def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
         hc, _ = lm_forward(model, tc, input_embeds=comp_embeds,
                            position_ids=completion_position_ids,
                            kv_mask=kv_mask, logits=False, remat=remat,
-                           prefix_kv=prefix_kv)
+                           prefix_kv=prefix_kv, attn_impl=attn_impl)
     # position P-1 (shared across the group) predicts completion token 0;
     # completion position i predicts token i+1
     h = torch.cat([expand(hp[:, -1:]), hc[:, :-1]], dim=1)
@@ -208,22 +237,44 @@ def _completion_logps_shared(params, cfg, prompt_ids, prompt_position_ids,
     return chunked_per_token_logps(h, head, completion_ids, chunk=logp_chunk)
 
 
+def _check_parallel(mesh, attn_impl, pipeline):
+    """attn_impl and pipeline run the whole batch on every rank of their
+    own mesh: neither composes with the row-splitting `mesh`."""
+    ring_impl(attn_impl)
+    if mesh is not None and (pipeline is not None
+                             or ring_impl(attn_impl) is not None):
+        raise ValueError("the ring attn_impl and the pipeline run on their "
+                         "own mesh: pass mesh=None")
+    if pipeline is not None and ring_impl(attn_impl) is not None:
+        raise ValueError("the pipeline's stages run K1 (JAX's attn_impl is "
+                         "None there)")
+
+
 def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
-                         logp_chunk: int = 256, mesh=None):
+                         logp_chunk: int = 256, mesh=None, attn_impl=None,
+                         pipeline=None):
     """Returns step(params, ref_params, opt_state, batch, grid_thw,
     num_generations) -> (params, opt_state, metrics), with `.ref_logps_fn`
     and `.loss_and_grads` attached.
 
-    The batch is the shared-prefix schema, tensors on the params' device:
-    prompt_ids (B, P), prompt_mask, prompt_position_ids (3, B, P),
-    completion_ids (B*G, C), completion_position_ids (3, B*G, C),
-    completion_mask (B*G, C), advantages (B*G,), pixel_values.  (The packed
-    `_completion_logps` above is its numerics oracle in the tests.)  With
-    a `mesh` the batch is the global one and the logps, ref logps and
+    Two batch schemas, tensors on the params' device, dispatched on
+    "prompt_ids" in the batch as JAX's are.  Shared-prefix: prompt_ids
+    (B, P), prompt_mask, prompt_position_ids (3, B, P), completion_ids
+    (B*G, C), completion_position_ids (3, B*G, C), completion_mask
+    (B*G, C), advantages (B*G,), pixel_values.  Packed: input_ids
+    (N, P+C) (the left-padded prompt, then the completion), kv_mask
+    (N, P+C), position_ids (3, N, P+C), completion_mask (N, C), advantages
+    (N,) and the vision inputs of one prompt, tiled over its
+    num_generations rows; P is input_ids' width less completion_mask's.
+    With a `mesh` the batch is the global one and the logps, ref logps and
     gradients are this rank's (see the module docstring); the loss and
-    the metrics are global."""
+    the metrics are global.  `attn_impl` ("ring", mesh, axis) and
+    `pipeline` (mesh, M, packed schema only) as in the module docstring;
+    with `pipeline` the params' LM is the stage's
+    (parallel.pipeline.shard_layers_for_pipeline)."""
     remat = check_remat(remat)
     family = family_for_config(cfg)
+    _check_parallel(mesh, attn_impl, pipeline)
 
     def _local(batch):
         if mesh is None:
@@ -235,6 +286,23 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
         ve = None
         if vk:
             ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat)
+        if "prompt_ids" not in batch:
+            if mesh is not None:
+                raise ValueError("the packed schema runs without a mesh "
+                                 "(or over the ring's / pipeline's own)")
+            if ve is not None:
+                ve = family.tile_vision_embeds(ve, cfg, grid_thw,
+                                               num_generations)
+            ids = batch["input_ids"]
+            return _completion_logps(
+                params, cfg, ids, batch["position_ids"], batch["kv_mask"],
+                ids.shape[1] - batch["completion_mask"].shape[1],
+                vision_embeds=ve, remat=remat, logp_chunk=logp_chunk,
+                merge_fn=family.merge_vision_embeds, attn_impl=attn_impl,
+                pipeline=pipeline)
+        if pipeline is not None:
+            raise ValueError("pipeline parallelism uses the packed "
+                             "(input_ids / kv_mask) schema, like JAX's")
         return _completion_logps_shared(
             params, cfg, batch["prompt_ids"], batch["prompt_position_ids"],
             batch["prompt_mask"], batch["completion_ids"],
@@ -243,7 +311,7 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
             logp_chunk=logp_chunk, merge_fn=family.merge_vision_embeds,
             rows=_local(batch),
             layout=expert.batch_layout(batch["completion_ids"].shape[0],
-                                       mesh))
+                                       mesh), attn_impl=attn_impl)
 
     def ref_logps_fn(ref_params, batch, grid_thw=None, num_generations=1):
         """Reference logps (no gradient) of this rank's rows; None at
@@ -261,7 +329,7 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
         tensors (the others get None), for checks that cannot hold two
         full gradient sets.  With a mesh the grads are this rank's blocks
         of the summed gradients (replicated leaves: the whole sum)."""
-        rows = _local(batch)
+        rows = _local(batch) if "prompt_ids" in batch else None
         lo, hi = rows if rows is not None else (0, None)
         with torch.enable_grad():
             leaves, want = _track(params, select)
@@ -294,7 +362,7 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
                                 if k != "ref_logps"},
             grid_thw, num_generations)
         leaves = [t for _, t in param_leaves(params)]
-        norm = _norm_fn(params, mesh)
+        norm = _norm_fn(params, mesh, pipeline)
         gnorm = norm(grads)
         # in place, a moment group at a time; the list's grads are dropped
         opt_state = tx.apply(grads, opt_state, leaves, gnorm=gnorm, norm=norm)
@@ -306,8 +374,12 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
     return step
 
 
-def _norm_fn(params, mesh):
-    """The gradients' global norm: over fsdp shards with a mesh."""
+def _norm_fn(params, mesh, pipeline=None):
+    """The gradients' global norm: over fsdp shards with a mesh, over the
+    stages' layers with a pipeline."""
+    if pipeline is not None:
+        names = [n for n, _ in param_leaves(params)]
+        return lambda grads: pp.global_norm(grads, names, pipeline[0])
     if mesh is None:
         return global_norm
     raw = fsdp.raw_leaves(params)
@@ -315,7 +387,7 @@ def _norm_fn(params, mesh):
 
 
 def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256,
-                        mesh=None):
+                        mesh=None, attn_impl=None, pipeline=None):
     """SFT step (sft.py semantics; spacer_tpu's make_sft_train_step):
     next-token cross-entropy with labels = input_ids, positions labelled
     -100 (padding and visual tokens) masked out, averaged over the
@@ -326,9 +398,11 @@ def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256,
     on the params' device: input_ids (N, S), labels (N, S), kv_mask
     (N, S) bool, position_ids (3, N, S), pixel_values optional.  With a
     `mesh` the batch is the global one, each rank runs its rows and the
-    mean is over the global batch's unmasked tokens."""
+    mean is over the global batch's unmasked tokens.  `attn_impl` and
+    `pipeline` as in make_grpo_train_step."""
     remat = check_remat(remat)
     family = family_for_config(cfg)
+    _check_parallel(mesh, attn_impl, pipeline)
 
     def loss_fn(params, batch, grid_thw):
         model = fsdp.gather(params["model"], keep=("layers",))
@@ -340,12 +414,20 @@ def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256,
             ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat)
             token_embeds = family.merge_vision_embeds(cfg, ids, token_embeds,
                                                       ve)
-        with expert.rows(expert.batch_layout(ids.shape[0], mesh)):
-            hidden, _ = lm_forward(
-                model, cfg.text, input_embeds=_rows(token_embeds, lo, hi),
-                position_ids=_rows(batch["position_ids"], lo, hi, dim=1),
-                kv_mask=_rows(batch["kv_mask"], lo, hi), logits=False,
-                remat=remat)
+        if pipeline is not None:
+            hidden = pipeline_lm_forward(
+                model, cfg.text, pipeline[0], num_microbatches=pipeline[1],
+                input_embeds=token_embeds,
+                position_ids=batch["position_ids"],
+                kv_mask=batch["kv_mask"], remat=remat, logits=False,
+                batch_axis="data")
+        else:
+            with expert.rows(expert.batch_layout(ids.shape[0], mesh)):
+                hidden, _ = lm_forward(
+                    model, cfg.text, input_embeds=_rows(token_embeds, lo, hi),
+                    position_ids=_rows(batch["position_ids"], lo, hi, dim=1),
+                    kv_mask=_rows(batch["kv_mask"], lo, hi), logits=False,
+                    remat=remat, attn_impl=attn_impl)
         labels = _rows(batch["labels"], lo, hi)[:, 1:]
         mask = labels != -100
         # f32 products over the params' dtype, as JAX's f32 upcasts
@@ -376,7 +458,7 @@ def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256,
     def step(params, opt_state, batch, grid_thw=None):
         loss, metrics, grads = loss_and_grads(params, batch, grid_thw)
         leaves = [t for _, t in param_leaves(params)]
-        norm = _norm_fn(params, mesh)
+        norm = _norm_fn(params, mesh, pipeline)
         gnorm = norm(grads)
         opt_state = tx.apply(grads, opt_state, leaves, gnorm=gnorm, norm=norm)
         del grads
