@@ -103,8 +103,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      cosine >= SLICE_COS_TOL; the MoE layer's ms at decode;
   11b. the GRPO trainer with Aria at full widths, the LM cut to 4 of 28
      layers: one image row, G = 8, int8_kv rollouts (K2-int8 held live),
-     two optimizer steps (K1 / K1-bwd at group 1, K1 at 72 with the plain
-     backward, the MoE's grouped backward); the first update replayed with
+     two optimizer steps (K1 / K1-bwd at group 1, K1 / K1-bwd at 72 in the
+     tower, the MoE's grouped backward); the first update replayed with
      plain attention on LM layer 0, tower layer 0 and the projector.
   12. the data x fsdp path (spacer_tpu_torch/parallel) at world 1 over
      NCCL, set up by parallel.multihost.initialize() from torchrun's
@@ -154,6 +154,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      one SFT step through the pipeline.  `--phases 15 --world 2,4` runs
      the ring over 2 and 4 cards and the pipeline over 2 and 4 stages and
      pipe 2 x data 2 at full depth against a one-card reference instead.
+  16. the ring through the Qwen ViTs and experts placed over data at world
+     1 over NCCL: K1 at head_dim 80 and K1-bwd at 80 and 72 against their
+     plain versions (the tower's frame chunks as the ring's blocks, Aria's
+     tower); a GRPO loss-and-gradients step at Qwen2.5-VL-7B widths (the
+     whole 32-block ViT, PP_LM_LAYERS LM layers) on a video's packed rows
+     with the ring tuple against the K4 path (loss, gradient cosines, no
+     K4 launch); phase 14's two Aria GRPO steps with moe_ep_axis "data"
+     bitwise the fsdp-placed ones.  `--phases 16 --world 2,4` runs Aria's
+     step with the experts over data (2, 1, 1) and data x fsdp (2, 2, 1),
+     a speculative 7B rollout over rows split over 2 and 4 cards against
+     one card, and the ViT ring over 2 and 4 cards at full depth against
+     one card instead.
 Phase 3 also checks the kernels at the Aria path's shapes (3c: K1 at
 head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1), 3d at
 the shapes one rank of a tp-2 or tp-4 Qwen2.5-VL-7B runs (14 / 7 query
@@ -163,14 +175,18 @@ LM heads at group 1, K6 at the sliced products, K = 832 included), and 3f
 K1 and K1-bwd as ring attention calls them (blocks of an 8192-token row
 over 4 emulated shards, the backward with the merged LSE and delta).
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5c and 7-15, each counted from 0 just
-before it runs); the last line is {"ok": true, "device": {...}}.
+summed over the paths of phases 4-5c and 7-16, each counted from 0 just
+before it runs; the head_dim 80 / 72 instantiations of K1 and K1-bwd also
+apart, their launches inside their kernel's); the last line is {"ok":
+true, "device": {...}}.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 12 --world 4   # fsdp over four cards
     python3 chip_smoke.py --phases 13 --world 2,4   # tp over 2, then 4
     python3 chip_smoke.py --phases 14 --world 2,4   # Aria tp 2, 4; ep 4
     python3 chip_smoke.py --phases 15 --world 2,4   # ring / pipe, 2 and 4
+    python3 chip_smoke.py --phases 16 --world 2,4   # ep over data, split
+                                                    # speculation, ViT ring
     python3 chip_smoke.py --phases 4c,4d     # a development run of some
 """
 
@@ -293,7 +309,7 @@ LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
                "perception_task_accuracy", "relation_task_accuracy"}
 # The phases in the order they run (main's --phases selects some of them)
 PHASES = ("3", "3d", "3e", "3f", "4", "4c", "4d", "5", "5c", "6", "7", "8",
-          "9", "10", "11", "12", "13", "14", "15")
+          "9", "10", "11", "12", "13", "14", "15", "16")
 # Phase 4c, the HTTP server: HTTP_VIDEOS video requests over mp4 files of
 # HTTP_VIDEO_SECONDS at HTTP_VIDEO_FPS (16 frames sampled at 2 fps, grid
 # (8, 16, 30) as phase 4's) and as many text requests, through HTTP_SLOTS
@@ -399,6 +415,48 @@ def device_facts():
         f"{[l for l in nvcc.splitlines() if 'release' in l][0].strip()} | "
         f"cv2 {cv2.__version__} | PIL {PIL.__version__}")
     return smi
+
+
+# the functions main runs the phases through, each timed (time_phases)
+PHASE_FUNCTIONS = (
+    "device_facts", "build_kernels", "check_kernels", "check_training_kernels",
+    "check_aria_kernels", "check_tp_kernels", "check_aria_tp_kernels",
+    "check_ring_kernels", "check_vit_ring_kernels", "serve_slice",
+    "train_slice", "checkpoint_phase", "eval_slice", "full_train_slice",
+    "lora_phase", "sft_phase", "qwen2_vl_phase", "aria_serve_phase",
+    "aria_train_phase", "fsdp_phase", "tp_phase", "aria_ep_phase",
+    "ring_pipe_phase", "vit_ring_phase")
+
+
+def time_phases(namespace: dict) -> dict:
+    """Wraps each of PHASE_FUNCTIONS that `namespace` (a chip_smoke
+    module's globals, this one's or an older checkout's) defines in a
+    wall-clock timer -> {name: seconds}, filled in as they run."""
+    import functools
+
+    seconds = {}
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                seconds[name] = (seconds.get(name, 0.0)
+                                 + time.perf_counter() - t)
+        return run
+
+    for name in PHASE_FUNCTIONS:
+        if name in namespace:
+            namespace[name] = timed(name, namespace[name])
+    return seconds
+
+
+def phase_seconds_line(seconds: dict, total: float) -> str:
+    return "phase seconds: " + json.dumps(
+        {"total": round(total, 2), **{k: round(v, 2)
+                                      for k, v in seconds.items()}})
 
 
 def build_kernels():
@@ -4160,13 +4218,16 @@ def sharded_run_problems(plain, sharded, name, collectives, kernels) -> list:
     return problems
 
 
-def world1_env():
-    """torchrun's environment for rank 0 of a world of 1 (a free port)."""
-    from spacer_tpu_torch.parallel.multihost import _free_port
+_STORES = []
 
-    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                      LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(_free_port()))
+
+def world1_env():
+    """torchrun's environment for rank 0 of a world of 1, its rendezvous a
+    store this process holds (multihost.local_store)."""
+    from spacer_tpu_torch.parallel import multihost
+
+    _STORES.append(multihost.local_store())
+    os.environ.update(multihost.store_env(_STORES[-1], 0, 1))
 
 
 def fsdp_phase(device="cuda") -> dict:
@@ -4262,16 +4323,14 @@ def cli_step_under_torchrun(root: pathlib.Path, device="cuda"):
 def torchrun_self(mode: str, argv: list, result: pathlib.Path) -> float:
     """`torchrun --nproc_per_node 1 chip_smoke.py MODE --multihost true
     ARGV` (cli_main under torchrun's environment for
-    rank 0 of 1, a free port), which must exit 0 and write `result`; ->
-    its seconds."""
-    from spacer_tpu_torch.parallel.multihost import _free_port
-
+    rank 0 of 1, its rendezvous on a port torchrun binds itself:
+    --standalone), which must exit 0 and write `result`; -> its seconds."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-           "1", "--master_port", str(_free_port()), __file__, mode,
-           "--multihost", "true", *argv]
+           "1", "--standalone", __file__, mode, "--multihost", "true", *argv]
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
-                        "MASTER_ADDR", "MASTER_PORT")}
+                        "MASTER_ADDR", "MASTER_PORT",
+                        "TORCHELASTIC_USE_AGENT_STORE")}
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           cwd=str(pathlib.Path(__file__).resolve().parent),
@@ -4316,12 +4375,16 @@ def _world_trainer(out_dir, steps, mesh=None, share_ref=False,
     """The --world runs' trainer: Qwen2.5-VL-7B at full depth on
     FSDP_WORLD_ROWS video rows ("qwen"), or ARIA_25B under moe_impl "ep" on
     EP_WORLD_ROWS image rows, its LM cut to EP_WORLD_LM_LAYERS at capacity
-    factor EP_WORLD_CF ("aria") or whole at the default 2.0 ("aria full")."""
+    factor EP_WORLD_CF ("aria"; the experts over data: "aria data", over
+    data x fsdp: "aria batch") or whole at the default 2.0 ("aria full")."""
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
     if kind != "qwen":
+        axis = {"aria data": "data",
+                "aria batch": ("data", "fsdp")}.get(kind, "fsdp")
         cfg = (aria_ep_cfg(28) if kind == "aria full"
-               else aria_ep_cfg(EP_WORLD_LM_LAYERS, cf=EP_WORLD_CF))
+               else aria_ep_cfg(EP_WORLD_LM_LAYERS, cf=EP_WORLD_CF,
+                                ep_axis=axis))
         return aria_ep_trainer(cfg, device, steps, out_dir, mesh=mesh,
                                share_ref=share_ref, rows=EP_WORLD_ROWS,
                                rollout_batch_size=EP_WORLD_ROWS)
@@ -4415,11 +4478,12 @@ def _world_rank(rank, out, device="cuda", shape=None, kind="qwen",
             return
         from spacer_tpu_torch.train.optimizer import BLOCK as B
 
-        if mesh.coords["data"]:
-            return   # data replicas hold the same blocks
         for n, g, leaf in zip(names, grads, raw):
             if n not in ref["grads"]:
                 continue
+            if mesh.coords["data"] and not (isinstance(leaf, fsdp.Shard)
+                                            and "data" in leaf.axes):
+                continue   # data replicas hold the same blocks
             want = ref["grads"][n]
             if isinstance(leaf, fsdp.Shard):
                 if leaf.split is not None:
@@ -4602,6 +4666,23 @@ SOURCES = {
                 "spacer_tpu/ops/flash_decode.py:398"),
     "K6": ("int4_matmul (dense_q4)", "spacer_tpu_torch/csrc/int4_matmul.cu",
            "spacer_tpu/ops/int4_matmul.py:112"),
+    # the head_dim instantiations counted apart (ops.HEAD_DIM_IDS; their
+    # launches are also in K1's / K1-bwd's)
+    "K1 d80": ("flash_attention (head_dim 80)",
+               "spacer_tpu_torch/csrc/flash_attention.cu",
+               "spacer_tpu/ops/flash_attention.py:298"),
+    "K1-bwd dq d80": ("flash_attention_bwd_dq (head_dim 80)",
+                      "spacer_tpu_torch/csrc/flash_attention_bwd.cu",
+                      "spacer_tpu/ops/flash_attention.py:368"),
+    "K1-bwd dkv d80": ("flash_attention_bwd_dkv (head_dim 80)",
+                       "spacer_tpu_torch/csrc/flash_attention_bwd.cu",
+                       "spacer_tpu/ops/flash_attention.py:413"),
+    "K1-bwd dq d72": ("flash_attention_bwd_dq (head_dim 72)",
+                      "spacer_tpu_torch/csrc/flash_attention_bwd.cu",
+                      "spacer_tpu/ops/flash_attention.py:368"),
+    "K1-bwd dkv d72": ("flash_attention_bwd_dkv (head_dim 72)",
+                       "spacer_tpu_torch/csrc/flash_attention_bwd.cu",
+                       "spacer_tpu/ops/flash_attention.py:413"),
 }
 
 
@@ -5014,12 +5095,13 @@ EP_WORLD_LAYERS = (0,)
 
 
 def aria_ep_cfg(layers: int = ARIA_EP_LM_LAYERS, impl: str = "ep",
-                cf: float | None = None):
-    """ARIA_25B with its LM cut to `layers`, moe_impl `impl` (and a capacity
-    factor `cf`, else the config's 2.0)."""
+                cf: float | None = None, ep_axis="fsdp"):
+    """ARIA_25B with its LM cut to `layers`, moe_impl `impl` over
+    `ep_axis` (and a capacity factor `cf`, else the config's 2.0)."""
     from spacer_tpu_torch.models.aria import ARIA_25B
 
-    text = dataclasses.replace(ARIA_25B.text, num_layers=layers, moe_impl=impl)
+    text = dataclasses.replace(ARIA_25B.text, num_layers=layers, moe_impl=impl,
+                               moe_ep_axis=ep_axis)
     if cf is not None:
         text = dataclasses.replace(text, moe_capacity_factor=cf)
     return dataclasses.replace(ARIA_25B, text=text)
@@ -6262,6 +6344,719 @@ def ring_pipe_world_phase(worlds, device="cuda"):
         raise RuntimeError("phase 15 --world: " + "; ".join(problems))
 
 
+# -- phase 16: the ViTs' ring on K1 / K1-bwd at head_dim 80, experts placed
+# over data, speculative rollouts over split rows ----------------------------
+
+# 16's kernels: the Qwen2.5-VL-7B tower's training video as its ring blocks
+# see it (VIT_RING_CHUNKS frame chunks of VIT_RING_CHUNK tokens as the
+# batch, 16 heads of 80; the whole chunk at world 1, and VIT_RING_SHARDS
+# emulated shards' blocks with the whole chunk's statistics), and Aria's
+# tower backward at head_dim 72 ((1, ARIA_TOWER_SEQ, 16, 72), the first
+# ARIA_TOWER_LIVE keys live, phase 3c's forward shape)
+VIT_RING_CHUNKS, VIT_RING_CHUNK, VIT_RING_SHARDS = 8, 480, (2, 4)
+ARIA_TOWER_SEQ, ARIA_TOWER_LIVE = 4900, 2800
+# 16's step: Qwen2.5-VL-7B's whole 32-block ViT and PP_LM_LAYERS of the 28
+# LM layers, TRAIN_G packed rows of one video prompt (grid VIT_RING_GRID: 8
+# frame chunks of 480 patches; VIT_RING_PROMPT tokens, then
+# TRAIN_NEW_TOKENS), loss and gradients with the ring tuple at world 1
+# against the K4 path: loss within PP_LOSS_RTOL, every tensor's gradient
+# cosine >= VIT_RING_COS_TOL
+VIT_RING_GRID = (8, 20, 24)
+VIT_RING_PROMPT = 1024
+VIT_RING_COS_TOL = 0.999
+VIT_RING_KERNELS = ("K1 d80", "K1-bwd dq d80", "K1-bwd dkv d80", "K3")
+# the LM's k_proj biases: RoPE turns the bias into a score term that
+# varies with the key's position, but over a softmax row most of it
+# cancels, so their gradients are small and their cosines the first to
+# show rounding (logged beside the other tensors' norms)
+SMALL_GRAD = "self_attn/k_proj/bias"
+# --world N's gate: a tensor below VIT_RING_COS_TOL against one card may
+# deviate (1 - cosine) up to VIT_RING_CTRL_FACTOR x N times the world-1
+# ring's deviation (vit_world_gate)
+VIT_RING_CTRL_FACTOR = 4
+# --phases 16 --world 2,4: Aria's GRPO step (phase 14's --world gate) with
+# the experts over data at (2, 1, 1) and over data x fsdp at (2, 2, 1); a
+# speculative rollout (SPEC_K drafts) of SPEC_WORLD_PROMPTS text prompts x
+# SPEC_WORLD_G at full 7B depth over (N, 1, 1) against card 0 alone; the
+# step above at full depth with the ring over N cards against one card's K4
+# path (phase 15's --world gates)
+SPEC_WORLD_PROMPTS, SPEC_WORLD_G, SPEC_WORLD_NEW_TOKENS = 4, 4, 128
+EP_WORLD_AXES = {2: ("aria data", {"data": 2}),
+                 4: ("aria batch", {"data": 2, "fsdp": 2})}
+
+
+def check_vit_ring_kernels(device="cuda") -> dict:
+    """Phase 16's kernels: K1 at head_dim 80 over the whole frame chunks
+    (the ring of one rank) and on a block of each emulated shard count (the
+    first shard's queries, the last shard's keys); K1-bwd dq and dk/dv at
+    80 from the given statistics (the ring's entries) over the whole chunks
+    and on those blocks with the whole chunk's LSE and delta, and from
+    their own statistics; K1-bwd at 72 on Aria's tower from its own
+    statistics (its autograd backward) and through the given-statistics
+    entries.  Each against its plain version, SDPA's forward and torch's
+    flash backward as the yardsticks where they compute the same
+    function.  -> the kernels line's entries of HEAD_DIM_IDS."""
+    from spacer_tpu_torch.nn.attention import xla_attention
+    from spacer_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+
+    def attn_work(B, Sq, Skv, H, D, pairs, q_io, kv_in, kv_out, factor,
+                  stats, live=None):
+        """(bytes, ops) of an attention pass moving q_io bf16 tensors of the
+        query side, reading kv_in of the key side (its `live` keys),
+        writing kv_out, and moving `stats` f32 per-row statistics (the
+        forward writes the LSE: 1; a backward from given statistics reads
+        the LSE and delta: 2; from its own, the LSE: 1): factor x D x H
+        operations per visible pair."""
+        live = Skv if live is None else live
+        return (q_io * B * Sq * H * D * 2 + kv_in * B * live * H * D * 2
+                + kv_out * B * Skv * H * D * 2 + stats * B * H * Sq * 4,
+                factor * D * H * pairs)
+
+    results = {}
+    H, D, n, S = 16, 80, VIT_RING_CHUNKS, VIT_RING_CHUNK
+    q, k, v, dout = (randn(n, S, H, D) for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    delta = fa._delta(out, dout)
+    name = f"({n}, {S}, {H}, {D})"
+    results["K1 d80"] = compare(
+        f"K1 flash_attention [head_dim 80, the ViT's ring at world 1 {name}]",
+        lambda: fa.flash_attention(q, k, v, return_lse=True),
+        lambda: xla_attention(q, k, v, return_lse=True),
+        work=attn_work(n, S, S, H, D, n * S * S, 2, 2, 0, 4, 1),
+        library_fn=lambda: sdpa(q, k, v))
+    args = (q, k, v, dout, lse, delta)
+    library = flash_bwd_yardstick(q, k, v, dout, out, lse, False, True)
+    results["K1-bwd dq d80"] = compare(
+        f"K1-bwd dq [head_dim 80 from given statistics {name}]",
+        lambda: fa.flash_attention_bwd_dq_from_stats(*args),
+        lambda: fa.attention_bwd_from_stats(*args)[0], rel_norm=True,
+        library_fn=library,
+        work=attn_work(n, S, S, H, D, n * S * S, 3, 2, 0, 6, 2))
+    results["K1-bwd dkv d80"] = compare(
+        f"K1-bwd dk/dv [head_dim 80 from given statistics {name}]",
+        lambda: fa.flash_attention_bwd_dkv_from_stats(*args),
+        lambda: fa.attention_bwd_from_stats(*args)[1:], rel_norm=True,
+        library_fn=library,
+        work=attn_work(n, S, S, H, D, n * S * S, 2, 2, 2, 8, 2))
+    own = (q, k, v, out, lse, dout)
+    compare(f"K1-bwd dq [head_dim 80 from its own statistics {name}]",
+            lambda: fa.flash_attention_bwd_dq(*own),
+            lambda: fa.attention_bwd_reference(q, k, v, dout)[0],
+            rel_norm=True,
+            work=attn_work(n, S, S, H, D, n * S * S, 4, 2, 0, 6, 1))
+    compare(f"K1-bwd dk/dv [head_dim 80 from its own statistics {name}]",
+            lambda: fa.flash_attention_bwd_dkv(*own),
+            lambda: fa.attention_bwd_reference(q, k, v, dout)[1:],
+            rel_norm=True,
+            work=attn_work(n, S, S, H, D, n * S * S, 3, 2, 2, 8, 1))
+    for shards in VIT_RING_SHARDS:
+        s = S // shards
+        qb, dob = q[:, :s].contiguous(), dout[:, :s].contiguous()
+        kb, vb = k[:, S - s:].contiguous(), v[:, S - s:].contiguous()
+        st = (lse[:, :, :s].contiguous(), delta[:, :, :s].contiguous())
+        tag = f"a ring block of {shards} shards ({n}, {s}, {H}, {D})"
+        compare(f"K1 flash_attention [head_dim 80, {tag}]",
+                lambda: fa.flash_attention(qb, kb, vb, return_lse=True),
+                lambda: xla_attention(qb, kb, vb, return_lse=True),
+                work=attn_work(n, s, s, H, D, n * s * s, 2, 2, 0, 4, 1),
+                library_fn=lambda: sdpa(qb, kb, vb))
+        bargs = (qb, kb, vb, dob, *st)
+        compare(f"K1-bwd dq [head_dim 80, {tag}, the chunk's LSE]",
+                lambda: fa.flash_attention_bwd_dq_from_stats(*bargs),
+                lambda: fa.attention_bwd_from_stats(*bargs)[0],
+                rel_norm=True,
+                work=attn_work(n, s, s, H, D, n * s * s, 3, 2, 0, 6, 2))
+        compare(f"K1-bwd dk/dv [head_dim 80, {tag}, the chunk's LSE]",
+                lambda: fa.flash_attention_bwd_dkv_from_stats(*bargs),
+                lambda: fa.attention_bwd_from_stats(*bargs)[1:],
+                rel_norm=True,
+                work=attn_work(n, s, s, H, D, n * s * s, 2, 2, 2, 8, 2))
+    del q, k, v, dout, out, lse, delta, args, own
+    # Aria's tower: its autograd backward runs the own-statistics kernels
+    S, D, live = ARIA_TOWER_SEQ, 72, ARIA_TOWER_LIVE
+    q, k, v, dout = (randn(1, S, H, D) for _ in range(4))
+    mask = torch.zeros((1, S), dtype=torch.bool, device=dev)
+    mask[0, :live] = True
+    kw = dict(kv_mask=mask)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    name = f"Aria's tower (1, {S}, {H}, {D}), {live} live keys"
+    own = (q, k, v, out, lse, dout)
+    results["K1-bwd dq d72"] = compare(
+        f"K1-bwd dq [head_dim 72, {name}]",
+        lambda: fa.flash_attention_bwd_dq(*own, **kw),
+        lambda: fa.attention_bwd_reference(q, k, v, dout, **kw)[0],
+        rel_norm=True,
+        work=attn_work(1, S, S, H, D, S * live, 4, 2, 0, 6, 1, live))
+    results["K1-bwd dkv d72"] = compare(
+        f"K1-bwd dk/dv [head_dim 72, {name}]",
+        lambda: fa.flash_attention_bwd_dkv(*own, **kw),
+        lambda: fa.attention_bwd_reference(q, k, v, dout, **kw)[1:],
+        rel_norm=True,
+        work=attn_work(1, S, S, H, D, S * live, 3, 2, 2, 8, 1, live))
+    sargs = (q, k, v, dout, lse, fa._delta(out, dout))
+    compare(f"K1-bwd dq [head_dim 72 from given statistics, {name}]",
+            lambda: fa.flash_attention_bwd_dq_from_stats(*sargs, **kw),
+            lambda: fa.attention_bwd_from_stats(*sargs, **kw)[0],
+            rel_norm=True,
+            work=attn_work(1, S, S, H, D, S * live, 3, 2, 0, 6, 2, live))
+    compare(f"K1-bwd dk/dv [head_dim 72 from given statistics, {name}]",
+            lambda: fa.flash_attention_bwd_dkv_from_stats(*sargs, **kw),
+            lambda: fa.attention_bwd_from_stats(*sargs, **kw)[1:],
+            rel_norm=True,
+            work=attn_work(1, S, S, H, D, S * live, 2, 2, 2, 8, 2, live))
+    del q, k, v, dout, out, lse, own, sargs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def video_packed_rows(cfg, device, seed: int, rows: int = TRAIN_G) -> tuple:
+    """(`rows` packed GRPO rows of one video prompt, grid_thw): the prompt
+    VIT_RING_PROMPT tokens left-padded around the VIT_RING_GRID video's
+    placeholders, each row's completion of TRAIN_NEW_TOKENS ending at a
+    random length, mrope positions, random bf16 pixels, all from `seed`."""
+    from spacer_tpu_torch.models.qwen25_vl.rope_index import get_rope_index
+
+    rng = np.random.default_rng(seed)
+    t, h, w = VIT_RING_GRID
+    n_video = t * h * w // cfg.vision.spatial_merge_unit
+    prompt = ([10, 11, cfg.vision_start_token_id] + [cfg.video_token_id]
+              * n_video + [cfg.vision_end_token_id, 20, 21])
+    pad, C = VIT_RING_PROMPT - len(prompt), TRAIN_NEW_TOKENS
+    ids = np.array([[cfg.pad_token_id] * pad + prompt])
+    mask = np.array([[0] * pad + [1] * len(prompt)])
+    pos, deltas = get_rope_index(cfg, ids,
+                                 video_grid_thw=np.array([VIT_RING_GRID]),
+                                 attention_mask=mask)
+    comp = rng.integers(10, cfg.text.vocab_size, size=(rows, C))
+    ends = rng.integers(1, C + 1, size=rows)
+    cmask = np.arange(C)[None] < ends[:, None]
+    comp_pos = np.broadcast_to(deltas.reshape(1, 1) + VIT_RING_PROMPT
+                               + np.arange(C)[None], (rows, C))
+    t_ = lambda x, dt: torch.as_tensor(np.ascontiguousarray(x), dtype=dt,  # noqa: E731
+                                       device=device)
+    batch = {
+        "input_ids": t_(np.concatenate([np.repeat(ids, rows, 0), comp], 1),
+                        torch.long),
+        "kv_mask": t_(np.concatenate([np.repeat(mask, rows, 0), cmask], 1),
+                      torch.bool),
+        "position_ids": t_(np.concatenate([
+            np.repeat(pos, rows, 1),
+            np.broadcast_to(comp_pos[None], (3, rows, C))], 2), torch.long),
+        "completion_mask": t_(cmask, torch.int32),
+        "advantages": t_(rng.normal(size=rows), torch.float32),
+        "pixel_values": torch.randn(
+            (t * h * w, cfg.vision.patch_dim), device=device,
+            generator=torch.Generator(device=device).manual_seed(seed)
+        ).to(torch.bfloat16)}
+    return batch, [VIT_RING_GRID]
+
+
+def grad_cosine(x, y) -> float:
+    """Cosine of two gradients (f64); 1.0 where both are zero."""
+    x, y = x.double().reshape(-1), y.double().reshape(-1)
+    d = float(x.norm() * y.norm())
+    return float(x @ y) / d if d > 0 else float(bool(torch.equal(x, y)))
+
+
+def small_grads_line(names, grads, cos) -> str:
+    """The SMALL_GRAD tensors' gradient norms and cosines beside the median
+    norm of the other tensors' gradients."""
+    norms = {n: float(g.double().norm()) for n, g in zip(names, grads)}
+    small = [n for n in norms if n.endswith(SMALL_GRAD)]
+    rest = sorted(v for n, v in norms.items() if n not in small)
+    return (f"{SMALL_GRAD}: norm {min(norms[n] for n in small):.3e}-"
+            f"{max(norms[n] for n in small):.3e} (the other tensors' median "
+            f"{rest[len(rest) // 2]:.3e}), cosine min "
+            f"{min(cos[n] for n in small):.6f} over {len(small)}")
+
+
+def vit_ring_step(cfg, device, params, impl=None):
+    """-> fn() running the loss and gradients of phase 16's video rows
+    (seed 1, the policy its own reference) with attn_impl `impl`,
+    returning (loss, grad_norm, names, grads)."""
+    from spacer_tpu_torch.train.optimizer import global_norm, make_optimizer
+    from spacer_tpu_torch.train.step import make_grpo_train_step, param_leaves
+
+    step = make_grpo_train_step(cfg, make_optimizer(), beta=0.04, remat=True,
+                                attn_impl=impl)
+    batch, grid = video_packed_rows(cfg, device, 1)
+    names = [n for n, _ in param_leaves(params)]
+
+    def run():
+        ref = step.ref_logps_fn(params, batch, grid_thw=grid,
+                                num_generations=TRAIN_G)
+        loss, _, grads = step.loss_and_grads(params, ref, batch,
+                                             grid_thw=grid,
+                                             num_generations=TRAIN_G)
+        return float(loss), float(global_norm(grads)), names, grads
+
+    return run
+
+
+def vit_ring_model(cfg, device):
+    from spacer_tpu_torch.models.qwen25_vl import init_params
+
+    return init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+
+
+def vit_ring_phase(device="cuda") -> dict:
+    """Phase 16's world-1 paths over NCCL (torchrun's environment for rank
+    0 of 1).  The ViT ring: phase 16's step (VIT_RING_* above) with
+    attn_impl ("ring", create_mesh({"fsdp": 1}), "fsdp"), whose ViT
+    full-attention blocks run K1 / K1-bwd at head_dim 80 over each whole
+    frame chunk, against the same step without it (K4): loss within
+    PP_LOSS_RTOL, every tensor's gradient cosine >= VIT_RING_COS_TOL, no K4
+    launch in the ring run.  Then expert parallelism over data: phase 14's
+    two Aria GRPO steps with moe_ep_axis "data" over create_mesh({"data": 1,
+    "fsdp": 1, "tp": 1}), against the same over fsdp: bitwise (phase 12's
+    gate), its ep exchanges counted and no more collectives issued than
+    the fsdp run issues.  Returns the paths' launches."""
+    import torch.distributed as dist
+
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.parallel import multihost, tp
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+
+    t_phase = time.perf_counter()
+    tp.set_mesh(None)
+    world1_env()
+    multihost.initialize(device=device)
+    cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
+        QWEN25_VL_7B.text, num_layers=PP_LM_LAYERS))
+    params = vit_ring_model(cfg, device)
+    runs, problems = {}, []
+    for kind, impl in (("K4", None),
+                       ("ring", ("ring", create_mesh({"fsdp": 1}), "fsdp"))):
+        run = vit_ring_step(cfg, device, params, impl)
+        run()    # warm
+        gc.collect()
+        torch.cuda.empty_cache()
+        _peak(device, reset=True)
+        multihost.reset_collective_stats()
+        reset_launch_counts()
+        _sync(device)
+        t = time.perf_counter()
+        with IssuedCollectives() as issued:
+            loss, norm, names, grads = run()
+        _sync(device)
+        runs[kind] = {"loss": loss, "grad_norm": norm, "grads": grads,
+                      "s": time.perf_counter() - t, "peak": _peak(device),
+                      "counts": launch_counts(), "issued": dict(issued.calls),
+                      "collectives": multihost.collective_stats()}
+        del run
+    a, b = runs["K4"], runs["ring"]
+    cos = {n: grad_cosine(x, y)
+           for n, x, y in zip(names, b["grads"], a["grads"])}
+    vit = [c for n, c in cos.items() if n.startswith("visual/")]
+    log("phase 16 ViT ring vs K4: the lowest gradient cosines "
+        + ", ".join(f"{n} {c:.6f}" for n, c in sorted(
+            cos.items(), key=lambda x: x[1])[:4]) + " | "
+        + small_grads_line(names, a["grads"], cos))
+    for kind, r in runs.items():
+        log(f"phase 16 ViT {kind}: loss {r['loss']!r} grad_norm "
+            f"{r['grad_norm']!r} | loss and gradients {r['s']:.2f} s | "
+            f"max_memory_allocated {gib(r['peak'])} | launches {r['counts']}"
+            f" | collectives counted "
+            + (_collective_line(r["collectives"], 1) or "none")
+            + f", issued {r['issued'] or 'none'}")
+    worst = min(cos.values())
+    log(f"phase 16 ViT ring vs K4 at world 1: loss {b['loss']!r} vs "
+        f"{a['loss']!r} (rel {abs(b['loss'] - a['loss']) / abs(a['loss']):.3e}"
+        f", tol {PP_LOSS_RTOL:.0e}), grad_norm {b['grad_norm']!r} vs "
+        f"{a['grad_norm']!r}, gradient cosine min {worst:.6f} over "
+        f"{len(cos)} tensors (ViT's min {min(vit):.6f} over {len(vit)}; tol "
+        f"{VIT_RING_COS_TOL})")
+    if abs(b["loss"] - a["loss"]) > PP_LOSS_RTOL * abs(a["loss"]) or not (
+            worst >= VIT_RING_COS_TOL):
+        problems.append(f"ring vs K4: loss {b['loss']} vs {a['loss']}, "
+                        f"cosine {worst}")
+    if min(b["counts"][k] for k in VIT_RING_KERNELS) < 1 or b["counts"]["K4"]:
+        problems.append(f"ring: launches {b['counts']} (K4 must not run)")
+    if a["counts"]["K4"] < 1 or a["counts"]["K1 d80"]:
+        problems.append(f"K4 path: launches {a['counts']}")
+    if b["issued"]:
+        problems.append(f"ring: issued {b['issued']} at world 1")
+    paths = {"vit ring world 1": b["counts"]}
+    del params, runs, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = create_mesh({"data": 1, "fsdp": 1, "tp": 1})
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    cfg_f = aria_ep_cfg()
+    cfg_d = dataclasses.replace(cfg_f, text=dataclasses.replace(
+        cfg_f.text, moe_ep_axis="data"))
+    recs = {}
+    for tag, c, ref in (("fsdp", cfg_f, None), ("data", cfg_d, "fsdp")):
+        tp.set_mesh(None)
+        with IssuedCollectives() as issued:
+            recs[tag] = fsdp_train_run(
+                c, str(root / f"smoke_ep16_{tag}"), mesh=mesh,
+                ref=recs.get(ref), device=device, make=aria_ep_trainer)
+        recs[tag]["issued"] = dict(issued.calls)
+    problems += sharded_run_problems(recs["fsdp"], recs["data"],
+                                     "ep over data vs over fsdp",
+                                     EP_TRAIN_COLLECTIVES,
+                                     ARIA_TRAIN_KERNELS + ("K1-bwd dq d72",
+                                                           "K1-bwd dkv d72"))
+    # the exchange over data is counted and not issued; the one collective
+    # more is the gradient norm's sum over the experts' group, one an update
+    want = collections.Counter(recs["fsdp"]["issued"])
+    want["all_reduce"] += len(recs["data"]["steps"])
+    log(f"phase 16 ep over data: issued {recs['data']['issued']} vs over "
+        f"fsdp {recs['fsdp']['issued']} (one norm all_reduce an update "
+        "more)")
+    if collections.Counter(recs["data"]["issued"]) != want:
+        problems.append("ep over data issued other collectives than over "
+                        "fsdp at world 1")
+    paths["aria ep over data world 1"] = recs["data"]["counts"]
+    del recs
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    tp.set_mesh(None)
+    shutil.rmtree(root / "smoke_aria", ignore_errors=True)
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        raise RuntimeError("phase 16: " + "; ".join(problems))
+    return paths
+
+
+def spec_world_prompts(cfg):
+    """SPEC_WORLD_PROMPTS text prompts of 256 random ids whose second half
+    repeats the first (n-grams to draft from), the last left-padded by 40."""
+    rng = np.random.default_rng(16)
+    B, S = SPEC_WORLD_PROMPTS, 256
+    ids = rng.integers(10, cfg.text.vocab_size, size=(B, S))
+    ids[:, S // 2:] = ids[:, :S // 2]
+    mask = np.ones((B, S), np.int64)
+    ids[-1, :40], mask[-1, :40] = cfg.pad_token_id, 0
+    pos = np.broadcast_to(np.maximum(np.cumsum(mask, 1) - 1, 0)[None],
+                          (3, B, S)).copy()
+    deltas = (pos[0].max(1, keepdims=True) + 1 - S).astype(np.int64)
+    return ids, mask, pos, deltas
+
+
+def _spec_world_run(rank, out, device="cuda", worlds=()):
+    """A speculative rollout (SPEC_K drafts, greedy and at temperature 1)
+    of spec_world_prompts at full 7B depth: one card alone (world 1), or
+    over create_mesh({"data": N}) (the prompt rows split over the ranks)
+    -> out/spec{N}.pt (tokens, stats, s per rollout).  At world 1 also,
+    for each N of `worlds`, the greedy rollout of each of the N ranks'
+    prompt slices alone, at that rank's row count (rec["slices"][N]: the
+    slices' tokens in rank order, their stats summed)."""
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B, init_params
+    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+    from spacer_tpu_torch.sampler import Sampler
+
+    world = multihost.process_count()
+    mesh = create_mesh({"data": world}) if world > 1 else None
+    cfg = QWEN25_VL_7B
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    ids, mask, pos, deltas = spec_world_prompts(cfg)
+    sampler = Sampler(cfg, length_bucket=128, speculate_k=SPEC_K, mesh=mesh)
+
+    def generate(sl, temp):
+        return sampler.generate(
+            ids[sl], mask[sl], params, position_ids=pos[:, sl],
+            deltas=deltas[sl], num_generations=SPEC_WORLD_G,
+            max_new_tokens=SPEC_WORLD_NEW_TOKENS, temperature=temp,
+            top_p=0.95, seed=3)
+
+    rec = {"slices": {}}
+    for temp in (0.0, 1.0):
+        _sync(device)
+        t = time.perf_counter()
+        res = generate(slice(None), temp)
+        _sync(device)
+        rec[temp] = {"tokens": res.sequences, "stats": res.stats,
+                     "s": time.perf_counter() - t}
+    for n in worlds:
+        per = len(ids) // n
+        got = [generate(slice(r * per, (r + 1) * per), 0.0)
+               for r in range(n)]
+        rec["slices"][n] = {
+            "tokens": np.concatenate([g.sequences for g in got]),
+            "stats": {k: sum(g.stats[k] for g in got)
+                      for k in ("spec_row_steps", "spec_tokens")}}
+    if rank == 0:
+        torch.save(rec, out + f"/spec{world}.pt")
+
+
+def _vit_world_reference(rank, out, device="cuda"):
+    """--world's ViT references, on one card at full depth: phase 16's step
+    without the ring (K4), warm and timed, and with the ring of one rank
+    (K1 / K1-bwd over each whole chunk, the world-1 ring: the control that
+    swaps the kernels and splits nothing) -> out/vit_ref.pt (loss,
+    grad_norm, the selected gradients of both, the ring's cosines against
+    K4, s and peak of the warm K4 step)."""
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+
+    params = vit_ring_model(QWEN25_VL_7B, device)
+    run = vit_ring_step(QWEN25_VL_7B, device, params)
+    run()
+    _peak(device, reset=True)
+    _sync(device)
+    t = time.perf_counter()
+    loss, norm, names, grads = run()
+    _sync(device)
+    rec = {"loss": loss, "grad_norm": norm, "s": time.perf_counter() - t,
+           "peak": _peak(device),
+           "grads": {n: g.cpu() for n, g in zip(names, grads)
+                     if _world_selected(n)}}
+    del run, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = vit_ring_step(QWEN25_VL_7B, device, params,
+                        ("ring", create_mesh({"fsdp": 1}), "fsdp"))
+    _, rec["ring1_grad_norm"], names, grads = run()
+    rec["ring1"] = {n: g.cpu() for n, g in zip(names, grads)
+                    if _world_selected(n)}
+    rec["ring1_cos"] = {n: grad_cosine(g, rec["grads"][n])
+                        for n, g in rec["ring1"].items()}
+    torch.save(rec, out + "/vit_ref.pt")
+
+
+def _vit_world_rank(rank, out, device="cuda"):
+    """One rank of --world N's ViT ring: phase 16's step at full depth with
+    the ring over create_mesh({"fsdp": N}) (the LM's and the ViT's), the
+    first held against the references (cosines of the selected tensors
+    against the K4 step and against the world-1 ring), the second timed
+    (its peak and ring P2P) -> out/vit{N}.pt."""
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.parallel import multihost
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+
+    world = multihost.process_count()
+    mesh = create_mesh({"fsdp": world})
+    params = vit_ring_model(QWEN25_VL_7B, device)
+    run = vit_ring_step(QWEN25_VL_7B, device, params,
+                        ("ring", mesh, "fsdp"))
+    ref = torch.load(out + "/vit_ref.pt", weights_only=False)
+    loss, norm, names, grads = run()
+    rec = {"loss": loss, "grad_norm": norm, "cos": {}, "cos_ring1": {}}
+    for n, g in zip(names, grads):
+        if n in ref["grads"]:
+            rec["cos"][n] = grad_cosine(g, ref["grads"][n].to(g.device))
+            rec["cos_ring1"][n] = grad_cosine(g, ref["ring1"][n].to(g.device))
+    del grads
+    gc.collect()
+    _peak(device, reset=True)
+    multihost.reset_collective_stats()
+    multihost.time_collectives(True)
+    _sync(device)
+    t = time.perf_counter()
+    run()
+    _sync(device)
+    rec["s"] = time.perf_counter() - t
+    multihost.time_collectives(False)
+    rec["collectives"] = multihost.collective_stats()
+    rec["peak"] = _peak(device)
+    parts = multihost.all_gather_objects(rec)
+    if rank == 0:
+        torch.save(parts, out + f"/vit{world}.pt")
+
+
+def phase16_world(worlds, device="cuda"):
+    """`--phases 16 --world 2,4` (a development run): per N, Aria's GRPO
+    step with the experts over data (N = 2: (2, 1, 1)) or over data x fsdp
+    (N = 4: (2, 2, 1)) against one card (phase 14's --world gate); the
+    speculative rollout over N cards' split rows against card 0 alone
+    (token agreement, the acceptance counts, s); the ViT ring over N
+    cards at full depth against one card's K4 step (phase 15's --world
+    gates: loss, grad_norm, cosines; peak, s and ring P2P ms).  `--world
+    1` runs the one-card references alone: the speculative rollout's
+    whole batch and each rank's prompt slice of N = 2 and 4, and the ViT
+    step's K4 path and its world-1 ring control (no ep: it needs ranks)."""
+    out = str(pathlib.Path(__file__).resolve().parent / "build"
+              / "smoke_world16")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    log("phase 16 world cards (nvidia-smi): " + " | ".join(
+        subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True
+                       ).stdout.strip().splitlines()[:max(worlds)]))
+    os.environ["PYTHONHASHSEED"] = "0"
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    problems = (world16_ep(worlds, out, device)
+                + world16_spec(worlds, out, device)
+                + world16_vit(worlds, out, device))
+    if problems:
+        raise RuntimeError("phase 16 --world: " + "; ".join(problems))
+
+
+def world16_ep(worlds, out, device="cuda") -> list:
+    """--phases 16 --world's Aria steps with the experts over data
+    (N = 2) or data x fsdp (N = 4) against one card -> problems."""
+    from spacer_tpu_torch.parallel.multihost import launch_local
+
+    problems = []
+    if max(worlds) == 1:
+        return problems
+    t0 = time.perf_counter()
+    launch_local(_world_reference, 1, args=(out, device, "aria"),
+                 device=device, timeout=600)
+    for world in worlds:
+        kind, shape = EP_WORLD_AXES[world]
+        launch_local(_world_rank, world, args=(out, device, shape, kind),
+                     device=device, timeout=600)
+        try:
+            report_world_ranks(out, world, f"{kind} {shape}")
+        except RuntimeError as e:
+            problems.append(str(e))
+    log(f"phase 16 --world ep: {time.perf_counter() - t0:.1f} s")
+    return problems
+
+
+def world16_spec(worlds, out, device="cuda") -> list:
+    """--phases 16 --world's speculative rollouts over N cards' split
+    rows against card 0 alone -> problems."""
+    from spacer_tpu_torch.parallel.multihost import launch_local
+
+    def agree(a, b) -> str:
+        return (f"{float((a == b).mean()):.4f} (rows "
+                f"{float((a == b).all(1).mean()):.3f})")
+
+    problems = []
+    t0 = time.perf_counter()
+    launch_local(_spec_world_run, 1, args=(out, device, tuple(EP_WORLD_AXES)),
+                 device=device, timeout=900)
+    ref = torch.load(out + "/spec1.pt", weights_only=False)
+    for n, sl in ref["slices"].items():
+        log(f"speculative rollout on card 0, temperature 0.0: {n} prompt "
+            f"slices run alone (each at one of {n} ranks' row counts) vs "
+            f"the whole batch: tokens equal "
+            f"{agree(sl['tokens'], ref[0.0]['tokens'])}, stats "
+            f"{sl['stats']} vs {ref[0.0]['stats']}")
+    for world in (w for w in worlds if w > 1):
+        launch_local(_spec_world_run, world, args=(out, device),
+                     device=device, timeout=600)
+        got = torch.load(out + f"/spec{world}.pt", weights_only=False)
+        for temp in (0.0, 1.0):
+            a, b = got[temp], ref[temp]
+            log(f"speculative rollout over ({world}, 1, 1), temperature "
+                f"{temp}: tokens equal to card 0's whole batch "
+                f"{agree(a['tokens'], b['tokens'])}, stats {a['stats']} vs "
+                f"{b['stats']}, {a['s']:.2f} vs {b['s']:.2f} s")
+            if a["tokens"].shape != b["tokens"].shape or not (
+                    a["stats"]["spec_acceptance"] >= 1.0):
+                problems.append(f"spec ({world}, 1, 1) temperature {temp}: "
+                                f"{a['tokens'].shape} {a['stats']}")
+        # greedy: each rank's rows are its prompt slice's rollout at its
+        # row count, which card 0 runs alone slice by slice (the GEMMs see
+        # the split's row counts): token for token
+        a, sl = got[0.0], ref["slices"][world]
+        same = bool(np.array_equal(a["tokens"], sl["tokens"]))
+        log(f"speculative rollout over ({world}, 1, 1), temperature 0.0 vs "
+            f"card 0 running each rank's slice alone: tokens equal "
+            f"{agree(a['tokens'], sl['tokens'])}, bitwise {same}, stats "
+            f"{sl['stats']}")
+        if not same or any(a["stats"][k] != v for k, v in sl["stats"].items()):
+            problems.append(f"spec ({world}, 1, 1) greedy: not the slices' "
+                            f"tokens and counts alone")
+    log(f"phase 16 --world speculative: {time.perf_counter() - t0:.1f} s")
+    return problems
+
+
+def world16_vit(worlds, out, device="cuda") -> list:
+    """--phases 16 --world's ViT ring over N cards at full depth
+    against one card's K4 step -> problems."""
+    from spacer_tpu_torch.parallel.multihost import launch_local
+
+    problems = []
+    t0 = time.perf_counter()
+    launch_local(_vit_world_reference, 1, args=(out, device), device=device,
+                 timeout=600)
+    vref = torch.load(out + "/vit_ref.pt", weights_only=False)
+    ctrl = vref["ring1_cos"]
+    names = list(vref["grads"])
+    log(f"ViT step on one card at full depth, the world-1 ring (control) vs "
+        f"K4: grad_norm {vref['ring1_grad_norm']!r} vs {vref['grad_norm']!r}"
+        f", gradient cosine min {min(ctrl.values()):.6f} over {len(ctrl)} "
+        "tensors (lowest: " + ", ".join(f"{n} {c:.6f}" for n, c in sorted(
+            ctrl.items(), key=lambda x: x[1])[:4]) + ") | "
+        + small_grads_line(names, [vref["grads"][n] for n in names], ctrl))
+    for world in (w for w in worlds if w > 1):
+        launch_local(_vit_world_rank, world, args=(out, device),
+                     device=device, timeout=600)
+        parts = torch.load(out + f"/vit{world}.pt", weights_only=False)
+        for r, rec in enumerate(parts):
+            log(f"ViT ring world {world} rank {r}: loss {rec['loss']!r} "
+                f"grad_norm {rec['grad_norm']!r} | {rec['s']:.2f} s per step"
+                f" | max_memory_allocated {gib(rec['peak'])} | per step: "
+                + _collective_line(rec["collectives"], 1))
+            if abs(rec["loss"] - vref["loss"]) > (PP_LOSS_RTOL
+                                                  * abs(vref["loss"])):
+                problems.append(f"ViT ring {world} rank {r}: loss "
+                                f"{rec['loss']}")
+            if abs(rec["grad_norm"] - vref["grad_norm"]) > (
+                    PP_WORLD_NORM_RTOL * vref["grad_norm"]):
+                problems.append(f"ViT ring {world} rank {r}: grad_norm "
+                                f"{rec['grad_norm']}")
+        problems += vit_world_gate(world, parts, vref)
+    log(f"phase 16 --world ViT ring: {time.perf_counter() - t0:.1f} s")
+    return problems
+
+
+def vit_world_gate(world, parts, vref) -> list:
+    """--world N's ViT gradient gate -> problems.  Every selected tensor's
+    cosine against one card's K4 step must reach VIT_RING_COS_TOL, or, for
+    a tensor below it, its deviation 1 - cosine may be at most
+    VIT_RING_CTRL_FACTOR x N times the world-1 ring's (the control, run on
+    one card at the same depth: it swaps K4 for K1 and splits nothing).
+    The ring rounds each of its N blocks' outputs and dq / dk / dv partials
+    to bf16 before it merges them, so a gradient whose sum cancels (the
+    SMALL_GRAD tensors) drifts further from one card's as N grows; the
+    factor is set from the readings in PERF.md section 6.  Also logged:
+    the cosines against the world-1 ring (the split alone) and the
+    SMALL_GRAD tensors' norms."""
+    cos, cos1 = {}, {}
+    for rec in parts:
+        cos.update(rec["cos"])
+        cos1.update(rec["cos_ring1"])
+    ctrl = vref["ring1_cos"]
+    names = list(vref["grads"])
+    below = {n: c for n, c in cos.items() if not c >= VIT_RING_COS_TOL}
+    factor = VIT_RING_CTRL_FACTOR * world
+    failed = {n: c for n, c in below.items()
+              if not 1 - c <= factor * (1 - ctrl[n])}
+    worst = min(cos.values())
+    log(f"ViT ring world {world} vs 1 card's K4 step: loss "
+        f"{parts[0]['loss']!r} vs {vref['loss']!r}, grad_norm "
+        f"{parts[0]['grad_norm']!r} vs {vref['grad_norm']!r} (world-1 ring "
+        f"{vref['ring1_grad_norm']!r}), gradient cosine min {worst:.6f} over "
+        f"{len(cos)} of {len(names)} tensors (lowest: " + ", ".join(
+            f"{n} {c:.6f} (control {ctrl[n]:.6f})" for n, c in sorted(
+                cos.items(), key=lambda x: x[1])[:4])
+        + f"); {len(below)} below {VIT_RING_COS_TOL}, {len(failed)} of them "
+        f"beyond {factor} x the control's deviation | control (world-1 "
+        f"ring vs K4) min {min(ctrl.values()):.6f} | vs the world-1 ring (the"
+        f" split alone) min {min(cos1.values()):.6f} | "
+        + small_grads_line(names, [vref["grads"][n] for n in names], cos)
+        + f" | 1 card: {vref['s']:.2f} s, max_memory_allocated "
+        f"{gib(vref['peak'])}")
+    if len(cos) != len(names) or failed:
+        return [f"ViT ring {world}: {len(cos)} of {len(names)} tensors, "
+                f"beyond the gate: {failed}"]
+    return []
+
+
 def cli_main(mode: str, argv):
     """`chip_smoke.py --cli-step ARGS` / `--cli-serve ARGS` (torchrun_self's
     targets): spacer_tpu_torch.cli.train_sg_rlvr.main(ARGS) /
@@ -6286,7 +7081,8 @@ def main(argv=None):
     --world N` runs phase 12's N-card variant instead (fsdp_world_phase),
     `--phases 13 --world N[,M]` phase 13's (tp_world_phase), `--phases 14
     --world N[,M]` phase 14's (aria_world_phase), `--phases 15 --world
-    N[,M]` phase 15's (ring_pipe_world_phase)."""
+    N[,M]` phase 15's (ring_pipe_world_phase), `--phases 16 --world 2[,4]`
+    phase 16's (phase16_world)."""
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] in (["--cli-step"], ["--cli-serve"]):
         return cli_main(argv[0], argv[1:])
@@ -6301,19 +7097,24 @@ def main(argv=None):
             raise SystemExit(f"phases {sorted(unknown)} unknown, or 5c "
                              f"without 5; known: {PHASES}")
         if len(argv) == 4:
-            if argv[2] != "--world" or phases not in (("12",), ("13",),
-                                                      ("14",), ("15",)):
-                raise SystemExit(usage + " (--world with --phases 12, 13, 14 "
-                                 "or 15 only)")
+            if argv[2] != "--world" or phases not in (
+                    ("12",), ("13",), ("14",), ("15",), ("16",)):
+                raise SystemExit(usage + " (--world with --phases 12, 13, "
+                                 "14, 15 or 16 only)")
             world = [int(w) for w in argv[3].split(",")]
             if phases == ("12",) and len(world) != 1:
                 raise SystemExit("--phases 12 takes one --world")
+            if phases == ("16",) and not (world == [1] or set(world) <= set(
+                    EP_WORLD_AXES)):
+                raise SystemExit("--phases 16 takes --world 2 and / or 4, "
+                                 "or 1 (the references alone)")
             if not all(1 <= w <= torch.cuda.device_count() for w in world):
                 raise SystemExit(f"--world {argv[3]}: "
                                  f"{torch.cuda.device_count()} cards")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_main, seconds = time.perf_counter(), time_phases(globals())
     smi = device_facts()
     build_kernels()
     if world is not None:
@@ -6323,8 +7124,10 @@ def main(argv=None):
             tp_world_phase(world)
         elif phases == ("14",):
             aria_world_phase(world)
-        else:
+        elif phases == ("15",):
             ring_pipe_world_phase(world)
+        else:
+            phase16_world(world)
         log(f"development run of phase {phases[0]} at world {world}: no "
             "kernels line, no result")
         return 0
@@ -6341,6 +7144,8 @@ def main(argv=None):
         check_ring_kernels()
         gc.collect()
         torch.cuda.empty_cache()
+    if "16" in phases:
+        results.update(check_vit_ring_kernels())
     from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
 
     paths = {}
@@ -6398,8 +7203,13 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "15" in phases:
         paths.update(ring_pipe_phase())
-    counts = {k: sum(c[k] for c in paths.values()) for k in SOURCES}
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "16" in phases:
+        paths.update(vit_ring_phase())
+    counts = {k: sum(c.get(k, 0) for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
+    log(phase_seconds_line(seconds, time.perf_counter() - t_main))
     if phases != PHASES:
         log(f"development run of phases {list(phases)}: no kernels line, "
             "no result")

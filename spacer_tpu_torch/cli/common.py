@@ -80,7 +80,8 @@ def serving_params(params, mesh):
     slices), so every batch group computes the same batch with the tp
     group's collectives only (JAX gathers on use instead: ROADMAP queue
     C).  Under moe_impl "ep" the experts stay on their owners
-    (parallel/expert.py) and each MoE layer exchanges over fsdp."""
+    (parallel/expert.py) and each MoE layer exchanges over the ep group
+    (cfg.moe_ep_axis: fsdp, data or data x fsdp)."""
     if mesh is None:
         return params
     from spacer_tpu_torch.parallel.fsdp import gather_params

@@ -3,8 +3,9 @@
 // Replaces the Pallas kernel spacer_tpu/ops/flash_attention.py
 // (flash_attention -> _flash_fwd_impl -> _fwd_kernel).  Same contract as the
 // plain version spacer_tpu_torch/nn/attention.py::xla_attention: q (B,Sq,Hq,D),
-// k/v (B,Skv,Hkv,D) bf16 in the JAX layout, D = 128 (the LMs) or 72 (the Aria
-// vision tower and its projector, 1152 / 16 heads), causal with a static
+// k/v (B,Skv,Hkv,D) bf16 in the JAX layout, D = 128 (the LMs), 80 (the Qwen
+// ViTs' full-attention blocks under ring attention, 1280 / 16 heads) or 72
+// (the Aria vision tower and its projector, 1152 / 16 heads), causal with a static
 // q_offset (key j is visible to query i when j <= i + q_offset), a (B,Skv)
 // validity mask and optional (B,S) segment ids, GQA (q head h reads kv head
 // h / (Hq/Hkv)).  Writes out (B,Sq,Hq,D) bf16 and the LSE (B,Hq,Sq) f32 that
@@ -43,9 +44,10 @@
 //   - The grid's slowest dimension is the q tile, reversed: the longest
 //     causal walks start first.
 //
-// D = 72: the same kernel on sm90.cuh's D = 80 tile (a [R][64] block with the
-// 128-byte swizzle and a [R][16] block with the 32-byte swizzle, K4's
-// layout).  The tensor maps declare the head 72 wide, so TMA fills columns
+// D = 80 and 72: the same kernel on sm90.cuh's D = 80 tile (a [R][64] block
+// with the 128-byte swizzle and a [R][16] block with the 32-byte swizzle,
+// K4's layout); Q K^T runs five k-steps, P V an n64 and an n16 product.
+// At D = 72 the tensor maps declare the head 72 wide, so TMA fills columns
 // 72-79 of the second box with zeros: Q K^T runs its five k-steps over
 // zeros there (the products are unchanged), P V runs as an n64 and an n16
 // product whose columns 72-79 are 0 and are never stored.  The scale is
@@ -67,13 +69,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float MASK2 = -1e30f * LOG2E;   // the -1e30 mask in log2 units
 
-// DP: the tile's width in shared memory (72 is held as 80)
-template <int D>
-constexpr int tile_width() { return D == 128 ? 128 : 80; }
-
 template <int D>
 struct Smem {
-  static constexpr int DP = tile_width<D>();
+  static constexpr int DP = sm90::head_tile_width(D);
   static constexpr int q = 0;                                 // bf16 [BM][DP]
   static constexpr int kv = q + BM * DP * 2;                  // [STAGES] x (K, V)
   static constexpr int tile = BN * DP * 2;                    // one K or V tile
@@ -83,27 +81,6 @@ struct Smem {
   static constexpr int bytes = bars + (2 * STAGES + 1) * 8;
   static constexpr int alloc = bytes + 1024;                  // base alignment
 };
-
-// Rows [s0, s0 + R) of head h, batch row b into a tile: two 64-column boxes
-// (D = 128), or a 64- and a 16-column box from the two maps (D = 72).
-template <int D, int R>
-__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
-                                          const CUtensorMap* map16, uint64_t* bar,
-                                          int h, int s0, int b) {
-  if constexpr (D == 128) {
-    sm90::tma_load_rows<R>(dst, map, bar, h, s0, b);
-  } else {
-    sm90::tma_load_4d(dst, map, bar, 0, h, s0, b);
-    sm90::tma_load_4d(static_cast<char*>(dst) + R * 128, map16, bar, 64, h, s0, b);
-  }
-}
-
-// K-major descriptor of k-step kk of a tile of R rows
-template <int D, int R>
-__device__ __forceinline__ uint64_t desc_k(const void* tile, int r0, int kk) {
-  if constexpr (D == 128) return sm90::desc_kmajor<R>(tile, r0, kk);
-  else return sm90::desc_kmajor_d80<R>(tile, r0, kk);
-}
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -168,7 +145,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
       mbar_arrive_expect_tx(qbar, BM * DP * 2);
-      load_rows<D, BM>(Qs, &tq, &tq16, qbar, h, q0, b);
+      tma_load_head_rows<D, BM>(Qs, &tq, &tq16, qbar, h, q0, b);
     }
     RingPos pos;
     for (int i = 0; i < n_kt; ++i) {
@@ -187,8 +164,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) {
         unsigned char* st = smem + SmemD::kv + pos.stage * 2 * SmemD::tile;
         mbar_arrive_expect_tx(&full[pos.stage], 2 * SmemD::tile);
-        load_rows<D, BN>(st, &tk, &tk16, &full[pos.stage], hk, k0, b);
-        load_rows<D, BN>(st + SmemD::tile, &tv, &tv16, &full[pos.stage], hk, k0, b);
+        tma_load_head_rows<D, BN>(st, &tk, &tk16, &full[pos.stage], hk, k0, b);
+        tma_load_head_rows<D, BN>(st + SmemD::tile, &tv, &tv16, &full[pos.stage], hk,
+                                  k0, b);
       } else {
         mbar_arrive(&full[pos.stage]);
       }
@@ -210,7 +188,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
   const int wg_first_row = q0 + 64 * wg;
 
-  // O: columns 0-127 (D = 128), or 0-63 and 64-79 (D = 72)
+  // O: columns 0-127 (D = 128), or 0-63 and 64-79 (D = 80 and 72)
   constexpr int NO = D == 128 ? 64 : 32;
   float o[NO], o16[8];
 #pragma unroll
@@ -235,8 +213,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_m64n64k16_ss(s, desc_k<D, BM>(Qs, 64 * wg, kk),
-                         desc_k<D, BN>(Ks, 0, kk), kk > 0);
+      wgmma_m64n64k16_ss(s, desc_kmajor_head<D, BM>(Qs, 64 * wg, kk),
+                         desc_kmajor_head<D, BN>(Ks, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -322,9 +300,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     for (int n8 = 0; n8 < NO / 4; ++n8)
       *reinterpret_cast<uint32_t*>(orow + n8 * 8) =
           pack_bf16(o[4 * n8 + 2 * j] * inv, o[4 * n8 + 2 * j + 1] * inv);
-    if constexpr (D != 128)   // columns 64-71; 72-79 are the tile's zeros
+    if constexpr (D != 128)   // columns 64-71
       *reinterpret_cast<uint32_t*>(orow + 64) =
           pack_bf16(o16[2 * j] * inv, o16[2 * j + 1] * inv);
+    if constexpr (D == 80)    // columns 72-79 (at D = 72 the tile's zeros)
+      *reinterpret_cast<uint32_t*>(orow + 72) =
+          pack_bf16(o16[4 + 2 * j] * inv, o16[4 + 2 * j + 1] * inv);
     if (lane % 4 == 0) lse[((long)b * Hq + h) * Sq + row] = m[j] * LN2 + logf(l_safe);
   }
 }
@@ -336,7 +317,8 @@ static cudaError_t launch(const void* q, const void* k, const void* v, void* out
                           int Hkv, int causal, int q_offset, float scale,
                           cudaStream_t stream) {
   // D = 128: 64-column boxes only (the 16-column maps are unused copies);
-  // D = 72: columns 0-63 and 64-79 (72-79 past the head: zeros)
+  // D = 80 and 72: columns 0-63 and 64-79 (at 72, columns 72-79 are past the
+  // head: zeros)
   CUtensorMap tq, tk, tv, tq16, tk16, tv16;
   cudaError_t err = sm90::encode_bshd(&tq, q, B, Sq, Hq, D, BM);
   if (err == cudaSuccess) err = sm90::encode_bshd(&tk, k, B, Skv, Hkv, D, BN);
@@ -373,6 +355,10 @@ extern "C" int spacer_flash_attention_fwd(
     return spacer::k1fwd::launch<128>(q, k, v, out, lse, kv_valid, q_seg, kv_seg, B,
                                       Sq, Skv, Hq, Hkv, causal, q_offset, scale,
                                       (cudaStream_t)stream);
+  if (D == 80)
+    return spacer::k1fwd::launch<80>(q, k, v, out, lse, kv_valid, q_seg, kv_seg, B,
+                                     Sq, Skv, Hq, Hkv, causal, q_offset, scale,
+                                     (cudaStream_t)stream);
   if (D == 72)
     return spacer::k1fwd::launch<72>(q, k, v, out, lse, kv_valid, q_seg, kv_seg, B,
                                      Sq, Skv, Hq, Hkv, causal, q_offset, scale,

@@ -79,12 +79,34 @@
 //     With splits > 1 split s writes its f32 sums to slot s of a scratch
 //     buffer and a second kernel adds the slots in order 0, 1, ... before
 //     rounding to bf16: no atomics, so a run is bitwise repeatable.
+//
+// D = 80 and 72: both kernels on sm90.cuh's D = 80 tile (K1 forward's: a
+// 64-column block with the 128-byte swizzle and a 16-column block with the
+// 32-byte swizzle, each row a 128-byte and a 32-byte TMA box).  S and dP run
+// five k-steps of 16; dQ += dS K, dV += P^T dO and dK += dS^T Q run as an n64
+// and an n16 product (as K1 forward at 72 and K4 run P V), so dQ, dK and
+// dV hold 32 + 8 f32 per thread.  At D = 72 the maps declare the head 72
+// wide: TMA fills columns 72-79 with zeros, which leave every product's
+// columns 0-71 unchanged, and columns 72-79 of the results are not stored.
 #include "sm90.cuh"
 
 namespace spacer {
+
+// The TMA maps of a (B, S, H, D) bf16 head in boxes of `rows` rows: D = 128
+// reads `map` alone (`map16` is an unused copy); D = 80 and 72 read 64
+// columns from `map` and 16 from `map16` (at 72, columns 72-79 as zeros).
+template <int D>
+static cudaError_t encode_maps(CUtensorMap* map, CUtensorMap* map16, const void* base,
+                               int B, int S, int H, int rows) {
+  cudaError_t err = sm90::encode_bshd(map, base, B, S, H, D, rows);
+  *map16 = *map;
+  if (err == cudaSuccess && D != 128)
+    err = sm90::encode_bshd(map16, base, B, S, H, D, rows, 16);
+  return err;
+}
+
 namespace dq {
 
-constexpr int D = 128;
 constexpr int BM = 128;       // query rows per CTA (2 consumer warpgroups)
 constexpr int BN = 64;        // keys per tile
 constexpr int STAGES = 3;
@@ -92,11 +114,13 @@ constexpr int NTHREADS = 384;
 constexpr int MAX_TILES = 512;   // key tiles with a liveness flag; later ones count as live
 constexpr float LOG2E = 1.4426950408889634f;
 
+template <int D>
 struct Smem {
-  static constexpr int q = 0;                                 // bf16 [BM][D]
-  static constexpr int d_o = q + BM * D * 2;                  // bf16 [BM][D]
-  static constexpr int kv = d_o + BM * D * 2;                 // [STAGES] x (K, V)
-  static constexpr int tile = BN * D * 2;                     // one K or V tile
+  static constexpr int DP = sm90::head_tile_width(D);
+  static constexpr int q = 0;                                 // bf16 [BM][DP]
+  static constexpr int d_o = q + BM * DP * 2;                 // bf16 [BM][DP]
+  static constexpr int kv = d_o + BM * DP * 2;                // [STAGES] x (K, V)
+  static constexpr int tile = BN * DP * 2;                    // one K or V tile
   static constexpr int codes = kv + STAGES * 2 * tile;        // int [STAGES][BN]
   static constexpr int live = codes + STAGES * BN * 4;        // int [MAX_TILES]
   static constexpr int bars = live + MAX_TILES * 4;           // full, empty, q
@@ -104,25 +128,32 @@ struct Smem {
   static constexpr int alloc = bytes + 1024;                  // base alignment
 };
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tq16,
                     const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tk16,
                     const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tv16,
                     const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdo16,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, const uint8_t* __restrict__ kv_valid,
                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
                     int Sq, int Skv, int Hq, int Hkv, int causal, int q_offset,
                     float scale) {
   using namespace sm90;
+  using SmemD = Smem<D>;
+  constexpr int DP = SmemD::DP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* Qs = smem + Smem::q;
-  unsigned char* dOs = smem + Smem::d_o;
-  int* codes = reinterpret_cast<int*>(smem + Smem::codes);
-  int* live = reinterpret_cast<int*>(smem + Smem::live);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::bars);
+  unsigned char* Qs = smem + SmemD::q;
+  unsigned char* dOs = smem + SmemD::d_o;
+  int* codes = reinterpret_cast<int*>(smem + SmemD::codes);
+  int* live = reinterpret_cast<int*>(smem + SmemD::live);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SmemD::bars);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
 
@@ -175,9 +206,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x >= 256 + 32) return;   // one producer warp
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
-      mbar_arrive_expect_tx(qbar, 2 * BM * D * 2);
-      tma_load_rows<BM>(Qs, &tq, qbar, h, q0, b);
-      tma_load_rows<BM>(dOs, &tdo, qbar, h, q0, b);
+      mbar_arrive_expect_tx(qbar, 2 * BM * DP * 2);
+      tma_load_head_rows<D, BM>(Qs, &tq, &tq16, qbar, h, q0, b);
+      tma_load_head_rows<D, BM>(dOs, &tdo, &tdo16, qbar, h, q0, b);
     }
     RingPos pos;
     for (int i = 0; i < n_kt; ++i) {
@@ -194,10 +225,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         codes[pos.stage * BN + j] = code;
       }
       if (lane == 0) {
-        unsigned char* st = smem + Smem::kv + pos.stage * 2 * Smem::tile;
-        mbar_arrive_expect_tx(&full[pos.stage], 2 * Smem::tile);
-        tma_load_rows<BN>(st, &tk, &full[pos.stage], hk, k0, b);
-        tma_load_rows<BN>(st + Smem::tile, &tv, &full[pos.stage], hk, k0, b);
+        unsigned char* st = smem + SmemD::kv + pos.stage * 2 * SmemD::tile;
+        mbar_arrive_expect_tx(&full[pos.stage], 2 * SmemD::tile);
+        tma_load_head_rows<D, BN>(st, &tk, &tk16, &full[pos.stage], hk, k0, b);
+        tma_load_head_rows<D, BN>(st + SmemD::tile, &tv, &tv16, &full[pos.stage], hk,
+                                  k0, b);
       } else {
         mbar_arrive(&full[pos.stage]);
       }
@@ -225,17 +257,21 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
   const int wg_first_row = q0 + 64 * wg;
 
-  float dQ[64];
+  // dQ: columns 0-127 (D = 128), or 0-63 and 64-79 (D = 80 and 72)
+  constexpr int NO = D == 128 ? 64 : 32;
+  float dQ[NO], dQ16[8];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dQ[i] = 0.f;
+  for (int i = 0; i < NO; ++i) dQ[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dQ16[i] = 0.f;
 
   mbar_wait(qbar, 0);
   RingPos pos;
   for (int i = 0; i < n_kt; ++i) {
     if (!tile_live(i)) continue;
     mbar_wait(&full[pos.stage], pos.phase);
-    const unsigned char* Ks = smem + Smem::kv + pos.stage * 2 * Smem::tile;
-    const unsigned char* Vs = Ks + Smem::tile;
+    const unsigned char* Ks = smem + SmemD::kv + pos.stage * 2 * SmemD::tile;
+    const unsigned char* Vs = Ks + SmemD::tile;
     const int* kcode = codes + pos.stage * BN;
     const int k0 = i * BN;
 
@@ -244,13 +280,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     float s[32], dp[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(s, desc_kmajor<BM>(Qs, 64 * wg, kk), desc_kmajor<BN>(Ks, 0, kk),
-                         kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_m64n64k16_ss(s, desc_kmajor_head<D, BM>(Qs, 64 * wg, kk),
+                         desc_kmajor_head<D, BN>(Ks, 0, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(dp, desc_kmajor<BM>(dOs, 64 * wg, kk),
-                         desc_kmajor<BN>(Vs, 0, kk), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_m64n64k16_ss(dp, desc_kmajor_head<D, BM>(dOs, 64 * wg, kk),
+                         desc_kmajor_head<D, BN>(Vs, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -282,11 +318,18 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kb = 0; kb < BN / 16; ++kb) frag_from_acc(da[kb], dp, kb);
     wgmma_fence();
 #pragma unroll
-    for (int kb = 0; kb < BN / 16; ++kb)
-      wgmma_m64n128k16_rs(dQ, da[kb], desc_mnmajor<BN>(Ks, kb), 1);
+    for (int kb = 0; kb < BN / 16; ++kb) {
+      if constexpr (D == 128) {
+        wgmma_m64n128k16_rs(dQ, da[kb], desc_mnmajor<BN>(Ks, kb), 1);
+      } else {
+        wgmma_m64n64k16_rs(dQ, da[kb], desc_mnmajor<BN>(Ks, kb), 1);
+        wgmma_m64n16k16_rs(dQ16, da[kb], desc_mnmajor_d80_hi<BN>(Ks, kb), 1);
+      }
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dQ);
+    if constexpr (D != 128) fence_regs(dQ16);
     mbar_arrive(&empty[pos.stage]);
     pos.advance<STAGES>();
   }
@@ -298,29 +341,37 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= Sq) continue;
     bf16* drow = dq + (((long)b * Sq + row) * Hq + h) * D + (lane % 4) * 2;
 #pragma unroll
-    for (int n8 = 0; n8 < D / 8; ++n8)
+    for (int n8 = 0; n8 < NO / 4; ++n8)
       *reinterpret_cast<uint32_t*>(drow + n8 * 8) =
           pack_bf16(dQ[4 * n8 + 2 * j], dQ[4 * n8 + 2 * j + 1]);
+    if constexpr (D != 128)   // columns 64-71
+      *reinterpret_cast<uint32_t*>(drow + 64) = pack_bf16(dQ16[2 * j], dQ16[2 * j + 1]);
+    if constexpr (D == 80)    // columns 72-79 (at D = 72 K's zero columns)
+      *reinterpret_cast<uint32_t*>(drow + 72) =
+          pack_bf16(dQ16[4 + 2 * j], dQ16[4 + 2 * j + 1]);
   }
 }
 
+template <int D>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,
                           void* dq, const void* kv_valid, const void* q_seg,
                           const void* kv_seg, int B, int Sq, int Skv, int Hq, int Hkv,
                           int causal, int q_offset, float scale, cudaStream_t stream) {
-  CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = sm90::encode_bshd(&tq, q, B, Sq, Hq, D, BM);
-  if (err == cudaSuccess) err = sm90::encode_bshd(&tdo, dout, B, Sq, Hq, D, BM);
-  if (err == cudaSuccess) err = sm90::encode_bshd(&tk, k, B, Skv, Hkv, D, BN);
-  if (err == cudaSuccess) err = sm90::encode_bshd(&tv, v, B, Skv, Hkv, D, BN);
+  CUtensorMap tq, tk, tv, tdo, tq16, tk16, tv16, tdo16;
+  cudaError_t err = encode_maps<D>(&tq, &tq16, q, B, Sq, Hq, BM);
+  if (err == cudaSuccess) err = encode_maps<D>(&tdo, &tdo16, dout, B, Sq, Hq, BM);
+  if (err == cudaSuccess) err = encode_maps<D>(&tk, &tk16, k, B, Skv, Hkv, BN);
+  if (err == cudaSuccess) err = encode_maps<D>(&tv, &tv16, v, B, Skv, Hkv, BN);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::alloc);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem<D>::alloc);
   if (err != cudaSuccess) return err;
   dim3 grid(Hq, B, (Sq + BM - 1) / BM);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, Smem::alloc, stream>>>(
-      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq,
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, Smem<D>::alloc, stream>>>(
+      tq, tq16, tk, tk16, tv, tv16, tdo, tdo16, (const float*)lse, (const float*)delta,
+      (bf16*)dq,
       (const uint8_t*)kv_valid, (const int*)q_seg, (const int*)kv_seg, Sq, Skv, Hq,
       Hkv, causal, q_offset, scale);
   return cudaGetLastError();
@@ -330,18 +381,19 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
 
 namespace dkv {
 
-constexpr int D = 128;
 constexpr int BK = 128;       // keys per CTA (2 consumer warpgroups of 64)
 constexpr int BQ = 64;        // query rows per step
 constexpr int STAGES = 2;
 constexpr int NTHREADS = 384;
 constexpr float LOG2E = 1.4426950408889634f;
 
+template <int D>
 struct Smem {
-  static constexpr int k = 0;                                 // bf16 [BK][D]
-  static constexpr int v = k + BK * D * 2;                    // bf16 [BK][D]
-  static constexpr int ring = v + BK * D * 2;                 // [STAGES] x (Q, dO)
-  static constexpr int tile = BQ * D * 2;                     // one Q or dO tile
+  static constexpr int DP = sm90::head_tile_width(D);
+  static constexpr int k = 0;                                 // bf16 [BK][DP]
+  static constexpr int v = k + BK * DP * 2;                   // bf16 [BK][DP]
+  static constexpr int ring = v + BK * DP * 2;                // [STAGES] x (Q, dO)
+  static constexpr int tile = BQ * DP * 2;                    // one Q or dO tile
   static constexpr int stats = ring + STAGES * 2 * tile;      // [STAGES] x 3 x [BQ]
   static constexpr int bars = stats + STAGES * 3 * BQ * 4;    // full, empty, kv
   static constexpr int bytes = bars + (2 * STAGES + 1) * 8;
@@ -366,11 +418,16 @@ __device__ __forceinline__ void store_pair(bf16* out, float* part, long off, flo
     *reinterpret_cast<uint32_t*>(out + off) = sm90::pack_bf16(x, y);
 }
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tq16,
                      const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tk16,
                      const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tv16,
                      const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdo16,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv,
                      float* __restrict__ partial, const uint8_t* __restrict__ kv_valid,
@@ -378,11 +435,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      int B, int Sq, int Skv, int Hq, int Hkv, int causal, int q_offset,
                      int splits, float scale) {
   using namespace sm90;
+  using SmemD = Smem<D>;
+  constexpr int DP = SmemD::DP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  float* stats = reinterpret_cast<float*>(smem + Smem::stats);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::bars);
+  float* stats = reinterpret_cast<float*>(smem + SmemD::stats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SmemD::bars);
   uint64_t* empty = full + STAGES;
   uint64_t* kvbar = empty + STAGES;
 
@@ -431,9 +490,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x >= 256 + 32) return;   // one producer warp
     const int lane = threadIdx.x % 32;
     if (lane == 0) {
-      mbar_arrive_expect_tx(kvbar, 2 * BK * D * 2);
-      tma_load_rows<BK>(smem + Smem::k, &tk, kvbar, hk, k0, b);
-      tma_load_rows<BK>(smem + Smem::v, &tv, kvbar, hk, k0, b);
+      mbar_arrive_expect_tx(kvbar, 2 * BK * DP * 2);
+      tma_load_head_rows<D, BK>(smem + SmemD::k, &tk, &tk16, kvbar, hk, k0, b);
+      tma_load_head_rows<D, BK>(smem + SmemD::v, &tv, &tv16, kvbar, hk, k0, b);
     }
     RingPos pos;
     for (int step = 0; step < n_steps; ++step) {
@@ -451,10 +510,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
             !in ? -1 : q_seg != nullptr ? q_seg[(long)b * Sq + q0 + j] + 1 : 1;
       }
       if (lane == 0) {
-        unsigned char* qs = smem + Smem::ring + pos.stage * 2 * Smem::tile;
-        mbar_arrive_expect_tx(&full[pos.stage], 2 * Smem::tile);
-        tma_load_rows<BQ>(qs, &tq, &full[pos.stage], h, q0, b);
-        tma_load_rows<BQ>(qs + Smem::tile, &tdo, &full[pos.stage], h, q0, b);
+        unsigned char* qs = smem + SmemD::ring + pos.stage * 2 * SmemD::tile;
+        mbar_arrive_expect_tx(&full[pos.stage], 2 * SmemD::tile);
+        tma_load_head_rows<D, BQ>(qs, &tq, &tq16, &full[pos.stage], h, q0, b);
+        tma_load_head_rows<D, BQ>(qs + SmemD::tile, &tdo, &tdo16, &full[pos.stage], h,
+                                  q0, b);
       } else {
         mbar_arrive(&full[pos.stage]);
       }
@@ -473,17 +533,21 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     kcode[j] = key_code(kv_valid, kv_seg, b, kg[j], Skv);
   }
   const float scale_log2 = scale * LOG2E;
-  float dK[64], dV[64];
+  // dK, dV: columns 0-127 (D = 128), or 0-63 and 64-79 (D = 80 and 72)
+  constexpr int NO = D == 128 ? 64 : 32;
+  float dK[NO], dV[NO], dK16[8], dV16[8];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dK[i] = dV[i] = 0.f;
+  for (int i = 0; i < NO; ++i) dK[i] = dV[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dK16[i] = dV16[i] = 0.f;
 
   mbar_wait(kvbar, 0);
   RingPos pos;
   for (int step = 0; step < n_steps; ++step) {
     const int q0 = (t_begin + step % nt) * BQ;
     mbar_wait(&full[pos.stage], pos.phase);
-    const unsigned char* Qs = smem + Smem::ring + pos.stage * 2 * Smem::tile;
-    const unsigned char* dOs = Qs + Smem::tile;
+    const unsigned char* Qs = smem + SmemD::ring + pos.stage * 2 * SmemD::tile;
+    const unsigned char* dOs = Qs + SmemD::tile;
     const float* st = stats + pos.stage * 3 * BQ;
     const int* qcode = reinterpret_cast<const int*>(st) + 2 * BQ;
 
@@ -492,13 +556,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     float sT[32], dpT[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(sT, desc_kmajor<BK>(smem + Smem::k, 64 * wg, kk),
-                         desc_kmajor<BQ>(Qs, 0, kk), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_m64n64k16_ss(sT, desc_kmajor_head<D, BK>(smem + SmemD::k, 64 * wg, kk),
+                         desc_kmajor_head<D, BQ>(Qs, 0, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(dpT, desc_kmajor<BK>(smem + Smem::v, 64 * wg, kk),
-                         desc_kmajor<BQ>(dOs, 0, kk), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_m64n64k16_ss(dpT, desc_kmajor_head<D, BK>(smem + SmemD::v, 64 * wg, kk),
+                         desc_kmajor_head<D, BQ>(dOs, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sT);
@@ -526,15 +590,31 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     }
     wgmma_fence();
 #pragma unroll
-    for (int kb = 0; kb < BQ / 16; ++kb)
-      wgmma_m64n128k16_rs(dV, pa[kb], desc_mnmajor<BQ>(dOs, kb), 1);
+    for (int kb = 0; kb < BQ / 16; ++kb) {
+      if constexpr (D == 128) {
+        wgmma_m64n128k16_rs(dV, pa[kb], desc_mnmajor<BQ>(dOs, kb), 1);
+      } else {
+        wgmma_m64n64k16_rs(dV, pa[kb], desc_mnmajor<BQ>(dOs, kb), 1);
+        wgmma_m64n16k16_rs(dV16, pa[kb], desc_mnmajor_d80_hi<BQ>(dOs, kb), 1);
+      }
+    }
 #pragma unroll
-    for (int kb = 0; kb < BQ / 16; ++kb)
-      wgmma_m64n128k16_rs(dK, da[kb], desc_mnmajor<BQ>(Qs, kb), 1);
+    for (int kb = 0; kb < BQ / 16; ++kb) {
+      if constexpr (D == 128) {
+        wgmma_m64n128k16_rs(dK, da[kb], desc_mnmajor<BQ>(Qs, kb), 1);
+      } else {
+        wgmma_m64n64k16_rs(dK, da[kb], desc_mnmajor<BQ>(Qs, kb), 1);
+        wgmma_m64n16k16_rs(dK16, da[kb], desc_mnmajor_d80_hi<BQ>(Qs, kb), 1);
+      }
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dV);
     fence_regs(dK);
+    if constexpr (D != 128) {
+      fence_regs(dV16);
+      fence_regs(dK16);
+    }
     mbar_arrive(&empty[pos.stage]);
     pos.advance<STAGES>();
   }
@@ -544,12 +624,21 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   for (int j = 0; j < 2; ++j) {
     if (kg[j] >= Skv) continue;
     const long off = (((long)b * Skv + kg[j]) * Hkv + hk) * D + (lane % 4) * 2;
+    float* part_v = part == nullptr ? nullptr : part + part_dv;
 #pragma unroll
-    for (int n8 = 0; n8 < D / 8; ++n8) {
+    for (int n8 = 0; n8 < NO / 4; ++n8) {
       const int i = 4 * n8 + 2 * j;
       store_pair(dk, part, off + n8 * 8, dK[i], dK[i + 1]);
-      store_pair(dv, part == nullptr ? nullptr : part + part_dv, off + n8 * 8, dV[i],
-                 dV[i + 1]);
+      store_pair(dv, part_v, off + n8 * 8, dV[i], dV[i + 1]);
+    }
+    // columns 64-71, and 72-79 at D = 80 (at D = 72 Q's and dO's zero columns)
+    if constexpr (D != 128) {
+#pragma unroll
+      for (int n8 = 0; n8 < (D - 64) / 8; ++n8) {
+        const int i = 4 * n8 + 2 * j;
+        store_pair(dk, part, off + 64 + n8 * 8, dK16[i], dK16[i + 1]);
+        store_pair(dv, part_v, off + 64 + n8 * 8, dV16[i], dV16[i + 1]);
+      }
     }
   }
 }
@@ -574,25 +663,27 @@ __global__ void dkv_reduce_kernel(const float* __restrict__ partial,
   reinterpret_cast<uint32_t*>(out)[1] = sm90::pack_bf16(acc.z, acc.w);
 }
 
+template <int D>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,
                           void* dk, void* dv, void* partial, const void* kv_valid,
                           const void* q_seg, const void* kv_seg, int B, int Sq, int Skv,
                           int Hq, int Hkv, int causal, int q_offset, int splits,
                           float scale, cudaStream_t stream) {
-  CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = sm90::encode_bshd(&tq, q, B, Sq, Hq, D, BQ);
-  if (err == cudaSuccess) err = sm90::encode_bshd(&tdo, dout, B, Sq, Hq, D, BQ);
-  if (err == cudaSuccess) err = sm90::encode_bshd(&tk, k, B, Skv, Hkv, D, BK);
-  if (err == cudaSuccess) err = sm90::encode_bshd(&tv, v, B, Skv, Hkv, D, BK);
+  CUtensorMap tq, tk, tv, tdo, tq16, tk16, tv16, tdo16;
+  cudaError_t err = encode_maps<D>(&tq, &tq16, q, B, Sq, Hq, BQ);
+  if (err == cudaSuccess) err = encode_maps<D>(&tdo, &tdo16, dout, B, Sq, Hq, BQ);
+  if (err == cudaSuccess) err = encode_maps<D>(&tk, &tk16, k, B, Skv, Hkv, BK);
+  if (err == cudaSuccess) err = encode_maps<D>(&tv, &tv16, v, B, Skv, Hkv, BK);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::alloc);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem<D>::alloc);
   if (err != cudaSuccess) return err;
   float* part = splits > 1 ? (float*)partial : nullptr;
   dim3 grid(Hkv * splits, B, (Skv + BK - 1) / BK);
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, Smem::alloc, stream>>>(
-      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, Smem<D>::alloc, stream>>>(
+      tq, tq16, tk, tk16, tv, tv16, tdo, tdo16, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
       part, (const uint8_t*)kv_valid, (const int*)q_seg, (const int*)kv_seg, B, Sq,
       Skv, Hq, Hkv, causal, q_offset, splits, scale);
   err = cudaGetLastError();
@@ -613,11 +704,21 @@ extern "C" int spacer_flash_attention_bwd_dq(
     const void* delta, void* dq, const void* kv_valid, const void* q_seg,
     const void* kv_seg, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
     int q_offset, float scale, void* stream) {
-  if (D != spacer::dq::D || dq == nullptr || Sq <= 0 || Skv <= 0)
-    return (int)cudaErrorInvalidValue;
-  return spacer::dq::launch(q, k, v, dout, lse, delta, dq, kv_valid, q_seg, kv_seg, B,
-                            Sq, Skv, Hq, Hkv, causal, q_offset, scale,
-                            (cudaStream_t)stream);
+  if (dq == nullptr || Sq <= 0 || Skv <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D == 128)
+    return spacer::dq::launch<128>(q, k, v, dout, lse, delta, dq, kv_valid, q_seg,
+                                   kv_seg, B, Sq, Skv, Hq, Hkv, causal, q_offset,
+                                   scale, s);
+  if (D == 80)
+    return spacer::dq::launch<80>(q, k, v, dout, lse, delta, dq, kv_valid, q_seg,
+                                  kv_seg, B, Sq, Skv, Hq, Hkv, causal, q_offset, scale,
+                                  s);
+  if (D == 72)
+    return spacer::dq::launch<72>(q, k, v, dout, lse, delta, dq, kv_valid, q_seg,
+                                  kv_seg, B, Sq, Skv, Hq, Hkv, causal, q_offset, scale,
+                                  s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Keys per dk/dv CTA, which the wrapper's split rule counts CTAs by.
@@ -630,10 +731,21 @@ extern "C" int spacer_flash_attention_bwd_dkv(
     const void* delta, void* dk, void* dv, void* partial, const void* kv_valid,
     const void* q_seg, const void* kv_seg, int B, int Sq, int Skv, int Hq, int Hkv,
     int D, int causal, int q_offset, int splits, float scale, void* stream) {
-  if (D != spacer::dkv::D || dk == nullptr || dv == nullptr || Sq <= 0 || Skv <= 0 ||
-      splits < 1 || splits > Hq / Hkv || (splits > 1 && partial == nullptr))
+  if (dk == nullptr || dv == nullptr || Sq <= 0 || Skv <= 0 || splits < 1 ||
+      splits > Hq / Hkv || (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  return spacer::dkv::launch(q, k, v, dout, lse, delta, dk, dv, partial, kv_valid,
-                             q_seg, kv_seg, B, Sq, Skv, Hq, Hkv, causal, q_offset,
-                             splits, scale, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D == 128)
+    return spacer::dkv::launch<128>(q, k, v, dout, lse, delta, dk, dv, partial,
+                                    kv_valid, q_seg, kv_seg, B, Sq, Skv, Hq, Hkv,
+                                    causal, q_offset, splits, scale, s);
+  if (D == 80)
+    return spacer::dkv::launch<80>(q, k, v, dout, lse, delta, dk, dv, partial,
+                                   kv_valid, q_seg, kv_seg, B, Sq, Skv, Hq, Hkv,
+                                   causal, q_offset, splits, scale, s);
+  if (D == 72)
+    return spacer::dkv::launch<72>(q, k, v, dout, lse, delta, dk, dv, partial,
+                                   kv_valid, q_seg, kv_seg, B, Sq, Skv, Hq, Hkv,
+                                   causal, q_offset, splits, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -8,8 +8,8 @@
 //     kernel parameter, completing on an mbarrier; host-side encoders,
 //     fetched through cudaGetDriverEntryPoint (no -lcuda), of a (B, S, H, D)
 //     bf16 tensor as a (D, H, S, B) map with the 128-byte swizzle (D = 128;
-//     D = 72 also as 16-column boxes with the 32-byte swizzle, into a D = 80
-//     tile),
+//     D = 80 and 72 also as 16-column boxes with the 32-byte swizzle, into a
+//     D = 80 tile),
 //     of a (B, H, S, 128) tensor of bf16 (128-byte swizzle) or int8 codes (no
 //     swizzle) as a (128, S, H, B) map, of an (H, S, 80) tensor cut into
 //     chunks of wt rows as two (80, wt, n, H) maps, columns 0-63 with the
@@ -226,6 +226,32 @@ template <int R>
 __device__ __forceinline__ uint64_t desc_mnmajor_d80_hi(const void* tile, int kk) {
   return make_desc(static_cast<const char*>(tile) + R * 128 + kk * 512, R * 32, 256,
                    Swizzle::B32);
+}
+
+// A (B, S, H, D) head in shared memory, D = 128 or a D = 80 tile (D = 80,
+// and D = 72 whose columns 72-79 TMA fills with zeros): the tile's width,
+// rows [s0, s0 + R) of head h, batch row b loaded as two 64-column boxes of
+// `map` (D = 128) or a 64- and a 16-column box of `map` and `map16`, and
+// the K-major descriptor of k-step kk (DP / 16 of them).
+constexpr int head_tile_width(int D) { return D == 128 ? 128 : 80; }
+
+template <int D, int R>
+__device__ __forceinline__ void tma_load_head_rows(void* dst, const CUtensorMap* map,
+                                                   const CUtensorMap* map16,
+                                                   uint64_t* bar, int h, int s0,
+                                                   int b) {
+  if constexpr (D == 128) {
+    tma_load_rows<R>(dst, map, bar, h, s0, b);
+  } else {
+    tma_load_4d(dst, map, bar, 0, h, s0, b);
+    tma_load_4d(static_cast<char*>(dst) + R * 128, map16, bar, 64, h, s0, b);
+  }
+}
+
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_kmajor_head(const void* tile, int r0, int kk) {
+  if constexpr (D == 128) return desc_kmajor<R>(tile, r0, kk);
+  else return desc_kmajor_d80<R>(tile, r0, kk);
 }
 
 // Order this thread's earlier generic-proxy shared-memory stores before

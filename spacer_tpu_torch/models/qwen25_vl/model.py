@@ -29,11 +29,13 @@ def init_params(cfg: Qwen25VLConfig, *, seed: int = 0, dtype=torch.float32,
 
 
 def encode_vision(params, cfg: Qwen25VLConfig, pixel_values, grid_thw,
-                  remat: bool = False):
-    """pixel_values (S, patch_dim) + grid_thw list -> (S/mu, lm_hidden)."""
+                  remat: bool = False, attn_impl=None):
+    """pixel_values (S, patch_dim) + grid_thw list -> (S/mu, lm_hidden);
+    attn_impl None or ("ring", mesh, axis) (vision.py's full-attention
+    blocks)."""
     layout = vision_layout(grid_thw, cfg.vision)
     return vit_forward(params["visual"], cfg.vision, pixel_values, layout,
-                       remat=remat)
+                       remat=remat, attn_impl=attn_impl)
 
 
 def merge_vision_embeds(cfg: Qwen25VLConfig, input_ids, token_embeds,

@@ -21,6 +21,15 @@ recomputes through the plain version), and `remat=True` recomputes each
 block in the backward pass (torch.utils.checkpoint), as JAX's
 jax.checkpoint of the block does.
 
+Ring attention (`attn_impl=("ring", mesh, axis)`, ops/ring_attention.py):
+where JAX's attn_impl reaches dot_product_attention, the full-attention
+blocks (every block of the Qwen2-VL ViT) attend over equal frame chunks
+(`layout.full_chunk > 0`) through the ring instead of K4: the chunks are
+the batch, the chunk's tokens the sequence split over the axis, no causal
+mask, K1 / K1-bwd at head_dim 80 per block.  Chunks of unequal size keep
+K4 (JAX keeps XLA there), windowed blocks keep K3, and a chunk the axis
+does not divide raises ValueError.
+
 Tensor parallelism (parallel/tp.py): each rank attends over its heads
 (num_heads // tp) through K3 and K4; the fused qkv is column-parallel
 head-aware (its q, k and v columns each cut per head), the MLP's gate/up or
@@ -48,6 +57,7 @@ from spacer_tpu_torch.nn.core import (
     rms_norm,
     rms_norm_init,
 )
+from spacer_tpu_torch.nn.attention import ring_impl
 from spacer_tpu_torch.nn.rope import apply_vision_rope, vision_rope_cos_sin
 from spacer_tpu_torch.ops.vit_window_attention import (
     chunk_attention_hsd,
@@ -310,11 +320,33 @@ def _run_blocks(params, h, block, remat: bool):
     return h
 
 
+def _ring(attn_impl, layout: VisionLayout):
+    """fn(q, k, v) of (S, H, Dh) tokens in compact frame-chunk order ->
+    (S, H, Dh): ring attention over each equal frame chunk, the chunks as
+    the batch; None where the full-attention blocks keep K4 (no ring, or
+    chunks of unequal size)."""
+    ring = ring_impl(attn_impl)
+    if ring is None or layout.full_chunk == 0:
+        return None
+    from spacer_tpu_torch.ops.ring_attention import make_ring_attention
+
+    fn = make_ring_attention(*ring, causal=False)
+    c = layout.full_chunk
+
+    def attend(q, k, v):
+        S, H, Dh = q.shape
+        out = fn(*(t.reshape(S // c, c, H, Dh) for t in (q, k, v)))
+        return out.reshape(S, H, Dh)
+
+    return attend
+
+
 def _vit_forward_full(params: Params, cfg: VisionConfig, pixel_values,
-                      layout: VisionLayout, remat: bool):
+                      layout: VisionLayout, remat: bool, attn_impl=None):
     """Qwen2-VL: every block attends within its frame chunks, in the native
     token order (JAX's all-full path): K4 once per run of equal chunks
-    (chunk_runs), the run's tokens being one contiguous range."""
+    (chunk_runs), the run's tokens being one contiguous range, or the ring
+    (`_ring`)."""
     Dh = cfg.head_dim
     h = dense(params["patch_embed"]["proj"], pixel_values)  # (S, D)
     pos = torch.as_tensor(layout.pos_hw_native, dtype=torch.long,
@@ -322,29 +354,37 @@ def _vit_forward_full(params: Params, cfg: VisionConfig, pixel_values,
     cos, sin = vision_rope_cos_sin(pos, Dh, cfg.rope_theta)
     scale = Dh ** -0.5
     runs = chunk_runs(layout)
+    ring = _ring(attn_impl, layout)
 
     def block(h, bp, li):
         x = _vit_norm(cfg, bp["norm1"], h)
         qkv = _qkv(cfg, bp["attn"], x)
         q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
-        parts = [chunk_attention_hsd(
-            *(t[a:a + n].transpose(0, 1).contiguous()
-              for t in (q, k, qkv[:, 2])), c, scale)
-            for a, n, c in runs]
-        attn = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        h = h + _proj(cfg, bp["attn"], attn.transpose(0, 1))
+        if ring is not None:
+            attn = ring(q, k, qkv[:, 2])
+        else:
+            parts = [chunk_attention_hsd(
+                *(t[a:a + n].transpose(0, 1).contiguous()
+                  for t in (q, k, qkv[:, 2])), c, scale)
+                for a, n, c in runs]
+            attn = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            attn = attn.transpose(0, 1)
+        h = h + _proj(cfg, bp["attn"], attn)
         return h + _vit_mlp(cfg, bp["mlp"], _vit_norm(cfg, bp["norm2"], h))
 
     return _merge(params, cfg, _run_blocks(params, h, block, remat))
 
 
 def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
-                layout: VisionLayout, remat: bool = False):
+                layout: VisionLayout, remat: bool = False, attn_impl=None):
     """pixel_values (S, patch_dim) -> merged embeddings (S / mu, out_hidden)
-    in the original (pre-window-permutation) token order."""
+    in the original (pre-window-permutation) token order.  attn_impl: None
+    or ("ring", mesh, axis) (the module docstring)."""
+    ring_impl(attn_impl)
     params = gather(params, keep=("blocks",))
     if len(set(cfg.fullatt_block_indexes)) == cfg.depth:
-        return _vit_forward_full(params, cfg, pixel_values, layout, remat)
+        return _vit_forward_full(params, cfg, pixel_values, layout, remat,
+                                 attn_impl)
     dev = pixel_values.device
     mu = cfg.spatial_merge_unit
     Dh = cfg.head_dim
@@ -366,26 +406,31 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
     scale = Dh ** -0.5
     full_set = set(cfg.fullatt_block_indexes)
     runs = chunk_runs(layout)
+    ring = _ring(attn_impl, layout)
 
     def block(h, bp, li):
         x = _vit_norm(cfg, bp["norm1"], h)
         qkv = _qkv(cfg, bp["attn"], x)
         q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
-        q, k, v = (t.transpose(0, 1) for t in (q, k, qkv[:, 2]))  # (H, S_pad, Dh)
-        if li in full_set:
+        v = qkv[:, 2]
+        if li in full_set and ring is not None:
+            # the compact frame-chunk order, the ring, back to the windows
+            attn = ring(*(t[to_compact] for t in (q, k, v)))[pad_gather]
+        elif li in full_set:
             # frame chunks are contiguous in the compact window order; with
             # grids whose chunks differ, one K4 call per grid over the
             # grid's own token range (JAX masks segments over the whole
             # sequence: the same attention)
+            q, k, v = (t.transpose(0, 1) for t in (q, k, v))  # (H, S_pad, Dh)
             parts = [chunk_attention_hsd(
                 *(t[:, to_compact[a:a + n]] for t in (q, k, v)), c, scale)
                 for a, n, c in runs]
             attn = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-            attn = attn[:, pad_gather]
+            attn = attn[:, pad_gather].transpose(0, 1)
         else:
-            q, k, v = (t.contiguous() for t in (q, k, v))
-            attn = window_attention_hsd(q, k, v, bias, wt, scale)
-        h = h + _proj(cfg, bp["attn"], attn.transpose(0, 1))
+            q, k, v = (t.transpose(0, 1).contiguous() for t in (q, k, v))
+            attn = window_attention_hsd(q, k, v, bias, wt, scale).transpose(0, 1)
+        h = h + _proj(cfg, bp["attn"], attn)
         return h + _vit_mlp(cfg, bp["mlp"], _vit_norm(cfg, bp["norm2"], h))
 
     h = _run_blocks(params, h, block, remat)

@@ -32,7 +32,8 @@ class ModelFamily:
     positions: Callable[..., Any]
     # (enc) -> (vision_kwargs dict for encode_vision, static_aux) or (None, None)
     pack_vision: Callable[..., Any]
-    # (params, cfg, vision_kwargs, static_aux, remat=False) -> (N, D) embeddings
+    # (params, cfg, vision_kwargs, static_aux, remat=False, attn_impl=None)
+    # -> (N, D) embeddings
     encode_vision: Callable[..., Any]
     merge_vision_embeds: Callable[..., Any]
     # (ve, cfg, static_aux, num_generations, media_per_prompt) -> tiled ve
@@ -70,10 +71,10 @@ def _qwen_pack_vision(enc):
 
 
 def _qwen_encode_vision(params, cfg, vision_kwargs, static_aux,
-                        remat: bool = False):
+                        remat: bool = False, attn_impl=None):
     """Pixels go to the params' device and dtype (the patch embed's input
     precision is the params' own, as the JAX trainer ships bf16 pixels to
-    bf16 params)."""
+    bf16 params); attn_impl reaches the ViT's full-attention blocks."""
     from spacer_tpu_torch.models.qwen25_vl.model import encode_vision
 
     w = params["visual"]["patch_embed"]["proj"]["kernel"]
@@ -82,7 +83,7 @@ def _qwen_encode_vision(params, cfg, vision_kwargs, static_aux,
                                            torch.Tensor)
                          else vision_kwargs["pixel_values"])
     return encode_vision(params, cfg, px.to(device=w.device, dtype=w.dtype),
-                         static_aux, remat=remat)
+                         static_aux, remat=remat, attn_impl=attn_impl)
 
 
 def _params_tensor(params, x, dtype=None):
@@ -113,10 +114,12 @@ def _aria_pack_vision(enc):
 
 
 def _aria_encode_vision(params, cfg, vision_kwargs, static_aux,
-                        remat: bool = False):
+                        remat: bool = False, attn_impl=None):
     """Crops go to the params' device and dtype (the patch embed's input
     precision is the params' own); the NaViT ids and the patch mask come
-    as pack_vision's "position_ids" or the batch's "pixel_position_ids"."""
+    as pack_vision's "position_ids" or the batch's "pixel_position_ids".
+    The tower takes no attn_impl (JAX's neither): it is accepted and
+    unused."""
     from spacer_tpu_torch.models.aria.model import encode_vision
 
     w = params["visual"]["embeddings"]["patch_embedding"]["kernel"]

@@ -25,7 +25,10 @@ statistics (`flash_attention_bwd_dq_from_stats` / `_dkv_from_stats`, ring
 attention's: ring_attention.py) launch the same two kernels and count
 under theirs.  K6's two entry points (the
 scale-free product and dense_q4 with its scales, cast and bias) launch one
-kernel and count under `int4_matmul.launches`.
+kernel and count under `int4_matmul.launches`.  K1 and K1-bwd also count
+their launches per head_dim: `launch_counts` reports the instantiations
+that the Qwen ViTs' ring (head_dim 80) and Aria's tower backward (72) run
+as HEAD_DIM_IDS, whose launches are also in their kernel's total.
 """
 
 from __future__ import annotations
@@ -64,10 +67,23 @@ def kernel_wrappers() -> dict:
     }
 
 
+# {id: (kernel id, head_dim)}: K1 / K1-bwd instantiations counted apart
+HEAD_DIM_IDS = {"K1 d80": ("K1", 80), "K1-bwd dq d80": ("K1-bwd dq", 80),
+                "K1-bwd dkv d80": ("K1-bwd dkv", 80),
+                "K1-bwd dq d72": ("K1-bwd dq", 72),
+                "K1-bwd dkv d72": ("K1-bwd dkv", 72)}
+
+
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "by_head_dim"):
+            fn.by_head_dim.clear()
 
 
 def launch_counts() -> dict:
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    wrappers = kernel_wrappers()
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    counts.update({k: wrappers[kernel].by_head_dim[d]
+                   for k, (kernel, d) in HEAD_DIM_IDS.items()})
+    return counts

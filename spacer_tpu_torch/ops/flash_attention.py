@@ -26,11 +26,11 @@ LSE and delta of all blocks.  Their plain version is
 `attention_bwd_from_stats`, the backward written out from the statistics
 (autograd through `xla_attention` equals it only at the block's own).
 
-The forward takes head_dim 128 (the LMs) and 72 (the Aria vision tower and
-its projector, 1152 / 16 heads: a D = 80 tile whose last 8 columns TMA fills
-with zeros).  The backward kernels take 128; at 72 the backward recomputes
-through the plain version, as K3's and K4's do (the JAX package's gradient
-there is XLA's: its Pallas kernel refuses D % 128 != 0).
+All three kernels take head_dim 128 (the LMs), 80 (the Qwen ViTs'
+full-attention blocks under ring attention, 1280 / 16 heads) and 72 (the
+Aria vision tower and its projector, 1152 / 16 heads: the D = 80 tile whose
+last 8 columns TMA fills with zeros).  (The JAX package's gradient at 72 and
+80 is XLA's: its Pallas kernel refuses D % 128 != 0.)
 
 Bound on the H100: tensor-core flops at prefill lengths (~P/2 flops per
 K/V byte).  All three kernels run on wgmma with TMA-fed rings and their
@@ -40,20 +40,22 @@ kv head) would leave the card idle, and sums their f32 partials in a fixed
 order.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its kernel launches in `.launches`.
+raises.  Each wrapper counts its kernel launches in `.launches`, and
+per head_dim in `.by_head_dim` ({D: launches}, the same launches counted
+by the instantiation they ran).
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from spacer_tpu_torch.nn.attention import visible, xla_attention
 from spacer_tpu_torch.ops import _build
 
-HEAD_DIMS = (72, 128)
-# head dims of the dq and dk/dv kernels; the others' backward is the plain
-# version's (attention_bwd_reference)
-BWD_HEAD_DIMS = (128,)
+# head dims of the forward and both backward kernels
+HEAD_DIMS = (72, 80, 128)
 
 
 def dkv_splits(B: int, Skv: int, Hq: int, Hkv: int, sms: int,
@@ -127,6 +129,7 @@ def _launch_fwd(q, k, v, masks, causal, q_offset, scale):
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.by_head_dim[D] += 1
     return out, lse
 
 
@@ -146,12 +149,6 @@ class _FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse, *masks = ctx.saved_tensors
         dout = dout.contiguous()
-        if q.shape[-1] not in BWD_HEAD_DIMS:
-            valid, q_seg, kv_seg = masks
-            grads = attention_bwd_reference(
-                q, k, v, dout, kv_mask=valid, q_segment_ids=q_seg,
-                kv_segment_ids=kv_seg, **ctx.kw)
-            return (*grads, None, None, None, None, None, None)
         delta = _delta(out, dout)
         dq = _launch_dq(q, k, v, dout, lse, delta, masks, **ctx.kw)
         dk, dv = _launch_dkv(q, k, v, dout, lse, delta, masks, **ctx.kw)
@@ -234,9 +231,6 @@ def _bwd_args(q, k, v, out, lse, dout, kv_mask, q_segment_ids,
               kv_segment_ids, q_offset):
     """Checks of a public backward call -> (lse, delta, masks)."""
     _check(q, k, v, kv_mask, q_segment_ids, kv_segment_ids, q_offset)
-    if q.shape[-1] not in BWD_HEAD_DIMS:
-        raise ValueError(f"the backward kernels take head_dim in "
-                         f"{BWD_HEAD_DIMS}, got {q.shape[-1]}")
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous bf16 tensor of q's shape")
@@ -252,9 +246,6 @@ def _stats_args(q, k, v, dout, lse, delta, kv_mask, q_segment_ids,
     """Checks of a backward call from given statistics -> (lse, delta,
     masks)."""
     _check(q, k, v, kv_mask, q_segment_ids, kv_segment_ids, q_offset)
-    if q.shape[-1] not in BWD_HEAD_DIMS:
-        raise ValueError(f"the backward kernels take head_dim in "
-                         f"{BWD_HEAD_DIMS}, got {q.shape[-1]}")
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("dout must be a bf16 tensor of q's shape")
     B, Sq, Hq, _ = q.shape
@@ -277,6 +268,7 @@ def _launch_dq(q, k, v, dout, lse, delta, masks, *, causal, q_offset, scale):
         int(bool(causal)), q_offset, float(scale), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.by_head_dim[D] += 1
     return dq
 
 
@@ -296,6 +288,7 @@ def _launch_dkv(q, k, v, dout, lse, delta, masks, *, causal, q_offset, scale):
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.by_head_dim[D] += 1
     return dk, dv
 
 
@@ -378,6 +371,5 @@ def flash_attention_bwd_dkv_from_stats(q, k, v, dout, lse, delta, *,
                        causal=causal, q_offset=q_offset, scale=scale)
 
 
-flash_attention.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+for _fn in (flash_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _fn.launches, _fn.by_head_dim = 0, Counter()

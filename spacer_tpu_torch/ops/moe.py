@@ -170,12 +170,19 @@ def moe_mlp(params: Params, x, *, topk: int, impl: str | None = None,
     (capacity_factor and ep_axis are its).  `widths` = (the expert
     intermediate, the shared experts' width), which tensor parallelism
     needs to tell a slice from a whole tensor (see the module docstring)."""
+    from spacer_tpu_torch.parallel import expert
+
     impl = impl or "ragged"
     if impl not in IMPLS:
         raise ValueError(f"unknown moe impl {impl!r} (expected 'ragged', "
                          "'dense' or 'ep')")
+    fc1 = params["experts"]["fc1"]["kernel"]
+    fc2 = params["experts"]["fc2"]["kernel"]
     if impl == "ep":
-        _check_ep_axis(ep_axis)
+        axes = expert.ep_axes(ep_axis)
+        if expert.is_placed(fc1) and fc1.axes != axes:
+            raise ValueError(f"moe ep_axis {ep_axis!r}: the experts are "
+                             f"placed over {fc1.axes}")
     shape = x.shape
     xt = x.reshape(-1, shape[-1])
     if widths is None:
@@ -189,10 +196,6 @@ def moe_mlp(params: Params, x, *, topk: int, impl: str | None = None,
     scores, top_idx = route_topk(params["router"]["kernel"], xt, topk)
     scores = tp.copy_to_tp(scores)
     xe = tp.copy_to_tp(xt)
-    fc1 = params["experts"]["fc1"]["kernel"]
-    fc2 = params["experts"]["fc2"]["kernel"]
-    from spacer_tpu_torch.parallel import expert
-
     if impl == "ep" and expert.is_placed(fc1):
         combined = expert.routed_ep(fc1, fc2, xe, scores, top_idx,
                                     capacity_factor, rows=shape[0])
@@ -226,13 +229,6 @@ def moe_mlp_ep(params: Params, x, *, topk: int,
     return moe_mlp(params, x, topk=topk, impl="ep",
                    capacity_factor=capacity_factor, ep_axis=ep_axis,
                    widths=widths)
-
-
-def _check_ep_axis(ep_axis):
-    if ep_axis not in ("fsdp", ("fsdp",)):
-        raise NotImplementedError(
-            f"moe ep_axis {ep_axis!r}: expert parallelism runs over the "
-            "fsdp axis only (another axis is ROADMAP queue A item 2b.5)")
 
 
 def _local_experts(fc1, fc2, intermediate):

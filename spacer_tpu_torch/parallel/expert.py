@@ -1,14 +1,22 @@
-"""Expert parallelism over the fsdp axis (the cross-process half of
-spacer_tpu/ops/moe.py moe_mlp_ep, which GSPMD partitions over `ep_axis`).
+"""Expert parallelism over the fsdp axis, the data axis or both (the
+cross-process half of spacer_tpu/ops/moe.py moe_mlp_ep, which GSPMD
+partitions over `ep_axis`; there the axis moves data, not values).
 
-Placement.  Under moe_impl "ep" the experts' fc1 / fc2 are fsdp Shards
-(parallel/fsdp.py) flagged `experts`: with fsdp F dividing E and E / F
-experts' (tp slices') elements a whole number of 2048-blocks, rank f's
-blocks are exactly experts [f E / F, (f + 1) E / F), so the Shard IS the
-expert placement.  `gather` and `gather_params` leave such a Shard as it
-is; the MoE reads its blocks as this rank's experts (`local_experts`,
-whose backward sums the gradient over `data`, as a gathered Shard's does);
-the optimizer, the norm and checkpoints treat it as any Shard.
+The ep group.  `cfg.moe_ep_axis` names the axes (`ep_axes`: "fsdp",
+"data" or ("data", "fsdp")); the ep group is those axes at this rank's
+other coordinates (the mesh's "fsdp", "data" or "batch" group), of n
+ranks.
+
+Placement.  Under moe_impl "ep" the experts' fc1 / fc2 are Shards
+(parallel/fsdp.py) whose blocks are split over the ep group instead of
+fsdp (`Shard.experts` = the ep axes): with n dividing E and E / n
+experts' (tp slices') elements a whole number of 2048-blocks, rank i of
+the group holds exactly experts [i E / n, (i + 1) E / n), so the Shard IS
+the expert placement.  `gather` and `gather_params` leave such a Shard as
+it is; the MoE reads its blocks as this rank's experts (`local_experts`,
+whose backward sums the gradient over the batch axes outside the ep
+group: data for fsdp, fsdp for data, none for data x fsdp); the optimizer,
+the norm and checkpoints treat it as any Shard over its group.
 
 Rows.  JAX dispatches over the GLOBAL batch: an assignment's position in
 its expert counts every earlier (token, k) of the global batch, and C
@@ -23,8 +31,7 @@ over the batch group ("ep_counts": a row held twice is counted the same
 twice), and each rank offsets its positions by the counts of the rows
 before its own.
 
-Moving the tokens, over the ep group (the fsdp group at this rank's data
-and tp index):
+Moving the tokens, over the ep group (at this rank's tp index):
 
 - rows split within the group: x, the scores and the kept assignments'
   experts are all-gathered ("ep_all_gather"), each owner runs its experts
@@ -39,9 +46,9 @@ Each exchange is an autograd Function whose backward is the reverse
 exchange.  At ep 1 (fsdp 1) the experts are all local: the exchange is
 counted in multihost.collective_stats under its kind and not issued, with
 no autograd node, and the routed output is the single-process one bit for
-bit.  Decode loops over split rows agree on their early exit over the
-batch group (`all_done`, "ep_done"): a rank that left would stop issuing
-its exchanges.
+bit, whatever the axis.  Decode loops over split rows agree on their early
+exit over the batch group (`all_done`, "ep_done"): a rank that left would
+stop issuing its exchanges.
 """
 
 from __future__ import annotations
@@ -130,6 +137,21 @@ def group_layout(layout: RowLayout, group: int) -> RowLayout:
                            for lo, hi in layout.ranges))
 
 
+def ep_axes(ep_axis) -> tuple:
+    """The axes of a moe_ep_axis value ("fsdp", "data" or ("data", "fsdp"),
+    a name or its 1-tuple); ValueError naming the accepted ones for any
+    other."""
+    from spacer_tpu_torch.parallel.fsdp import SPLITS
+
+    axes = ((ep_axis,) if isinstance(ep_axis, str) else tuple(ep_axis)
+            if isinstance(ep_axis, (list, tuple)) else None)
+    if axes not in SPLITS:
+        raise ValueError(f"moe ep_axis {ep_axis!r}: expert parallelism runs "
+                         f"over one of {list(SPLITS)} (a name alone for a "
+                         "1-tuple)")
+    return axes
+
+
 def is_placed(t) -> bool:
     """Whether `t` is an expert-placed Shard."""
     from spacer_tpu_torch.parallel.fsdp import Shard
@@ -146,26 +168,28 @@ def has_placed(tree) -> bool:
 
 
 def check_placement(shard) -> None:
-    """An expert leaf must cut into whole experts: fsdp divides E and the
-    E / fsdp experts' elements are whole 2048-blocks (ValueError)."""
+    """An expert leaf must cut into whole experts: the ep group's n ranks
+    divide E and the E / n experts' elements are whole 2048-blocks
+    (ValueError)."""
     from spacer_tpu_torch.train.optimizer import BLOCK
 
-    F = shard.mesh.shape["fsdp"]
+    _, F, _ = shard.group
+    what = " x ".join(shard.axes)
     E = shard.shape[0]
     if E % F:
-        raise ValueError(f"fsdp={F} does not divide the {E} experts of "
+        raise ValueError(f"{what}={F} does not divide the {E} experts of "
                          "moe_impl='ep'")
     per = shard.shape.numel() // E * (E // F)
     if F > 1 and per % BLOCK:
         raise ValueError(
-            f"moe_impl='ep' over fsdp={F}: {E // F} experts of shape "
+            f"moe_impl='ep' over {what}={F}: {E // F} experts of shape "
             f"{tuple(shard.shape[1:])} are {per} elements, not whole "
             f"{BLOCK}-element blocks")
 
 
 class _ExpertView(torch.autograd.Function):
-    """A Shard's blocks -> its (E / fsdp, ...) experts; backward: the
-    gradient into the blocks, summed over data."""
+    """A Shard's blocks -> its (E / n, ...) experts; backward: the gradient
+    into the blocks, summed over the batch axes outside the ep group."""
 
     @staticmethod
     def forward(ctx, data, shard):
@@ -179,12 +203,16 @@ class _ExpertView(torch.autograd.Function):
                           device=grad.device)
         out[:grad.numel()] = grad.reshape(-1)
         out = out.view(shard.data.shape)
-        multihost.all_reduce(out, shard.mesh.group("data"))
+        from spacer_tpu_torch.parallel.fsdp import SPLITS
+
+        other = SPLITS[shard.axes][1]
+        if other is not None:
+            multihost.all_reduce(out, shard.mesh.group(other))
         return out, None
 
 
 def _view(data, shard):
-    E = shard.shape[0] // shard.mesh.shape["fsdp"]
+    E = shard.shape[0] // shard.group[1]
     n = E * (shard.shape.numel() // shard.shape[0])
     return data.reshape(-1)[:n].view(E, *shard.shape[1:])
 
@@ -291,11 +319,12 @@ def routed_ep(fc1, fc2, xt, scores, top_idx, capacity_factor: float,
     top-k `scores` (T, K) and experts `top_idx`, with the experts of the
     expert-placed Shards fc1 / fc2 on their owners (the module docstring)."""
     from spacer_tpu_torch.ops import moe
+    from spacer_tpu_torch.parallel.mesh import Mesh
 
     mesh = fc1.mesh
-    F = mesh.shape["fsdp"]
+    name, F, index = fc1.group
     E = fc1.shape[0]
-    El, e0 = E // F, mesh.coords["fsdp"] * (E // F)
+    El, e0 = E // F, index * (E // F)
     T, K = top_idx.shape
     layout = _layout(mesh, rows)
     tokens = T // rows
@@ -309,8 +338,9 @@ def routed_ep(fc1, fc2, xt, scores, top_idx, capacity_factor: float,
     code = torch.where(keep, flat_e, -1)
     w1, w2 = local_experts(fc1), local_experts(fc2)
 
-    d = mesh.coords["data"]
-    ranges = [layout.range(d * F + f) for f in range(F)]
+    # the ep group's ranks' rows, in group order
+    ranges = [layout.range(Mesh(mesh.shape, r).batch_index)
+              for r in mesh.peers(name)]
     if F == 1:
         # every expert is local: counted, not issued
         multihost.record("ep_all_gather", xt)
@@ -319,7 +349,7 @@ def routed_ep(fc1, fc2, xt, scores, top_idx, capacity_factor: float,
         out = moe.combine(y, scores)
         multihost.record("ep_reduce_scatter", out)
         return out
-    group = mesh.group("fsdp")
+    group = mesh.group(name)
     if all(r == ranges[0] for r in ranges):
         y = moe.kept_expert_ffn(w1, w2, xt, code, keep, K, e0, El,
                                 min(T * K, El * C))

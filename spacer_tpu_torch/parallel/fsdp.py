@@ -22,7 +22,11 @@ the summed gradients are the world-1 gradients; `global_norm` counts each
 shard once and every replicated leaf once.
 
 Under expert parallelism the experts' Shards are placed by expert and
-never gathered (parallel/expert.py).
+never gathered (parallel/expert.py).  Their blocks are split over the ep
+axes (`experts`: ("fsdp",), ("data",) or ("data", "fsdp")) instead of
+fsdp: `split_group` names that group, and every collective of a Shard's
+blocks (its full tensor, the norm, the optimizer state's round trip) runs
+over it.
 
 With tensor parallelism a Shard holds this rank's blocks of its tp SLICE
 (`split`, a parallel/tp.Split; partition.py says which leaves): `gather`
@@ -48,41 +52,74 @@ def _block() -> int:
     return BLOCK
 
 
+# the axes a Shard's blocks split over (fsdp, or the ep axes of an expert
+# placement, parallel/expert.py) -> (their process group, the batch axis
+# outside it, over which an expert's gradient sums, and the group of every
+# rank holding a piece of one tensor: the blocks' group x tp)
+SPLITS = {("fsdp",): ("fsdp", "data", "model"),
+          ("data",): ("data", "fsdp", "data_tp"),
+          ("data", "fsdp"): ("batch", None, "all")}
+
+
+def split_group(mesh, axes) -> tuple:
+    """(group name, size, this rank's index in it) of `axes`."""
+    name = SPLITS[axes][0]
+    return (name, math.prod(mesh.shape[a] for a in axes),
+            mesh.peers(name).index(mesh.rank))
+
+
 class Shard:
     """One rank's share of an fsdp-sharded tensor of `shape`: blocks
     [block_lo, block_lo + nb_local) of its flat view cut into BLOCK-element
     blocks, as a (nb_local, BLOCK) tensor `data`; blocks past the tensor's
     end are zeros.  `data` is the leaf the optimizer updates.  With a
     `split` (parallel/tp.Split) the tensor of `shape` is this rank's tp
-    slice of a tensor of split.shape."""
+    slice of a tensor of split.shape.  `experts`: () for an fsdp Shard, or
+    the ep axes an expert placement splits the blocks over (`axes`)."""
 
     __slots__ = ("data", "shape", "mesh", "split", "experts")
 
     def __init__(self, data: torch.Tensor, shape, mesh, split=None,
-                 experts: bool = False):
+                 experts: tuple = ()):
         self.data = data
         self.shape = torch.Size(shape)
         self.mesh = mesh
         self.split = split
-        self.experts = experts
+        self.experts = tuple(experts)
 
     @classmethod
     def from_full(cls, full: torch.Tensor, mesh, split=None,
-                  experts: bool = False) -> "Shard":
+                  experts: tuple = ()) -> "Shard":
         """This rank's blocks of a full tensor (the same on every rank), or
         of its tp slice with a `split`."""
         if split is not None:
             full = split.take(full.detach())
         B = _block()
-        F = mesh.shape["fsdp"]
+        _, F, index = split_group(mesh, tuple(experts) or ("fsdp",))
         nb = -(-full.numel() // B)
         per = -(-nb // F)
-        lo = mesh.coords["fsdp"] * per * B
+        lo = index * per * B
         flat = full.detach().reshape(-1)
         data = torch.zeros(per * B, dtype=full.dtype, device=full.device)
         piece = flat[lo:lo + per * B]
         data[:piece.numel()] = piece
         return cls(data.reshape(per, B), full.shape, mesh, split, experts)
+
+    @property
+    def axes(self) -> tuple:
+        """The axes the blocks are split over."""
+        return self.experts or ("fsdp",)
+
+    @property
+    def group(self) -> tuple:
+        """(name, size, this rank's index) of the blocks' group."""
+        return split_group(self.mesh, self.axes)
+
+    @property
+    def pieces_group(self) -> str:
+        """The group of every rank that holds a piece of the whole tensor:
+        the blocks' group x tp."""
+        return SPLITS[self.axes][2]
 
     @property
     def numel(self) -> int:
@@ -95,7 +132,7 @@ class Shard:
 
     @property
     def block_lo(self) -> int:
-        return self.mesh.coords["fsdp"] * self.data.shape[0]
+        return self.group[2] * self.data.shape[0]
 
     @property
     def dtype(self):
@@ -121,7 +158,9 @@ class Shard:
 
     def __repr__(self):
         tp = (f", tp slice {self.split.index} of {tuple(self.split.shape)}"
-              if self.split else "") + (", experts" if self.experts else "")
+              if self.split else "") + (
+            f", experts over {' x '.join(self.experts)}" if self.experts
+            else "")
         return (f"Shard({tuple(self.shape)}, blocks {self.block_lo}+"
                 f"{self.data.shape[0]} of {self.nb_full}, {self.dtype}{tp})")
 
@@ -140,11 +179,10 @@ def join_tp(local: torch.Tensor, shard: Shard) -> torch.Tensor:
 
 
 def _all_gather(data: torch.Tensor, shard: Shard) -> torch.Tensor:
-    F = shard.mesh.shape["fsdp"]
+    name, F, _ = shard.group
     out = torch.empty((F * data.numel(),), dtype=data.dtype,
                       device=data.device)
-    multihost.all_gather_into(out, data.reshape(-1),
-                              shard.mesh.group("fsdp"))
+    multihost.all_gather_into(out, data.reshape(-1), shard.mesh.group(name))
     return out[:shard.numel].view(shard.shape)
 
 
@@ -275,22 +313,27 @@ def reduce_replicated(grads: list, raw: list, mesh) -> list:
 
 def global_norm(grads: list, raw: list, mesh) -> torch.Tensor:
     """sqrt(sum of squares) of the full gradients, accumulated in f32:
-    each Shard's blocks summed over fsdp (its data replicas hold the same
-    blocks; the zero padding adds nothing), then a tp slice's sums over tp,
-    each replicated leaf (also whole on every tp rank) counted once."""
+    each Shard's blocks summed over the group they split over (fsdp, or an
+    expert placement's ep axes; its replicas over the other batch axes hold
+    the same blocks; the zero padding adds nothing), then a tp slice's sums
+    over tp, each replicated leaf (also whole on every tp rank) counted
+    once."""
     def square_sum(g, leaf):
-        if isinstance(leaf, Shard) and leaf.mesh.shape["fsdp"] == 1:
+        if isinstance(leaf, Shard) and leaf.group[1] == 1:
             # one rank holds the whole tensor: sum it in its own shape, the
             # single-process norm's order
             g = g.reshape(-1)[:leaf.numel].view(leaf.shape)
         return g.float().square().sum()
 
     sq = torch.stack([square_sum(g, leaf) for g, leaf in zip(grads, raw)])
-    sharded = torch.tensor([isinstance(leaf, Shard) for leaf in raw],
-                           device=sq.device)
-    part = torch.where(sharded, sq, torch.zeros_like(sq))
-    multihost.all_reduce(part, mesh.group("fsdp"))
-    sq = torch.where(sharded, part, sq)
+    groups = [leaf.group[0] if isinstance(leaf, Shard) else None
+              for leaf in raw]
+    # every fsdp Shard's group, and any ep group that holds experts
+    for name in ["fsdp"] + sorted(set(groups) - {None, "fsdp"}):
+        sharded = torch.tensor([g == name for g in groups], device=sq.device)
+        part = torch.where(sharded, sq, torch.zeros_like(sq))
+        multihost.all_reduce(part, mesh.group(name))
+        sq = torch.where(sharded, part, sq)
     split = [isinstance(leaf, Shard) and leaf.split is not None
              for leaf in raw]
     if any(split):
@@ -325,12 +368,12 @@ def _state_leaf_to_full(t: torch.Tensor, leaf: Shard, per_param: bool):
     an accumulator, shaped (nb_local, BLOCK)) or like its int8 rows
     ((nb_local, BLOCK) payloads, (nb_local, 1) scales) -> the full
     layout."""
-    F = leaf.mesh.shape["fsdp"]
+    name, F, _ = leaf.group
     home = t.device
     t = t.to(leaf.device)   # an offloaded state crosses the card's collective
     out = torch.empty((F * t.shape[0], *t.shape[1:]), dtype=t.dtype,
                       device=t.device)
-    multihost.all_gather_into(out, t.contiguous(), leaf.mesh.group("fsdp"))
+    multihost.all_gather_into(out, t.contiguous(), leaf.mesh.group(name))
     if per_param:
         return join_tp(out.reshape(-1)[:leaf.numel].view(leaf.shape),
                        leaf).to(home)
@@ -410,8 +453,9 @@ def _convert_state(state, raw: list, fn):
 
 def state_to_full(state, params):
     """This rank's optimizer state -> the world-1 state (every rank gets
-    it): the Shards' moments (and accumulator) gathered over fsdp and cut
-    to the tensors' own size."""
+    it): the Shards' moments (and accumulator) gathered over their group
+    (fsdp, or an expert placement's ep axes) and cut to the tensors' own
+    size."""
     return _convert_state(state, raw_leaves(params), _state_leaf_to_full)
 
 

@@ -9,8 +9,12 @@ ranks, as on one NVLink host.  It holds the process groups the port's
 collectives use, each at this rank's coordinates on the other axes: the
 fsdp axis (params are sharded over it), the data axis (gradients of a shard
 are summed over it), data x fsdp ("batch": the batch axes, at one tp
-index), the tp axis (tensor parallelism, parallel/tp.py) and fsdp x tp
-("model": every piece of one tensor, at one data index).
+index), the tp axis (tensor parallelism, parallel/tp.py), fsdp x tp
+("model": every piece of one tensor, at one data index), and for experts
+placed over data or data x fsdp (parallel/expert.py) the pieces of one
+such tensor: data x tp ("data_tp", at one fsdp index; built only where
+data and tp are both > 1, else the data or the tp group) and every rank
+("all": the world group).
 
 A mesh built with a "pipe" entry in its shape also has JAX's pipeline axis
 (parallel/pipeline.py), leading and slowest: rank r then sits at the
@@ -52,8 +56,9 @@ class Mesh:
 
     `shape` maps every axis to its size (`mesh.shape["fsdp"]` reads as in
     JAX); `coords` maps every axis to this rank's index on it.  `groups`
-    maps "fsdp", "data", "tp", "batch" (data x fsdp), "model" (fsdp x tp)
-    and, with a pipe axis, "pipe" to torch.distributed process groups; a
+    maps "fsdp", "data", "tp", "batch" (data x fsdp), "model" (fsdp x tp),
+    "data_tp" (data x tp), "all" and, with a pipe axis, "pipe" to
+    torch.distributed process groups; a
     Mesh built without them (tests that only place batches) has none and
     cannot run a collective."""
 
@@ -108,7 +113,8 @@ def _axis_groups(shape: dict) -> dict:
     """{group name: rank lists}: one group per coordinate of the axes a
     group does not span (fsdp: per (data, tp); data: per (fsdp, tp); tp:
     per (data, fsdp); batch = data x fsdp: per tp; model = fsdp x tp: per
-    data), ranks row-major over (data, fsdp, tp); with a pipe axis each of
+    data; where data and tp are both > 1, data_tp = data x tp: per fsdp),
+    ranks row-major over (data, fsdp, tp); with a pipe axis each of
     these per pipe index, ranks row-major over (pipe, data, fsdp, tp), and
     "pipe" per (data, fsdp, tp)."""
     S = shape.get(PIPE, 1)
@@ -129,6 +135,10 @@ def _axis_groups(shape: dict) -> dict:
         "model": [[rank(d, f, t, p) for f in range(F) for t in range(T)]
                   for p in range(S) for d in range(D)],
     }
+    if D > 1 and T > 1:   # else data x tp is the data or the tp group
+        groups["data_tp"] = [[rank(d, f, t, p) for d in range(D)
+                              for t in range(T)]
+                             for p in range(S) for f in range(F)]
     if PIPE in shape:
         groups[PIPE] = [[rank(d, f, t, p) for p in range(S)]
                         for d in range(D) for f in range(F) for t in range(T)]
@@ -161,4 +171,9 @@ def create_mesh(shape: dict | None = None, tp: int = 1) -> Mesh:
             g = dist.new_group(ranks)
             if rank in ranks:
                 groups[name] = g
+    # the pieces of an expert tensor placed over data (x fsdp) with tp
+    # (parallel/fsdp.SPLITS); a pipe axis places no experts
+    groups.setdefault("data_tp", groups["tp" if full["data"] == 1 else "data"])
+    if PIPE not in full:
+        groups["all"] = dist.group.WORLD
     return Mesh(full, rank, groups)

@@ -347,18 +347,27 @@ def place_global_batch(batch: dict, mesh):
 # -- local launcher ----------------------------------------------------------
 
 
-def _free_port() -> int:
-    import socket
+def local_store():
+    """A TCPStore server on a free port of this host (bound to port 0 and
+    kept: the port is never released between its choice and its use), for
+    ranks this process starts.  Keep it alive until they have joined."""
+    return _dist().TCPStore("127.0.0.1", 0, None, True,
+                            wait_for_workers=False)
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+
+def store_env(store, rank: int, world: int) -> dict:
+    """torchrun's environment for rank `rank` of `world` whose rendezvous
+    is the caller's `store` (local_store): every rank, rank 0 included,
+    connects to it as a client, as torchrun's workers connect to their
+    agent's store (TORCHELASTIC_USE_AGENT_STORE)."""
+    return dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port),
+                RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(world),
+                TORCHELASTIC_USE_AGENT_STORE="True")
 
 
-def _launch_entry(rank, fn, world, port, device, threads, args):
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                      RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+def _launch_entry(rank, fn, world, env, device, threads, args):
+    os.environ.update(env, RANK=str(rank), LOCAL_RANK=str(rank))
     if threads:
         torch.set_num_threads(threads)
     initialize(device=device)
@@ -374,16 +383,18 @@ def launch_local(fn, world: int, args=(), device: str = "cuda",
     """Run fn(rank, *args) in `world` fresh processes on this host, joined
     in one process group through torchrun's environment (initialize(): NCCL
     with one card per rank on CUDA, gloo on the CPU), as
-    `torchrun --nproc_per_node world` would.  `fn` must be importable by
-    name.  Raises if a rank raises or the run outlasts `timeout` seconds
-    (every rank is then killed)."""
+    `torchrun --nproc_per_node world` would, their rendezvous a store this
+    process holds (local_store).  `fn` must be importable by name.  Raises
+    if a rank raises or the run outlasts `timeout` seconds (every rank is
+    then killed)."""
     import time
 
     import torch.multiprocessing as mp
 
+    store = local_store()
     ctx = mp.start_processes(
-        _launch_entry, args=(fn, world, _free_port(), device, threads,
-                             tuple(args)),
+        _launch_entry, args=(fn, world, store_env(store, 0, world), device,
+                             threads, tuple(args)),
         nprocs=world, join=False, start_method="spawn")
     deadline = None if timeout is None else time.monotonic() + timeout
     try:

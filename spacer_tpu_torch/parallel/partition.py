@@ -47,10 +47,12 @@ not divide the LM's heads, its KV heads, the ViT's heads or a split dim
 raises ValueError at `shard_params`, naming it.
 
 Expert parallelism.  A family's plan may name leaves placed by expert
-(Aria's experts under moe_impl "ep": `TPPlan.experts`): they become fsdp
-Shards flagged `experts`, whose blocks are exactly their rank's experts
-(parallel/expert.py says why and raises where fsdp does not cut them into
-whole experts of whole blocks); they are never gathered.
+(Aria's experts under moe_impl "ep": `TPPlan.experts`): they become Shards
+whose blocks are split over the plan's ep axes (`TPPlan.ep_axes`, from
+cfg.moe_ep_axis: fsdp, data or data x fsdp) instead of fsdp, exactly their
+rank's experts (parallel/expert.py says why and raises where the ep group
+does not cut them into whole experts of whole blocks); they are never
+gathered.
 
 Batches: row-indexed arrays split their batch dim over data x fsdp, each
 rank taking a contiguous range in row-major rank order (JAX's P(("data",
@@ -176,13 +178,15 @@ ARIA_EXPERT_LEAVES = r"model/layers/mlp/experts/fc[12]/kernel"
 class TPPlan(NamedTuple):
     """A family's tensor-parallel plan for one config: the leaves stored
     split ([(regex, "split" | "qkv" | "halves")]), the counts tp must
-    divide ({name: count}), the head_dim of a "qkv" split and the regex of
-    the leaves placed by expert (moe_impl "ep"; parallel/expert.py)."""
+    divide ({name: count}), the head_dim of a "qkv" split, the regex of
+    the leaves placed by expert (moe_impl "ep"; parallel/expert.py) and the
+    ep axes they are placed over."""
 
     leaves: list
     heads: dict
     qkv_head_dim: int = 1
     experts: str | None = None
+    ep_axes: tuple = ("fsdp",)
 
     def kind(self, path: str):
         jax_path, _ = _unstacked(path)
@@ -214,7 +218,10 @@ def qwen_tp_plan(cfg) -> TPPlan:
 def aria_tp_plan(cfg) -> TPPlan:
     """Aria's plan: tp must divide the LM's heads and KV heads, the tower's
     heads, the expert intermediate and the shared experts' width; under
-    moe_impl "ep" the experts are placed by expert."""
+    moe_impl "ep" the experts are placed by expert over cfg.moe_ep_axis
+    (ValueError for an axis expert.ep_axes does not take)."""
+    from spacer_tpu_torch.parallel.expert import ep_axes
+
     t = cfg.text
     return TPPlan(ARIA_TP_LEAVES,
                   {"the LM's num_heads": t.num_heads,
@@ -223,7 +230,9 @@ def aria_tp_plan(cfg) -> TPPlan:
                    "the expert intermediate_size": t.intermediate_size,
                    "the shared experts' width":
                    t.intermediate_size * t.moe_num_shared_experts},
-                  experts=ARIA_EXPERT_LEAVES if t.moe_impl == "ep" else None)
+                  experts=ARIA_EXPERT_LEAVES if t.moe_impl == "ep" else None,
+                  ep_axes=ep_axes(t.moe_ep_axis) if t.moe_impl == "ep"
+                  else ("fsdp",))
 
 
 # the port's per-layer list containers (JAX's stacked leaves)
@@ -313,8 +322,8 @@ def shard_params(params, mesh, rules=None, tp_plan: TPPlan | None = None):
     create_mesh) the active one of parallel/tp.py.  At tp > 1 a plan is
     required, and a tp that does not divide its head counts or a split dim
     raises ValueError.  The leaves the plan places by expert become
-    expert-placed Shards (parallel/expert.py; ValueError where fsdp does not
-    cut them into whole experts)."""
+    expert-placed Shards over the plan's ep axes (parallel/expert.py;
+    ValueError where the ep group does not cut them into whole experts)."""
     from spacer_tpu_torch.parallel import tp as tpmod
     from spacer_tpu_torch.parallel.expert import check_placement
     from spacer_tpu_torch.parallel.fsdp import Shard
@@ -336,7 +345,7 @@ def shard_params(params, mesh, rules=None, tp_plan: TPPlan | None = None):
         if fsdp_sharded(path, leaf, spec):
             shard = Shard.from_full(leaf, mesh,
                                     tp_split(path, leaf, spec, mesh, tp_plan),
-                                    experts=placed)
+                                    experts=tp_plan.ep_axes if placed else ())
             if placed:
                 check_placement(shard)
             return shard

@@ -41,7 +41,10 @@ rollout and dropped when it ends, and every rank returns every row.  The
 MoE is told how the rows lie (parallel/expert.rows), and with the experts
 placed by expert (moe_impl "ep") over split rows the batch group agrees on
 the all-done exit (parallel/expert.all_done), since a rank that left
-would stop issuing its expert exchanges.
+would stop issuing its expert exchanges.  The speculative block loop runs
+over split rows too: every rank steps until every rank's rows are done,
+with one process's tail buckets and random draws, and its acceptance
+counts are summed over the ranks (sampler/speculating.py).
 """
 
 from __future__ import annotations
@@ -240,7 +243,7 @@ def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
               max_new_tokens: int, temperature: float, top_p: float,
               eos_token_id: int, decode_quant=None, speculate_k: int = 0,
               input_ids=None, pad_token_id: int = 0, rows=None,
-              layout=expert.EVERY_RANK, lockstep=None):
+              layout=expert.EVERY_RANK, lockstep=None, split=None):
     """Prefill once per prompt (B rows), then the grouped decode loop (its
     quantized weights and caches are dropped when it returns) -> tokens
     (B*G, max_new), or with speculate_k (drafting from input_ids) the
@@ -248,7 +251,8 @@ def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
     input_embeds: (B, S, D) left-padded; `rows` = (n, lo): the B*G
     completion rows are rows [lo, lo + B*G) of n (sample_logits);
     `layout`: the prompt rows' parallel.expert.RowLayout; `lockstep` as
-    _decode_loop takes it."""
+    _decode_loop takes it; `split` = (mesh, axes) of rows split across
+    ranks, or None (spec_decode_loop)."""
     B, S, _ = input_embeds.shape
     G = num_generations
     cache = init_kv_cache(text_cfg, B, S, dtype=input_embeds.dtype,
@@ -271,7 +275,8 @@ def _generate(params, text_cfg, input_embeds, position_ids, prompt_mask,
             return spec_decode_loop(
                 model, text_cfg, prefix, prompt_mask, tails, first, input_ids,
                 deltas, S, G, max_new_tokens, temperature, top_p,
-                eos_token_id, pad_token_id, speculate_k, generator)
+                eos_token_id, pad_token_id, speculate_k, generator, rows,
+                split)
         return _decode_loop(model, text_cfg, prefix, tails, prompt_mask,
                             first, deltas, S, G, max_new_tokens, temperature,
                             top_p, eos_token_id, generator, rows, lockstep)
@@ -285,8 +290,7 @@ class Sampler:
     speculative block loop; generate(speculate_k=...) overrides it per
     call.  `mesh`: the port's parallel.mesh.Mesh (anything else raises
     TypeError; a tp the family's heads or widths do not divide,
-    ValueError), see the module docstring; a speculative rollout
-    over rows split across ranks raises NotImplementedError.  Sequential
+    ValueError), see the module docstring.  Sequential
     decode is head-major through K2 / K2-int8 (the kernels on CUDA, their
     plain versions on the CPU)."""
 
@@ -378,11 +382,6 @@ class Sampler:
         if spec_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
         axes = self._rollout_axes(B)
-        if spec_k and axes:
-            raise NotImplementedError(
-                "speculative rollouts over prompt rows split across ranks "
-                "are not ported (ROADMAP queue A item 2b); use "
-                "speculate_k=0 or a batch the mesh does not split")
         from spacer_tpu_torch.parallel.fsdp import gather_params
 
         # fsdp Shards gathered once for the whole rollout, dropped after it
@@ -421,20 +420,21 @@ class Sampler:
             temperature=temp, top_p=topp, eos_token_id=self.eos_token_id,
             decode_quant=self.decode_quant, speculate_k=spec_k,
             input_ids=ids[sl], pad_token_id=self.pad_token_id, rows=rows,
-            layout=layout, lockstep=lockstep)
+            layout=layout, lockstep=lockstep,
+            split=(self.mesh, axes) if axes else None)
         del params, emb, embeds
         stats = None
         if spec_k:
-            tokens, (steps, emitted) = out[0].cpu().numpy(), out[1].tolist()
+            out, (steps, emitted) = out[0], out[1].tolist()
             stats = {"spec_row_steps": steps, "spec_tokens": emitted,
                      "spec_acceptance": emitted / max(steps, 1)}
-        else:
-            if axes:
-                from spacer_tpu_torch.parallel.multihost import fetch_to_host
+        if axes:
+            from spacer_tpu_torch.parallel.multihost import fetch_to_host
 
-                tokens = fetch_to_host(out, self.mesh, axes)
-            else:
-                tokens = out.cpu().numpy()
+            tokens = fetch_to_host(out, self.mesh, axes)
+        else:
+            tokens = out.cpu().numpy()
+        if not spec_k:
             tokens = _jax_exit_point(tokens, self.eos_token_id)
         mask = completion_mask_from_ids(tokens, self.eos_token_id)
         return SampleOutput(sequences=tokens, completion_mask=mask,

@@ -36,6 +36,7 @@ from spacer_tpu_torch.models.qwen25_vl.language import (
 from spacer_tpu_torch.nn.core import embed, rms_norm
 from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
 from spacer_tpu_torch.ops.quant import quantize_kv
+from spacer_tpu_torch.parallel import multihost
 from spacer_tpu_torch.serving.speculative import (
     _build_drafts,
     block_attention,
@@ -120,14 +121,23 @@ def spec_decode_loop(model, text_cfg, prefix_split, prefix_mask, tail_split,
                      first_tokens, prompt_ids, deltas, prompt_len: int,
                      group: int, max_new_tokens: int, temperature: float,
                      top_p: float, eos_token_id: int, pad_token_id: int,
-                     speculate_k: int, generator):
+                     speculate_k: int, generator, rows=None, split=None):
     """Speculative shared-prefix rollout loop.
 
     prompt_ids / prefix_mask: (B, S) prompts left-padded to the bucket, the
     drafting context (each row drafts from its group's prompt and its own
     emitted tokens); deltas (N,).  -> (tokens (N, max_new_tokens), zeros
     past each row's end, and [active-row steps, emitted tokens]: tokens /
-    steps is the mean acceptance; a sequential decode scores 1.0)."""
+    steps is the mean acceptance; a sequential decode scores 1.0).
+
+    Over rows split across ranks: `rows` = (n, lo), these N rows are rows
+    [lo, lo + N) of n (the draws are made for all n, verify_block); `split`
+    = (mesh, axes) the batch axes the rows split over.  Every rank then
+    steps until every rank's rows are done, the step's tail bucket from
+    the farthest live row of all of them (one max-reduce of (not all done,
+    farthest need) over the batch group per step: the one host read), so
+    each rank runs the steps and buckets one process runs; the counts
+    come back summed over the ranks that hold distinct rows."""
     N = first_tokens.shape[0]
     G, kb = group, 1 + speculate_k
     dev = first_tokens.device
@@ -144,12 +154,15 @@ def spec_decode_loop(model, text_cfg, prefix_split, prefix_mask, tail_split,
     buckets = tail_buckets(max_new_tokens)
     bucket = buckets[0]
     while True:
-        # one host read per step: all done?, and the live rows' farthest
-        # block end, which picks the tail bucket
-        all_done, need = torch.stack([
-            done.all().long(),
-            torch.where(done, 0, t - 1 + kb).amax()]).tolist()
-        if all_done:
+        # one host read per step: any row left?, and the live rows'
+        # farthest block end, which picks the tail bucket
+        left = torch.stack([(~done).any().long(),
+                            torch.where(done, 0, t - 1 + kb).amax()])
+        if split is not None:
+            multihost.all_reduce(left, split[0].group("batch"),
+                                 kind="spec_step", op="max")
+        left, need = left.tolist()
+        if not left:
             break
         bucket = max(bucket, next((b for b in buckets if b >= need),
                                   max_new_tokens))
@@ -164,11 +177,18 @@ def spec_decode_loop(model, text_cfg, prefix_split, prefix_mask, tail_split,
             t, ~was_done, G, tail_len=bucket)
         preds, a, hit_eos = verify_block(
             logits, drafts, t, was_done, budget, eos_token_id=eos_token_id,
-            temperature=temperature, top_p=top_p, generator=generator)
+            temperature=temperature, top_p=top_p, generator=generator,
+            rows=rows)
         emit_block(out, preds, t, a)
         last = preds.gather(1, (a - 1).clamp(min=0)[:, None])[:, 0]
         cur = torch.where(was_done, cur, last)
         t = t + a
         done = was_done | hit_eos | (t >= max_new_tokens)
         spec += torch.stack([(~was_done).sum(), a.sum()])
+    if split is not None:
+        mesh, axes = split
+        # fsdp replicas of rows split over data alone count once
+        multihost.all_reduce(spec, mesh.group(
+            "batch" if tuple(axes) == ("data", "fsdp") else "data"),
+            kind="spec_stats")
     return out, spec

@@ -232,7 +232,7 @@ def _build_drafts(pids, pmask, out, cur, t, n_draft: int, pad_token: int):
                        torch.full_like(gathered, pad_token))
 
 
-def _speculative_sample(p, drafts, generator):
+def _speculative_sample(p, drafts, generator, rows=None):
     """Exact speculative sampling with deterministic (delta) drafts.
 
     p (R, kb, V) target probabilities per block position (position i is the
@@ -241,18 +241,24 @@ def _speculative_sample(p, drafts, generator):
     first rejection emit a sample of p_i conditioned on != d; if every draft
     is accepted emit a bonus sample of the last position's p.  For every
     position P(emit y) = p(y).  -> (emit (R, kb), a (R,) in [1, kb]):
-    emit[:, :a] are the step's tokens."""
+    emit[:, :a] are the step's tokens.  The sample is torch.multinomial's
+    for one draw (argmax of p / q, q ~ Exp(1): the same tokens), and
+    `rows` = (n, lo) says these R rows are rows [lo, lo + R) of n: every
+    draw is made for all n rows, so each row gets the draws it gets in one
+    process (sampler.sample_logits' rule)."""
     R, kb, V = p.shape
     dev = p.device
+    n, lo = rows if rows is not None else (R, 0)
     p_draft = p[:, :-1].gather(-1, drafts[:, :, None].long())[..., 0]
-    u = torch.rand((R, kb - 1), generator=generator, device=dev)
+    u = torch.rand((n, kb - 1), generator=generator, device=dev)[lo:lo + R]
     accept = (u < p_draft).long()
     m = accept.cumprod(dim=1).sum(dim=1)                              # 0..kb-1
     excl = torch.cat([drafts.long(),
                       torch.full((R, 1), -1, dtype=torch.long, device=dev)], 1)
     pv = p * (torch.arange(V, device=dev)[None, None] != excl[:, :, None])
-    y = torch.multinomial((pv + 1e-30).reshape(R * kb, V), 1,
-                          generator=generator).reshape(R, kb)
+    q = torch.empty((n * kb, V), dtype=pv.dtype, device=dev).exponential_(
+        1, generator=generator).view(n, kb, V)[lo:lo + R]
+    y = ((pv + 1e-30) / q).argmax(dim=-1)
     corr = y.gather(1, m[:, None])[:, 0]
     emit = torch.cat([drafts.long(), y[:, -1:]], dim=1)
     emit = torch.where(torch.arange(kb, device=dev)[None] == m[:, None],
@@ -261,19 +267,21 @@ def _speculative_sample(p, drafts, generator):
 
 
 def verify_block(logits, drafts, t, was_done, budget, *, eos_token_id: int,
-                 temperature: float, top_p: float, generator):
+                 temperature: float, top_p: float, generator, rows=None):
     """The tokens a block step emits: greedy (temperature 0: the longest
     run of predictions equal to the drafts, plus the first correction) or
-    exact speculative sampling; capped at the first EOS (inclusive) and at
-    `budget` - t; 0 for rows already done.  -> (preds (R, kb), a (R,),
-    hit_eos (R,) bool: an EOS was emitted)."""
+    exact speculative sampling (`rows` as _speculative_sample takes it);
+    capped at the first EOS (inclusive) and at `budget` - t; 0 for rows
+    already done.  -> (preds (R, kb), a (R,), hit_eos (R,) bool: an EOS
+    was emitted)."""
     R, kb, V = logits.shape
     if temperature and temperature > 0.0:
         from spacer_tpu_torch.sampler.sampler import filtered_logits
 
         p = torch.softmax(filtered_logits(logits.reshape(R * kb, V),
                                           temperature, top_p), dim=-1)
-        preds, a = _speculative_sample(p.reshape(R, kb, V), drafts, generator)
+        preds, a = _speculative_sample(p.reshape(R, kb, V), drafts, generator,
+                                       rows)
     else:
         preds = logits.argmax(dim=-1)
         hit = (preds[:, :-1] == drafts).long()

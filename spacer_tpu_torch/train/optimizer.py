@@ -383,7 +383,8 @@ class AdamW:
         scales are world 1's.  Each element reads its scale at its block of
         the whole tensor (parallel/tp.Split.full_index); the new scales
         are each block's max over every rank that holds a piece of it
-        (all-reduced over the "model" group, fsdp x tp), and the dither is
+        (all-reduced over the Shard's pieces_group: fsdp x tp, or an expert
+        placement's ep axes x tp), and the dither is
         the whole tensor's stream, each element taking its own draw."""
         from spacer_tpu_torch.parallel import multihost
 
@@ -422,7 +423,7 @@ class AdamW:
                 m, v = moments(li, blk)
                 mmax.scatter_reduce_(0, blk, m.abs(), "amax")
                 vmax.scatter_reduce_(0, blk, v, "amax")
-        group = shard.mesh.group("model")
+        group = shard.mesh.group(shard.pieces_group)
         multihost.all_reduce(mmax, group, kind="opt_max", op="max")
         multihost.all_reduce(vmax, group, kind="opt_max", op="max")
         ms = (mmax.clamp_min(1e-30) / 127.0)[:, None]

@@ -22,7 +22,9 @@ bench's one-program and chunked accumulation, which no trainer calls).
 packed (input_ids / kv_mask) one (`_completion_logps`).  Both builders take
 JAX's `attn_impl=("ring", mesh, axis)` (sequence-parallel ring attention,
 ops/ring_attention.py, wherever self-attention has Sq == Skv: the packed
-rows, the shared-prefix prompt pass) and `pipeline=(mesh, M)` (the decoder
+rows, the shared-prefix prompt pass; and the Qwen ViTs' full-attention
+blocks over equal frame chunks, models/qwen25_vl/vision.py) and
+`pipeline=(mesh, M)` (the decoder
 stack pipelined over the mesh's pipe axis in M microbatches,
 parallel/pipeline.py; packed schema only).  Each runs the whole batch on
 every rank of its mesh, so the loss and the replicated gradients come out
@@ -285,7 +287,8 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
         vk = {k: batch[k] for k in family.vision_batch_keys if k in batch}
         ve = None
         if vk:
-            ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat)
+            ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat,
+                                      attn_impl=attn_impl)
         if "prompt_ids" not in batch:
             if mesh is not None:
                 raise ValueError("the packed schema runs without a mesh "
@@ -411,7 +414,8 @@ def make_sft_train_step(cfg, tx, *, remat=True, logp_chunk: int = 256,
         token_embeds = embed(model["embed_tokens"], ids)
         if grid_thw is not None:
             vk = {k: batch[k] for k in family.vision_batch_keys if k in batch}
-            ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat)
+            ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat,
+                                      attn_impl=attn_impl)
             token_embeds = family.merge_vision_embeds(cfg, ids, token_embeds,
                                                       ve)
         if pipeline is not None:

@@ -4,7 +4,7 @@ size running its meshes one after another, each run limited to TIMEOUT
 seconds, the worlds side by side) against the single-process port
 (run the same way) and the JAX package, tiny_aria_config in float32,
 under moe_impl "ragged" and "ep" (the experts placed by expert over fsdp,
-parallel/expert.py).
+over data or over data x fsdp: moe_ep_axis, parallel/expert.py).
 
 The tiny tower has 2 heads, so tp 4 runs `_wide` (4 tower heads) on both
 packages.  Routers are drawn wide (normal 0.5) so no near-tie flips a
@@ -14,23 +14,27 @@ top-k choice.
   embeddings at tp 2 and 4, both impls, against JAX (1e-4) and world 1.
 - `QwenEngine.generate_many` (text through the batcher) and a greedy
   `Sampler.generate` of an image prompt and of two text prompts (G = 2)
-  at tp 2 (ragged) and ep 2 (fsdp 2): token for token as world 1.  At ep 2
+  at tp 2 (ragged), ep 2 (fsdp 2) and ep over data 2: token for token as
+  world 1.  At ep 2
   the Sampler splits the text prompts over the ranks and one rank's rows
   hit EOS at their first step while the other's decode on: the ranks must
   leave the loop together (a rank that left early would hang the other at
   its next expert exchange, which the run's timeout turns into a failure).
 - The GRPO step, two updates of int8-moment AdamW on a text batch of 2
   prompts x G = 4 (so at data 2 x fsdp 2 two ranks hold each prompt row),
-  over (1, 1, 2) ragged and (1, 2, 1), (1, 2, 2), (2, 2, 1) ep, against
-  world 1 and JAX's step on a device mesh ((1, 1, 2) ragged, (1, 2, 1)
-  ep), under tests/test_torch_fsdp_trainer.py's gates, but that one
+  over (1, 1, 2) ragged and (1, 2, 1), (1, 2, 2), (2, 2, 1) ep over fsdp,
+  (2, 1, 1) ep over data and (2, 2, 1) ep over data x fsdp, against world
+  1 and JAX's step on a device mesh ((1, 1, 2) ragged, (1, 2, 1) ep,
+  (2, 1, 1) ep with moe_ep_axis "data"), under
+  tests/test_torch_fsdp_trainer.py's gates, but that one
   element of a tensor may differ from JAX by `_close_params`'s two
   learning rates: JAX's own ep step on a mesh moves one element of a
   shared expert's gate_proj, whose step-2 gradient sits at the summation
   noise, 0.88 learning rates away from JAX's single-device step (which
   the port's world 1 equals to 2e-8 there).  Expert-parallel collectives
   counted.
-- A checkpoint saved at (1, 2, 2) ep restores at world 1 bitwise.
+- Checkpoints saved at (1, 2, 2) ep and at (2, 2, 1) ep over data x fsdp
+  restore at world 1 bitwise.
 
 The workers import only torch, numpy and spacer_tpu_torch (jax is
 imported inside the tests)."""
@@ -51,16 +55,19 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 G = 4
 B, P, C = 2, 24, 8
 SHAPES = {"tp2": {"tp": 2}, "tp4": {"tp": 4}, "ep2": {"fsdp": 2},
-          "ep2_tp2": {"fsdp": 2, "tp": 2}, "d2_ep2": {"data": 2, "fsdp": 2}}
+          "ep2_tp2": {"fsdp": 2, "tp": 2}, "d2_ep2": {"data": 2, "fsdp": 2},
+          "ep_data2": {"data": 2}, "ep_batch4": {"data": 2, "fsdp": 2}}
+# the ep axis of a key's config (moe_ep_axis; fsdp elsewhere)
+EP_AXIS = {"ep_data2": "data", "ep_batch4": ("data", "fsdp")}
 PROC_KW = dict(max_image_size=56, min_image_size=14, size_conversion={56: 8})
 
 
-def _cfg(impl: str, wide: bool = False):
+def _cfg(impl: str, wide: bool = False, ep_axis="fsdp"):
     from spacer_tpu_torch.models.aria import tiny_aria_config
 
     cfg = tiny_aria_config()
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(
-        cfg.text, moe_impl=impl))
+        cfg.text, moe_impl=impl, moe_ep_axis=ep_axis))
     if wide:
         cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
             cfg.vision, num_heads=4))
@@ -259,13 +266,15 @@ def _run_key(key, np_params, out_dir):
                           for impl in ("ragged", "ep")}
     if key in ("w1", "tp2"):
         res["serve_ragged"] = _serve(np_main, _cfg("ragged"), mesh)
-    if key in ("w1", "ep2"):
-        res["serve_ep"] = _serve(np_main, _cfg("ep"), mesh)
+    ep_cfg = _cfg("ep", ep_axis=EP_AXIS.get(key, "fsdp"))
+    if key in ("w1", "ep2", "ep_data2"):
+        res["serve_ep"] = _serve(np_main, ep_cfg, mesh)
     if key in ("w1", "tp2"):
         res["grpo_ragged"] = _grpo(np_main, _cfg("ragged"), mesh)
-    if key in ("w1", "ep2", "ep2_tp2", "d2_ep2"):
-        ckpt = os.path.join(out_dir, "ckpt") if key == "ep2_tp2" else None
-        res["grpo_ep"] = _grpo(np_main, _cfg("ep"), mesh, ckpt)
+    if key in ("w1", "ep2", "ep2_tp2", "d2_ep2", "ep_data2", "ep_batch4"):
+        ckpt = (os.path.join(out_dir, "ckpt")
+                if key in ("ep2_tp2", "ep_batch4") else None)
+        res["grpo_ep"] = _grpo(np_main, ep_cfg, mesh, ckpt)
     tp.set_mesh(None)     # the next key's mesh (or none) is its own
     return res
 
@@ -306,12 +315,12 @@ def _jax_params():
     return out
 
 
-def _jax_cfg(impl, wide=False):
+def _jax_cfg(impl, wide=False, ep_axis="fsdp"):
     from spacer_tpu.models.aria import tiny_aria_config as jax_tiny
 
     cfg = jax_tiny()
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(
-        cfg.text, moe_impl=impl))
+        cfg.text, moe_impl=impl, moe_ep_axis=ep_axis))
     if wide:
         cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
             cfg.vision, num_heads=4))
@@ -319,9 +328,10 @@ def _jax_cfg(impl, wide=False):
 
 
 def _jax_steps(np_params):
-    """JAX's GRPO step, two updates, per impl: ragged on a (1, 1, 2) and
-    ep on a (1, 2, 1) device mesh -> {impl: (metrics, params in the
-    port's param_leaves order)}."""
+    """JAX's GRPO step, two updates, per impl: ragged on a (1, 1, 2), ep on
+    a (1, 2, 1) device mesh and, as "ep_data", ep with moe_ep_axis "data"
+    on a (2, 1, 1) one -> {impl: (metrics, params in the port's
+    param_leaves order)}."""
     import jax
     import jax.numpy as jnp
 
@@ -338,9 +348,11 @@ def _jax_steps(np_params):
     out = {}
     os.environ["SPACER_ADAM8_SR"] = "off"
     try:
-        for impl, shape in (("ragged", {"data": 1, "fsdp": 1, "tp": 2}),
-                            ("ep", {"data": 1, "fsdp": 2, "tp": 1})):
-            cfg = _jax_cfg(impl)
+        for name, impl, shape, axis in (
+                ("ragged", "ragged", {"data": 1, "fsdp": 1, "tp": 2}, "fsdp"),
+                ("ep", "ep", {"data": 1, "fsdp": 2, "tp": 1}, "fsdp"),
+                ("ep_data", "ep", {"data": 2, "fsdp": 1, "tp": 1}, "data")):
+            cfg = _jax_cfg(impl, ep_axis=axis)
             mesh = jax_mesh(shape, devices=jax.devices()[:2])
             jtx = jax_make_opt(**ft.STEP_OPT)
             jparams, _ = jax_shard(jax.tree.map(jnp.asarray, np_params), mesh,
@@ -361,7 +373,7 @@ def _jax_steps(np_params):
                         grid_thw=None, num_generations=G, prompt_len=P)
                 metrics.append({k: float(jm[k]) for k in ("loss", "kl",
                                                           "grad_norm")})
-            out[impl] = (metrics, [t.numpy() for _, t in param_leaves(
+            out[name] = (metrics, [t.numpy() for _, t in param_leaves(
                 params_from_jax(jax.tree.map(np.asarray, jparams),
                                 _cfg(impl)))])
     finally:
@@ -392,8 +404,8 @@ def runs(tmp_path_factory):
             return pickle.load(f)
 
     # one process group per world size, its keys one after another
-    worlds = {1: ("w1", "w1_wide"), 2: ("tp2", "ep2"),
-              4: ("tp4", "ep2_tp2", "d2_ep2")}
+    worlds = {1: ("w1", "w1_wide"), 2: ("tp2", "ep2", "ep_data2"),
+              4: ("tp4", "ep2_tp2", "d2_ep2", "ep_batch4")}
     try:
         # the worlds run side by side, and JAX's reference steps meanwhile
         with ThreadPoolExecutor(len(worlds)) as pool:
@@ -445,7 +457,8 @@ def jax_tree(np_params):
     return jax.tree.map(jnp.asarray, np_params)
 
 
-@pytest.mark.parametrize("key,impl", [("tp2", "ragged"), ("ep2", "ep")])
+@pytest.mark.parametrize("key,impl", [("tp2", "ragged"), ("ep2", "ep"),
+                                      ("ep_data2", "ep")])
 def test_generate_equals_world_one(runs, key, impl):
     got, ref = runs[key][f"serve_{impl}"], runs["w1"][f"serve_{impl}"]
     assert got["texts"] == ref["texts"] and all(got["texts"])
@@ -477,8 +490,13 @@ def _close_to_jax(mw, pw, jm, jleaves):
 
 
 @pytest.mark.parametrize("key,impl", [("tp2", "ragged"), ("ep2", "ep"),
-                                      ("ep2_tp2", "ep"), ("d2_ep2", "ep")])
+                                      ("ep2_tp2", "ep"), ("d2_ep2", "ep"),
+                                      ("ep_data2", "ep"), ("ep_batch4", "ep")])
 def test_grpo_step_matches_world_one_and_jax(runs, key, impl):
+    """Two GRPO updates against world 1 and JAX's step: the experts placed
+    over fsdp, over data ((2, 1, 1): against JAX's step with moe_ep_axis
+    "data" on a (2, 1, 1) device mesh) and over data x fsdp ((2, 2, 1): a
+    JAX ep step, whose values the axis does not change)."""
     import test_torch_fsdp_trainer as ft
 
     m1, p1, mu1, _ = runs["w1"][f"grpo_{impl}"]
@@ -488,7 +506,8 @@ def test_grpo_step_matches_world_one_and_jax(runs, key, impl):
             assert a[k] == pytest.approx(b[k], rel=1e-5), k
     ft._close_params(pw, p1)
     ft._close_moments(muw, mu1)
-    _close_to_jax(mw, pw, *runs["jax"][impl])
+    _close_to_jax(mw, pw, *runs["jax"]["ep_data" if key == "ep_data2"
+                                       else impl])
     if impl == "ep":
         # rows split within the ep group: gathered in, scattered out
         assert calls["ep_all_gather"] > 0 and calls["ep_reduce_scatter"] > 0
@@ -498,6 +517,16 @@ def test_grpo_step_matches_world_one_and_jax(runs, key, impl):
 def test_checkpoint_saved_at_ep_tp_restores_at_world_one(runs):
     """Saved at (1, 2, 2) ep: every param and int8 moment restores at world
     1 bitwise as the sharded run had them."""
+    _restores_at_world_one(runs, "ep2_tp2")
+
+
+def test_checkpoint_saved_at_ep_over_data_fsdp_restores_at_world_one(runs):
+    """Saved at (2, 2, 1) with the experts placed over data x fsdp: every
+    param and int8 moment restores at world 1 bitwise."""
+    _restores_at_world_one(runs, "ep_batch4")
+
+
+def _restores_at_world_one(runs, key):
     import test_torch_fsdp_trainer as ft
 
     from spacer_tpu_torch.models.aria import init_params
@@ -510,8 +539,8 @@ def test_checkpoint_saved_at_ep_tp_restores_at_world_one(runs):
     tx = make_optimizer(**ft.STEP_OPT, sr_impl="off")
     state = tx.init([t for _, t in leaves], [n for n, _ in leaves])
     params, state, meta = restore_train_state(
-        str(runs["root"] / "world4" / "ep2_tp2" / "ckpt"), like, state)
-    _, p2, mu2, _ = runs["ep2_tp2"]["grpo_ep"]
+        str(runs["root"] / "world4" / key / "ckpt"), like, state)
+    _, p2, mu2, _ = runs[key]["grpo_ep"]
     assert meta["global_step"] == 2
     for (_, a), b in zip(param_leaves(params), p2):
         np.testing.assert_array_equal(a.detach().numpy(), b)
@@ -545,8 +574,8 @@ def _serve_cli(tmp, world, impl, mesh_flag):
     cmd = [sys.executable, "-m", "spacer_tpu_torch.cli.serve", *argv]
     if world > 1:
         cmd = [sys.executable, "-m", "torch.distributed.run",
-               "--nproc_per_node", str(world), "--master_port",
-               str(multihost._free_port()), "-m", "spacer_tpu_torch.cli.serve",
+               "--nproc_per_node", str(world), "--standalone",
+               "-m", "spacer_tpu_torch.cli.serve",
                "--multihost", "true", mesh_flag, str(world), *argv]
     env = dict(os.environ, PYTHONPATH=repo, PYTHONHASHSEED="0",
                OMP_NUM_THREADS="1", SPACER_MOE_IMPL=impl)

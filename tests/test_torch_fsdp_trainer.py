@@ -23,7 +23,9 @@ at the tiny config in float32.
   an offloaded state) with every param and moment bitwise.
 - The grouped rollout at temperature 1 over fsdp 2, fsdp 4 and (data 2,
   fsdp 2), token for token as world 1; the GRPO step also over (data 2,
-  fsdp 2).
+  fsdp 2).  The speculative rollout (k = 2, greedy and at temperature 1)
+  over the same meshes: tokens and acceptance counts exactly world 1's,
+  its greedy tokens JAX's speculative sampler's.
 - `python -m torch.distributed.run --nproc_per_node 2 -m
   spacer_tpu_torch.cli.train_sg_rlvr --multihost true --device cpu` takes
   a step.
@@ -232,6 +234,47 @@ def _run_rollout(mesh):
     return out.sequences
 
 
+def _spec_prompts(vocab):
+    """2 prompts with repeated bigrams to draft from, one left-padded."""
+    r = np.random.RandomState(5)
+    ids = r.randint(10, vocab, size=(2, 12)).astype(np.int32)
+    ids[:, 6:] = ids[:, :6]
+    mask = np.ones((2, 12), np.int32)
+    mask[1, :2] = 0
+    pos = np.broadcast_to(np.arange(12)[None, None], (3, 2, 12)).astype(
+        np.int32)
+    return ids, mask, pos, np.zeros((2, 1), np.int32)
+
+
+SPEC_KW = dict(num_generations=2, max_new_tokens=24, top_p=0.95, seed=3)
+
+
+def _run_spec_rollout(np_params, mesh):
+    """Speculative (k = 2) grouped rollouts of the JAX-initialised tiny
+    params, greedy and at temperature 1 -> {temperature: (sequences,
+    stats)}."""
+    from spacer_tpu_torch.models.qwen25_vl import params_from_jax, tiny_config
+    from spacer_tpu_torch.parallel.partition import (
+        QWEN_PARTITION_RULES,
+        shard_params,
+    )
+    from spacer_tpu_torch.sampler import Sampler
+
+    cfg = tiny_config()
+    params = params_from_jax(np_params, cfg)
+    if mesh is not None:
+        params = shard_params(params, mesh, QWEN_PARTITION_RULES)[0]
+    ids, mask, pos, deltas = _spec_prompts(cfg.text.vocab_size)
+    sampler = Sampler(cfg, eos_token_id=11, pad_token_id=0, length_bucket=8,
+                      speculate_k=2, mesh=mesh)
+    out = {}
+    for temp in (0.0, 1.0):
+        res = sampler.generate(ids, mask, params, position_ids=pos,
+                               deltas=deltas, temperature=temp, **SPEC_KW)
+        out[temp] = (res.sequences, res.stats)
+    return out
+
+
 def _sft_rows():
     return [{"problem": f"What is shown? ({i})", "problem_type": "free-form",
              "solution": "<answer>a room</answer>",
@@ -329,12 +372,14 @@ def _worker(rank, out_dir, np_params_path, ckpt_dir):
         np_params = pickle.load(f)
     res["step"] = _run_grpo_step(np_params, mesh)
     res["rollout"] = _run_rollout(mesh)
+    res["spec_rollout"] = _run_spec_rollout(np_params, mesh)
     if world == 4:
         # a data axis: shards summed over data, prompts split over data
         # alone where data x fsdp does not divide them
         data_mesh = create_mesh({"data": 2, "fsdp": 2})
         res["step_data"] = _run_grpo_step(np_params, data_mesh)
         res["rollout_data"] = _run_rollout(data_mesh)
+        res["spec_rollout_data"] = _run_spec_rollout(np_params, data_mesh)
 
     cfg = tiny_config()
 
@@ -605,8 +650,7 @@ def test_train_sg_rlvr_cli_under_torchrun(tmp_path):
                             "object_list": []}) + "\n")
     out = tmp_path / "out"
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-           "2", "--master_port", str(multihost._free_port()),
-           "-m", "spacer_tpu_torch.cli.train_sg_rlvr",
+           "2", "--standalone", "-m", "spacer_tpu_torch.cli.train_sg_rlvr",
            "--multihost", "true", "--device", "cpu",
            "--dataset_name", str(tmp_path / "train.jsonl"),
            "--cognitive_map_path", str(tmp_path / "cogmap.jsonl"),
@@ -633,3 +677,33 @@ def test_sharded_rollout_matches_world_one(runs, world, key):
     split over data x fsdp at world 2, kept whole at world 4 over fsdp 4
     (2 do not divide 4), split over data alone over (data 2, fsdp 2)."""
     np.testing.assert_array_equal(runs[world][key], runs[1]["rollout"])
+
+
+@pytest.mark.parametrize("world,key", [(2, "spec_rollout"),
+                                       (4, "spec_rollout"),
+                                       (4, "spec_rollout_data")])
+def test_speculative_rollout_over_split_rows_matches_world_one(runs, world,
+                                                               key):
+    """The speculative rollout (k = 2) over a mesh: 2 prompts split over
+    data x fsdp at world 2, whole at world 4 over fsdp 4, split over data
+    alone over (data 2, fsdp 2).  Greedy and at temperature 1, every rank
+    returns one process's tokens and acceptance counts exactly, and the
+    greedy tokens are JAX's speculative sampler's."""
+    import jax
+
+    from spacer_tpu.models.qwen25_vl import tiny_config as jax_tiny
+    from spacer_tpu.sampler import Sampler as JaxSampler
+
+    got, ref = runs[world][key], runs[1]["spec_rollout"]
+    for temp in (0.0, 1.0):
+        np.testing.assert_array_equal(got[temp][0], ref[temp][0])
+        assert got[temp][1] == ref[temp][1]
+    assert ref[0.0][1]["spec_acceptance"] > 1.0
+    ids, mask, pos, deltas = _spec_prompts(jax_tiny().text.vocab_size)
+    want = JaxSampler(jax_tiny(), eos_token_id=11, pad_token_id=0,
+                      length_bucket=8, speculate_k=2).generate(
+        ids, mask, jax.tree.map(np.asarray, runs["np_params"]),
+        position_ids=pos, deltas=deltas, temperature=0.0, **SPEC_KW)
+    mask_j = np.asarray(want.completion_mask)
+    np.testing.assert_array_equal(ref[0.0][0] * mask_j,
+                                  np.asarray(want.sequences) * mask_j)

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels against their plain versions on a CUDA card
-(K1 at head_dim 128 and 72, K1-bwd, K2, K2-int8, K3, K4, K5, K5-int8, K6),
+(K1 and K1-bwd at head_dim 128, 80 and 72, K2, K2-int8, K3, K4, K5, K5-int8, K6),
 their legality gates,
 a backward pass through the LM and a checkpoint round trip on the card.  These need the card and nvcc: on a host
 without CUDA they skip.  Run them on the card with
@@ -147,16 +147,86 @@ def test_flash_attention_kernel_head_dim_72(dev, Sq, Skv, H, valid):
     ref, ref_lse = xla_attention(q, k, v, kv_mask=mask, return_lse=True)
     _close(out, ref)
     _close(lse, ref_lse)
-    # the backward recomputes through the plain version at this head dim
+    # the backward launches K1-bwd dq and dk/dv at this head dim too
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     dout = _randn(dev, B, Sq, H, D, seed=1)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
     grads = torch.autograd.grad(flash_attention(qg, kg, vg, kv_mask=mask),
                                 (qg, kg, vg), dout)
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
     refs = fa.attention_bwd_reference(q, k, v, dout, kv_mask=mask)
     for g, r in zip(grads, refs):
         _close_norm(g, r)
-    with pytest.raises(ValueError, match="backward kernels"):
-        fa.flash_attention_bwd_dq(q, k, v, out, lse, dout, kv_mask=mask)
+    _close_norm(fa.flash_attention_bwd_dq(q, k, v, out, lse, dout,
+                                          kv_mask=mask), refs[0])
+
+
+# K1 / K1-bwd at head_dim 80 (the Qwen ViTs' full-attention blocks under ring
+# attention: frame chunks as the batch, non-causal, no mask) and the
+# entries from given statistics at 80 and 72, on a block of keys (a ring
+# step: the statistics of the whole row, the keys of one shard):
+# (chunks, chunk tokens, shards)
+K1_D80_CASES = [(3, 480, 1), (2, 480, 2), (2, 480, 4), (1, 300, 3)]
+
+
+@pytest.mark.parametrize("n,S,shards", K1_D80_CASES)
+def test_flash_attention_kernels_head_dim_80(dev, n, S, shards):
+    H, D = 16, 80
+    q, k, v = (_randn(dev, n, S, H, D, seed=s) for s in (11, 12, 13))
+    dout = _randn(dev, n, S, H, D, seed=1)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = xla_attention(q, k, v, return_lse=True)
+    _close(out, ref)
+    _close(lse, ref_lse)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    grads = torch.autograd.grad(flash_attention(qg, kg, vg), (qg, kg, vg),
+                                dout)
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(n_ + 1 for n_ in before)
+    for g, r in zip(grads, fa.attention_bwd_reference(q, k, v, dout)):
+        _close_norm(g, r)
+    # a ring step: queries of shard 0 against the keys of the last shard,
+    # under the whole row's statistics
+    s = S // shards
+    delta = fa._delta(out, dout)
+    qs, dos = q[:, :s].contiguous(), dout[:, :s].contiguous()
+    ks, vs = k[:, S - s:].contiguous(), v[:, S - s:].contiguous()
+    st = (lse[:, :, :s].contiguous(), delta[:, :, :s].contiguous())
+    want = fa.attention_bwd_from_stats(qs, ks, vs, dos, *st)
+    _close_norm(fa.flash_attention_bwd_dq_from_stats(qs, ks, vs, dos, *st),
+                want[0])
+    for g, r in zip(fa.flash_attention_bwd_dkv_from_stats(qs, ks, vs, dos,
+                                                          *st), want[1:]):
+        _close_norm(g, r)
+
+
+@pytest.mark.parametrize("D", [72, 80])
+def test_flash_attention_bwd_from_stats_head_dims(dev, D):
+    """dq and dk/dv from given statistics at the 80-wide tile's two widths,
+    a masked band of keys and a GQA group of 2: against the plain version,
+    masked keys exactly 0, dq bitwise repeatable."""
+    B, Sq, Skv, H, Hkv = 2, 200, 330, 8, 4
+    q, k, v = _randn(dev, B, Sq, H, D), _randn(dev, B, Skv, Hkv, D), \
+        _randn(dev, B, Skv, Hkv, D)
+    dout = _randn(dev, B, Sq, H, D, seed=3)
+    mask = torch.ones((B, Skv), dtype=torch.bool, device=dev)
+    mask[1, 100:230] = False
+    lse = torch.randn((B, H, Sq), device=dev) + 6.0
+    delta = torch.randn((B, H, Sq), device=dev) * 0.1
+    kw = dict(kv_mask=mask)
+    want = fa.attention_bwd_from_stats(q, k, v, dout, lse, delta, **kw)
+    first = fa.flash_attention_bwd_dq_from_stats(q, k, v, dout, lse, delta, **kw)
+    assert torch.equal(first, fa.flash_attention_bwd_dq_from_stats(
+        q, k, v, dout, lse, delta, **kw))
+    _close_norm(first, want[0])
+    for g, r in zip(fa.flash_attention_bwd_dkv_from_stats(
+            q, k, v, dout, lse, delta, **kw), want[1:]):
+        _close_norm(g, r)
+        assert not g[~mask].any()
 
 
 # K4 chunk sizes: a multiple of 32 but not of 64; (h/14)(w/14) patch chunks

@@ -94,14 +94,21 @@ def test_moe_mlp_gradients_match_dense_oracle(layer):
 
 def test_moe_ep_impl_raises(layer):
     """impl "ep" runs (moe_mlp_ep: tests/test_torch_moe_ep.py holds it to
-    JAX's) and equals the dropless path where nothing drops; an ep axis
-    other than fsdp and an unknown impl raise."""
+    JAX's) and equals the dropless path where nothing drops; over "data"
+    and ("data", "fsdp") it is the fsdp output bit for bit (one process:
+    the axis moves data, not values, as in JAX); another ep axis and an
+    unknown impl raise ValueError."""
     _, tparams, x = layer
     xt = torch.from_numpy(x)
     got = moe.moe_mlp(tparams, xt, topk=K, impl="ep", capacity_factor=8.0)
     np.testing.assert_allclose(
         got.numpy(), moe.moe_mlp(tparams, xt, topk=K).numpy(), **TOL)
-    with pytest.raises(NotImplementedError, match="queue A item 2b.5"):
-        moe.moe_mlp(tparams, xt, topk=K, impl="ep", ep_axis="data")
+    for axis in ("data", ("data",), ("data", "fsdp"), ["data", "fsdp"]):
+        assert torch.equal(moe.moe_mlp(tparams, xt, topk=K, impl="ep",
+                                       capacity_factor=8.0, ep_axis=axis),
+                           got)
+    for axis in ("tp", ("fsdp", "data"), "pipe"):
+        with pytest.raises(ValueError, match="expert parallelism runs over"):
+            moe.moe_mlp(tparams, xt, topk=K, impl="ep", ep_axis=axis)
     with pytest.raises(ValueError, match="unknown moe impl"):
         moe.moe_mlp(tparams, torch.from_numpy(x), topk=K, impl="sparse")

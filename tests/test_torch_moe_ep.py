@@ -7,11 +7,15 @@ the CPU, tolerance 1e-4 (tests/test_torch_moe.py's).
   drops assignments: the kept set must be JAX's exactly), and the
   positions against JAX's one-hot cumsum.
 - gloo worlds of 2 and 4 (parallel.multihost.launch_local) over (data,
-  fsdp, tp) meshes, the experts placed by expert over fsdp, with the rows
-  split within the ep group, replicated within it, split over data only,
-  and overlapping (a prompt row two ranks both hold): each rank's values
-  and gradients against JAX's single-device moe_mlp_ep on the global
-  batch, and every tp rank's routes equal.
+  fsdp, tp) meshes, the experts placed by expert over fsdp, over data or
+  over data x fsdp (moe_ep_axis), with the rows split within the ep group,
+  replicated within it, split over data only, and overlapping (a prompt
+  row two ranks both hold): each rank's values and gradients against
+  JAX's single-device moe_mlp_ep on the global batch (which equals JAX's
+  moe_mlp_ep with ep_axis "data" on a two-device mesh: the axis moves
+  data, not values), and every tp rank's routes equal; under the ep axes
+  other than fsdp also one int8-moment AdamW update of the placed layer,
+  whose moments and params go to the world-1 layout and back bitwise.
 - The placement refusals: fsdp not dividing E, experts not whole blocks,
   a missing row layout.
 
@@ -74,24 +78,35 @@ def _leaves(p):
             p["shared"]["down_proj"]["kernel"]]
 
 
-def _jax_ep(params, x, cf):
-    """JAX's moe_mlp_ep on one device -> (out, grads of x and the leaves
-    of sum(out * w)), with w a fixed weight so every row counts."""
+def _jax_ep(params, x, cf, ep_axis=None):
+    """JAX's moe_mlp_ep on one device (or, with `ep_axis`, jitted on a
+    two-device mesh of that axis) -> (out, grads of x and the leaves of
+    sum(out * w)), with w a fixed weight so every row counts."""
+    import contextlib
+
     import jax
     import jax.numpy as jnp
 
     from spacer_tpu.ops.moe import moe_mlp_ep as jax_moe_mlp_ep
 
     w = np.random.default_rng(9).normal(size=x.shape).astype(np.float32)
+    kw = dict(topk=K, capacity_factor=cf)
+    ctx = contextlib.nullcontext()
+    if ep_axis is not None:
+        kw["ep_axis"] = ep_axis
+        ctx = jax.sharding.set_mesh(jax.sharding.Mesh(
+            np.array(jax.devices()[:2]), (ep_axis,)))
+
+    def fwd(p, xx):
+        return jax_moe_mlp_ep(p, xx, **kw)
 
     def loss(p, xx):
-        return jnp.sum(jax_moe_mlp_ep(p, xx, topk=K, capacity_factor=cf)
-                       * jnp.asarray(w))
+        return jnp.sum(fwd(p, xx) * jnp.asarray(w))
 
     p = jax.tree.map(jnp.asarray, params)
-    with jax.default_matmul_precision("highest"):
-        out = jax_moe_mlp_ep(p, jnp.asarray(x), topk=K, capacity_factor=cf)
-        gp, gx = jax.grad(loss, argnums=(0, 1))(p, jnp.asarray(x))
+    with jax.default_matmul_precision("highest"), ctx:
+        out = jax.jit(fwd)(p, jnp.asarray(x))
+        gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, jnp.asarray(x))
     return (np.asarray(out), np.asarray(gx),
             [np.asarray(g) for g in _leaves(gp)], w)
 
@@ -143,18 +158,27 @@ def test_moe_mlp_ep_matches_jax(cf):
 
 # -- gloo worlds of 2 and 4 ----------------------------------------------------
 
-# (name, mesh shape, row layout): "split" over data x fsdp, "data" over data
-# only, "repl" every rank all rows, or explicit ranges per batch index
+# (name, mesh shape, row layout[, ep axis]): "split" over data x fsdp,
+# "data" over data only, "repl" every rank all rows, or explicit ranges per
+# batch index; the ep axis is fsdp unless named
 CASES = {
     2: [("split_f2", {"fsdp": 2}, "split"),
         ("repl_f2", {"fsdp": 2}, "repl"),
         ("overlap_f2", {"fsdp": 2}, ((0, 2), (1, 4))),
-        ("tp2", {"tp": 2}, "repl")],
+        ("tp2", {"tp": 2}, "repl"),
+        ("ep_data_d2", {"data": 2}, "split", "data"),
+        ("ep_data_d2_repl", {"data": 2}, "repl", "data")],
     4: [("split_f4", {"fsdp": 4}, "split"),
         ("split_f2_tp2", {"fsdp": 2, "tp": 2}, "split"),
         ("split_d2_f2", {"data": 2, "fsdp": 2}, "split"),
         ("data_d2_f2", {"data": 2, "fsdp": 2}, "data"),
-        ("tp4", {"tp": 4}, "repl")],
+        ("tp4", {"tp": 4}, "repl"),
+        ("ep_data_d2_f2", {"data": 2, "fsdp": 2}, "split", "data"),
+        ("ep_data_d2_f2_rows_data", {"data": 2, "fsdp": 2}, "data", "data"),
+        ("ep_data_d2_tp2", {"data": 2, "tp": 2}, "split", ("data",)),
+        ("ep_batch_d2_f2", {"data": 2, "fsdp": 2}, "split",
+         ("data", "fsdp")),
+        ("ep_batch_d4", {"data": 4}, "overlap4", ("data", "fsdp"))],
 }
 
 
@@ -167,10 +191,12 @@ def _layout(spec, mesh):
         return expert.split_layout(ROWS, mesh, ("data",))
     if spec == "repl":
         return expert.RowLayout(ROWS)
+    if spec == "overlap4":
+        return expert.RowLayout(ROWS, ((0, 2), (1, 3), (2, 4), (3, 4)))
     return expert.RowLayout(ROWS, spec)
 
 
-def _place_layer(np_layer, mesh):
+def _place_layer(np_layer, mesh, ep_axis="fsdp"):
     from spacer_tpu_torch.parallel.partition import (
         ARIA_EXPERT_LEAVES,
         ARIA_PARTITION_RULES,
@@ -179,20 +205,24 @@ def _place_layer(np_layer, mesh):
         shard_params,
     )
 
+    from spacer_tpu_torch.parallel.expert import ep_axes
+
     tree = {"model": {"layers": [{"mlp": _torch(np_layer)}]}}
-    plan = TPPlan(ARIA_TP_LEAVES, {}, experts=ARIA_EXPERT_LEAVES)
+    plan = TPPlan(ARIA_TP_LEAVES, {}, experts=ARIA_EXPERT_LEAVES,
+                  ep_axes=ep_axes(ep_axis))
     return shard_params(tree, mesh, ARIA_PARTITION_RULES, plan)[0]
 
 
-def _run_case(spec, shape, np_layer, x, w):
+def _run_case(spec, shape, np_layer, x, w, ep_axis="fsdp"):
     """This rank's out and x grad of its rows, and (rank 0) every leaf's
-    full gradient of the global loss sum(out * w)."""
+    full gradient of the global loss sum(out * w); under an ep axis other
+    than fsdp, the int8-moment round trip to the world-1 layout."""
     from spacer_tpu_torch.parallel import expert, fsdp, tp
     from spacer_tpu_torch.parallel.mesh import create_mesh
     from spacer_tpu_torch.train.step import param_leaves
 
     mesh = create_mesh(shape)
-    tree = _place_layer(np_layer, mesh)
+    tree = _place_layer(np_layer, mesh, ep_axis)
     layout = _layout(spec, mesh)
     lo, hi = layout.range(mesh.batch_index)
     holders = np.zeros(ROWS)
@@ -216,7 +246,8 @@ def _run_case(spec, shape, np_layer, x, w):
         with expert.rows(layout):
             layer = fsdp.gather(tree["model"]["layers"][0])
             out = moe.moe_mlp(layer["mlp"], xl, topk=K, impl="ep",
-                              capacity_factor=CF, widths=(I, I * SHARED))
+                              capacity_factor=CF, ep_axis=ep_axis,
+                              widths=(I, I * SHARED))
     finally:
         moe.route_topk = route
     weight = torch.from_numpy((w[lo:hi] / holders[lo:hi, None, None]
@@ -226,9 +257,11 @@ def _run_case(spec, shape, np_layer, x, w):
     gx, grads = grads[0], grads[1:]
     raw = fsdp.raw_leaves(tree)
     fsdp.reduce_replicated(grads, raw, mesh)
-    full = [fsdp.Shard(g, leaf.shape, leaf.mesh, leaf.split).unsplit()
+    full = [fsdp.Shard(g, leaf.shape, leaf.mesh, leaf.split,
+                       leaf.experts).unsplit()
             if isinstance(leaf, fsdp.Shard) else g
             for g, leaf in zip(grads, raw)]
+    round_trip = None if ep_axis == "fsdp" else _round_trip(tree, grads)
     # every tp rank picked the same routes
     tp_routes = multihost.all_gather_objects(routes[0].numpy(),
                                              mesh.group("tp"))
@@ -236,10 +269,40 @@ def _run_case(spec, shape, np_layer, x, w):
     tp.set_mesh(None)
     return {"rows": (lo, hi), "out": out.detach().numpy(),
             "gx": gx.numpy(), "grads": [g.numpy() for g in full],
+            "round_trip": round_trip,
             "names": [n for n, _ in named],
             "kinds": {k: v["calls"] for k, v in
                       multihost.collective_stats().items()
                       if k.startswith("ep_")}}
+
+
+def _round_trip(tree, grads):
+    """One int8-moment AdamW update of the placed layer, then its moments
+    and params to the world-1 layout and back: whether the round trip is
+    bitwise, and the norm (every Shard counted once over its group)."""
+    from spacer_tpu_torch.parallel import fsdp
+    from spacer_tpu_torch.train.optimizer import make_optimizer
+    from spacer_tpu_torch.train.step import param_leaves
+
+    leaves = [t for _, t in param_leaves(tree)]
+    tx = make_optimizer(learning_rate=1e-3, total_steps=10,
+                        moment_dtype="int8", sr_impl="off")
+    state = tx.init(leaves, [n for n, _ in param_leaves(tree)],
+                    blocks=fsdp.shard_blocks(tree))
+    with torch.no_grad():
+        _, state = tx.update(grads, state, leaves)
+    full = fsdp.state_to_full(state, tree)
+    back = fsdp.state_from_full(full, tree)
+    same = all(torch.equal(a, b) for pa, pb in zip(state.mu + state.nu,
+                                                   back.mu + back.nu)
+               for a, b in zip(pa, pb))
+    params = fsdp.params_from_full(fsdp.full_params(tree), tree)
+    same = same and all(torch.equal(a.data, b.data) for a, b in zip(
+        fsdp.raw_leaves(params), fsdp.raw_leaves(tree))
+        if isinstance(a, fsdp.Shard))
+    norm = fsdp.global_norm(grads, fsdp.raw_leaves(tree), tree["model"][
+        "layers"][0]["mlp"]["experts"]["fc1"]["kernel"].mesh)
+    return {"bitwise": same, "norm": float(norm)}
 
 
 def _ep_worker(rank, out_dir, np_path):
@@ -247,9 +310,9 @@ def _ep_worker(rank, out_dir, np_path):
         np_layer, x, w = pickle.load(f)
     world = multihost.process_count()
     res = {}
-    for name, shape, spec in CASES[world]:
+    for name, shape, spec, *axis in CASES[world]:
         multihost.reset_collective_stats()
-        res[name] = _run_case(spec, shape, np_layer, x, w)
+        res[name] = _run_case(spec, shape, np_layer, x, w, *axis)
     results = multihost.all_gather_objects(res)
     if rank == 0:
         with open(os.path.join(out_dir, "result.pkl"), "wb") as f:
@@ -275,7 +338,14 @@ def ep_runs(tmp_path_factory):
 
     with ThreadPoolExecutor(2) as pool:
         runs = dict(zip((2, 4), pool.map(launch, (2, 4))))
-    return runs, _jax_ep(np_layer, x, CF)
+    ref = _jax_ep(np_layer, x, CF)
+    # JAX's moe_mlp_ep with ep_axis "data" on a two-device mesh: the same
+    # values (the axis is a sharding constraint)
+    meshed = _jax_ep(np_layer, x, CF, ep_axis="data")
+    for a, b in zip((ref[0], ref[1], *ref[2]), (meshed[0], meshed[1],
+                                               *meshed[2])):
+        np.testing.assert_allclose(a, b, **TOL)
+    return runs, ref
 
 
 @pytest.mark.parametrize("world,name", [(w, c[0]) for w in CASES
@@ -309,6 +379,13 @@ def test_moe_mlp_ep_across_ranks_matches_jax(ep_runs, world, name):
         np.testing.assert_allclose(got, ref, **TOL)
     kinds = ranks[0]["kinds"]
     assert kinds, "no ep collective counted"
+    trip = ranks[0]["round_trip"]
+    if trip is not None:
+        assert all(r["round_trip"]["bitwise"] for r in ranks)
+        want = np.sqrt(sum(float(np.square(g.astype(np.float64)).sum())
+                           for g in ranks[0]["grads"]))
+        for r in ranks:
+            assert r["round_trip"]["norm"] == pytest.approx(want, rel=1e-5)
 
 
 CASES_SHAPES = {c[0]: c[1] for w in CASES for c in CASES[w]}

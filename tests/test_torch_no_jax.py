@@ -121,8 +121,8 @@ TRAIN_SCRIPT = textwrap.dedent("""
     from spacer_tpu_torch.parallel.mesh import create_mesh
     from spacer_tpu_torch.parallel.partition import (
         QWEN_PARTITION_RULES, shard_params)
-    os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(multihost._free_port()))
+    store = multihost.local_store()
+    os.environ.update(multihost.store_env(store, 0, 1))
     multihost.initialize(device="cpu")
     mesh = create_mesh({"data": 1, "fsdp": 1, "tp": 1})
     cfg, params, proc, _ = load_model_and_processor(
@@ -136,11 +136,11 @@ TRAIN_SCRIPT = textwrap.dedent("""
     assert set(launch_counts().values()) == {0}, launch_counts()
     # a tp-2 step: two ranks of TP_RANK_SCRIPT under torchrun's environment
     import subprocess
-    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(multihost._free_port()), PYTHONHASHSEED="0")
+    store2 = multihost.local_store()
     ranks = [subprocess.Popen(
         [sys.executable, "-c", TP_RANK_SCRIPT_TEXT],
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        env=dict(os.environ, **multihost.store_env(store2, r, 2),
+                 PYTHONHASHSEED="0"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(2)]
     outs = [p.communicate(timeout=240) for p in ranks]

@@ -15,6 +15,12 @@ package on the same numpy inputs, float32 on the CPU.
   LM forward with the ring tuple against JAX's (tests/
   test_ring_lm_forward.py's tolerances) and the packed GRPO step with the
   ring against JAX's (tests/test_ring_train_step.py's).
+- The ring through the Qwen ViTs (Qwen2.5-VL's full-attention blocks,
+  every Qwen2-VL block) at world 2: `vit_forward` and its parameter
+  gradients against JAX's vit_forward with ("ring", mesh, axis) (2e-5;
+  gradients rtol 5e-4 / atol 5e-6), and a packed GRPO step on a video
+  prompt with the ring against JAX's (the text step's tolerances); at a
+  world of one the ring through the ViT equals the K4 path.
 
 Rows that see no key are compared nowhere: the ring leaves them
 unspecified where JAX gives the mean of V (ROADMAP queue C); the losses
@@ -236,6 +242,103 @@ def _lm_ids(vocab):
             np.random.default_rng(1).integers(10, vocab, size=(1, 16)))
 
 
+# the ViT cases: a video of 2 frame chunks of 8 x 12 patches (96 tokens a
+# chunk, which 2 and 4 ranks divide), per ViT arch
+VIT_GRID = ((2, 8, 12),)
+VIT_ARCHS = ("qwen2_5", "qwen2")
+
+
+def _vit_inputs(cfg):
+    """(pixel_values, packed GRPO batch of G rows of one video prompt)."""
+    from spacer_tpu_torch.models.qwen25_vl.rope_index import get_rope_index
+
+    rng = np.random.default_rng(4)
+    t, h, w = VIT_GRID[0]
+    px = rng.normal(size=(t * h * w, cfg.vision.patch_dim)).astype(
+        np.float32)
+    n_video = t * h * w // cfg.vision.spatial_merge_unit
+    prompt = ([10, 11, cfg.vision_start_token_id]
+              + [cfg.video_token_id] * n_video
+              + [cfg.vision_end_token_id, 20, 21])
+    # left padding that makes the packed rows a multiple of 8 (the LM's
+    # ring splits them too)
+    pad = 8 - (len(prompt) + C) % 8
+    P = len(prompt) + pad
+    ids = np.array([[cfg.pad_token_id] * pad + prompt])
+    mask = np.array([[0] * pad + [1] * len(prompt)])
+    pos, deltas = get_rope_index(cfg, ids, video_grid_thw=np.array(VIT_GRID),
+                                 attention_mask=mask)
+    comp = rng.integers(10, cfg.text.vocab_size, size=(G, C))
+    comp_pos = deltas.reshape(-1, 1) + P + np.arange(C)[None]
+    batch = {
+        "input_ids": np.concatenate([np.repeat(ids, G, 0), comp], 1),
+        "kv_mask": np.concatenate([np.repeat(mask, G, 0),
+                                   np.ones((G, C), np.int64)], 1).astype(bool),
+        "position_ids": np.concatenate([
+            np.repeat(pos, G, 1),
+            np.broadcast_to(comp_pos[None], (3, G, C))], 2),
+        "completion_mask": np.ones((G, C), np.int32),
+        "advantages": rng.normal(size=(G,)).astype(np.float32),
+        "pixel_values": px,
+    }
+    return px, {k: (v.astype(np.int32) if k in ("input_ids", "position_ids")
+                    else v) for k, v in batch.items()}
+
+
+def _vit_torch_batch(batch):
+    out = {k: torch.from_numpy(np.ascontiguousarray(x))
+           for k, x in batch.items()}
+    for key in ("input_ids", "position_ids"):
+        out[key] = out[key].long()
+    return out
+
+
+def _vit_ring(np_vit, mesh):
+    """Per ViT arch: the ring ViT's output and visual-parameter gradients,
+    and the packed GRPO step's metrics and params, over `mesh`'s fsdp."""
+    from spacer_tpu_torch.models.qwen25_vl import params_from_jax, tiny_config
+    from spacer_tpu_torch.models.qwen25_vl.vision import (
+        vision_layout,
+        vit_forward,
+    )
+    from spacer_tpu_torch.train import step as tstep
+    from spacer_tpu_torch.train.optimizer import make_optimizer
+
+    impl = ("ring", mesh, "fsdp")
+    out = {}
+    for arch in VIT_ARCHS:
+        cfg = tiny_config(arch=arch)
+        np_params = np_vit[arch]
+        px, batch = _vit_inputs(cfg)
+        params = params_from_jax(np_params, cfg)
+        named = tstep.param_leaves(params["visual"])
+        for _, t in named:
+            t.requires_grad_(True)
+        layout = vision_layout(VIT_GRID, cfg.vision)
+        ve = vit_forward(params["visual"], cfg.vision, torch.from_numpy(px),
+                         layout, attn_impl=impl)
+        grads = torch.autograd.grad(torch.sin(ve).sum(),
+                                    [t for _, t in named])
+        params = params_from_jax(np_params, cfg)
+        ref = params_from_jax(np_params, cfg)
+        tx = make_optimizer(learning_rate=1e-3, total_steps=10)
+        leaves = tstep.param_leaves(params)
+        state = tx.init([t for _, t in leaves], [n for n, _ in leaves])
+        step = tstep.make_grpo_train_step(cfg, tx, beta=0.04, remat=True,
+                                          attn_impl=impl, logp_chunk=16)
+        multihost.reset_collective_stats()
+        params, _, m = step(params, ref, state, _vit_torch_batch(batch),
+                            grid_thw=VIT_GRID, num_generations=G)
+        out[arch] = {
+            "ve": ve.detach().numpy(), "grads": [g.numpy() for g in grads],
+            "metrics": {key: float(x) for key, x in m.items()},
+            "params": [t.detach().numpy() for _, t in
+                       tstep.param_leaves(params)],
+            "names": [n for n, _ in tstep.param_leaves(params)],
+            "stats": multihost.collective_stats()}
+    return out
+
+
 def _ring_worker(rank, out_dir, np_path):
     from spacer_tpu_torch.models.qwen25_vl import params_from_jax, tiny_config
     from spacer_tpu_torch.models.qwen25_vl.language import lm_forward
@@ -295,6 +398,10 @@ def _ring_worker(rank, out_dir, np_path):
     res["metrics"] = {key: float(x) for key, x in m.items()}
     res["params"] = [t.detach().numpy() for _, t in
                      tstep.param_leaves(params)]
+    if world == 2:
+        with open(os.path.join(os.path.dirname(np_path), "vit.pkl"),
+                  "rb") as f:
+            res["vit"] = _vit_ring(pickle.load(f), mesh)
     results = multihost.all_gather_objects(res)
     if rank == 0:
         with open(os.path.join(out_dir, "result.pkl"), "wb") as f:
@@ -359,6 +466,49 @@ def _jax_refs(np_params, n):
     return ref
 
 
+def _jax_vit_refs(np_vit, n):
+    """JAX's ring ViT (output and visual-parameter gradients) and packed
+    GRPO step on a video prompt over n CPU devices, per ViT arch."""
+    import jax
+    import jax.numpy as jnp
+
+    from spacer_tpu.models.qwen25_vl import tiny_config
+    from spacer_tpu.models.qwen25_vl.vision import (
+        vision_layout,
+        vit_forward,
+    )
+    from spacer_tpu.train import make_optimizer as jax_make_optimizer
+    from spacer_tpu.train.step import make_grpo_train_step
+
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:n]), ("fsdp",))
+    impl = ("ring", mesh, "fsdp")
+    out = {}
+    for arch in VIT_ARCHS:
+        cfg = tiny_config(arch=arch)
+        params = jax.tree.map(jnp.asarray, np_vit[arch])
+        px, batch = _vit_inputs(cfg)
+        layout = vision_layout(VIT_GRID, cfg.vision)
+        with jax.default_matmul_precision("highest"):
+            fwd = jax.jit(lambda p, x: vit_forward(
+                p, cfg.vision, x, layout, attn_impl=impl))
+            ve = fwd(params["visual"], jnp.asarray(px))
+            grads = jax.jit(jax.grad(lambda p: jnp.sum(jnp.sin(fwd(
+                p, jnp.asarray(px))))))(params["visual"])
+            tx = jax_make_optimizer(learning_rate=1e-3, total_steps=10)
+            step = make_grpo_train_step(cfg, tx, beta=0.04, remat=True,
+                                        attn_impl=impl, logp_chunk=16)
+            p2, _, m = step(params, jax.tree.map(jnp.copy, params),
+                            tx.init(params),
+                            {key: jnp.asarray(x) for key, x in batch.items()},
+                            grid_thw=VIT_GRID, num_generations=G,
+                            prompt_len=batch["input_ids"].shape[1] - C)
+        out[arch] = {"ve": np.asarray(ve),
+                     "grads": jax.tree.map(np.asarray, grads),
+                     "metrics": {key: float(x) for key, x in m.items()},
+                     "params": jax.tree.map(np.asarray, p2)}
+    return out
+
+
 @pytest.fixture(scope="module")
 def ring_runs(tmp_path_factory):
     import jax
@@ -372,6 +522,11 @@ def ring_runs(tmp_path_factory):
     np_path = root / "params.pkl"
     with open(np_path, "wb") as f:
         pickle.dump(np_params, f)
+    np_vit = {arch: jax.tree.map(np.asarray, init_params(
+        jax.random.key(1), tiny_config(arch=arch), jnp.float32))
+        for arch in VIT_ARCHS}
+    with open(root / "vit.pkl", "wb") as f:
+        pickle.dump(np_vit, f)
 
     def launch(world):
         d = root / str(world)
@@ -385,6 +540,7 @@ def ring_runs(tmp_path_factory):
     with ThreadPoolExecutor(2) as pool:
         futures = {w: pool.submit(launch, w) for w in (2, 4)}
         refs = {w: _jax_refs(np_params, w) for w in (2, 4)}
+        refs["vit"] = _jax_vit_refs(np_vit, 2)
         runs = {w: f.result() for w, f in futures.items()}
     return runs, refs, np_params
 
@@ -470,3 +626,94 @@ def test_ring_grpo_step_matches_jax(ring_runs, world):
     stats = runs[world][0]["step_stats"]
     assert stats["ring_p2p"]["calls"] > 0 and stats["ring_all_gather"][
         "calls"] > 0, stats
+
+
+@pytest.mark.parametrize("arch", VIT_ARCHS)
+def test_ring_vit_matches_jax(ring_runs, arch):
+    """The ViT's full-attention blocks through the ring over 2 ranks: the
+    merged embeddings and every visual parameter's gradient against JAX's
+    vit_forward with the ring tuple, on every rank."""
+    import jax
+
+    from spacer_tpu_torch.models.qwen25_vl import tiny_config
+
+    runs, refs, _ = ring_runs
+    ref = refs["vit"][arch]
+    cfg = tiny_config(arch=arch)
+    from spacer_tpu_torch.models.qwen25_vl import params_from_jax
+    from spacer_tpu_torch.train.step import param_leaves
+
+    want = [t.numpy() for _, t in param_leaves(params_from_jax(
+        {"visual": jax.tree.map(np.asarray, ref["grads"])}, cfg)["visual"])]
+    for r in runs[2]:
+        got = r["vit"][arch]
+        np.testing.assert_allclose(got["ve"], ref["ve"], **VAL)
+        # each element within 5e-4 of itself plus 5e-6 of its tensor's
+        # largest (summation order over the blocks' sums of products)
+        for a, b in zip(got["grads"], want):
+            np.testing.assert_allclose(a, b, rtol=5e-4,
+                                       atol=5e-6 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("arch", VIT_ARCHS)
+def test_ring_vit_grpo_step_matches_jax(ring_runs, arch):
+    """A packed GRPO step on a video prompt with the ring in the LM and the
+    ViT over 2 ranks against JAX's step with the ring tuple (the text
+    step's tolerances, with tests/test_torch_fsdp_trainer.py's
+    _close_params allowance: Adam divides each element by its own
+    gradient scale, so an element whose gradient sits at the summation
+    noise may move by up to two learning rates: at most 1e-3 of a tensor's
+    elements (at least 2) may)."""
+    from spacer_tpu_torch.models.qwen25_vl import tiny_config
+
+    runs, refs, _ = ring_runs
+    ref = refs["vit"][arch]
+    want = _port_leaves(ref["params"], tiny_config(arch=arch))
+    for r in runs[2]:
+        got = r["vit"][arch]
+        m = got["metrics"]
+        np.testing.assert_allclose(m["loss"], ref["metrics"]["loss"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(m["grad_norm"],
+                                   ref["metrics"]["grad_norm"], rtol=1e-4)
+        for a, b, name in zip(got["params"], want, got["names"]):
+            diff = np.abs(a - b)
+            assert diff.max() <= 2 * 1e-3 + 1e-6, name
+            off = (diff > 5e-5 + 1e-3 * np.abs(b)).sum()
+            assert off <= max(2, diff.size // 1000), (name, off)
+        assert got["stats"]["ring_p2p"]["calls"] > 0
+
+
+@pytest.mark.parametrize("arch", VIT_ARCHS)
+def test_ring_vit_at_world_one_is_the_chunk_path(arch):
+    """At a world of one the ring through the ViT is K1 over each whole
+    chunk (the plain attention on the CPU): the K4 path's output."""
+    from spacer_tpu_torch.models.qwen25_vl import tiny_config
+    from spacer_tpu_torch.models.qwen25_vl.model import init_params
+    from spacer_tpu_torch.models.qwen25_vl.vision import (
+        vision_layout,
+        vit_forward,
+    )
+    from spacer_tpu_torch.parallel.mesh import Mesh
+
+    cfg = tiny_config(arch=arch)
+    params = init_params(cfg, seed=2)["visual"]
+    px, _ = _vit_inputs(cfg)
+    layout = vision_layout(VIT_GRID, cfg.vision)
+    ring = ("ring", Mesh({"fsdp": 1}, 0), "fsdp")
+    calls = []
+    block = ra.block_forward
+    try:
+        ra.block_forward = lambda *a, **k: calls.append(1) or block(*a, **k)
+        got = vit_forward(params, cfg.vision, torch.from_numpy(px), layout,
+                          attn_impl=ring)
+    finally:
+        ra.block_forward = block
+    want = vit_forward(params, cfg.vision, torch.from_numpy(px), layout)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **VAL)
+    assert len(calls) == len(cfg.vision.fullatt_block_indexes)
+    # a chunk of 96 tokens over 7 ranks (the group is never reached)
+    seven = Mesh({"fsdp": 7}, 0, groups={"fsdp": None})
+    with pytest.raises(ValueError, match="does not divide"):
+        vit_forward(params, cfg.vision, torch.from_numpy(px), layout,
+                    attn_impl=("ring", seven, "fsdp"))

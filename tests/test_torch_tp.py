@@ -55,7 +55,10 @@ def test_tp_mesh_coords_and_groups_match_jax(cpu_devices, shape):
         "batch": [ranks[:, :, t].reshape(-1) for t in range(T)],
         "model": [ranks[d].reshape(-1) for d in range(D)],
     }
+    if D > 1 and T > 1:   # else create_mesh reuses the data or tp group
+        want["data_tp"] = [ranks[:, f, :].reshape(-1) for f in range(F)]
     got = _axis_groups(Mesh(shape, 0).shape)
+    assert set(got) == set(want)
     for name, lists in want.items():
         assert as_sets(got[name]) == as_sets(lists), name
     # a tp group is contiguous ranks (one NVLink host's cards)

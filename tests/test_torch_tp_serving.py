@@ -39,8 +39,17 @@ def _cmd(module, argv, world):
     if world == 1:
         return [sys.executable, "-m", module, *argv]
     return [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-            str(world), "--master_port", str(multihost._free_port()),
-            "-m", module, "--multihost", "true", "--tp", str(world), *argv]
+            str(world), "--standalone", "-m", module, "--multihost", "true",
+            "--tp", str(world), *argv]
+
+
+def _http_port() -> int:
+    """A port for the server under test to listen on."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _run(cmd, cwd):
@@ -230,7 +239,7 @@ def test_serve_cli_http_under_torchrun_at_tp2(tmp_path):
     import time
     import urllib.request
 
-    port = multihost._free_port()
+    port = _http_port()
     proc = subprocess.Popen(
         _cmd("spacer_tpu_torch.cli.serve",
              ["--http", "--random_init", "true", "--dtype", "float32",
