@@ -166,6 +166,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      a speculative 7B rollout over rows split over 2 and 4 cards against
      one card, and the ViT ring over 2 and 4 cards at full depth against
      one card instead.
+  17. Aria's capacity MoE (moe_impl "ep") under ring attention and the
+     pipeline at world 1 over NCCL: ARIA_25B widths with the LM cut to
+     PP_LM_LAYERS at the configured capacity factor, phase 15's two GRPO
+     steps on its packed rows: plain, with the ring tuple over
+     create_mesh({"fsdp": 1}) and with pipeline (mesh, 1) (both bitwise
+     the plain step, drops included: the MoE takes capacity over the whole
+     batch), and with pipeline (mesh, 2) against the plain step run on
+     each microbatch's rows as its own lm_forward call (each MoE call's
+     capacity a microbatch's, as JAX's stage body takes it): drops by
+     layer equal, loss and gradient cosines within PP_LOSS_RTOL /
+     PP_COS_TOL; the dropped assignments printed (the phase fails if none
+     dropped), the collectives counted and none issued.  `--phases 17
+     --world 2,4` runs the ring over 2 and 4 cards and the pipeline over 2
+     and 4 stages and pipe 2 x data 2 at ARIA_PP_WORLD_LAYERS layers
+     against one card running the same tokens through every MoE call.
 Phase 3 also checks the kernels at the Aria path's shapes (3c: K1 at
 head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1), 3d at
 the shapes one rank of a tp-2 or tp-4 Qwen2.5-VL-7B runs (14 / 7 query
@@ -173,9 +188,10 @@ heads, 2 / 1 KV heads, 8 / 4 ViT heads, K6 at the sliced products), and 3e
 at an Aria tp-2 or tp-4 rank's (8 / 4 tower heads at head_dim 72, 10 / 5
 LM heads at group 1, K6 at the sliced products, K = 832 included), and 3f
 K1 and K1-bwd as ring attention calls them (blocks of an 8192-token row
-over 4 emulated shards, the backward with the merged LSE and delta).
+over 4 emulated shards, the backward with the merged LSE and delta), at
+Qwen2.5-VL-7B's heads and at Aria's LM heads (20 and 20 of 128).
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5c and 7-16, each counted from 0 just
+summed over the paths of phases 4-5c and 7-17, each counted from 0 just
 before it runs; the head_dim 80 / 72 instantiations of K1 and K1-bwd also
 apart, their launches inside their kernel's); the last line is {"ok":
 true, "device": {...}}.
@@ -187,6 +203,7 @@ true, "device": {...}}.
     python3 chip_smoke.py --phases 15 --world 2,4   # ring / pipe, 2 and 4
     python3 chip_smoke.py --phases 16 --world 2,4   # ep over data, split
                                                     # speculation, ViT ring
+    python3 chip_smoke.py --phases 17 --world 2,4   # Aria ep: ring / pipe
     python3 chip_smoke.py --phases 4c,4d     # a development run of some
 """
 
@@ -309,7 +326,7 @@ LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
                "perception_task_accuracy", "relation_task_accuracy"}
 # The phases in the order they run (main's --phases selects some of them)
 PHASES = ("3", "3d", "3e", "3f", "4", "4c", "4d", "5", "5c", "6", "7", "8",
-          "9", "10", "11", "12", "13", "14", "15", "16")
+          "9", "10", "11", "12", "13", "14", "15", "16", "17")
 # Phase 4c, the HTTP server: HTTP_VIDEOS video requests over mp4 files of
 # HTTP_VIDEO_SECONDS at HTTP_VIDEO_FPS (16 frames sampled at 2 fps, grid
 # (8, 16, 30) as phase 4's) and as many text requests, through HTTP_SLOTS
@@ -425,7 +442,7 @@ PHASE_FUNCTIONS = (
     "train_slice", "checkpoint_phase", "eval_slice", "full_train_slice",
     "lora_phase", "sft_phase", "qwen2_vl_phase", "aria_serve_phase",
     "aria_train_phase", "fsdp_phase", "tp_phase", "aria_ep_phase",
-    "ring_pipe_phase", "vit_ring_phase")
+    "ring_pipe_phase", "vit_ring_phase", "aria_ring_pipe_phase")
 
 
 def time_phases(namespace: dict) -> dict:
@@ -5709,6 +5726,9 @@ def aria_world_phase(worlds, device="cuda"):
 # query heads, 4 KV heads, head_dim 128): one row of RING_SEQ tokens
 # left-padded by RING_PAD, cut into RING_SHARDS emulated sequence shards
 RING_SEQ, RING_SHARDS, RING_PAD = 8192, 4, 300
+# ... and at Aria's LM heads (ARIA_25B: 20 query and 20 KV heads of 128,
+# group 1), phase 17's ring
+RING_ARIA_HEADS = (20, 20)
 # Phase 15 at world 1: Qwen2.5-VL-7B widths, the LM cut to PP_LM_LAYERS,
 # TRAIN_G packed GRPO rows of TRAIN_PROMPT_BUCKET + TRAIN_NEW_TOKENS tokens
 # (phase 5's shapes, the prompt left-padded by TRAIN_PROMPT_PAD), two steps
@@ -5729,12 +5749,22 @@ PP_WORLD_NORM_RTOL = 1e-2
 PP_WORLD_CONFIGS = {2: (("ring", {"fsdp": 2}), ("pipe", {"pipe": 2})),
                     4: (("ring", {"fsdp": 4}), ("pipe", {"pipe": 4}),
                         ("pipe", {"pipe": 2, "data": 2}))}
+# --phases 17 --world 2,4 (a development run): the same configs for Aria
+# (aria_ep_cfg) with its LM cut to ARIA_PP_WORLD_LAYERS, which one card
+# holds with its gradients (PERF.md works out each rank's bytes); each
+# config against one card running the same tokens through every MoE call
+# (_pp_world_variant): the loss and cosine gates above over the gradients
+# of LM layers ARIA_PP_WORLD_COMPARED and every tensor outside the layer
+# list, and each layer's dropped assignments equal
+ARIA_PP_WORLD_LAYERS = 12
+ARIA_PP_WORLD_COMPARED = (0, 11)
 
 
-def check_ring_kernels(device="cuda") -> dict:
-    """Phase 3f: K1 and K1-bwd as ring attention calls them, at
-    Qwen2.5-VL-7B attention widths on RING_SHARDS emulated shards of one
-    RING_SEQ-token row left-padded by RING_PAD: every shard's blocks and
+def check_ring_kernels(device="cuda", heads=(28, 4), tag="") -> dict:
+    """Phase 3f: K1 and K1-bwd as ring attention calls them, at `heads` =
+    (query heads, KV heads) of head_dim 128 (Qwen2.5-VL-7B's by default;
+    RING_ARIA_HEADS: Aria's LM, group 1) on RING_SHARDS emulated shards of
+    one RING_SEQ-token row left-padded by RING_PAD: every shard's blocks and
     their LSE merge against xla_attention over the whole sequence (live
     rows); K1 on the causal diagonal block, a past block and a past block
     holding the padding against the plain version (SDPA's forward as the
@@ -5742,8 +5772,9 @@ def check_ring_kernels(device="cuda") -> dict:
     LSE and delta against attention_bwd_from_stats (whose LSE is natural
     log: a kernel reading another unit would scale every probability), with
     torch's flash backward fed the merged LSE as the yardstick where it
-    computes the same function; and the whole ring backward against the
-    whole-sequence plain gradient (rel-norm GRAD_REL_TOL per tensor)."""
+    computes the same function, and its memory-efficient backward where the
+    block masks keys (bwd_yardstick); and the whole ring backward against
+    the whole-sequence plain gradient (rel-norm GRAD_REL_TOL per tensor)."""
     from spacer_tpu_torch.nn.attention import xla_attention
     from spacer_tpu_torch.ops import flash_attention as fa
     from spacer_tpu_torch.ops import ring_attention as ra
@@ -5755,7 +5786,7 @@ def check_ring_kernels(device="cuda") -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf)
 
-    H, Hkv, D, n, S = 28, 4, 128, RING_SHARDS, RING_SEQ
+    (H, Hkv), D, n, S = heads, 128, RING_SHARDS, RING_SEQ
     s = S // n
     q, k, v = randn(1, S, H, D), randn(1, S, Hkv, D), randn(1, S, Hkv, D)
     mask = torch.ones((1, S), dtype=torch.bool, device=dev)
@@ -5785,7 +5816,7 @@ def check_ring_kernels(device="cuda") -> dict:
             raise RuntimeError(f"ring shard {r}: merged blocks disagree with "
                                f"the whole-sequence attention ({worst})")
     _sync(device)
-    log(f"ring forward: {n} shards of {s}, blocks merged by LSE vs "
+    log(f"ring forward{tag}: {n} shards of {s}, blocks merged by LSE vs "
         f"xla_attention over {S} keys: max_abs_err {worst:.3e} on live rows "
         f"(tol {BF16_TOL:.0e} * (1 + |ref|))")
 
@@ -5793,7 +5824,7 @@ def check_ring_kernels(device="cuda") -> dict:
     # (tag, query shard, key shard): the causal diagonal block, a past block
     # of live keys, a past block holding the padding
     blocks = (("diagonal", 1, 1), ("past", 2, 1), ("past padded", 1, 0))
-    for tag, r, src in blocks:
+    for block, r, src in blocks:
         causal = src == r
         qb, kb, vb, mb = sl(q, r), sl(k, src), sl(v, src), sl(mask, src)
         live_k = int(mb.sum())
@@ -5803,7 +5834,7 @@ def check_ring_kernels(device="cuda") -> dict:
             smask = smask & torch.ones((s, s), dtype=torch.bool,
                                        device=dev).tril()
         kw = dict(causal=causal, kv_mask=mb)
-        name = f"ring {tag} block S={s}"
+        name = f"ring {block} block S={s}{tag}"
         q_bytes = s * (H * D * 2 + H * 4)
         results[f"K1 {name}"] = compare(
             f"K1 flash_attention [{name}]",
@@ -5816,8 +5847,8 @@ def check_ring_kernels(device="cuda") -> dict:
         dout = randn(1, s, H, D)
         lse, delta = lses[r], ra.delta_of(outs[r], dout)
         args = (qb, kb, vb, dout, lse, delta)
-        library = flash_bwd_yardstick(qb, kb, vb, dout, outs[r], lse, causal,
-                                      bool(mb.all()))
+        library = bwd_yardstick(qb, kb, vb, dout, outs[r], lse, causal,
+                                smask)
         results[f"K1-bwd dq {name}"] = compare(
             f"K1-bwd dq [{name}, merged LSE]",
             lambda: fa.flash_attention_bwd_dq_from_stats(*args, **kw),
@@ -5856,7 +5887,8 @@ def check_ring_kernels(device="cuda") -> dict:
         want[1][:, :e] += ref[1].float()
         want[2][:, :e] += ref[2].float()
     rel = [float((a - b).norm() / b.norm()) for a, b in zip(got, want)]
-    log(f"ring backward: {n} shards, K1-bwd with the merged LSE / delta vs "
+    log(f"ring backward{tag}: {n} shards, K1-bwd with the merged LSE / "
+        "delta vs "
         f"the whole-sequence plain gradient: rel-norm dq {rel[0]:.3e} dk "
         f"{rel[1]:.3e} dv {rel[2]:.3e} (tol {GRAD_REL_TOL:.0e}; the LSE the "
         "plain version reads is natural log)")
@@ -5866,15 +5898,60 @@ def check_ring_kernels(device="cuda") -> dict:
     return results
 
 
-def flash_bwd_yardstick(q, k, v, dout, out, lse, causal, all_live):
-    """torch's flash-attention backward (dq, dk, dv in one call) fed the
-    merged LSE, on the GQA heads repeated, where it computes the same
-    function (no key mask: a block whose keys are all live); None (logged
-    "-") where it does not or refuses the call.  Timing only."""
-    if not all_live:
-        log("K1-bwd library yardstick: '-' (the block masks keys; torch's "
-            "flash backward takes no key mask)")
+def bwd_yardstick(q, k, v, dout, out, lse, causal, mask):
+    """One torch call computing K1-bwd's function (dq, dk and dv), fed `out`
+    and the LSE `lse`: torch's flash-attention backward where every key of
+    `mask` ((B, 1, Sq, Skv) bool, the causal triangle included) is live,
+    else its memory-efficient backward (scaled_dot_product_attention's
+    EFFICIENT_ATTENTION backend) with the mask as its additive bias.  None
+    (logged "-") where torch refuses the call.  Timing only."""
+    if bool(mask.any(-2).all()):   # every key seen by some query: live
+        return flash_bwd_yardstick(q, k, v, dout, out, lse, causal)
+    return efficient_bwd_yardstick(q, k, v, dout, out, lse, mask)
+
+
+def efficient_bwd_yardstick(q, k, v, dout, out, lse, mask):
+    """torch's memory-efficient attention backward (dq, dk, dv in one call)
+    on the GQA heads repeated, the boolean (B, 1, Sq, Skv) `mask` as its
+    additive bias (-inf where False; its last dimension padded to 16 as
+    scaled_dot_product_attention pads it), fed `out` and the LSE `lse` in
+    its own forward's layout; None (logged "-") where it refuses the call.
+    Timing only."""
+    g = q.shape[2] // k.shape[2]
+    t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    qt, ot, dt = t(q), t(out), t(dout)
+    kt, vt = (t(x.repeat_interleave(g, dim=2)) for x in (k, v))
+    B, H, Sq, Skv = *qt.shape[:3], kt.shape[2]
+    bias = torch.zeros((B, 1, Sq, Skv - Skv % -16), dtype=q.dtype,
+                       device=q.device)[..., :Skv]
+    bias.masked_fill_(~mask, float("-inf"))
+    bias = bias.expand(B, H, Sq, Skv)
+    scale = q.shape[-1] ** -0.5
+    aten = torch.ops.aten
+    try:
+        _, own, seed, offset = aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True, 0.0, False, scale=scale)
+        fed = own.clone()
+        fed[..., :Sq] = lse
+
+        def library():
+            return aten._scaled_dot_product_efficient_attention_backward(
+                dt, qt, kt, vt, bias, ot, fed, seed, offset, 0.0,
+                [True, True, True, False], False, scale=scale)
+
+        library()
+    except (RuntimeError, TypeError) as e:
+        log(f"K1-bwd library yardstick: '-' (torch's memory-efficient "
+            f"backward refused the call: {str(e).splitlines()[0][:120]})")
         return None
+    return library
+
+
+def flash_bwd_yardstick(q, k, v, dout, out, lse, causal):
+    """torch's flash-attention backward (dq, dk, dv in one call) fed the
+    merged LSE, on the GQA heads repeated (it takes no key mask: for a
+    block whose keys are all live); None (logged "-") where it refuses the
+    call.  Timing only."""
     g = q.shape[2] // k.shape[2]
     t = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
     qt, ot, dt = t(q), t(out), t(dout)
@@ -5921,21 +5998,63 @@ def packed_rows(cfg, device, seed: int) -> dict:
 
 def pp_model(cfg, device, seed: int = 0):
     """{"model": the LM's random bf16 params} (the packed text rows reach
-    no vision tower)."""
-    from spacer_tpu_torch.models.qwen25_vl.language import init_lm_params
+    no vision tower); Aria's LM (its MoE layers) for an Aria config."""
+    if getattr(cfg.text, "moe_topk", 0):
+        from spacer_tpu_torch.models.aria.language import init_lm_params
+    else:
+        from spacer_tpu_torch.models.qwen25_vl.language import init_lm_params
 
     gen = torch.Generator(device=device).manual_seed(seed)
     return {"model": init_lm_params(cfg.text, generator=gen,
                                     dtype=torch.bfloat16, device=device)}
 
 
+@contextlib.contextmanager
+def lm_forward_by_rows(groups: int):
+    """The train step's lm_forward run on `groups` equal row groups, one
+    call each, their hidden states concatenated: on one card, the tokens
+    every MoE call of a pipeline gets (a microbatch's rows of one data
+    rank), so its capacity is the pipeline's."""
+    import spacer_tpu_torch.train.step as tstep
+
+    whole = tstep.lm_forward
+
+    def by_rows(params, cfg, *, input_embeds, position_ids, kv_mask, **kw):
+        n = input_embeds.shape[0] // groups
+        return torch.cat([whole(
+            params, cfg, input_embeds=input_embeds[i * n:(i + 1) * n],
+            position_ids=position_ids[:, i * n:(i + 1) * n],
+            kv_mask=kv_mask[i * n:(i + 1) * n], **kw)[0]
+            for i in range(groups)]), None
+
+    tstep.lm_forward = by_rows
+    try:
+        yield
+    finally:
+        tstep.lm_forward = whole
+
+
+def layer_drops(keeps, span) -> dict:
+    """{global layer: dropped assignments} of one forward's MoE calls
+    (`keeps`: their keep masks in call order), a call's layer being span[its
+    index mod len(span)] (span: the layers the forward runs, in order; a
+    microbatch or row group runs them all before the next)."""
+    out = {}
+    for i, keep in enumerate(keeps):
+        layer = span[i % len(span)]
+        out[layer] = out.get(layer, 0) + int((~keep).sum())
+    return out
+
+
 def pp_train_run(cfg, device, kind, mesh=None, micro=1, ref=None) -> dict:
     """Two GRPO steps on phase 15's packed rows (batches of seeds 1 and 2)
-    with `kind` "plain", "ring" (attn_impl over `mesh`'s fsdp axis) or
-    "pipe" (pipeline=(mesh, micro)).  Without `ref` it keeps step 1's
-    gradients and the final params on the card; with `ref` (that record)
-    each is held against it: the tensors that differ and per tensor the
-    gradient cosine."""
+    with `kind` "plain", "micro" (plain with lm_forward_by_rows(micro)),
+    "ring" (attn_impl over `mesh`'s fsdp axis) or "pipe" (pipeline=(mesh,
+    micro)).  Without `ref` it keeps step 1's gradients and the final params
+    on the card; with `ref` (that record) each is held against it: the
+    tensors that differ and per tensor the gradient cosine.  For an Aria
+    config it also counts the MoE's dropped assignments: per layer over
+    step 1's first forward (its reference logps), and in all."""
     from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
     from spacer_tpu_torch.parallel import multihost
     from spacer_tpu_torch.parallel.pipeline import shard_layers_for_pipeline
@@ -5981,7 +6100,9 @@ def pp_train_run(cfg, device, kind, mesh=None, micro=1, ref=None) -> dict:
     multihost.reset_collective_stats()
     multihost.time_collectives(torch.device(device).type == "cuda")
     reset_launch_counts()
-    with IssuedCollectives() as issued:
+    rows = (lm_forward_by_rows(micro) if kind == "micro"
+            else contextlib.nullcontext())
+    with IssuedCollectives() as issued, rows, DropLog(True) as drops:
         for batch in batches:
             _sync(device)
             t = time.perf_counter()
@@ -5991,6 +6112,11 @@ def pp_train_run(cfg, device, kind, mesh=None, micro=1, ref=None) -> dict:
             rec["steps"].append(dict(
                 {k: float(m[k]) for k in ("loss", "kl", "grad_norm")},
                 s=time.perf_counter() - t))
+    L = cfg.text.num_layers
+    first = L * (micro if kind in ("micro", "pipe") else 1)
+    rec["drops"] = dict(drops.counts(),
+                        layers=layer_drops(drops.keeps[:first], range(L)))
+    del drops
     rec["counts"] = launch_counts()
     rec["peak"] = _peak(device)
     rec["collectives"] = multihost.collective_stats()
@@ -6124,6 +6250,96 @@ def ring_pipe_phase(device="cuda") -> dict:
     return paths
 
 
+def aria_ring_pipe_phase(device="cuda") -> dict:
+    """Phase 17: Aria's capacity MoE (moe_impl "ep") under ring attention
+    and the pipeline at world 1 over NCCL: ARIA_25B widths with the LM cut
+    to PP_LM_LAYERS at the configured capacity factor, phase 15's two GRPO
+    steps on its TRAIN_G packed rows each: plain; with the ring tuple over
+    create_mesh({"fsdp": 1}) and with pipeline (mesh, 1) over
+    create_mesh({"pipe": 1}), both bitwise the plain step (the MoE sees the
+    whole batch); with pipeline (mesh, 2) against the plain step run on its
+    two microbatches' rows one lm_forward call each (lm_forward_by_rows: the
+    same capacity per call): each layer's dropped assignments equal, the
+    loss within PP_LOSS_RTOL and every tensor's gradient cosine >=
+    PP_COS_TOL.  Every run counts its collectives and issues none, launches
+    every kernel of PP_KERNELS, and prints its drops; the phase fails if
+    nothing dropped.  Returns each run's launches."""
+    import torch.distributed as dist
+
+    from spacer_tpu_torch.parallel import multihost, tp
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+
+    tp.set_mesh(None)
+    world1_env()
+    multihost.initialize(device=device)
+    cfg = aria_ep_cfg(PP_LM_LAYERS)
+    ring_mesh = create_mesh({"fsdp": 1})
+    pipe_mesh = create_mesh({"pipe": 1})
+    plain = pp_train_run(cfg, device, "plain")
+    runs = {"ring": pp_train_run(cfg, device, "ring", ring_mesh, ref=plain),
+            "pipe M=1": pp_train_run(cfg, device, "pipe", pipe_mesh, 1,
+                                     ref=plain)}
+    del plain["grads"], plain["params"]
+    gc.collect()
+    micro = pp_train_run(cfg, device, "micro", micro=2)
+    runs["pipe M=2"] = pp_train_run(cfg, device, "pipe", pipe_mesh, 2,
+                                    ref=micro)
+    del micro["grads"], micro["params"]
+    problems = []
+    for name, r in (("plain", plain), ("plain by microbatch (M=2)", micro),
+                    *runs.items()):
+        for i, st in enumerate(r["steps"]):
+            log(f"phase 17 {name} step {i + 1}: loss {st['loss']!r} kl "
+                f"{st['kl']!r} grad_norm {st['grad_norm']!r} | "
+                f"{st['s']:.2f} s")
+        d = r["drops"]
+        log(f"phase 17 {name}: capacity factor "
+            f"{cfg.text.moe_capacity_factor}, {d['dropped']} of "
+            f"{d['assignments']} assignments dropped over {d['calls']} MoE "
+            f"calls; step 1's first forward by layer {d['layers']} | "
+            f"max_memory_allocated {gib(r['peak'])}, launches {r['counts']}, "
+            "collectives counted per step: "
+            + (_collective_line(r["collectives"], 2) or "none")
+            + f", issued {r['issued'] or 'none'}")
+        if r["issued"]:
+            problems.append(f"{name}: issued {r['issued']} at world 1")
+        if min(r["counts"][k] for k in PP_KERNELS) < 1:
+            problems.append(f"{name}: a kernel was never launched")
+        if not d["dropped"]:
+            problems.append(f"{name}: no assignment dropped")
+    for name in ("ring", "pipe M=1"):
+        r = runs[name]
+        same = all(a[key] == b[key] for a, b in zip(plain["steps"],
+                                                     r["steps"])
+                   for key in ("loss", "kl", "grad_norm"))
+        log(f"phase 17 {name} vs plain: losses / kl / grad_norm bitwise "
+            f"{same}, step 1 gradients differing {len(r['grad_bad'])} of "
+            f"{len(r['cos'])}, final params differing {len(r['param_bad'])},"
+            f" drops equal {r['drops'] == plain['drops']}")
+        if (not same or r["grad_bad"] or r["param_bad"]
+                or r["drops"] != plain["drops"]):
+            problems.append(f"{name} is not bitwise the plain step: "
+                            f"{r['grad_bad'][:4]} {r['param_bad'][:4]}")
+    r = runs["pipe M=2"]
+    a, b = micro["steps"][0]["loss"], r["steps"][0]["loss"]
+    cos = min(r["cos"].values())
+    log(f"phase 17 pipe M=2 vs plain by microbatch at step 1: loss {b!r} vs "
+        f"{a!r} (rel {abs(b - a) / abs(a):.3e}, tol {PP_LOSS_RTOL:.0e}), "
+        f"gradient cosine min {cos:.6f} over {len(r['cos'])} tensors (tol "
+        f"{PP_COS_TOL}), bitwise {len(r['cos']) - len(r['grad_bad'])}; "
+        f"drops by layer {r['drops']['layers']} vs {micro['drops']['layers']}"
+        f" (the whole batch's {plain['drops']['layers']})")
+    if abs(b - a) > PP_LOSS_RTOL * abs(a) or not cos >= PP_COS_TOL:
+        problems.append(f"pipe M=2: loss {b} vs {a}, cosine {cos}")
+    if r["drops"]["layers"] != micro["drops"]["layers"]:
+        problems.append("pipe M=2: drops by layer differ from the plain "
+                        "step's by microbatch")
+    dist.destroy_process_group()
+    if problems:
+        raise RuntimeError("phase 17: " + "; ".join(problems))
+    return {f"train aria {k} world 1": r["counts"] for k, r in runs.items()}
+
+
 def _pp_world_params(cfg, device, kind, mesh):
     """(params, the global indices of the layers they hold) of a --world
     run: the LM from phase 15's seed, whole, or cut to the stage's
@@ -6143,10 +6359,47 @@ def _pp_world_params(cfg, device, kind, mesh):
     return params, stage_layers(cfg.text.num_layers, mesh)
 
 
-def _pp_world_step(cfg, device, params, kind, mesh):
-    """-> fn() running one loss-and-gradients step of --world's packed rows
-    (the policy its own reference), returning (loss, grad_norm, names,
-    grads)."""
+def _pp_world_model(model: str):
+    """(config, the predicate of the tensors whose gradients are compared)
+    of a --world run: "qwen" (phase 15: Qwen2.5-VL-7B at full depth,
+    _world_selected) or "aria" (phase 17: aria_ep_cfg at
+    ARIA_PP_WORLD_LAYERS, LM layers ARIA_PP_WORLD_COMPARED and every tensor
+    outside the layer list)."""
+    if model == "aria":
+        def compared(name):
+            parts = name.split("/")
+            return (parts[:2] != ["model", "layers"]
+                    or int(parts[2]) in ARIA_PP_WORLD_COMPARED)
+
+        return aria_ep_cfg(ARIA_PP_WORLD_LAYERS), compared
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+
+    return QWEN25_VL_7B, _world_selected
+
+
+def _pp_world_variant(model: str, kind: str, shape: dict) -> str:
+    """The one-card reference a --world config is held against: the whole
+    batch ("plain"); for Aria's pipelines the rows of each (microbatch,
+    data rank) one lm_forward call each ("rows N", lm_forward_by_rows), the
+    tokens each of its MoE calls gets."""
+    if model == "aria" and kind == "pipe":
+        return f"rows {PP_WORLD_MICRO * shape.get('data', 1)}"
+    return "plain"
+
+
+def _pp_world_step(cfg, device, params, kind, mesh, groups=1, span=None):
+    """-> fn(replay=None, record=True) running one loss-and-gradients step
+    of --world's packed rows (the policy its own reference), returning
+    (loss, grad_norm, names, grads, moe); `kind` "plain", "ring", "pipe" or
+    "rows" (plain on `groups` row groups, lm_forward_by_rows); `span`: the
+    layers the params hold; `replay`: every MoE call's routes of an earlier
+    step, forced (RouteLog).  moe (None without `record`): of the MoE calls
+    of the step's reference-logps forward, "drops" {layer: dropped
+    assignments}, "rule_bad" (the calls whose kept set is not JAX's
+    capacity rule on their own routes and tokens, keep_rule_problems) and
+    "tokens" (the token counts the calls got); of all its calls, "routes"
+    (each call's experts, on the host) and "flips" (the rows whose own
+    routes the replay overrode)."""
     from spacer_tpu_torch.parallel import pipeline as pp
     from spacer_tpu_torch.train.optimizer import global_norm, make_optimizer
     from spacer_tpu_torch.train.step import make_grpo_train_step, param_leaves
@@ -6157,41 +6410,72 @@ def _pp_world_step(cfg, device, params, kind, mesh):
                                 **kw)
     batch = packed_rows(cfg, device, 1)
     names = [n for n, _ in param_leaves(params)]
+    span = list(span if span is not None else range(cfg.text.num_layers))
+    first = len(span) * (PP_WORLD_MICRO if kind == "pipe" else groups)
 
-    def run():
-        ref = step.ref_logps_fn(params, batch, num_generations=TRAIN_G)
-        loss, _, grads = step.loss_and_grads(params, ref, batch,
-                                             num_generations=TRAIN_G)
+    def run(replay=None, record=True):
+        rows = (lm_forward_by_rows(groups) if kind == "rows"
+                else contextlib.nullcontext())
+        logs = ((DropLog(True), RouteLog(replay)) if record or replay
+                else (contextlib.nullcontext(), contextlib.nullcontext()))
+        with rows, logs[0] as drops, logs[1] as routes:
+            ref = step.ref_logps_fn(params, batch, num_generations=TRAIN_G)
+            loss, _, grads = step.loss_and_grads(params, ref, batch,
+                                                 num_generations=TRAIN_G)
         norm = (pp.global_norm(grads, names, mesh) if kind == "pipe"
                 else global_norm(grads))
-        return float(loss), float(norm), names, grads
+        moe = None
+        if record:
+            keeps, idx = drops.keeps[:first], routes.idx[:first]
+            moe = {"drops": layer_drops(keeps, span),
+                   "rule_bad": keep_rule_problems(idx, keeps, cfg),
+                   "tokens": sorted({int(r.shape[0]) for r in idx}),
+                   "routes": [r.cpu() for r in routes.idx],
+                   "flips": routes.flips}
+        return float(loss), float(norm), names, grads, moe
 
     return run
 
 
-def _pp_world_reference(rank, out, device="cuda"):
-    """--world's reference, one card without a mesh, full depth: the loss,
-    grad_norm and the selected gradients (_world_selected) of phase 15's
-    step on its first rows, its second (warm) step timed -> out/ref.pt."""
-    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
-
-    params, _ = _pp_world_params(QWEN25_VL_7B, device, "plain", None)
-    run = _pp_world_step(QWEN25_VL_7B, device, params, "plain", None)
-    run()    # warm: the ranks' timed step is their second too
-    _peak(device, reset=True)
-    _sync(device)
-    t = time.perf_counter()
-    loss, norm, names, grads = run()
-    _sync(device)
-    rec = {"loss": loss, "grad_norm": norm, "s": time.perf_counter() - t,
-           "peak": _peak(device),
-           "adv_scale": float(packed_rows(QWEN25_VL_7B, device, 1)[
-               "advantages"].abs().mean()),
-           "grads": {n: g.cpu() for n, g in zip(names, grads)
-                     if _world_selected(n)}}
-    torch.save(rec, out + "/ref.pt")
-    log(f"ring / pipe world reference (1 card): loss {loss!r} grad_norm "
-        f"{norm!r}, {rec['s']:.2f} s, max_memory_allocated {gib(rec['peak'])}")
+def _pp_world_reference(rank, out, device="cuda", model="qwen"):
+    """--world's references, one card without a mesh, each variant of
+    _pp_world_variant: the loss, grad_norm, drops and the compared
+    gradients of the step on its first rows (the plain one's routes too),
+    its second (warm) step timed -> out/ref.pt ({variant: record})."""
+    cfg, compared = _pp_world_model(model)
+    variants = sorted({_pp_world_variant(model, kind, shape)
+                       for configs in PP_WORLD_CONFIGS.values()
+                       for kind, shape in configs})
+    params, _ = _pp_world_params(cfg, device, "plain", None)
+    recs = {}
+    for variant in variants:
+        kind, groups = ("plain", 1) if variant == "plain" else (
+            "rows", int(variant.split()[1]))
+        run = _pp_world_step(cfg, device, params, kind, None, groups)
+        loss, norm, names, grads, moe = run()
+        drops = moe["drops"]
+        if variant != "plain":   # only a ring replays routes
+            moe["routes"] = []
+        recs[variant] = rec = {
+            "loss": loss, "grad_norm": norm, "drops": drops, "moe": moe,
+            "adv_scale": float(packed_rows(cfg, device, 1)[
+                "advantages"].abs().mean()),
+            "grads": {n: g.cpu() for n, g in zip(names, grads)
+                      if compared(n)}}
+        del grads
+        gc.collect()
+        # the second (warm) step timed, as the ranks' is
+        _peak(device, reset=True)
+        _sync(device)
+        t = time.perf_counter()
+        run(record=False)
+        _sync(device)
+        rec["s"], rec["peak"] = time.perf_counter() - t, _peak(device)
+        log(f"ring / pipe world reference {variant} (1 card): loss {loss!r} "
+            f"grad_norm {norm!r}, {rec['s']:.2f} s, max_memory_allocated "
+            f"{gib(rec['peak'])}" + (f", drops by layer {drops}" if drops
+                                     else ""))
+    torch.save(recs, out + "/ref.pt")
 
 
 def idle_share(fn, device) -> tuple:
@@ -6220,54 +6504,82 @@ def idle_share(fn, device) -> tuple:
     return wall, 1.0 - busy / 1e6 / wall if wall > 0 else 0.0
 
 
-def _pp_world_rank(rank, out, device="cuda"):
+def _pp_world_rank(rank, out, device="cuda", model="qwen"):
     """One rank of --world N: PP_WORLD_CONFIGS[N] in turn, each three
-    loss-and-gradients steps: the first held against the reference, the
-    second timed (its peak and collectives), the third profiled."""
-    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    loss-and-gradients steps: the first held against its reference, the
+    second timed (its peak and collectives), the third profiled; a ring's
+    first step again with the reference's routes forced ("forced": its
+    attention rounds otherwise than one card's, which flips near-tied
+    routes, and a capacity MoE's drops and outputs follow every flip)."""
     from spacer_tpu_torch.parallel import multihost
     from spacer_tpu_torch.parallel.mesh import create_mesh
     from spacer_tpu_torch.train.step import param_leaves
 
     world = multihost.process_count()
-    ref = torch.load(out + "/ref.pt", weights_only=False)
+    cfg, _ = _pp_world_model(model)
+    refs = torch.load(out + "/ref.pt", weights_only=False)
     recs = {}
     for kind, shape in PP_WORLD_CONFIGS[world]:
         tag = f"{kind} {shape}"
+        ref = refs[_pp_world_variant(model, kind, shape)]
         mesh = create_mesh(shape)
-        params, span = _pp_world_params(QWEN25_VL_7B, device, kind, mesh)
-        run = _pp_world_step(QWEN25_VL_7B, device, params, kind, mesh)
+        params, span = _pp_world_params(cfg, device, kind, mesh)
+        run = _pp_world_step(cfg, device, params, kind, mesh, span=span)
         held = sum(t.numel() * t.element_size()
                    for _, t in param_leaves(params))
-        loss, norm, names, grads = run()
-        rec = {"loss": loss, "grad_norm": norm, "held": held, "cos": {}}
-        for n, g in zip(names, grads):
-            parts = n.split("/")
-            if parts[:2] == ["model", "layers"]:
-                parts[2] = str(span[int(parts[2])])
-            full = "/".join(parts)
-            w = ref["grads"].get(full)
-            if w is None or (kind == "pipe" and mesh.coords["data"]):
-                continue
-            a, b = g.double().reshape(-1), w.to(g.device).double().reshape(-1)
-            d = float(a.norm() * b.norm())
-            rec["cos"][full] = (float(a @ b) / d if d > 0
-                                else float(bool(torch.equal(a, b))))
-        del grads
+        def cosines(names, grads):
+            cos = {}
+            for n, g in zip(names, grads):
+                parts = n.split("/")
+                if parts[:2] == ["model", "layers"]:
+                    parts[2] = str(span[int(parts[2])])
+                full = "/".join(parts)
+                w = ref["grads"].get(full)
+                if w is None or (kind == "pipe" and mesh.coords["data"]):
+                    continue
+                a = g.double().reshape(-1)
+                b = w.to(g.device).double().reshape(-1)
+                d = float(a.norm() * b.norm())
+                cos[full] = (float(a @ b) / d if d > 0
+                             else float(bool(torch.equal(a, b))))
+            return cos
+
+        loss, norm, names, grads, moe = run()
+        # the routes this rank's MoE calls chose that the reference's did
+        # not (a ring's calls are the reference's in order; a pipeline
+        # stage's are its own rows of its own layers)
+        flips = (sum(int((torch.sort(a, -1).values
+                          != torch.sort(b, -1).values).any(-1).sum())
+                     for a, b in zip(moe["routes"], ref["moe"]["routes"]))
+                 if kind == "ring" else 0)
+        rec = {"loss": loss, "grad_norm": norm, "held": held,
+               "cos": cosines(names, grads), "drops": moe["drops"],
+               "rule_bad": moe["rule_bad"], "tokens": moe["tokens"],
+               "flips": flips}
+        del grads, moe
         gc.collect()
+        if kind == "ring" and ref["moe"]["routes"]:
+            loss, norm, names, grads, moe = run(
+                replay=[r.to(device) for r in ref["moe"]["routes"]])
+            rec["forced"] = {"loss": loss, "grad_norm": norm,
+                             "cos": cosines(names, grads),
+                             "drops": moe["drops"], "flips": moe["flips"]}
+            del grads, moe
+            gc.collect()
         # the second (warm) step: time, peak and collectives
         _peak(device, reset=True)
         multihost.reset_collective_stats()
         multihost.time_collectives(torch.device(device).type == "cuda")
         _sync(device)
         t = time.perf_counter()
-        run()
+        run(record=False)
         _sync(device)
         rec["s"] = time.perf_counter() - t
         multihost.time_collectives(False)
         rec["collectives"] = multihost.collective_stats()
         rec["peak"] = _peak(device)
-        rec["profiled_s"], rec["idle"] = idle_share(run, device)
+        rec["profiled_s"], rec["idle"] = idle_share(
+            lambda: run(record=False), device)
         if kind == "pipe":
             S = mesh.shape["pipe"]
             rec["bubble"] = (S - 1) / (PP_WORLD_MICRO + S - 1)
@@ -6281,17 +6593,78 @@ def _pp_world_rank(rank, out, device="cuda"):
         torch.save(parts, out + f"/world{world}.pt")
 
 
-def ring_pipe_world_phase(worlds, device="cuda"):
-    """`--phases 15 --world 2,4`: the one-card reference on card 0 at full
-    depth, then each world's PP_WORLD_CONFIGS (parallel.multihost.
-    launch_local, NCCL): per config and rank the loss, grad_norm and every
-    compared tensor's gradient cosine against the reference (the gates
-    above), the peak memory and the parameter bytes a rank holds, s per
-    step, for the pipeline the bubble share (S - 1) / (M + S - 1) beside
-    the measured idle share, and the P2P and collective calls, bytes and
-    CUDA-event ms per step."""
+def _pp_world_report(world, kind, tag, ranks, ref) -> list:
+    """Logs one --world config's ranks against its reference -> problems.
+    Gated: the loss (FSDP_WORLD_LOSS_RTOL of max(|loss|, the advantages'
+    scale)), grad_norm (PP_WORLD_NORM_RTOL), every compared tensor's cosine
+    (FSDP_WORLD_COS_TOL) and each layer's drops (a pipeline's summed over
+    its ranks) equal, a ring's with the reference's routes forced (its own
+    are reported); every MoE call's kept set JAX's capacity rule, and a
+    ring's calls the whole batch."""
+    gated = [r.get("forced", r) for r in ranks]
+    scale = max(abs(ref["loss"]), ref["adv_scale"])
+    problems, cos, drops = [], {}, collections.Counter()
+    for r in (gated if kind == "pipe" else gated[:1]):
+        drops.update(r["drops"])
+    if dict(drops) != ref["drops"]:
+        problems.append(f"{tag}: drops by layer {dict(drops)} vs "
+                        f"{ref['drops']}")
+    if any(r["rule_bad"] for r in ranks):
+        problems.append(f"{tag}: kept sets off the capacity rule")
+    if kind == "ring" and any(r["tokens"] != ref["moe"]["tokens"]
+                              for r in ranks):
+        problems.append(f"{tag}: an MoE call without the whole batch")
+    for i, (rec, g) in enumerate(zip(ranks, gated)):
+        cos.update(g["cos"])
+        log(f"{tag} world {world} rank {i}: loss {rec['loss']!r} grad_norm "
+            f"{rec['grad_norm']!r} | {rec['s']:.2f} s per step, idle share "
+            f"{rec['idle']:.3f} (of a profiled step, "
+            f"{rec['profiled_s']:.2f} s)"
+            + (f" (bubble {rec['bubble']:.3f})" if "bubble" in rec else "")
+            + f" | max_memory_allocated {gib(rec['peak'])}, params held "
+            f"{gib(rec['held'])} | per step: "
+            + _collective_line(rec["collectives"], 1))
+        if abs(g["loss"] - ref["loss"]) > FSDP_WORLD_LOSS_RTOL * scale:
+            problems.append(f"{tag} rank {i}: loss {g['loss']}")
+        if abs(g["grad_norm"] - ref["grad_norm"]) > (
+                PP_WORLD_NORM_RTOL * ref["grad_norm"]):
+            problems.append(f"{tag} rank {i}: grad_norm {g['grad_norm']}")
+    worst = min(cos.values()) if cos else float("nan")
+    own = ""
+    if "forced" in ranks[0]:
+        own_cos = min(c for r in ranks for c in r["cos"].values())
+        own = (f" | its own routes: {ranks[0]['flips']} of the step's "
+               f"routed rows other than the reference's, drops by layer "
+               f"{ranks[0]['drops']}, grad_norm {ranks[0]['grad_norm']!r}, "
+               f"cosine min {own_cos:.6f}")
+    log(f"{tag} world {world} vs 1 card"
+        + (" (the reference's routes forced)" if own else "")
+        + f": loss {gated[0]['loss']!r} vs {ref['loss']!r}, grad_norm "
+        f"{gated[0]['grad_norm']!r} vs {ref['grad_norm']!r}, gradient cosine"
+        f" min {worst:.6f} over {len(cos)} of {len(ref['grads'])} tensors"
+        + (f", drops by layer {dict(drops)} vs {ref['drops']} (tokens per "
+           f"MoE call {ranks[0]['tokens']}, kept sets off the capacity rule "
+           f"{sum(r['rule_bad'] for r in ranks)})" if ref["drops"] else "")
+        + own)
+    if len(cos) != len(ref["grads"]) or not worst >= FSDP_WORLD_COS_TOL:
+        problems.append(f"{tag}: cosines {worst} over {len(cos)}")
+    return problems
+
+
+def ring_pipe_world_phase(worlds, device="cuda", model="qwen"):
+    """`--phases 15 --world 2,4` (model "qwen") and `--phases 17 --world
+    2,4` ("aria"): the one-card references on card 0 (_pp_world_variant),
+    then each world's PP_WORLD_CONFIGS (parallel.multihost.launch_local,
+    NCCL): per config and rank the loss, grad_norm and every compared
+    tensor's gradient cosine against its reference (the gates above), for
+    Aria each layer's dropped assignments (a pipeline's summed over its
+    ranks: each runs its rows of its layers) against the reference's, the
+    peak memory and the parameter bytes a rank holds, s per step, for the
+    pipeline the bubble share (S - 1) / (M + S - 1) beside the measured
+    idle share, and the P2P and collective calls, bytes and CUDA-event ms
+    per step."""
     out = str(pathlib.Path(__file__).resolve().parent / "build"
-              / "smoke_pp_world")
+              / f"smoke_pp_world_{model}")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
     log("ring / pipe world cards (nvidia-smi): " + " | ".join(
@@ -6301,47 +6674,24 @@ def ring_pipe_world_phase(worlds, device="cuda"):
                        ).stdout.strip().splitlines()[:max(worlds)]))
     from spacer_tpu_torch.parallel.multihost import launch_local
 
-    launch_local(_pp_world_reference, 1, args=(out, device), device=device,
-                 timeout=900)
-    ref = torch.load(out + "/ref.pt", weights_only=False)
-    scale = max(abs(ref["loss"]), ref["adv_scale"])
+    launch_local(_pp_world_reference, 1, args=(out, device, model),
+                 device=device, timeout=900)
+    refs = torch.load(out + "/ref.pt", weights_only=False)
     problems = []
     for world in worlds:
-        launch_local(_pp_world_rank, world, args=(out, device),
+        launch_local(_pp_world_rank, world, args=(out, device, model),
                      device=device, timeout=1500)
         parts = torch.load(out + f"/world{world}.pt", weights_only=False)
-        for tag in parts[0]:
-            cos = {}
-            for r, p in enumerate(parts):
-                rec = p[tag]
-                cos.update(rec["cos"])
-                log(f"{tag} world {world} rank {r}: loss {rec['loss']!r} "
-                    f"grad_norm {rec['grad_norm']!r} | {rec['s']:.2f} s per "
-                    f"step, idle share {rec['idle']:.3f} (of a profiled "
-                    f"step, {rec['profiled_s']:.2f} s)"
-                    + (f" (bubble {rec['bubble']:.3f})" if "bubble" in rec
-                       else "")
-                    + f" | max_memory_allocated {gib(rec['peak'])}, params "
-                    f"held {gib(rec['held'])} | per step: "
-                    + _collective_line(rec["collectives"], 1))
-                if abs(rec["loss"] - ref["loss"]) > (FSDP_WORLD_LOSS_RTOL
-                                                     * scale):
-                    problems.append(f"{tag} rank {r}: loss {rec['loss']}")
-                if abs(rec["grad_norm"] - ref["grad_norm"]) > (
-                        PP_WORLD_NORM_RTOL * ref["grad_norm"]):
-                    problems.append(f"{tag} rank {r}: grad_norm "
-                                    f"{rec['grad_norm']}")
-            worst = min(cos.values()) if cos else float("nan")
-            log(f"{tag} world {world} vs 1 card: loss {parts[0][tag]['loss']!r}"
-                f" vs {ref['loss']!r}, grad_norm {parts[0][tag]['grad_norm']!r}"
-                f" vs {ref['grad_norm']!r}, gradient cosine min {worst:.6f} "
-                f"over {len(cos)} of {len(ref['grads'])} tensors")
-            if len(cos) != len(ref["grads"]) or not worst >= FSDP_WORLD_COS_TOL:
-                problems.append(f"{tag}: cosines {worst} over {len(cos)}")
-    log(f"ring / pipe world reference (1 card): {ref['s']:.2f} s per warm "
-        f"step, max_memory_allocated {gib(ref['peak'])}")
+        for (kind, shape), tag in zip(PP_WORLD_CONFIGS[world], parts[0]):
+            ref = refs[_pp_world_variant(model, kind, shape)]
+            problems += _pp_world_report(world, kind, tag, [p[tag] for p in
+                                                            parts], ref)
+    for variant, ref in refs.items():
+        log(f"ring / pipe world reference {variant} (1 card): {ref['s']:.2f} "
+            f"s per warm step, max_memory_allocated {gib(ref['peak'])}")
     if problems:
-        raise RuntimeError("phase 15 --world: " + "; ".join(problems))
+        raise RuntimeError(f"phase {15 if model == 'qwen' else 17} --world: "
+                           + "; ".join(problems))
 
 
 # -- phase 16: the ViTs' ring on K1 / K1-bwd at head_dim 80, experts placed
@@ -6436,7 +6786,7 @@ def check_vit_ring_kernels(device="cuda") -> dict:
         work=attn_work(n, S, S, H, D, n * S * S, 2, 2, 0, 4, 1),
         library_fn=lambda: sdpa(q, k, v))
     args = (q, k, v, dout, lse, delta)
-    library = flash_bwd_yardstick(q, k, v, dout, out, lse, False, True)
+    library = flash_bwd_yardstick(q, k, v, dout, out, lse, False)
     results["K1-bwd dq d80"] = compare(
         f"K1-bwd dq [head_dim 80 from given statistics {name}]",
         lambda: fa.flash_attention_bwd_dq_from_stats(*args),
@@ -6492,17 +6842,19 @@ def check_vit_ring_kernels(device="cuda") -> dict:
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     name = f"Aria's tower (1, {S}, {H}, {D}), {live} live keys"
     own = (q, k, v, out, lse, dout)
+    library = efficient_bwd_yardstick(
+        q, k, v, dout, out, lse, mask[:, None, None].expand(1, 1, S, S))
     results["K1-bwd dq d72"] = compare(
         f"K1-bwd dq [head_dim 72, {name}]",
         lambda: fa.flash_attention_bwd_dq(*own, **kw),
         lambda: fa.attention_bwd_reference(q, k, v, dout, **kw)[0],
-        rel_norm=True,
+        rel_norm=True, library_fn=library,
         work=attn_work(1, S, S, H, D, S * live, 4, 2, 0, 6, 1, live))
     results["K1-bwd dkv d72"] = compare(
         f"K1-bwd dk/dv [head_dim 72, {name}]",
         lambda: fa.flash_attention_bwd_dkv(*own, **kw),
         lambda: fa.attention_bwd_reference(q, k, v, dout, **kw)[1:],
-        rel_norm=True,
+        rel_norm=True, library_fn=library,
         work=attn_work(1, S, S, H, D, S * live, 3, 2, 2, 8, 1, live))
     sargs = (q, k, v, dout, lse, fa._delta(out, dout))
     compare(f"K1-bwd dq [head_dim 72 from given statistics, {name}]",
@@ -6515,7 +6867,7 @@ def check_vit_ring_kernels(device="cuda") -> dict:
             lambda: fa.attention_bwd_from_stats(*sargs, **kw)[1:],
             rel_norm=True,
             work=attn_work(1, S, S, H, D, S * live, 2, 2, 2, 8, 2, live))
-    del q, k, v, dout, out, lse, own, sargs
+    del q, k, v, dout, out, lse, own, sargs, library
     gc.collect()
     torch.cuda.empty_cache()
     return results
@@ -7082,7 +7434,8 @@ def main(argv=None):
     `--phases 13 --world N[,M]` phase 13's (tp_world_phase), `--phases 14
     --world N[,M]` phase 14's (aria_world_phase), `--phases 15 --world
     N[,M]` phase 15's (ring_pipe_world_phase), `--phases 16 --world 2[,4]`
-    phase 16's (phase16_world)."""
+    phase 16's (phase16_world), `--phases 17 --world N[,M]` phase 17's
+    (ring_pipe_world_phase for Aria)."""
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] in (["--cli-step"], ["--cli-serve"]):
         return cli_main(argv[0], argv[1:])
@@ -7098,9 +7451,9 @@ def main(argv=None):
                              f"without 5; known: {PHASES}")
         if len(argv) == 4:
             if argv[2] != "--world" or phases not in (
-                    ("12",), ("13",), ("14",), ("15",), ("16",)):
+                    ("12",), ("13",), ("14",), ("15",), ("16",), ("17",)):
                 raise SystemExit(usage + " (--world with --phases 12, 13, "
-                                 "14, 15 or 16 only)")
+                                 "14, 15, 16 or 17 only)")
             world = [int(w) for w in argv[3].split(",")]
             if phases == ("12",) and len(world) != 1:
                 raise SystemExit("--phases 12 takes one --world")
@@ -7126,6 +7479,8 @@ def main(argv=None):
             aria_world_phase(world)
         elif phases == ("15",):
             ring_pipe_world_phase(world)
+        elif phases == ("17",):
+            ring_pipe_world_phase(world, model="aria")
         else:
             phase16_world(world)
         log(f"development run of phase {phases[0]} at world {world}: no "
@@ -7142,6 +7497,9 @@ def main(argv=None):
         check_aria_tp_kernels()
     if "3f" in phases:
         check_ring_kernels()
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_ring_kernels(heads=RING_ARIA_HEADS, tag=" (Aria LM heads)")
         gc.collect()
         torch.cuda.empty_cache()
     if "16" in phases:
@@ -7207,6 +7565,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "16" in phases:
         paths.update(vit_ring_phase())
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "17" in phases:
+        paths.update(aria_ring_pipe_phase())
     counts = {k: sum(c.get(k, 0) for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     log(phase_seconds_line(seconds, time.perf_counter() - t_main))

@@ -62,9 +62,15 @@ def load_tokenizer(path: str):
 
 def setup_distributed(args: ModelArgs):
     """--multihost true: join torchrun's process group (one process per
-    device; parallel/multihost.initialize), which must exist."""
+    device; parallel/multihost.initialize), which must exist, and leave it
+    when the process exits (multihost.shutdown, before the interpreter
+    tears down: a gloo group left to the interpreter's teardown can abort a
+    process whose work is done, "terminate called without an active
+    exception")."""
     if not args.multihost:
         return
+    import atexit
+
     from spacer_tpu_torch.parallel import multihost
 
     if "WORLD_SIZE" not in os.environ:
@@ -72,6 +78,7 @@ def setup_distributed(args: ModelArgs):
                            "WORLD_SIZE and MASTER_ADDR / MASTER_PORT "
                            "environment was not found)")
     multihost.initialize(device=args.device)
+    atexit.register(multihost.shutdown)
 
 
 def serving_params(params, mesh):

@@ -1,15 +1,18 @@
 """SG-RLVR training entry point (counterpart of
-spacer_tpu/cli/train_sg_rlvr.py, single process, one device).
+spacer_tpu/cli/train_sg_rlvr.py).
 
-Example (random tiny weights; checkpoint loading is not ported yet):
+Example (random tiny weights; `--model_name_or_path DIR` loads an HF
+checkpoint instead, cli/common.py):
     python -m spacer_tpu_torch.cli.train_sg_rlvr --random_init true \\
         --dataset_name SpaceR-151k.jsonl \\
         --cognitive_map_path annotation/cognitive_map.jsonl \\
         --output_dir output/sg_rlvr
 
 Runs on the card (`--device cuda`, the default) unless given
-`--device cpu`.  Rollouts decode at `--decode_quant`, by default the
-trainer's "int8_kv"; `none` (or "") gives bf16 rollouts.
+`--device cpu`; under torchrun with `--multihost true` over a (data,
+fsdp, tp) mesh of the world (`--tp`, `--fsdp`; cli/common.py).  Rollouts
+decode at `--decode_quant`, by default the trainer's "int8_kv"; `none`
+(or "") gives bf16 rollouts.
 """
 
 from __future__ import annotations

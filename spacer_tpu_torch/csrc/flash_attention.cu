@@ -13,9 +13,11 @@
 // TPU wrapper folds it into segment ids (0 = masked key, segment + 1
 // otherwise); a key is visible to a query iff the codes are equal and the
 // causal rule holds.  Masked scores take -1e30, so a row whose keys are all
-// masked stays finite (the mean of V over the keys it walks, or 0 where the
-// key-tile skip below leaves it none).  P is rounded
-// to bf16 before P.V, as the TPU kernel does.
+// masked stays finite; given `v_mean` ((B, Hkv, D) f32, the mean of V over
+// every key, which the wrapper computes), such a row writes it, the plain
+// version's value, whichever key tiles it walked (without, the mean of V
+// over the keys it walks, or 0 where the key-tile skip below leaves it
+// none).  P is rounded to bf16 before P.V, as the TPU kernel does.
 //
 // What bounds it on the H100: tensor-core operations.  At the serving
 // prefill (P = 1024, D = 128) a key tile of 64 is reused by 128 query rows
@@ -92,8 +94,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tv16, bf16* __restrict__ out,
                  float* __restrict__ lse, const uint8_t* __restrict__ kv_valid,
                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-                 int Sq, int Skv, int Hq, int Hkv, int causal, int q_offset,
-                 float scale_log2) {
+                 const float* __restrict__ v_mean, int Sq, int Skv, int Hq,
+                 int Hkv, int causal, int q_offset, float scale_log2) {
   using namespace sm90;
   using SmemD = Smem<D>;
   constexpr int DP = SmemD::DP;
@@ -118,7 +120,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   // A key tile whose walked keys all have kv_valid == 0 is skipped: every
   // row sees none of them, so for a row with any visible key they weigh
   // exactly 0 (2^(-1e30 - m) = 0); a row that sees no key at all comes out
-  // finite either way (0 if every tile is skipped).
+  // finite either way (0 if every tile is skipped), and v_mean where given.
   const bool skip_dead = kv_valid != nullptr;
   if (skip_dead) {
     for (int t = threadIdx.x; t < min(n_kt, MAX_TILES); t += NTHREADS) live[t] = 0;
@@ -296,16 +298,23 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = q0 + r_lo + 8 * j;
     if (row >= Sq) continue;
     bf16* orow = out + (((long)b * Sq + row) * Hq + h) * D + (lane % 4) * 2;
+    // a row that saw no visible key (m still the mask value): V's mean
+    const float* mrow = v_mean != nullptr && m[j] == MASK2
+                            ? v_mean + ((long)b * Hkv + hk) * D + (lane % 4) * 2
+                            : nullptr;
 #pragma unroll
     for (int n8 = 0; n8 < NO / 4; ++n8)
       *reinterpret_cast<uint32_t*>(orow + n8 * 8) =
-          pack_bf16(o[4 * n8 + 2 * j] * inv, o[4 * n8 + 2 * j + 1] * inv);
+          mrow ? pack_bf16(mrow[n8 * 8], mrow[n8 * 8 + 1])
+               : pack_bf16(o[4 * n8 + 2 * j] * inv, o[4 * n8 + 2 * j + 1] * inv);
     if constexpr (D != 128)   // columns 64-71
       *reinterpret_cast<uint32_t*>(orow + 64) =
-          pack_bf16(o16[2 * j] * inv, o16[2 * j + 1] * inv);
+          mrow ? pack_bf16(mrow[64], mrow[65])
+               : pack_bf16(o16[2 * j] * inv, o16[2 * j + 1] * inv);
     if constexpr (D == 80)    // columns 72-79 (at D = 72 the tile's zeros)
       *reinterpret_cast<uint32_t*>(orow + 72) =
-          pack_bf16(o16[4 + 2 * j] * inv, o16[4 + 2 * j + 1] * inv);
+          mrow ? pack_bf16(mrow[72], mrow[73])
+               : pack_bf16(o16[4 + 2 * j] * inv, o16[4 + 2 * j + 1] * inv);
     if (lane % 4 == 0) lse[((long)b * Hq + h) * Sq + row] = m[j] * LN2 + logf(l_safe);
   }
 }
@@ -313,9 +322,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 template <int D>
 static cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                           void* lse, const void* kv_valid, const void* q_seg,
-                          const void* kv_seg, int B, int Sq, int Skv, int Hq,
-                          int Hkv, int causal, int q_offset, float scale,
-                          cudaStream_t stream) {
+                          const void* kv_seg, const void* v_mean, int B, int Sq,
+                          int Skv, int Hq, int Hkv, int causal, int q_offset,
+                          float scale, cudaStream_t stream) {
   // D = 128: 64-column boxes only (the 16-column maps are unused copies);
   // D = 80 and 72: columns 0-63 and 64-79 (at 72, columns 72-79 are past the
   // head: zeros)
@@ -337,8 +346,8 @@ static cudaError_t launch(const void* q, const void* k, const void* v, void* out
   dim3 grid(Hq, B, (Sq + BM - 1) / BM);
   flash_fwd_kernel<D><<<grid, NTHREADS, Smem<D>::alloc, stream>>>(
       tq, tq16, tk, tk16, tv, tv16, (bf16*)out, (float*)lse, (const uint8_t*)kv_valid,
-      (const int*)q_seg, (const int*)kv_seg, Sq, Skv, Hq, Hkv, causal, q_offset,
-      scale * LOG2E);
+      (const int*)q_seg, (const int*)kv_seg, (const float*)v_mean, Sq, Skv, Hq, Hkv,
+      causal, q_offset, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -347,22 +356,22 @@ static cudaError_t launch(const void* q, const void* k, const void* v, void* out
 
 extern "C" int spacer_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
-    const void* kv_valid, const void* q_seg, const void* kv_seg, int B, int Sq,
-    int Skv, int Hq, int Hkv, int D, int causal, int q_offset, float scale,
-    void* stream) {
+    const void* kv_valid, const void* q_seg, const void* kv_seg,
+    const void* v_mean, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+    int causal, int q_offset, float scale, void* stream) {
   if (Sq <= 0 || Skv <= 0) return (int)cudaErrorInvalidValue;
   if (D == 128)
-    return spacer::k1fwd::launch<128>(q, k, v, out, lse, kv_valid, q_seg, kv_seg, B,
-                                      Sq, Skv, Hq, Hkv, causal, q_offset, scale,
-                                      (cudaStream_t)stream);
+    return spacer::k1fwd::launch<128>(q, k, v, out, lse, kv_valid, q_seg, kv_seg,
+                                      v_mean, B, Sq, Skv, Hq, Hkv, causal, q_offset,
+                                      scale, (cudaStream_t)stream);
   if (D == 80)
-    return spacer::k1fwd::launch<80>(q, k, v, out, lse, kv_valid, q_seg, kv_seg, B,
-                                     Sq, Skv, Hq, Hkv, causal, q_offset, scale,
-                                     (cudaStream_t)stream);
+    return spacer::k1fwd::launch<80>(q, k, v, out, lse, kv_valid, q_seg, kv_seg,
+                                     v_mean, B, Sq, Skv, Hq, Hkv, causal, q_offset,
+                                     scale, (cudaStream_t)stream);
   if (D == 72)
-    return spacer::k1fwd::launch<72>(q, k, v, out, lse, kv_valid, q_seg, kv_seg, B,
-                                     Sq, Skv, Hq, Hkv, causal, q_offset, scale,
-                                     (cudaStream_t)stream);
+    return spacer::k1fwd::launch<72>(q, k, v, out, lse, kv_valid, q_seg, kv_seg,
+                                     v_mean, B, Sq, Skv, Hq, Hkv, causal, q_offset,
+                                     scale, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,7 @@
 """Eval orchestrator (SpaceR-Eval/evaluate.py equivalent with a real config
 system instead of __main__ literals; counterpart of
-spacer_tpu/evalharness/runner.py, which it copies but for the refusal of
-speculative decoding, not ported)."""
+spacer_tpu/evalharness/runner.py, which it copies but for the lockstep
+run over a process group that splits the model, in `run_benchmark`)."""
 
 from __future__ import annotations
 

@@ -212,16 +212,15 @@ def lm_head(params, cfg: TextConfig, h):
     return tp.gather_from_tp(local_logits(params, cfg, h))
 
 
-def check_attn_impl(attn_impl, cfg: TextConfig):
-    """Validate an attn_impl (None or ("ring", mesh, axis)); the MoE's
-    expert-parallel row layout (moe_impl "ep") has no meaning on a
-    sequence shard, so it refuses the ring (NotImplementedError)."""
+def check_attn_impl(attn_impl):
+    """Validate an attn_impl: None or ("ring", mesh, axis) (ValueError).
+    Under the ring only self-attention is sequence-parallel: its output is
+    all-gathered, so the MLP, the MoE of moe_impl "ep" included, runs on
+    the whole batch on every rank, its capacity over every token, as in
+    JAX's global program."""
     from spacer_tpu_torch.nn.attention import ring_impl
 
-    if ring_impl(attn_impl) is not None and getattr(cfg, "moe_impl",
-                                                    None) == "ep":
-        raise NotImplementedError("moe_impl='ep' under ring attention is "
-                                  "not ported (ROADMAP queue C)")
+    ring_impl(attn_impl)
 
 
 def check_remat(remat):
@@ -316,7 +315,7 @@ def lm_forward(params: Params, cfg: TextConfig, *,
     `attn_impl` ("ring", mesh, axis) runs the self-attention as ring
     attention over that axis where it applies (see the module docstring)."""
     remat = check_remat(remat)
-    check_attn_impl(attn_impl, cfg)
+    check_attn_impl(attn_impl)
     # fsdp Shards are gathered where used: the layers one at a time, inside
     # each (checkpointed) layer
     params = gather(params, keep=("layers",))

@@ -32,9 +32,9 @@ F = ctypes.c_float
 
 # C entry points: name -> argtypes.  Each returns cudaGetLastError().
 SIGNATURES = {
-    # q, k, v, out, lse, kv_valid, q_seg, kv_seg,
+    # q, k, v, out, lse, kv_valid, q_seg, kv_seg, v_mean,
     # B, Sq, Skv, Hq, Hkv, D, causal, q_offset, scale, stream
-    "spacer_flash_attention_fwd": [P] * 8 + [I] * 8 + [F, P],
+    "spacer_flash_attention_fwd": [P] * 9 + [I] * 8 + [F, P],
     # q, k, v, bias, out, H, S, D, wt, scale, stream
     "spacer_window_attention_hsd": [P] * 5 + [I] * 4 + [F, P],
     # q, k, v, out, H, S, D, wt, scale, stream

@@ -39,6 +39,13 @@ each GQA group's q heads over `dkv_splits` CTAs when one CTA per (key tile,
 kv head) would leave the card idle, and sums their f32 partials in a fixed
 order.
 
+A row that sees no key (a left pad, under a kv_mask or segment ids) is the
+mean of V over every key, as the plain version gives it (its finite mask)
+and JAX does: the kernel writes the mean the wrapper computes, and the
+autograd backward adds its gradient to dv (`no_key_dv`).  Pads reach live
+rows through a capacity MoE (they route and take capacity) and through
+SFT's last pad position, which predicts the first real token.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  Each wrapper counts its kernel launches in `.launches`, and
 per head_dim in `.by_head_dim` ({D: launches}, the same launches counted
@@ -51,7 +58,7 @@ from collections import Counter
 
 import torch
 
-from spacer_tpu_torch.nn.attention import visible, xla_attention
+from spacer_tpu_torch.nn.attention import NEG_INF, visible, xla_attention
 from spacer_tpu_torch.ops import _build
 
 # head dims of the forward and both backward kernels
@@ -122,9 +129,12 @@ def _launch_fwd(q, k, v, masks, causal, q_offset, scale):
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # with a mask (only then can a row see no key) such rows write V's mean
+    v_mean = (v.mean(dim=1, dtype=torch.float32)
+              if any(m is not None for m in masks) else None)
     p = _build.ptr
     err = _build.kernels().spacer_flash_attention_fwd(
-        p(q), p(k), p(v), p(out), p(lse), *(p(m) for m in masks),
+        p(q), p(k), p(v), p(out), p(lse), *(p(m) for m in masks), p(v_mean),
         B, Sq, Skv, Hq, Hkv, D, int(bool(causal)), q_offset, float(scale),
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
@@ -133,13 +143,41 @@ def _launch_fwd(q, k, v, masks, causal, q_offset, scale):
     return out, lse
 
 
+def no_key_rows(out, lse, v_mean):
+    """`out` (B, Sq, Hq, D) with its rows that saw no key (LSE at NEG_INF)
+    set to `v_mean` (B, Hkv, D) f32, the mean of V over every key of their
+    kv head: the plain version's value for such a row (xla_attention's
+    finite mask; JAX's), which the kernel writes itself (given V's mean);
+    ring attention sets a merge's rows with it."""
+    # the mask in out's (B, Sq, Hq) layout, so the result keeps out's
+    # contiguous layout
+    dead = (lse <= NEG_INF / 2).transpose(1, 2).contiguous()[..., None]
+    mean = v_mean.repeat_interleave(out.shape[2] // v_mean.shape[1], dim=1)
+    return torch.where(dead, mean[:, None].to(out.dtype), out)
+
+
+def no_key_dv(dout, lse, hkv: int, skv: int):
+    """The gradient of the rows that saw no key (V's mean, see no_key_rows)
+    in each key's dv: their dout summed over each kv head's q heads, / skv
+    -> (B, 1, Hkv, D) f32, the same for every key.  (Such a row's P is 0
+    in the backward kernels, which see no visible key for it.)"""
+    B, _, H, D = dout.shape
+    dead = (lse <= NEG_INF / 2).transpose(1, 2)[..., None]
+    return (torch.where(dead, dout, 0).sum(dim=1, dtype=torch.float32)
+            .view(B, hkv, H // hkv, D).sum(dim=2)[:, None] / skv)
+
+
 class _FlashAttentionFn(torch.autograd.Function):
-    """K1 forward kernel; backward = the dq and dk/dv kernels."""
+    """K1 forward kernel; backward = the dq and dk/dv kernels.  With a mask
+    (kv_mask or segment ids: only then can a row see no key) the rows that
+    see none are V's mean (the kernel writes it), whose gradient joins
+    dv."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, q_seg, kv_seg, causal, q_offset, scale):
         masks = (valid, q_seg, kv_seg)
         out, lse = _launch_fwd(q, k, v, masks, causal, q_offset, scale)
+        ctx.masked = valid is not None or q_seg is not None
         ctx.save_for_backward(q, k, v, out, lse, *masks)
         ctx.kw = dict(causal=causal, q_offset=q_offset, scale=scale)
         ctx.mark_non_differentiable(lse)
@@ -152,6 +190,9 @@ class _FlashAttentionFn(torch.autograd.Function):
         delta = _delta(out, dout)
         dq = _launch_dq(q, k, v, dout, lse, delta, masks, **ctx.kw)
         dk, dv = _launch_dkv(q, k, v, dout, lse, delta, masks, **ctx.kw)
+        if ctx.masked:
+            dv = (dv.float() + no_key_dv(dout, lse, k.shape[2], k.shape[1])
+                  ).to(dv.dtype)
         return dq, dk, dv, None, None, None, None, None, None
 
 

@@ -22,9 +22,13 @@ calls would drop the merge weights' gradient on the card.
 
 A row that sees no key in a block has LSE -1e30 there (K1's epilogue; the
 plain version's logsumexp over -1e30 logits); the merge subtracts the
-larger LSE before exp, so such a block weighs exactly 0 beside a live one,
-and a row that sees no key anywhere comes out finite (not JAX's mean of V:
-those rows are unspecified, ROADMAP queue C).
+larger LSE before exp, so such a block weighs exactly 0 beside a live one.
+A row that sees no key anywhere comes out as the attention over the whole
+sequence gives it: the mean of V over every key of the sequence
+(flash_attention.no_key_rows, xla_attention's value and JAX's), not the
+merge of its blocks' means, with that mean's gradient 1 / S to each key's
+dv (no_key_dv).  Such rows are pads, but a capacity MoE (moe_impl "ep")
+routes them and counts them against its capacity, so live rows read them.
 
 The per-step pieces (`block_forward`, `merge`, `block_backward`) are plain
 functions on tensors with the communication outside them, so one process
@@ -121,16 +125,22 @@ class _Ring(torch.autograd.Function):
         n = len(ranks)
         out = lse = None
         kb, vb, mb = k, v, mask
+        v_sum = 0.0
         for i in range(n):
             if i:
                 kb, vb, *rest = _rotate([kb, vb] + ([mb] if mb is not None
                                                     else []), ring)
                 mb = rest[0] if rest else None
+            if n > 1:
+                v_sum = v_sum + vb.float().sum(dim=1)
             blk = block_forward(q, kb, vb, q_index=index,
                                 k_index=(index - i) % n, causal=causal,
                                 kv_mask=mb, scale=scale)
             if blk is not None:
                 out, lse = merge(out, lse, *blk)
+        if n > 1 and mask is not None:
+            # one shard's block is the whole sequence: its own value
+            out = fa.no_key_rows(out, lse, v_sum / (n * k.shape[1]))
         out = out.to(q.dtype)
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.ring, ctx.causal, ctx.scale = ring, causal, scale
@@ -148,12 +158,17 @@ class _Ring(torch.autograd.Function):
         kb, vb, mb = k, v, mask
         dkb = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dvb = torch.zeros_like(dkb)
+        # the no-key rows' mean: their dout / S to every key of every block
+        dead_dv = (None if mask is None
+                   else fa.no_key_dv(dout, lse, k.shape[2], n * k.shape[1]))
         for i in range(n):
             if i:
                 kb, vb, dkb, dvb, *rest = _rotate(
                     [kb, vb, dkb, dvb] + ([mb] if mb is not None else []),
                     ring)
                 mb = rest[0] if rest else None
+            if dead_dv is not None:
+                dvb += dead_dv
             g = block_backward(q, kb, vb, dout, lse, delta, q_index=index,
                                k_index=(index - i) % n, causal=causal,
                                kv_mask=mb, scale=scale)

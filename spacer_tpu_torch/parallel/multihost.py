@@ -355,6 +355,14 @@ def local_store():
                             wait_for_workers=False)
 
 
+def shutdown() -> None:
+    """Destroy this process's process group, if it has one (idempotent;
+    local, no collective)."""
+    dist = _dist()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def store_env(store, rank: int, world: int) -> dict:
     """torchrun's environment for rank `rank` of `world` whose rendezvous
     is the caller's `store` (local_store): every rank, rank 0 included,

@@ -29,9 +29,15 @@ stage, as do the final norm and head, which every stage computes alike.
 (pipe, data) rank runs its rows of every microbatch, the output is
 all-gathered over data ("pp_all_gather") into the global batch, and the
 backward sums the layer gradients and the input gradient over data.  The
-pipe composes with data only (mesh.py refuses fsdp or tp > 1 beside it),
-and the MoE's expert-parallel row layout (moe_impl "ep") has no meaning
-per microbatch, so it raises NotImplementedError.
+pipe composes with data only (mesh.py refuses fsdp or tp > 1 beside it).
+
+The MoE under moe_impl "ep" (Aria) runs as JAX's stage body runs it: each
+call takes its capacity over the tokens it is given, this (pipe, data)
+rank's rows of one microbatch (JAX's P(None, batch_axis) slice of the
+(M, mb, ...) microbatches), with the experts whole on every stage (the
+params are unsharded), so no enclosing parallel/expert.rows layout is
+read.  A recomputed layer (remat, the backward) sees the same tokens and
+drops the same assignments.
 """
 
 from __future__ import annotations
@@ -315,9 +321,6 @@ def pipeline_lm_forward(params, cfg, mesh, *, axis: str = "pipe",
                          "(shard_layers_for_pipeline, not shard_params)")
     if not causal:
         raise ValueError("the port's LM is causal only")
-    if getattr(cfg, "moe_impl", None) == "ep":
-        raise NotImplementedError("moe_impl='ep' under the pipeline is not "
-                                  "ported (ROADMAP queue C)")
     if input_embeds is None:
         input_embeds = embed(params["embed_tokens"], input_ids)
     B, T, _ = input_embeds.shape

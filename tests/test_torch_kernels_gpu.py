@@ -108,24 +108,32 @@ def test_flash_attention_kernel_segments(dev):
 
 
 def test_flash_attention_fully_masked_rows(dev):
-    """Query rows that see no key (row 1's left padding).  The kernel skips
-    the key tiles whose keys are all padding, so a row comes out exactly 0
-    where its CTA walks no other tile, and the mean of V over the keys it
-    walks otherwise.  The plain version gives the mean of V over all keys;
-    no live row reads these rows (their keys are masked downstream and
-    their output gradient is 0)."""
+    """Query rows that see no key (row 1's left padding) come out as the
+    plain version's, the mean of V over every key, with an LSE at -1e30,
+    however their key tiles fall: queries 0-127 walk only padded tiles
+    (skipped), queries 128 and 129 walk the tile of keys 128-255, which
+    holds live keys for later rows.  (Ring attention's blocks tile the keys
+    otherwise than one call over the sequence, and a capacity MoE and SFT's
+    last pad position read these rows.)  The mean's gradient reaches every
+    key's dv as the plain version's does."""
     B, S, H, Hkv, D, pad = 2, 256, 14, 2, 128, 130
     q, k, v = _randn(dev, B, S, H, D), _randn(dev, B, S, Hkv, D), \
         _randn(dev, B, S, Hkv, D)
     mask = _padded_mask(dev, B, S, pad, 0)
     out, lse = flash_attention(q, k, v, causal=True, kv_mask=mask,
                                return_lse=True)
+    ref = xla_attention(q, k, v, causal=True, kv_mask=mask)
     assert torch.isfinite(lse).all()
-    # queries 0-127 (one q tile) walk keys 0-127: all padding, all skipped
-    assert not out[1, :128].any()
-    # queries 128, 129 walk the key tiles of keys 128-255 (two padded keys)
-    walked = v[1, 128:].float().mean(0).repeat_interleave(H // Hkv, dim=0)
-    _close(out[1, 128:pad], walked.expand(pad - 128, H, D))
+    assert bool((lse[1, :, :pad] <= -1e29).all())
+    _close(out[1, :pad], ref[1, :pad])
+    dout = torch.zeros_like(q)
+    dout[1, :pad] = _randn(dev, 1, pad, H, D, seed=7)[0]
+    vg = v.clone().requires_grad_(True)
+    got = torch.autograd.grad(flash_attention(q, k, vg, causal=True,
+                                              kv_mask=mask), vg, dout)[0]
+    want = fa.attention_bwd_reference(q, k, v, dout, causal=True,
+                                      kv_mask=mask)[2]
+    _close_norm(got, want)
 
 
 # K1 at head_dim 72 (the Aria tower and projector, non-causal, a patch mask
@@ -833,7 +841,9 @@ def test_lm_backward_on_the_card_reaches_qkv_projections(dev):
     grads = proj_grads()
     assert fa.flash_attention_bwd_dq.launches > before
     saved = lang.dot_product_attention
-    lang.dot_product_attention = xla_attention
+    # the plain attention in the layer's place (it takes no attn_impl)
+    lang.dot_product_attention = (
+        lambda *a, impl=None, **kw: xla_attention(*a, **kw))
     try:
         ref = proj_grads()
     finally:

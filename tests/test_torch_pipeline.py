@@ -13,7 +13,7 @@ In one process: a pipe axis of 1 leaves a mesh's coordinates and groups as
 they were, pipe-major coordinates match JAX's ("pipe", "data") mesh, a
 one-stage pipeline equals lm_forward bitwise, and the refusals (layers or
 batch that do not divide, fsdp or tp beside a pipe, the shared-prefix
-schema, moe_impl "ep").  The workers import only torch, numpy and
+schema; moe_impl "ep" is taken).  The workers import only torch, numpy and
 spacer_tpu_torch.
 
 The steps run both packages' make_optimizer at learning rate 1e-3 with
@@ -498,12 +498,21 @@ def test_refusals():
     for shape in ({"pipe": 2, "fsdp": 2}, {"pipe": 2, "tp": 2}):
         with pytest.raises(ValueError, match="composes with data only"):
             Mesh(shape, 0)
+    # moe_impl "ep" is taken: a one-stage, one-microbatch pipeline of a
+    # tiny Aria is its lm_forward bitwise (the worlds and M > 1 against JAX:
+    # tests/test_torch_aria_pipeline_ring.py)
     from spacer_tpu_torch.models.aria import tiny_aria_config
+    from spacer_tpu_torch.models.aria import init_params as aria_params
+    from spacer_tpu_torch.models.qwen25_vl.language import lm_forward
 
-    aria = dataclasses.replace(tiny_aria_config().text, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="ep"):
-        pipeline_lm_forward(model, aria, Mesh({"pipe": 1}, 0),
-                            num_microbatches=1, input_ids=ids)
+    aria = dataclasses.replace(tiny_aria_config(), text=dataclasses.replace(
+        tiny_aria_config().text, moe_impl="ep", moe_capacity_factor=0.5))
+    amodel = aria_params(aria, seed=0)["model"]
+    with torch.no_grad():
+        got = pipeline_lm_forward(amodel, aria.text, Mesh({"pipe": 1}, 0),
+                                  num_microbatches=1, input_ids=ids)
+        assert torch.equal(got, lm_forward(amodel, aria.text, remat=True,
+                                           input_ids=ids)[0])
     mesh = Mesh({"pipe": 1}, 0)
     full = init_params(cfg, seed=0)
     step = tstep.make_grpo_train_step(cfg, make_optimizer(),

@@ -206,17 +206,52 @@ def test_impl_dispatch():
 
 
 def test_ep_refuses_the_ring():
+    """The ring no longer refuses moe_impl "ep": check_attn_impl takes the
+    ring tuple for an ep config (and still refuses a malformed one), and a
+    world-of-one ring forward of a tiny Aria at a capacity factor that
+    drops assignments is the plain forward, drops included
+    (tests/test_torch_aria_pipeline_ring.py holds the worlds against JAX)."""
     import dataclasses
 
-    from spacer_tpu_torch.models.aria import tiny_aria_config
-    from spacer_tpu_torch.models.qwen25_vl.language import check_attn_impl
+    import spacer_tpu_torch.ops.moe as moe
+    from spacer_tpu_torch.models.aria import init_params, tiny_aria_config
+    from spacer_tpu_torch.models.qwen25_vl.language import (
+        check_attn_impl,
+        lm_forward,
+    )
     from spacer_tpu_torch.parallel.mesh import Mesh
 
     cfg = tiny_aria_config()
+    text = dataclasses.replace(cfg.text, moe_impl="ep",
+                               moe_capacity_factor=0.5)
     impl = ("ring", Mesh({"fsdp": 1}, 0), "fsdp")
-    check_attn_impl(impl, cfg.text)
-    with pytest.raises(NotImplementedError, match="ep"):
-        check_attn_impl(impl, dataclasses.replace(cfg.text, moe_impl="ep"))
+    check_attn_impl(impl)
+    with pytest.raises(ValueError, match="attn_impl"):
+        check_attn_impl(("ring", impl[1]))
+    model = init_params(dataclasses.replace(cfg, text=text), seed=0)["model"]
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        10, text.vocab_size, size=(2, 16)))
+    mask = torch.ones(2, 16, dtype=torch.bool)
+    mask[0, :3] = False
+    saved, drops = moe.kept_expert_ffn, []
+
+    def counted(fc1, fc2, xt, code, keep, *a):
+        drops.append(int((~keep).sum()))
+        return saved(fc1, fc2, xt, code, keep, *a)
+
+    moe.kept_expert_ffn = counted
+    try:
+        with torch.no_grad():
+            want = lm_forward(model, text, input_ids=ids, kv_mask=mask)[0]
+            got = lm_forward(model, text, input_ids=ids, kv_mask=mask,
+                             attn_impl=impl)[0]
+    finally:
+        moe.kept_expert_ffn = saved
+    n = text.num_layers
+    assert len(drops) == 2 * n and sum(drops) > 0
+    assert drops[:n] == drops[n:]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-5)
 
 
 # -- gloo worlds of 2 and 4 ----------------------------------------------------
