@@ -181,6 +181,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      --world 2,4` runs the ring over 2 and 4 cards and the pipeline over 2
      and 4 stages and pipe 2 x data 2 at ARIA_PP_WORLD_LAYERS layers
      against one card running the same tokens through every MoE call.
+  18. the entry points the port gained last: (a) models.qwen25_vl.forward
+     at full Qwen2.5-VL-7B geometry, a video and a text prompt prefilled
+     into make_kv_cache (bitwise encode_vision + merge_vision_embeds +
+     lm_forward) and API_DECODE_STEPS greedy cached steps (cosine >=
+     SLICE_COS_TOL against a no-cache forward at API_CHECK_STEPS; K1, K3,
+     K4); then at 7B widths with the LM cut to PP_LM_LAYERS, at world 1
+     over NCCL: K1 and K1-bwd at causal=0 against their plain versions
+     and SDPA; (b) lm_forward(causal=False) forward and backward, kernels
+     against plain attention (logits and every gradient at cosine >=
+     GRAD_COS_TOL), and through the pipeline at pipe 1 bitwise; (c)
+     lm_decode_step bitwise lm_decode_step_split, bf16 and int8 caches (K2,
+     K2-int8); (d) window_attention on K3 against its plain version,
+     forward and gradients; (e) save_model_only -> load_model_only
+     bitwise, GB/s; (f) the LoRA GRPO step with the ring attn_impl
+     bitwise the plain LoRA step.
 Phase 3 also checks the kernels at the Aria path's shapes (3c: K1 at
 head_dim 72, K1 / K1-bwd / K2 / K2-int8 / K5 / K5-int8 at group 1), 3d at
 the shapes one rank of a tp-2 or tp-4 Qwen2.5-VL-7B runs (14 / 7 query
@@ -191,7 +206,7 @@ K1 and K1-bwd as ring attention calls them (blocks of an 8192-token row
 over 4 emulated shards, the backward with the merged LSE and delta), at
 Qwen2.5-VL-7B's heads and at Aria's LM heads (20 and 20 of 128).
 The line before the last is a JSON object describing the kernels (launches
-summed over the paths of phases 4-5c and 7-17, each counted from 0 just
+summed over the paths of phases 4-5c and 7-18, each counted from 0 just
 before it runs; the head_dim 80 / 72 instantiations of K1 and K1-bwd also
 apart, their launches inside their kernel's); the last line is {"ok":
 true, "device": {...}}.
@@ -204,6 +219,7 @@ true, "device": {...}}.
     python3 chip_smoke.py --phases 16 --world 2,4   # ep over data, split
                                                     # speculation, ViT ring
     python3 chip_smoke.py --phases 17 --world 2,4   # Aria ep: ring / pipe
+    python3 chip_smoke.py --phases 18        # the last entry points alone
     python3 chip_smoke.py --phases 4c,4d     # a development run of some
 """
 
@@ -326,7 +342,7 @@ LVB_METRICS = {"overall_accuracy", "all_duration_tasks",
                "perception_task_accuracy", "relation_task_accuracy"}
 # The phases in the order they run (main's --phases selects some of them)
 PHASES = ("3", "3d", "3e", "3f", "4", "4c", "4d", "5", "5c", "6", "7", "8",
-          "9", "10", "11", "12", "13", "14", "15", "16", "17")
+          "9", "10", "11", "12", "13", "14", "15", "16", "17", "18")
 # Phase 4c, the HTTP server: HTTP_VIDEOS video requests over mp4 files of
 # HTTP_VIDEO_SECONDS at HTTP_VIDEO_FPS (16 frames sampled at 2 fps, grid
 # (8, 16, 30) as phase 4's) and as many text requests, through HTTP_SLOTS
@@ -442,7 +458,8 @@ PHASE_FUNCTIONS = (
     "train_slice", "checkpoint_phase", "eval_slice", "full_train_slice",
     "lora_phase", "sft_phase", "qwen2_vl_phase", "aria_serve_phase",
     "aria_train_phase", "fsdp_phase", "tp_phase", "aria_ep_phase",
-    "ring_pipe_phase", "vit_ring_phase", "aria_ring_pipe_phase")
+    "ring_pipe_phase", "vit_ring_phase", "aria_ring_pipe_phase",
+    "api_phase")
 
 
 def time_phases(namespace: dict) -> dict:
@@ -7409,6 +7426,580 @@ def vit_world_gate(world, parts, vref) -> list:
     return []
 
 
+# Phase 18, the entry points the port gained last.  (a) forward and
+# make_kv_cache at full Qwen2.5-VL-7B geometry: serving_setup's first video
+# and first text request, API_DECODE_STEPS greedy steps, the cached steps
+# held against a no-cache forward at API_CHECK_STEPS.  (b) - (f) at
+# Qwen2.5-VL-7B widths with the LM cut to PP_LM_LAYERS: the non-causal LM
+# on API_ROWS rows of API_SEQ tokens, API_PAD pad keys in the second;
+# lm_decode_step at TRAIN_G completions of API_ROWS prompts of
+# TRAIN_PROMPT_BUCKET keys; window_attention at API_WINDOW_SHAPE, every
+# third window API_WINDOW_LIVE tokens; load_model_only at phase 6's
+# CKPT_LM_LAYERS; the LoRA step on phase 15's packed rows.
+API_DECODE_STEPS, API_CHECK_STEPS = 32, (1, 16, 32)
+API_ROWS, API_SEQ, API_PAD = 2, 1536, 300
+API_DECODE_TAIL, API_DECODE_INDEX = 64, 40
+API_WINDOW_SHAPE, API_WINDOW_WT, API_WINDOW_LIVE = (4096, 16, 80), 64, 40
+API_FORWARD_KERNELS = ("K1", "K3", "K4")
+API_NONCAUSAL_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv")
+API_DECODE_KERNELS = ("K2", "K2-int8")
+API_LORA_KERNELS = ("K1", "K1-bwd dq", "K1-bwd dkv")
+
+
+def _cos_rows(a, b) -> float:
+    """The least cosine over the rows (last dim) of two logits tensors."""
+    return float(torch.nn.functional.cosine_similarity(
+        a.float(), b.float(), dim=-1).min())
+
+
+def api_forward_run(device="cuda") -> dict:
+    """Phase 18a: models.qwen25_vl.forward at full Qwen2.5-VL-7B geometry
+    (random bf16 weights, seed 0) on one 16-frame 360x640 video prompt and
+    one text prompt: a prefill into make_kv_cache(cfg, 2, P +
+    API_DECODE_STEPS) bitwise encode_vision + merge_vision_embeds +
+    lm_forward on the same inputs (logits and cache), then
+    API_DECODE_STEPS greedy steps through forward(cache=, cache_index=),
+    the last position's logits at API_CHECK_STEPS at cosine >=
+    SLICE_COS_TOL against a no-cache forward over the sequence so far.
+    K1, K3 and K4 must launch.  -> the path's launches."""
+    from spacer_tpu_torch.models.qwen25_vl import (
+        QWEN25_VL_7B,
+        encode_vision,
+        forward,
+        make_kv_cache,
+        merge_vision_embeds,
+    )
+    from spacer_tpu_torch.models.qwen25_vl.language import lm_forward
+    from spacer_tpu_torch.models.registry import encode_batch
+    from spacer_tpu_torch.nn.core import embed
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = QWEN25_VL_7B
+    params, proc, msgs = serving_setup(cfg, device)
+    req = encode_batch(proc, cfg, [msgs[0], msgs[1]])
+
+    def t(x, dtype=torch.long):
+        return torch.as_tensor(x, device=device).to(dtype)
+
+    ids, mask = t(req["input_ids"]), t(req["attention_mask"], torch.bool)
+    pos = t(req["position_ids"])
+    deltas = t(req["deltas"]).reshape(-1)
+    # in the params' dtype, as the serving path ships them
+    px = torch.as_tensor(req["vision_kwargs"]["pixel_values"],
+                         device=device).to(torch.bfloat16)
+    grid = req["grid_thw"]
+    B, P = ids.shape
+    T = P + API_DECODE_STEPS
+    kv = torch.zeros((B, T), dtype=torch.bool, device=device)
+    kv[:, :P] = mask
+    steps_ms, checked, tokens = [], {}, []
+    problems = []
+    reset_launch_counts()
+    with torch.no_grad():
+        cache = make_kv_cache(cfg, B, T, device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = forward(params, cfg, ids, pixel_values=px,
+                                grid_thw=grid, position_ids=pos,
+                                kv_mask=kv, cache=cache, cache_index=0)
+        _sync(device)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        nxt = logits[:, -1].argmax(-1)
+        for i in range(API_DECODE_STEPS):
+            at = P + i
+            kv[:, at] = True
+            p = (deltas + at).view(1, B, 1).expand(3, B, 1)
+            tokens.append(nxt)
+            _sync(device)
+            t0 = time.perf_counter()
+            lg, cache = forward(params, cfg, nxt[:, None], position_ids=p,
+                                kv_mask=kv, cache=cache, cache_index=at)
+            _sync(device)
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            if i + 1 in API_CHECK_STEPS:
+                checked[i + 1] = lg[:, -1].float()
+            nxt = lg[:, -1].argmax(-1)
+    counts = launch_counts()
+    with torch.no_grad():
+        # the same prefill as the serving path composes it
+        ve = encode_vision(params, cfg, px, grid)
+        emb = merge_vision_embeds(cfg, ids, embed(
+            params["model"]["embed_tokens"], ids), ve)
+        kv0 = torch.zeros_like(kv)
+        kv0[:, :P] = mask
+        ref, ref_cache = lm_forward(
+            params["model"], cfg.text, input_embeds=emb, position_ids=pos,
+            kv_mask=kv0, cache=make_kv_cache(cfg, B, T, device=device),
+            cache_index=0)
+        same = torch.equal(logits, ref)
+        del ref, emb, ve
+        # the prefill's keys and values: the cache positions it wrote
+        same_cache = all(torch.equal(a[:, :P], b[:, :P])
+                         for name in ("k", "v")
+                         for a, b in zip(cache[name], ref_cache[name]))
+        del ref_cache, logits
+        cos = {}
+        seq = torch.stack(tokens, dim=1)
+        for s in API_CHECK_STEPS:
+            full_ids = torch.cat([ids, seq[:, :s]], dim=1)
+            full_pos = torch.cat([pos, (deltas[:, None] + P + torch.arange(
+                s, device=device)[None]).expand(3, B, s)], dim=2)
+            full_mask = torch.cat([mask, torch.ones((B, s), dtype=torch.bool,
+                                                    device=device)], dim=1)
+            want, _ = forward(params, cfg, full_ids, pixel_values=px,
+                              grid_thw=grid, position_ids=full_pos,
+                              kv_mask=full_mask)
+            cos[s] = _cos_rows(checked[s], want[:, -1])
+            del want
+    log(f"phase 18a forward: prompt {P} tokens x {B} rows (vision grid "
+        f"{grid}), prefill {prefill_ms:.1f} ms, {API_DECODE_STEPS} cached "
+        f"steps at {statistics.median(steps_ms):.2f} ms a step (median; "
+        f"min {min(steps_ms):.2f}, max {max(steps_ms):.2f}) | prefill "
+        f"bitwise the composition: logits {same}, cache {same_cache} | "
+        f"cached step vs no-cache forward, last-position logits cosine "
+        + ", ".join(f"step {s} {c:.6f}" for s, c in cos.items())
+        + f" (tol {SLICE_COS_TOL}) | launches {counts}")
+    if not (same and same_cache):
+        problems.append("forward's prefill is not bitwise the composition")
+    if not all(c >= SLICE_COS_TOL for c in cos.values()):
+        problems.append(f"cached steps off the no-cache forward: {cos}")
+    if min(counts[k] for k in API_FORWARD_KERNELS) < 1:
+        problems.append(f"a kernel of forward's path never launched: {counts}")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise RuntimeError("phase 18a: " + "; ".join(problems))
+    return counts
+
+
+def noncausal_rows(cfg, device):
+    """API_ROWS rows of API_SEQ random tokens, the second left-padded by
+    API_PAD (ids, kv_mask, positions)."""
+    gen = torch.Generator(device=device).manual_seed(18)
+    ids = torch.randint(10, cfg.text.vocab_size, (API_ROWS, API_SEQ),
+                        generator=gen, device=device)
+    mask = torch.ones((API_ROWS, API_SEQ), dtype=torch.bool, device=device)
+    mask[1, :API_PAD] = False
+    ids[~mask] = cfg.pad_token_id
+    pos = (mask.cumsum(1) - 1).clamp_min(0)[None].expand(3, -1, -1)
+    return ids, mask, pos.contiguous()
+
+
+def check_noncausal_kernels(device="cuda") -> dict:
+    """Phase 18b's kernels: K1 and K1-bwd (dq, dk/dv) at causal=0 on the
+    LM's heads (28 q, 4 KV heads of 128) at API_ROWS x API_SEQ with
+    API_PAD pad keys in the second row, against their plain versions, with
+    torch's SDPA (the key mask as its bias) and its masked backward as the
+    library calls."""
+    from spacer_tpu_torch.nn.attention import xla_attention
+    from spacer_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(181)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    B, S, H, Hkv, D = API_ROWS, API_SEQ, 28, 4, 128
+    mask = torch.ones((B, S), dtype=torch.bool, device=device)
+    mask[1, :API_PAD] = False
+    q, k, v, dout = randn(B, S, H, D), randn(B, S, Hkv, D),         randn(B, S, Hkv, D), randn(B, S, H, D)
+    kw = dict(causal=False, kv_mask=mask)
+    keys = int(mask.sum())            # the live keys, over the rows
+    pairs = S * keys                  # every query row sees its row's keys
+    sdpa_mask = mask[:, None, None, :].expand(B, 1, S, S)
+    q_rows = B * S
+    tag = f"causal=0 B={B} S={S} pad {API_PAD}"
+    results = {"K1": compare(
+        f"K1 flash_attention [{tag}]",
+        lambda: fa.flash_attention(q, k, v, **kw),
+        lambda: xla_attention(q, k, v, **kw),
+        work=(q_rows * H * D * 2 * 2 + keys * Hkv * D * 2 * 2
+              + q_rows * H * 4, 4 * D * H * pairs),
+        library_fn=lambda: sdpa_masked(q, k, v, sdpa_mask))}
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    args = (q, k, v, out, lse, dout)
+    library = bwd_yardstick(q, k, v, dout, out, lse, False, sdpa_mask)
+    q_bytes = q_rows * (H * D * 2 + H * 4)
+    results["K1-bwd dq"] = compare(
+        f"K1-bwd dq [{tag}]", lambda: fa.flash_attention_bwd_dq(*args, **kw),
+        lambda: fa.attention_bwd_reference(q, k, v, dout, **kw)[0],
+        rel_norm=True, library_fn=library,
+        work=(q_bytes + q_rows * H * D * 2 * 3 + keys * Hkv * D * 2 * 2,
+              6 * D * H * pairs))
+    log(f"K1-bwd dk/dv [{tag}]: splits {fa.dkv_split_count(q, k)}")
+    results["K1-bwd dkv"] = compare(
+        f"K1-bwd dk/dv [{tag}]",
+        lambda: fa.flash_attention_bwd_dkv(*args, **kw),
+        lambda: fa.attention_bwd_reference(q, k, v, dout, **kw)[1:],
+        rel_norm=True, library_fn=library,
+        work=(q_bytes + q_rows * H * D * 2 * 2 + keys * Hkv * D * 2 * 4,
+              8 * D * H * pairs))
+    return results
+
+
+def api_noncausal_run(cfg, device, mesh) -> dict:
+    """Phase 18b: lm_forward(causal=False) at cfg's widths on
+    noncausal_rows, forward and backward of a loss over the live rows,
+    through the kernels and through their plain versions (logits cosine
+    per row and every gradient's cosine >= GRAD_COS_TOL), and the same
+    through pipeline_lm_forward(causal=False) over `mesh` (pipe 1, M = 1):
+    bitwise the kernel step.  -> the kernel step's launches."""
+    from spacer_tpu_torch.models.qwen25_vl.language import lm_forward
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.parallel.pipeline import pipeline_lm_forward
+    from spacer_tpu_torch.train.step import param_leaves
+
+    model = pp_model(cfg, device)["model"]
+    named = param_leaves(model)
+    leaves = [t for _, t in named]
+    for x in leaves:
+        x.requires_grad_(True)
+    ids, mask, pos = noncausal_rows(cfg, device)
+    kw = dict(input_ids=ids, position_ids=pos, kv_mask=mask, causal=False,
+              remat=True)
+
+    def run(fn):
+        logits = fn()
+        loss = logits.float()[mask].square().mean()
+        return logits.detach(), torch.autograd.grad(loss, leaves)
+
+    reset_launch_counts()
+    logits, grads = run(lambda: lm_forward(model, cfg.text, **kw)[0])
+    counts = launch_counts()
+    with plain_kernels():
+        plain, pgrads = run(lambda: lm_forward(model, cfg.text, **kw)[0])
+    lcos = _cos_rows(logits[mask], plain[mask])
+    del plain
+    gcos = {n: grad_cosine(a, b) for (n, _), a, b in zip(named, grads,
+                                                         pgrads)}
+    del pgrads
+    pipe, pp_grads = run(lambda: pipeline_lm_forward(
+        model, cfg.text, mesh, num_microbatches=1, **kw))
+    same = torch.equal(pipe, logits) and all(
+        torch.equal(a, b) for a, b in zip(grads, pp_grads))
+    worst = min(gcos, key=gcos.get)
+    log(f"phase 18b non-causal LM ({cfg.text.num_layers} layers, "
+        f"{API_ROWS} x {API_SEQ}, pad {API_PAD}), kernels vs plain "
+        f"attention: logits cosine min {lcos:.6f} over the live rows, "
+        f"gradient cosine min {gcos[worst]:.6f} ({worst}) over {len(gcos)} "
+        f"tensors (tol {GRAD_COS_TOL}) | pipeline (pipe 1, M 1) bitwise the "
+        f"kernel step: {same} | launches {counts}")
+    problems = []
+    if not (lcos >= GRAD_COS_TOL and gcos[worst] >= GRAD_COS_TOL):
+        problems.append(f"kernels vs plain: logits {lcos}, {worst} "
+                        f"{gcos[worst]}")
+    if not same:
+        problems.append("the pipeline is not bitwise the plain step")
+    if min(counts[k] for k in API_NONCAUSAL_KERNELS) < 1:
+        problems.append(f"a kernel never launched: {counts}")
+    del model, leaves, named, grads, pp_grads, pipe, logits
+    gc.collect()
+    if problems:
+        raise RuntimeError("phase 18b: " + "; ".join(problems))
+    return counts
+
+
+def api_decode_run(cfg, device) -> dict:
+    """Phase 18c: lm_decode_step over stacked position-major caches
+    against lm_decode_step_split on head-major copies of the same buffers,
+    bf16 and int8 caches (quantize_kv): logits and the new tail bitwise.
+    -> the launches of the two lm_decode_step calls."""
+    from spacer_tpu_torch.models.qwen25_vl.language import (
+        lm_decode_step,
+        lm_decode_step_split,
+    )
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.ops.flash_decode import MASK_VALUE
+    from spacer_tpu_torch.ops.quant import quantize_kv
+
+    model = pp_model(cfg, device)["model"]
+    tc = cfg.text
+    L, Hkv, Dh = tc.num_layers, tc.num_kv_heads, tc.head_dim
+    B, G, P, T, ti = API_ROWS, TRAIN_G, TRAIN_PROMPT_BUCKET,         API_DECODE_TAIL, API_DECODE_INDEX
+    N = B * G
+    gen = torch.Generator(device=device).manual_seed(182)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16)
+
+    prefix = {n: [randn(B, P, Hkv, Dh) for _ in range(L)] for n in "kv"}
+    tail = {n: [randn(N, T, Hkv, Dh) for _ in range(L)] for n in "kv"}
+    pmask = torch.ones((B, P), dtype=torch.bool, device=device)
+    pmask[1, :TRAIN_PROMPT_PAD] = False
+    tmask = (torch.arange(T, device=device) <= ti)[None].expand(N, T)
+    ids = torch.randint(10, tc.vocab_size, (N, 1), generator=gen,
+                        device=device)
+    pos = (P + ti + torch.arange(N, device=device)).view(1, N, 1).expand(
+        3, N, 1)
+    bias_p = torch.where(pmask, 0.0, MASK_VALUE)[:, None, :].float()
+
+    def quant(cache):
+        out = {"k": [], "v": [], "k_scale": [], "v_scale": []}
+        for n in "kv":
+            for x in cache[n]:
+                q, sc = quantize_kv(x)
+                out[n].append(q)
+                out[f"{n}_scale"].append(sc)
+        return out
+
+    def head_major(cache):
+        names = ("k", "v", "k_scale", "v_scale") if "k_scale" in cache \
+            else ("k", "v")
+        return [tuple(cache[n][l].transpose(1, 2).contiguous()
+                      for n in names) for l in range(L)]
+
+    counts, problems = collections.Counter(), []
+    for kind, pre, tl in (("bf16", prefix, tail),
+                          ("int8", quant(prefix), quant(tail))):
+        with torch.no_grad():
+            reset_launch_counts()
+            logits, new = lm_decode_step(model, tc, ids, pos, pre, pmask, tl,
+                                         tmask, ti, G)
+            counts.update(launch_counts())
+            tails = head_major(tl)
+            want = lm_decode_step_split(model["layers"], model, tc, ids, pos,
+                                        head_major(pre), bias_p.contiguous(),
+                                        tails, tail_index=ti, group=G,
+                                        tail_len=ti + 1)
+        same = torch.equal(logits, want) and all(
+            torch.equal(new[n][l], tails[l][i].transpose(1, 2))
+            for i, n in enumerate(new) for l in range(L))
+        log(f"phase 18c lm_decode_step [{kind}] ({L} layers, B {B}, G {G}, "
+            f"P {P}, tail index {ti}): logits and new tail bitwise "
+            f"lm_decode_step_split: {same}, finite "
+            f"{bool(torch.isfinite(logits).all())}")
+        if not same or not bool(torch.isfinite(logits).all()):
+            problems.append(f"{kind}: lm_decode_step differs from the split "
+                            "step")
+    counts = {k: counts.get(k, 0) for k in SOURCES}
+    if min(counts[k] for k in API_DECODE_KERNELS) < 1:
+        problems.append(f"a kernel never launched: {counts}")
+    del model, prefix, tail
+    gc.collect()
+    if problems:
+        raise RuntimeError("phase 18c: " + "; ".join(problems))
+    return counts
+
+
+def api_window_run(device) -> dict:
+    """Phase 18d: window_attention on K3 at API_WINDOW_SHAPE, windows of
+    API_WINDOW_WT with every third one API_WINDOW_LIVE tokens long: the
+    forward within BF16_TOL (1 + |plain|) of the plain version (K3's gate),
+    the gradients of q, k and v within GRAD_REL_TOL rel-norm of an f32
+    masked softmax over the windows (JAX's `_xla_reference` form).  K3 has
+    no backward kernel: the gradients are the plain recompute by design, so
+    that gate holds the layout and the bias, not a kernel.  -> launches."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.ops.vit_window_attention import window_attention
+
+    S, H, D = API_WINDOW_SHAPE
+    wt = API_WINDOW_WT
+    lengths = [API_WINDOW_LIVE if i % 3 == 0 else wt for i in range(S // wt)]
+    gen = torch.Generator(device=device).manual_seed(183)
+    q, k, v, w = (torch.randn((S, H, D), generator=gen, device=device).to(
+        torch.bfloat16) for _ in range(4))
+
+    def run():
+        qd, kd, vd = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = window_attention(qd, kd, vd, lengths, wt=wt)
+        grads = torch.autograd.grad((out.float() * w.float()).sum(),
+                                    (qd, kd, vd))
+        return out.detach(), grads
+
+    def f32_grads():
+        n = S // wt
+        valid = (torch.arange(wt, device=device)[None]
+                 < torch.tensor(lengths, device=device)[:, None])
+        qf, kf, vf = (x.detach().float().requires_grad_(True)
+                      for x in (q, k, v))
+        s = torch.einsum("nihd,njhd->nhij", *(x.reshape(n, wt, H, D)
+                                              for x in (qf, kf))) * D ** -0.5
+        p = torch.softmax(s.masked_fill(~valid[:, None, None], float("-inf")),
+                          dim=-1)
+        o = torch.einsum("nhij,njhd->nihd", p, vf.reshape(n, wt, H, D))
+        return torch.autograd.grad((o.reshape(S, H, D) * w.float()).sum(),
+                                   (qf, kf, vf))
+
+    reset_launch_counts()
+    out, grads = run()
+    counts = launch_counts()
+    rgrads = f32_grads()
+    with plain_kernels():
+        ref, _ = run()
+        plain_ms = median_ms(lambda: window_attention(q, k, v, lengths,
+                                                      wt=wt))
+    ms = median_ms(lambda: window_attention(q, k, v, lengths, wt=wt))
+    err = float((out.float() - ref.float()).abs().max())
+    within = bool(((out.float() - ref.float()).abs()
+                   <= BF16_TOL * (1 + ref.float().abs())).all())
+    rel = [float((a.float() - b.float()).norm() / b.float().norm())
+           for a, b in zip(grads, rgrads)]
+    log(f"phase 18d window_attention {tuple(API_WINDOW_SHAPE)} wt {wt}, "
+        f"{lengths.count(API_WINDOW_LIVE)} of {len(lengths)} windows "
+        f"{API_WINDOW_LIVE} long: forward max_abs_err {err:.3e} (tol "
+        f"{BF16_TOL:.0e} * (1 + |ref|)), gradients rel-norm to f32 "
+        f"{', '.join(f'{x:.3e}' for x in rel)} (tol {GRAD_REL_TOL:.0e}) | "
+        f"forward {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, "
+        f"the layout copies included) | launches "
+        f"{counts}")
+    if not within or max(rel) > GRAD_REL_TOL or counts["K3"] < 1:
+        raise RuntimeError(f"phase 18d: window_attention err {err}, grads "
+                           f"{rel}, launches {counts}")
+    return counts
+
+
+def api_checkpoint_run(device) -> None:
+    """Phase 18e: save_model_only then load_model_only(params_like=) at
+    Qwen2.5-VL-7B widths with the LM cut to CKPT_LM_LAYERS, under build/:
+    every tensor bitwise; save and load GB/s (the load reads files just
+    written: mostly the page cache)."""
+    import tempfile
+
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B, init_params
+    from spacer_tpu_torch.train.checkpoint import (
+        load_model_only,
+        save_model_only,
+    )
+
+    cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
+        QWEN25_VL_7B.text, num_layers=CKPT_LM_LAYERS))
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_model_only_", dir=root)
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        path = save_model_only(os.path.join(tmp, "model"), params)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_model_only(path, params_like=params)
+        _sync(device)
+        load_s = time.perf_counter() - t0
+        bad = _tree_diff(params, loaded)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 18e save_model_only / load_model_only: {n_bytes / 1e9:.3f} "
+        f"GB (LM {CKPT_LM_LAYERS} layers), save {save_s:.2f} s "
+        f"({n_bytes / save_s / 1e9:.3f} GB/s), load onto the card "
+        f"{load_s:.2f} s ({n_bytes / load_s / 1e9:.3f} GB/s; warm: the "
+        f"file was just written) | {bad} tensors differ")
+    del params, loaded
+    gc.collect()
+    if bad:
+        raise RuntimeError(f"phase 18e: {bad} tensors differ after the "
+                           "round trip")
+
+
+def api_lora_run(cfg, device, mesh) -> dict:
+    """Phase 18f: one LoRA GRPO step (make_lora_grpo_train_step, r 8, b
+    drawn nonzero so both adapters move) on phase 15's packed rows, plain
+    and with attn_impl ("ring", mesh, "fsdp") at world 1: loss, kl,
+    grad_norm and the adapters after the step bitwise.  -> the ring step's
+    launches."""
+    from spacer_tpu_torch.ops import launch_counts, reset_launch_counts
+    from spacer_tpu_torch.train.lora import (
+        LoraConfig,
+        init_lora_params,
+        lora_leaves,
+        make_lora_grpo_train_step,
+    )
+    from spacer_tpu_torch.train.optimizer import make_optimizer
+
+    base = pp_model(cfg, device)
+    batch = packed_rows(cfg, device, 1)
+    lcfg = LoraConfig(r=8)
+    runs = {}
+    for name, impl in (("plain", None), ("ring", ("ring", mesh, "fsdp"))):
+        gen = torch.Generator(device=device).manual_seed(184)
+        lora = init_lora_params(gen, base, lcfg)
+        for ab in lora.values():
+            ab["b"].normal_(0.0, 0.02, generator=gen)
+        tx = make_optimizer(learning_rate=1e-4, total_steps=10,
+                            moment_dtype="float32")
+        leaves = lora_leaves(lora)
+        state = tx.init([t for _, t in leaves], [n for n, _ in leaves])
+        step = make_lora_grpo_train_step(cfg, tx, lcfg, beta=0.04,
+                                         remat=True, attn_impl=impl)
+        reset_launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        lora, _, m = step(base, lora, state, batch, num_generations=TRAIN_G)
+        _sync(device)
+        runs[name] = dict(
+            metrics={k: float(m[k]) for k in ("loss", "kl", "grad_norm")},
+            lora=[t.detach() for _, t in lora_leaves(lora)],
+            s=time.perf_counter() - t0, counts=launch_counts())
+    plain, ring = runs["plain"], runs["ring"]
+    same = plain["metrics"] == ring["metrics"] and all(
+        torch.equal(a, b) for a, b in zip(plain["lora"], ring["lora"]))
+    log(f"phase 18f LoRA GRPO step: plain {plain['metrics']} "
+        f"{plain['s']:.2f} s | ring (world 1) {ring['metrics']} "
+        f"{ring['s']:.2f} s | bitwise: {same} over {len(ring['lora'])} "
+        f"adapter tensors | launches {ring['counts']}")
+    counts, problems = ring["counts"], []
+    if not same:
+        problems.append("the ring LoRA step is not bitwise the plain one")
+    if min(counts[k] for k in API_LORA_KERNELS) < 1:
+        problems.append(f"a kernel never launched: {counts}")
+    del base, runs, plain, ring
+    gc.collect()
+    if problems:
+        raise RuntimeError("phase 18f: " + "; ".join(problems))
+    return counts
+
+
+def api_phase(device="cuda") -> dict:
+    """Phase 18: 18a (api_forward_run) at full geometry, then at
+    Qwen2.5-VL-7B widths with the LM cut to PP_LM_LAYERS the kernels at
+    causal=0 (check_noncausal_kernels) and 18b-18f, the pipeline and the
+    ring at world 1 over NCCL (torchrun's environment for rank 0 of 1).
+    Every sub-phase runs; the phase fails after them if any failed.
+    -> each path's launches."""
+    import torch.distributed as dist
+
+    from spacer_tpu_torch.models.qwen25_vl import QWEN25_VL_7B
+    from spacer_tpu_torch.parallel import multihost, tp
+    from spacer_tpu_torch.parallel.mesh import create_mesh
+
+    paths, failed = {}, []
+
+    def sub(name, fn, *a):
+        try:
+            out = fn(*a)
+        except Exception as e:   # noqa: BLE001 (re-raised below)
+            log(f"phase 18: {name} FAILED: {type(e).__name__}: {e}")
+            failed.append(name)
+            out = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    paths["api forward (prefill + cached steps)"] = sub(
+        "18a", api_forward_run, device)
+    tp.set_mesh(None)
+    world1_env()
+    multihost.initialize(device=device)
+    cfg = dataclasses.replace(QWEN25_VL_7B, text=dataclasses.replace(
+        QWEN25_VL_7B.text, num_layers=PP_LM_LAYERS))
+    sub("18b kernels", check_noncausal_kernels, device)
+    paths["api non-causal LM"] = sub("18b", api_noncausal_run, cfg, device,
+                                     create_mesh({"pipe": 1}))
+    paths["api lm_decode_step"] = sub("18c", api_decode_run, cfg, device)
+    paths["api window_attention"] = sub("18d", api_window_run, device)
+    sub("18e", api_checkpoint_run, device)
+    paths["api lora ring world 1"] = sub("18f", api_lora_run, cfg, device,
+                                         create_mesh({"fsdp": 1}))
+    dist.destroy_process_group()
+    if failed:
+        raise RuntimeError(f"phase 18: {failed} failed")
+    return paths
+
+
 def cli_main(mode: str, argv):
     """`chip_smoke.py --cli-step ARGS` / `--cli-serve ARGS` (torchrun_self's
     targets): spacer_tpu_torch.cli.train_sg_rlvr.main(ARGS) /
@@ -7569,6 +8160,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "17" in phases:
         paths.update(aria_ring_pipe_phase())
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "18" in phases:
+        paths.update(api_phase())
     counts = {k: sum(c.get(k, 0) for c in paths.values()) for k in SOURCES}
     log("launches per path: " + json.dumps(paths))
     log(phase_seconds_line(seconds, time.perf_counter() - t_main))

@@ -12,11 +12,22 @@ without weights.
 
 from __future__ import annotations
 
+from typing import Protocol, Sequence, runtime_checkable
+
 import numpy as np
 
 from spacer_tpu_torch.models.registry import encode_batch, encode_request
 from spacer_tpu_torch.sampler.sampler import Sampler
 from spacer_tpu_torch.serving.batcher import ContinuousBatcher
+
+
+@runtime_checkable
+class InferenceEngine(Protocol):
+    """What the eval harness calls an engine with: a batch of conversations
+    -> one answer each (QwenEngine and EchoEngine satisfy it)."""
+
+    def generate(self, messages_list: Sequence[list], *, max_new_tokens: int,
+                 temperature: float) -> list[str]: ...
 
 
 class QwenEngine:

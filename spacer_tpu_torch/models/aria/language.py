@@ -17,6 +17,7 @@ import torch
 from spacer_tpu_torch.models.aria.config import AriaTextConfig
 from spacer_tpu_torch.models.qwen25_vl.language import (  # noqa: F401  (re-exports)
     init_kv_cache,
+    lm_decode_step,
     lm_decode_step_split,
     lm_forward,
     split_layers,

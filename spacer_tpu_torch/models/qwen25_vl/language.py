@@ -21,7 +21,8 @@ cache, no prefix: Sq == Skv at q_offset 0), as JAX's attn_impl tuple does
 
 The grouped rollout's decode step (`lm_decode_step_split`, head-major caches,
 attention through K2, or K2-int8 for int8 caches) writes its tail caches in
-place, under no_grad.
+place, under no_grad; `lm_decode_step` is JAX's one-shot wrapper of it over
+stacked (position-major) buffers.
 
 Tensor parallelism (parallel/tp.py, active once params are sharded onto a
 mesh): every layer runs on this rank's heads and columns (head counts
@@ -50,7 +51,10 @@ from spacer_tpu_torch.nn.core import (
     rms_norm_init,
 )
 from spacer_tpu_torch.nn.rope import apply_rope, mrope_cos_sin, rope_inv_freq
-from spacer_tpu_torch.ops.flash_decode import flash_decode_attention
+from spacer_tpu_torch.ops.flash_decode import (
+    MASK_VALUE,
+    flash_decode_attention,
+)
 from spacer_tpu_torch.ops.quant import quantize_kv
 from spacer_tpu_torch.parallel import expert, tp
 from spacer_tpu_torch.parallel.fsdp import gather
@@ -146,12 +150,14 @@ def o_proj(p_attn, attn, cfg: TextConfig):
 
 
 def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
-           cache_index: int, prefix_kv=None, attn_impl=None):
+           cache_index: int, prefix_kv=None, attn_impl=None,
+           causal: bool = True):
     """One decoder layer -> (h, (k, v) of this block).  h: (B, S, D);
     cache_kv: (k, v) cache tensors of this layer, updated in place, or None;
     prefix_kv: (pk, pv) (B, P, Hkv, Dh) keys/values attended before the
     block's own (causal offset P), or None; attn_impl: None or ("ring",
-    mesh, axis)."""
+    mesh, axis); causal=False lets every query see every key kv_mask
+    keeps (the whole cache, with one)."""
     B, S, _ = h.shape
     p_attn = layer_params["self_attn"]
 
@@ -173,7 +179,7 @@ def _layer(h, layer_params, cache_kv, *, cfg: TextConfig, cos, sin, kv_mask,
         v = torch.cat([pv.to(v.dtype), v], dim=1)
         q_offset = pk.shape[1]
 
-    attn = dot_product_attention(q, k, v, causal=True, kv_mask=kv_mask,
+    attn = dot_product_attention(q, k, v, causal=causal, kv_mask=kv_mask,
                                  q_offset=q_offset, impl=attn_impl)
     h = h + o_proj(p_attn, attn.reshape(B, S, -1), cfg)
     x = rms_norm(layer_params["post_attention_layernorm"], h, cfg.rms_norm_eps)
@@ -294,12 +300,15 @@ def lm_forward(params: Params, cfg: TextConfig, *,
                input_ids: Optional[torch.Tensor] = None,
                input_embeds: Optional[torch.Tensor] = None,
                position_ids: Optional[torch.Tensor] = None,
-               kv_mask: Optional[torch.Tensor] = None, cache=None,
-               cache_index: int = 0, last_only: bool = False,
+               kv_mask: Optional[torch.Tensor] = None, causal: bool = True,
+               cache=None, cache_index: int = 0, last_only: bool = False,
                logits: bool = True, remat=False, prefix_kv=None,
                return_kv: bool = False, attn_impl=None):
-    """Run the causal LM -> (logits or hidden, cache or per-layer kv).
+    """Run the LM -> (logits or hidden, cache or per-layer kv).
 
+    `causal=False` runs it with bidirectional attention: every query sees
+    every key kv_mask keeps (with a cache, the whole cache under kv_mask,
+    as JAX's _layer), through K1 at causal=0 on the card.
     With `cache`, the current block's keys/values are written in place at
     `cache_index` and attention runs over the whole cache (masked by
     `kv_mask`, which then covers the cache length); inference only.  With
@@ -343,7 +352,7 @@ def lm_forward(params: Params, cfg: TextConfig, *,
     h, kvs = input_embeds, []
     for l, lp in enumerate(params["layers"]):
         kw = dict(cfg=cfg, cos=cos, sin=sin, kv_mask=kv_mask,
-                  cache_index=cache_index, attn_impl=attn_impl,
+                  cache_index=cache_index, attn_impl=attn_impl, causal=causal,
                   prefix_kv=None if prefix_kv is None else prefix_kv[l])
         if cache is not None:
             h, kv = _layer(h, gather(lp), (cache["k"][l], cache["v"][l]), **kw)
@@ -442,3 +451,57 @@ def lm_decode_step_split(layers, params: Params, cfg: TextConfig, input_ids,
                              group=group)
     h = rms_norm(params["norm"], h, cfg.rms_norm_eps)
     return lm_head(params, cfg, h)
+
+
+def _split_cache(cache, num_layers: int) -> list:
+    """A stacked decode cache {"k", "v"[, "k_scale", "v_scale"]} (each a
+    (L, ...) tensor or a per-layer list) -> per layer its head-major entry:
+    (k, v) (rows, Hkv, T, Dh), or with scales the int8 4-tuple (codes k,
+    codes v, f32 k scales, f32 v scales) with scales (rows, Hkv, T)."""
+    names = ("k", "v", "k_scale", "v_scale") if "k_scale" in cache else (
+        "k", "v")
+    return [tuple(cache[n][l].transpose(1, 2).contiguous() for n in names)
+            for l in range(num_layers)]
+
+
+@torch.no_grad()
+def lm_decode_step(params: Params, cfg: TextConfig, input_ids, position_ids,
+                   prefix_cache, prefix_mask, tail_cache, tail_mask,
+                   tail_index: int, group: int):
+    """Shared-prefix decode step over stacked buffers -> (logits (B*G, 1,
+    V), new tail_cache): spacer_tpu's lm_decode_step, the one-shot wrapper
+    around lm_decode_step_split (the sampler's loop calls that directly).
+
+    prefix_cache {"k", "v"}: per layer (B, P, Hkv, Dh), as init_kv_cache
+    holds them (a list, or one stacked (L, ...) tensor each); with
+    "k_scale" / "v_scale" ((B, P, Hkv) f32 per layer) the codes are int8
+    (quantize_kv) and the step runs K2-int8, else K2.  prefix_mask (B, P);
+    tail_cache likewise (B*G, T, Hkv, Dh); tail_mask (B*G, T) must be the
+    live prefix [0, tail_index] of every row (the head-major kernels take
+    the scalar live length; any other mask raises ValueError).  The
+    caches are copied to the head-major layout, the new token's k/v written
+    at tail_index into the copy, and the new tail returned in the caller's
+    layout and kind (a list, or stacked tensors).  Inference only, as
+    K2 is."""
+    L = cfg.num_layers
+    params = gather(params)
+    T = tail_cache["k"][0].shape[1]
+    live = torch.arange(T, device=tail_mask.device) <= tail_index
+    if not bool((tail_mask.bool() == live).all()):
+        raise ValueError("tail_mask must be the positions [0, tail_index] of "
+                         "every row (the decode kernels take a live length)")
+    prefix_mask = prefix_mask.bool()
+    bias_p = torch.where(prefix_mask, 0.0, MASK_VALUE)[:, None, :].float()
+    tails = _split_cache(tail_cache, L)
+    logits = lm_decode_step_split(
+        params["layers"], params, cfg, input_ids,
+        position_ids, _split_cache(prefix_cache, L), bias_p.contiguous(),
+        tails, tail_index=tail_index, group=group, tail_len=tail_index + 1)
+    names = ("k", "v", "k_scale", "v_scale")
+    new = {}
+    for i, n in enumerate(names[:len(tails[0])]):
+        per_layer = [t[i].transpose(1, 2).contiguous() for t in tails]
+        new[n] = (torch.stack(per_layer) if isinstance(tail_cache[n],
+                                                       torch.Tensor)
+                  else per_layer)
+    return logits, new

@@ -55,6 +55,13 @@ def mrope_cos_sin(position_ids, inv_freq, mrope_section):
     return mix(cos3), mix(sin3)
 
 
+def apply_mrope(q, k, position_ids, inv_freq, mrope_section):
+    """q (B, S, Hq, D), k (B, S, Hkv, D), position_ids (3, B, S) -> q, k
+    rotated by M-RoPE (mrope_cos_sin, then apply_rope)."""
+    cos, sin = mrope_cos_sin(position_ids, inv_freq, mrope_section)
+    return apply_rope(q, k, cos, sin)
+
+
 def vision_rope_cos_sin(pos_hw, head_dim: int, theta: float = 10000.0):
     """pos_hw (S, 2) int (h, w) per patch token -> cos, sin (S, head_dim)."""
     inv = rope_inv_freq(head_dim // 2, theta, device=pos_hw.device)

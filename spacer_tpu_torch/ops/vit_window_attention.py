@@ -22,6 +22,14 @@
 
 Layout (H, S, D) as in JAX, with the ViT's head_dim 80 unpadded.
 
+`window_attention` / `make_window_attention` are JAX's packed-layout entry
+over K3: q, k, v (S_pad, H, D) in uniform-window order with per-window
+valid counts are put head-major (a head dim under 80 zero-padded to K3's
+80, which changes no logit and no kept output column) and go through
+`window_attention_hsd`, the validity bias built once per bound layout and
+device; autograd carries the layout, and K3's backward recomputes through
+the plain version, as JAX's custom VJP does.
+
 On a CUDA tensor each wrapper is a torch.autograd.Function whose backward
 recomputes through the plain version, exactly as the JAX VJPs
 (`_wa_hsd_bwd`, `_ca_hsd_bwd`) recompute through `_xla_reference_hsd`: the
@@ -32,6 +40,8 @@ raises.  Each wrapper counts its own launches (`.launches`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -165,6 +175,47 @@ def chunk_attention_hsd(q, k, v, wt: int, scale: float):
         return chunk_attention_reference(q, k, v, wt, scale)
     _check(q, k, v, wt)
     return _ChunkFn.apply(q, k, v, wt, scale)
+
+
+def _pad_head(x, dp: int):
+    """(S_pad, H, D) -> (H, S_pad, dp) contiguous, columns D..dp-1 zero."""
+    x = x.transpose(0, 1)
+    if x.shape[-1] != dp:
+        x = torch.nn.functional.pad(x, (0, dp - x.shape[-1]))
+    return x.contiguous()
+
+
+@functools.lru_cache(maxsize=256)
+def make_window_attention(lengths: tuple, wt: int, scale: float):
+    """attn(q, k, v) -> out for a fixed window layout (window_attention's
+    arguments bound); the validity bias is built once per device."""
+    bias_np = validity_bias(lengths, wt)
+    biases = {}
+
+    def attn(q, k, v):
+        D = q.shape[-1]
+        dp = next((d for d in HEAD_DIMS if d >= D), D)
+        bias = biases.get(q.device)
+        if bias is None:
+            bias = biases[q.device] = torch.from_numpy(bias_np).to(q.device)
+        out = window_attention_hsd(_pad_head(q, dp), _pad_head(k, dp),
+                                   _pad_head(v, dp), bias, wt, scale)
+        return out[..., :D].transpose(0, 1)
+
+    return attn
+
+
+def window_attention(q, k, v, lengths, *, wt: int, scale=None):
+    """Uniform-window attention: q, k, v (S_pad, H, D) in packed window
+    order (window i holds slots [i * wt, (i + 1) * wt), its first
+    lengths[i] valid), each slot attending the valid slots of its window.
+    Differentiable: the layout by autograd, K3's backward through its plain
+    version.  A CPU tensor takes the plain version, a CUDA tensor launches
+    K3 or raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return make_window_attention(tuple(int(x) for x in lengths), int(wt),
+                                 float(scale))(q, k, v)
 
 
 window_attention_hsd.launches = 0

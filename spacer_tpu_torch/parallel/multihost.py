@@ -29,6 +29,7 @@ deadlocks on unpaired blocking sends).
 
 from __future__ import annotations
 
+import math
 import os
 from collections import defaultdict
 from typing import Any
@@ -309,8 +310,10 @@ def fetch_to_host(local: torch.Tensor, mesh, axes=("data", "fsdp")
     return parts.reshape(-1, *local.shape[1:]).cpu().numpy()
 
 
-def global_batch_from_local(local_batch: dict, mesh):
-    """This rank's numpy rows -> its rows of the global batch.
+def global_batch_from_local(local_batch: dict, mesh,
+                            batch_axes=("data", "fsdp")):
+    """This rank's numpy rows -> its rows of the global batch, split over
+    the mesh's `batch_axes`.
 
     With one device per process a rank's local rows ARE its shard of the
     global batch whenever the row count tiles the batch axes; a dim that
@@ -320,7 +323,7 @@ def global_batch_from_local(local_batch: dict, mesh):
 
     if mesh is None or not is_initialized():
         return local_batch
-    total = mesh.shape["data"] * mesh.shape["fsdp"]
+    total = math.prod(mesh.shape[a] for a in batch_axes)
     nproc = process_count()
     out = {}
     for k, x in local_batch.items():
@@ -332,6 +335,22 @@ def global_batch_from_local(local_batch: dict, mesh):
         parts = all_gather_objects(x)
         out[k] = np.concatenate(parts, axis=dim) if x.ndim > dim else parts[0]
     return out
+
+
+def replicate_to_mesh(x, mesh) -> torch.Tensor:
+    """A host value the same on every rank (the caller's contract, as JAX's:
+    assemble it with all_gather_objects first) -> this rank's copy on the
+    mesh's device: the CPU under a gloo process group, the current CUDA
+    device under NCCL; without a process group CUDA where there is a card,
+    else the CPU.  A plain device put: no collective."""
+    if is_initialized():
+        group = next(iter(mesh.groups.values()), None)
+        on_cpu = _dist().get_backend(group) == "gloo"
+    else:
+        on_cpu = not torch.cuda.is_available()
+    device = (torch.device("cpu") if on_cpu
+              else torch.device("cuda", torch.cuda.current_device()))
+    return torch.as_tensor(np.asarray(x), device=device)
 
 
 def place_global_batch(batch: dict, mesh):

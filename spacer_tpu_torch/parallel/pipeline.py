@@ -301,8 +301,8 @@ def pipeline_lm_forward(params, cfg, mesh, *, axis: str = "pipe",
     divide into num_microbatches and cfg.num_layers into the stages
     (ValueError).  `remat` takes lm_forward's modes (check_remat).  With
     `batch_axis` each (pipe, batch_axis) rank runs its rows of every
-    microbatch and the result is the global batch.  The port's LM is causal
-    only (causal=False raises)."""
+    microbatch and the result is the global batch.  `causal=False` runs
+    every stage's layers with bidirectional attention (lm_forward's)."""
     from spacer_tpu_torch.models.qwen25_vl.language import (
         _checkpoint_kwargs,
         _layer,
@@ -319,8 +319,6 @@ def pipeline_lm_forward(params, cfg, mesh, *, axis: str = "pipe",
     if has_shards(params):
         raise ValueError("the pipeline takes unsharded params "
                          "(shard_layers_for_pipeline, not shard_params)")
-    if not causal:
-        raise ValueError("the port's LM is causal only")
     if input_embeds is None:
         input_embeds = embed(params["embed_tokens"], input_ids)
     B, T, _ = input_embeds.shape
@@ -342,7 +340,8 @@ def pipeline_lm_forward(params, cfg, mesh, *, axis: str = "pipe",
 
     def run_layer(h, lp, j, lo, rows):
         kw = dict(cfg=cfg, cos=cos[lo:lo + rows], sin=sin[lo:lo + rows],
-                  kv_mask=kv_mask[lo:lo + rows], cache_index=0)
+                  kv_mask=kv_mask[lo:lo + rows], cache_index=0,
+                  causal=causal)
         if remat and torch.is_grad_enabled():
             mode = _layer_remat(remat, span[j])
             return checkpoint(lambda x: _layer(x, lp, None, **kw)[0], h,

@@ -353,11 +353,21 @@ class Sampler:
     def generate(self, input_ids: np.ndarray, attention_mask: np.ndarray,
                  params, *, position_ids: np.ndarray, deltas: np.ndarray,
                  pixel_values=None, grid_thw=None,
-                 vision_kwargs: dict | None = None, num_generations: int = 1,
+                 vision_kwargs: dict | None = None, vision_embeds=None,
+                 num_generations: int = 1,
                  max_new_tokens: int = 1024, temperature: float = 1.0,
                  top_p: float = 0.95, seed: int = 0,
                  speculate_k: int | None = None) -> SampleOutput:
+        """Sample `num_generations` completions per prompt -> SampleOutput.
+        The prompts' vision inputs come as `vision_kwargs` (or Qwen's
+        `pixel_values` + `grid_thw`), encoded here, or as precomputed
+        `vision_embeds` (N, D) merged as they are: a single-process path
+        (ValueError under a mesh)."""
         cfg = self.cfg
+        if vision_embeds is not None and self.mesh is not None:
+            raise ValueError(
+                "vision_embeds pass-through is a single-process path; "
+                "multi-process callers pass vision_kwargs")
         input_ids = np.asarray(input_ids)
         if int(np.max(input_ids)) >= cfg.text.vocab_size:
             raise ValueError(f"input_ids contain id {int(np.max(input_ids))} "
@@ -396,7 +406,10 @@ class Sampler:
         if vision_kwargs is None and pixel_values is not None:
             vision_kwargs = {"pixel_values": pixel_values}
         embeds = embed(params["model"]["embed_tokens"], ids)
-        if vision_kwargs:
+        if vision_embeds is not None:
+            embeds = self.family.merge_vision_embeds(
+                cfg, ids, embeds, torch.as_tensor(vision_embeds, device=dev))
+        elif vision_kwargs:
             ve = self.family.encode_vision(params, cfg, vision_kwargs,
                                            grid_thw)
             embeds = self.family.merge_vision_embeds(cfg, ids, embeds, ve)

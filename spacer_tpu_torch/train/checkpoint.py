@@ -12,7 +12,9 @@ Sharded params (parallel/fsdp.py; fsdp blocks of tp slices too) save as
 the full tensors and the world-1 optimizer state, gathered on every rank and written by rank 0, so
 a checkpoint is the same whatever the world that wrote it; restoring cuts
 it for the current world (the Shards of `params_like`), whatever the
-world was at save: JAX's cross-topology resume (`_restore_tree`).
+world was at save: JAX's cross-topology resume (`_restore_tree`).  A
+model-only checkpoint (`save_model_only`, `params.pt` alone) reads back
+with `load_model_only`.
 """
 
 from __future__ import annotations
@@ -80,3 +82,16 @@ def save_model_only(path: str, params):
     multihost.barrier()
     return path
 
+
+def load_model_only(path: str, params_like=None):
+    """The params `save_model_only` wrote: the full tree on the CPU, or with
+    `params_like` on its device and cut for its fsdp / tp Shards (any
+    world, as restore_train_state)."""
+    path = os.path.abspath(path)
+    params = torch.load(os.path.join(path, "params.pt"),
+                        map_location=(_like_device(params_like)
+                                      if params_like is not None else "cpu"),
+                        weights_only=False)
+    if params_like is not None and fsdp.has_shards(params_like):
+        params = fsdp.params_from_full(params, params_like)
+    return params

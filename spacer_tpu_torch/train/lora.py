@@ -98,7 +98,7 @@ def merge_lora(params, lora: dict, cfg: LoraConfig):
 
 
 def make_lora_grpo_train_step(model_cfg, tx, lora_cfg: LoraConfig, *,
-                              beta: float = 0.04, remat=True,
+                              beta: float = 0.04, remat=True, attn_impl=None,
                               logp_chunk: int = 256):
     """GRPO step that trains only the adapters:
     step(base_params, lora, opt_state, batch, grid_thw, num_generations)
@@ -107,32 +107,44 @@ def make_lora_grpo_train_step(model_cfg, tx, lora_cfg: LoraConfig, *,
     (its requires_grad is cleared) and bitwise unchanged.  `tx` was
     initialised over `lora_leaves(lora)`.
 
-    The batch is the trainer's shared-prefix schema (make_grpo_train_step);
-    the JAX step takes the packed one, whose logps and gradients are the
-    same (tests/test_torch_train_step.py holds the two forms equal)."""
+    The batch takes make_grpo_train_step's two schemas, dispatched on
+    "prompt_ids" as there: the trainer's shared-prefix one, or the packed
+    one (input_ids / kv_mask) the JAX step takes, whose logps and gradients
+    are the same (tests/test_torch_train_step.py holds the two forms
+    equal).  `attn_impl` None or ("ring", mesh, axis) reaches the ViT and
+    the logps as in make_grpo_train_step (the ring runs the whole batch on
+    every rank of its mesh)."""
     from spacer_tpu_torch.models.qwen25_vl.language import check_remat
     from spacer_tpu_torch.models.registry import family_for_config
     from spacer_tpu_torch.train.grpo import grpo_loss
     from spacer_tpu_torch.train.optimizer import global_norm
     from spacer_tpu_torch.train.step import (
+        _check_parallel,
         _completion_logps_shared,
+        _packed_logps,
         param_leaves,
     )
 
     remat = check_remat(remat)
     family = family_for_config(model_cfg)
+    _check_parallel(None, attn_impl, None)
 
     def logps_with(params, batch, grid_thw, num_generations):
         vk = {k: batch[k] for k in family.vision_batch_keys if k in batch}
         ve = (family.encode_vision(params, model_cfg, vk, grid_thw,
-                                   remat=remat) if vk else None)
+                                   remat=remat, attn_impl=attn_impl)
+              if vk else None)
+        if "prompt_ids" not in batch:
+            return _packed_logps(params, model_cfg, batch, ve, grid_thw,
+                                num_generations, remat=remat,
+                                logp_chunk=logp_chunk, attn_impl=attn_impl)
         return _completion_logps_shared(
             params, model_cfg, batch["prompt_ids"],
             batch["prompt_position_ids"], batch["prompt_mask"],
             batch["completion_ids"], batch["completion_position_ids"],
             batch["completion_mask"], num_generations, vision_embeds=ve,
             remat=remat, logp_chunk=logp_chunk,
-            merge_fn=family.merge_vision_embeds)
+            merge_fn=family.merge_vision_embeds, attn_impl=attn_impl)
 
     def loss_and_grads(base_params, lora, batch, grid_thw=None,
                        num_generations: int = 1):

@@ -571,9 +571,18 @@ def make_optimizer(learning_rate: float = 1e-6, total_steps: int = 10000,
                    warmup_steps: int = 0, weight_decay: float = 0.01,
                    max_grad_norm: float = 5.0, b1: float = 0.9,
                    b2: float = 0.999, eps: float = 1e-8,
-                   moment_dtype: str = "float32", sr_impl=None,
-                   seed: int = 0) -> AdamW:
-    sched = cosine_schedule(learning_rate, total_steps, warmup_steps)
+                   schedule: str = "cosine", moment_dtype: str = "float32",
+                   sr_impl=None, seed: int = 0) -> AdamW:
+    """AdamW with the learning rate `schedule` "cosine" (cosine_schedule)
+    or "constant" (learning_rate at every update); any other raises
+    ValueError."""
+    if schedule == "cosine":
+        sched = cosine_schedule(learning_rate, total_steps, warmup_steps)
+    elif schedule == "constant":
+        sched = lambda count: learning_rate  # noqa: E731
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}: expected "
+                         "'cosine' or 'constant'")
     return AdamW(sched, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                  max_grad_norm=max_grad_norm, moment_dtype=moment_dtype,
                  sr_impl=sr_impl, seed=seed)

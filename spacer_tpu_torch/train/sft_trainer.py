@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from collections import defaultdict
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -103,6 +103,9 @@ class SFTConfig:
     # False | True | "dots" | "dots_narrow" | "dots_mixed:K" (check_remat)
     remat: Any = True
     logp_chunk: int = 256
+    # the JAX trainer's field, kept so its configs parse; only None is
+    # accepted (the port has one attention path per device)
+    attn_impl: Optional[str] = None
     warmup_steps: int = 0
     seq_bucket: int = 512
     # Adam moment storage (train/optimizer.py): "float32" (torch AdamW
@@ -115,9 +118,9 @@ class SFTTrainer:
 
     def __init__(self, cfg, params, processor, train_dataset: Sequence[dict],
                  args: SFTConfig, mesh=None):
-        from spacer_tpu_torch.train.trainer import _check_mesh
+        from spacer_tpu_torch.train.trainer import _unported
 
-        _check_mesh(mesh, cfg)
+        _unported(args, mesh, cfg)
         self.cfg = cfg
         self.args = args
         self.processor = processor

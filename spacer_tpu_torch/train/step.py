@@ -162,6 +162,26 @@ def _completion_logps(params, cfg, input_ids, position_ids, kv_mask,
     return chunked_per_token_logps(h, head, targets, chunk=logp_chunk)
 
 
+def _packed_logps(params, cfg, batch, vision_embeds, grid_thw,
+                 num_generations: int, *, remat=False, logp_chunk: int = 256,
+                 attn_impl=None, pipeline=None):
+    """The packed schema's logps (make_grpo_train_step's and the LoRA
+    step's): the per-prompt vision embeddings tiled over each prompt's
+    num_generations rows, then _completion_logps with the prompt length
+    read off the batch (input_ids' width less completion_mask's)."""
+    family = family_for_config(cfg)
+    if vision_embeds is not None:
+        vision_embeds = family.tile_vision_embeds(vision_embeds, cfg,
+                                                  grid_thw, num_generations)
+    ids = batch["input_ids"]
+    return _completion_logps(
+        params, cfg, ids, batch["position_ids"], batch["kv_mask"],
+        ids.shape[1] - batch["completion_mask"].shape[1],
+        vision_embeds=vision_embeds, remat=remat, logp_chunk=logp_chunk,
+        merge_fn=family.merge_vision_embeds, attn_impl=attn_impl,
+        pipeline=pipeline)
+
+
 def _rows(x, lo: int, hi: int, dim: int = 0):
     """Rows [lo, hi) of dim `dim`; the tensor itself for all of them."""
     if (lo, hi) == (0, x.shape[dim]):
@@ -254,7 +274,7 @@ def _check_parallel(mesh, attn_impl, pipeline):
 
 def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
                          logp_chunk: int = 256, mesh=None, attn_impl=None,
-                         pipeline=None):
+                         pipeline=None, encode_vision_in_step: bool = True):
     """Returns step(params, ref_params, opt_state, batch, grid_thw,
     num_generations) -> (params, opt_state, metrics), with `.ref_logps_fn`
     and `.loss_and_grads` attached.
@@ -273,7 +293,9 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
     the metrics are global.  `attn_impl` ("ring", mesh, axis) and
     `pipeline` (mesh, M, packed schema only) as in the module docstring;
     with `pipeline` the params' LM is the stage's
-    (parallel.pipeline.shard_layers_for_pipeline)."""
+    (parallel.pipeline.shard_layers_for_pipeline).  With
+    `encode_vision_in_step=False` a batch's vision inputs are not encoded
+    (nor merged) in the step, in either schema, as JAX's flag does."""
     remat = check_remat(remat)
     family = family_for_config(cfg)
     _check_parallel(mesh, attn_impl, pipeline)
@@ -286,23 +308,17 @@ def make_grpo_train_step(cfg, tx, *, beta: float = 0.04, remat=True,
     def _logps(params, batch, grid_thw, num_generations):
         vk = {k: batch[k] for k in family.vision_batch_keys if k in batch}
         ve = None
-        if vk:
+        if vk and encode_vision_in_step:
             ve = family.encode_vision(params, cfg, vk, grid_thw, remat=remat,
                                       attn_impl=attn_impl)
         if "prompt_ids" not in batch:
             if mesh is not None:
                 raise ValueError("the packed schema runs without a mesh "
                                  "(or over the ring's / pipeline's own)")
-            if ve is not None:
-                ve = family.tile_vision_embeds(ve, cfg, grid_thw,
-                                               num_generations)
-            ids = batch["input_ids"]
-            return _completion_logps(
-                params, cfg, ids, batch["position_ids"], batch["kv_mask"],
-                ids.shape[1] - batch["completion_mask"].shape[1],
-                vision_embeds=ve, remat=remat, logp_chunk=logp_chunk,
-                merge_fn=family.merge_vision_embeds, attn_impl=attn_impl,
-                pipeline=pipeline)
+            return _packed_logps(params, cfg, batch, ve, grid_thw,
+                                num_generations, remat=remat,
+                                logp_chunk=logp_chunk, attn_impl=attn_impl,
+                                pipeline=pipeline)
         if pipeline is not None:
             raise ValueError("pipeline parallelism uses the packed "
                              "(input_ids / kv_mask) schema, like JAX's")

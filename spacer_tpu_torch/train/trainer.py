@@ -128,11 +128,15 @@ def _check_mesh(mesh, cfg=None):
         family_for_config(cfg).tp_plan(cfg, mesh.shape["tp"])
 
 
-def _unported(args: SGRLVRConfig, mesh, cfg=None):
+def _unported(args, mesh, cfg=None):
+    """The mesh's checks, and the JAX trainers' attn_impl / decode_impl
+    fields (SGRLVRConfig; SFTConfig has no decode_impl) refused unless
+    None."""
     _check_mesh(mesh, cfg)
-    if args.attn_impl is not None or args.decode_impl is not None:
+    decode_impl = getattr(args, "decode_impl", None)
+    if args.attn_impl is not None or decode_impl is not None:
         raise NotImplementedError(
-            f"attn_impl={args.attn_impl!r} decode_impl={args.decode_impl!r}: "
+            f"attn_impl={args.attn_impl!r} decode_impl={decode_impl!r}: "
             "the port has one attention path per device (the CUDA kernels on "
             "the card, their plain versions on the CPU); pass None")
 

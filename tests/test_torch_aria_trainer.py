@@ -143,30 +143,52 @@ def test_aria_trainer_two_steps_match_jax(image_path, tmp_path):
     fixed_completions(trainer, rollouts, cfg.eos_token_id)
     before = [t.detach().clone() for _, t in param_leaves(trainer.params)]
     trainer.train()
-    assert trainer.global_step == jtrainer.global_step == 2
-    assert len(rollouts) == len(jrollouts) == 2
-    for got, ref in zip(rollouts, jrollouts):
-        np.testing.assert_array_equal(got, ref)
+    assert trainer.global_step == jtrainer.global_step == 2, (
+        f"global_step: port {trainer.global_step}, JAX "
+        f"{jtrainer.global_step}, want 2")
+    assert len(rollouts) == len(jrollouts) == 2, (
+        f"rollouts: port {len(rollouts)}, JAX {len(jrollouts)}, want 2")
+    for step, (got, ref) in enumerate(zip(rollouts, jrollouts), 1):
+        np.testing.assert_array_equal(
+            got, ref, err_msg=f"step {step} rollout tokens: port {got!r}, "
+            f"JAX {ref!r}")
 
     recs, jrecs = _records(tmp_path / "torch"), _records(tmp_path / "jax")
-    assert len(recs) == len(jrecs) == 2
-    for rec, jrec in zip(recs, jrecs):
-        assert rec["completion_length"] == jrec["completion_length"]
+    assert len(recs) == len(jrecs) == 2, (
+        f"metrics records: port {len(recs)}, JAX {len(jrecs)}, want 2")
+    for step, (rec, jrec) in enumerate(zip(recs, jrecs), 1):
+        assert rec["completion_length"] == jrec["completion_length"], (
+            f"step {step} completion_length: port "
+            f"{rec['completion_length']!r}, JAX {jrec['completion_length']!r}")
         for key in ("loss", "kl", "reward", "grad_norm"):
-            np.testing.assert_allclose(rec[key], jrec[key], rtol=1e-4,
-                                       atol=1e-7, err_msg=key)
-    assert recs[0]["grad_norm"] > 0
+            np.testing.assert_allclose(
+                rec[key], jrec[key], rtol=1e-4, atol=1e-7,
+                err_msg=f"step {step} {key}: port {rec[key]!r}, JAX "
+                f"{jrec[key]!r}")
+    assert recs[0]["grad_norm"] > 0, (
+        f"step 1 grad_norm: port {recs[0]['grad_norm']!r}, JAX "
+        f"{jrecs[0]['grad_norm']!r}, want > 0")
 
     jleaves = param_leaves(params_from_jax(
         jax.tree.map(np.asarray, jtrainer.params), cfg))
     moved = 0
     for (name, t), (_, ref), b in zip(param_leaves(trainer.params), jleaves,
                                       before):
-        diff = np.abs(t.detach().numpy() - ref.numpy())
-        assert diff.max() <= 2 * LR, name
+        got = t.detach().numpy()
+        diff = np.abs(got - ref.numpy())
+        worst = np.unravel_index(int(diff.argmax()), diff.shape)
+        where = (f"after step 2, param {name}: at {worst} port "
+                 f"{got[worst]!r}, JAX {ref.numpy()[worst]!r}")
+        assert diff.max() <= 2 * LR, (
+            f"{where}; max diff {diff.max()!r} > {2 * LR!r}")
         if not name.endswith(("k_proj/bias", "mha_in_proj/bias")):
-            assert (diff > 5e-6).sum() <= max(2, diff.size // 1000), name
-            assert diff.mean() <= 2e-7, name
+            assert (diff > 5e-6).sum() <= max(2, diff.size // 1000), (
+                f"{where}; {int((diff > 5e-6).sum())} of {diff.size} "
+                "elements past 5e-6")
+            assert diff.mean() <= 2e-7, (
+                f"{where}; mean diff {diff.mean()!r} > 2e-7")
         moved += not torch.equal(t, b)
     # every tensor moved but the experts no token was routed to
-    assert moved > len(before) // 2
+    assert moved > len(before) // 2, (
+        f"after step 2: {moved} of {len(before)} port tensors moved, want "
+        f"> {len(before) // 2}")

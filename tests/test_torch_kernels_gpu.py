@@ -309,6 +309,32 @@ def test_window_attention_kernel(dev, case):
     _close(out, vwa.window_attention_reference(q, k, v, bias, wt, D ** -0.5))
 
 
+@pytest.mark.parametrize("D", [80, 64])
+def test_window_attention_packed_layout(dev, D):
+    """window_attention (q, k, v (S_pad, H, D) in packed window order) is
+    one K3 launch (a head dim under 80 zero-padded to it) against its
+    plain version, and its gradients (the plain recompute, on the padded
+    layout where D < 80) within TOL of the plain version's at D."""
+    H, wt, lengths = K3_CASES["wt32"]()
+    S = wt * len(lengths)
+    q, k, v = (_randn(dev, S, H, D, seed=10 + i).requires_grad_(True)
+               for i in range(3))
+    w = _randn(dev, S, H, D, seed=20).float()
+    before = vwa.window_attention_hsd.launches
+    out = vwa.window_attention(q, k, v, lengths, wt=wt)
+    assert vwa.window_attention_hsd.launches == before + 1
+    grads = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    qf, kf, vf = (x.detach().requires_grad_(True) for x in (q, k, v))
+    bias = torch.from_numpy(vwa.validity_bias(lengths, wt)).to(dev)
+    ref = vwa.window_attention_reference(
+        qf.transpose(0, 1), kf.transpose(0, 1), vf.transpose(0, 1), bias, wt,
+        D ** -0.5).transpose(0, 1)
+    _close(out, ref)
+    for g, r in zip(grads, torch.autograd.grad((ref.float() * w).sum(),
+                                               (qf, kf, vf))):
+        _close(g, r)
+
+
 def test_window_attention_kernel_refuses_large_windows(dev):
     """K3 takes windows of at most one key tile (64 tokens)."""
     x = _randn(dev, 2, 256, 80)
