@@ -109,7 +109,9 @@ def main():
                 engine.generate_many(msgs, **cs.SERVE_GEN_KW)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            log(f"[{name}] profiled run (unsynchronised steps): wall "
+            # (the profiler makes the program record its spans, and the
+            # admission spans synchronize at their ends while it does)
+            log(f"[{name}] profiled run (unsynchronised decode steps): wall "
                 f"{wall:.3f} s")
             log(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=30,

@@ -23,6 +23,7 @@ from spacer_tpu_torch.models.qwen25_vl.vision import (
 )
 from spacer_tpu_torch.nn.core import embed
 from spacer_tpu_torch.parallel.fsdp import gather
+from spacer_tpu_torch.utils import profiling
 
 Params = Any
 
@@ -52,6 +53,8 @@ def merge_vision_embeds(cfg: Qwen25VLConfig, input_ids, token_embeds,
     """Place the (N, D) vision embeddings on the N image/video placeholder
     positions of input_ids (B, S), in batch-major order."""
     is_vision = (input_ids == cfg.image_token_id) | (input_ids == cfg.video_token_id)
+    # two reads on the host: the count here, the mask's positions below
+    profiling.count("host_syncs", 2)
     n = int(is_vision.sum())
     if n != vision_embeds.shape[0]:
         raise ValueError(f"{n} placeholder tokens but {vision_embeds.shape[0]} "

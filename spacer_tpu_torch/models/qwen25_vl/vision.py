@@ -66,6 +66,7 @@ from spacer_tpu_torch.ops.vit_window_attention import (
 )
 from spacer_tpu_torch.parallel import tp
 from spacer_tpu_torch.parallel.fsdp import gather
+from spacer_tpu_torch.utils import profiling
 
 Params = Any
 
@@ -349,6 +350,7 @@ def _vit_forward_full(params: Params, cfg: VisionConfig, pixel_values,
     (`_ring`)."""
     Dh = cfg.head_dim
     h = dense(params["patch_embed"]["proj"], pixel_values)  # (S, D)
+    profiling.count("host_syncs")
     pos = torch.as_tensor(layout.pos_hw_native, dtype=torch.long,
                           device=h.device)
     cos, sin = vision_rope_cos_sin(pos, Dh, cfg.rope_theta)
@@ -392,6 +394,7 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
     S = h.shape[0]
 
     def idx(a):
+        profiling.count("host_syncs")   # a pageable host-to-device copy
         return torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)
 
     h = h.reshape(S // mu, mu, -1)[idx(layout.window_index)].reshape(S, -1)
@@ -401,6 +404,7 @@ def vit_forward(params: Params, cfg: VisionConfig, pixel_values,
     h = h[pad_gather]  # pad slots replicate a token of their window
     cos, sin = vision_rope_cos_sin(
         idx(layout.pos_hw[layout.win_gather.reshape(-1)]), Dh, cfg.rope_theta)
+    profiling.count("host_syncs")
     bias = torch.from_numpy(
         validity_bias(layout.win_valid.sum(axis=1), wt)).to(dev)
     scale = Dh ** -0.5

@@ -26,6 +26,18 @@ same caches, kb = 1 + speculate_k tokens verified per slot and step, greedy
 at temperature 0 and exact rejection sampling otherwise; admission is
 shared.  `spec_stats` counts the active row-steps and the tokens they
 emitted.
+
+Program spans (utils/profiling.py; no-ops unless recording):
+`batcher.admit` holds `admit.host` (padding, the host arrays and their
+copies to the device), `admit.vit`, `admit.prefill`, `admit.slot_copy` and
+`admit.first_token`, each synchronized at its end while recording, with
+counters `admit.positions` (bucket x prompts) and `admit.real_positions`.
+`batcher.decode_chunk` holds one `decode.step` per step, of `decode.launch`
+(the step's enqueue) and `decode.done_check` (the host's wait on the done
+flags, which waits for the step's device work); counters `decode.steps` and
+`decode.slots_held` (assigned slots, summed over steps).  `host_syncs`
+counts every blocking device-to-host read and pageable host-to-device copy
+of the serving path where it happens.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from spacer_tpu_torch.sampler.sampler import (
 from spacer_tpu_torch.parallel import expert
 from spacer_tpu_torch.serving.ragged import ragged_decode_step
 from spacer_tpu_torch.serving.speculative import spec_chunk
+from spacer_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -180,70 +193,90 @@ class ContinuousBatcher:
         ids_l, mask_l, pos_l, deltas_u, embeds_l = [], [], [], [], []
         any_vision = any(r.get("vision_kwargs") for r in uniq)
         for req in uniq:
-            ids, mask, pos, delta = self._pad_request(req)
+            with profiling.span("admit.host", sync=True):
+                ids, mask, pos, delta = self._pad_request(req)
+                if any_vision:
+                    px = (req.get("vision_kwargs") or {}).get("pixel_values")
+                    if px is not None:
+                        profiling.count("host_syncs")
+                        px = torch.as_tensor(px, device=dev).to(self.dtype)
+                    profiling.count("host_syncs")
+                    ids_t = torch.as_tensor(ids, device=dev).long()
             if any_vision:
-                px = (req.get("vision_kwargs") or {}).get("pixel_values")
-                if px is not None:
-                    px = torch.as_tensor(px, device=dev).to(self.dtype)
-                embeds_l.append(prologue(
-                    self.params, torch.as_tensor(ids, device=dev).long(), px,
-                    cfg=self.cfg, grid_thw=req.get("grid_thw")).to(self.dtype))
+                with profiling.span("admit.vit", sync=True):
+                    embeds_l.append(prologue(
+                        self.params, ids_t, px, cfg=self.cfg,
+                        grid_thw=req.get("grid_thw")).to(self.dtype))
             ids_l.append(ids)
             mask_l.append(mask)
             pos_l.append(pos)
             deltas_u.append(delta)
+        if profiling.enabled():
+            bucket = ids_l[0].shape[1]
+            profiling.count("admit.positions", bucket * len(src))
+            profiling.count("admit.real_positions",
+                            sum(int(mask_l[u].sum()) for u in src))
 
         def tensor(a, dtype=torch.int64):
+            profiling.count("host_syncs")
             return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
 
-        self._admit(
-            tensor(np.concatenate(ids_l, 0)),
-            torch.cat(embeds_l) if any_vision else None,
-            tensor(np.concatenate(pos_l, 1)),
-            tensor(np.concatenate(mask_l, 0), torch.bool),
-            tensor([deltas_u[s] for s in src]),
-            tensor([b for _r, b, _s in admissions]),
-            [s for _r, _b, s in admissions], src)
+        with profiling.span("admit.host", sync=True):
+            args = (tensor(np.concatenate(ids_l, 0)),
+                    torch.cat(embeds_l) if any_vision else None,
+                    tensor(np.concatenate(pos_l, 1)),
+                    tensor(np.concatenate(mask_l, 0), torch.bool),
+                    tensor([deltas_u[s] for s in src]),
+                    tensor([b for _r, b, _s in admissions]))
+        self._admit(*args, [s for _r, _b, s in admissions], src)
 
     def _admit(self, input_ids, input_embeds, position_ids, prompt_mask,
                delta, max_new, slots: list, src: list):
         """Prefill Bu unique prompts and insert them into len(slots) slots."""
-        if input_embeds is None:
-            input_embeds = embed(self.params["model"]["embed_tokens"], input_ids)
-        Bu, S, _ = input_embeds.shape
-        cache = init_kv_cache(self.cfg.text, Bu, S, self.dtype, self.device)
-        with expert.rows(expert.EVERY_RANK):
-            logits, cache = lm_forward(
-                self.params["model"], self.cfg.text,
-                input_embeds=input_embeds, position_ids=position_ids,
-                kv_mask=prompt_mask, cache=cache, cache_index=0,
-                last_only=True)
+        with profiling.span("admit.prefill", sync=True):
+            if input_embeds is None:
+                input_embeds = embed(self.params["model"]["embed_tokens"],
+                                     input_ids)
+            Bu, S, _ = input_embeds.shape
+            cache = init_kv_cache(self.cfg.text, Bu, S, self.dtype, self.device)
+            with expert.rows(expert.EVERY_RANK):
+                logits, cache = lm_forward(
+                    self.params["model"], self.cfg.text,
+                    input_embeds=input_embeds, position_ids=position_ids,
+                    kv_mask=prompt_mask, cache=cache, cache_index=0,
+                    last_only=True)
         # (Bu, Pmax, Hkv, Dh) prefill cache -> head-major slot rows, in
         # place (int8 caches: codes and scales, quantized per unique row)
-        for entry, ck, cv in zip(self.caches, cache["k"], cache["v"]):
-            rows = [ck.transpose(1, 2), cv.transpose(1, 2)]
-            if len(entry) == 8:
-                (kq, ks), (vq, vs) = quantize_kv(rows[0]), quantize_kv(rows[1])
-                rows = [kq, vq, None, None, ks, vs]
-            for slot, u in zip(slots, src):
-                for dst, rows_j in zip(entry, rows):
-                    if rows_j is not None:
-                        dst[slot].copy_(rows_j[u])
+        with profiling.span("admit.slot_copy", sync=True):
+            for entry, ck, cv in zip(self.caches, cache["k"], cache["v"]):
+                rows = [ck.transpose(1, 2), cv.transpose(1, 2)]
+                if len(entry) == 8:
+                    (kq, ks), (vq, vs) = (quantize_kv(rows[0]),
+                                          quantize_kv(rows[1]))
+                    rows = [kq, vq, None, None, ks, vs]
+                for slot, u in zip(slots, src):
+                    for dst, rows_j in zip(entry, rows):
+                        if rows_j is not None:
+                            dst[slot].copy_(rows_j[u])
 
-        src_t = torch.as_tensor(src, device=self.device)
-        slot_t = torch.as_tensor(slots, device=self.device)
-        first = sample_logits(logits[:, -1][src_t], self.generator,
-                              self.temperature, self.top_p)
-        self.pmask[slot_t] = prompt_mask[src_t]
-        self.pids[slot_t] = input_ids[src_t]
-        self.delta[slot_t] = delta
-        self.admit_clock[slot_t] = self.clock
-        self.cur[slot_t] = first
-        self.t[slot_t] = 1
-        self.done[slot_t] = (first == self.eos) | (max_new <= 1)
-        self.maxnew[slot_t] = max_new
-        self.out[slot_t] = 0
-        self.out[slot_t, 0] = first
+        with profiling.span("admit.first_token", sync=True):
+            # the two index copies, and the three writes of a Python number
+            # below (index_put copies it to the card)
+            profiling.count("host_syncs", 5)
+            src_t = torch.as_tensor(src, device=self.device)
+            slot_t = torch.as_tensor(slots, device=self.device)
+            first = sample_logits(logits[:, -1][src_t], self.generator,
+                                  self.temperature, self.top_p)
+            self.pmask[slot_t] = prompt_mask[src_t]
+            self.pids[slot_t] = input_ids[src_t]
+            self.delta[slot_t] = delta
+            self.admit_clock[slot_t] = self.clock
+            self.cur[slot_t] = first
+            self.t[slot_t] = 1
+            self.done[slot_t] = (first == self.eos) | (max_new <= 1)
+            self.maxnew[slot_t] = max_new
+            self.out[slot_t] = 0
+            self.out[slot_t, 0] = first
 
     # -- step primitives --------------------------------------------------
 
@@ -263,30 +296,59 @@ class ContinuousBatcher:
             if self._slot_req[slot] is not None:
                 raise ValueError(f"slot {slot} busy")
             self._slot_req[slot] = tag
-        self._admit_wave([(req, budget, slot)
-                          for _tag, req, budget, slot in admissions])
+        with profiling.span("batcher.admit"):
+            self._admit_wave([(req, budget, slot)
+                              for _tag, req, budget, slot in admissions])
 
     def decode_chunk(self) -> None:
         """Up to chunk_steps clock-ring steps (or speculative block steps
         with speculate_k); stops early once every slot is done (checked
         before each step, as the JAX while_loop does).  Every rank runs
         the same slots, so every rank stops alike (parallel/expert.py)."""
-        with expert.rows(expert.EVERY_RANK):
-            self._decode_chunk()
+        with profiling.span("batcher.decode_chunk"), \
+                expert.rows(expert.EVERY_RANK):
+            steps = self._decode_chunk()
+            if profiling.enabled():
+                profiling.count("decode.steps", steps)
+                profiling.count("decode.slots_held", steps * sum(
+                    r is not None for r in self._slot_req))
 
-    def _decode_chunk(self) -> None:
+    def _all_done(self) -> bool:
+        """Whether every slot is done: a read of the device's done flags,
+        which waits for the steps enqueued before it."""
+        with profiling.span("decode.done_check"):
+            profiling.count("host_syncs")
+            return bool(self.done.all())
+
+    def run_steps(self, step, chunk_steps: int) -> int:
+        """Run step() up to chunk_steps times, each one a `decode.step`,
+        while some slot is not done (checked before each step, as the JAX
+        while_loop does; the check of the next step closes the one before,
+        so each step's span holds the wait for its device work) -> the steps
+        run."""
+        done = self._all_done()
+        for i in range(chunk_steps):
+            if done:
+                return i
+            with profiling.span("decode.step"):
+                with profiling.span("decode.launch"):
+                    step()
+                if i + 1 < chunk_steps:
+                    done = self._all_done()
+        return chunk_steps
+
+    def _decode_chunk(self) -> int:
         if self.speculate_k:
-            spec_chunk(self, self.decode_model["layers"], self.decode_model,
-                       self.cfg.text, chunk_steps=self.chunk_steps,
-                       speculate_k=self.speculate_k)
-            return
+            return spec_chunk(self, self.decode_model["layers"],
+                              self.decode_model, self.cfg.text,
+                              chunk_steps=self.chunk_steps,
+                              speculate_k=self.speculate_k)
         R, Pmax, Cmax = self.R, self.Pmax, self.Cmax
         ring_iota = torch.arange(Cmax, device=self.device)
         rows = torch.arange(R, device=self.device)
         model = self.decode_model
-        for _ in range(self.chunk_steps):
-            if bool(self.done.all()):
-                break
+
+        def step():
             # cur is token #(t-1): rope position Pmax + delta + t - 1; its KV
             # lands at ring index clock % Cmax, inside the row's window
             # (j - admit) mod Cmax < t
@@ -308,6 +370,8 @@ class ContinuousBatcher:
             self.cur = torch.where(was_done, self.cur, nxt)
             self.clock += 1
 
+        return self.run_steps(step, self.chunk_steps)
+
     @property
     def spec_stats(self) -> dict:
         """{"steps", "tokens"} over speculative block row-steps (one active
@@ -319,11 +383,13 @@ class ContinuousBatcher:
 
     def poll_finished(self) -> list:
         """(tag, ServedOutput) for slots that finished; frees them."""
+        profiling.count("host_syncs")
         done = self.done.cpu().numpy()
         finished = [r for r in range(self.R)
                     if self._slot_req[r] is not None and bool(done[r])]
         results = []
         if finished:
+            profiling.count("host_syncs", 2)
             out = self.out.cpu().numpy()
             ts = self.t.cpu().numpy()
             for r in finished:
@@ -339,6 +405,7 @@ class ContinuousBatcher:
         """(tag, token_row, t) for every active slot, the streaming feed:
         token_row[:t] are the emitted tokens (writes stop at done, so at
         most one trailing EOS).  Fetches the (R, Cmax) token buffer."""
+        profiling.count("host_syncs", 2)
         ts = self.t.cpu().numpy()
         out = self.out.cpu().numpy().copy()
         return [(self._slot_req[r], out[r], int(ts[r]))

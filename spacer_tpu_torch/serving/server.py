@@ -20,6 +20,13 @@ sampling temperature; a prompt longer than the bucket gets HTTP 413, a
 malformed request 400, an unknown route 404.  Multimodal content uses the
 processor's message schema ({"type": "video" | "image", ...}) plus OpenAI's
 {"type": "image_url"}, which is translated.
+
+Program spans (utils/profiling.py; no-ops unless recording): `loop.idle`
+(waiting for work), `loop.iteration` (one admit / chunk / feed round, over
+the batcher's spans) and `loop.feed` (retirement and the stream puts); per
+request, under its id, `serve.queued` (submit to the start of the round that
+admits it) and the instant `serve.first_token` (its first token reaches the
+stream, or its output when it does not stream).
 """
 
 from __future__ import annotations
@@ -37,11 +44,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spacer_tpu_torch.utils import profiling
+
+_request_ids = itertools.count()
+
 
 class _Pending:
-    __slots__ = ("event", "output", "error", "tokens", "pushed")
+    __slots__ = ("event", "output", "error", "tokens", "pushed", "id",
+                 "submitted_ns")
 
     def __init__(self, stream: bool = False):
+        # while the program records: the request's id in its spans, and
+        # when it was submitted (perf_counter_ns, its serve.queued start)
+        self.id = self.submitted_ns = None
+        if profiling.enabled():
+            self.id = next(_request_ids)
+            self.submitted_ns = time.perf_counter_ns()
         self.event = threading.Event()
         self.output = None
         self.error: Optional[str] = None
@@ -133,47 +151,72 @@ class ServingLoop:
             torch.cuda.set_device(b.device)
         while True:
             with self._cv:
-                idle = time.monotonic()
-                while not self._queue and not b.has_active():
-                    if self._stop:
-                        self._tell("stop")
-                        return
-                    self._cv.wait(timeout=0.5)
-                    if time.monotonic() - idle > IDLE_BEAT_S:
-                        self._tell("idle")
-                        idle = time.monotonic()
+                if not self._queue and not b.has_active():
+                    with profiling.span("loop.idle"):
+                        if self._wait_for_work():
+                            return
                 admissions = []
                 for slot in b.free_slots():
                     if not self._queue:
                         break
                     pending, req, budget = self._queue.popleft()
                     admissions.append((pending, req, budget, slot))
-            try:
-                self._tell("step", [(req, budget, slot)
-                                    for _p, req, budget, slot in admissions])
-                if admissions:
-                    b.admit(admissions)
-                b.decode_chunk()
-                for pending, served in b.poll_finished():
-                    pending.output = served
-                    if pending.tokens is not None:
-                        pending.tokens.put(("done", served))
-                    pending.event.set()
-                # feed in-flight streaming requests (one fetch of the token
-                # buffer per chunk, only while someone streams)
-                if any(isinstance(t, _Pending) and t.tokens is not None
-                       for t in b._slot_req):
-                    for tag, toks, t in b.poll_progress():
-                        if (isinstance(tag, _Pending) and tag.tokens is not None
-                                and t > tag.pushed):
-                            tag.tokens.put(("tokens",
-                                            toks[tag.pushed:t].tolist()))
-                            tag.pushed = t
-            except Exception as e:  # noqa: BLE001
-                msg = f"{type(e).__name__}: {e}"
-                self._fail_all(msg, admissions)
-                self._tell("error", msg)
-                return
+            with profiling.span("loop.iteration"):
+                try:
+                    self._step(admissions)
+                except Exception as e:  # noqa: BLE001
+                    msg = f"{type(e).__name__}: {e}"
+                    self._fail_all(msg, admissions)
+                    self._tell("error", msg)
+                    return
+
+    def _wait_for_work(self) -> bool:
+        """Wait (holding the condition) until a request is queued or a slot
+        is active; True once the loop is told to stop instead."""
+        b = self.batcher
+        idle = time.monotonic()
+        while not self._queue and not b.has_active():
+            if self._stop:
+                self._tell("stop")
+                return True
+            self._cv.wait(timeout=0.5)
+            if time.monotonic() - idle > IDLE_BEAT_S:
+                self._tell("idle")
+                idle = time.monotonic()
+        return False
+
+    def _step(self, admissions: list) -> None:
+        """One round: admit the wave, decode a chunk, retire and feed."""
+        b = self.batcher
+        self._tell("step", [(req, budget, slot)
+                            for _p, req, budget, slot in admissions])
+        if admissions:
+            for pending, *_ in admissions:
+                if pending.id is not None:
+                    profiling.event("serve.queued", request=pending.id,
+                                    start_ns=pending.submitted_ns)
+            b.admit(admissions)
+        b.decode_chunk()
+        with profiling.span("loop.feed"):
+            for pending, served in b.poll_finished():
+                pending.output = served
+                if pending.pushed == 0 and pending.id is not None:
+                    profiling.event("serve.first_token", request=pending.id)
+                if pending.tokens is not None:
+                    pending.tokens.put(("done", served))
+                pending.event.set()
+            # feed in-flight streaming requests (one fetch of the token
+            # buffer per chunk, only while someone streams)
+            if any(isinstance(t, _Pending) and t.tokens is not None
+                   for t in b._slot_req):
+                for tag, toks, t in b.poll_progress():
+                    if (isinstance(tag, _Pending) and tag.tokens is not None
+                            and t > tag.pushed):
+                        tag.tokens.put(("tokens", toks[tag.pushed:t].tolist()))
+                        if tag.pushed == 0 and tag.id is not None:
+                            profiling.event("serve.first_token",
+                                            request=tag.id)
+                        tag.pushed = t
 
     def _fail_all(self, msg: str, admissions: list) -> None:
         b = self.batcher

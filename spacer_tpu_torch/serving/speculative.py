@@ -308,18 +308,19 @@ def emit_block(out, preds, t, a):
 
 
 def spec_chunk(b, layers, model, cfg: TextConfig, *, chunk_steps: int,
-               speculate_k: int) -> None:
+               speculate_k: int) -> int:
     """Up to chunk_steps speculative block steps over the batcher `b`'s slots
     (serving/batcher.py ContinuousBatcher: its pids, pmask, delta, maxnew,
     cur, t, done, out and spec counters, updated in place); stops early once
-    every slot is done (checked before each step, as JAX's while_loop).
-    The clock and admit indices are left alone: speculation is positional."""
+    every slot is done (checked before each step, as JAX's while_loop; each
+    block step is a `decode.step`, ContinuousBatcher.run_steps) -> the
+    steps run.  The clock and admit indices are left alone: speculation is
+    positional."""
     R, Pmax = b.pmask.shape
     kb = 1 + speculate_k
     rows_k = torch.arange(kb, device=b.t.device)
-    for _ in range(chunk_steps):
-        if bool(b.done.all()):
-            break
+
+    def step():
         was_done = b.done
         drafts = _build_drafts(b.pids, b.pmask, b.out, b.cur, b.t, speculate_k,
                                b.pad)
@@ -339,3 +340,5 @@ def spec_chunk(b, layers, model, cfg: TextConfig, *, chunk_steps: int,
         # row-steps: a sequential decode emits one token per active row per
         # step, so tokens / steps is the mean acceptance (1.0 = no help)
         b.spec += torch.stack([(~was_done).sum(), a.sum()])
+
+    return b.run_steps(step, chunk_steps)

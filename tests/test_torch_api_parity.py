@@ -164,6 +164,11 @@ EXCEPTIONS = {
         "the layers travel inside `model` (the port's params hold a list)",
     "sampler/speculating.py::spec_decode_loop(prompt_mask)":
         "renamed `prefix_mask` (the prompt's mask is the prefix's)",
+    # tracing the port replaced
+    "utils/profiling.py::StepTimer":
+        "wall-clock stage splits that no path of either package calls; the "
+        "port times its stages with program spans (span, count, "
+        "recording)",
     # constructor keywords of the TPU paths
     "evalharness/engine.py::QwenEngine(attn_impl)": _ATTN_IMPL,
     "evalharness/engine.py::QwenEngine(decode_impl)": _DECODE_IMPL,

@@ -1,13 +1,13 @@
 """spacer_tpu_torch.utils.profiling and .debugging (counterpart of
-tests/test_utils_profiling_debugging.py): the step timer, a torch.profiler
-trace with a named region, the anomaly-detection and determinism switches,
+tests/test_utils_profiling_debugging.py): a torch.profiler trace with a
+named region and a program span, the anomaly-detection and determinism
+switches,
 the no-op disabled_jit, and interpret_kernels, the opt-in context that
 sends CUDA tensors to the kernels' plain versions and counts them (checked
 here on a meta tensor, the one non-CPU device this host has, and on the
 card by the gpu-marked test)."""
 
 import json
-import time
 
 import pytest
 import torch
@@ -19,26 +19,20 @@ from spacer_tpu_torch.utils.debugging import (
     enable_nan_checks,
     interpret_kernels,
 )
-from spacer_tpu_torch.utils.profiling import StepTimer, annotate, trace
-
-
-def test_step_timer_splits():
-    st = StepTimer()
-    time.sleep(0.01)
-    st.mark("rollout")
-    time.sleep(0.01)
-    st.mark("update")
-    s = st.splits()
-    assert list(s) == ["rollout", "update"]
-    assert all(v > 0 for v in s.values())
+from spacer_tpu_torch.utils.profiling import annotate, last_record, span, trace
 
 
 def test_profiler_trace_and_annotation(tmp_path):
     with trace(str(tmp_path)):
         with annotate("unit-test-region"):
-            float(torch.ones(8).sum())
+            with span("unit-test-span"):
+                float(torch.ones(8).sum())
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "unit-test-region" for e in events)
+    names = {e.get("name") for e in events}
+    assert {"unit-test-region", "unit-test-span"} <= names
+    # the session's program record holds both, nested
+    (inner,) = last_record().named("unit-test-span")
+    assert inner.parent.name == "unit-test-region"
 
 
 def test_nan_checks_toggle():
